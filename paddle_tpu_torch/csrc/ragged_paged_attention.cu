@@ -1,0 +1,334 @@
+// Ragged paged attention for Hopper (sm_90a): a tick's mixed prefill and
+// decode tokens attend their own context through the shared KV page pool.
+//
+// Replaces the two Pallas TPU kernels of
+// paddle_tpu/ops/pallas/ragged_paged_attention.py:
+//   * _qblock_kernel (:215, grid (q_blocks, kv_heads, jobs))  -> qblock_kernel
+//   * _ragged_kernel (:389, grid (tokens, kv_heads, pages))   -> token_kernel
+// Both compute, per query row, the online-softmax recurrence
+//   m' = max(m, max_p s), w = exp(s - m'), c = exp(m - m'),
+//   l' = l c + sum w, acc' = acc c + w V,   out = acc / max(l, 1e-30)
+// over KV pages in ascending order, in fp32 whatever the input type, and
+// write the output in q's type. Masks are the reference's: a key past the
+// row's causal bound scores -inf; in the q-block kernel a key of another
+// sequence's job then scores BIG_NEG = -1e30 (finite, see below).
+//
+// What bounds it on an H100: a decode-heavy tick does ~4 flops per KV byte
+// it reads (one dot and one axpy per key for each of the group's query
+// heads), far under the ~295 flops/byte where bf16 tensor cores become the
+// limit, so the floor is the bytes of K/V pages read at 3.35 TB/s. A large
+// prefill span reads each page once per q-block that needs it and is still
+// well below the tensor-core line at these tile sizes.
+//
+// The design is the simple one that is right first. One thread block holds
+// R query rows (q-block: q_block * group rows, 8 * 4 = 32 at Llama-3-8B;
+// token: group rows) in shared memory, stages one K/V page (16 x 128) at a
+// time in shared memory as fp32, computes scores and the PV product with
+// scalar FMAs, and keeps m, l and acc in shared memory. The TPU grid's
+// sequential "arbitrary" axis becomes a loop inside the block. What it
+// leaves on the table, for later work: tensor cores (wgmma / mma.sync)
+// for QK^T and PV, TMA or cp.async double buffering so the next page
+// loads while this one is used, keeping acc in registers, vectorised
+// 16-byte loads, and splitting a long context across blocks (flash
+// decoding) so a decode tick with few sequences fills all 132 SMs.
+//
+// The qblock schedule (jobs, row descriptors) is built on the host by
+// qblock_schedule() in ops/ragged_paged_attention.py and copied to the
+// device; the kernels only read it.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#include <math.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr float kBigNeg = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half(x);
+}
+
+// Shared memory of one block: R query rows against one page of P keys of
+// width D. q and k rows are padded to D + 1 floats so that lanes reading
+// different rows at the same column hit different banks.
+struct Tile {
+  float* q;     // [R][D + 1]
+  float* k;     // [P][D + 1]
+  float* v;     // [P][D]
+  float* s;     // [R][P] scores, then weights
+  float* acc;   // [R][D]
+  float* m;     // [R]
+  float* l;     // [R]
+  float* corr;  // [R]
+};
+
+__host__ __device__ inline size_t smem_floats(int R, int P, int D) {
+  return (size_t)R * (D + 1) + (size_t)P * (D + 1) + (size_t)P * D +
+         (size_t)R * P + (size_t)R * D + 3 * (size_t)R;
+}
+
+__device__ inline Tile carve(float* base, int R, int P, int D) {
+  Tile t;
+  t.q = base;
+  t.k = t.q + (size_t)R * (D + 1);
+  t.v = t.k + (size_t)P * (D + 1);
+  t.s = t.v + (size_t)P * D;
+  t.acc = t.s + (size_t)R * P;
+  t.m = t.acc + (size_t)R * D;
+  t.l = t.m + R;
+  t.corr = t.l + R;
+  return t;
+}
+
+// acc = 0, l = 0, m = -inf for every row.
+__device__ inline void init_state(const Tile& t, int R, int D) {
+  for (int i = threadIdx.x; i < R * D; i += blockDim.x) t.acc[i] = 0.f;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    t.m[r] = -INFINITY;
+    t.l[r] = 0.f;
+  }
+}
+
+// Stage page `page` of kv head `h` (pages laid out [KVH, NP, P, D]).
+template <typename T>
+__device__ inline void load_page(const Tile& t, const T* __restrict__ kp,
+                                 const T* __restrict__ vp, int h, int page,
+                                 int NP, int P, int D) {
+  const size_t base = ((size_t)h * NP + page) * (size_t)P * D;
+  for (int i = threadIdx.x; i < P * D; i += blockDim.x) {
+    const int r = i / D, c = i - r * D;
+    t.k[r * (D + 1) + c] = to_f32(kp[base + i]);
+    t.v[i] = to_f32(vp[base + i]);
+  }
+}
+
+// Raw scaled dot product of query row r with key row c.
+__device__ inline float score(const Tile& t, int r, int c, int D,
+                              float sm_scale) {
+  const float* qr = t.q + (size_t)r * (D + 1);
+  const float* kr = t.k + (size_t)c * (D + 1);
+  float dot = 0.f;
+  for (int e = 0; e < D; ++e) dot = fmaf(qr[e], kr[e], dot);
+  return dot * sm_scale;
+}
+
+// One online-softmax step over the masked scores in t.s. Ends synchronised.
+__device__ inline void online_step(const Tile& t, int R, int P, int D) {
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    float* sr = t.s + (size_t)r * P;
+    const float m_prev = t.m[r];
+    float m_cur = -INFINITY;
+    for (int c = 0; c < P; ++c) m_cur = fmaxf(m_cur, sr[c]);
+    const float m_new = fmaxf(m_prev, m_cur);
+    float sum = 0.f;
+    for (int c = 0; c < P; ++c) {
+      const float w = expf(sr[c] - m_new);
+      sr[c] = w;
+      sum += w;
+    }
+    const float corr = expf(m_prev - m_new);
+    t.l[r] = t.l[r] * corr + sum;
+    t.m[r] = m_new;
+    t.corr[r] = corr;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
+    const int r = i / D, e = i - r * D;
+    const float* wr = t.s + (size_t)r * P;
+    float pv = 0.f;
+    for (int c = 0; c < P; ++c) pv = fmaf(wr[c], t.v[(size_t)c * D + e], pv);
+    t.acc[i] = t.acc[i] * t.corr[r] + pv;
+  }
+  __syncthreads();
+}
+
+// Kernel 6. Grid (q_blocks, kv_heads). Row r of block b is token
+// b * qb + r / G, query head h * G + r % G.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+qblock_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+              const T* __restrict__ vp, T* __restrict__ out,
+              const int* __restrict__ row_slot, const int* __restrict__ row_ctx,
+              const int* __restrict__ job_page, const int* __restrict__ job_slot,
+              const int* __restrict__ job_kv, int T_tok, int H, int KVH, int D,
+              int NP, int P, int qb, int J, float sm_scale) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int G = H / KVH, R = qb * G;
+  const Tile t = carve(smem, R, P, D);
+
+  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
+    const int r = i / D, e = i - r * D;
+    const int tok = b * qb + r / G;
+    t.q[r * (D + 1) + e] =
+        tok < T_tok ? to_f32(q[((size_t)tok * H + h * G + r % G) * D + e]) : 0.f;
+  }
+  init_state(t, R, D);
+  __syncthreads();
+
+  for (int j = 0; j < J; ++j) {
+    const int js = job_slot[b * J + j];
+    // Padding jobs (slot -2) sit at the tail of each block's list. For a
+    // row that has seen a real job they are exact no-ops: every score is
+    // BIG_NEG, so w = exp(-1e30 - m) = 0 and corr = 1. Rows that have
+    // seen none are padding, whose output the caller discards. Stopping
+    // here changes no real row's bits.
+    if (js == -2) break;
+    const int jkv = job_kv[b * J + j];
+    load_page(t, kp, vp, h, job_page[b * J + j], NP, P, D);
+    __syncthreads();
+    for (int i = threadIdx.x; i < R * P; i += blockDim.x) {
+      const int r = i / P, c = i - r * P;
+      const int row = b * qb + r / G;
+      float sc = score(t, r, c, D, sm_scale);
+      if (jkv + c >= row_ctx[row]) sc = -INFINITY;  // causal bound
+      if (row_slot[row] != js) sc = kBigNeg;        // another owner's page
+      t.s[i] = sc;
+    }
+    __syncthreads();
+    online_step(t, R, P, D);
+  }
+
+  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
+    const int r = i / D, e = i - r * D;
+    const int tok = b * qb + r / G;
+    if (tok < T_tok)
+      out[((size_t)tok * H + h * G + r % G) * D + e] =
+          from_f32<T>(t.acc[i] / fmaxf(t.l[r], 1e-30f));
+  }
+}
+
+// Kernel 8. Grid (tokens, kv_heads); the block's rows are the group of
+// query heads sharing kv head h. The reference grid walks all
+// pages_per_seq pages; stopping at ceil(ctx / P) is bit-exact because a
+// fully masked page leaves m, l and acc unchanged: every w = exp(-inf) = 0
+// and corr = exp(0) = 1 once the row's first page (position 0 < ctx) has
+// made m finite.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+token_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+             const T* __restrict__ vp, T* __restrict__ out,
+             const int* __restrict__ tok_slot, const int* __restrict__ tok_ctx,
+             const int* __restrict__ tables, int H, int KVH, int D, int NP,
+             int P, int pages_per_seq, float sm_scale) {
+  extern __shared__ float smem[];
+  const int tok = blockIdx.x, h = blockIdx.y;
+  const int G = H / KVH, R = G;
+  const Tile t = carve(smem, R, P, D);
+  const int slot = tok_slot[tok], ctx = tok_ctx[tok];
+  const int n_pages = min((ctx + P - 1) / P, pages_per_seq);
+
+  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
+    const int r = i / D, e = i - r * D;
+    t.q[r * (D + 1) + e] = to_f32(q[((size_t)tok * H + h * G + r) * D + e]);
+  }
+  init_state(t, R, D);
+  __syncthreads();
+
+  for (int p = 0; p < n_pages; ++p) {
+    load_page(t, kp, vp, h, tables[(size_t)slot * pages_per_seq + p], NP, P, D);
+    __syncthreads();
+    for (int i = threadIdx.x; i < R * P; i += blockDim.x) {
+      const int r = i / P, c = i - r * P;
+      const float sc = score(t, r, c, D, sm_scale);
+      t.s[i] = p * P + c < ctx ? sc : -INFINITY;
+    }
+    __syncthreads();
+    online_step(t, R, P, D);
+  }
+
+  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
+    const int r = i / D, e = i - r * D;
+    out[((size_t)tok * H + h * G + r) * D + e] =
+        from_f32<T>(t.acc[i] / fmaxf(t.l[r], 1e-30f));
+  }
+}
+
+template <typename T>
+cudaError_t launch_qblock(const void* q, const void* kp, const void* vp, void* out,
+                          const int* rs, const int* rc, const int* jp,
+                          const int* js, const int* jk, int T_tok, int H,
+                          int KVH, int D, int NP, int P, int qb, int B, int J,
+                          float sm_scale, cudaStream_t stream) {
+  const size_t smem = smem_floats(qb * (H / KVH), P, D) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      qblock_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  qblock_kernel<T><<<dim3(B, KVH), kThreads, smem, stream>>>(
+      (const T*)q, (const T*)kp, (const T*)vp, (T*)out, rs, rc, jp, js, jk,
+      T_tok, H, KVH, D, NP, P, qb, J, sm_scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_token(const void* q, const void* kp, const void* vp, void* out,
+                         const int* ts, const int* tc, const int* tables,
+                         int T_tok, int H, int KVH, int D, int NP, int P,
+                         int pages_per_seq, float sm_scale, cudaStream_t stream) {
+  const size_t smem = smem_floats(H / KVH, P, D) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      token_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  token_kernel<T><<<dim3(T_tok, KVH), kThreads, smem, stream>>>(
+      (const T*)q, (const T*)kp, (const T*)vp, (T*)out, ts, tc, tables, H, KVH,
+      D, NP, P, pages_per_seq, sm_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface, bound with ctypes. dtype: 0 float32, 1 bfloat16,
+// 2 float16. Every pointer is a device pointer of a contiguous tensor;
+// the Python wrapper checks shapes, types and devices. Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" {
+
+int ptt_ragged_qblock(int dtype, const void* q, const void* kp, const void* vp,
+                      void* out, const int* row_slot, const int* row_ctx,
+                      const int* job_page, const int* job_slot,
+                      const int* job_kv, int T_tok, int H, int KVH, int D,
+                      int NP, int P, int qb, int B, int J, float sm_scale,
+                      void* stream) {
+  if (T_tok <= 0 || B <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return (int)launch_qblock<float>(q, kp, vp, out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
+    case 1: return (int)launch_qblock<__nv_bfloat16>(q, kp, vp, out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
+    case 2: return (int)launch_qblock<__half>(q, kp, vp, out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int ptt_ragged_token(int dtype, const void* q, const void* kp, const void* vp,
+                     void* out, const int* tok_slot, const int* tok_ctx,
+                     const int* tables, int T_tok, int H, int KVH, int D,
+                     int NP, int P, int pages_per_seq, float sm_scale,
+                     void* stream) {
+  if (T_tok <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return (int)launch_token<float>(q, kp, vp, out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
+    case 1: return (int)launch_token<__nv_bfloat16>(q, kp, vp, out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
+    case 2: return (int)launch_token<__half>(q, kp, vp, out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+const char* ptt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,0 +1,211 @@
+"""Llama causal LM (port of ``paddle_tpu/models/llama.py``): RMSNorm
+pre-norm, RoPE, grouped-query attention, SwiGLU MLP.
+
+Linear layers are ``torch.nn.Linear`` with ``[out, in]`` weights; the
+parameter names are the reference's, so ``state_dict()`` keys match and
+:func:`paddle_tpu_torch.convert.load_jax_state` only transposes.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .._device import resolve_device
+from ..nn.functional import scaled_dot_product_attention
+from ..nn.norm import RMSNorm
+from ..ops import fused
+
+
+class LlamaConfig:
+    def __init__(self, vocab_size=32000, hidden_size=4096,
+                 intermediate_size=11008, num_hidden_layers=32,
+                 num_attention_heads=32, num_key_value_heads=None,
+                 max_position_embeddings=4096, rms_norm_eps=1e-5,
+                 rope_theta=10000.0, initializer_range=0.02,
+                 dtype="float32"):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.intermediate_size = intermediate_size
+        self.num_hidden_layers = num_hidden_layers
+        self.num_attention_heads = num_attention_heads
+        self.num_key_value_heads = num_key_value_heads or num_attention_heads
+        self.max_position_embeddings = max_position_embeddings
+        self.rms_norm_eps = rms_norm_eps
+        self.rope_theta = rope_theta
+        self.initializer_range = initializer_range
+        self.dtype = dtype
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def torch_dtype(self):
+        return getattr(torch, self.dtype)
+
+
+def llama3_8b(**kw):
+    """Llama-3-8B widths."""
+    return LlamaConfig(vocab_size=128256, hidden_size=4096,
+                       intermediate_size=14336, num_hidden_layers=32,
+                       num_attention_heads=32, num_key_value_heads=8,
+                       max_position_embeddings=8192, rms_norm_eps=1e-5,
+                       rope_theta=500000.0, **kw)
+
+
+def llama_tiny(**kw):
+    """CI-sized config exercising GQA + RoPE + SwiGLU."""
+    kw.setdefault("vocab_size", 128)
+    kw.setdefault("hidden_size", 64)
+    kw.setdefault("intermediate_size", 176)
+    kw.setdefault("num_hidden_layers", 2)
+    kw.setdefault("num_attention_heads", 4)
+    kw.setdefault("num_key_value_heads", 2)
+    kw.setdefault("max_position_embeddings", 128)
+    return LlamaConfig(**kw)
+
+
+def _linear(i, o, dtype):
+    return nn.Linear(i, o, bias=False, dtype=dtype)
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        h, m, dt = (config.hidden_size, config.intermediate_size,
+                    config.torch_dtype)
+        self.gate_proj = _linear(h, m, dt)
+        self.up_proj = _linear(h, m, dt)
+        self.down_proj = _linear(m, h, dt)
+
+    def forward(self, x):
+        return self.down_proj(fused.fused_swiglu(self.gate_proj(x),
+                                                 self.up_proj(x)))
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        h, dt = config.hidden_size, config.torch_dtype
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = config.head_dim
+        self.q_proj = _linear(h, self.num_heads * self.head_dim, dt)
+        self.k_proj = _linear(h, self.num_kv_heads * self.head_dim, dt)
+        self.v_proj = _linear(h, self.num_kv_heads * self.head_dim, dt)
+        self.o_proj = _linear(self.num_heads * self.head_dim, h, dt)
+
+    def forward(self, hidden, cos, sin, position_ids=None, cache=None):
+        b, s, _ = hidden.shape
+        q = self.q_proj(hidden).view(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(hidden).view(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(hidden).view(b, s, self.num_kv_heads, self.head_dim)
+        q, k = fused.fused_rotary_position_embedding(
+            q, k, sin=sin, cos=cos, position_ids=position_ids)
+        if cache is not None:
+            # the cache owns the KV layout and the attention over it
+            out = cache.attend(self, q, k, v)
+        else:
+            out = scaled_dot_product_attention(q, k, v, is_causal=True)
+        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        dt = config.torch_dtype
+        self.self_attn = LlamaAttention(config)
+        self.mlp = LlamaMLP(config)
+        self.input_layernorm = RMSNorm(config.hidden_size,
+                                       config.rms_norm_eps, dtype=dt)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size,
+                                                config.rms_norm_eps, dtype=dt)
+
+    def forward(self, hidden, cos, sin, position_ids=None, cache=None):
+        hidden = hidden + self.self_attn(self.input_layernorm(hidden), cos,
+                                         sin, position_ids, cache)
+        return hidden + self.mlp(self.post_attention_layernorm(hidden))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = nn.Embedding(config.vocab_size,
+                                         config.hidden_size,
+                                         dtype=config.torch_dtype)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(config)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                            dtype=config.torch_dtype)
+
+    def init_rope(self, device):
+        """One RoPE table pair for every layer (the reference keeps a copy
+        per layer with the same contents)."""
+        c = self.config
+        cos, sin = fused.rope_freqs(c.head_dim, c.max_position_embeddings,
+                                    c.rope_theta, device=device)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+
+    def forward(self, input_ids, position_ids=None, cache=None):
+        hidden = self.embed_tokens(input_ids)
+        if cache is not None and position_ids is None:
+            position_ids = torch.arange(cache.pos, cache.pos
+                                        + input_ids.shape[1],
+                                        device=input_ids.device)
+        for layer in self.layers:
+            hidden = layer(hidden, self.rope_cos, self.rope_sin,
+                           position_ids, cache)
+        hidden = self.norm(hidden)
+        if cache is not None:
+            cache.advance(input_ids.shape[1])
+        return hidden
+
+
+class LlamaForCausalLM(nn.Module):
+    """``LlamaForCausalLM(config, device=None, seed=0)``.
+
+    ``device=None`` means ``"cuda"`` and raises where CUDA is absent. The
+    parameters are allocated directly on ``device`` in ``config.dtype``
+    and filled from a ``torch.Generator`` seeded with ``seed``: linear
+    and embedding weights from N(0, initializer_range), norm weights 1.
+    """
+
+    def __init__(self, config, device=None, seed=0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.config = config
+        with torch.device("meta"):
+            self.llama = LlamaModel(config)
+            self.lm_head = _linear(config.hidden_size, config.vocab_size,
+                                   config.torch_dtype)
+        self.to_empty(device=dev)
+        self.llama.init_rope(dev)
+        self.reset_parameters(seed)
+
+    @property
+    def device(self):
+        return self.llama.norm.weight.device
+
+    @torch.no_grad()
+    def reset_parameters(self, seed=0):
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        std = self.config.initializer_range
+        for module in self.modules():
+            if isinstance(module, RMSNorm):
+                module.weight.fill_(1.0)
+            elif isinstance(module, (nn.Linear, nn.Embedding)):
+                module.weight.normal_(0.0, std, generator=gen)
+
+    def forward(self, input_ids, position_ids=None, cache=None):
+        """``input_ids [batch, seq]`` -> logits ``[batch, seq, vocab]``.
+        ``position_ids`` ([seq] or [batch, seq]) may be a tensor or an
+        array; with a cache and no positions they start at ``cache.pos``."""
+        input_ids = torch.as_tensor(input_ids, device=self.device)
+        if position_ids is not None:
+            position_ids = torch.as_tensor(position_ids, dtype=torch.long,
+                                           device=self.device)
+        return self.lm_head(self.llama(input_ids, position_ids, cache))

@@ -1,0 +1,104 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each source under ``csrc/`` compiles on its own into a shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+for ``sm_90a``. Libraries land in ``build/kernels/`` at the repository
+root, named by a digest of the source and flags, so an edited source is
+rebuilt and an unchanged one is reused. All sources compile in parallel,
+one ``nvcc`` each. Nothing is built at import: the first call that needs
+a kernel builds it, and a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+SOURCES = ("ragged_paged_attention.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: argtypes of every exported function, by library stem
+SIGNATURES = {
+    "ragged_paged_attention": {
+        "ptt_ragged_qblock": [_I] + [_P] * 9 + [_I] * 9 + [_F, _P],
+        "ptt_ragged_token": [_I] + [_P] * 7 + [_I] * 7 + [_F, _P],
+    },
+}
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(source):
+    src = CSRC / source
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:12]
+    return src, BUILD_DIR / f"{src.stem}_{digest}.so"
+
+
+def build(sources=SOURCES):
+    """Compile every source whose library is missing, all at once.
+    Returns ``{stem: path}`` and the seconds the builds took."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs, paths = [], {}
+    for source in sources:
+        src, so = _target(source)
+        paths[src.stem] = so
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs.append((src, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for src, so, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        so.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            errors.append(f"{src.name}: nvcc exit {proc.returncode}\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, so)
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    return paths, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def load_kernels():
+    """Build (if needed) and load every kernel library; returns one
+    namespace whose attributes are the exported C functions."""
+    paths, _ = build()
+    ns = type("Kernels", (), {})()
+    for stem, funcs in SIGNATURES.items():
+        lib = ctypes.CDLL(str(paths[stem]))
+        for name, argtypes in funcs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            setattr(ns, name, fn)
+        if not hasattr(ns, "ptt_error_string"):
+            lib.ptt_error_string.argtypes = [ctypes.c_int]
+            lib.ptt_error_string.restype = ctypes.c_char_p
+            ns.ptt_error_string = lib.ptt_error_string
+    return ns

@@ -1,0 +1,426 @@
+"""Ragged paged attention: one call for a tick's mixed prefill and decode
+tokens over the shared paged KV pool (port of
+``paddle_tpu/ops/pallas/ragged_paged_attention.py``).
+
+The serving scheduler packs a tick's work into one flat token batch and
+describes each sequence by ``(slot, q_start, q_len, context_len)``:
+
+* ``slot``         row of ``block_tables`` (the sequence's page map);
+* ``q_start``      offset of the sequence's first token in the flat
+                   ``q`` batch (non-decreasing across sequences);
+* ``q_len``        new tokens this step (1 for decode);
+* ``context_len``  total context including the new tokens, so query ``j``
+                   of the span attends positions
+                   ``[0, context_len - q_len + j]``.
+
+Tokens outside every span are bucket padding; their output is garbage
+and the caller discards it.
+
+Two kernels compute the same function on different grids, both written
+for Hopper in ``csrc/ragged_paged_attention.cu``:
+
+* **q-block** (default): one thread block per (q-block, kv head) walks a
+  host-built job list, one (page, owner slot, kv offset) per KV page any
+  sequence in the block needs. Rows of a block may belong to different
+  sequences; keys of another owner's job are masked with the finite
+  ``BIG_NEG`` so such jobs are exact no-ops (see ``BIG_NEG``).
+* **token**: one thread block per (token, kv head) walks that token's
+  own pages through its block-table row.
+
+A CUDA tensor goes to the kernel or raises. A CPU tensor runs the plain
+PyTorch version of the same recurrence, which is also what the kernels
+are held against on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+#: causal mask inside a row's own pages (``paged_attention.py:52``)
+NEG_INF = float("-inf")
+
+#: finite mask for keys of another sequence's job. A row whose first
+#: visited job is alien would otherwise reach m = -inf and then
+#: exp(-inf - -inf) = NaN. With -1e30 the first own-slot job's rescale
+#: factor exp(-1e30 - m_real) underflows to exactly 0.0, erasing the
+#: alien garbage bitwise; alien jobs after it are exact no-ops (weights
+#: exp(-1e30 - m_real) = 0.0, correction exp(0) = 1.0).
+BIG_NEG = -1e30
+
+#: tokens per q-block
+DEFAULT_QBLOCK = 8
+
+IMPLS = ("qblock", "token")
+
+
+def _token_descriptors(num_tokens, seq_slots, q_starts, q_lens,
+                       context_lens):
+    """Expand per-sequence descriptors into per-token ``tok_slot[t]``
+    (block-table row) and ``tok_ctx[t]`` (key positions visible to token
+    ``t``). Padding tokens get ``(slot 0, ctx 1)``: one finite, discarded
+    garbage score instead of an all-masked NaN softmax. numpy int32."""
+    ss = np.asarray(seq_slots, np.int32).reshape(-1)
+    qs = np.asarray(q_starts, np.int32).reshape(-1)
+    ql = np.asarray(q_lens, np.int32).reshape(-1)
+    cl = np.asarray(context_lens, np.int32).reshape(-1)
+    tok = np.arange(int(num_tokens), dtype=np.int32)
+    seq_of = np.clip(
+        np.searchsorted(qs, tok, side="right").astype(np.int32) - 1,
+        0, max(qs.shape[0] - 1, 0))
+    off = tok - qs[seq_of]
+    valid = (off >= 0) & (off < ql[seq_of])
+    tok_slot = np.where(valid, ss[seq_of], 0).astype(np.int32)
+    tok_ctx = np.where(valid, cl[seq_of] - ql[seq_of] + off + 1,
+                       1).astype(np.int32)
+    return tok_slot, tok_ctx
+
+
+def qblock_schedule(num_tokens, seq_slots, q_starts, q_lens, context_lens,
+                    block_tables, q_block, page_size):
+    """Host-side schedule for the q-block grid.
+
+    Tiles the flat batch into fixed ``q_block``-row blocks and lists, per
+    block, its jobs: one (physical page, owner slot, kv offset) triple
+    per KV page any sequence in the block still needs. Pages of one slot
+    ascend, slots come in first-appearance order, so each row sees its
+    own pages in the per-token kernel's order. The job count is padded
+    to a power of two.
+
+    Sentinels: rows past ``num_tokens`` (block padding) get slot -1 /
+    ctx 0; padding jobs get slot -2 / page 0. They never match each
+    other, so every row's scores keep at least one finite entry.
+
+    Returns ``(row_slot [B*q_block], row_ctx [B*q_block],
+    job_page [B, J], job_slot [B, J], job_kv [B, J])`` int32 numpy.
+    """
+    tbl = np.asarray(block_tables, np.int32)
+    pages_per_seq = tbl.shape[1]
+    T = int(num_tokens)
+    q_block = max(int(q_block), 1)
+    ts, tc = _token_descriptors(T, seq_slots, q_starts, q_lens,
+                                context_lens)
+
+    nblocks = -(-T // q_block)
+    t_pad = nblocks * q_block
+    row_slot = np.full(t_pad, -1, np.int32)
+    row_ctx = np.zeros(t_pad, np.int32)
+    row_slot[:T] = ts
+    row_ctx[:T] = tc
+    bs = row_slot.reshape(nblocks, q_block)
+    bc = row_ctx.reshape(nblocks, q_block)
+
+    jobs = []
+    max_jobs = 1
+    for b in range(nblocks):
+        block_jobs = []
+        seen = []
+        for r in range(q_block):
+            slot = int(bs[b, r])
+            if slot < 0 or slot in seen:
+                continue
+            seen.append(slot)
+            cmax = int(bc[b][bs[b] == slot].max())
+            n_pages = min(max(-(-cmax // page_size), 1), pages_per_seq)
+            for p in range(n_pages):
+                block_jobs.append((int(tbl[slot, p]), slot, p * page_size))
+        if not block_jobs:
+            block_jobs.append((0, -2, 0))
+        jobs.append(block_jobs)
+        max_jobs = max(max_jobs, len(block_jobs))
+
+    num_jobs = 1 << (max_jobs - 1).bit_length()
+    job_page = np.zeros((nblocks, num_jobs), np.int32)
+    job_slot = np.full((nblocks, num_jobs), -2, np.int32)
+    job_kv = np.zeros((nblocks, num_jobs), np.int32)
+    for b, block_jobs in enumerate(jobs):
+        for j, (page, slot, kv) in enumerate(block_jobs):
+            job_page[b, j] = page
+            job_slot[b, j] = slot
+            job_kv[b, j] = kv
+    return row_slot, row_ctx, job_page, job_slot, job_kv
+
+
+@dataclass
+class RaggedPlan:
+    """What one ragged call needs besides q and the pages: the schedule
+    of its grid as int32 tensors on the device, plus the host copies the
+    plain versions loop over. Built once per forward and shared by every
+    layer (the descriptors and block tables do not change between
+    layers)."""
+    impl: str
+    num_tokens: int
+    page_size: int
+    q_block: int
+    host: dict
+    dev: dict
+
+
+def make_plan(num_tokens, seq_slots, q_starts, q_lens, context_lens,
+              block_tables, page_size, *, impl="qblock",
+              q_block=DEFAULT_QBLOCK, device="cpu"):
+    """Build the schedule of ``impl``'s grid from host descriptors."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    tbl = np.ascontiguousarray(np.asarray(block_tables, np.int32))
+    if impl == "qblock":
+        names = ("row_slot", "row_ctx", "job_page", "job_slot", "job_kv")
+        arrays = qblock_schedule(num_tokens, seq_slots, q_starts, q_lens,
+                                 context_lens, tbl, q_block, page_size)
+    else:
+        names = ("tok_slot", "tok_ctx", "tables")
+        arrays = _token_descriptors(num_tokens, seq_slots, q_starts,
+                                    q_lens, context_lens) + (tbl,)
+    host = {n: np.ascontiguousarray(a) for n, a in zip(names, arrays)}
+    dev = {n: torch.from_numpy(a).to(device) for n, a in host.items()}
+    return RaggedPlan(impl, int(num_tokens), int(page_size),
+                      max(int(q_block), 1), host, dev)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+def _online_step(s, v, m, l, acc):
+    """One online-softmax step over a page of scores ``s [..., R, P]``
+    against values ``v [..., P, D]``; returns the new (m, l, acc)."""
+    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+    w = torch.exp(s - m_new)
+    corr = torch.exp(m - m_new)
+    l = l * corr + w.sum(-1, keepdim=True)
+    acc = acc * corr + w @ v
+    return m_new, l, acc
+
+
+def qblock_attention_plain(q, k_pages, v_pages, plan, sm_scale):
+    """The q-block kernel's recurrence in PyTorch: every block and kv head
+    at once, one job column at a time, exactly the JAX grid's order."""
+    T, H, D = q.shape
+    KVH, _, P, _ = k_pages.shape
+    G = H // KVH
+    qb = plan.q_block
+    d = plan.dev
+    B, J = d["job_page"].shape
+    R = qb * G
+    qp = torch.zeros(B * qb, H, D, dtype=torch.float32, device=q.device)
+    qp[:T] = q.float()
+    qg = qp.view(B, qb, KVH, G, D).permute(0, 2, 1, 3, 4).reshape(
+        B, KVH, R, D)
+    rs = d["row_slot"].view(B, qb).repeat_interleave(G, dim=1)[:, None, :,
+                                                               None]
+    rc = d["row_ctx"].view(B, qb).repeat_interleave(G, dim=1)[:, None, :,
+                                                              None]
+    m = torch.full((B, KVH, R, 1), NEG_INF, device=q.device)
+    l = torch.zeros((B, KVH, R, 1), device=q.device)
+    acc = torch.zeros((B, KVH, R, D), device=q.device)
+    iota = torch.arange(P, device=q.device, dtype=torch.int32)
+    for j in range(J):
+        jp = d["job_page"][:, j].long()
+        k = k_pages[:, jp].float().transpose(0, 1)       # [B, KVH, P, D]
+        v = v_pages[:, jp].float().transpose(0, 1)
+        s = (qg @ k.transpose(-1, -2)) * sm_scale        # [B, KVH, R, P]
+        pos = (d["job_kv"][:, j, None] + iota)[:, None, None, :]
+        s = torch.where(pos < rc, s, NEG_INF)
+        s = torch.where(rs == d["job_slot"][:, j, None, None, None], s,
+                        BIG_NEG)
+        m, l, acc = _online_step(s, v, m, l, acc)
+    out = acc / l.clamp_min(1e-30)
+    out = out.view(B, KVH, qb, G, D).permute(0, 2, 1, 3, 4).reshape(
+        B * qb, H, D)
+    return out[:T].to(q.dtype)
+
+
+def token_attention_plain(q, k_pages, v_pages, plan, sm_scale):
+    """The per-token kernel's recurrence in PyTorch, every token at once,
+    one page column at a time. It stops at the longest context's last
+    page: a page past a token's context is fully masked, which leaves m,
+    l and acc unchanged bit for bit (w = 0, corr = exp(0) = 1)."""
+    T, H, D = q.shape
+    KVH, _, P, _ = k_pages.shape
+    G = H // KVH
+    d = plan.dev
+    pages_per_seq = d["tables"].shape[1]
+    n_pages = min(int(-(-plan.host["tok_ctx"].max(initial=1) // P)),
+                  pages_per_seq)
+    qg = q.float().view(T, KVH, G, D)
+    ctx = d["tok_ctx"][:, None, None, None]
+    m = torch.full((T, KVH, G, 1), NEG_INF, device=q.device)
+    l = torch.zeros((T, KVH, G, 1), device=q.device)
+    acc = torch.zeros((T, KVH, G, D), device=q.device)
+    iota = torch.arange(P, device=q.device, dtype=torch.int32)
+    rows = d["tables"][d["tok_slot"].long()]             # [T, pages]
+    for p in range(n_pages):
+        page = rows[:, p].long()
+        k = k_pages[:, page].float().transpose(0, 1)     # [T, KVH, P, D]
+        v = v_pages[:, page].float().transpose(0, 1)
+        s = (qg @ k.transpose(-1, -2)) * sm_scale        # [T, KVH, G, P]
+        s = torch.where(p * P + iota < ctx, s, NEG_INF)
+        m, l, acc = _online_step(s, v, m, l, acc)
+    out = acc / l.clamp_min(1e-30)
+    return out.reshape(T, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers: a CUDA tensor launches the kernel, a CPU tensor runs
+# the plain version, anything else raises
+# ---------------------------------------------------------------------------
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _check_cuda_inputs(q, k_pages, v_pages, plan, impl):
+    if plan.impl != impl:
+        raise ValueError(f"plan was built for {plan.impl!r}, not {impl!r}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {q.dtype}; the kernel takes "
+                        f"{list(_DTYPE_CODE)}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in plan.dev.items():
+        if t.device != q.device or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise ValueError(f"plan tensor {name} must be contiguous int32 "
+                             f"on {q.device}")
+    if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k_pages "
+                         f"{tuple(k_pages.shape)}, v_pages "
+                         f"{tuple(v_pages.shape)}")
+    T, H, D = q.shape
+    KVH, _, P, Dk = k_pages.shape
+    if Dk != D or H % KVH or T != plan.num_tokens or P != plan.page_size:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pages "
+                         f"{tuple(k_pages.shape)} and plan of "
+                         f"{plan.num_tokens} tokens, page {plan.page_size}")
+
+
+def _launch(fn_name, q, args):
+    """Call ``fn_name`` on q's current stream. The C side returns the
+    cudaError_t of its shared-memory request and launch; any error
+    raises (an oversized block is refused by cudaFuncSetAttribute)."""
+    from . import _build
+    lib = _build.load_kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, fn_name)(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: "
+                           f"{lib.ptt_error_string(rc).decode()} ({rc})")
+
+
+def qblock_attention(q, k_pages, v_pages, plan, sm_scale):
+    """Kernel 6 (q-block grid). ``plan`` from :func:`make_plan` with
+    ``impl="qblock"``. Counts its launches in ``qblock_attention.launches``."""
+    if q.device.type == "cpu":
+        return qblock_attention_plain(q, k_pages, v_pages, plan, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no ragged attention for device {q.device}")
+    _check_cuda_inputs(q, k_pages, v_pages, plan, "qblock")
+    T, H, D = q.shape
+    KVH, NP, P, _ = k_pages.shape
+    B, J = plan.dev["job_page"].shape
+    out = torch.empty_like(q)
+    d = plan.dev
+    args = [ctypes.c_int(_DTYPE_CODE[q.dtype])] + [
+        ctypes.c_void_p(t.data_ptr()) for t in (
+            q, k_pages, v_pages, out, d["row_slot"], d["row_ctx"],
+            d["job_page"], d["job_slot"], d["job_kv"])] + [
+        ctypes.c_int(x) for x in (T, H, KVH, D, NP, P, plan.q_block, B, J)
+    ] + [ctypes.c_float(sm_scale)]
+    _launch("ptt_ragged_qblock", q, args)
+    qblock_attention.launches += 1
+    return out
+
+
+qblock_attention.launches = 0
+
+
+def token_attention(q, k_pages, v_pages, plan, sm_scale):
+    """Kernel 8 (per-token grid). ``plan`` from :func:`make_plan` with
+    ``impl="token"``. Counts its launches in ``token_attention.launches``."""
+    if q.device.type == "cpu":
+        return token_attention_plain(q, k_pages, v_pages, plan, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no ragged attention for device {q.device}")
+    _check_cuda_inputs(q, k_pages, v_pages, plan, "token")
+    T, H, D = q.shape
+    KVH, NP, P, _ = k_pages.shape
+    d = plan.dev
+    out = torch.empty_like(q)
+    args = [ctypes.c_int(_DTYPE_CODE[q.dtype])] + [
+        ctypes.c_void_p(t.data_ptr()) for t in (
+            q, k_pages, v_pages, out, d["tok_slot"], d["tok_ctx"],
+            d["tables"])] + [
+        ctypes.c_int(x) for x in (T, H, KVH, D, NP, P,
+                                  d["tables"].shape[1])
+    ] + [ctypes.c_float(sm_scale)]
+    _launch("ptt_ragged_token", q, args)
+    token_attention.launches += 1
+    return out
+
+
+token_attention.launches = 0
+
+
+def ragged_paged_attention(q, k_pages, v_pages, block_tables, seq_slots,
+                           q_starts, q_lens, context_lens, *, sm_scale=None,
+                           impl="qblock", q_block=DEFAULT_QBLOCK, plan=None):
+    """Mixed prefill+decode attention over a shared paged KV cache.
+
+    q               [tokens, heads, head_dim], the flat packed batch
+    k_pages/v_pages [kv_heads, num_pages, page_size, head_dim]
+    block_tables    [slots, pages_per_seq] int32 host array (unused
+                    entries = 0)
+    seq_slots, q_starts, q_lens, context_lens  [nseq] int32 host arrays
+    impl            "qblock" (kernel 6) or "token" (kernel 8)
+    plan            a :func:`make_plan` result for these descriptors, to
+                    skip rebuilding the schedule (the cache builds it once
+                    per forward)
+    -> [tokens, heads, head_dim]; rows outside every span are garbage.
+    """
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if plan is None:
+        plan = make_plan(q.shape[0], seq_slots, q_starts, q_lens,
+                         context_lens, block_tables, k_pages.shape[2],
+                         impl=impl, q_block=q_block, device=q.device)
+    if impl == "qblock":
+        return qblock_attention(q, k_pages, v_pages, plan, sm_scale)
+    if impl == "token":
+        return token_attention(q, k_pages, v_pages, plan, sm_scale)
+    raise ValueError(f"impl {impl!r} not in {IMPLS}")
+
+
+def ragged_paged_attention_reference(q, k_pages, v_pages, block_tables,
+                                     seq_slots, q_starts, q_lens,
+                                     context_lens):
+    """Dense oracle: per sequence, gather its context from the pages and
+    run plain causal softmax attention for its span, scale 1/sqrt(d).
+    Rows outside every span are zero."""
+    T, H, D = q.shape
+    KVH, _, P, _ = k_pages.shape
+    G = H // KVH
+    out = torch.zeros((T, H, D), dtype=torch.float32, device=q.device)
+    tbl = np.asarray(block_tables)
+    for slot, qs, ql, ctx in zip(*(np.asarray(a).reshape(-1).tolist()
+                                   for a in (seq_slots, q_starts, q_lens,
+                                             context_lens))):
+        pages = torch.as_tensor(tbl[slot, :-(-ctx // P)].astype(np.int64),
+                                device=q.device)
+        ks = k_pages[:, pages].reshape(KVH, -1, D)[:, :ctx].float()
+        vs = v_pages[:, pages].reshape(KVH, -1, D)[:, :ctx].float()
+        for j in range(ql):
+            vis = ctx - ql + j + 1                 # causal inside the span
+            qg = q[qs + j].reshape(KVH, G, D).float()
+            s = torch.einsum("kgd,ksd->kgs", qg, ks[:, :vis]) / math.sqrt(D)
+            o = torch.einsum("kgs,ksd->kgd", torch.softmax(s, -1),
+                             vs[:, :vis])
+            out[qs + j] = o.reshape(H, D)
+    return out.to(q.dtype)

@@ -1,0 +1,56 @@
+"""The port stands alone: it imports neither JAX nor ``paddle_tpu``, and
+its entry points never fall back to the CPU unasked."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def test_import_and_cpu_model_pull_in_no_jax():
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch as pt\n"
+        "m = pt.LlamaForCausalLM(pt.llama_tiny(), device='cpu')\n"
+        "m([[1, 2, 3]])\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith(('jax.', 'jaxlib')) or k == 'paddle_tpu' or "
+        "k.startswith('paddle_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax_or_reference(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "paddle_tpu"), (path, name)
+
+
+def test_entry_points_refuse_cpu_without_being_asked():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid")
+    import paddle_tpu_torch as pt
+    with pytest.raises(RuntimeError):
+        pt.LlamaForCausalLM(pt.llama_tiny())
+    model = pt.LlamaForCausalLM(pt.llama_tiny(), device="cpu")
+    with pytest.raises(RuntimeError):
+        pt.ContinuousServingEngine(model)
