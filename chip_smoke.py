@@ -5,30 +5,52 @@
 
 Phases, each fatal on error (non-zero exit, no result line):
 
-1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc;
+1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc, one
+   process per source, all at once;
 2. kernel parity at Llama-3-8B attention shapes (32 heads, 8 kv heads,
-   head_dim 128, page 16) on a mixed ragged layout: both kernels against
-   their plain PyTorch versions in fp32 (TF32 off, tolerance 1e-5), in
-   bf16 against the fp32 plain version rounded to bf16 (one bf16 ulp
-   plus the fp32 tolerance per element), and kernel against kernel in
-   fp32 (1e-5);
-3. serving: a full-width, 32-layer Llama-3-8B in bf16 with seeded random
-   weights serves 8 concurrent requests (prompts of 32-600 tokens, four
-   sharing a 64-token prefix, 16 new tokens each) through
-   ``ContinuousServingEngine.generate``, once on the default q-block
-   kernel and once on the per-token kernel, each with the launch counts
-   zeroed just before and read just after (after one uncounted warm
-   pass); one further instrumented pass per kernel times every tick and
-   captures one real tick's layer-0 attention inputs, replayed through
-   both kernels and the plain versions; and a ragged forward of a
-   two-layer fp32 model at the same widths is held against its
-   cache-free forward on a short prompt;
-4. timing of both kernels and their plain versions at the captured tick
-   (CUDA events, median over 50 launches with L2 flushed between them),
-   the bound for the same work, and the serving tick time;
-5. tick breakdown: per tick of the instrumented passes, the forward, the
-   schedule build and the attention calls, and both kernels replayed at
-   every tick shape.
+   head_dim 128, page 16): the two ragged kernels on a mixed layout,
+   flash attention forward (B1, out and lse) on causal, offset,
+   non-causal and dead-row cases, paged decode (B4) on a batch of 8 with
+   contexts 1-700 and shared pages. Each kernel against its plain
+   PyTorch version in fp32 (TF32 off, tolerance 1e-5) and in bf16
+   against the fp32 plain version rounded to bf16 (one bf16 ulp plus the
+   fp32 tolerance per element); the ragged kernels also against each
+   other in fp32 (1e-5);
+3. serving a full-width, 32-layer Llama-3-8B in bf16 with seeded random
+   weights, every path with the launch counts zeroed just before and read
+   just after, after one uncounted warm pass:
+   a. ``ContinuousServingEngine`` (ragged) serves 8 concurrent requests
+      (prompts of 32-600 tokens, four sharing a 64-token prefix, 16 new
+      tokens each), once on the q-block kernel and once on the per-token
+      kernel (launches = 32 x ticks); one further instrumented pass per
+      kernel times every tick and captures one tick's layer-0 inputs;
+   b. the static ``ServingEngine`` batches 8 concurrent 512-token
+      prompts (16 new tokens) into one ``generate``: B1 launches 32 times
+      (the prefill), B4 32 x 15 times (the decode steps); an instrumented
+      pass times every forward and captures layer 0's prefill and decode
+      attention inputs;
+   c. ``ContinuousServingEngine(enable_ragged=False)`` serves the load of
+      (a): B1 launches 32 x the prefill chunks padded to >= 128 tokens,
+      B4 32 x the decode steps, with prefix hits; an instrumented pass
+      times every tick and captures layer 0's inputs of a decode step and
+      of a flash-sized chunk that reads back a prefix;
+4. paths against each other on a two-layer fp32 model at the same widths
+   (TF32 off): ``generate`` over the concat and the paged cache, the
+   legacy and the ragged engine give identical greedy streams on three
+   prompts (47, 300 and 160 tokens); the ragged forward and ``generate``'s
+   paged cache give logits within 1e-4 (relative) of the cache-free
+   forward; then every kernel against its plain version (phase 2's rules)
+   on the inputs captured in phase 3;
+5. timing (CUDA events, median over 50 launches with L2 flushed between
+   them) of every kernel, its plain version and, where one PyTorch call
+   computes the same function, that call, beside the bound for the same
+   work, all on the inputs captured in phase 3: the ragged kernels at a
+   tick, B1 at the static prefill and at the legacy chunk, B4 at each
+   engine's decode step; the serving numbers of every path, the legacy
+   and ragged ones from uninstrumented runs;
+6. tick breakdown of the ragged engines: per tick of the instrumented
+   passes, the forward, the schedule build and the attention calls, and
+   both ragged kernels replayed at every tick shape.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -39,14 +61,18 @@ import subprocess
 import sys
 import threading
 import time
+from collections import Counter
 
 import numpy as np
 
 N_HEADS, N_KV, HEAD_DIM, PAGE = 32, 8, 128, 16
+N_LAYERS = 32
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 FP32_TOL = 1e-5
-SOURCE = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
+NEW_TOKENS = 16
+CSRC = "paddle_tpu_torch/csrc/"
+SOURCE = CSRC + "ragged_paged_attention.cu"
 REF = "paddle_tpu/ops/pallas/ragged_paged_attention.py"
 
 
@@ -146,6 +172,102 @@ def compare_kernels(torch, rpa, q, kp, vp, tbl, desc, label):
     return errs, plans
 
 
+#: B1 parity cases at Llama-3-8B widths: (b, sq, sk, causal, q_offset,
+#: kv_offset). 384 and 300 rows end mid-block for the reference's tiling
+#: or the kernel's; the last case has rows 0..39 with no valid key.
+FLASH_CASES = [(2, 384, 384, True, 0, 0), (2, 300, 300, True, 0, 0),
+               (1, 128, 640, True, 512, 0), (2, 200, 333, False, 0, 0),
+               (1, 64, 100, True, 0, 40)]
+
+
+def compare_flash_case(torch, fa, q, k, v, causal, qo, ko, label):
+    """B1 against its plain version on kernel-layout ``[b, h, s, d]``
+    tensors (strided views allowed): out and lse in fp32 (lse relative to
+    max(1, |lse|)), and out in bf16 by the one-ulp rule on the inputs
+    rounded to bf16. Returns the errors."""
+    q, k, v = (x.float() for x in (q, k, v))
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal, None, qo, ko)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal, None, qo, ko)
+    e32 = float((out - ref).abs().max())
+    el = float(((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max())
+    check(f"{label} fp32 out", e32, FP32_TOL)
+    check(f"{label} fp32 lse", el, FP32_TOL, "max rel err")
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    ob, _ = fa.flash_attention_with_lse(qb, kb, vb, causal, None, qo, ko)
+    rb, _ = fa.flash_attention_plain(qb.float(), kb.float(), vb.float(),
+                                     causal, None, qo, ko)
+    assert ob.dtype == torch.bfloat16
+    eb, ulps = bf16_err(torch, ob, rb, slice(None))
+    check(f"{label} bf16 out vs bf16(fp32 plain)", ulps, 1.0,
+          "max error / (1 bf16 ulp + fp32 tol)")
+    torch.cuda.synchronize()
+    return {"fp32": e32, "lse": el, "bf16": eb}
+
+
+def worst_of(*errs):
+    return {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+def compare_flash(torch, fa, dev):
+    """B1 on the synthetic FLASH_CASES; returns the largest errors."""
+    g = torch.Generator(device=dev).manual_seed(99)
+    errs = []
+    for b, sq, sk, causal, qo, ko in FLASH_CASES:
+        q = torch.randn((b, N_HEADS, sq, HEAD_DIM), generator=g, device=dev)
+        k = torch.randn((b, N_KV, sk, HEAD_DIM), generator=g, device=dev)
+        v = torch.randn((b, N_KV, sk, HEAD_DIM), generator=g, device=dev)
+        errs.append(compare_flash_case(
+            torch, fa, q, k, v, causal, qo, ko,
+            f"B1 b={b} sq={sq} sk={sk} causal={causal} q_off={qo} "
+            f"kv_off={ko}"))
+    return worst_of(*errs)
+
+
+def paged_layout(torch, dev):
+    """Batch 8 with contexts 1-700 over permuted pages, rows 3 and 7
+    sharing their first 10 pages, unused table entries 0."""
+    ctx = np.asarray([1, 16, 17, 700, 33, 64, 129, 700], np.int32)
+    pps = 48
+    tbl = np.zeros((8, pps), np.int32)
+    perm = np.random.RandomState(5).permutation(8 * pps) + 1
+    for i, c in enumerate(ctx):
+        n = -(-int(c) // PAGE)
+        tbl[i, :n] = perm[i * pps:i * pps + n]
+    tbl[7, :10] = tbl[3, :10]
+    g = torch.Generator(device=dev).manual_seed(7)
+    shape = (N_KV, 8 * pps + 1, PAGE, HEAD_DIM)
+    kp = torch.randn(shape, generator=g, device=dev)
+    vp = torch.randn(shape, generator=g, device=dev)
+    q = torch.randn((8, N_HEADS, HEAD_DIM), generator=g, device=dev)
+    return (q, kp, vp, torch.from_numpy(tbl).to(dev),
+            torch.from_numpy(ctx).to(dev))
+
+
+def compare_paged(torch, pa, q, kp, vp, tbl, ctx, label):
+    """B4 against its plain version (fp32 1e-5, bf16 one ulp) and its
+    dense reference (fp32, the reference's own 2e-5)."""
+    scale = HEAD_DIM ** -0.5
+    out = pa.paged_attention(q.float(), kp.float(), vp.float(), tbl, ctx)
+    ref = pa.paged_decode_plain(q.float(), kp.float(), vp.float(), tbl, ctx,
+                                scale)
+    e32 = float((out - ref).abs().max())
+    check(f"{label} B4 fp32 kernel vs plain", e32, FP32_TOL)
+    dense = pa.paged_attention_reference(q.float(), kp.float(), vp.float(),
+                                         tbl, ctx)
+    check(f"{label} B4 fp32 kernel vs dense reference",
+          float((out - dense).abs().max()), 2e-5)
+    qb, kb, vb = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    ob = pa.paged_attention(qb, kb, vb, tbl, ctx)
+    rb = pa.paged_decode_plain(qb.float(), kb.float(), vb.float(), tbl, ctx,
+                               scale)
+    assert ob.dtype == torch.bfloat16
+    eb, ulps = bf16_err(torch, ob, rb, slice(None))
+    check(f"{label} B4 bf16 kernel vs bf16(fp32 plain)", ulps, 1.0,
+          "max error / (1 bf16 ulp + fp32 tol)")
+    torch.cuda.synchronize()
+    return {"fp32": e32, "bf16": eb}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving
 # ---------------------------------------------------------------------------
@@ -236,53 +358,211 @@ class TickProbe:
         self.torch.cuda.synchronize()
 
 
-def serve(torch, pt, rpa, model, impl, prompts, warm, capture=None):
-    """Warm the engine (compiles nothing, but fills cuBLAS workspaces and
-    registers the shared prefix), then zero the launch counts and serve
-    all prompts concurrently. Returns outputs, counts and timings."""
-    eng = pt.ContinuousServingEngine(model, max_batch_size=8, max_len=2048,
-                                     page_size=PAGE, token_budget=256,
-                                     prefill_chunk_tokens=256,
-                                     ragged_impl=impl)
+def zero_counts(kern):
+    for fn in kern.values():
+        fn.launches = 0
+
+
+def read_counts(kern):
+    return {name: fn.launches for name, fn in kern.items()}
+
+
+def run_concurrently(eng, prompts, **kw):
+    """One client thread per prompt, all at once; returns the outputs."""
     results = [None] * len(prompts)
     errors = []
 
     def run(i, p):
         try:
-            results[i] = eng.generate(p, max_new_tokens=16,
-                                      timeout=600).numpy()
+            results[i] = eng.generate(p, max_new_tokens=NEW_TOKENS,
+                                      timeout=600, **kw).numpy()
         except Exception as e:      # noqa: BLE001 — reported below
             errors.append(e)
 
+    threads = [threading.Thread(target=run, args=(i, p))
+               for i, p in enumerate(prompts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"serving failed: {errors!r}")
+    return results
+
+
+def serve(torch, pt, kern, model, prompts, warm, impl="qblock",
+          enable_ragged=True, probes=(), tick_ms=None):
+    """Warm the engine (compiles nothing, but fills cuBLAS workspaces and
+    registers the shared prefix), then zero the launch counts and serve
+    all prompts concurrently under ``probes``. ``steps`` counts the ticks
+    that ran a forward (ragged ticks, or legacy ticks that ran a chunk or
+    a decode step: an integer sum, no sync). With ``tick_ms`` (a list)
+    every such legacy tick also appends its time, to a device sync.
+    Returns outputs, counts and timings."""
+    eng = pt.ContinuousServingEngine(model, max_batch_size=8, max_len=2048,
+                                     page_size=PAGE, token_budget=256,
+                                     prefill_chunk_tokens=256,
+                                     ragged_impl=impl,
+                                     enable_ragged=enable_ragged)
+    legacy_ticks = [0]
+    if not enable_ragged:
+        legacy_tick = eng._legacy_tick
+
+        def counted_tick(*args):
+            work = eng.prefill_chunks + eng.decode_steps
+            t0 = time.perf_counter()
+            legacy_tick(*args)
+            if tick_ms is not None:
+                torch.cuda.synchronize()
+            if eng.prefill_chunks + eng.decode_steps > work:
+                legacy_ticks[0] += 1
+                if tick_ms is not None:
+                    tick_ms.append((time.perf_counter() - t0) * 1e3)
+        eng._legacy_tick = counted_tick
     with eng:
-        eng.generate(warm, max_new_tokens=16, timeout=600)
-        steps0, hits0 = eng.ragged_steps, eng.prefix_hits
-        rpa.qblock_attention.launches = 0
-        rpa.token_attention.launches = 0
+        eng.generate(warm, max_new_tokens=NEW_TOKENS, timeout=600)
+        if tick_ms is not None:
+            tick_ms.clear()
+        steps0 = eng.ragged_steps + legacy_ticks[0]
+        hits0 = eng.prefix_hits
+        dec0, buckets0 = eng.decode_steps, Counter(eng.prefill_chunk_buckets)
+        zero_counts(kern)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with capture or contextlib.nullcontext():
-            threads = [threading.Thread(target=run, args=(i, p))
-                       for i, p in enumerate(prompts)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(900)
+        with contextlib.ExitStack() as stack:
+            for probe in probes:
+                stack.enter_context(probe)
+            results = run_concurrently(eng, prompts)
         wall = time.perf_counter() - t0
-        launches = {"qblock": rpa.qblock_attention.launches,
-                    "token": rpa.token_attention.launches}
-        if errors or any(t.is_alive() for t in threads):
-            raise RuntimeError(f"serving failed: {errors!r}")
-        stats = dict(steps=eng.ragged_steps - steps0,
+        launches = read_counts(kern)
+        stats = dict(steps=eng.ragged_steps + legacy_ticks[0] - steps0,
                      hits=eng.prefix_hits - hits0, wall=wall,
                      launches=launches,
+                     decode_steps=eng.decode_steps - dec0,
+                     chunk_buckets=eng.prefill_chunk_buckets - buckets0,
                      useful=eng.useful_tokens_total,
                      padded=eng.padded_tokens_total)
     return results, stats
 
 
+def check_outputs(prompts, outs, vocab, label):
+    for p, o in zip(prompts, outs):
+        if o.shape != (1, p.shape[0] + NEW_TOKENS) or \
+                not np.array_equal(o[0, :p.shape[0]], p) or \
+                not ((o >= 0) & (o < vocab)).all():
+            raise AssertionError(f"{label}: bad output shape/content "
+                                 f"{o.shape}")
+
+
+def check_launches(label, got, want):
+    """``want`` maps every counted kernel to its expected launches."""
+    log(f"  {label}: launches {got}")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+class LayerZeroCapture:
+    """For one run, wraps ``mod.<name>`` (the name the model's layers
+    call) and keeps layer 0's inputs of the call that scores highest,
+    later calls winning ties: ``score(*args, **kw)`` orders the calls,
+    ``keep(*args, **kw)`` copies what is kept."""
+
+    def __init__(self, mod, name, n_layers, score, keep):
+        self.mod, self.name, self.n_layers = mod, name, n_layers
+        self.score_of, self.keep = score, keep
+        self.orig = getattr(mod, name)
+        self.calls, self.best, self.score = 0, None, None
+
+    def call(self, *args, **kw):
+        if self.calls % self.n_layers == 0:
+            score = self.score_of(*args, **kw)
+            if self.score is None or score >= self.score:
+                self.score, self.best = score, self.keep(*args, **kw)
+        self.calls += 1
+        return self.orig(*args, **kw)
+
+    def __enter__(self):
+        setattr(self.mod, self.name, self.call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+def decode_capture(gen_module, n_layers):
+    """Layer 0's paged-decode inputs of the decode step with the most
+    context (live rows first, then their total context): q, tables and
+    context lengths cloned, the pools by reference."""
+    def score(q, kp, vp, tables, ctx, **kw):
+        c = ctx.cpu().numpy()
+        return int((c > 1).sum()), int(c.sum())
+
+    def keep(q, kp, vp, tables, ctx, **kw):
+        return dict(q=q.clone(), kp=kp, vp=vp, tables=tables.clone(),
+                    ctx=ctx.clone())
+    return LayerZeroCapture(gen_module, "paged_attention", n_layers, score,
+                            keep)
+
+
+def flash_capture(functional, n_layers):
+    """Layer 0's flash-attention inputs, as SDPA passes them (``[b, s,
+    h, d]``, cloned with their strides), of the call with the largest
+    (q_offset > 0, seq_q, seq_k): a chunk that reads back a prefix
+    first."""
+    def score(q, k, v, causal=True, q_offset=0, **kw):
+        return q_offset > 0, q.shape[1], k.shape[1]
+
+    def keep(q, k, v, causal=True, q_offset=0, **kw):
+        return dict(q=q.clone(), k=k.clone(), v=v.clone(), causal=causal,
+                    q_offset=q_offset)
+    return LayerZeroCapture(functional, "flash_attention", n_layers, score,
+                            keep)
+
+
+class ForwardTimer:
+    """Times every model forward to a device sync: (seq_len, ms)."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model, self.times = torch, model, []
+
+    def forward(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.orig(*args, **kw)
+        self.torch.cuda.synchronize()
+        self.times.append((int(out.shape[1]),
+                           (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def __enter__(self):
+        self.orig = self.model.forward
+        self.model.forward = self.forward
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.forward
+
+
+def serve_static(torch, pt, kern, model, prompts, probes=()):
+    """Serve the prompts concurrently through one static engine whose
+    window closes when all 8 rows are in; counts zeroed just before."""
+    eng = pt.ServingEngine(model, max_batch_size=len(prompts),
+                           batch_window_s=60.0, page_size=PAGE)
+    with eng:
+        zero_counts(kern)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for probe in probes:
+                stack.enter_context(probe)
+            results = run_concurrently(eng, prompts)
+        wall = time.perf_counter() - t0
+        launches = read_counts(kern)
+        stats = dict(batches=eng.batches_run, wall=wall, launches=launches)
+    return results, stats
+
+
 # ---------------------------------------------------------------------------
-# phase 4: timing
+# phase 5: timing
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, iters=50, warmup=5):
@@ -305,27 +585,164 @@ def time_ms(torch, fn, iters=50, warmup=5):
     return float(np.median(times))
 
 
-def bound_ms(q, kp, tbl, desc):
-    """Least time for this tick's ragged attention on an H100: the larger
-    of the bytes it must move (q and out once, every K/V page the spans'
-    contexts cover once, the descriptors) over 3.35 TB/s and its flops
-    (QK^T and PV for every visible key of every span token) over the
-    989 TFLOP/s bf16 peak."""
-    slots, starts, lens, ctxs = (np.asarray(a) for a in desc)
-    el = q.element_size()
-    pages = set()
-    flops = 0
-    for s, ql, c in zip(slots, lens, ctxs):
-        pages.update(tbl[s, :-(-int(c) // PAGE)].tolist())
-        vis = np.arange(c - ql + 1, c + 1)          # keys each token sees
-        flops += 4 * N_HEADS * HEAD_DIM * int(vis.sum())
-    nbytes = (2 * q.numel() * el
-              + 2 * len(pages) * N_KV * PAGE * HEAD_DIM * el
-              + tbl.nbytes + 4 * 4 * len(slots))
+def _bound(nbytes, flops):
+    """A timing row's bound: the larger of the two floors (bytes over
+    3.35 TB/s, FLOPs over the 989 TFLOP/s bf16 peak), which one it is,
+    and the counts behind them."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "flops": int(flops)}
+
+
+def distinct_pages(tbl, rows, ctxs):
+    """Distinct pages that the contexts cover: the first ceil(ctx / PAGE)
+    table entries of each row, a page shared by rows counted once."""
+    pages = set()
+    for r, c in zip(rows, ctxs):
+        pages.update(tbl[r, :-(-int(c) // PAGE)].tolist())
+    return len(pages)
+
+
+def bound_ms(q, kp, tbl, desc):
+    """Least time for this tick's ragged attention on an H100: the bytes
+    it must move (q and out once, every K/V page the spans' contexts
+    cover once, the descriptors) against its flops (QK^T and PV for every
+    visible key of every span token)."""
+    slots, starts, lens, ctxs = (np.asarray(a) for a in desc)
+    el = q.element_size()
+    flops = sum(4 * N_HEADS * HEAD_DIM               # keys each token sees
+                * int(np.arange(c - ql + 1, c + 1).sum())
+                for ql, c in zip(lens, ctxs))
+    nbytes = (2 * q.numel() * el
+              + 2 * distinct_pages(tbl, slots, ctxs) * N_KV * PAGE
+              * HEAD_DIM * el + tbl.nbytes + 4 * 4 * len(slots))
+    return _bound(nbytes, flops)
+
+
+def flash_bound(b, sq, sk, q_offset, el):
+    """Least time for a causal flash forward on an H100: the larger of
+    its bytes (q, k, v and out once in their dtype, lse in fp32) over
+    3.35 TB/s and its FLOPs over 989 TFLOP/s. FLOPs count the visible
+    (query, key) pairs only: query i sees min(sk, q_offset + i + 1) keys,
+    and each pair costs a QK dot and a PV axpy of width d, 4 d flops,
+    for each query head."""
+    visible = np.clip(q_offset + np.arange(sq) + 1, 0, sk).sum()
+    flops = 4 * HEAD_DIM * N_HEADS * b * int(visible)
+    nbytes = (el * (2 * b * sq * N_HEADS + 2 * b * sk * N_KV) * HEAD_DIM
+              + 4 * b * N_HEADS * sq)
+    return _bound(nbytes, flops)
+
+
+def paged_bound(q, kp, tables, ctx):
+    """Least time for a paged decode step on an H100: bytes of q and out,
+    of every distinct K/V page the contexts cover (read once) and of the
+    tables, against 4 d flops per (query head, visible key)."""
+    tbl, c = tables.cpu().numpy(), ctx.cpu().numpy()
+    el = q.element_size()
+    nbytes = (2 * q.numel() * el
+              + 2 * distinct_pages(tbl, range(len(c)), c) * N_KV * PAGE
+              * HEAD_DIM * el + tbl.nbytes + c.nbytes)
+    flops = 4 * HEAD_DIM * N_HEADS * int(c.sum())
+    return _bound(nbytes, flops)
+
+
+def time_flash(torch, fa, cap, label):
+    """B1 on layer 0's captured inputs of a main-path call (bf16, the
+    public ``[b, s, h, d]`` layout and strides SDPA passes), its plain
+    version, and PyTorch's SDPA computing the same function on the same
+    data in ``[b, h, s, d]``: ``is_causal`` where its top-left mask means
+    the same thing (sq == sk), else an explicit bottom-right mask, built
+    outside the timed call."""
+    q, k, v, qo = cap["q"], cap["k"], cap["v"], cap["q_offset"]
+    b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+    if not cap["causal"]:
+        raise AssertionError(f"{label}: the model's SDPA call is causal")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    row = {"shape": f"{label}: b={b} sq={sq} sk={sk} q_offset={qo} causal "
+                    f"GQA 32/8 d=128 bf16"}
+    out = fa.flash_attention(q, k, v, True, None, qo)
+    row["ms"] = time_ms(torch, lambda: fa.flash_attention(
+        q, k, v, True, None, qo))
+    row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(
+        qt, kt, vt, True, None, qo), iters=10)
+    row.update(flash_bound(b, sq, sk, qo, q.element_size()))
+    if sq == sk and qo == 0:
+        kw = {"is_causal": True}
+        row["library"] = "sdpa(is_causal=True, enable_gqa=True)"
+    else:
+        # query i sees keys 0 .. qo + i: the path's bottom-right alignment
+        kw = {"attn_mask": torch.ones(sq, sk, dtype=torch.bool,
+                                      device=q.device).tril(qo)}
+        row["library"] = ("sdpa(attn_mask=bottom-right bool [sq, sk], "
+                          "enable_gqa=True)")
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **kw)
+    row["library_vs_kernel_max_abs_diff"] = float(
+        (lib().transpose(1, 2).float() - out.float()).abs().max())
+    row["library_ms"] = time_ms(torch, lib)
+    return row
+
+
+def time_paged(torch, pa, cap, label):
+    row = {"shape": label}
+    args = (cap["q"], cap["kp"], cap["vp"], cap["tables"], cap["ctx"])
+    row["ms"] = time_ms(torch, lambda: pa.paged_attention(*args))
+    row["plain_ms"] = time_ms(torch, lambda: pa.paged_decode_plain(
+        *args, HEAD_DIM ** -0.5), iters=10)
+    row.update(paged_bound(cap["q"], cap["kp"], cap["tables"], cap["ctx"]))
+    row["library"] = "none: no single PyTorch call reads a block-table cache"
+    row["library_ms"] = None
+    return row
+
+
+# phase 4: paths against each other
+
+
+def cross_paths(pt, model, prompts):
+    """Greedy streams of ``generate`` over both caches and of both engine
+    schedulers, one prompt at a time; all must be identical."""
+    streams = {
+        "generate": [model.generate(p[None], max_new_tokens=8).cpu().numpy()
+                     for p in prompts],
+        "generate_paged": [model.generate(p[None], max_new_tokens=8,
+                                          use_paged_cache=True,
+                                          page_size=PAGE).cpu().numpy()
+                           for p in prompts]}
+    for name, ragged in (("legacy", False), ("ragged", True)):
+        eng = pt.ContinuousServingEngine(model, max_batch_size=4,
+                                         max_len=1024, page_size=PAGE,
+                                         enable_ragged=ragged)
+        with eng:
+            streams[name] = [eng.generate(p, max_new_tokens=8,
+                                          timeout=600).numpy()
+                             for p in prompts]
+    for name, outs in streams.items():
+        for p, a, b in zip(prompts, outs, streams["generate"]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name} stream differs from generate "
+                                     f"on a {p.shape[0]}-token prompt")
+    log(f"  greedy streams identical across {sorted(streams)} on prompts "
+        f"of {[p.shape[0] for p in prompts]} tokens")
+    return streams["generate"]
+
+
+def paged_logits_rel_err(torch, gen, model, full, n_prompt):
+    """Logits of a prefill then decode steps over a ``PagedKVCache``
+    against the cache-free forward of the same tokens."""
+    cache = gen.PagedKVCache(page_size=PAGE, max_len=full.shape[0])
+    with torch.inference_mode():
+        got = [model(full[None, :n_prompt], cache=cache)[0, -1]]
+        for t in range(n_prompt, full.shape[0] - 1):
+            got.append(model(full[None, t:t + 1], cache=cache)[0, -1])
+        got = torch.stack(got)
+        ref = model(full[None, :-1])[0, n_prompt - 1:]
+    if not (torch.isfinite(got).all() and got.shape == ref.shape):
+        raise AssertionError("paged logits not finite or mis-shaped")
+    return float((got - ref).abs().max() / ref.abs().max())
 
 
 def tick_breakdown(torch, rpa, probes, scale, n_layers):
@@ -335,7 +752,7 @@ def tick_breakdown(torch, rpa, probes, scale, n_layers):
     each layer's call). For the q-block run's ticks also both kernels
     replayed alone at that tick's descriptors (L2 flushed, median of 10)
     times the layer count."""
-    log("phase 5: tick breakdown (bf16, every tick of the 8-request load)")
+    log("phase 6: tick breakdown (bf16, every tick of the 8-request load)")
     kern = {"qblock": rpa.qblock_attention, "token": rpa.token_attention}
     out = {}
     for run, probe in probes.items():
@@ -382,21 +799,30 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import generation as gen
+    from paddle_tpu_torch.nn import functional as nn_functional
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
     dev = torch.device("cuda")
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", cuda {torch.version.cuda}")
+    kern = {"qblock": rpa.qblock_attention, "token": rpa.token_attention,
+            "flash": fa.flash_attention, "paged": pa.paged_attention}
+    none = {name: 0 for name in kern}
 
     log("phase 1: build")
     _, build_s = _build.build()
     _build.load_kernels()
-    log(f"  build_seconds {build_s:.2f}")
+    log(f"  build_seconds {build_s:.2f} ({len(_build.SOURCES)} sources)")
 
     log("phase 2: kernel parity at Llama-3-8B attention shapes")
     q, kp, vp, tbl, desc = parity_layout(torch, rpa, dev)
     compare_kernels(torch, rpa, q, kp, vp, tbl, desc, "synthetic")
+    flash_errs = compare_flash(torch, fa, dev)
+    paged_errs = compare_paged(torch, pa, *paged_layout(torch, dev),
+                               "synthetic")
     del q, kp, vp
     torch.cuda.empty_cache()
 
@@ -408,27 +834,22 @@ def main():
     log(f"  model built in {time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params")
     prompts, warm = make_prompts()
+
+    log(" 3a: ContinuousServingEngine, ragged ticks")
     # one uncounted pass fills cuBLAS's choices for every tick shape, so
     # the two counted runs below are timed warm and alike
-    serve(torch, pt, rpa, model, "qblock", prompts, warm)
+    serve(torch, pt, kern, model, prompts, warm)
     runs = {}
     for impl in rpa.IMPLS:
-        outs, st = serve(torch, pt, rpa, model, impl, prompts, warm)
+        outs, st = serve(torch, pt, kern, model, prompts, warm, impl=impl)
         runs[impl] = (outs, st)
         log(f"  {impl}: {st['steps']} ticks, {st['hits']} prefix hits, "
-            f"launches {st['launches']}, wall {st['wall']:.3f} s")
-        for p, o in zip(prompts, outs):
-            if o.shape != (1, p.shape[0] + 16) or \
-                    not np.array_equal(o[0, :p.shape[0]], p) or \
-                    not ((o >= 0) & (o < cfg.vocab_size)).all():
-                raise AssertionError(f"bad output shape/content {o.shape}")
+            f"wall {st['wall']:.3f} s")
+        check_outputs(prompts, outs, cfg.vocab_size, impl)
         if st["steps"] <= 0 or st["hits"] <= 0:
             raise AssertionError(f"{impl}: no ticks or no prefix hits")
-        want = cfg.num_hidden_layers * st["steps"]
-        if st["launches"][impl] != want:
-            raise AssertionError(f"{impl} kernel launched "
-                                 f"{st['launches'][impl]} times, expected "
-                                 f"{want} (32 x ticks)")
+        check_launches(f"ragged {impl} engine", st["launches"],
+                       dict(none, **{impl: N_LAYERS * st["steps"]}))
     for a, b in zip(runs["qblock"][0], runs["token"][0]):
         if not np.array_equal(a, b):
             raise AssertionError("q-block and per-token engines disagree")
@@ -438,18 +859,70 @@ def main():
     # layer-0 attention inputs
     probes = {}
     for impl in rpa.IMPLS:
-        probes[impl] = TickProbe(torch, gen, model, cfg.num_hidden_layers)
-        serve(torch, pt, rpa, model, impl, prompts, warm,
-              capture=probes[impl])
+        probes[impl] = TickProbe(torch, gen, model, N_LAYERS)
+        serve(torch, pt, kern, model, prompts, warm, impl=impl,
+              probes=[probes[impl]])
     cap = probes["qblock"]
     short = np.concatenate([prompts[1], runs["qblock"][0][1][0, 32:47]])
+
+    log(" 3b: static ServingEngine, one batch of 8 x 512-token prompts")
+    static_prompts = list(np.random.RandomState(11).randint(
+        0, cfg.vocab_size, (8, 512)).astype(np.int64))
+    serve_static(torch, pt, kern, model, static_prompts)        # warm
+    static_outs, static = serve_static(torch, pt, kern, model,
+                                       static_prompts)
+    check_outputs(static_prompts, static_outs, cfg.vocab_size, "static")
+    if static["batches"] != 1:
+        raise AssertionError(f"static engine ran {static['batches']} "
+                             f"batches, expected 1")
+    check_launches("static engine", static["launches"],
+                   dict(none, flash=N_LAYERS,
+                        paged=N_LAYERS * (NEW_TOKENS - 1)))
+    # an instrumented pass: every forward timed to a device sync, layer
+    # 0's prefill and decode attention inputs kept
+    static_cap = decode_capture(gen, N_LAYERS)
+    static_flash = flash_capture(nn_functional, N_LAYERS)
+    static_fwd = ForwardTimer(torch, model)
+    serve_static(torch, pt, kern, model, static_prompts,
+                 probes=[static_cap, static_flash, static_fwd])
+    log(f"  static: wall {static['wall']:.3f} s for one batch; "
+        f"instrumented forwards (seq, ms): "
+        + ", ".join(f"({n}, {ms:.2f})" for n, ms in static_fwd.times))
+
+    log(" 3c: ContinuousServingEngine(enable_ragged=False), legacy ticks")
+    serve(torch, pt, kern, model, prompts, warm, enable_ragged=False)
+    legacy_outs, legacy = serve(torch, pt, kern, model, prompts, warm,
+                                enable_ragged=False)
+    check_outputs(prompts, legacy_outs, cfg.vocab_size, "legacy")
+    big_chunks = sum(n for size, n in legacy["chunk_buckets"].items()
+                     if size >= 128)
+    log(f"  legacy: {legacy['steps']} working ticks, "
+        f"{legacy['decode_steps']} decode steps, prefill chunks by bucket "
+        f"{dict(sorted(legacy['chunk_buckets'].items()))}, "
+        f"{legacy['hits']} prefix hits, wall {legacy['wall']:.3f} s")
+    if legacy["hits"] <= 0 or legacy["decode_steps"] <= 0 or not big_chunks:
+        raise AssertionError("legacy: no prefix hits, decode steps or "
+                             "flash-sized chunks")
+    check_launches("legacy engine", legacy["launches"],
+                   dict(none, flash=N_LAYERS * big_chunks,
+                        paged=N_LAYERS * legacy["decode_steps"]))
+    same = sum(np.array_equal(a, b) for a, b in
+               zip(legacy_outs, runs["qblock"][0]))
+    log(f"  legacy vs ragged bf16 streams: {same} of {len(prompts)} "
+        f"identical (bf16 paths round differently; phase 4 holds them "
+        f"equal in fp32)")
+    # an instrumented pass: every working tick timed to a device sync,
+    # layer 0's inputs of a decode step and of a flash-sized chunk kept
+    legacy_cap = decode_capture(gen, N_LAYERS)
+    legacy_flash = flash_capture(nn_functional, N_LAYERS)
+    legacy_ticks = []
+    serve(torch, pt, kern, model, prompts, warm, enable_ragged=False,
+          probes=[legacy_cap, legacy_flash], tick_ms=legacy_ticks)
     del model
     torch.cuda.empty_cache()
 
-    # the ragged path against the cache-free forward on a short prompt,
-    # in fp32 (TF32 off) at full width and two layers: the plain
-    # attention reference is itself bf16 in a bf16 model and drifts
-    # several percent over 32 layers
+    log("phase 4: paths against each other (fp32, TF32 off, 2 layers, "
+        "full width)")
     ref_cfg = pt.llama3_8b()
     ref_cfg.num_hidden_layers = 2
     ref_model = pt.LlamaForCausalLM(ref_cfg, device="cuda", seed=0)
@@ -465,7 +938,15 @@ def main():
     rel = float((got - ref).abs().max() / ref.abs().max())
     check("ragged vs cache-free logits (relative, fp32, 2 layers)", rel,
           1e-4)
-    del ref_model, cache, ref, got
+    del cache, ref, got
+    rng = np.random.RandomState(13)
+    cross_prompts = [short, rng.randint(0, cfg.vocab_size, 300),
+                     rng.randint(0, cfg.vocab_size, 160)]
+    cross_outs = cross_paths(pt, ref_model, cross_prompts)
+    rel = paged_logits_rel_err(torch, gen, ref_model, cross_outs[1][0], 300)
+    check("generate's paged cache vs cache-free logits (relative, fp32, "
+          "2 layers, prefill of 300 then 7 decode steps)", rel, 1e-4)
+    del ref_model
     torch.cuda.empty_cache()
 
     log("  captured tick: " + json.dumps(
@@ -474,37 +955,104 @@ def main():
     c = cap.best
     cerrs, plans = compare_kernels(torch, rpa, c["q"], c["kp"], c["vp"],
                                    c["tbl"], c["desc"], "captured")
+    decode_caps = {"static": static_cap.best, "legacy": legacy_cap.best}
+    for name, dc in decode_caps.items():
+        log(f"  captured {name} decode step: ctx "
+            f"{dc['ctx'].cpu().numpy().tolist()}")
+        e = compare_paged(torch, pa, dc["q"], dc["kp"], dc["vp"],
+                          dc["tables"], dc["ctx"], f"captured {name}")
+        paged_errs = worst_of(paged_errs, e)
+    flash_caps = {"static prefill": static_flash.best,
+                  "legacy chunk": legacy_flash.best}
+    for name, fc in flash_caps.items():
+        q, k, v = (fc[x].transpose(1, 2) for x in "qkv")
+        label = (f"captured {name} B1 b={q.shape[0]} sq={q.shape[2]} "
+                 f"sk={k.shape[2]} q_off={fc['q_offset']}")
+        flash_errs = worst_of(flash_errs, compare_flash_case(
+            torch, fa, q, k, v, fc["causal"], fc["q_offset"], 0, label))
+    del q, k, v
 
-    log("phase 4: timing at the captured tick (bf16)")
+    log("phase 5: timing (bf16)")
     scale = HEAD_DIM ** -0.5
-    kern = {"qblock": rpa.qblock_attention, "token": rpa.token_attention}
     plain = {"qblock": rpa.qblock_attention_plain,
              "token": rpa.token_attention_plain}
-    bms, bby = bound_ms(c["q"], c["kp"], c["tbl"], c["desc"])
+    bound = bound_ms(c["q"], c["kp"], c["tbl"], c["desc"])
     rows = []
     for impl, name, line in (("qblock", "ragged_qblock", 215),
                              ("token", "ragged_token", 389)):
         args = (c["q"], c["kp"], c["vp"], plans[impl], scale)
         ms = time_ms(torch, lambda: kern[impl](*args))
         pms = time_ms(torch, lambda: plain[impl](*args), iters=10)
-        log(f"  {name}: {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
-            f"({bby}), library: none (no single PyTorch call computes "
-            f"ragged paged attention)")
+        log(f"  {name}: {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), library: "
+            f"none (no single PyTorch call computes ragged paged "
+            f"attention)")
         rows.append({"name": name, "route": "cuda", "source": SOURCE,
                      "replaces": f"{REF}:{line}",
                      "launches": runs[impl][1]["launches"][impl],
                      "max_abs_err": cerrs[impl]["bf16"],
                      "max_abs_err_fp32": cerrs[impl]["fp32"],
-                     "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                     "bound_by": bby, "library_ms": None})
-    tick_breakdown(torch, rpa, probes, scale, cfg.num_hidden_layers)
+                     "ms": ms, "plain_ms": pms, **bound,
+                     "library_ms": None})
+    flash_rows = [time_flash(torch, fa, fc, name)
+                  for name, fc in flash_caps.items()]
+    paged_rows = [time_paged(torch, pa, decode_caps["static"],
+                             "static engine decode step, bf16"),
+                  time_paged(torch, pa, decode_caps["legacy"],
+                             "legacy engine decode step, bf16")]
+    for r in flash_rows + paged_rows:
+        lib = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
+        log(f"  {r['shape']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}: "
+            f"{r['bytes']} bytes at 3.35 TB/s, {r['flops']} FLOPs at 989 "
+            f"TFLOP/s), library {lib} ({r['library']})"
+            + (f", max abs diff to the kernel "
+               f"{r['library_vs_kernel_max_abs_diff']:.3e}"
+               if r["library_ms"] is not None else ""))
+    by_path = {"static": static["launches"], "legacy": legacy["launches"]}
+    for name, src, ref_at, errs, timed, key in (
+            ("flash_fwd", "flash_attention.cu",
+             "paddle_tpu/ops/pallas/flash_attention.py:110", flash_errs,
+             flash_rows, "flash"),
+            ("paged_decode", "paged_attention.cu",
+             "paddle_tpu/ops/pallas/paged_attention.py:55", paged_errs,
+             paged_rows, "paged")):
+        first = timed[0]
+        rows.append({"name": name, "route": "cuda", "source": CSRC + src,
+                     "replaces": ref_at,
+                     "launches": sum(v[key] for v in by_path.values()),
+                     "launches_by_path": {k: v[key]
+                                          for k, v in by_path.items()},
+                     "max_abs_err": errs["bf16"],
+                     "max_abs_err_fp32": errs["fp32"],
+                     **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms",
+                                              "library", "shape", "bytes",
+                                              "flops")},
+                     "other_shapes": timed[1:]})
+
+    tick_breakdown(torch, rpa, probes, scale, N_LAYERS)
     for impl in rpa.IMPLS:
         st = runs[impl][1]
-        gen_tokens = 16 * len(prompts)
+        gen_tokens = NEW_TOKENS * len(prompts)
         log(f"  serving[{impl}]: tick {st['wall'] / st['steps'] * 1e3:.2f} ms"
             f" ({st['steps']} ticks), {gen_tokens / st['wall']:.1f} "
             f"generated tokens/s, {st['useful']} useful / {st['padded']} "
             f"padded tokens over the engine's life")
+    decode_ms = [ms for n, ms in static_fwd.times if n == 1]
+    log(f"  serving[static]: {NEW_TOKENS * len(static_prompts) / static['wall']:.1f}"
+        f" generated tokens/s ({static['wall']:.3f} s for the batch); "
+        f"instrumented: prefill forward "
+        f"{[ms for n, ms in static_fwd.times if n > 1][0]:.2f} ms, decode "
+        f"step median {np.median(decode_ms):.2f} ms over {len(decode_ms)}")
+    log(f"  serving[legacy]: tick {legacy['wall'] / legacy['steps'] * 1e3:.2f}"
+        f" ms ({legacy['steps']} working ticks), "
+        f"{NEW_TOKENS * len(prompts) / legacy['wall']:.1f} generated "
+        f"tokens/s, {legacy['useful']} useful / {legacy['padded']} padded "
+        f"tokens over the engine's life; instrumented (a device sync per "
+        f"tick): tick mean {np.mean(legacy_ticks):.2f} ms, median "
+        f"{np.median(legacy_ticks):.2f} ms over {len(legacy_ticks)}")
 
     log(json.dumps({"kernels": rows}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -2,15 +2,19 @@
 Hopper. It imports torch and numpy, never JAX and nothing of
 ``paddle_tpu``.
 
-This slice serves Llama through the continuous-batching engine: its
-ragged paged attention runs on two hand-written CUDA kernels
-(``csrc/ragged_paged_attention.cu``), built with ``nvcc`` at first use.
+It serves Llama three ways: ``LlamaForCausalLM.generate`` (greedy,
+seeded sampling, beam search; concat or paged KV cache), the static
+window batcher ``ServingEngine`` around it, and the continuous-batching
+``ContinuousServingEngine`` (ragged ticks, or the legacy prefill-chunk
+plus decode-step scheduler with ``enable_ragged=False``). Attention runs
+on hand-written CUDA kernels under ``csrc/`` (ragged paged attention,
+flash attention forward, paged decode), built with ``nvcc`` at first use.
 Entry points default to ``device="cuda"``; pass ``device="cpu"`` to run
 the plain PyTorch versions instead.
 """
 from .convert import load_jax_state
-from .inference.serving import ContinuousServingEngine
+from .inference.serving import ContinuousServingEngine, ServingEngine
 from .models.llama import LlamaConfig, LlamaForCausalLM, llama3_8b, llama_tiny
 
 __all__ = ["LlamaForCausalLM", "LlamaConfig", "llama_tiny", "llama3_8b",
-           "ContinuousServingEngine", "load_jax_state"]
+           "ContinuousServingEngine", "ServingEngine", "load_jax_state"]

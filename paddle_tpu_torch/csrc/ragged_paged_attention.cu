@@ -36,124 +36,12 @@
 // qblock_schedule() in ops/ragged_paged_attention.py and copied to the
 // device; the kernels only read it.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#include <math.h>
-#include <stddef.h>
+#include "attention_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr float kBigNeg = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half(x);
-}
-
-// Shared memory of one block: R query rows against one page of P keys of
-// width D. q and k rows are padded to D + 1 floats so that lanes reading
-// different rows at the same column hit different banks.
-struct Tile {
-  float* q;     // [R][D + 1]
-  float* k;     // [P][D + 1]
-  float* v;     // [P][D]
-  float* s;     // [R][P] scores, then weights
-  float* acc;   // [R][D]
-  float* m;     // [R]
-  float* l;     // [R]
-  float* corr;  // [R]
-};
-
-__host__ __device__ inline size_t smem_floats(int R, int P, int D) {
-  return (size_t)R * (D + 1) + (size_t)P * (D + 1) + (size_t)P * D +
-         (size_t)R * P + (size_t)R * D + 3 * (size_t)R;
-}
-
-__device__ inline Tile carve(float* base, int R, int P, int D) {
-  Tile t;
-  t.q = base;
-  t.k = t.q + (size_t)R * (D + 1);
-  t.v = t.k + (size_t)P * (D + 1);
-  t.s = t.v + (size_t)P * D;
-  t.acc = t.s + (size_t)R * P;
-  t.m = t.acc + (size_t)R * D;
-  t.l = t.m + R;
-  t.corr = t.l + R;
-  return t;
-}
-
-// acc = 0, l = 0, m = -inf for every row.
-__device__ inline void init_state(const Tile& t, int R, int D) {
-  for (int i = threadIdx.x; i < R * D; i += blockDim.x) t.acc[i] = 0.f;
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    t.m[r] = -INFINITY;
-    t.l[r] = 0.f;
-  }
-}
-
-// Stage page `page` of kv head `h` (pages laid out [KVH, NP, P, D]).
-template <typename T>
-__device__ inline void load_page(const Tile& t, const T* __restrict__ kp,
-                                 const T* __restrict__ vp, int h, int page,
-                                 int NP, int P, int D) {
-  const size_t base = ((size_t)h * NP + page) * (size_t)P * D;
-  for (int i = threadIdx.x; i < P * D; i += blockDim.x) {
-    const int r = i / D, c = i - r * D;
-    t.k[r * (D + 1) + c] = to_f32(kp[base + i]);
-    t.v[i] = to_f32(vp[base + i]);
-  }
-}
-
-// Raw scaled dot product of query row r with key row c.
-__device__ inline float score(const Tile& t, int r, int c, int D,
-                              float sm_scale) {
-  const float* qr = t.q + (size_t)r * (D + 1);
-  const float* kr = t.k + (size_t)c * (D + 1);
-  float dot = 0.f;
-  for (int e = 0; e < D; ++e) dot = fmaf(qr[e], kr[e], dot);
-  return dot * sm_scale;
-}
-
-// One online-softmax step over the masked scores in t.s. Ends synchronised.
-__device__ inline void online_step(const Tile& t, int R, int P, int D) {
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    float* sr = t.s + (size_t)r * P;
-    const float m_prev = t.m[r];
-    float m_cur = -INFINITY;
-    for (int c = 0; c < P; ++c) m_cur = fmaxf(m_cur, sr[c]);
-    const float m_new = fmaxf(m_prev, m_cur);
-    float sum = 0.f;
-    for (int c = 0; c < P; ++c) {
-      const float w = expf(sr[c] - m_new);
-      sr[c] = w;
-      sum += w;
-    }
-    const float corr = expf(m_prev - m_new);
-    t.l[r] = t.l[r] * corr + sum;
-    t.m[r] = m_new;
-    t.corr[r] = corr;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
-    const int r = i / D, e = i - r * D;
-    const float* wr = t.s + (size_t)r * P;
-    float pv = 0.f;
-    for (int c = 0; c < P; ++c) pv = fmaf(wr[c], t.v[(size_t)c * D + e], pv);
-    t.acc[i] = t.acc[i] * t.corr[r] + pv;
-  }
-  __syncthreads();
-}
 
 // Kernel 6. Grid (q_blocks, kv_heads). Row r of block b is token
 // b * qb + r / G, query head h * G + r % G.
@@ -325,10 +213,6 @@ int ptt_ragged_token(int dtype, const void* q, const void* kp, const void* vp,
     case 2: return (int)launch_token<__half>(q, kp, vp, out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-const char* ptt_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

@@ -1,14 +1,23 @@
-"""Continuous-batching serving engine (port of the ragged scheduler of
-``paddle_tpu/inference/serving.py``).
+"""Serving engines (port of ``paddle_tpu/inference/serving.py``).
 
-Each tick packs up to ``token_budget`` tokens into ONE flat batch: every
-live decode slot's single token, then as many prefill tokens as fit
-(per-span cap ``prefill_chunk_tokens``). The batch is padded to a power
-of two, run through one ``model.forward`` over a
-:class:`~paddle_tpu_torch.models.generation.SlotPagedKVCache` in ragged
-mode, and the argmax of each span's last position is its next token.
-Admission maps a request onto a free slot and matches its prompt
-against the prefix index; no model work happens there.
+* :class:`ServingEngine`, the static window batcher: requests of one
+  shape that arrive within ``batch_window_s`` run as one batch through
+  ``model.generate`` over a paged KV cache.
+* :class:`ContinuousServingEngine`, continuous batching over a
+  :class:`~paddle_tpu_torch.models.generation.SlotPagedKVCache`, greedy,
+  with chunked prefill and a prefix cache. By default each tick packs up
+  to ``token_budget`` tokens into ONE flat batch: every live decode
+  slot's single token, then as many prefill tokens as fit (per-span cap
+  ``prefill_chunk_tokens``), padded to a power of two and run through one
+  ragged forward. With ``enable_ragged=False`` it runs the legacy
+  two-program scheduler instead: per tick one prefill chunk, padded to a
+  power-of-two bucket, for the longest-waiting slot, then one
+  fixed-shape ``[max_batch, 1]`` decode step for every decoding slot.
+  Admission maps a request onto a free slot and matches its prompt
+  against the prefix index; no model work happens there.
+
+Both engines run the model on a serve thread of their own, which enters
+``torch.inference_mode()`` itself.
 
     engine = ContinuousServingEngine(model)           # model on "cuda"
     with engine:
@@ -19,7 +28,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 
 import numpy as np
 import torch
@@ -77,12 +86,13 @@ class _Control:
 
 
 class _Request:
-    def __init__(self, ids, max_new_tokens, eos_token_id=None):
+    def __init__(self, ids, max_new_tokens, **kwargs):
         self.ids = np.asarray(ids)
         if self.ids.ndim == 1:
             self.ids = self.ids[None]
         self.max_new_tokens = max_new_tokens
-        self.eos_token_id = eos_token_id
+        self.kwargs = kwargs                 # generate() options
+        self.eos_token_id = kwargs.get("eos_token_id")
         self.done = threading.Event()
         self.result = None
         self.error = None
@@ -101,54 +111,33 @@ class _Row:
         self.state = "queued"                # queued -> prefill -> decode
 
 
-class ContinuousServingEngine:
-    """Thread-safe continuous-batching ``generate`` front end with greedy
-    decoding, chunked prefill and a prefix cache.
+def _engine_device(model, device):
+    """Resolve an engine's device (``None`` means ``"cuda"``) and check
+    that the model's parameters live there."""
+    dev = resolve_device(device)
+    model_dev = next(model.parameters()).device
+    if model_dev.type != dev.type:
+        raise ValueError(f"model on {model_dev}, engine on {dev}")
+    return dev
 
-    ``device=None`` means ``"cuda"`` (raises where CUDA is absent); the
-    model's parameters must live on that device. ``ragged_impl`` picks
-    the attention grid, ``"qblock"`` or ``"token"``."""
+
+def _as_ids(input_ids):
+    ids = input_ids.cpu().numpy() if isinstance(input_ids, torch.Tensor) \
+        else np.asarray(input_ids)
+    return ids[None] if ids.ndim == 1 else ids
+
+
+class _Engine:
+    """What both engines share: a request queue drained by one serve
+    thread that runs ``_serve()`` under ``torch.inference_mode()``, the
+    lifecycle around it, and the blocking client side of ``generate``."""
 
     _STOP = object()
 
-    def __init__(self, model, max_batch_size=8, page_size=16, max_len=2048,
-                 pad_token_id=0, prefill_chunk_tokens=None,
-                 enable_prefix_cache=True, num_pages=None,
-                 token_budget=None, ragged_impl="qblock", device=None):
-        self.device = resolve_device(device)
-        model_dev = next(model.parameters()).device
-        if model_dev.type != self.device.type:
-            raise ValueError(f"model on {model_dev}, engine on {self.device}")
-        self.model = model
-        self.max_batch = int(max_batch_size)
-        self.page_size = int(page_size)
-        self.max_len = int(max_len)
-        self.pad_token_id = int(pad_token_id)
-        self.enable_prefix_cache = bool(enable_prefix_cache)
-        if prefill_chunk_tokens is None:
-            prefill_chunk_tokens = DEFAULT_PREFILL_CHUNK_TOKENS
-        self.chunk_tokens = max(int(prefill_chunk_tokens), 1)
-        if token_budget is None:
-            token_budget = DEFAULT_SERVING_TOKEN_BUDGET
-        # every live decode slot is entitled to its token per tick, so
-        # the budget never starves decode
-        self.token_budget = max(int(token_budget), self.max_batch, 1)
-        self.num_pages = num_pages
-        self.ragged_impl = ragged_impl
+    def __init__(self):
         self._q: queue.Queue = queue.Queue()
         self._thread = None
         self._running = False
-        self._cache = None
-        self.ragged_steps = 0          # ragged packed forwards run
-        # padded counts every token position a forward processed, useful
-        # only the real ones
-        self.padded_tokens_total = 0
-        self.useful_tokens_total = 0
-
-    @property
-    def prefix_hits(self):
-        """Prompt blocks served from the prefix index by the live cache."""
-        return 0 if self._cache is None else self._cache.prefix_hits
 
     # -- client API ----------------------------------------------------------
     def run_on_loop(self, fn, timeout=30.0):
@@ -164,34 +153,18 @@ class ContinuousServingEngine:
             raise ctl.error
         return ctl.result
 
-    def generate(self, input_ids, max_new_tokens=32, timeout=None,
-                 eos_token_id=None):
-        """Greedy-decode ``input_ids`` (``[s]`` or ``[rows, s]``, array or
-        tensor) and block until done. Returns an int64 CPU tensor
-        ``[rows, s + generated]``; rows that stop early at
-        ``eos_token_id`` are padded with it."""
-        ids = input_ids.cpu().numpy() if isinstance(input_ids, torch.Tensor) \
-            else np.asarray(input_ids)
-        if ids.ndim == 1:
-            ids = ids[None]
-        if max_new_tokens <= 0:
-            return torch.as_tensor(ids)
-        if ids.shape[1] + max_new_tokens > self.max_len:
-            # fail THIS request up front: overflowing after admission
-            # would fail every co-scheduled request with it
-            raise ValueError(
-                f"request needs {ids.shape[1]} + {max_new_tokens} tokens "
-                f"> engine max_len {self.max_len}")
+    def _submit(self, req, timeout):
+        """Queue ``req`` and block until it is served, failed, or
+        ``timeout`` seconds pass. Returns the result as a CPU tensor."""
         if not self._running:
             raise RuntimeError("engine not started (call start())")
-        req = _Request(ids, max_new_tokens, eos_token_id)
         self._q.put(req)
         deadline = None if timeout is None else time.monotonic() + timeout
         while not req.done.is_set():
             remaining = (None if deadline is None
                          else deadline - time.monotonic())
             if remaining is not None and remaining <= 0:
-                # the scheduler frees the request's slots at the next tick
+                # the scheduler drops the request at its next boundary
                 req.cancelled = True
                 raise TimeoutError("generate timed out")
             th = self._thread
@@ -244,7 +217,7 @@ class ContinuousServingEngine:
         try:
             # grad mode is per thread: the serve thread sets its own
             with torch.inference_mode():
-                self._serve_ragged()
+                self._serve()
         finally:
             # fail requests stranded behind the stop token
             try:
@@ -257,6 +230,201 @@ class ContinuousServingEngine:
                         item.fail(RuntimeError("engine stopped"))
             except queue.Empty:
                 pass
+
+
+class ServingEngine(_Engine):
+    """Thread-safe static window batcher around ``model.generate``.
+
+    The serve thread takes one request, then collects requests of the
+    same prompt length, ``max_new_tokens`` and options for up to
+    ``batch_window_s`` seconds or until ``max_batch_size`` rows, and runs
+    the group as one ``model.generate`` call, with a
+    :class:`~paddle_tpu_torch.models.generation.PagedKVCache` of
+    ``page_size`` pages unless ``use_paged_cache=False``. ``device=None``
+    means ``"cuda"`` (raises where CUDA is absent); the model must live
+    on that device.
+
+        with ServingEngine(model) as engine:
+            out = engine.generate(prompt_ids, max_new_tokens=64)
+    """
+
+    def __init__(self, model, max_batch_size=8, batch_window_s=0.005,
+                 use_paged_cache=True, page_size=16, device=None):
+        super().__init__()
+        self.device = _engine_device(model, device)
+        self.model = model
+        self.max_batch = int(max_batch_size)
+        self.window = float(batch_window_s)
+        self.use_paged = bool(use_paged_cache)
+        self.page_size = int(page_size)
+        self.batches_run = 0
+
+    def generate(self, input_ids, max_new_tokens=32, timeout=None,
+                 **kwargs):
+        """Decode ``input_ids`` (``[s]`` or ``[rows, s]``) with
+        ``model.generate(**kwargs)`` inside a batch, and block until done.
+        Returns an int64 CPU tensor ``[rows, s + generated]``. With
+        ``eos_token_id`` the output is cut after the last row's first eos,
+        so it does not depend on the lengths of its batch-mates."""
+        if not self._running:
+            raise RuntimeError("engine not started (call start())")
+        return self._submit(_Request(_as_ids(input_ids), max_new_tokens,
+                                     **kwargs), timeout)
+
+    def _collect(self):
+        """Block for one request, then take compatible ones within the
+        window. Groups by (prompt length, max_new_tokens, options), so a
+        batch is one shape."""
+        first = self._q.get()
+        while isinstance(first, _Control):
+            first.run(self)
+            first = self._q.get()
+        if first is self._STOP:
+            return None
+
+        def key(r):
+            return (r.ids.shape[1], r.max_new_tokens,
+                    tuple(sorted(r.kwargs.items())))
+
+        group = [first]
+        deadline = time.monotonic() + self.window
+        leftovers = []
+        try:
+            while sum(r.ids.shape[0] for r in group) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if isinstance(nxt, _Control):
+                    nxt.run(self)
+                    continue
+                if nxt is self._STOP:
+                    self._q.put(self._STOP)      # re-post the stop token
+                    break
+                if key(nxt) == key(first) and (sum(
+                        r.ids.shape[0] for r in group)
+                        + nxt.ids.shape[0]) <= self.max_batch:
+                    group.append(nxt)
+                else:
+                    leftovers.append(nxt)
+        finally:
+            for r in leftovers:                  # incompatible: next rounds
+                self._q.put(r)
+        return group
+
+    def _serve(self):
+        while self._running:
+            group = self._collect()
+            if group is None:
+                break
+            # a timed-out client already raised; no batch for it
+            group = [r for r in group if not r.cancelled]
+            if not group:
+                continue
+            try:
+                batch = np.concatenate([r.ids for r in group], axis=0)
+                kwargs = dict(group[0].kwargs)
+                if self.use_paged:
+                    kwargs.setdefault("use_paged_cache", True)
+                    kwargs.setdefault("page_size", self.page_size)
+                out = self.model.generate(
+                    torch.as_tensor(batch, device=self.device),
+                    max_new_tokens=group[0].max_new_tokens, **kwargs)
+                arr = out.cpu().numpy()
+                self.batches_run += 1
+                prompt_len = group[0].ids.shape[1]
+                eos = kwargs.get("eos_token_id")
+                row = 0
+                for r in group:
+                    n = r.ids.shape[0]
+                    res = arr[row:row + n]
+                    if eos is not None and arr.shape[1] > prompt_len:
+                        # cut co-batch eos padding: past the request's own
+                        # rows' first eos everything is eos
+                        gen = res[:, prompt_len:]
+                        hit = gen == eos
+                        stop = int(np.max(np.where(
+                            hit.any(axis=1), hit.argmax(axis=1) + 1,
+                            gen.shape[1])))
+                        res = res[:, :prompt_len + stop]
+                    r.result = res
+                    row += n
+                    r.done.set()
+            except Exception as e:      # noqa: BLE001 — fanned to callers
+                for r in group:
+                    r.error = e
+                    r.done.set()
+
+
+class ContinuousServingEngine(_Engine):
+    """Thread-safe continuous-batching ``generate`` front end with greedy
+    decoding, chunked prefill and a prefix cache.
+
+    ``device=None`` means ``"cuda"`` (raises where CUDA is absent); the
+    model's parameters must live on that device. ``enable_ragged`` picks
+    the ragged scheduler (default) or the legacy two-program one;
+    ``ragged_impl`` picks the ragged attention grid, ``"qblock"`` or
+    ``"token"``."""
+
+    def __init__(self, model, max_batch_size=8, page_size=16, max_len=2048,
+                 pad_token_id=0, prefill_chunk_tokens=None,
+                 enable_prefix_cache=True, num_pages=None,
+                 token_budget=None, enable_ragged=True,
+                 ragged_impl="qblock", device=None):
+        super().__init__()
+        self.device = _engine_device(model, device)
+        self.model = model
+        self.max_batch = int(max_batch_size)
+        self.page_size = int(page_size)
+        self.max_len = int(max_len)
+        self.pad_token_id = int(pad_token_id)
+        self.enable_prefix_cache = bool(enable_prefix_cache)
+        if prefill_chunk_tokens is None:
+            prefill_chunk_tokens = DEFAULT_PREFILL_CHUNK_TOKENS
+        self.chunk_tokens = max(int(prefill_chunk_tokens), 1)
+        if token_budget is None:
+            token_budget = DEFAULT_SERVING_TOKEN_BUDGET
+        # every live decode slot is entitled to its token per tick, so
+        # the budget never starves decode
+        self.token_budget = max(int(token_budget), self.max_batch, 1)
+        self.num_pages = num_pages
+        self.enable_ragged = bool(enable_ragged)
+        self.ragged_impl = ragged_impl
+        self._cache = None
+        self.ragged_steps = 0          # ragged packed forwards run
+        self.prefill_chunks = 0        # legacy: chunk forwards run
+        self.prefill_chunk_buckets = Counter()   # legacy: padded size -> n
+        self.decode_steps = 0          # legacy: fixed-shape decode steps
+        # padded counts every token position a forward processed, useful
+        # only the real ones
+        self.padded_tokens_total = 0
+        self.useful_tokens_total = 0
+
+    @property
+    def prefix_hits(self):
+        """Prompt blocks served from the prefix index by the live cache."""
+        return 0 if self._cache is None else self._cache.prefix_hits
+
+    def generate(self, input_ids, max_new_tokens=32, timeout=None,
+                 eos_token_id=None):
+        """Greedy-decode ``input_ids`` (``[s]`` or ``[rows, s]``, array or
+        tensor) and block until done. Returns an int64 CPU tensor
+        ``[rows, s + generated]``; rows that stop early at
+        ``eos_token_id`` are padded with it."""
+        ids = _as_ids(input_ids)
+        if max_new_tokens <= 0:
+            return torch.as_tensor(ids)
+        if ids.shape[1] + max_new_tokens > self.max_len:
+            # fail THIS request up front: overflowing after admission
+            # would fail every co-scheduled request with it
+            raise ValueError(
+                f"request needs {ids.shape[1]} + {max_new_tokens} tokens "
+                f"> engine max_len {self.max_len}")
+        return self._submit(_Request(ids, max_new_tokens,
+                                     eos_token_id=eos_token_id), timeout)
 
     # -- scheduler ----------------------------------------------------------
     def _new_cache(self):
@@ -314,9 +482,10 @@ class ContinuousServingEngine:
         req.result = out
         req.done.set()
 
-    def _serve_ragged(self):
+    def _serve(self):
         was_training = self.model.training
         self.model.eval()
+        tick = self._tick if self.enable_ragged else self._legacy_tick
         try:
             cache = self._new_cache()
             free: deque = deque(range(self.max_batch))
@@ -379,7 +548,7 @@ class ContinuousServingEngine:
                 try:
                     if self._running:
                         self._admit(cache, free, active, pending, prefill_q)
-                    self._tick(cache, free, active, prefill_q)
+                    tick(cache, free, active, prefill_q)
                 except Exception as e:      # noqa: BLE001 — fail in-flight
                     reqs = {r.req for r in pending}
                     reqs |= {r.req for r in active if r is not None}
@@ -459,3 +628,59 @@ class ContinuousServingEngine:
             if row is None or row.done:
                 continue
             self._push_token(cache, free, active, slot, int(greedy[qs]))
+
+    # -- legacy two-program scheduler ---------------------------------------
+    def _legacy_tick(self, cache, free, active, prefill_q):
+        """One prefill chunk for the longest-waiting mid-prefill slot,
+        then one fixed-shape decode step for every decoding slot."""
+        if prefill_q:
+            self._prefill_chunk(cache, free, active, prefill_q)
+        mask = np.asarray([r is not None and r.state == "decode"
+                           for r in active])
+        n_active = int(mask.sum())
+        if not n_active:
+            return
+        cache.begin_decode(mask)
+        cur = np.full((self.max_batch, 1), self.pad_token_id, np.int64)
+        for i, r in enumerate(active):
+            if mask[i]:
+                cur[i, 0] = r.generated[-1] if r.generated else r.prompt[-1]
+        pos = cache.lens.astype(np.int64)[:, None]
+        logits = self.model.forward(cur, cache=cache, position_ids=pos)
+        greedy = logits[:, -1].float().argmax(-1).cpu().numpy()
+        self.decode_steps += 1
+        # the fixed-shape step spends a token position on every slot
+        self.padded_tokens_total += self.max_batch
+        self.useful_tokens_total += n_active
+        for i in np.nonzero(mask)[0]:
+            self._push_token(cache, free, active, int(i), int(greedy[i]))
+
+    def _prefill_chunk(self, cache, free, active, prefill_q):
+        """Run one bucket-padded prefill chunk for ``prefill_q[0]``. On the
+        prompt's last chunk, register its full blocks in the prefix index
+        and hand the row its first token."""
+        slot = prefill_q[0]
+        row = active[slot]
+        start = int(cache.lens[slot])
+        n_valid = min(self.chunk_tokens, row.prompt.shape[0] - start)
+        padded = _chunk_bucket(n_valid, self.chunk_tokens)
+        chunk = np.full(padded, self.pad_token_id, np.int64)
+        chunk[:n_valid] = row.prompt[start:start + n_valid]
+        # pad positions repeat the last real one: their output is
+        # discarded, and they stay inside the rope table
+        pos = np.minimum(np.arange(start, start + padded),
+                         start + n_valid - 1)
+        cache.begin_prefill(slot, n_valid)
+        logits = self.model.forward(chunk[None], cache=cache,
+                                    position_ids=pos)
+        self.prefill_chunks += 1
+        self.prefill_chunk_buckets[padded] += 1
+        self.padded_tokens_total += padded
+        self.useful_tokens_total += n_valid
+        if start + n_valid < row.prompt.shape[0]:
+            return
+        prefill_q.popleft()
+        cache.commit_prefix(slot)
+        row.state = "decode"
+        self._push_token(cache, free, active, slot,
+                         int(logits[0, n_valid - 1].float().argmax()))

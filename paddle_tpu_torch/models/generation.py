@@ -1,14 +1,24 @@
-"""Slot-paged KV cache for continuous batching (port of the native-page,
-ragged-mode parts of ``paddle_tpu/models/generation.py``).
+"""Autoregressive generation and the KV caches behind it (port of the
+native-page parts of ``paddle_tpu/models/generation.py``).
 
-Every slot has its own context length and lifecycle over one shared,
-refcounted page pool: a slot is **assigned** a prompt on admission
-(leading full blocks that hit the hash-chained prefix index map onto
-already-filled pages), runs **ragged** ticks that write its new tokens'
-K/V and attend its whole context, and is **freed** on completion. Page 0
-is a scratch page that is never allocated: padding tokens write there
-and unused table entries point there. Writing into a shared page
-(refcount > 1 or registered in the prefix index) copies it first.
+* :class:`KVCache`: per-layer concat cache for ``generate`` and beam
+  search.
+* :class:`PagedKVCache`: one uniform batch over fixed pages; the prompt
+  prefills densely through SDPA, every decode step runs the paged decode
+  kernel.
+* :class:`SlotPagedKVCache`: continuous batching. Every slot has its own
+  context length and lifecycle over one shared, refcounted page pool: a
+  slot is **assigned** a prompt on admission (leading full blocks that hit
+  the hash-chained prefix index map onto already-filled pages), then
+  either runs **ragged** ticks (its new tokens packed with other slots'
+  into one flat batch) or, under the legacy scheduler, **prefill** chunks
+  and fixed-shape ``[max_batch, 1]`` **decode** steps, and is **freed** on
+  completion. Page 0 is a scratch page that is never allocated: padding
+  tokens and idle decode rows write there and unused table entries point
+  there. Writing into a shared page (refcount > 1 or registered in the
+  prefix index) copies it first.
+* :class:`GenerationMixin`: ``generate`` (greedy, seeded sampling, beam
+  search) for a causal LM whose forward takes ``cache=``.
 """
 from __future__ import annotations
 
@@ -18,6 +28,8 @@ from collections import OrderedDict, deque
 import numpy as np
 import torch
 
+from ..nn.functional import scaled_dot_product_attention
+from ..ops.paged_attention import paged_attention
 from ..ops.ragged_paged_attention import make_plan, ragged_paged_attention
 
 
@@ -37,11 +49,155 @@ def block_hash_chain(tokens, page_size, parent=b""):
     return out
 
 
+def _page_gather(pages, table):
+    """Read pages back as dense sequences: ``pages [kv, num_pages, P, d]``
+    and ``table [..., n]`` -> ``[..., n * P, kv, d]``."""
+    g = pages[:, table].movedim(0, -2)            # [..., n, P, kv, d]
+    return g.reshape(*g.shape[:-4], -1, *g.shape[-2:])
+
+
+class KVCache:
+    """Per-attention-layer concat cache. ``update`` returns the full K/V so
+    far (including the new tokens); ``pos`` is the filled length, advanced
+    once per model forward."""
+
+    def __init__(self):
+        self.pos = 0
+        self._store = {}
+
+    def update(self, layer, k_new, v_new):
+        key = id(layer)
+        if key in self._store:
+            k_old, v_old = self._store[key]
+            k = torch.cat([k_old, k_new], dim=1)
+            v = torch.cat([v_old, v_new], dim=1)
+        else:
+            k, v = k_new, v_new
+        self._store[key] = (k.detach(), v.detach())
+        return k, v
+
+    def advance(self, s):
+        self.pos += int(s)
+
+    def reorder(self, idx):
+        """Gather the cache along the batch axis (beam-search hop: beam
+        ``b``'s continuation may extend a different parent beam)."""
+        for key, (k, v) in self._store.items():
+            i = torch.as_tensor(idx, device=k.device)
+            self._store[key] = (k[i], v[i])
+
+    def reset(self):
+        self.pos = 0
+        self._store.clear()
+
+    def attend(self, layer, q, k, v):
+        """Update the store with this step's K/V and attend over all of it:
+        ``q [b, s, heads, d]`` -> ``[b, s, heads, d]``."""
+        k, v = self.update(layer, k, v)
+        return scaled_dot_product_attention(q, k, v, is_causal=True)
+
+
+class PagedKVCache(KVCache):
+    """Paged (block-table) KV cache for one batch decoded in lockstep.
+
+    K/V live in fixed-size pages ``[kv_heads, num_pages, page_size, d]``
+    per attention layer, and a block table shared by the layers maps each
+    sequence's positions to its pages. The allocation is static and
+    contiguous: sequence ``b`` owns pages ``[b * pps, (b + 1) * pps)``, so
+    there is no scratch page. Prefill writes the prompt's K/V into the
+    pages and attends densely through SDPA (reading a prefix back from the
+    pages when the cache already holds one); every decode step writes one
+    position and runs :func:`paged_attention` with ``ctx = pos + 1``."""
+
+    def __init__(self, page_size=16, max_len=2048):
+        super().__init__()
+        self.page_size = int(page_size)
+        self.max_len = int(max_len)
+        self.pages_per_seq = -(-self.max_len // self.page_size)
+        self._pools = {}          # id(layer) -> (k_pages, v_pages)
+        self._tables = None       # [batch, pages_per_seq] int32
+        self._batch = None
+        self._idx_key = None
+        self._idx = None
+
+    def reset(self):
+        super().reset()
+        self._pools.clear()
+        self._tables = None
+        self._batch = None
+        self._idx_key = None
+        self._idx = None
+
+    def _ensure_tables(self, batch):
+        if self._tables is None:
+            self._batch = batch
+            self._tables = (np.arange(batch)[:, None] * self.pages_per_seq
+                            + np.arange(self.pages_per_seq)[None, :]
+                            ).astype(np.int32)
+        return self._tables
+
+    def _pool(self, layer, kv_heads, d, dtype, device, batch):
+        key = id(layer)
+        if key not in self._pools:
+            shape = (kv_heads, batch * self.pages_per_seq, self.page_size, d)
+            self._pools[key] = (torch.zeros(shape, dtype=dtype, device=device),
+                                torch.zeros(shape, dtype=dtype, device=device))
+        return self._pools[key]
+
+    def _step_indices(self, start, s, b, device):
+        """Scatter and kernel indices of this step, the same for every
+        layer: computed once per (start, s, batch)."""
+        key = (start, s, b)
+        if self._idx_key != key:
+            pos = np.arange(start, start + s)
+            self._idx = (
+                torch.from_numpy(self._tables[:, pos // self.page_size]
+                                 .astype(np.int64)).to(device),     # [b, s]
+                torch.from_numpy(np.broadcast_to(
+                    pos % self.page_size, (b, s)).astype(np.int64)).to(device),
+                torch.from_numpy(self._tables).to(device),
+                torch.full((b,), start + s, dtype=torch.int32, device=device))
+            self._idx_key = key
+        return self._idx
+
+    def attend(self, layer, q, k, v):
+        b, s, kv_heads, d = k.shape
+        if self._batch is not None and self._batch != b:
+            raise ValueError(f"PagedKVCache was allocated for batch "
+                             f"{self._batch}, got {b}; call reset() first")
+        self._ensure_tables(b)
+        k_pages, v_pages = self._pool(layer, kv_heads, d, k.dtype, k.device,
+                                      b)
+        start = self.pos
+        if start + s > self.max_len:
+            raise ValueError(f"PagedKVCache overflow: {start}+{s} > "
+                             f"{self.max_len}")
+        page_ids, slot_ids, tables, ctx = self._step_indices(start, s, b,
+                                                             k.device)
+        # in place: the pool is ours ([kv, b, s, d] rows from [b, s, kv, d])
+        k_pages[:, page_ids, slot_ids] = k.permute(2, 0, 1, 3)
+        v_pages[:, page_ids, slot_ids] = v.permute(2, 0, 1, 3)
+        if s > 1:
+            if start > 0:
+                # a reused cache or chunked prefill: read the whole prefix
+                # back; SDPA's bottom-right causal alignment handles sq != sk
+                n_pages = -(-(start + s) // self.page_size)
+                tb = torch.from_numpy(self._tables[:, :n_pages]
+                                      .astype(np.int64)).to(k.device)
+                k = _page_gather(k_pages, tb)[:, :start + s]
+                v = _page_gather(v_pages, tb)[:, :start + s]
+            return scaled_dot_product_attention(q, k, v, is_causal=True)
+        return paged_attention(q[:, 0], k_pages, v_pages, tables, ctx)[:, None]
+
+
 class SlotPagedKVCache:
     """Per-slot paged KV cache over a shared refcounted page pool.
 
-    ``ragged_impl`` picks the attention grid: ``"qblock"`` (the default)
-    or ``"token"`` (the per-token escape hatch)."""
+    Each forward is armed by one of :meth:`begin_ragged` (the ragged
+    scheduler), :meth:`begin_prefill` or :meth:`begin_decode` (the legacy
+    two-program scheduler). ``ragged_impl`` picks the ragged attention
+    grid: ``"qblock"`` (the default) or ``"token"`` (the per-token escape
+    hatch)."""
 
     def __init__(self, max_batch, page_size=16, max_len=2048,
                  num_pages=None, enable_prefix_cache=True,
@@ -67,8 +223,10 @@ class SlotPagedKVCache:
                                 np.int32)
         self._n_blocks = np.zeros(self.max_batch, np.int32)
         self.lens = np.zeros(self.max_batch, np.int32)   # filled ctx/slot
-        self._mode = None
+        self._mode = None        # ("ragged", spans) | ("prefill", slot)
+        #                          | ("decode", active mask)
         self._idx = None                  # per-forward index memo
+        self._prefill_valid = None        # real tokens of a padded chunk
         self.prefix_hits = 0              # full blocks served from the index
         self.prefix_misses = 0            # full blocks that had to prefill
         self.cow_copies = 0
@@ -138,6 +296,17 @@ class SlotPagedKVCache:
     def free_page_count(self):
         return len(self._free)
 
+    @property
+    def used_page_count(self):
+        return self.num_pages - 1 - len(self._free)
+
+    @property
+    def page_nbytes(self):
+        """Device bytes one page pins across every layer's K and V pools;
+        0 until the first forward allocates the pools."""
+        total = sum(kp.nbytes + vp.nbytes for kp, vp in self._pools.values())
+        return total // self.num_pages if total else 0
+
     # -- engine-facing lifecycle -------------------------------------------
     def assign(self, slot, prompt):
         """Admission: map the prompt's leading full blocks that hit the
@@ -193,6 +362,26 @@ class SlotPagedKVCache:
             registered += 1
         return registered
 
+    def begin_prefill(self, slot, n_valid=None):
+        """Arm the next forward as a prefill chunk for ``slot``, writing at
+        position ``lens[slot]``. ``n_valid`` counts the real tokens when the
+        engine pads the chunk to a bucket: pad positions write to the
+        scratch page and do not advance the context."""
+        self._mode = ("prefill", int(slot))
+        self._idx = None
+        self._prefill_valid = None if n_valid is None else int(n_valid)
+
+    def begin_decode(self, active_mask):
+        """Arm the next forward as one fixed-shape ``[max_batch, 1]``
+        decode step; slots where ``active_mask`` is true write and read
+        their own pages, the others write to the scratch page."""
+        mask = np.asarray(active_mask, bool)
+        self._mode = ("decode", mask)
+        self._idx = None
+        for i in np.nonzero(mask)[0]:
+            self._ensure_blocks(int(i), int(self.lens[i]) + 1)
+            self._make_writable(int(i), int(self.lens[i]) // self.page_size)
+
     def begin_ragged(self, spans):
         """Arm the next forward as one ragged mixed prefill+decode step.
         ``spans`` lists ``(slot, q_start, n_new)``: the slot's next
@@ -224,15 +413,22 @@ class SlotPagedKVCache:
 
     @property
     def pos(self):
-        # the engine always passes explicit per-token positions
+        # a prefill chunk starts at its slot's length; the engines pass
+        # explicit per-token positions for the other modes
+        if self._mode and self._mode[0] == "prefill":
+            return int(self.lens[self._mode[1]])
         return 0
 
     def advance(self, s):
-        mode, spans = self._mode
-        if mode != "ragged":
-            raise RuntimeError(f"advance in mode {mode!r}")
-        for slot, _, n_new in spans:
-            self.lens[slot] += n_new
+        mode, arg = self._mode
+        if mode == "prefill":
+            n = self._prefill_valid
+            self.lens[arg] += int(s) if n is None else min(int(s), n)
+        elif mode == "ragged":
+            for slot, _, n_new in arg:
+                self.lens[slot] += n_new
+        else:                                  # decode: the active mask
+            self.lens[arg] += 1
 
     def _pool(self, layer, kv_heads, d, dtype, device):
         key = id(layer)
@@ -253,17 +449,99 @@ class SlotPagedKVCache:
 
     # -- attention ----------------------------------------------------------
     def attend(self, layer, q, k, v):
-        """Ragged attention for one layer: scatter this tick's K/V, then
-        read every span's whole context back from the pages. ``q [1, s,
-        heads, d]``, ``k``/``v [1, s, kv_heads, d]`` -> ``[1, s, heads,
-        d]``."""
-        mode, spans = self._mode
-        if mode != "ragged":
-            raise RuntimeError(f"attend in mode {mode!r}")
+        """Attention for one layer in the armed mode. ``q [b, s, heads,
+        d]``, ``k``/``v [b, s, kv_heads, d]`` -> ``[b, s, heads, d]``."""
+        mode, arg = self._mode
+        b, s, kv_heads, d = k.shape
+        k_pages, v_pages = self._pool(layer, kv_heads, d, k.dtype, k.device)
+        if mode == "prefill":
+            return self._attend_prefill(arg, q, k, v, k_pages, v_pages)
+        if mode == "decode":
+            return self._attend_decode(arg, q, k, v, k_pages, v_pages)
+        return self._attend_ragged(arg, q, k, v, k_pages, v_pages)
+
+    def _attend_prefill(self, slot, q, k, v, k_pages, v_pages):
+        """One chunk of one slot: write its K/V into the pages, then attend
+        densely through SDPA. With context already in the slot (a chunk
+        after the first, or a prefix hit) the whole prefix is read back
+        from the pages; table entries past the allocated blocks are the
+        scratch page, whose keys sit past every real query's causal window
+        and are seen only by pad queries."""
         b, s, kv_heads, d = k.shape
         if b != 1:
+            raise ValueError("a prefill chunk holds one sequence")
+        start = int(self.lens[slot])
+        n_valid = s if self._prefill_valid is None \
+            else min(self._prefill_valid, s)
+        if start + n_valid > self.max_len:
+            raise ValueError(f"slot overflow: {start}+{n_valid} > "
+                             f"{self.max_len}")
+        if self._idx is None:       # shared by every layer of the forward
+            self._ensure_blocks(slot, start + n_valid)
+            for blk in range(start // self.page_size,
+                             -(-(start + n_valid) // self.page_size)):
+                self._make_writable(slot, blk)
+            pos = np.arange(start, start + s)
+            valid = pos < start + n_valid
+            # a padded chunk may run past the table: pad positions write
+            # to the scratch page
+            blk_ids = np.minimum(pos // self.page_size,
+                                 self.pages_per_seq - 1)
+            page_ids = np.where(valid, self._tables[slot, blk_ids], 0)
+            slot_ids = np.where(valid, pos % self.page_size, 0)
+            n_pages = min(-(-(start + s) // self.page_size),
+                          self.pages_per_seq)
+            table = self._tables[slot, :n_pages].astype(np.int64)
+            self._idx = tuple(torch.from_numpy(a.astype(np.int64)).to(
+                k.device) for a in (page_ids, slot_ids, table))
+        page_ids, slot_ids, table = self._idx
+        self._scatter(k_pages, v_pages, k[0].transpose(0, 1),
+                      v[0].transpose(0, 1), page_ids, slot_ids)
+        if start > 0:
+            kf = _page_gather(k_pages, table)
+            vf = _page_gather(v_pages, table)
+            pad = start + s - kf.shape[0]
+            if pad > 0:
+                # the padded chunk ran past the table: zero keys past it
+                # keep SDPA's bottom-right alignment, and only pad queries
+                # see them
+                kf = torch.nn.functional.pad(kf, (0, 0, 0, 0, 0, pad))
+                vf = torch.nn.functional.pad(vf, (0, 0, 0, 0, 0, pad))
+            k, v = kf[None, :start + s], vf[None, :start + s]
+        return scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def _attend_decode(self, mask, q, k, v, k_pages, v_pages):
+        """One token for every slot (fixed shape), each at its own
+        position. Inactive slots write to the scratch page and read with
+        ``ctx = 1``: a finite, discarded result."""
+        b, s = k.shape[:2]
+        if b != self.max_batch or s != 1:
+            raise ValueError(f"a decode step is [{self.max_batch}, 1], got "
+                             f"[{b}, {s}]")
+        if self._idx is None:       # shared by every layer of the forward
+            lens = self.lens.copy()
+            wr_blk = np.minimum(lens // self.page_size, self.pages_per_seq - 1)
+            page_ids = np.where(mask, self._tables[np.arange(b), wr_blk], 0)
+            slot_ids = np.where(mask, lens % self.page_size, 0)
+            ctx = np.where(mask, lens + 1, 1).astype(np.int32)
+            dev = k.device
+            self._idx = (torch.from_numpy(page_ids.astype(np.int64)[:, None]
+                                          ).to(dev),
+                         torch.from_numpy(slot_ids.astype(np.int64)[:, None]
+                                          ).to(dev),
+                         torch.from_numpy(self._tables.copy()).to(dev),
+                         torch.from_numpy(ctx).to(dev))
+        page_ids, slot_ids, tables, ctx = self._idx
+        self._scatter(k_pages, v_pages, k.permute(2, 0, 1, 3),
+                      v.permute(2, 0, 1, 3), page_ids, slot_ids)
+        return paged_attention(q[:, 0], k_pages, v_pages, tables, ctx)[:, None]
+
+    def _attend_ragged(self, spans, q, k, v, k_pages, v_pages):
+        """Scatter this tick's K/V, then read every span's whole context
+        back from the pages through the ragged kernel."""
+        b, s = k.shape[:2]
+        if b != 1:
             raise ValueError("a ragged step packs one flat token batch")
-        k_pages, v_pages = self._pool(layer, kv_heads, d, k.dtype, k.device)
         if self._idx is None:       # shared by every layer of the forward
             page_ids = np.zeros(s, np.int64)     # default: scratch page
             slot_ids = np.zeros(s, np.int64)
@@ -289,3 +567,157 @@ class SlotPagedKVCache:
         out = ragged_paged_attention(q[0], k_pages, v_pages, tables, *desc,
                                      impl=self.ragged_impl, plan=plan)
         return out[None]
+
+
+def _step_generator(seed, step, device):
+    """The generator of sampling step ``step`` under ``seed``: a function
+    of the pair alone, so step ``i`` draws the same numbers whatever ran
+    before it (the reference folds the step into its PRNG key)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(seed) * 1_000_003 + int(step)) % (1 << 63))
+    return gen
+
+
+def _sample_logits(logits, do_sample, top_k, top_p, temperature,
+                   generator=None):
+    """``logits [b, V]`` (float) -> token ids ``[b]`` (int64).
+
+    Greedy unless ``do_sample``; otherwise temperature, then top-k, then
+    top-p (nucleus) filtering as the reference writes them
+    (``generation.py:1449-1461``), then one categorical draw per row from
+    ``generator`` (the global generator when ``None``)."""
+    if not do_sample:
+        return logits.argmax(-1)
+    logits = logits / max(temperature, 1e-6)
+    if top_k:
+        kth = logits.sort(-1).values[:, -int(top_k)][:, None]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    if top_p and top_p < 1.0:
+        sorted_l = logits.sort(-1, descending=True).values
+        probs = torch.softmax(sorted_l, -1).cumsum(-1)
+        cutoff = (probs < top_p).sum(-1).clamp_max(logits.shape[-1] - 1)
+        kth = sorted_l.gather(-1, cutoff[:, None])
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    return torch.multinomial(torch.softmax(logits, -1), 1,
+                             generator=generator)[:, 0]
+
+
+class GenerationMixin:
+    """Adds ``generate`` to causal-LM modules whose forward accepts
+    ``cache=`` (``supports_cache = True``); others recompute the whole
+    sequence every step."""
+
+    supports_cache = False
+
+    @torch.inference_mode()
+    def generate(self, input_ids, max_new_tokens=32, max_length=None,
+                 do_sample=False, top_k=0, top_p=1.0, temperature=1.0,
+                 eos_token_id=None, num_beams=1, length_penalty=1.0,
+                 seed=None, cache=None, use_paged_cache=False, page_size=16):
+        """Returns the ids ``[b, prompt + new]`` as an int64 tensor on the
+        model's device, prompt included. ``max_length`` overrides
+        ``max_new_tokens`` as the total length. ``use_paged_cache`` decodes
+        over a :class:`PagedKVCache` of ``page_size`` pages (paged decode
+        kernel) instead of the concat :class:`KVCache`. Rows that emit
+        ``eos_token_id`` continue with it; generation stops once every
+        row has. ``num_beams > 1`` runs beam search (greedy only).
+        ``seed`` makes sampled decode reproducible: step ``i`` draws from
+        a generator that depends on ``(seed, i)`` alone."""
+        dev = next(self.parameters()).device
+        ids = (input_ids.to(dev, torch.int64)
+               if isinstance(input_ids, torch.Tensor)
+               else torch.as_tensor(np.asarray(input_ids), dtype=torch.int64,
+                                    device=dev))
+        if ids.dim() == 1:
+            ids = ids[None]
+        if max_length is not None:
+            max_new_tokens = max(int(max_length) - ids.shape[1], 0)
+        if num_beams > 1:
+            if do_sample:
+                raise ValueError("beam search requires do_sample=False")
+            return self._beam_search(ids, max_new_tokens, num_beams,
+                                     eos_token_id, length_penalty)
+        was_training = self.training
+        self.eval()
+        try:
+            if cache is None and self.supports_cache:
+                cache = (PagedKVCache(page_size=page_size,
+                                      max_len=ids.shape[1] + max_new_tokens)
+                         if use_paged_cache else KVCache())
+            cur, all_ids = ids, ids
+            finished = torch.zeros(ids.shape[0], dtype=torch.bool,
+                                   device=dev)
+            for step in range(max_new_tokens):
+                logits = (self(cur, cache=cache) if cache is not None
+                          else self(all_ids))
+                gen = None if seed is None else _step_generator(seed, step,
+                                                                dev)
+                nxt = _sample_logits(logits[:, -1].float(), do_sample, top_k,
+                                     top_p, temperature, gen)
+                if eos_token_id is not None:
+                    nxt = torch.where(finished, int(eos_token_id), nxt)
+                    finished |= nxt == eos_token_id
+                all_ids = torch.cat([all_ids, nxt[:, None]], dim=1)
+                cur = nxt[:, None]
+                if eos_token_id is not None and bool(finished.all()):
+                    break
+            return all_ids
+        finally:
+            if was_training:
+                self.train()
+
+    def _beam_search(self, ids, max_new_tokens, num_beams, eos_token_id,
+                     length_penalty):
+        """Batched beam search over the concat cache (a beam hop gathers
+        whole rows, which paged pools owned per sequence cannot alias)."""
+        was_training = self.training
+        self.eval()
+        try:
+            dev = ids.device
+            b = ids.shape[0]
+            n = int(num_beams)
+            all_ids = ids.repeat_interleave(n, dim=0)          # [b*n, s]
+            cache = KVCache() if self.supports_cache else None
+            # beam 0 carries the prompt; the others start dead so the
+            # first step does not pick n copies of one continuation
+            scores = torch.tensor([0.0] + [float("-inf")] * (n - 1),
+                                  device=dev).repeat(b)        # [b*n]
+            finished = torch.zeros(b * n, dtype=torch.bool, device=dev)
+            lengths = torch.zeros(b * n, device=dev)
+            cur = all_ids
+            for step in range(max_new_tokens):
+                logits = (self(cur, cache=cache) if cache is not None
+                          else self(all_ids))
+                lp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+                vocab = lp.shape[-1]
+                if eos_token_id is not None:
+                    # a finished beam only continues with EOS, at no cost
+                    frozen = torch.full((vocab,), float("-inf"), device=dev)
+                    frozen[int(eos_token_id)] = 0.0
+                    lp = torch.where(finished[:, None], frozen[None], lp)
+                total = scores[:, None] + lp                   # [b*n, V]
+                top_s, top_i = total.reshape(b, n * vocab).topk(n, dim=-1)
+                parent = (top_i // vocab
+                          + torch.arange(b, device=dev)[:, None] * n
+                          ).reshape(-1)
+                token = (top_i % vocab).reshape(-1)
+                scores = top_s.reshape(-1)
+                all_ids = torch.cat([all_ids[parent], token[:, None]], dim=1)
+                # each hypothesis' length stops at the step EOS fired
+                lengths = torch.where(finished[parent], lengths[parent],
+                                      float(step + 1))
+                finished = finished[parent]
+                if eos_token_id is not None:
+                    finished |= token == eos_token_id
+                if cache is not None:
+                    cache.reorder(parent)
+                cur = token[:, None]
+                if eos_token_id is not None and bool(finished.all()):
+                    break
+            norm = scores / lengths.clamp_min(1.0) ** float(length_penalty)
+            best = norm.reshape(b, n).argmax(-1) \
+                + torch.arange(b, device=dev) * n
+            return all_ids[best]
+        finally:
+            if was_training:
+                self.train()

@@ -14,6 +14,7 @@ from .._device import resolve_device
 from ..nn.functional import scaled_dot_product_attention
 from ..nn.norm import RMSNorm
 from ..ops import fused
+from .generation import GenerationMixin
 
 
 class LlamaConfig:
@@ -164,14 +165,17 @@ class LlamaModel(nn.Module):
         return hidden
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(GenerationMixin, nn.Module):
     """``LlamaForCausalLM(config, device=None, seed=0)``.
 
     ``device=None`` means ``"cuda"`` and raises where CUDA is absent. The
     parameters are allocated directly on ``device`` in ``config.dtype``
     and filled from a ``torch.Generator`` seeded with ``seed``: linear
     and embedding weights from N(0, initializer_range), norm weights 1.
+    ``generate`` comes from :class:`GenerationMixin`.
     """
+
+    supports_cache = True
 
     def __init__(self, config, device=None, seed=0):
         super().__init__()

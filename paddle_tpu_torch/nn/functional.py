@@ -1,4 +1,4 @@
-"""Attention functional (port of the plain path of
+"""Attention functional (port of
 ``paddle_tpu/nn/functional/common.py:571``)."""
 from __future__ import annotations
 
@@ -6,19 +6,24 @@ import math
 
 import torch
 
+from ..ops.flash_attention import flash_attention
+
 
 def scaled_dot_product_attention(query, key, value, is_causal=False):
     """Attention over ``[batch, seq, heads, head_dim]`` tensors, with
     grouped-query heads (``key`` may have fewer heads than ``query``) and
     bottom-right causal alignment when ``seq_q != seq_k``.
 
-    Where the reference takes its flash kernel (no mask, ``seq_q >= 128``
-    and ``head_dim % 64 == 0``) a CUDA tensor raises: that kernel is not
-    ported yet, and the plain path is no stand-in for it. Elsewhere the
-    plain grouped einsum runs, with the softmax in float32."""
+    Where the reference takes its flash kernel (``seq_q >= 128`` and
+    ``head_dim % 64 == 0``) this goes to :func:`flash_attention` on either
+    device, with query ``i`` at position ``seq_k - seq_q + i``: the kernel
+    on a CUDA tensor, its plain version on a CPU one. Elsewhere the plain
+    grouped einsum runs, with the softmax in float32. The reference's
+    long-sequence chunked route is not ported."""
     sq, d = query.shape[1], query.shape[-1]
-    if query.is_cuda and sq >= 128 and d % 64 == 0:
-        raise NotImplementedError("flash attention kernel: next slice")
+    if sq >= 128 and d % 64 == 0:
+        return flash_attention(query, key, value, causal=is_causal,
+                               q_offset=key.shape[1] - sq)
     scale = 1.0 / math.sqrt(d)
     qt, kt, vt = (x.transpose(1, 2) for x in (query, key, value))
     b, hq = qt.shape[:2]

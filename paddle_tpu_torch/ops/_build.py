@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Each source under ``csrc/`` compiles on its own into a shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds),
-for ``sm_90a``. Libraries land in ``build/kernels/`` at the repository
-root, named by a digest of the source and flags, so an edited source is
+Each source under ``csrc/`` compiles on its own, with the ``.cuh``
+headers beside it, into a shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds), for ``sm_90a``. Libraries
+land in ``build/kernels/`` at the repository root, named by a digest of
+the source, the headers and the flags, so an edited source or header is
 rebuilt and an unchanged one is reused. All sources compile in parallel,
 one ``nvcc`` each. Nothing is built at import: the first call that needs
 a kernel builds it, and a failed build raises.
@@ -19,19 +20,32 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("ragged_paged_attention.cu",)
+SOURCES = ("ragged_paged_attention.cu", "flash_attention.cu",
+           "paged_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: the ``dtype`` argument of every exported kernel function
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 #: argtypes of every exported function, by library stem
 SIGNATURES = {
     "ragged_paged_attention": {
         "ptt_ragged_qblock": [_I] + [_P] * 9 + [_I] * 9 + [_F, _P],
         "ptt_ragged_token": [_I] + [_P] * 7 + [_I] * 7 + [_F, _P],
+    },
+    "flash_attention": {
+        "ptt_flash_fwd": [_I] + [_P] * 5 + [_L] * 12 + [_I] * 11 + [_F, _P],
+    },
+    "paged_attention": {
+        "ptt_paged_decode": [_I] + [_P] * 6 + [_I] * 7 + [_F, _P],
     },
 }
 
@@ -49,7 +63,10 @@ def _nvcc():
 
 def _target(source):
     src = CSRC / source
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    # the shared headers are part of every source's digest
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()
                           ).hexdigest()[:12]
     return src, BUILD_DIR / f"{src.stem}_{digest}.so"
 
@@ -102,3 +119,25 @@ def load_kernels():
             lib.ptt_error_string.restype = ctypes.c_char_p
             ns.ptt_error_string = lib.ptt_error_string
     return ns
+
+
+def dtype_code(dtype):
+    """The kernels' code for ``dtype``; raises for a type they lack."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {dtype}; the kernels take "
+                        f"{list(_DTYPE_CODE)}")
+    return _DTYPE_CODE[dtype]
+
+
+def launch(fn_name, device, args):
+    """Call the exported ``fn_name`` with ``args`` (ctypes values) on
+    ``device``'s current stream. The C side returns the cudaError_t of
+    its shared-memory request and launch; any error raises (an oversized
+    block is refused by cudaFuncSetAttribute)."""
+    lib = load_kernels()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: "
+                           f"{lib.ptt_error_string(rc).decode()} ({rc})")

@@ -40,6 +40,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import _build
+
 #: causal mask inside a row's own pages (``paged_attention.py:52``)
 NEG_INF = float("-inf")
 
@@ -268,15 +270,10 @@ def token_attention_plain(q, k_pages, v_pages, plan, sm_scale):
 # the plain version, anything else raises
 # ---------------------------------------------------------------------------
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-
 def _check_cuda_inputs(q, k_pages, v_pages, plan, impl):
     if plan.impl != impl:
         raise ValueError(f"plan was built for {plan.impl!r}, not {impl!r}")
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"unsupported dtype {q.dtype}; the kernel takes "
-                        f"{list(_DTYPE_CODE)}")
+    _build.dtype_code(q.dtype)
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
@@ -301,20 +298,6 @@ def _check_cuda_inputs(q, k_pages, v_pages, plan, impl):
                          f"{plan.num_tokens} tokens, page {plan.page_size}")
 
 
-def _launch(fn_name, q, args):
-    """Call ``fn_name`` on q's current stream. The C side returns the
-    cudaError_t of its shared-memory request and launch; any error
-    raises (an oversized block is refused by cudaFuncSetAttribute)."""
-    from . import _build
-    lib = _build.load_kernels()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, fn_name)(*args, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} failed: "
-                           f"{lib.ptt_error_string(rc).decode()} ({rc})")
-
-
 def qblock_attention(q, k_pages, v_pages, plan, sm_scale):
     """Kernel 6 (q-block grid). ``plan`` from :func:`make_plan` with
     ``impl="qblock"``. Counts its launches in ``qblock_attention.launches``."""
@@ -328,13 +311,13 @@ def qblock_attention(q, k_pages, v_pages, plan, sm_scale):
     B, J = plan.dev["job_page"].shape
     out = torch.empty_like(q)
     d = plan.dev
-    args = [ctypes.c_int(_DTYPE_CODE[q.dtype])] + [
+    args = [ctypes.c_int(_build.dtype_code(q.dtype))] + [
         ctypes.c_void_p(t.data_ptr()) for t in (
             q, k_pages, v_pages, out, d["row_slot"], d["row_ctx"],
             d["job_page"], d["job_slot"], d["job_kv"])] + [
         ctypes.c_int(x) for x in (T, H, KVH, D, NP, P, plan.q_block, B, J)
     ] + [ctypes.c_float(sm_scale)]
-    _launch("ptt_ragged_qblock", q, args)
+    _build.launch("ptt_ragged_qblock", q.device, args)
     qblock_attention.launches += 1
     return out
 
@@ -354,14 +337,14 @@ def token_attention(q, k_pages, v_pages, plan, sm_scale):
     KVH, NP, P, _ = k_pages.shape
     d = plan.dev
     out = torch.empty_like(q)
-    args = [ctypes.c_int(_DTYPE_CODE[q.dtype])] + [
+    args = [ctypes.c_int(_build.dtype_code(q.dtype))] + [
         ctypes.c_void_p(t.data_ptr()) for t in (
             q, k_pages, v_pages, out, d["tok_slot"], d["tok_ctx"],
             d["tables"])] + [
         ctypes.c_int(x) for x in (T, H, KVH, D, NP, P,
                                   d["tables"].shape[1])
     ] + [ctypes.c_float(sm_scale)]
-    _launch("ptt_ragged_token", q, args)
+    _build.launch("ptt_ragged_token", q.device, args)
     token_attention.launches += 1
     return out
 

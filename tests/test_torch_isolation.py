@@ -54,3 +54,7 @@ def test_entry_points_refuse_cpu_without_being_asked():
     model = pt.LlamaForCausalLM(pt.llama_tiny(), device="cpu")
     with pytest.raises(RuntimeError):
         pt.ContinuousServingEngine(model)
+    with pytest.raises(RuntimeError):
+        pt.ContinuousServingEngine(model, enable_ragged=False)
+    with pytest.raises(RuntimeError):
+        pt.ServingEngine(model)

@@ -44,10 +44,11 @@ def _prompts():
     return [shared[0]] + base + [shared[1]]
 
 
-def _drive_in_order(eng, prompts, new_tokens):
+def _drive_in_order(eng, prompts, new_tokens, **kw):
     """Submit every request while the serve loop is held at a tick
     boundary, one at a time, so both engines see the same arrival order
-    and admit the same rows on the same tick."""
+    and admit the same rows on the same tick. ``kw`` goes to every
+    ``generate`` call."""
     results = [None] * len(prompts)
     entered, release = threading.Event(), threading.Event()
 
@@ -64,7 +65,7 @@ def _drive_in_order(eng, prompts, new_tokens):
             n = eng._q.qsize()
             t = threading.Thread(target=lambda i=i, p=p: results.__setitem__(
                 i, np.asarray(eng.generate(p, max_new_tokens=new_tokens,
-                                           timeout=300))))
+                                           timeout=300, **kw))))
             t.start()
             threads.append(t)
             deadline = time.monotonic() + 30
