@@ -6,13 +6,16 @@
 Phases, each fatal on error (non-zero exit, no result line):
 
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc, one
-   process per source, all at once;
+   process per source, all at once, and print every kernel's registers
+   and spills from ``ptxas -v``;
 2. kernel parity at Llama-3-8B attention shapes (32 heads, 8 kv heads,
    head_dim 128, page 16): the two ragged kernels on a mixed layout,
    flash attention forward (B1, out and lse) on causal, offset,
-   non-causal and dead-row cases, paged decode (B4) on a batch of 8 with
-   contexts 1-700 and shared pages. Each kernel against its plain
-   PyTorch version in fp32 (TF32 off, tolerance 1e-5) and in bf16
+   non-causal and dead-row cases, the flash backward (B2 dQ, B3 dK/dV)
+   on causal, non-causal ragged, dead-row and lse-cotangent cases, paged
+   decode (B4) on a batch of 8 with contexts 1-700 and shared pages.
+   Each kernel against its plain PyTorch version in fp32 (TF32 off,
+   tolerance 1e-5; for gradients 1e-5 of each one's max) and in bf16
    against the fp32 plain version rounded to bf16 (one bf16 ulp plus the
    fp32 tolerance per element); the ragged kernels also against each
    other in fp32 (1e-5);
@@ -34,20 +37,35 @@ Phases, each fatal on error (non-zero exit, no result line):
       B4 32 x the decode steps, with prefix hits; an instrumented pass
       times every tick and captures layer 0's inputs of a decode step and
       of a flash-sized chunk that reads back a prefix;
+   d. training: Llama-3-8B widths cut to 4 layers (bf16, 1.92 B
+      parameters; AdamW's fp32 master weights and moments leave no room
+      for more on one card), four Paddle-style steps (``loss, logits =
+      model(ids, labels=labels)``, ``loss.backward()``, ``AdamW`` with
+      ``multi_precision``, ``ClipGradByGlobalNorm(1.0)``, warmup into
+      cosine decay) on one repeated 2 x 2048-token batch: the loss finite
+      and falling, B1, B2 and B3 each 4 launches a step; then one step
+      with ``use_recompute``, B1 8. Each step timed (forward, backward,
+      optimizer), with tokens/s and the peak memory; the last step's
+      layer-0 attention inputs and dO are captured;
 4. paths against each other on a two-layer fp32 model at the same widths
    (TF32 off): ``generate`` over the concat and the paged cache, the
    legacy and the ragged engine give identical greedy streams on three
    prompts (47, 300 and 160 tokens); the ragged forward and ``generate``'s
    paged cache give logits within 1e-4 (relative) of the cache-free
-   forward; then every kernel against its plain version (phase 2's rules)
-   on the inputs captured in phase 3;
+   forward; one training step's loss and every gradient through the
+   kernels within 1e-6 and 1e-4 (relative) of the same step with SDPA
+   swapped, for the check only, to dense attention in autograd; then
+   every kernel against its plain version (phase 2's rules) on the
+   inputs captured in phase 3;
 5. timing (CUDA events, median over 50 launches with L2 flushed between
    them) of every kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the bound for the same
    work, all on the inputs captured in phase 3: the ragged kernels at a
-   tick, B1 at the static prefill and at the legacy chunk, B4 at each
-   engine's decode step; the serving numbers of every path, the legacy
-   and ragged ones from uninstrumented runs;
+   tick, B1 at the static prefill, at the legacy chunk and at the
+   training step, B2 and B3 at the training step (against SDPA's
+   backward, whose kernels a profiler trace names), B4 at each engine's
+   decode step; the serving numbers of every path, the legacy and ragged
+   ones from uninstrumented runs, and the training step's;
 6. tick breakdown of the ragged engines: per tick of the instrumented
    passes, the forward, the schedule build and the attention calls, and
    both ragged kernels replayed at every tick shape.
@@ -71,6 +89,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 FP32_TOL = 1e-5
 NEW_TOKENS = 16
+#: the training phase: Llama-3-8B widths cut to 4 layers (AdamW with fp32
+#: master weights and moments needs ~16 B a parameter: 32 layers, 8.0 B
+#: parameters, would need ~128 GB; 4 layers, 1.92 B, ~31 GB)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 2048, 4
 CSRC = "paddle_tpu_torch/csrc/"
 SOURCE = CSRC + "ragged_paged_attention.cu"
 REF = "paddle_tpu/ops/pallas/ragged_paged_attention.py"
@@ -106,6 +128,35 @@ def bf16_err(torch, out, ref32, rows):
 def span_rows(q_starts, q_lens):
     return np.concatenate([np.arange(s, s + n)
                            for s, n in zip(q_starts, q_lens)])
+
+
+def ptxas_summary(build):
+    """Registers and spill bytes of every kernel instantiation, from the
+    ``ptxas -v`` lines in each library's build log (dynamic shared memory
+    is the launch's own, not in the log)."""
+    import re
+    types = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+    for source in build.SOURCES:
+        log_path = build._target(source)[1].with_suffix(".log")
+        entry, spills = None, ""
+        for line in log_path.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                mk = re.search(r"\d+([a-z_]+_kernel)I(\w+?)EEEvNS",
+                               m.group(1))
+                entry = (f"{mk.group(1)}<{mk.group(2)}>" if mk
+                         else m.group(1))
+                for code, name in types.items():
+                    entry = entry.replace(f"<{code}Li", f"<{name}, ")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spills = f"spills {m.group(1)}/{m.group(2)} B"
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                log(f"  ptxas {source}: {entry} {m.group(1)} registers, "
+                    f"{spills}")
+                entry = None
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +271,88 @@ def compare_flash(torch, fa, dev):
             torch, fa, q, k, v, causal, qo, ko,
             f"B1 b={b} sq={sq} sk={sk} causal={causal} q_off={qo} "
             f"kv_off={ko}"))
+    return worst_of(*errs)
+
+
+def grad_err(got, ref):
+    """A gradient against its plain version: max abs error over the
+    plain version's max."""
+    ref = ref.float()
+    return float((got.float() - ref).abs().max()
+                 / ref.abs().max().clamp_min(1e-30))
+
+
+def grad_bf16_err(torch, got, ref32):
+    """A bf16 gradient against its fp32 plain version rounded to bf16:
+    (max abs error, max of error / allowance), the allowance per element
+    one bf16 ulp of the rounded reference plus FP32_TOL of the gradient's
+    max (the fp32 rule, since a gradient sums terms of either sign)."""
+    ref = ref32.float().bfloat16().float()
+    diff = (got.float() - ref).abs()
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    allow = ulp + FP32_TOL * ref32.float().abs().max()
+    return float(diff.max()), float((diff / allow).max())
+
+
+#: B2/B3 parity cases at Llama-3-8B widths: (b, sq, sk, causal, q_offset,
+#: kv_offset, lse cotangent). 384 and 300 rows end mid-tile, 200 x 333 is
+#: ragged on both axes, the kv_offset-40 case has rows 0..39 with no
+#: valid key (their forward is the mean of V, their gradient zero).
+FLASH_BWD_CASES = [(2, 384, 384, True, 0, 0, False),
+                   (1, 200, 333, False, 0, 0, False),
+                   (1, 64, 100, True, 0, 40, False),
+                   (2, 300, 300, True, 0, 0, True)]
+
+
+def compare_flash_bwd_case(torch, fa, q, k, v, dout, g_lse, causal, qo, ko,
+                           label):
+    """B2 and B3 against their plain versions on kernel-layout tensors
+    (strided views allowed), with out and lse from B1 and delta from
+    them: fp32 within FP32_TOL of each gradient's max, bf16 within one
+    ulp plus that (``grad_bf16_err``). Returns the errors."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qx, kx, vx, dx = (t.to(dtype) for t in (q, k, v, dout))
+        out, lse = fa.flash_attention_with_lse(qx, kx, vx, causal, None, qo,
+                                               ko)
+        delta = fa.bwd_delta(out, dx, g_lse)
+        args = (lse, delta, causal, None, qo, ko)
+        got = (fa.flash_bwd_dq(qx, kx, vx, dx, *args),
+               *fa.flash_bwd_dkv(qx, kx, vx, dx, *args))
+        f32 = [t.float() for t in (qx, kx, vx, dx)]
+        ref = (fa.flash_bwd_dq_plain(*f32, *args),
+               *fa.flash_bwd_dkv_plain(*f32, *args))
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            assert g.dtype == dtype and g.shape == r.shape, name
+            if dtype == torch.float32:
+                e = grad_err(g, r)
+                check(f"{label} fp32 {name}", e, FP32_TOL, "max err / max")
+                errs[f"{name}_fp32"] = e
+            else:
+                e, ulps = grad_bf16_err(torch, g, r)
+                check(f"{label} bf16 {name} vs bf16(fp32 plain)", ulps, 1.0,
+                      "max error / (1 bf16 ulp + fp32 tol)")
+                errs[f"{name}_bf16"] = e
+    torch.cuda.synchronize()
+    return errs
+
+
+def compare_flash_bwd(torch, fa, dev):
+    """B2 and B3 on FLASH_BWD_CASES; returns the largest errors."""
+    g = torch.Generator(device=dev).manual_seed(98)
+    errs = []
+    for b, sq, sk, causal, qo, ko, with_lse in FLASH_BWD_CASES:
+        q = torch.randn((b, N_HEADS, sq, HEAD_DIM), generator=g, device=dev)
+        k = torch.randn((b, N_KV, sk, HEAD_DIM), generator=g, device=dev)
+        v = torch.randn((b, N_KV, sk, HEAD_DIM), generator=g, device=dev)
+        dout = torch.randn((b, N_HEADS, sq, HEAD_DIM), generator=g,
+                           device=dev)
+        g_lse = (torch.randn((b, N_HEADS, sq), generator=g, device=dev)
+                 if with_lse else None)
+        errs.append(compare_flash_bwd_case(
+            torch, fa, q, k, v, dout, g_lse, causal, qo, ko,
+            f"B2/B3 b={b} sq={sq} sk={sk} causal={causal} q_off={qo} "
+            f"kv_off={ko} lse_cotangent={with_lse}"))
     return worst_of(*errs)
 
 
@@ -621,18 +754,28 @@ def bound_ms(q, kp, tbl, desc):
     return _bound(nbytes, flops)
 
 
-def flash_bound(b, sq, sk, q_offset, el):
-    """Least time for a causal flash forward on an H100: the larger of
-    its bytes (q, k, v and out once in their dtype, lse in fp32) over
-    3.35 TB/s and its FLOPs over 989 TFLOP/s. FLOPs count the visible
-    (query, key) pairs only: query i sees min(sk, q_offset + i + 1) keys,
-    and each pair costs a QK dot and a PV axpy of width d, 4 d flops,
-    for each query head."""
+def flash_bound(b, sq, sk, q_offset, el, flops_per_d=4, q_side=2,
+                kv_side=2, row_floats=1):
+    """Least time for causal flash attention work on an H100: the larger
+    of its bytes (``q_side`` query-shaped and ``kv_side`` kv-shaped
+    tensors once in their dtype, ``row_floats`` fp32 per query row and
+    head) over 3.35 TB/s and its FLOPs over 989 TFLOP/s. FLOPs count the
+    visible (query, key) pairs only: query i sees min(sk, q_offset + i +
+    1) keys, and each pair costs ``flops_per_d`` x d flops for each query
+    head. The forward reads q, k, v and writes out and lse: 4 d a pair
+    (a QK dot and a PV axpy). B2 reads q, k, v, dO, lse and delta and
+    writes dq: 6 d (QK, dO V and dS K). B3 reads the same and writes dk
+    and dv: 8 d (QK, dO V, P^T dO and dS^T Q)."""
     visible = np.clip(q_offset + np.arange(sq) + 1, 0, sk).sum()
-    flops = 4 * HEAD_DIM * N_HEADS * b * int(visible)
-    nbytes = (el * (2 * b * sq * N_HEADS + 2 * b * sk * N_KV) * HEAD_DIM
-              + 4 * b * N_HEADS * sq)
+    flops = flops_per_d * HEAD_DIM * N_HEADS * b * int(visible)
+    nbytes = (el * (q_side * b * sq * N_HEADS + kv_side * b * sk * N_KV)
+              * HEAD_DIM + 4 * row_floats * b * N_HEADS * sq)
     return _bound(nbytes, flops)
+
+
+#: the bounds of B2 and B3 (see ``flash_bound``)
+BWD_BOUNDS = {"dq": dict(flops_per_d=6, q_side=3, kv_side=2, row_floats=2),
+              "dkv": dict(flops_per_d=8, q_side=2, kv_side=4, row_floats=2)}
 
 
 def paged_bound(q, kp, tables, ctx):
@@ -697,6 +840,273 @@ def time_paged(torch, pa, cap, label):
     row["library"] = "none: no single PyTorch call reads a block-table cache"
     row["library_ms"] = None
     return row
+
+
+def sdpa_backends(torch, fn):
+    """What one call of ``fn`` ran, from a ``torch.profiler`` trace of
+    it: the SDPA operators (their names carry the backend, e.g.
+    ``aten::_scaled_dot_product_flash_attention_backward``) and the
+    attention kernels, by name (None if the trace shows neither)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key.split("(")[0].removeprefix("void ")
+                    for e in prof.key_averages()
+                    if any(w in e.key.lower() for w in
+                           ("flash", "fmha", "attention", "cudnn",
+                            "efficient"))
+                    and not e.key.startswith("autograd::")})
+    return names or None
+
+
+def time_flash_train(torch, fa, cap):
+    """B1, B2 and B3 on layer 0's inputs captured from a training step
+    (bf16, the ``[b, s, h, d]`` views SDPA passes, and the dO autograd
+    hands back), their plain versions on the same data in ``[b, h, s,
+    d]``, and PyTorch's SDPA forward and backward (``is_causal``,
+    ``enable_gqa``) on it, with the attention kernels its backward ran.
+    Returns one row per kernel."""
+    q, k, v, dout, qo = (cap[x] for x in ("q", "k", "v", "dout",
+                                            "q_offset"))
+    b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+    el = q.element_size()
+    shape = (f"train step layer 0: b={b} sq={sq} sk={sk} q_offset={qo} "
+             f"causal GQA 32/8 d=128 bf16")
+    if qo != 0 or sq != sk:
+        raise AssertionError(f"{shape}: a training step's attention is "
+                             f"square, so SDPA's is_causal means the same")
+    qt, kt, vt, dt = (x.transpose(1, 2).contiguous()
+                      for x in (q, k, v, dout))
+    rows = {}
+    with torch.no_grad():
+        out, lse = fa.flash_attention_with_lse(*(x.transpose(1, 2)
+                                                 for x in (q, k, v)),
+                                               True, None, qo)
+        delta = fa.bwd_delta(out, dout.transpose(1, 2))
+        args = (lse, delta, True, None, qo, 0)
+        rows["fwd"] = dict(
+            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, True, None,
+                                                         qo)),
+            plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
+                qt, kt, vt, True, None, qo), iters=10),
+            **flash_bound(b, sq, sk, qo, el))
+        rows["dq"] = dict(
+            ms=time_ms(torch, lambda: fa.flash_bwd_dq(
+                q, k, v, dout, *args, kernel_layout=False)),
+            plain_ms=time_ms(torch, lambda: fa.flash_bwd_dq_plain(
+                qt, kt, vt, dt, *args), iters=10),
+            **flash_bound(b, sq, sk, qo, el, **BWD_BOUNDS["dq"]))
+        rows["dkv"] = dict(
+            ms=time_ms(torch, lambda: fa.flash_bwd_dkv(
+                q, k, v, dout, *args, kernel_layout=False)),
+            plain_ms=time_ms(torch, lambda: fa.flash_bwd_dkv_plain(
+                qt, kt, vt, dt, *args), iters=10),
+            **flash_bound(b, sq, sk, qo, el, **BWD_BOUNDS["dkv"]))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        rows["fwd"]["library_ms"] = time_ms(torch, lambda: sdpa(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        rows["fwd"]["library"] = "sdpa(is_causal=True, enable_gqa=True)"
+        rows["fwd"]["library_vs_kernel_max_abs_diff"] = float(
+            (sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).float()
+             - out.float()).abs().max())
+    ql, kl, vl = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    lib_out = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (ql, kl, vl), dt,
+                                   retain_graph=True)
+    lib_ms = time_ms(torch, lib_bwd)
+    try:
+        ran = sdpa_backends(torch, lib_bwd)
+    except RuntimeError as e:          # the profiler may not see the card
+        ran = f"not recorded ({e})"
+    with torch.no_grad():
+        dq = fa.flash_bwd_dq(q, k, v, dout, *args, kernel_layout=False)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, dout, *args, kernel_layout=False)
+    lq, lk, lv = lib_bwd()
+    diff = {n: float((a.transpose(1, 2).float() - r.float()).abs().max())
+            for n, a, r in (("dq", dq, lq), ("dk", dk, lk), ("dv", dv, lv))}
+    for key in ("dq", "dkv"):
+        rows[key].update(
+            library_ms=lib_ms,
+            library=("sdpa backward (is_causal=True, enable_gqa=True): dq, "
+                     "dk and dv in one call, the B2 + B3 pair"),
+            library_kernels=ran, library_vs_kernel_max_abs_diff=diff)
+    del lib_out, ql, kl, vl
+    for r in rows.values():
+        r["shape"] = shape
+    return rows
+
+
+class BackwardCapture:
+    """Keeps the inputs of the last flash backward of a run (layer 0's,
+    as backward walks the layers in reverse): q, k, v and dO cloned with
+    their strides, and the call's offsets."""
+
+    def __init__(self, fa):
+        self.fa, self.orig, self.best = fa, fa.flash_attention_bwd, None
+
+    def call(self, q, k, v, out, lse, dout, g_lse=None, causal=True,
+             sm_scale=None, q_offset=0, kv_offset=0, kernel_layout=True):
+        if kernel_layout or not causal or kv_offset:
+            raise AssertionError("the model's SDPA calls flash attention "
+                                 "causal, in the public layout, kv_offset 0")
+        self.best = dict(q=q.clone(), k=k.clone(), v=v.clone(),
+                         dout=dout.clone(), q_offset=q_offset)
+        return self.orig(q, k, v, out, lse, dout, g_lse, causal, sm_scale,
+                         q_offset, kv_offset, kernel_layout)
+
+    def __enter__(self):
+        self.fa.flash_attention_bwd = self.call
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_bwd = self.orig
+
+
+def train_step(torch, model, opt, sched, ids, labels):
+    """One Paddle-style eager step, each phase timed on the host clock up
+    to a device sync: (loss, {phase: ms})."""
+    ms = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = model(ids, labels=labels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    opt.step()
+    opt.clear_grad()
+    sched.step()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    ms.update(forward=(t1 - t0) * 1e3, backward=(t2 - t1) * 1e3,
+              optimizer=(t3 - t2) * 1e3, step=(t3 - t0) * 1e3)
+    return float(loss.detach()), ms
+
+
+def train(torch, pt, kern, fa, none):
+    """Four AdamW steps of a full-width Llama-3-8B cut to TRAIN_LAYERS
+    layers (bf16, fp32 master weights and moments, global-norm clip,
+    warmup into cosine decay) on one repeated batch, the launch counts
+    zeroed before each step and read after it; then one step with
+    recompute. Returns the losses, per-step times and counts, the peak
+    memory, and layer 0's captured attention inputs of the last step."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    cfg = pt.llama3_8b(dtype="bfloat16")
+    cfg.num_hidden_layers = TRAIN_LAYERS
+    torch.cuda.reset_peak_memory_stats()
+    model = pt.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    n_params = sum(p.numel() for p in model.parameters())
+    # small rates, as at the start of a warmup: at 1e-4 the first step
+    # already takes the repeated batch's loss from 12.6 to 2.2, and the
+    # third to ~0, where it stops falling
+    sched = lr_mod.LinearWarmup(
+        lr_mod.CosineAnnealingDecay(2e-5, T_max=100), warmup_steps=2,
+        start_lr=1e-5, end_lr=2e-5)
+    opt = AdamW(learning_rate=sched, parameters=model.named_parameters(),
+                weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0),
+                multi_precision=True,
+                apply_decay_param_fun=lambda n: "norm" not in n)
+    tokens = np.random.RandomState(21).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    ids = torch.as_tensor(tokens[:, :-1], device="cuda")
+    labels = torch.as_tensor(tokens[:, 1:], device="cuda")
+    log(f"  model: {TRAIN_LAYERS} layers, {n_params / 1e9:.3f} B params, "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    losses, steps, total = [], [], dict(none)
+    cap = BackwardCapture(fa)
+    per_step = dict(none, flash=TRAIN_LAYERS, flash_bwd_dq=TRAIN_LAYERS,
+                    flash_bwd_dkv=TRAIN_LAYERS)
+    for i in range(TRAIN_STEPS):
+        zero_counts(kern)
+        with cap if i == TRAIN_STEPS - 1 else contextlib.nullcontext():
+            loss, ms = train_step(torch, model, opt, sched, ids, labels)
+        counts = read_counts(kern)
+        check_launches(f"train step {i}", counts, per_step)
+        total = {n: total[n] + counts[n] for n in total}
+        losses.append(loss)
+        steps.append(ms)
+        log(f"  step {i}: loss {loss:.6f}, " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in ms.items()))
+    if not all(np.isfinite(losses)) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"losses not finite and decreasing: {losses}")
+    model.config.use_recompute = True
+    zero_counts(kern)
+    loss, ms = train_step(torch, model, opt, sched, ids, labels)
+    recompute = read_counts(kern)
+    check_launches("train step with recompute", recompute,
+                   dict(per_step, flash=2 * TRAIN_LAYERS))
+    log(f"  recompute step: loss {loss:.6f}, " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in ms.items()))
+    peak = torch.cuda.max_memory_allocated()
+    med = {k: float(np.median([s[k] for s in steps[1:]])) for k in steps[0]}
+    log(f"  steady step (median of steps 1-{TRAIN_STEPS - 1}): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
+        + f"; {TRAIN_BATCH * TRAIN_SEQ / med['step'] * 1e3:.1f} tokens/s; "
+        f"peak memory {peak / 2**30:.2f} GiB; recompute step "
+        f"{ms['step']:.2f} ms")
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(losses=losses, steps=steps, median=med, peak=peak,
+                launches=total, recompute=recompute, recompute_ms=ms,
+                capture=cap.best, n_params=n_params)
+
+
+def train_cross_check(torch, pt, fa, kern, none):
+    """One training step's loss and gradients of a two-layer full-width
+    fp32 model (TF32 off) through the kernels, against the same step with
+    SDPA swapped, for this check only, to dense attention in autograd
+    (``mha_reference``) on the card. Returns the worst relative error."""
+    from paddle_tpu_torch.models import llama as llama_mod
+    cfg = pt.llama3_8b()
+    cfg.num_hidden_layers = 2
+    model = pt.LlamaForCausalLM(cfg, device="cuda", seed=1)
+    model.train()
+    tokens = np.random.RandomState(22).randint(0, cfg.vocab_size, (2, 513))
+    ids = torch.as_tensor(tokens[:, :-1], device="cuda")
+    labels = torch.as_tensor(tokens[:, 1:], device="cuda")
+
+    def dense(query, key, value, is_causal=False):
+        qt, kt, vt = (x.transpose(1, 2) for x in (query, key, value))
+        return fa.mha_reference(qt, kt, vt, causal=is_causal,
+                                q_offset=key.shape[1] - query.shape[1]
+                                ).transpose(1, 2)
+
+    results = []
+    sdpa = llama_mod.scaled_dot_product_attention
+    for attention in (None, dense):
+        if attention is not None:
+            llama_mod.scaled_dot_product_attention = attention
+        zero_counts(kern)
+        try:
+            loss, _ = model(ids, labels=labels)
+            loss.backward()
+        finally:
+            llama_mod.scaled_dot_product_attention = sdpa
+        results.append((float(loss.detach()),
+                        {n: p.grad for n, p in model.named_parameters()}))
+        model.zero_grad(set_to_none=True)
+        if attention is None:
+            check_launches("fp32 step through the kernels", read_counts(kern),
+                           dict(none, flash=2, flash_bwd_dq=2,
+                                flash_bwd_dkv=2))
+    (kl, kg), (dl, dg) = results
+    check("fp32 2-layer step: loss, kernels vs dense attention (relative)",
+          abs(kl - dl) / abs(dl), 1e-6)
+    worst = max((grad_err(kg[n], dg[n]), n) for n in kg)
+    check(f"fp32 2-layer step: every gradient, kernels vs dense attention "
+          f"(relative to each one's max; worst {worst[1]})", worst[0], 1e-4)
+    del model, results, kg, dg
+    torch.cuda.empty_cache()
+    return worst[0]
 
 
 # phase 4: paths against each other
@@ -809,18 +1219,22 @@ def main():
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", cuda {torch.version.cuda}")
     kern = {"qblock": rpa.qblock_attention, "token": rpa.token_attention,
-            "flash": fa.flash_attention, "paged": pa.paged_attention}
+            "flash": fa.flash_attention, "paged": pa.paged_attention,
+            "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_dkv": fa.flash_bwd_dkv}
     none = {name: 0 for name in kern}
 
     log("phase 1: build")
     _, build_s = _build.build()
     _build.load_kernels()
     log(f"  build_seconds {build_s:.2f} ({len(_build.SOURCES)} sources)")
+    ptxas_summary(_build)
 
     log("phase 2: kernel parity at Llama-3-8B attention shapes")
     q, kp, vp, tbl, desc = parity_layout(torch, rpa, dev)
     compare_kernels(torch, rpa, q, kp, vp, tbl, desc, "synthetic")
     flash_errs = compare_flash(torch, fa, dev)
+    bwd_errs = compare_flash_bwd(torch, fa, dev)
     paged_errs = compare_paged(torch, pa, *paged_layout(torch, dev),
                                "synthetic")
     del q, kp, vp
@@ -921,6 +1335,10 @@ def main():
     del model
     torch.cuda.empty_cache()
 
+    log(f" 3d: training, Llama-3-8B widths cut to {TRAIN_LAYERS} layers, "
+        f"bf16, AdamW(multi_precision) + global-norm clip + warmup/cosine")
+    trained = train(torch, pt, kern, fa, none)
+
     log("phase 4: paths against each other (fp32, TF32 off, 2 layers, "
         "full width)")
     ref_cfg = pt.llama3_8b()
@@ -948,6 +1366,7 @@ def main():
           "2 layers, prefill of 300 then 7 decode steps)", rel, 1e-4)
     del ref_model
     torch.cuda.empty_cache()
+    train_grad_err = train_cross_check(torch, pt, fa, kern, none)
 
     log("  captured tick: " + json.dumps(
         {k: np.asarray(v).tolist() for k, v in
@@ -970,7 +1389,16 @@ def main():
                  f"sk={k.shape[2]} q_off={fc['q_offset']}")
         flash_errs = worst_of(flash_errs, compare_flash_case(
             torch, fa, q, k, v, fc["causal"], fc["q_offset"], 0, label))
-    del q, k, v
+    tc = trained["capture"]
+    q, k, v, dout = (tc[x].transpose(1, 2) for x in ("q", "k", "v", "dout"))
+    label = (f"captured train step B1 b={q.shape[0]} sq={q.shape[2]} "
+             f"sk={k.shape[2]}")
+    flash_errs = worst_of(flash_errs, compare_flash_case(
+        torch, fa, q, k, v, True, tc["q_offset"], 0, label))
+    bwd_errs = worst_of(bwd_errs, compare_flash_bwd_case(
+        torch, fa, q, k, v, dout, None, True, tc["q_offset"], 0,
+        label.replace("B1", "B2/B3")))
+    del q, k, v, dout
 
     log("phase 5: timing (bf16)")
     scale = HEAD_DIM ** -0.5
@@ -996,6 +1424,8 @@ def main():
                      "library_ms": None})
     flash_rows = [time_flash(torch, fa, fc, name)
                   for name, fc in flash_caps.items()]
+    train_rows = time_flash_train(torch, fa, tc)
+    flash_rows.append(train_rows["fwd"])
     paged_rows = [time_paged(torch, pa, decode_caps["static"],
                              "static engine decode step, bf16"),
                   time_paged(torch, pa, decode_caps["legacy"],
@@ -1010,7 +1440,9 @@ def main():
             + (f", max abs diff to the kernel "
                f"{r['library_vs_kernel_max_abs_diff']:.3e}"
                if r["library_ms"] is not None else ""))
-    by_path = {"static": static["launches"], "legacy": legacy["launches"]}
+    by_path = {"static": static["launches"], "legacy": legacy["launches"],
+               "train": trained["launches"],
+               "train_recompute": trained["recompute"]}
     for name, src, ref_at, errs, timed, key in (
             ("flash_fwd", "flash_attention.cu",
              "paddle_tpu/ops/pallas/flash_attention.py:110", flash_errs,
@@ -1031,6 +1463,33 @@ def main():
                                               "library", "shape", "bytes",
                                               "flops")},
                      "other_shapes": timed[1:]})
+    for name, key, line, errs_of in (
+            ("flash_bwd_dq", "flash_bwd_dq", 232, ("dq",)),
+            ("flash_bwd_dkv", "flash_bwd_dkv", 277, ("dk", "dv"))):
+        r = train_rows["dq" if key == "flash_bwd_dq" else "dkv"]
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        log(f"  {name} at {r['shape']}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}: {r['bytes']} bytes, {r['flops']} FLOPs), "
+            f"library {lib} ({r['library']}; kernels "
+            f"{r['library_kernels']}; max abs diff to the kernels "
+            f"{r['library_vs_kernel_max_abs_diff']})")
+        rows.append({"name": name, "route": "cuda",
+                     "source": CSRC + "flash_attention_bwd.cu",
+                     "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:"
+                                 f"{line}",
+                     "launches": sum(v[key] for v in by_path.values()),
+                     "launches_by_path": {k: v[key]
+                                          for k, v in by_path.items()},
+                     "max_abs_err": max(bwd_errs[f"{e}_bf16"]
+                                        for e in errs_of),
+                     "max_rel_err_fp32": max(bwd_errs[f"{e}_fp32"]
+                                             for e in errs_of),
+                     **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "library", "library_kernels",
+                                          "shape", "bytes", "flops")}})
 
     tick_breakdown(torch, rpa, probes, scale, N_LAYERS)
     for impl in rpa.IMPLS:
@@ -1054,6 +1513,14 @@ def main():
         f"tick): tick mean {np.mean(legacy_ticks):.2f} ms, median "
         f"{np.median(legacy_ticks):.2f} ms over {len(legacy_ticks)}")
 
+    med = trained["median"]
+    log(f"  training: losses {trained['losses']}; steady step "
+        f"{med['step']:.2f} ms (forward {med['forward']:.2f}, backward "
+        f"{med['backward']:.2f}, optimizer {med['optimizer']:.2f}), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med['step'] * 1e3:.1f} tokens/s, peak "
+        f"memory {trained['peak'] / 2**30:.2f} GiB; recompute step "
+        f"{trained['recompute_ms']['step']:.2f} ms; fp32 2-layer gradients "
+        f"within {train_grad_err:.3e} of dense attention")
     log(json.dumps({"kernels": rows}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

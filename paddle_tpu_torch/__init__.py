@@ -6,15 +6,23 @@ It serves Llama three ways: ``LlamaForCausalLM.generate`` (greedy,
 seeded sampling, beam search; concat or paged KV cache), the static
 window batcher ``ServingEngine`` around it, and the continuous-batching
 ``ContinuousServingEngine`` (ragged ticks, or the legacy prefill-chunk
-plus decode-step scheduler with ``enable_ragged=False``). Attention runs
-on hand-written CUDA kernels under ``csrc/`` (ragged paged attention,
-flash attention forward, paged decode), built with ``nvcc`` at first use.
-Entry points default to ``device="cuda"``; pass ``device="cpu"`` to run
-the plain PyTorch versions instead.
+plus decode-step scheduler with ``enable_ragged=False``). It trains
+Llama in Paddle's eager loop: ``loss, logits = model(ids,
+labels=labels)``, ``loss.backward()``, then ``optimizer.AdamW`` with
+``nn.ClipGradByGlobalNorm`` and the schedulers of ``optimizer.lr``.
+Attention runs on hand-written CUDA kernels under ``csrc/`` (ragged
+paged attention, flash attention forward and backward, paged decode),
+built with ``nvcc`` at first use. Entry points default to
+``device="cuda"``; pass ``device="cpu"`` to run the plain PyTorch
+versions instead.
 """
-from .convert import load_jax_state
+from . import nn, optimizer
+from .convert import jax_layout, load_jax_state
 from .inference.serving import ContinuousServingEngine, ServingEngine
-from .models.llama import LlamaConfig, LlamaForCausalLM, llama3_8b, llama_tiny
+from .models.llama import (LlamaConfig, LlamaForCausalLM,
+                           LlamaPretrainingCriterion, llama3_8b, llama_tiny)
 
-__all__ = ["LlamaForCausalLM", "LlamaConfig", "llama_tiny", "llama3_8b",
-           "ContinuousServingEngine", "ServingEngine", "load_jax_state"]
+__all__ = ["LlamaForCausalLM", "LlamaConfig", "LlamaPretrainingCriterion",
+           "llama_tiny", "llama3_8b", "ContinuousServingEngine",
+           "ServingEngine", "load_jax_state", "jax_layout", "nn",
+           "optimizer"]

@@ -1,9 +1,14 @@
-"""Weight carry-over from the JAX reference model."""
+"""Weight carry-over between the port and the JAX reference model."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+
+
+def _linear_weights(model):
+    return {f"{name}.weight" for name, m in model.named_modules()
+            if isinstance(m, nn.Linear)}
 
 
 def load_jax_state(model, arrays):
@@ -12,8 +17,7 @@ def load_jax_state(model, arrays):
     Linear weight is ``[in, out]`` there and ``[out, in]`` here, so it is
     transposed. Missing, extra or mis-shaped keys raise ``KeyError`` /
     ``ValueError``. Returns ``model``."""
-    linear = {f"{name}.weight" for name, m in model.named_modules()
-              if isinstance(m, nn.Linear)}
+    linear = _linear_weights(model)
     own = model.state_dict()
     missing = sorted(set(own) - set(arrays))
     extra = sorted(set(arrays) - set(own))
@@ -29,3 +33,23 @@ def load_jax_state(model, arrays):
                                  f"fit {tuple(dst.shape)}")
             dst.copy_(torch.from_numpy(np.array(src)))
     return model
+
+
+def jax_layout(model, tensors=None):
+    """The inverse of :func:`load_jax_state`: ``{name: tensor}`` of
+    ``model`` (its ``state_dict()`` when ``tensors`` is None; or, say,
+    its parameters' ``.grad``) as ``{name: numpy array}`` in the JAX
+    model's layout, every Linear weight transposed to ``[in, out]``.
+    Every array is a copy, so later in-place updates of the model do not
+    reach it; a bf16 tensor becomes float32 (numpy has no bf16)."""
+    linear = _linear_weights(model)
+    if tensors is None:
+        tensors = model.state_dict()
+    out = {}
+    for name, t in tensors.items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        a = t.numpy()
+        out[name] = np.array(a.T if name in linear else a, order="C")
+    return out

@@ -1,5 +1,7 @@
 """Llama causal LM (port of ``paddle_tpu/models/llama.py``): RMSNorm
-pre-norm, RoPE, grouped-query attention, SwiGLU MLP.
+pre-norm, RoPE, grouped-query attention, SwiGLU MLP, and the causal-LM
+loss for training (``LlamaPretrainingCriterion``), with optional
+per-layer activation recompute.
 
 Linear layers are ``torch.nn.Linear`` with ``[out, in]`` weights; the
 parameter names are the reference's, so ``state_dict()`` keys match and
@@ -9,6 +11,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..nn.functional import scaled_dot_product_attention
@@ -23,7 +26,12 @@ class LlamaConfig:
                  num_attention_heads=32, num_key_value_heads=None,
                  max_position_embeddings=4096, rms_norm_eps=1e-5,
                  rope_theta=10000.0, initializer_range=0.02,
+                 use_recompute=False, recompute_granularity="full",
                  dtype="float32"):
+        if recompute_granularity != "full":
+            raise ValueError(f"recompute_granularity "
+                             f"{recompute_granularity!r}: only 'full' "
+                             f"(recompute each decoder layer) is ported")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.intermediate_size = intermediate_size
@@ -34,6 +42,8 @@ class LlamaConfig:
         self.rms_norm_eps = rms_norm_eps
         self.rope_theta = rope_theta
         self.initializer_range = initializer_range
+        self.use_recompute = use_recompute
+        self.recompute_granularity = recompute_granularity
         self.dtype = dtype
 
     @property
@@ -156,13 +166,42 @@ class LlamaModel(nn.Module):
             position_ids = torch.arange(cache.pos, cache.pos
                                         + input_ids.shape[1],
                                         device=input_ids.device)
+        # per-layer recompute (reference ``:213-223``): each layer's
+        # activations are dropped after its forward and recomputed in
+        # backward, so attention's forward runs twice per step
+        recompute = (self.config.use_recompute and self.training
+                     and cache is None)
         for layer in self.layers:
-            hidden = layer(hidden, self.rope_cos, self.rope_sin,
-                           position_ids, cache)
+            if recompute:
+                hidden = checkpoint(layer, hidden, self.rope_cos,
+                                    self.rope_sin, position_ids,
+                                    use_reentrant=False)
+            else:
+                hidden = layer(hidden, self.rope_cos, self.rope_sin,
+                               position_ids, cache)
         hidden = self.norm(hidden)
         if cache is not None:
             cache.advance(input_ids.shape[1])
         return hidden
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Causal-LM loss (reference ``:231-253``): log-softmax in fp32
+    whatever the logits' dtype, ``ignore_index`` labels dropped, mean
+    over the valid tokens (``max(count, 1)`` of them)."""
+
+    def __init__(self, ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels):
+        lg = logits.float()
+        logp = lg - torch.logsumexp(lg, dim=-1, keepdim=True)
+        valid = labels != self.ignore_index
+        safe = torch.where(valid, labels, 0)
+        tok = logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+        tok = torch.where(valid, tok, 0.0)
+        return -tok.sum() / valid.sum().clamp_min(1)
 
 
 class LlamaForCausalLM(GenerationMixin, nn.Module):
@@ -187,6 +226,7 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
                                    config.torch_dtype)
         self.to_empty(device=dev)
         self.llama.init_rope(dev)
+        self.criterion = LlamaPretrainingCriterion()
         self.reset_parameters(seed)
 
     @property
@@ -204,12 +244,19 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
             elif isinstance(module, (nn.Linear, nn.Embedding)):
                 module.weight.normal_(0.0, std, generator=gen)
 
-    def forward(self, input_ids, position_ids=None, cache=None):
-        """``input_ids [batch, seq]`` -> logits ``[batch, seq, vocab]``.
-        ``position_ids`` ([seq] or [batch, seq]) may be a tensor or an
-        array; with a cache and no positions they start at ``cache.pos``."""
+    def forward(self, input_ids, labels=None, position_ids=None, cache=None):
+        """``input_ids [batch, seq]`` -> logits ``[batch, seq, vocab]``,
+        or ``(loss, logits)`` when ``labels [batch, seq]`` are given (the
+        labels of each position, already shifted by the caller; -100 is
+        ignored). ``position_ids`` ([seq] or [batch, seq]) may be a tensor
+        or an array; with a cache and no positions they start at
+        ``cache.pos``."""
         input_ids = torch.as_tensor(input_ids, device=self.device)
         if position_ids is not None:
             position_ids = torch.as_tensor(position_ids, dtype=torch.long,
                                            device=self.device)
-        return self.lm_head(self.llama(input_ids, position_ids, cache))
+        logits = self.lm_head(self.llama(input_ids, position_ids, cache))
+        if labels is None:
+            return logits
+        labels = torch.as_tensor(labels, dtype=torch.long, device=self.device)
+        return self.criterion(logits, labels), logits

@@ -1,0 +1,3 @@
+from .clip_grad import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+
+__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue"]

@@ -17,9 +17,11 @@ def scaled_dot_product_attention(query, key, value, is_causal=False):
     Where the reference takes its flash kernel (``seq_q >= 128`` and
     ``head_dim % 64 == 0``) this goes to :func:`flash_attention` on either
     device, with query ``i`` at position ``seq_k - seq_q + i``: the kernel
-    on a CUDA tensor, its plain version on a CPU one. Elsewhere the plain
-    grouped einsum runs, with the softmax in float32. The reference's
-    long-sequence chunked route is not ported."""
+    on a CUDA tensor, its plain version on a CPU one; its gradient is the
+    flash backward (B2 and B3 on a CUDA tensor). Elsewhere the plain
+    grouped einsum runs, with the softmax in float32, differentiated by
+    autograd. The reference's long-sequence chunked route is not
+    ported."""
     sq, d = query.shape[1], query.shape[-1]
     if sq >= 128 and d % 64 == 0:
         return flash_attention(query, key, value, causal=is_causal,

@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("ragged_paged_attention.cu", "flash_attention.cu",
-           "paged_attention.cu")
+           "flash_attention_bwd.cu", "paged_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +43,12 @@ SIGNATURES = {
     },
     "flash_attention": {
         "ptt_flash_fwd": [_I] + [_P] * 5 + [_L] * 12 + [_I] * 11 + [_F, _P],
+    },
+    "flash_attention_bwd": {
+        "ptt_flash_bwd_dq": [_I] + [_P] * 7 + [_L] * 15 + [_I] * 9
+                            + [_F, _P],
+        "ptt_flash_bwd_dkv": [_I] + [_P] * 8 + [_L] * 18 + [_I] * 9
+                             + [_F, _P],
     },
     "paged_attention": {
         "ptt_paged_decode": [_I] + [_P] * 6 + [_I] * 7 + [_F, _P],

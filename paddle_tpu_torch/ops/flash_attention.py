@@ -1,4 +1,4 @@
-"""Flash attention forward (port of the forward half of
+"""Flash attention forward and backward (port of
 ``paddle_tpu/ops/pallas/flash_attention.py``).
 
 Exact softmax attention over dense ``[batch, heads, seq, head_dim]``
@@ -19,10 +19,17 @@ reference kept as they are:
   the CUDA kernel (``csrc/flash_attention.cu``) tiles differently but
   visits the same keys per row, so it returns the same values.
   ``mha_reference`` zeroes such rows instead, as the reference's does.
+* the reference's backward (``_bwd``, ``:326-418``): the weights are
+  recomputed from lse, ``p = exp(s - lse)`` on valid keys and 0 on
+  masked ones, so a row with no valid key gets zero dq and adds nothing
+  to dk or dv, whatever its forward returned. Autograd of the forward
+  would not give that, so the gradient is always this backward
+  (``_FlashAttention``), on either device.
 
-A CUDA tensor goes to the kernel or raises; a CPU tensor runs
-:func:`flash_attention_plain`. The backward kernels come with training:
-a call that would need a gradient raises.
+A CUDA tensor goes to the kernels or raises: B1 forward
+(``csrc/flash_attention.cu``), B2 dQ and B3 dK/dV
+(``csrc/flash_attention_bwd.cu``). A CPU tensor runs
+:func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -137,11 +145,127 @@ def flash_attention_plain(q, k, v, causal=True, sm_scale=None, q_offset=0,
     return out, lse
 
 
-def _flash_cuda(q, k, v, causal, sm_scale, q_offset, kv_offset, seq_dim):
-    """Launch the kernel on tensors whose sequence axis is ``seq_dim`` (2
-    in kernel layout, 1 in the public one), head_dim contiguous. Returns
-    ``(out, lse)``, out in q's layout."""
-    code = _build.dtype_code(q.dtype)
+def _bwd_setup(q, k, v, dout, lse, delta):
+    """The reference backward's operands (``_bwd``, ``:343-359``) in fp32,
+    padded to whole reference tiles: padded query rows get ``lse =
+    +inf`` (so ``p = exp(s - inf) = 0``) and zero delta, padded keys are
+    zero. Query-side tensors come back as ``[b, hk, g * sq_pad, .]``,
+    grouped under their kv head."""
+    b, hq, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g = hq // hk
+    bq, bk = ref_blocks(sq, sk)
+    sq_pad, sk_pad = _cdiv(sq, bq) * bq, _cdiv(sk, bk) * bk
+    dev = q.device
+
+    def pad_rows(x, n, fill=0.0):
+        out = torch.full((*x.shape[:2], n, *x.shape[3:]), fill, device=dev)
+        out[:, :, :x.shape[2]] = x.float()
+        return out
+
+    qg = pad_rows(q, sq_pad).view(b, hk, g * sq_pad, d)
+    dog = pad_rows(dout, sq_pad).view(b, hk, g * sq_pad, d)
+    lse_p = pad_rows(lse, sq_pad, math.inf).view(b, hk, g * sq_pad, 1)
+    delta_p = pad_rows(delta, sq_pad).view(b, hk, g * sq_pad, 1)
+    return (qg, pad_rows(k, sk_pad), pad_rows(v, sk_pad), dog, lse_p,
+            delta_p, (g, bq, bk, sq_pad, sk_pad))
+
+
+def _bwd_tile(qg, kf, vf, dog, lse_p, delta_p, tiling, j, sk, causal,
+              sm_scale, q_offset, kv_offset):
+    """One kv tile of the reference's recurrences (``:256-268``,
+    ``:302-316``) for every query row at once: ``(p, ds)``, each ``[b,
+    hk, g * sq_pad, bk]``, and the tile's K and V."""
+    g, bq, bk, sq_pad, _ = tiling
+    dev = qg.device
+    kj, vj = kf[:, :, j * bk:(j + 1) * bk], vf[:, :, j * bk:(j + 1) * bk]
+    s = (qg @ kj.transpose(-1, -2)) * sm_scale
+    k_local = j * bk + torch.arange(bk, device=dev)[None, :]
+    mask = (k_local < sk).expand(sq_pad, bk)
+    if causal:
+        q_ids = (q_offset + torch.arange(sq_pad, device=dev))[:, None]
+        mask = mask & (q_ids >= kv_offset + k_local)
+    p = torch.where(mask.repeat(g, 1), torch.exp(s - lse_p), 0.0)
+    dp = dog @ vj.transpose(-1, -2)
+    ds = p * (dp - delta_p) * sm_scale
+    return p, ds, kj, vj
+
+
+def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal=True,
+                       sm_scale=None, q_offset=0, kv_offset=0):
+    """dQ as the reference's ``_bwd_dq_kernel`` computes it (``:232-274``),
+    kernel layout: for every query row, ``dq += ds K`` over the kv tiles
+    in order. ``delta`` is fp32 ``[b, hq, sq]`` (see :func:`bwd_delta`).
+    Returns dq in q's dtype."""
+    b, hq, sq, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    qg, kf, vf, dog, lse_p, delta_p, tiling = _bwd_setup(q, k, v, dout, lse,
+                                                         delta)
+    acc = torch.zeros_like(qg)
+    for j in range(tiling[4] // tiling[2]):
+        _, ds, kj, _ = _bwd_tile(qg, kf, vf, dog, lse_p, delta_p, tiling, j,
+                                 k.shape[2], causal, sm_scale, q_offset,
+                                 kv_offset)
+        acc = acc + ds @ kj
+    return acc.view(b, hq, -1, d)[:, :, :sq].to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal=True,
+                        sm_scale=None, q_offset=0, kv_offset=0):
+    """dK and dV as the reference computes them (``_bwd_dkv_kernel``,
+    ``:277-323``, then ``:410-418``), kernel layout: per query head and kv
+    tile, ``dv += p^T dO`` and ``dk += ds^T Q`` in fp32, then summed over
+    the GQA group and cast to k's and v's dtypes."""
+    b, hq, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    qg, kf, vf, dog, lse_p, delta_p, tiling = _bwd_setup(q, k, v, dout, lse,
+                                                         delta)
+    g, sq_pad = tiling[0], tiling[3]
+    # per query head: [b, hk, g, rows, .]
+    qh, doh = (x.view(b, hk, g, sq_pad, d) for x in (qg, dog))
+    dks, dvs = [], []
+    for j in range(tiling[4] // tiling[2]):
+        p, ds, _, _ = _bwd_tile(qg, kf, vf, dog, lse_p, delta_p, tiling, j,
+                                sk, causal, sm_scale, q_offset, kv_offset)
+        p, ds = (x.view(b, hk, g, sq_pad, -1) for x in (p, ds))
+        dvs.append((p.transpose(-1, -2) @ doh).sum(2))
+        dks.append((ds.transpose(-1, -2) @ qh).sum(2))
+    dk = torch.cat(dks, dim=2)[:, :, :sk].to(k.dtype)
+    dv = torch.cat(dvs, dim=2)[:, :, :sk].to(v.dtype)
+    return dk, dv
+
+
+def bwd_delta(out, dout, g_lse=None, kernel_layout=True):
+    """``delta = rowsum(dO * O)`` in fp32, ``[b, h, sq]``, minus the lse
+    cotangent when lse is differentiated (``_bwd``, ``:337-341``: dlse/ds
+    is p, so it folds into ``ds = p (dp - delta)``). Plain torch on both
+    devices, as the reference computes it in XLA outside the kernels."""
+    delta = (dout.float() * out.float()).sum(-1)
+    if not kernel_layout:
+        delta = delta.transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta.contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, g_lse=None,
+                              causal=True, sm_scale=None, q_offset=0,
+                              kv_offset=0):
+    """The reference's flash backward (``_bwd``, ``:326-418``) in
+    PyTorch, kernel layout ``[b, h, s, d]``: ``(dq, dk, dv)`` in the
+    inputs' dtypes. ``g_lse`` is the lse cotangent or None."""
+    delta = bwd_delta(out, dout, g_lse)
+    args = (q, k, v, dout, lse, delta, causal, sm_scale, q_offset,
+            kv_offset)
+    return (flash_bwd_dq_plain(*args), *flash_bwd_dkv_plain(*args))
+
+
+def _check_qkv(q, k, v, seq_dim):
+    """Shapes ``(b, hq, hk, sq, sk, d)`` of q, k, v whose sequence axis
+    is ``seq_dim``; raises on what the kernels do not take."""
     head_dim = 3 - seq_dim
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
@@ -157,17 +281,36 @@ def _flash_cuda(q, k, v, causal, sm_scale, q_offset, kv_offset, seq_dim):
                          f"{tuple(k.shape)}")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {KERNEL_HEAD_DIMS}")
-    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    return b, hq, hk, sq, sk, d
+
+
+def _unit_last(*ts):
+    """The kernels read head_dim with unit stride; copy what has not."""
+    return [t if t.stride(3) == 1 else t.contiguous() for t in ts]
+
+
+def _strides(ts, seq_dim):
+    """Element strides (batch, head, row) of each tensor, in order."""
+    out = []
+    for t in ts:
+        st = t.stride()
+        out += [st[0], st[3 - seq_dim], st[seq_dim]]
+    return [ctypes.c_longlong(x) for x in out]
+
+
+def _flash_cuda(q, k, v, causal, sm_scale, q_offset, kv_offset, seq_dim):
+    """Launch B1 on tensors whose sequence axis is ``seq_dim`` (2 in
+    kernel layout, 1 in the public one), head_dim contiguous. Returns
+    ``(out, lse)``, out in q's layout."""
+    code = _build.dtype_code(q.dtype)
+    b, hq, hk, sq, sk, d = _check_qkv(q, k, v, seq_dim)
+    q, k, v = _unit_last(q, k, v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    strides = []
-    for t in (q, k, v, out):
-        st = t.stride()
-        strides += [st[0], st[head_dim], st[seq_dim]]
     bq, bk = ref_blocks(sq, sk)
     args = ([ctypes.c_int(code)]
             + [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out, lse)]
-            + [ctypes.c_longlong(s) for s in strides]
+            + _strides((q, k, v, out), seq_dim)
             + [ctypes.c_int(int(x)) for x in (b, hq, hk, sq, sk, d, q_offset,
                                               kv_offset, bool(causal), bq,
                                               bk)]
@@ -177,17 +320,113 @@ def _flash_cuda(q, k, v, causal, sm_scale, q_offset, kv_offset, seq_dim):
     return out, lse
 
 
-def _forward(q, k, v, causal, sm_scale, q_offset, kv_offset, kernel_layout):
+def _bwd_operands(q, k, v, dout, lse, delta, seq_dim):
+    b, hq, hk, sq, sk, d = _check_qkv(q, k, v, seq_dim)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
+                         f"fit q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, hq, sq) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be fp32 {(b, hq, sq)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    q, k, v, dout = _unit_last(q, k, v, dout)
+    return (q, k, v, dout, lse.contiguous(), delta.contiguous(),
+            (b, hq, hk, sq, sk, d))
+
+
+def _bwd_ints(dims, q_offset, kv_offset, causal, sm_scale):
+    return ([ctypes.c_int(int(x)) for x in (*dims, q_offset, kv_offset,
+                                            bool(causal))]
+            + [ctypes.c_float(sm_scale)])
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal=True, sm_scale=None,
+                 q_offset=0, kv_offset=0, kernel_layout=True):
+    """dQ of flash attention (kernel B2 on a CUDA tensor, counted in
+    ``flash_bwd_dq.launches``; :func:`flash_bwd_dq_plain` on a CPU one).
+    q, k, v and dout in kernel layout ``[b, h, s, d]`` or, with
+    ``kernel_layout=False``, ``[b, s, h, d]`` (strided views allowed);
+    lse and delta fp32 ``[b, hq, sq]``. Returns dq in q's layout and
+    dtype."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention backward: slice 3 (training) ports it; call "
-            "under torch.no_grad() or torch.inference_mode()")
-    q_offset, kv_offset = int(q_offset), int(kv_offset)
+    if q.device.type == "cpu":
+        if not kernel_layout:
+            q, k, v, dout = (t.transpose(1, 2) for t in (q, k, v, dout))
+        dq = flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, sm_scale,
+                                q_offset, kv_offset)
+        return dq if kernel_layout else dq.transpose(1, 2)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention for device {q.device}")
+    seq_dim = 2 if kernel_layout else 1
+    q, k, v, dout, lse, delta, dims = _bwd_operands(q, k, v, dout, lse,
+                                                    delta, seq_dim)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    args = ([ctypes.c_int(_build.dtype_code(q.dtype))]
+            + [ctypes.c_void_p(t.data_ptr())
+               for t in (q, k, v, dout, lse, delta, dq)]
+            + _strides((q, k, v, dout, dq), seq_dim)
+            + _bwd_ints(dims, q_offset, kv_offset, causal, sm_scale))
+    _build.launch("ptt_flash_bwd_dq", q.device, args)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True, sm_scale=None,
+                  q_offset=0, kv_offset=0, kernel_layout=True):
+    """dK and dV of flash attention, summed over each kv head's query
+    group (kernel B3 on a CUDA tensor, counted in
+    ``flash_bwd_dkv.launches``; :func:`flash_bwd_dkv_plain` on a CPU one).
+    Arguments as :func:`flash_bwd_dq`. Returns ``(dk, dv)`` in k's
+    layout and dtype."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        if not kernel_layout:
+            q, k, v, dout = (t.transpose(1, 2) for t in (q, k, v, dout))
+        dk, dv = flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal,
+                                     sm_scale, q_offset, kv_offset)
+        return (dk, dv) if kernel_layout else (dk.transpose(1, 2),
+                                               dv.transpose(1, 2))
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention for device {q.device}")
+    seq_dim = 2 if kernel_layout else 1
+    q, k, v, dout, lse, delta, dims = _bwd_operands(q, k, v, dout, lse,
+                                                    delta, seq_dim)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    args = ([ctypes.c_int(_build.dtype_code(q.dtype))]
+            + [ctypes.c_void_p(t.data_ptr())
+               for t in (q, k, v, dout, lse, delta, dk, dv)]
+            + _strides((q, k, v, dout, dk, dv), seq_dim)
+            + _bwd_ints(dims, q_offset, kv_offset, causal, sm_scale))
+    _build.launch("ptt_flash_bwd_dkv", q.device, args)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=True,
+                        sm_scale=None, q_offset=0, kv_offset=0,
+                        kernel_layout=True):
+    """The flash backward on either device: delta in plain torch, then
+    :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`. Returns ``(dq, dk,
+    dv)`` in the inputs' layout."""
+    delta = bwd_delta(out, dout, g_lse, kernel_layout)
+    args = (q, k, v, dout, lse, delta, causal, sm_scale, q_offset,
+            kv_offset, kernel_layout)
+    return (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+
+
+def _forward(q, k, v, causal, sm_scale, q_offset, kv_offset, kernel_layout):
     if q.device.type == "cuda":
-        return _flash_cuda(q, k, v, causal, float(sm_scale), q_offset,
-                           kv_offset, 2 if kernel_layout else 1)
+        return _flash_cuda(q, k, v, causal, sm_scale, q_offset, kv_offset,
+                           2 if kernel_layout else 1)
     if q.device.type != "cpu":
         raise ValueError(f"no flash attention for device {q.device}")
     if not kernel_layout:
@@ -197,13 +436,49 @@ def _forward(q, k, v, causal, sm_scale, q_offset, kv_offset, kernel_layout):
     return (out if kernel_layout else out.transpose(1, 2)), lse
 
 
+class _FlashAttention(torch.autograd.Function):
+    """B1 forward, B2 + B3 backward (the reference's ``_flash`` and
+    ``_flash_with_lse`` custom VJPs, ``:425-460``). Saves q, k, v, out
+    and lse; both outputs are differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, q_offset, kv_offset,
+                kernel_layout):
+        out, lse = _forward(q, k, v, causal, sm_scale, q_offset, kv_offset,
+                            kernel_layout)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, sm_scale, q_offset, kv_offset, kernel_layout)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, g_lse,
+                                         *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _attention(q, k, v, causal, sm_scale, q_offset, kv_offset, kernel_layout):
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, causal, float(sm_scale),
+                                 int(q_offset), int(kv_offset),
+                                 kernel_layout)
+
+
 def flash_attention(q, k, v, causal=True, sm_scale=None, q_offset=0,
                     kv_offset=0, kernel_layout=False):
     """Flash attention. Layout ``[b, s, h, d]``, or ``[b, h, s, d]`` with
     ``kernel_layout=True``; the output comes back in the input's layout.
-    CUDA launches are counted in ``flash_attention.launches``."""
-    return _forward(q, k, v, causal, sm_scale, q_offset, kv_offset,
-                    kernel_layout)[0]
+    Differentiable in q, k and v. CUDA launches are counted in
+    ``flash_attention.launches`` (B1), ``flash_bwd_dq.launches`` (B2) and
+    ``flash_bwd_dkv.launches`` (B3)."""
+    return _attention(q, k, v, causal, sm_scale, q_offset, kv_offset,
+                      kernel_layout)[0]
 
 
 flash_attention.launches = 0
@@ -213,5 +488,5 @@ def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None,
                              q_offset=0, kv_offset=0):
     """Kernel-layout ``[b, h, s, d]`` flash attention returning ``(out,
     lse)``, lse fp32 ``[b, h, sq]`` (``NEG_INF`` for a row whose visited
-    keys all carry no weight)."""
-    return _forward(q, k, v, causal, sm_scale, q_offset, kv_offset, True)
+    keys all carry no weight). Differentiable through both outputs."""
+    return _attention(q, k, v, causal, sm_scale, q_offset, kv_offset, True)

@@ -1,0 +1,331 @@
+"""LR schedulers (port of ``paddle_tpu/optimizer/lr.py``, itself after
+Paddle's ``python/paddle/optimizer/lr.py``). Plain Python: each scheduler
+is a function of its step count. ``LRScheduler.__init__`` steps once, so
+a fresh scheduler already holds the rate of epoch 0."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+class LRScheduler:
+    def __init__(self, learning_rate=0.1, last_epoch=-1, verbose=False):
+        self.base_lr = float(learning_rate)
+        self.last_epoch = last_epoch
+        self.last_lr = float(learning_rate)
+        self.verbose = verbose
+        self.step()
+
+    def __call__(self):
+        return self.last_lr
+
+    def step(self, epoch=None):
+        if epoch is None:
+            self.last_epoch += 1
+        else:
+            self.last_epoch = epoch
+        self.last_lr = self.get_lr()
+        if self.verbose:
+            print(f"Epoch {self.last_epoch}: lr set to {self.last_lr}")
+
+    def get_lr(self):
+        raise NotImplementedError
+
+    def state_dict(self):
+        return {k: v for k, v in self.__dict__.items()
+                if isinstance(v, (int, float, str, bool, list))}
+
+    def set_state_dict(self, state):
+        self.__dict__.update(state)
+
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0, last_epoch=-1,
+                 verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return self.base_lr * (self.d_model ** -0.5) * min(
+            step ** -0.5, step * self.warmup_steps ** -1.5)
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for i, b in enumerate(self.boundaries):
+            if self.last_epoch < b:
+                return self.values[i]
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(step / float(self.decay_steps)) or 1
+            decay_steps = self.decay_steps * div
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, self.decay_steps)
+        return (self.base_lr - self.end_lr) * \
+            ((1 - float(step) / float(decay_steps)) ** self.power) + self.end_lr
+
+
+class LinearWarmup(LRScheduler):
+    def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
+                 last_epoch=-1, verbose=False):
+        self.lr_sched = learning_rate if isinstance(learning_rate, LRScheduler) else None
+        self.final_lr = learning_rate if not isinstance(learning_rate, LRScheduler) else None
+        self.warmup_steps = warmup_steps
+        self.start_lr = start_lr
+        self.end_lr = end_lr
+        super().__init__(start_lr, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch < self.warmup_steps:
+            return (self.end_lr - self.start_lr) * self.last_epoch / \
+                self.warmup_steps + self.start_lr
+        if self.lr_sched is not None:
+            self.lr_sched.step(self.last_epoch - self.warmup_steps)
+            return self.lr_sched()
+        return self.final_lr
+
+
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * (self.gamma ** self.last_epoch)
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * (self.gamma ** n)
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * (self.gamma ** (self.last_epoch // self.step_size))
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = float(learning_rate)
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
+
+
+class CosineAnnealingDecay(LRScheduler):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1, verbose=False):
+        self.T_max = T_max
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.eta_min + (self.base_lr - self.eta_min) * \
+            (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0, last_epoch=-1,
+                 verbose=False):
+        self.T_0 = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        epoch = self.last_epoch
+        t_i = self.T_0
+        while epoch >= t_i:
+            epoch -= t_i
+            t_i *= self.T_mult
+        return self.eta_min + (self.base_lr - self.eta_min) * \
+            (1 + math.cos(math.pi * epoch / t_i)) / 2
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.epsilon = epsilon
+        self.best = None
+        self.num_bad = 0
+        self.cooldown_counter = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = float(learning_rate)
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        cur = (float(metrics.item()) if isinstance(metrics, torch.Tensor)
+               else float(metrics))
+        if self.best is None:
+            self.best = cur
+        better = cur < self.best - (abs(self.best) * self.threshold
+                                    if self.threshold_mode == "rel" else self.threshold) \
+            if self.mode == "min" else \
+            cur > self.best + (abs(self.best) * self.threshold
+                               if self.threshold_mode == "rel" else self.threshold)
+        if better:
+            self.best = cur
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad = 0
+        elif self.num_bad > self.patience:
+            new_lr = max(self.last_lr * self.factor, self.min_lr)
+            if self.last_lr - new_lr > self.epsilon:
+                self.last_lr = new_lr
+            self.cooldown_counter = self.cooldown
+            self.num_bad = 0
+
+    def get_lr(self):
+        return self.last_lr
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3, anneal_strategy="cos",
+                 three_phase=False, last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def _interp(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) * (1 + math.cos(math.pi * pct)) / 2
+        return start + (end - start) * pct
+
+    def get_lr(self):
+        step = min(self.last_epoch, self.total_steps)
+        up = int(self.phase_pct * self.total_steps)
+        if step <= up and up > 0:
+            return self._interp(self.initial_lr, self.max_lr, step / up)
+        down = self.total_steps - up
+        return self._interp(self.max_lr, self.end_lr, (step - up) / max(down, 1))
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up,
+                 step_size_down=None, mode="triangular", exp_gamma=1.0,
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.up = step_size_up
+        self.down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.up + self.down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        pct = x / self.up if x <= self.up else 1 - (x - self.up) / self.down
+        scale = 1.0
+        if self.mode == "triangular2":
+            scale = 1 / (2 ** (cycle - 1))
+        elif self.mode == "exp_range":
+            scale = self.exp_gamma ** self.last_epoch
+        return self.base_lr + (self.max_lr - self.base_lr) * pct * scale
+
+
+class LinearLR(LRScheduler):
+    """Linear ramp of the base lr from ``start_factor`` to ``end_factor``
+    over ``total_steps`` (reference: ``paddle.optimizer.lr.LinearLR``)."""
+
+    def __init__(self, learning_rate, total_steps, start_factor=1. / 3,
+                 end_factor=1.0, last_epoch=-1, verbose=False):
+        if total_steps <= 0:
+            raise ValueError("LinearLR: total_steps must be positive")
+        self.total_steps = total_steps
+        self.start_factor = start_factor
+        self.end_factor = end_factor
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = min(self.last_epoch, self.total_steps)
+        factor = self.start_factor + (self.end_factor - self.start_factor) \
+            * t / self.total_steps
+        return self.base_lr * factor

@@ -1,14 +1,16 @@
-"""Parity of the port's flash attention forward with the JAX reference.
+"""Parity of the port's flash attention, forward and backward, with the
+JAX reference.
 
-The same seeded numpy inputs go through ``paddle_tpu``'s Pallas kernel in
+The same seeded numpy inputs go through ``paddle_tpu``'s Pallas kernels in
 interpret mode (``flash_attention`` / ``flash_attention_with_lse`` with
-``interpret=True``, the reference's default 128 x 128 blocks) and through
-``paddle_tpu_torch``'s plain version of the CUDA kernel, which is what a
-CPU tensor runs.
+``interpret=True``, the reference's default 128 x 128 blocks; gradients by
+``jax.vjp`` through its custom VJP) and through ``paddle_tpu_torch``'s
+plain versions of the CUDA kernels, which is what a CPU tensor runs.
 """
 import importlib
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -155,10 +157,176 @@ def test_sdpa_takes_flash_route_and_matches_jax(sq, sk, monkeypatch):
 
 
 def test_gradient_request_raises():
+    """First-order gradients flow through the flash backward; a
+    second-order request raises, as the backward is not itself
+    differentiable (the reference's custom VJP has no rule for it)."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 2, 2, 128, 128, 64, 0))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tfa.flash_attention(q, k, v, kernel_layout=True)
+    out = tfa.flash_attention(q, k, v, kernel_layout=True)
+    (g,) = torch.autograd.grad(out.square().sum(), q, create_graph=True)
+    assert g.shape == q.shape and bool(torch.isfinite(g).all())
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(g.sum(), q)
     with torch.no_grad():
         assert tfa.flash_attention(q, k, v, kernel_layout=True).shape \
             == q.shape
+
+
+# ---------------------------------------------------------------------------
+# backward: the port's gradients (plain version on CPU) against jax.vjp of
+# the interpret-mode Pallas kernels (_bwd_dq_kernel, _bwd_dkv_kernel)
+# ---------------------------------------------------------------------------
+
+#: gradients relative to each one's max: the same fp32 recurrences, the
+#: dots and the GQA sums taken in other orders by XLA and PyTorch
+GRAD_RTOL = 1e-5
+
+# (b, hq, hk, sq, sk, d, causal, q_offset, kv_offset)
+BWD_CASES = {
+    "causal_mha": (1, 2, 2, 128, 128, 64, True, 0, 0),
+    "causal_gqa": (1, 4, 2, 128, 128, 64, True, 0, 0),
+    "noncausal_gqa": (1, 4, 2, 128, 128, 64, False, 0, 0),
+    # 200 rows and 333 keys: both padded to whole reference tiles
+    "noncausal_ragged": (1, 4, 2, 200, 333, 64, False, 0, 0),
+    # bottom-right alignment, as SDPA calls it
+    "causal_ragged": (1, 4, 2, 200, 333, 64, True, 133, 0),
+    # rows 0..39 see no key; their forward is the mean of V
+    "dead_rows": (1, 4, 2, 64, 100, 64, True, 0, 40),
+}
+
+
+def _rel_err(got, want):
+    want = np.asarray(want)
+    return float(np.abs(got.detach().numpy() - want).max()
+                 / max(np.abs(want).max(), 1e-30))
+
+
+def _torch_grads(q, k, v, dout, case, g_lse=None):
+    b, hq, hk, sq, sk, d, causal, qo, ko = case
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    if g_lse is None:
+        out = tfa.flash_attention(tq, tk, tv, causal, None, qo, ko,
+                                  kernel_layout=True)
+        outs, cots = [out], [torch.from_numpy(dout)]
+    else:
+        out, lse = tfa.flash_attention_with_lse(tq, tk, tv, causal, None,
+                                                qo, ko)
+        outs, cots = [out, lse], [torch.from_numpy(dout),
+                                  torch.from_numpy(g_lse)]
+    return torch.autograd.grad(outs, (tq, tk, tv), cots)
+
+
+def _jax_grads(q, k, v, dout, case, g_lse=None):
+    b, hq, hk, sq, sk, d, causal, qo, ko = case
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    if g_lse is None:
+        def f(q_, k_, v_):
+            return jfa.flash_attention(q_, k_, v_, causal=causal,
+                                       q_offset=qo, kv_offset=ko,
+                                       interpret=True, kernel_layout=True)
+        _, vjp = jax.vjp(f, *args)
+        return vjp(jnp.asarray(dout))
+
+    def f(q_, k_, v_):
+        return jfa.flash_attention_with_lse(q_, k_, v_, causal=causal,
+                                            q_offset=qo, kv_offset=ko,
+                                            interpret=True)
+    _, vjp = jax.vjp(f, *args)
+    return vjp((jnp.asarray(dout), jnp.asarray(g_lse)))
+
+
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_backward_matches_interpret_kernel_vjp(name):
+    case = BWD_CASES[name]
+    b, hq, hk, sq, sk, d = case[:6]
+    q, k, v = _inputs(b, hq, hk, sq, sk, d, 100 + len(name))
+    dout = np.random.RandomState(len(name)).randn(b, hq, sq, d).astype(
+        np.float32)
+    got = _torch_grads(q, k, v, dout, case)
+    want = _jax_grads(q, k, v, dout, case)
+    for which, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, which
+        assert _rel_err(g, w) <= GRAD_RTOL, (which, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("name", ["causal_ragged", "dead_rows"])
+def test_backward_with_lse_cotangent_matches_interpret_kernel_vjp(name):
+    """``flash_attention_with_lse`` differentiated through both outputs:
+    the lse cotangent folds into delta (``_bwd``, ``:337-341``)."""
+    case = BWD_CASES[name]
+    b, hq, hk, sq, sk, d = case[:6]
+    q, k, v = _inputs(b, hq, hk, sq, sk, d, 200 + len(name))
+    rng = np.random.RandomState(300 + len(name))
+    dout = rng.randn(b, hq, sq, d).astype(np.float32)
+    g_lse = rng.randn(b, hq, sq).astype(np.float32)
+    got = _torch_grads(q, k, v, dout, case, g_lse)
+    want = _jax_grads(q, k, v, dout, case, g_lse)
+    without = _torch_grads(q, k, v, dout, case)
+    for which, g, w, g0 in zip("qkv", got, want, without):
+        assert _rel_err(g, w) <= GRAD_RTOL, (which, _rel_err(g, w))
+        if which != "v":      # dlse/dv = 0: only q and k feel g_lse
+            assert _rel_err(g0, w) > 1e-2, which
+
+
+def test_public_layout_backward_matches_kernel_layout():
+    """``[b, s, h, d]`` views, as SDPA passes them: the same gradients
+    as the kernel layout, returned in the public layout."""
+    case = BWD_CASES["causal_ragged"]
+    b, hq, hk, sq, sk, d, causal, qo, ko = case
+    q, k, v = _inputs(b, hq, hk, sq, sk, d, 5)
+    dout = np.random.RandomState(6).randn(b, hq, sq, d).astype(np.float32)
+    want = _torch_grads(q, k, v, dout, case)
+    ts = [torch.from_numpy(x.transpose(0, 2, 1, 3).copy()).requires_grad_(True)
+          for x in (q, k, v)]
+    out = tfa.flash_attention(*ts, causal=causal, q_offset=qo, kv_offset=ko)
+    got = torch.autograd.grad(
+        out, ts, torch.from_numpy(dout.transpose(0, 2, 1, 3).copy()))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.transpose(1, 2).numpy(), w.numpy())
+
+
+def test_dead_rows_backward_follows_the_kernel_not_autograd():
+    """A row with no valid key returns the mean of V in the forward, but
+    the reference's backward gives it p = 0 on every key: zero dq, and
+    nothing into dk or dv. Autograd through the plain forward would send
+    its cotangent into V (the mean's gradient); the port's backward does
+    not, and matches the interpret-mode kernel's VJP."""
+    case = BWD_CASES["dead_rows"]
+    b, hq, hk, sq, sk, d, causal, qo, ko = case
+    dead = ko - qo
+    q, k, v = _inputs(b, hq, hk, sq, sk, d, 17)
+    dout = np.zeros((b, hq, sq, d), np.float32)
+    dout[:, :, :dead] = np.random.RandomState(18).randn(b, hq, dead, d)
+    got = _torch_grads(q, k, v, dout, case)
+    want = _jax_grads(q, k, v, dout, case)
+    for g, w in zip(got, want):
+        assert float(g.abs().max()) == 0.0
+        assert float(np.abs(np.asarray(w)).max()) == 0.0
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out, _ = tfa.flash_attention_plain(tq, tk, tv, causal, None, qo, ko)
+    (dv_autograd,) = torch.autograd.grad(out, tv, torch.from_numpy(dout))
+    assert float(dv_autograd.abs().max()) > 1e-2
+
+
+def test_backward_plain_pieces_compose():
+    """``flash_attention_bwd_plain`` is delta, then the dQ and dK/dV
+    plain versions (what the CUDA wrappers check their kernels against),
+    and the device-generic ``flash_attention_bwd`` gives the same on
+    CPU tensors."""
+    case = BWD_CASES["causal_ragged"]
+    b, hq, hk, sq, sk, d, causal, qo, ko = case
+    q, k, v = (torch.from_numpy(x) for x in _inputs(b, hq, hk, sq, sk, d, 9))
+    dout = torch.randn(b, hq, sq, d, generator=torch.Generator().manual_seed(0))
+    out, lse = tfa.flash_attention_plain(q, k, v, causal, None, qo, ko)
+    full = tfa.flash_attention_bwd_plain(q, k, v, out, lse, dout, None,
+                                         causal, None, qo, ko)
+    delta = tfa.bwd_delta(out, dout)
+    assert delta.shape == (b, hq, sq) and delta.dtype == torch.float32
+    dq = tfa.flash_bwd_dq(q, k, v, dout, lse, delta, causal, None, qo, ko)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, None, qo,
+                               ko)
+    generic = tfa.flash_attention_bwd(q, k, v, out, lse, dout, None, causal,
+                                      None, qo, ko)
+    for a, b_, c in zip(full, (dq, dk, dv), generic):
+        np.testing.assert_array_equal(a.numpy(), b_.numpy())
+        np.testing.assert_array_equal(a.numpy(), c.numpy())
