@@ -13,12 +13,15 @@ Phases, each fatal on error (non-zero exit, no result line):
    flash attention forward (B1, out and lse) on causal, offset,
    non-causal and dead-row cases, the flash backward (B2 dQ, B3 dK/dV)
    on causal, non-causal ragged, dead-row and lse-cotangent cases, paged
-   decode (B4) on a batch of 8 with contexts 1-700 and shared pages.
+   decode (B4) on a batch of 8 with contexts 1-700 and shared pages; the
+   int8-page kernels B7 and B9 on the ragged layout and B5 on the paged
+   one, pages quantised by the cache's codec; the weight-only int8 matmul
+   (B10) at M in {1, 8, 256, 300} for the five (K, N) of Llama-3-8B.
    Each kernel against its plain PyTorch version in fp32 (TF32 off,
-   tolerance 1e-5; for gradients 1e-5 of each one's max) and in bf16
-   against the fp32 plain version rounded to bf16 (one bf16 ulp plus the
-   fp32 tolerance per element); the ragged kernels also against each
-   other in fp32 (1e-5);
+   tolerance 1e-5; for gradients and B10 1e-5 of each output's max) and
+   in bf16 against the fp32 plain version rounded to bf16 (one bf16 ulp
+   plus the fp32 tolerance per element); the ragged kernels also against
+   each other in fp32 (1e-5), native and int8 alike;
 3. serving a full-width, 32-layer Llama-3-8B in bf16 with seeded random
    weights, every path with the launch counts zeroed just before and read
    just after, after one uncounted warm pass:
@@ -37,6 +40,15 @@ Phases, each fatal on error (non-zero exit, no result line):
       B4 32 x the decode steps, with prefix hits; an instrumented pass
       times every tick and captures layer 0's inputs of a decode step and
       of a flash-sized chunk that reads back a prefix;
+   e. right after (c), on the same model, the fully-int8 configuration,
+      ``ContinuousServingEngine(kv_dtype="int8", weight_dtype="int8")``,
+      serves the load of (a) three times: ragged q-block (B7 = 32 x ticks), ragged
+      per-token (B9 = 32 x ticks) and legacy (B5 = 32 x decode steps, B1
+      = 32 x chunks padded to >= 128); B10 = 225 x forwards in each, and
+      kernels 6 and 8 and B4 never launch. The first engine quantises the
+      model's 225 Linears in place, the others find none left. Prints the
+      native and int8 ``page_nbytes``; instrumented passes time every tick
+      and capture layer 0's inputs of B7/B9, B5 and B10 (M = 8 and 256);
    d. training: Llama-3-8B widths cut to 4 layers (bf16, 1.92 B
       parameters; AdamW's fp32 master weights and moments leave no room
       for more on one card), four Paddle-style steps (``loss, logits =
@@ -54,9 +66,10 @@ Phases, each fatal on error (non-zero exit, no result line):
    paged cache give logits within 1e-4 (relative) of the cache-free
    forward; one training step's loss and every gradient through the
    kernels within 1e-6 and 1e-4 (relative) of the same step with SDPA
-   swapped, for the check only, to dense attention in autograd; then
-   every kernel against its plain version (phase 2's rules) on the
-   inputs captured in phase 3;
+   swapped, for the check only, to dense attention in autograd; the
+   fully-int8 engine's three schedulers give identical greedy streams on
+   the three prompts; then every kernel against its plain version (phase
+   2's rules) on the inputs captured in phase 3;
 5. timing (CUDA events, median over 50 launches with L2 flushed between
    them) of every kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the bound for the same
@@ -64,16 +77,20 @@ Phases, each fatal on error (non-zero exit, no result line):
    tick, B1 at the static prefill, at the legacy chunk and at the
    training step, B2 and B3 at the training step (against SDPA's
    backward, whose kernels a profiler trace names), B4 at each engine's
-   decode step; the serving numbers of every path, the legacy and ragged
-   ones from uninstrumented runs, and the training step's;
+   decode step, B7 and B9 at an int8 tick, B5 at the int8 legacy decode
+   step, B10 at M = 8 and 256 for each weight shape (against
+   ``torch.matmul`` on the layer's dequantised bf16 weight); the serving
+   numbers of every path, the legacy, ragged and int8 ones from
+   uninstrumented runs, and the training step's;
 6. tick breakdown of the ragged engines: per tick of the instrumented
    passes, the forward, the schedule build and the attention calls, and
    both ragged kernels replayed at every tick shape.
 
-Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.
+Prints a ``{"kernels": [...]}`` line with all ten kernels, the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -85,6 +102,7 @@ import numpy as np
 
 N_HEADS, N_KV, HEAD_DIM, PAGE = 32, 8, 128, 16
 N_LAYERS = 32
+N_LINEARS = 7 * N_LAYERS + 1       # the quantised Llama's, lm_head included
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 FP32_TOL = 1e-5
@@ -133,30 +151,35 @@ def span_rows(q_starts, q_lens):
 def ptxas_summary(build):
     """Registers and spill bytes of every kernel instantiation, from the
     ``ptxas -v`` lines in each library's build log (dynamic shared memory
-    is the launch's own, not in the log)."""
+    is the launch's own, not in the log). Names are demangled with
+    ``c++filt`` where the machine has it."""
     import re
-    types = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+    import shutil
+    rows = []
     for source in build.SOURCES:
         log_path = build._target(source)[1].with_suffix(".log")
         entry, spills = None, ""
         for line in log_path.read_text().splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                mk = re.search(r"\d+([a-z_]+_kernel)I(\w+?)EEEvNS",
-                               m.group(1))
-                entry = (f"{mk.group(1)}<{mk.group(2)}>" if mk
-                         else m.group(1))
-                for code, name in types.items():
-                    entry = entry.replace(f"<{code}Li", f"<{name}, ")
+                entry = m.group(1)
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
             if m:
                 spills = f"spills {m.group(1)}/{m.group(2)} B"
             m = re.search(r"Used (\d+) registers", line)
             if m and entry:
-                log(f"  ptxas {source}: {entry} {m.group(1)} registers, "
-                    f"{spills}")
+                rows.append((source, entry, m.group(1), spills))
                 entry = None
+    names = [r[1] for r in rows]
+    if shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(rows):
+            names = [re.sub(r"\(anonymous namespace\)::|\(.*\)$", "", n)
+                     for n in out.stdout.splitlines()]
+    for (source, _, regs, spills), name in zip(rows, names):
+        log(f"  ptxas {source}: {name} {regs} registers, {spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -401,6 +424,111 @@ def compare_paged(torch, pa, q, kp, vp, tbl, ctx, label):
     return {"fp32": e32, "bf16": eb}
 
 
+def compare_kernels_q8(torch, rpa, q, kq, vq, ks, vs, tbl, desc, label):
+    """B7 and B9 (int8 pages with fp32 row scales) against their plain
+    versions, in fp32 (1e-5) and in bf16 (one ulp of the fp32 plain
+    version rounded, plus the fp32 tolerance), and against each other in
+    fp32 (1e-5). Returns the errors by kernel and the plans."""
+    rows = torch.as_tensor(span_rows(desc[1], desc[2]), device=q.device)
+    scale = HEAD_DIM ** -0.5
+    plans = {impl: rpa.make_plan(q.shape[0], *desc, tbl, PAGE, impl=impl,
+                                 device=q.device) for impl in rpa.IMPLS}
+    kern = {"qblock": rpa.qblock_attention_q8,
+            "token": rpa.token_attention_q8}
+    plain = {"qblock": rpa.qblock_attention_plain,
+             "token": rpa.token_attention_plain}
+    errs, out32 = {}, {}
+    for impl in rpa.IMPLS:
+        q32 = q.float()
+        out32[impl] = kern[impl](q32, kq, vq, ks, vs, plans[impl], scale)
+        ref32 = plain[impl](q32, kq, vq, plans[impl], scale, ks, vs)
+        e32 = max_err(out32[impl], ref32, rows)
+        check(f"{label} {impl}_q8 fp32 kernel vs plain", e32, FP32_TOL)
+        qb = q.bfloat16()
+        ob = kern[impl](qb, kq, vq, ks, vs, plans[impl], scale)
+        rb = plain[impl](qb.float(), kq, vq, plans[impl], scale, ks, vs)
+        assert ob.dtype == torch.bfloat16
+        eb, ulps = bf16_err(torch, ob, rb, rows)
+        check(f"{label} {impl}_q8 bf16 kernel vs bf16(fp32 plain)", ulps,
+              1.0, "max error / (1 bf16 ulp + fp32 tol)")
+        errs[impl] = {"fp32": e32, "bf16": eb}
+    torch.cuda.synchronize()
+    check(f"{label} qblock_q8 vs token_q8 kernel fp32",
+          max_err(out32["qblock"], out32["token"], rows), FP32_TOL)
+    return errs, plans
+
+
+def compare_paged_q8(torch, pa, q, kq, vq, ks, vs, tbl, ctx, label):
+    """B5 against its plain version (fp32 1e-5, bf16 one ulp) and against
+    the dense reference on the dequantised pages (fp32, 2e-5)."""
+    from paddle_tpu_torch.models.generation import dequantize_kv_rows
+    scale = HEAD_DIM ** -0.5
+    q32 = q.float()
+    out = pa.paged_attention(q32, kq, vq, tbl, ctx, k_scales=ks, v_scales=vs)
+    ref = pa.paged_decode_plain(q32, kq, vq, tbl, ctx, scale, ks, vs)
+    e32 = float((out - ref).abs().max())
+    check(f"{label} B5 fp32 kernel vs plain", e32, FP32_TOL)
+    dense = pa.paged_attention_reference(q32, dequantize_kv_rows(kq, ks),
+                                         dequantize_kv_rows(vq, vs), tbl, ctx)
+    check(f"{label} B5 fp32 kernel vs dense reference on dequantised pages",
+          float((out - dense).abs().max()), 2e-5)
+    qb = q.bfloat16()
+    ob = pa.paged_attention(qb, kq, vq, tbl, ctx, k_scales=ks, v_scales=vs)
+    rb = pa.paged_decode_plain(qb.float(), kq, vq, tbl, ctx, scale, ks, vs)
+    assert ob.dtype == torch.bfloat16
+    eb, ulps = bf16_err(torch, ob, rb, slice(None))
+    check(f"{label} B5 bf16 kernel vs bf16(fp32 plain)", ulps, 1.0,
+          "max error / (1 bf16 ulp + fp32 tol)")
+    torch.cuda.synchronize()
+    return {"fp32": e32, "bf16": eb}
+
+
+#: B10's (K, N) at Llama-3-8B: q/o, k/v, gate/up, down, lm_head
+MATMUL_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                 (4096, 128256)]
+
+
+def compare_int8_matmul_case(torch, qm, x, wq, ws, label):
+    """B10 against its plain version: fp32 within 1e-5 of the output's
+    largest magnitude (sums of up to 14336 products in another order),
+    bf16 within one bf16 ulp of the fp32 plain version rounded, plus that
+    tolerance. Returns (fp32 error / max, bf16 max abs error)."""
+    x32 = x.float()
+    out = qm.int8_matmul(x32, wq, ws)
+    ref = qm.int8_matmul_plain(x32, wq, ws)
+    top = ref.abs().max()
+    e32 = float((out - ref).abs().max() / top)
+    check(f"{label} fp32 kernel vs plain", e32, FP32_TOL, "max err / max")
+    xb = x.bfloat16()
+    ob = qm.int8_matmul(xb, wq, ws)
+    rb = qm.int8_matmul_plain(xb.float(), wq, ws)
+    assert ob.dtype == torch.bfloat16
+    ref_b = rb.bfloat16().float()
+    diff = (ob.float() - ref_b).abs()
+    ulp = torch.ldexp(torch.ones_like(ref_b), torch.frexp(ref_b).exponent - 8)
+    check(f"{label} bf16 kernel vs bf16(fp32 plain)",
+          float((diff / (ulp + FP32_TOL * rb.abs().max())).max()), 1.0,
+          "max error / (1 bf16 ulp + fp32 tol of the max)")
+    torch.cuda.synchronize()
+    return e32, float(diff.max())
+
+
+def compare_int8_matmul(torch, qm, dev):
+    """B10 at M in {1, 8, 256, 300} for the five (K, N) of Llama-3-8B, on
+    seeded N(0, 0.02) bf16 weights quantised as the model's are."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    errs = []
+    for k, n in MATMUL_SHAPES:
+        w = (torch.randn((n, k), generator=g, device=dev) * 0.02).bfloat16()
+        wq, ws = qm.quantize_weight(w)
+        del w
+        for m in (1, 8, 256, 300):
+            x = torch.randn((m, k), generator=g, device=dev)
+            errs.append(compare_int8_matmul_case(
+                torch, qm, x, wq, ws, f"B10 M={m} K={k} N={n}"))
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving
 # ---------------------------------------------------------------------------
@@ -442,9 +570,12 @@ class TickProbe:
             score = int(lens.sum()) + (10 ** 6 if mixed else 0)
             if score > self.score:
                 self.score = score
+                ks, vs = kw.get("k_scales"), kw.get("v_scales")
                 self.best = dict(q=q.clone(), kp=kp.clone(), vp=vp.clone(),
                                  tbl=tables.copy(),
-                                 desc=(slots, starts, lens, ctx))
+                                 desc=(slots, starts, lens, ctx),
+                                 ks=None if ks is None else ks.clone(),
+                                 vs=None if vs is None else vs.clone())
         self.calls += 1
         a = self.torch.cuda.Event(enable_timing=True)
         b = self.torch.cuda.Event(enable_timing=True)
@@ -488,6 +619,9 @@ class TickProbe:
         self.mod.ragged_paged_attention = self.orig_attn
         self.mod.make_plan = self.orig_plan
         del self.model.forward
+        # the serving model must not outlive its phase (a bound method
+        # holds it too)
+        self.model = self.orig_forward = None
         self.torch.cuda.synchronize()
 
 
@@ -524,19 +658,22 @@ def run_concurrently(eng, prompts, **kw):
 
 
 def serve(torch, pt, kern, model, prompts, warm, impl="qblock",
-          enable_ragged=True, probes=(), tick_ms=None):
+          enable_ragged=True, probes=(), tick_ms=None, **engine_kw):
     """Warm the engine (compiles nothing, but fills cuBLAS workspaces and
     registers the shared prefix), then zero the launch counts and serve
     all prompts concurrently under ``probes``. ``steps`` counts the ticks
     that ran a forward (ragged ticks, or legacy ticks that ran a chunk or
-    a decode step: an integer sum, no sync). With ``tick_ms`` (a list)
-    every such legacy tick also appends its time, to a device sync.
-    Returns outputs, counts and timings."""
+    a decode step: an integer sum, no sync), ``forwards`` the model
+    forwards (a legacy tick may run a chunk and a decode step). With
+    ``tick_ms`` (a list) every such legacy tick also appends its time, to
+    a device sync. ``engine_kw`` (``kv_dtype``, ``weight_dtype``) goes to
+    the engine. Returns outputs, counts and timings."""
     eng = pt.ContinuousServingEngine(model, max_batch_size=8, max_len=2048,
                                      page_size=PAGE, token_budget=256,
                                      prefill_chunk_tokens=256,
                                      ragged_impl=impl,
-                                     enable_ragged=enable_ragged)
+                                     enable_ragged=enable_ragged,
+                                     **engine_kw)
     legacy_ticks = [0]
     if not enable_ragged:
         legacy_tick = eng._legacy_tick
@@ -557,6 +694,7 @@ def serve(torch, pt, kern, model, prompts, warm, impl="qblock",
         if tick_ms is not None:
             tick_ms.clear()
         steps0 = eng.ragged_steps + legacy_ticks[0]
+        rag0 = eng.ragged_steps
         hits0 = eng.prefix_hits
         dec0, buckets0 = eng.decode_steps, Counter(eng.prefill_chunk_buckets)
         zero_counts(kern)
@@ -568,13 +706,18 @@ def serve(torch, pt, kern, model, prompts, warm, impl="qblock",
             results = run_concurrently(eng, prompts)
         wall = time.perf_counter() - t0
         launches = read_counts(kern)
+        buckets = eng.prefill_chunk_buckets - buckets0
+        decode_steps = eng.decode_steps - dec0
         stats = dict(steps=eng.ragged_steps + legacy_ticks[0] - steps0,
                      hits=eng.prefix_hits - hits0, wall=wall,
-                     launches=launches,
-                     decode_steps=eng.decode_steps - dec0,
-                     chunk_buckets=eng.prefill_chunk_buckets - buckets0,
+                     launches=launches, decode_steps=decode_steps,
+                     chunk_buckets=buckets,
+                     forwards=(eng.ragged_steps - rag0
+                               + sum(buckets.values()) + decode_steps),
                      useful=eng.useful_tokens_total,
-                     padded=eng.padded_tokens_total)
+                     padded=eng.padded_tokens_total,
+                     quantized=eng.quantized_linears,
+                     page_nbytes=eng._cache.page_nbytes)
     return results, stats
 
 
@@ -625,14 +768,14 @@ class LayerZeroCapture:
 def decode_capture(gen_module, n_layers):
     """Layer 0's paged-decode inputs of the decode step with the most
     context (live rows first, then their total context): q, tables and
-    context lengths cloned, the pools by reference."""
+    context lengths cloned, the pools (and int8 scales) by reference."""
     def score(q, kp, vp, tables, ctx, **kw):
         c = ctx.cpu().numpy()
         return int((c > 1).sum()), int(c.sum())
 
-    def keep(q, kp, vp, tables, ctx, **kw):
+    def keep(q, kp, vp, tables, ctx, k_scales=None, v_scales=None, **kw):
         return dict(q=q.clone(), kp=kp, vp=vp, tables=tables.clone(),
-                    ctx=ctx.clone())
+                    ctx=ctx.clone(), ks=k_scales, vs=v_scales)
     return LayerZeroCapture(gen_module, "paged_attention", n_layers, score,
                             keep)
 
@@ -650,6 +793,36 @@ def flash_capture(functional, n_layers):
                     q_offset=q_offset)
     return LayerZeroCapture(functional, "flash_attention", n_layers, score,
                             keep)
+
+
+class MatmulCapture:
+    """For one run, wraps the ``int8_matmul`` that ``int8_linear`` calls
+    and keeps, for each weight shape (K, N) and each M in ``ms``, the
+    first call's inputs: x cloned, the codes and scales by reference, and
+    the quantised layer's ``.weight`` (the dequantised bf16 weight, for
+    the library comparator). The first call of a shape in a forward is
+    layer 0's."""
+
+    def __init__(self, quant_mod, model, ms=(8, 256)):
+        self.mod, self.ms, self.best = quant_mod, ms, {}
+        self.orig = quant_mod.int8_matmul
+        self.layers = {id(m.w_int8): m for m in model.modules()
+                       if hasattr(m, "w_int8")}
+
+    def call(self, x, w, scale):
+        key = (w.shape[1], w.shape[0], x.shape[0])
+        if x.shape[0] in self.ms and key not in self.best:
+            self.best[key] = dict(x=x.clone(), wq=w, ws=scale,
+                                  weight=self.layers[id(w)].weight)
+        return self.orig(x, w, scale)
+
+    def __enter__(self):
+        self.mod.int8_matmul = self.call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.int8_matmul = self.orig
+        self.layers = None          # hold no other layer past the run
 
 
 class ForwardTimer:
@@ -673,6 +846,9 @@ class ForwardTimer:
 
     def __exit__(self, *exc):
         del self.model.forward
+        # the serving model must not outlive its phase (a bound method
+        # holds it too)
+        self.model = self.orig = None
 
 
 def serve_static(torch, pt, kern, model, prompts, probes=()):
@@ -738,11 +914,17 @@ def distinct_pages(tbl, rows, ctxs):
     return len(pages)
 
 
-def bound_ms(q, kp, tbl, desc):
+def page_row_bytes(kp, quant):
+    """Bytes of one K or V page row: the head_dim values in the pool's
+    type, plus the fp32 scale of an int8 row."""
+    return HEAD_DIM * kp.element_size() + (4 if quant else 0)
+
+
+def bound_ms(q, kp, tbl, desc, quant=False):
     """Least time for this tick's ragged attention on an H100: the bytes
     it must move (q and out once, every K/V page the spans' contexts
-    cover once, the descriptors) against its flops (QK^T and PV for every
-    visible key of every span token)."""
+    cover once with its scales when int8, the descriptors) against its
+    flops (QK^T and PV for every visible key of every span token)."""
     slots, starts, lens, ctxs = (np.asarray(a) for a in desc)
     el = q.element_size()
     flops = sum(4 * N_HEADS * HEAD_DIM               # keys each token sees
@@ -750,7 +932,7 @@ def bound_ms(q, kp, tbl, desc):
                 for ql, c in zip(lens, ctxs))
     nbytes = (2 * q.numel() * el
               + 2 * distinct_pages(tbl, slots, ctxs) * N_KV * PAGE
-              * HEAD_DIM * el + tbl.nbytes + 4 * 4 * len(slots))
+              * page_row_bytes(kp, quant) + tbl.nbytes + 4 * 4 * len(slots))
     return _bound(nbytes, flops)
 
 
@@ -778,15 +960,16 @@ BWD_BOUNDS = {"dq": dict(flops_per_d=6, q_side=3, kv_side=2, row_floats=2),
               "dkv": dict(flops_per_d=8, q_side=2, kv_side=4, row_floats=2)}
 
 
-def paged_bound(q, kp, tables, ctx):
+def paged_bound(q, kp, tables, ctx, quant=False):
     """Least time for a paged decode step on an H100: bytes of q and out,
-    of every distinct K/V page the contexts cover (read once) and of the
-    tables, against 4 d flops per (query head, visible key)."""
+    of every distinct K/V page the contexts cover (read once, with its
+    scales when int8) and of the tables, against 4 d flops per (query
+    head, visible key)."""
     tbl, c = tables.cpu().numpy(), ctx.cpu().numpy()
     el = q.element_size()
     nbytes = (2 * q.numel() * el
               + 2 * distinct_pages(tbl, range(len(c)), c) * N_KV * PAGE
-              * HEAD_DIM * el + tbl.nbytes + c.nbytes)
+              * page_row_bytes(kp, quant) + tbl.nbytes + c.nbytes)
     flops = 4 * HEAD_DIM * N_HEADS * int(c.sum())
     return _bound(nbytes, flops)
 
@@ -831,14 +1014,44 @@ def time_flash(torch, fa, cap, label):
 
 
 def time_paged(torch, pa, cap, label):
+    """B4 (native pages) or B5 (int8 pages, ``cap["ks"]`` set) on a
+    captured decode step, its plain version and its bound."""
     row = {"shape": label}
     args = (cap["q"], cap["kp"], cap["vp"], cap["tables"], cap["ctx"])
-    row["ms"] = time_ms(torch, lambda: pa.paged_attention(*args))
+    scales = (cap["ks"], cap["vs"]) if cap.get("ks") is not None else ()
+    kw = dict(zip(("k_scales", "v_scales"), scales))
+    row["ms"] = time_ms(torch, lambda: pa.paged_attention(*args, **kw))
     row["plain_ms"] = time_ms(torch, lambda: pa.paged_decode_plain(
-        *args, HEAD_DIM ** -0.5), iters=10)
-    row.update(paged_bound(cap["q"], cap["kp"], cap["tables"], cap["ctx"]))
+        *args, HEAD_DIM ** -0.5, *scales), iters=10)
+    row.update(paged_bound(cap["q"], cap["kp"], cap["tables"], cap["ctx"],
+                           quant=bool(scales)))
     row["library"] = "none: no single PyTorch call reads a block-table cache"
     row["library_ms"] = None
+    return row
+
+
+def time_int8_matmul(torch, qm, cap, label):
+    """B10 on captured main-path inputs (bf16 x, a layer's int8 codes and
+    scales), its plain version, and ``torch.matmul`` of x by the layer's
+    dequantised bf16 ``.weight`` (transposed outside the timed call).
+    Bound: x, the codes, the scales and the output once, against 2 M N K
+    flops at the bf16 peak (int8 codes are exact in bf16)."""
+    x, wq, ws, weight = cap["x"], cap["wq"], cap["ws"], cap["weight"]
+    (m, k), n = x.shape, wq.shape[0]
+    row = {"shape": f"{label}: M={m} K={k} N={n}, bf16 x, int8 w"}
+    out = qm.int8_matmul(x, wq, ws)
+    row["ms"] = time_ms(torch, lambda: qm.int8_matmul(x, wq, ws))
+    row["plain_ms"] = time_ms(torch, lambda: qm.int8_matmul_plain(x, wq, ws),
+                              iters=10)
+    el = x.element_size()
+    row.update(_bound(x.numel() * el + wq.numel() + 4 * n + m * n * el,
+                      2 * m * n * k))
+    wt = weight.detach().t()
+    row["library"] = ("torch.matmul(x, w.T), w the layer's dequantised "
+                      "bf16 .weight")
+    row["library_ms"] = time_ms(torch, lambda: torch.matmul(x, wt))
+    row["library_vs_kernel_max_abs_diff"] = float(
+        (torch.matmul(x, wt).float() - out.float()).abs().max())
     return row
 
 
@@ -1140,6 +1353,41 @@ def cross_paths(pt, model, prompts):
     return streams["generate"]
 
 
+INT8_PATHS = {"qblock": dict(ragged_impl="qblock"),
+              "token": dict(ragged_impl="token"),
+              "legacy": dict(enable_ragged=False)}
+
+
+def cross_paths_int8(pt, model, prompts):
+    """Greedy streams of the fully-int8 engine on its three schedulers,
+    one prompt at a time; all must be identical. The first engine
+    quantises the model's Linears, the others find none left."""
+    streams, quantized = {}, []
+    for name, kw in INT8_PATHS.items():
+        eng = pt.ContinuousServingEngine(model, max_batch_size=4,
+                                         max_len=1024, page_size=PAGE,
+                                         kv_dtype="int8", weight_dtype="int8",
+                                         **kw)
+        quantized.append(eng.quantized_linears)
+        with eng:
+            streams[name] = [eng.generate(p, max_new_tokens=8,
+                                          timeout=600).numpy()
+                             for p in prompts]
+    n_linear = 7 * model.config.num_hidden_layers + 1
+    if quantized != [n_linear, 0, 0]:
+        raise AssertionError(f"int8 engines quantised {quantized} Linears, "
+                             f"expected {[n_linear, 0, 0]}")
+    for name, outs in streams.items():
+        for p, a, b in zip(prompts, outs, streams["qblock"]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"int8 {name} stream differs from the "
+                                     f"int8 q-block engine's on a "
+                                     f"{p.shape[0]}-token prompt")
+    log(f"  int8 greedy streams identical across {sorted(streams)} on "
+        f"prompts of {[p.shape[0] for p in prompts]} tokens "
+        f"({n_linear} Linears quantised by the first engine)")
+
+
 def paged_logits_rel_err(torch, gen, model, full, n_prompt):
     """Logits of a prefill then decode steps over a ``PagedKVCache``
     against the cache-free forward of the same tokens."""
@@ -1212,7 +1460,9 @@ def main():
     from paddle_tpu_torch.nn import functional as nn_functional
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch import quantization as quant_mod
     from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
     dev = torch.device("cuda")
@@ -1221,7 +1471,10 @@ def main():
     kern = {"qblock": rpa.qblock_attention, "token": rpa.token_attention,
             "flash": fa.flash_attention, "paged": pa.paged_attention,
             "flash_bwd_dq": fa.flash_bwd_dq,
-            "flash_bwd_dkv": fa.flash_bwd_dkv}
+            "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "qblock_q8": rpa.qblock_attention_q8,
+            "token_q8": rpa.token_attention_q8,
+            "paged_q8": pa.paged_attention_q8, "int8_matmul": qm.int8_matmul}
     none = {name: 0 for name in kern}
 
     log("phase 1: build")
@@ -1237,7 +1490,17 @@ def main():
     bwd_errs = compare_flash_bwd(torch, fa, dev)
     paged_errs = compare_paged(torch, pa, *paged_layout(torch, dev),
                                "synthetic")
-    del q, kp, vp
+    # the int8 kernels on the same layouts, pages quantised by the cache's
+    # own codec
+    (kq, ks), (vq, vs) = gen.quantize_kv_rows(kp), gen.quantize_kv_rows(vp)
+    q8_errs, _ = compare_kernels_q8(torch, rpa, q, kq, vq, ks, vs, tbl, desc,
+                                    "synthetic int8")
+    pq, pkp, pvp, ptbl, pctx = paged_layout(torch, dev)
+    (kq, ks), (vq, vs) = gen.quantize_kv_rows(pkp), gen.quantize_kv_rows(pvp)
+    paged_q8_errs = compare_paged_q8(torch, pa, pq, kq, vq, ks, vs, ptbl,
+                                     pctx, "synthetic int8")
+    mm_errs = compare_int8_matmul(torch, qm, dev)
+    del q, kp, vp, pq, pkp, pvp, kq, vq
     torch.cuda.empty_cache()
 
     log("phase 3: serving Llama-3-8B (32 layers, bf16, random weights)")
@@ -1332,7 +1595,69 @@ def main():
     legacy_ticks = []
     serve(torch, pt, kern, model, prompts, warm, enable_ragged=False,
           probes=[legacy_cap, legacy_flash], tick_ms=legacy_ticks)
+
+    log(" 3e: ContinuousServingEngine(kv_dtype='int8', weight_dtype='int8'),"
+        " the load of (a) on all three schedulers")
+    int8_kw = dict(kv_dtype="int8", weight_dtype="int8")
+    int8_runs = {}
+    for name, kw in INT8_PATHS.items():
+        kw = dict(kw)
+        kw["impl"] = kw.pop("ragged_impl", "qblock")
+        outs, st = serve(torch, pt, kern, model, prompts, warm, **kw,
+                         **int8_kw)
+        int8_runs[name] = (outs, st)
+        check_outputs(prompts, outs, cfg.vocab_size, f"int8 {name}")
+        if st["quantized"] != (N_LINEARS if name == "qblock" else 0):
+            raise AssertionError(f"int8 {name}: {st['quantized']} Linears "
+                                 f"quantised")
+        want = dict(none, int8_matmul=N_LINEARS * st["forwards"])
+        if name == "legacy":
+            big = sum(n for size, n in st["chunk_buckets"].items()
+                      if size >= 128)
+            if not big or st["decode_steps"] <= 0:
+                raise AssertionError("int8 legacy: no flash-sized chunks or "
+                                     "no decode steps")
+            want.update(paged_q8=N_LAYERS * st["decode_steps"],
+                        flash=N_LAYERS * big)
+        else:
+            want[f"{name}_q8"] = N_LAYERS * st["steps"]
+        log(f"  int8 {name}: {st['steps']} ticks, {st['forwards']} forwards,"
+            f" {st['hits']} prefix hits, wall {st['wall']:.3f} s, "
+            f"{st['quantized']} Linears quantised by this engine")
+        if st["hits"] <= 0:
+            raise AssertionError(f"int8 {name}: no prefix hits")
+        check_launches(f"int8 {name} engine", st["launches"], want)
+    for a, b in zip(int8_runs["qblock"][0], int8_runs["token"][0]):
+        if not np.array_equal(a, b):
+            raise AssertionError("int8 q-block and per-token engines "
+                                 "disagree")
+    nbytes = {"native bf16": runs["qblock"][1]["page_nbytes"],
+              "int8": int8_runs["qblock"][1]["page_nbytes"]}
+    want_nbytes = {"native bf16": gen.kv_page_nbytes(
+        N_KV, HEAD_DIM, PAGE, "native", "bfloat16", N_LAYERS),
+        "int8": gen.kv_page_nbytes(N_KV, HEAD_DIM, PAGE, "int8",
+                                   num_layers=N_LAYERS)}
+    if nbytes != want_nbytes:
+        raise AssertionError(f"page_nbytes {nbytes}, expected {want_nbytes}")
+    log(f"  page_nbytes (32 layers, K and V): native bf16 "
+        f"{nbytes['native bf16']}, int8 {nbytes['int8']}, ratio "
+        f"{nbytes['native bf16'] / nbytes['int8']:.4f}")
+    # instrumented passes: the q-block one times every tick and keeps
+    # layer 0's attention inputs of one tick and B10's inputs at M = 8
+    # and 256; the legacy one times every working tick and keeps layer
+    # 0's inputs of a decode step
+    int8_probe = TickProbe(torch, gen, model, N_LAYERS)
+    mm_cap = MatmulCapture(quant_mod, model)
+    serve(torch, pt, kern, model, prompts, warm, impl="qblock",
+          probes=[int8_probe, mm_cap], **int8_kw)
+    if len(mm_cap.best) != 2 * len(MATMUL_SHAPES):
+        raise AssertionError(f"B10 captured {sorted(mm_cap.best)}")
+    int8_decode = decode_capture(gen, N_LAYERS)
+    int8_legacy_ticks = []
+    serve(torch, pt, kern, model, prompts, warm, enable_ragged=False,
+          probes=[int8_decode], tick_ms=int8_legacy_ticks, **int8_kw)
     del model
+    gc.collect()              # engines and their threads may hold it in cycles
     torch.cuda.empty_cache()
 
     log(f" 3d: training, Llama-3-8B widths cut to {TRAIN_LAYERS} layers, "
@@ -1364,6 +1689,11 @@ def main():
     rel = paged_logits_rel_err(torch, gen, ref_model, cross_outs[1][0], 300)
     check("generate's paged cache vs cache-free logits (relative, fp32, "
           "2 layers, prefill of 300 then 7 decode steps)", rel, 1e-4)
+    zero_counts(kern)
+    cross_paths_int8(pt, ref_model, cross_prompts)     # quantises ref_model
+    for key in ("qblock_q8", "token_q8", "paged_q8", "int8_matmul"):
+        if not kern[key].launches:
+            raise AssertionError(f"int8 cross paths never launched {key}")
     del ref_model
     torch.cuda.empty_cache()
     train_grad_err = train_cross_check(torch, pt, fa, kern, none)
@@ -1399,6 +1729,23 @@ def main():
         torch, fa, q, k, v, dout, None, True, tc["q_offset"], 0,
         label.replace("B1", "B2/B3")))
     del q, k, v, dout
+    ic = int8_probe.best
+    log("  captured int8 tick: " + json.dumps(
+        {k: np.asarray(v).tolist() for k, v in
+         zip(("slots", "q_starts", "q_lens", "ctx"), ic["desc"])}))
+    q8_cerrs, q8_plans = compare_kernels_q8(
+        torch, rpa, ic["q"], ic["kp"], ic["vp"], ic["ks"], ic["vs"],
+        ic["tbl"], ic["desc"], "captured int8")
+    dc = int8_decode.best
+    log(f"  captured int8 legacy decode step: ctx "
+        f"{dc['ctx'].cpu().numpy().tolist()}")
+    paged_q8_errs = worst_of(paged_q8_errs, compare_paged_q8(
+        torch, pa, dc["q"], dc["kp"], dc["vp"], dc["ks"], dc["vs"],
+        dc["tables"], dc["ctx"], "captured int8 legacy"))
+    for (k, n, m), mc in sorted(mm_cap.best.items()):
+        e = compare_int8_matmul_case(torch, qm, mc["x"], mc["wq"], mc["ws"],
+                                     f"captured B10 M={m} K={k} N={n}")
+        mm_errs = (max(mm_errs[0], e[0]), max(mm_errs[1], e[1]))
 
     log("phase 5: timing (bf16)")
     scale = HEAD_DIM ** -0.5
@@ -1441,6 +1788,7 @@ def main():
                f"{r['library_vs_kernel_max_abs_diff']:.3e}"
                if r["library_ms"] is not None else ""))
     by_path = {"static": static["launches"], "legacy": legacy["launches"],
+               "int8_legacy": int8_runs["legacy"][1]["launches"],
                "train": trained["launches"],
                "train_recompute": trained["recompute"]}
     for name, src, ref_at, errs, timed, key in (
@@ -1491,6 +1839,66 @@ def main():
                                           "library", "library_kernels",
                                           "shape", "bytes", "flops")}})
 
+    # the int8 kernels, on the inputs captured in phase 3(e)
+    q8_bound = bound_ms(ic["q"], ic["kp"], ic["tbl"], ic["desc"], quant=True)
+    q8_kern = {"qblock": rpa.qblock_attention_q8,
+               "token": rpa.token_attention_q8}
+    for impl, name, line in (("qblock", "ragged_qblock_q8", 258),
+                             ("token", "ragged_token_q8", 431)):
+        pages = (ic["q"], ic["kp"], ic["vp"])
+        ms = time_ms(torch, lambda: q8_kern[impl](
+            *pages, ic["ks"], ic["vs"], q8_plans[impl], scale))
+        pms = time_ms(torch, lambda: plain[impl](
+            *pages, q8_plans[impl], scale, ic["ks"], ic["vs"]), iters=10)
+        log(f"  {name} at the captured int8 tick: {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {q8_bound['bound_ms']:.6f} ms "
+            f"({q8_bound['bound_by']}: {q8_bound['bytes']} bytes, "
+            f"{q8_bound['flops']} FLOPs), library: none")
+        rows.append({"name": name, "route": "cuda", "source": SOURCE,
+                     "replaces": f"{REF}:{line}",
+                     "launches": int8_runs[impl][1]["launches"][f"{impl}_q8"],
+                     "max_abs_err": q8_cerrs[impl]["bf16"],
+                     "max_abs_err_fp32": q8_cerrs[impl]["fp32"],
+                     "ms": ms, "plain_ms": pms, **q8_bound,
+                     "library_ms": None,
+                     "library": "none: no single PyTorch call computes "
+                                "ragged paged attention"})
+    r = time_paged(torch, pa, dc, "int8 legacy engine decode step, bf16 q, "
+                                  "int8 pages")
+    log(f"  paged_decode_q8 at the {r['shape']}: {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+        f"({r['bound_by']}: {r['bytes']} bytes), library: none")
+    rows.append({"name": "paged_decode_q8", "route": "cuda",
+                 "source": CSRC + "paged_attention.cu",
+                 "replaces": "paddle_tpu/ops/pallas/paged_attention.py:97",
+                 "launches": int8_runs["legacy"][1]["launches"]["paged_q8"],
+                 "max_abs_err": paged_q8_errs["bf16"],
+                 "max_abs_err_fp32": paged_q8_errs["fp32"], **r})
+    mm_rows = {key: time_int8_matmul(torch, qm, mc, "layer 0" if key[1]
+                                     != cfg.vocab_size else "lm_head")
+               for key, mc in sorted(mm_cap.best.items())}
+    for r in mm_rows.values():
+        log(f"  int8_matmul at {r['shape']}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}: {r['bytes']} bytes, {r['flops']} FLOPs), "
+            f"library {r['library_ms']:.4f} ms ({r['library']}; max abs "
+            f"diff {r['library_vs_kernel_max_abs_diff']:.3e})")
+    first = mm_rows[(4096, 14336, 8)]
+    rows.append({"name": "int8_matmul", "route": "cuda",
+                 "source": CSRC + "quant_matmul.cu",
+                 "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:65",
+                 "launches": sum(st["launches"]["int8_matmul"]
+                                 for _, st in int8_runs.values()),
+                 "launches_by_path": {k: st["launches"]["int8_matmul"]
+                                      for k, (_, st) in int8_runs.items()},
+                 "max_abs_err": mm_errs[1], "max_rel_err_fp32": mm_errs[0],
+                 **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "library", "shape", "bytes",
+                                          "flops")},
+                 "other_shapes": [r for key, r in mm_rows.items()
+                                  if key != (4096, 14336, 8)]})
+
     tick_breakdown(torch, rpa, probes, scale, N_LAYERS)
     for impl in rpa.IMPLS:
         st = runs[impl][1]
@@ -1505,6 +1913,20 @@ def main():
         f"instrumented: prefill forward "
         f"{[ms for n, ms in static_fwd.times if n > 1][0]:.2f} ms, decode "
         f"step median {np.median(decode_ms):.2f} ms over {len(decode_ms)}")
+    for name, (_, st) in int8_runs.items():
+        native = legacy if name == "legacy" else runs[name][1]
+        log(f"  serving[int8 {name}]: tick {st['wall'] / st['steps'] * 1e3:.2f}"
+            f" ms ({st['steps']} ticks), "
+            f"{NEW_TOKENS * len(prompts) / st['wall']:.1f} generated tokens/s"
+            f"; native bf16 {native['wall'] / native['steps'] * 1e3:.2f} ms, "
+            f"{NEW_TOKENS * len(prompts) / native['wall']:.1f} tokens/s")
+    int8_ticks = int8_probe.summary()
+    log(f"  serving[int8 qblock] instrumented: forward "
+        f"{sum(t['fwd_ms'] for t in int8_ticks):.1f} ms over "
+        f"{len(int8_ticks)} ticks, attention (B7) "
+        f"{sum(t['attn_ms'] for t in int8_ticks):.1f} ms of it; int8 "
+        f"legacy instrumented tick mean {np.mean(int8_legacy_ticks):.2f} ms, "
+        f"median {np.median(int8_legacy_ticks):.2f} ms")
     log(f"  serving[legacy]: tick {legacy['wall'] / legacy['steps'] * 1e3:.2f}"
         f" ms ({legacy['steps']} working ticks), "
         f"{NEW_TOKENS * len(prompts) / legacy['wall']:.1f} generated "

@@ -1,7 +1,8 @@
 // Device helpers shared by the paged attention kernels (ragged q-block,
-// ragged per-token, paged decode): element conversion, and the
-// shared-memory tile that holds R query rows against one KV page and runs
-// one online-softmax step over it.
+// ragged per-token, paged decode, each over native or int8 pages):
+// element conversion, the page operands, and the shared-memory tile that
+// holds R query rows against one KV page and runs one online-softmax step
+// over it.
 //
 // The recurrence, per query row, over KV pages in ascending order:
 //   m' = max(m, max_p s), w = exp(s - m'), c = exp(m - m'),
@@ -15,12 +16,14 @@
 
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -83,6 +86,57 @@ __device__ inline void load_page(const Tile& t, const T* __restrict__ kp,
     t.k[r * (D + 1) + c] = to_f32(kp[base + i]);
     t.v[i] = to_f32(vp[base + i]);
   }
+}
+
+// The K and V page pools of a kernel, [KVH, NP, P, D]: native pages of
+// type PT (the scales unused), or int8 codes with one fp32 scale per
+// (kv head, page, slot) row, [KVH, NP, P].
+template <typename PT>
+struct Pages {
+  const PT* k;
+  const PT* v;
+  const float* ks;
+  const float* vs;
+};
+
+// Host side: native pages are of q's type T; int8 pages carry their scales.
+template <typename T>
+inline Pages<T> native_pages(const void* kp, const void* vp) {
+  return Pages<T>{(const T*)kp, (const T*)vp, nullptr, nullptr};
+}
+
+inline Pages<int8_t> int8_pages(const void* kp, const void* vp,
+                                const float* ks, const float* vs) {
+  return Pages<int8_t>{(const int8_t*)kp, (const int8_t*)vp, ks, vs};
+}
+
+template <typename T>
+__device__ inline void load_page(const Tile& t, const Pages<T>& pg, int h,
+                                 int page, int NP, int P, int D) {
+  load_page(t, pg.k, pg.v, h, page, NP, P, D);
+}
+
+// Stage an int8 page dequantised as the reference's quant kernels do
+// (ragged_paged_attention.py:280-281, paged_attention.py:116-117): each
+// row's codes times its scale, one fp32 product, before both dots.
+__device__ inline void load_page_q8(const Tile& t,
+                                    const int8_t* __restrict__ kp,
+                                    const int8_t* __restrict__ vp,
+                                    const float* __restrict__ ks,
+                                    const float* __restrict__ vs, int h,
+                                    int page, int NP, int P, int D) {
+  const size_t row0 = ((size_t)h * NP + page) * (size_t)P;
+  const size_t base = row0 * D;
+  for (int i = threadIdx.x; i < P * D; i += blockDim.x) {
+    const int r = i / D, c = i - r * D;
+    t.k[r * (D + 1) + c] = to_f32(kp[base + i]) * ks[row0 + r];
+    t.v[i] = to_f32(vp[base + i]) * vs[row0 + r];
+  }
+}
+
+__device__ inline void load_page(const Tile& t, const Pages<int8_t>& pg,
+                                 int h, int page, int NP, int P, int D) {
+  load_page_q8(t, pg.k, pg.v, pg.ks, pg.vs, h, page, NP, P, D);
 }
 
 // Raw scaled dot product of query row r with key row c.

@@ -1,11 +1,20 @@
 // Ragged paged attention for Hopper (sm_90a): a tick's mixed prefill and
 // decode tokens attend their own context through the shared KV page pool.
 //
-// Replaces the two Pallas TPU kernels of
+// Replaces the four Pallas TPU kernels of
 // paddle_tpu/ops/pallas/ragged_paged_attention.py:
-//   * _qblock_kernel (:215, grid (q_blocks, kv_heads, jobs))  -> qblock_kernel
-//   * _ragged_kernel (:389, grid (tokens, kv_heads, pages))   -> token_kernel
-// Both compute, per query row, the online-softmax recurrence
+//   * _qblock_kernel (:215, grid (q_blocks, kv_heads, jobs))
+//       -> qblock_kernel<T, T>      (kernel 6, ptt_ragged_qblock)
+//   * _qblock_kernel_quant (:258, same call :374 with two scale operands)
+//       -> qblock_kernel<T, int8_t> (B7, ptt_ragged_qblock_q8)
+//   * _ragged_kernel (:389, grid (tokens, kv_heads, pages))
+//       -> token_kernel<T, T>       (kernel 8, ptt_ragged_token)
+//   * _ragged_kernel_quant (:431, call :510)
+//       -> token_kernel<T, int8_t>  (B9, ptt_ragged_token_q8)
+// The int8 variants take pages of int8 codes with one fp32 scale per
+// (kv head, page, slot) row and dequantise each row (int8 * scale, in
+// fp32) as the page is staged in shared memory, as the reference does
+// right before its dots; the rest is the native kernel's. All compute, per query row, the online-softmax recurrence
 //   m' = max(m, max_p s), w = exp(s - m'), c = exp(m - m'),
 //   l' = l c + sum w, acc' = acc c + w V,   out = acc / max(l, 1e-30)
 // over KV pages in ascending order, in fp32 whatever the input type, and
@@ -16,7 +25,8 @@
 // What bounds it on an H100: a decode-heavy tick does ~4 flops per KV byte
 // it reads (one dot and one axpy per key for each of the group's query
 // heads), far under the ~295 flops/byte where bf16 tensor cores become the
-// limit, so the floor is the bytes of K/V pages read at 3.35 TB/s. A large
+// limit, so the floor is the bytes of K/V pages read at 3.35 TB/s (int8
+// pages: (d + 4) / 2d of the bf16 bytes, with their scales). A large
 // prefill span reads each page once per q-block that needs it and is still
 // well below the tensor-core line at these tile sizes.
 //
@@ -43,12 +53,11 @@ namespace {
 constexpr int kThreads = 128;
 constexpr float kBigNeg = -1e30f;
 
-// Kernel 6. Grid (q_blocks, kv_heads). Row r of block b is token
-// b * qb + r / G, query head h * G + r % G.
-template <typename T>
+// Kernel 6 (PT = T) and B7 (PT = int8_t). Grid (q_blocks, kv_heads). Row
+// r of block b is token b * qb + r / G, query head h * G + r % G.
+template <typename T, typename PT>
 __global__ void __launch_bounds__(kThreads)
-qblock_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-              const T* __restrict__ vp, T* __restrict__ out,
+qblock_kernel(const T* __restrict__ q, const Pages<PT> pg, T* __restrict__ out,
               const int* __restrict__ row_slot, const int* __restrict__ row_ctx,
               const int* __restrict__ job_page, const int* __restrict__ job_slot,
               const int* __restrict__ job_kv, int T_tok, int H, int KVH, int D,
@@ -76,7 +85,7 @@ qblock_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     // here changes no real row's bits.
     if (js == -2) break;
     const int jkv = job_kv[b * J + j];
-    load_page(t, kp, vp, h, job_page[b * J + j], NP, P, D);
+    load_page(t, pg, h, job_page[b * J + j], NP, P, D);
     __syncthreads();
     for (int i = threadIdx.x; i < R * P; i += blockDim.x) {
       const int r = i / P, c = i - r * P;
@@ -99,16 +108,15 @@ qblock_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-// Kernel 8. Grid (tokens, kv_heads); the block's rows are the group of
-// query heads sharing kv head h. The reference grid walks all
+// Kernel 8 (PT = T) and B9 (PT = int8_t). Grid (tokens, kv_heads); the
+// block's rows are the group of query heads sharing kv head h. The reference grid walks all
 // pages_per_seq pages; stopping at ceil(ctx / P) is bit-exact because a
 // fully masked page leaves m, l and acc unchanged: every w = exp(-inf) = 0
 // and corr = exp(0) = 1 once the row's first page (position 0 < ctx) has
 // made m finite.
-template <typename T>
+template <typename T, typename PT>
 __global__ void __launch_bounds__(kThreads)
-token_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-             const T* __restrict__ vp, T* __restrict__ out,
+token_kernel(const T* __restrict__ q, const Pages<PT> pg, T* __restrict__ out,
              const int* __restrict__ tok_slot, const int* __restrict__ tok_ctx,
              const int* __restrict__ tables, int H, int KVH, int D, int NP,
              int P, int pages_per_seq, float sm_scale) {
@@ -127,7 +135,7 @@ token_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   __syncthreads();
 
   for (int p = 0; p < n_pages; ++p) {
-    load_page(t, kp, vp, h, tables[(size_t)slot * pages_per_seq + p], NP, P, D);
+    load_page(t, pg, h, tables[(size_t)slot * pages_per_seq + p], NP, P, D);
     __syncthreads();
     for (int i = threadIdx.x; i < R * P; i += blockDim.x) {
       const int r = i / P, c = i - r * P;
@@ -145,43 +153,47 @@ token_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T>
-cudaError_t launch_qblock(const void* q, const void* kp, const void* vp, void* out,
+template <typename T, typename PT>
+cudaError_t launch_qblock(const void* q, const Pages<PT>& pg, void* out,
                           const int* rs, const int* rc, const int* jp,
                           const int* js, const int* jk, int T_tok, int H,
                           int KVH, int D, int NP, int P, int qb, int B, int J,
                           float sm_scale, cudaStream_t stream) {
   const size_t smem = smem_floats(qb * (H / KVH), P, D) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      qblock_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      qblock_kernel<T, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
-  qblock_kernel<T><<<dim3(B, KVH), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)kp, (const T*)vp, (T*)out, rs, rc, jp, js, jk,
-      T_tok, H, KVH, D, NP, P, qb, J, sm_scale);
+  qblock_kernel<T, PT><<<dim3(B, KVH), kThreads, smem, stream>>>(
+      (const T*)q, pg, (T*)out, rs, rc, jp, js, jk, T_tok, H, KVH, D, NP, P,
+      qb, J, sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_token(const void* q, const void* kp, const void* vp, void* out,
+template <typename T, typename PT>
+cudaError_t launch_token(const void* q, const Pages<PT>& pg, void* out,
                          const int* ts, const int* tc, const int* tables,
                          int T_tok, int H, int KVH, int D, int NP, int P,
                          int pages_per_seq, float sm_scale, cudaStream_t stream) {
   const size_t smem = smem_floats(H / KVH, P, D) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      token_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      token_kernel<T, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
-  token_kernel<T><<<dim3(T_tok, KVH), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)kp, (const T*)vp, (T*)out, ts, tc, tables, H, KVH,
-      D, NP, P, pages_per_seq, sm_scale);
+  token_kernel<T, PT><<<dim3(T_tok, KVH), kThreads, smem, stream>>>(
+      (const T*)q, pg, (T*)out, ts, tc, tables, H, KVH, D, NP, P,
+      pages_per_seq, sm_scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface, bound with ctypes. dtype: 0 float32, 1 bfloat16,
-// 2 float16. Every pointer is a device pointer of a contiguous tensor;
-// the Python wrapper checks shapes, types and devices. Returns the
-// cudaError_t of the launch (0 on success).
+// Plain C interface, bound with ctypes. dtype (of q and out): 0 float32,
+// 1 bfloat16, 2 float16. Every pointer is a device pointer of a
+// contiguous tensor; the Python wrapper checks shapes, types and devices.
+// The _q8 functions take int8 pages kp/vp [KVH, NP, P, D] and their fp32
+// row scales ks/vs [KVH, NP, P]. Returns the cudaError_t of the launch (0
+// on success).
 extern "C" {
 
 int ptt_ragged_qblock(int dtype, const void* q, const void* kp, const void* vp,
@@ -193,9 +205,27 @@ int ptt_ragged_qblock(int dtype, const void* q, const void* kp, const void* vp,
   if (T_tok <= 0 || B <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case 0: return (int)launch_qblock<float>(q, kp, vp, out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
-    case 1: return (int)launch_qblock<__nv_bfloat16>(q, kp, vp, out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
-    case 2: return (int)launch_qblock<__half>(q, kp, vp, out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
+    case 0: return (int)launch_qblock<float>(q, native_pages<float>(kp, vp), out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
+    case 1: return (int)launch_qblock<__nv_bfloat16>(q, native_pages<__nv_bfloat16>(kp, vp), out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
+    case 2: return (int)launch_qblock<__half>(q, native_pages<__half>(kp, vp), out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int ptt_ragged_qblock_q8(int dtype, const void* q, const void* kp,
+                         const void* vp, const float* ks, const float* vs,
+                         void* out, const int* row_slot, const int* row_ctx,
+                         const int* job_page, const int* job_slot,
+                         const int* job_kv, int T_tok, int H, int KVH, int D,
+                         int NP, int P, int qb, int B, int J, float sm_scale,
+                         void* stream) {
+  if (T_tok <= 0 || B <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Pages<int8_t> pg = int8_pages(kp, vp, ks, vs);
+  switch (dtype) {
+    case 0: return (int)launch_qblock<float>(q, pg, out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
+    case 1: return (int)launch_qblock<__nv_bfloat16>(q, pg, out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
+    case 2: return (int)launch_qblock<__half>(q, pg, out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -208,9 +238,26 @@ int ptt_ragged_token(int dtype, const void* q, const void* kp, const void* vp,
   if (T_tok <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case 0: return (int)launch_token<float>(q, kp, vp, out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
-    case 1: return (int)launch_token<__nv_bfloat16>(q, kp, vp, out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
-    case 2: return (int)launch_token<__half>(q, kp, vp, out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
+    case 0: return (int)launch_token<float>(q, native_pages<float>(kp, vp), out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
+    case 1: return (int)launch_token<__nv_bfloat16>(q, native_pages<__nv_bfloat16>(kp, vp), out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
+    case 2: return (int)launch_token<__half>(q, native_pages<__half>(kp, vp), out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int ptt_ragged_token_q8(int dtype, const void* q, const void* kp,
+                        const void* vp, const float* ks, const float* vs,
+                        void* out, const int* tok_slot, const int* tok_ctx,
+                        const int* tables, int T_tok, int H, int KVH, int D,
+                        int NP, int P, int pages_per_seq, float sm_scale,
+                        void* stream) {
+  if (T_tok <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Pages<int8_t> pg = int8_pages(kp, vp, ks, vs);
+  switch (dtype) {
+    case 0: return (int)launch_token<float>(q, pg, out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
+    case 1: return (int)launch_token<__nv_bfloat16>(q, pg, out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
+    case 2: return (int)launch_token<__half>(q, pg, out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

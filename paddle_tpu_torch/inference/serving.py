@@ -14,7 +14,11 @@
   power-of-two bucket, for the longest-waiting slot, then one
   fixed-shape ``[max_batch, 1]`` decode step for every decoding slot.
   Admission maps a request onto a free slot and matches its prompt
-  against the prefix index; no model work happens there.
+  against the prefix index; no model work happens there. With
+  ``kv_dtype="int8"`` the KV pages are int8 with fp32 row scales, and
+  with ``weight_dtype="int8"`` every ``nn.Linear`` of the model is
+  quantised in place (``quantization.quantize_linears``): together the
+  fully-int8 serving configuration.
 
 Both engines run the model on a serve thread of their own, which enters
 ``torch.inference_mode()`` itself.
@@ -34,7 +38,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..models.generation import SlotPagedKVCache
+from ..models.generation import KV_DTYPES, SlotPagedKVCache
+from ..quantization import quantize_linears
 
 #: default cap on one prefill span per tick
 DEFAULT_PREFILL_CHUNK_TOKENS = 256
@@ -367,16 +372,32 @@ class ContinuousServingEngine(_Engine):
     model's parameters must live on that device. ``enable_ragged`` picks
     the ragged scheduler (default) or the legacy two-program one;
     ``ragged_impl`` picks the ragged attention grid, ``"qblock"`` or
-    ``"token"``."""
+    ``"token"``. ``kv_dtype`` (``None``, ``"auto"``, ``"native"`` or
+    ``"int8"``) goes to the cache. ``weight_dtype="int8"`` quantises the
+    model's ``nn.Linear`` layers in place (layers already quantised are
+    skipped) and records their count in ``quantized_linears``; ``None``
+    leaves the weights as they are. Unlike the reference, no environment
+    variable sets either."""
 
     def __init__(self, model, max_batch_size=8, page_size=16, max_len=2048,
                  pad_token_id=0, prefill_chunk_tokens=None,
                  enable_prefix_cache=True, num_pages=None,
                  token_budget=None, enable_ragged=True,
-                 ragged_impl="qblock", device=None):
+                 ragged_impl="qblock", kv_dtype=None, weight_dtype=None,
+                 device=None):
         super().__init__()
         self.device = _engine_device(model, device)
         self.model = model
+        self.weight_dtype = (str(weight_dtype).lower()
+                             if weight_dtype is not None else None)
+        if self.weight_dtype not in (None, "int8"):
+            raise ValueError(f"unsupported weight_dtype {weight_dtype!r} "
+                             f"(expected None or 'int8')")
+        self.quantized_linears = (quantize_linears(model)
+                                  if self.weight_dtype == "int8" else 0)
+        if kv_dtype is not None and str(kv_dtype).lower() not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
+        self.kv_dtype = kv_dtype
         self.max_batch = int(max_batch_size)
         self.page_size = int(page_size)
         self.max_len = int(max_len)
@@ -432,7 +453,8 @@ class ContinuousServingEngine(_Engine):
                                  max_len=self.max_len,
                                  num_pages=self.num_pages,
                                  enable_prefix_cache=self.enable_prefix_cache,
-                                 ragged_impl=self.ragged_impl)
+                                 ragged_impl=self.ragged_impl,
+                                 kv_dtype=self.kv_dtype)
         self._cache = cache           # test and smoke-run introspection
         return cache
 

@@ -1,5 +1,9 @@
-"""Autoregressive generation and the KV caches behind it (port of the
-native-page parts of ``paddle_tpu/models/generation.py``).
+"""Autoregressive generation and the KV caches behind it (port of
+``paddle_tpu/models/generation.py``).
+
+* The int8 KV row codec: :func:`quantize_kv_rows`,
+  :func:`dequantize_kv_rows` and the capacity arithmetic
+  :func:`kv_page_nbytes`.
 
 * :class:`KVCache`: per-layer concat cache for ``generate`` and beam
   search.
@@ -16,7 +20,9 @@ native-page parts of ``paddle_tpu/models/generation.py``).
   completion. Page 0 is a scratch page that is never allocated: padding
   tokens and idle decode rows write there and unused table entries point
   there. Writing into a shared page (refcount > 1 or registered in the
-  prefix index) copies it first.
+  prefix index) copies it first. With ``kv_dtype="int8"`` the pages hold
+  int8 codes and every ``(kv head, page, slot)`` row an fp32 scale beside
+  them.
 * :class:`GenerationMixin`: ``generate`` (greedy, seeded sampling, beam
   search) for a causal LM whose forward takes ``cache=``.
 """
@@ -31,6 +37,43 @@ import torch
 from ..nn.functional import scaled_dot_product_attention
 from ..ops.paged_attention import paged_attention
 from ..ops.ragged_paged_attention import make_plan, ragged_paged_attention
+
+#: kv_dtype values SlotPagedKVCache takes; "auto" means "native"
+KV_DTYPES = ("auto", "int8", "native")
+
+
+def quantize_kv_rows(x):
+    """Symmetric int8 row codec for KV pages (reference ``:28-40``):
+    abs-max over the last axis, one fp32 scale per ``[..., d]`` row.
+    ``x [..., d]`` -> ``(int8 [..., d], float32 scales [...])``. Computed
+    in fp32 whatever ``x``'s type; ``torch.round`` rounds half to even,
+    as ``jnp.rint`` does. The divisor 127 is a tensor: a Python scalar
+    would let CUDA multiply by its reciprocal instead of dividing."""
+    xf = x.float()
+    amax = xf.abs().amax(-1).clamp_min(1e-8)
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv_rows(q, scale, dtype=torch.float32):
+    """Inverse of :func:`quantize_kv_rows`: the fp32 product, then a cast
+    to ``dtype`` (error per element <= ``scale / 2``)."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def kv_page_nbytes(kv_heads, head_dim, page_size=16, kv_dtype="native",
+                   native_dtype="float32", num_layers=1):
+    """Device bytes ONE page pins across K and V (plus the int8 row
+    scales) for ``num_layers`` attention layers. int8 against bf16 is
+    ``2d / (d + 4)``, 1.94x at d = 128. ``native_dtype`` names a torch
+    dtype, as the reference names a numpy one."""
+    elems = int(kv_heads) * int(page_size) * int(head_dim)
+    if str(kv_dtype) == "int8":
+        per = elems + int(kv_heads) * int(page_size) * 4   # + f32 scales
+    else:
+        per = elems * getattr(torch, native_dtype).itemsize
+    return 2 * per * int(num_layers)                       # K and V
 
 
 def block_hash_chain(tokens, page_size, parent=b""):
@@ -49,10 +92,15 @@ def block_hash_chain(tokens, page_size, parent=b""):
     return out
 
 
-def _page_gather(pages, table):
+def _page_gather(pages, table, scales=None, dtype=None):
     """Read pages back as dense sequences: ``pages [kv, num_pages, P, d]``
-    and ``table [..., n]`` -> ``[..., n * P, kv, d]``."""
-    g = pages[:, table].movedim(0, -2)            # [..., n, P, kv, d]
+    and ``table [..., n]`` -> ``[..., n * P, kv, d]``. int8 pages come
+    with their row ``scales [kv, num_pages, P]`` and are dequantised to
+    ``dtype``."""
+    g = pages[:, table]
+    if scales is not None:
+        g = dequantize_kv_rows(g, scales[:, table], dtype)
+    g = g.movedim(0, -2)                          # [..., n, P, kv, d]
     return g.reshape(*g.shape[:-4], -1, *g.shape[-2:])
 
 
@@ -197,17 +245,26 @@ class SlotPagedKVCache:
     scheduler), :meth:`begin_prefill` or :meth:`begin_decode` (the legacy
     two-program scheduler). ``ragged_impl`` picks the ragged attention
     grid: ``"qblock"`` (the default) or ``"token"`` (the per-token escape
-    hatch)."""
+    hatch). ``kv_dtype`` is one of :data:`KV_DTYPES`; ``None`` and
+    ``"auto"`` mean ``"native"`` (the model's dtype), ``"int8"`` stores
+    int8 codes with one fp32 scale per ``(kv head, page, slot)`` row,
+    quantised on scatter (:func:`quantize_kv_rows`)."""
 
     def __init__(self, max_batch, page_size=16, max_len=2048,
                  num_pages=None, enable_prefix_cache=True,
-                 ragged_impl="qblock"):
+                 ragged_impl="qblock", kv_dtype=None):
         self.max_batch = int(max_batch)
         self.page_size = int(page_size)
         self.max_len = int(max_len)
         self.pages_per_seq = -(-self.max_len // self.page_size)
         self.enable_prefix_cache = bool(enable_prefix_cache)
         self.ragged_impl = ragged_impl
+        kv_dtype = "auto" if kv_dtype is None else str(kv_dtype).lower()
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
+        self.kv_dtype = "native" if kv_dtype == "auto" else kv_dtype
+        self.kv_quant = self.kv_dtype == "int8"
+        self._scales = {}                 # id(layer) -> (k_scales, v_scales)
         # +1: page 0 is the never-allocated scratch page
         self.num_pages = (int(num_pages) if num_pages is not None
                           else self.max_batch * self.pages_per_seq + 1)
@@ -285,9 +342,9 @@ class SlotPagedKVCache:
         if self._ref[page] <= 1 and page not in self._page_digest:
             return
         new = self._alloc_page()
-        for kp, vp in self._pools.values():    # in place, every layer
-            kp[:, new] = kp[:, page]
-            vp[:, new] = vp[:, page]
+        for pair in (*self._pools.values(), *self._scales.values()):
+            for pool in pair:                  # in place, every layer
+                pool[:, new] = pool[:, page]
         self._decref(page)
         self._tables[slot, blk] = new
         self.cow_copies += 1
@@ -302,9 +359,11 @@ class SlotPagedKVCache:
 
     @property
     def page_nbytes(self):
-        """Device bytes one page pins across every layer's K and V pools;
-        0 until the first forward allocates the pools."""
-        total = sum(kp.nbytes + vp.nbytes for kp, vp in self._pools.values())
+        """Device bytes one page pins across every layer's K and V pools
+        and int8 row scales; 0 until the first forward allocates the
+        pools."""
+        total = sum(a.nbytes + b.nbytes for a, b in (*self._pools.values(),
+                                                     *self._scales.values()))
         return total // self.num_pages if total else 0
 
     # -- engine-facing lifecycle -------------------------------------------
@@ -434,16 +493,34 @@ class SlotPagedKVCache:
         key = id(layer)
         if key not in self._pools:
             shape = (kv_heads, self.num_pages, self.page_size, d)
-            self._pools[key] = (torch.zeros(shape, dtype=dtype, device=device),
-                                torch.zeros(shape, dtype=dtype, device=device))
+            pool_dtype = torch.int8 if self.kv_quant else dtype
+            self._pools[key] = tuple(
+                torch.zeros(shape, dtype=pool_dtype, device=device)
+                for _ in "kv")
+            if self.kv_quant:
+                # scale 1.0 everywhere: the scratch page and never-written
+                # slots dequantise to finite values that masks hide
+                self._scales[key] = tuple(
+                    torch.ones(shape[:-1], device=device) for _ in "kv")
         return self._pools[key]
 
-    @staticmethod
-    def _scatter(k_pages, v_pages, kt, vt, page_ids, slot_ids):
+    def _layer_scales(self, layer):
+        """``(k_scales, v_scales)`` of an int8 pool, ``(None, None)`` of a
+        native one."""
+        return self._scales.get(id(layer), (None, None))
+
+    def _scatter(self, layer, k_pages, v_pages, kt, vt, page_ids, slot_ids):
         """Write this forward's K/V rows ``[kv, s, d]`` into the pages in
-        place (``index_put_``). The reference returns new pools from a
-        functional ``.at[].set``; PyTorch can update the pool it holds,
-        which saves a copy of every layer's pool per tick."""
+        place (``index_put_``), quantised on an int8 pool with the row
+        scales written at the same ``(page, slot)``. The reference returns
+        new pools from a functional ``.at[].set``; PyTorch can update the
+        pool it holds, which saves a copy of every layer's pool per
+        tick."""
+        if self.kv_quant:
+            (kt, ks), (vt, vs) = quantize_kv_rows(kt), quantize_kv_rows(vt)
+            k_scales, v_scales = self._scales[id(layer)]
+            k_scales[:, page_ids, slot_ids] = ks
+            v_scales[:, page_ids, slot_ids] = vs
         k_pages[:, page_ids, slot_ids] = kt
         v_pages[:, page_ids, slot_ids] = vt
 
@@ -455,18 +532,21 @@ class SlotPagedKVCache:
         b, s, kv_heads, d = k.shape
         k_pages, v_pages = self._pool(layer, kv_heads, d, k.dtype, k.device)
         if mode == "prefill":
-            return self._attend_prefill(arg, q, k, v, k_pages, v_pages)
+            return self._attend_prefill(layer, arg, q, k, v, k_pages, v_pages)
         if mode == "decode":
-            return self._attend_decode(arg, q, k, v, k_pages, v_pages)
-        return self._attend_ragged(arg, q, k, v, k_pages, v_pages)
+            return self._attend_decode(layer, arg, q, k, v, k_pages, v_pages)
+        return self._attend_ragged(layer, arg, q, k, v, k_pages, v_pages)
 
-    def _attend_prefill(self, slot, q, k, v, k_pages, v_pages):
+    def _attend_prefill(self, layer, slot, q, k, v, k_pages, v_pages):
         """One chunk of one slot: write its K/V into the pages, then attend
         densely through SDPA. With context already in the slot (a chunk
         after the first, or a prefix hit) the whole prefix is read back
         from the pages; table entries past the allocated blocks are the
         scratch page, whose keys sit past every real query's causal window
-        and are seen only by pad queries."""
+        and are seen only by pad queries. An int8 pool always reads back
+        (reference ``:1219-1235``): every chunk, the first included,
+        attends the quantised K/V the decode steps will see, dequantised
+        to k's dtype."""
         b, s, kv_heads, d = k.shape
         if b != 1:
             raise ValueError("a prefill chunk holds one sequence")
@@ -495,11 +575,12 @@ class SlotPagedKVCache:
             self._idx = tuple(torch.from_numpy(a.astype(np.int64)).to(
                 k.device) for a in (page_ids, slot_ids, table))
         page_ids, slot_ids, table = self._idx
-        self._scatter(k_pages, v_pages, k[0].transpose(0, 1),
+        self._scatter(layer, k_pages, v_pages, k[0].transpose(0, 1),
                       v[0].transpose(0, 1), page_ids, slot_ids)
-        if start > 0:
-            kf = _page_gather(k_pages, table)
-            vf = _page_gather(v_pages, table)
+        if start > 0 or self.kv_quant:
+            ks, vs = self._layer_scales(layer)
+            kf = _page_gather(k_pages, table, ks, k.dtype)
+            vf = _page_gather(v_pages, table, vs, v.dtype)
             pad = start + s - kf.shape[0]
             if pad > 0:
                 # the padded chunk ran past the table: zero keys past it
@@ -510,7 +591,7 @@ class SlotPagedKVCache:
             k, v = kf[None, :start + s], vf[None, :start + s]
         return scaled_dot_product_attention(q, k, v, is_causal=True)
 
-    def _attend_decode(self, mask, q, k, v, k_pages, v_pages):
+    def _attend_decode(self, layer, mask, q, k, v, k_pages, v_pages):
         """One token for every slot (fixed shape), each at its own
         position. Inactive slots write to the scratch page and read with
         ``ctx = 1``: a finite, discarded result."""
@@ -532,11 +613,13 @@ class SlotPagedKVCache:
                          torch.from_numpy(self._tables.copy()).to(dev),
                          torch.from_numpy(ctx).to(dev))
         page_ids, slot_ids, tables, ctx = self._idx
-        self._scatter(k_pages, v_pages, k.permute(2, 0, 1, 3),
+        self._scatter(layer, k_pages, v_pages, k.permute(2, 0, 1, 3),
                       v.permute(2, 0, 1, 3), page_ids, slot_ids)
-        return paged_attention(q[:, 0], k_pages, v_pages, tables, ctx)[:, None]
+        ks, vs = self._layer_scales(layer)
+        return paged_attention(q[:, 0], k_pages, v_pages, tables, ctx,
+                               k_scales=ks, v_scales=vs)[:, None]
 
-    def _attend_ragged(self, spans, q, k, v, k_pages, v_pages):
+    def _attend_ragged(self, layer, spans, q, k, v, k_pages, v_pages):
         """Scatter this tick's K/V, then read every span's whole context
         back from the pages through the ragged kernel."""
         b, s = k.shape[:2]
@@ -562,10 +645,12 @@ class SlotPagedKVCache:
                          torch.from_numpy(slot_ids).to(k.device),
                          tables, desc, plan)
         page_ids, slot_ids, tables, desc, plan = self._idx
-        self._scatter(k_pages, v_pages, k[0].transpose(0, 1),
+        self._scatter(layer, k_pages, v_pages, k[0].transpose(0, 1),
                       v[0].transpose(0, 1), page_ids, slot_ids)
+        ks, vs = self._layer_scales(layer)
         out = ragged_paged_attention(q[0], k_pages, v_pages, tables, *desc,
-                                     impl=self.ragged_impl, plan=plan)
+                                     impl=self.ragged_impl, plan=plan,
+                                     k_scales=ks, v_scales=vs)
         return out[None]
 
 

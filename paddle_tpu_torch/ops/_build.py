@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("ragged_paged_attention.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu", "paged_attention.cu")
+           "flash_attention_bwd.cu", "paged_attention.cu", "quant_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +40,8 @@ SIGNATURES = {
     "ragged_paged_attention": {
         "ptt_ragged_qblock": [_I] + [_P] * 9 + [_I] * 9 + [_F, _P],
         "ptt_ragged_token": [_I] + [_P] * 7 + [_I] * 7 + [_F, _P],
+        "ptt_ragged_qblock_q8": [_I] + [_P] * 11 + [_I] * 9 + [_F, _P],
+        "ptt_ragged_token_q8": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P],
     },
     "flash_attention": {
         "ptt_flash_fwd": [_I] + [_P] * 5 + [_L] * 12 + [_I] * 11 + [_F, _P],
@@ -52,6 +54,10 @@ SIGNATURES = {
     },
     "paged_attention": {
         "ptt_paged_decode": [_I] + [_P] * 6 + [_I] * 7 + [_F, _P],
+        "ptt_paged_decode_q8": [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
+    },
+    "quant_matmul": {
+        "ptt_int8_matmul": [_I] + [_P] * 4 + [_I] * 3 + [_P],
     },
 }
 

@@ -16,16 +16,21 @@ describes each sequence by ``(slot, q_start, q_len, context_len)``:
 Tokens outside every span are bucket padding; their output is garbage
 and the caller discards it.
 
-Two kernels compute the same function on different grids, both written
-for Hopper in ``csrc/ragged_paged_attention.cu``:
+Pages are native (the query's dtype) or int8 with one fp32 scale per
+``(kv head, page, slot)`` row (``k_scales``/``v_scales``), each row
+dequantised in fp32 as ``int8 * scale`` before both dots.
 
-* **q-block** (default): one thread block per (q-block, kv head) walks a
-  host-built job list, one (page, owner slot, kv offset) per KV page any
+Two grids compute the same function, each a kernel written for Hopper
+in ``csrc/ragged_paged_attention.cu`` for native pages and another for
+int8 pages:
+
+* **q-block** (default; kernel 6, B7 on int8 pages): one thread block
+  per (q-block, kv head) walks a host-built job list, one (page, owner slot, kv offset) per KV page any
   sequence in the block needs. Rows of a block may belong to different
   sequences; keys of another owner's job are masked with the finite
   ``BIG_NEG`` so such jobs are exact no-ops (see ``BIG_NEG``).
-* **token**: one thread block per (token, kv head) walks that token's
-  own pages through its block-table row.
+* **token** (kernel 8, B9 on int8 pages): one thread block per (token,
+  kv head) walks that token's own pages through its block-table row.
 
 A CUDA tensor goes to the kernel or raises. A CPU tensor runs the plain
 PyTorch version of the same recurrence, which is also what the kernels
@@ -186,6 +191,17 @@ def make_plan(num_tokens, seq_slots, q_starts, q_lens, context_lens,
 # plain PyTorch versions (the CPU path, and the reference on the card)
 # ---------------------------------------------------------------------------
 
+def _gather_pages(k_pages, v_pages, k_scales, v_scales, pages):
+    """Pages ``pages [n]`` of every kv head as fp32 ``[n, KVH, P, D]``;
+    int8 pages dequantised row by row (``int8 * scale`` in fp32, the
+    reference's ``:280-281``)."""
+    k, v = k_pages[:, pages].float(), v_pages[:, pages].float()
+    if k_scales is not None:
+        k = k * k_scales[:, pages][..., None]
+        v = v * v_scales[:, pages][..., None]
+    return k.transpose(0, 1), v.transpose(0, 1)
+
+
 def _online_step(s, v, m, l, acc):
     """One online-softmax step over a page of scores ``s [..., R, P]``
     against values ``v [..., P, D]``; returns the new (m, l, acc)."""
@@ -197,9 +213,11 @@ def _online_step(s, v, m, l, acc):
     return m_new, l, acc
 
 
-def qblock_attention_plain(q, k_pages, v_pages, plan, sm_scale):
+def qblock_attention_plain(q, k_pages, v_pages, plan, sm_scale,
+                           k_scales=None, v_scales=None):
     """The q-block kernel's recurrence in PyTorch: every block and kv head
-    at once, one job column at a time, exactly the JAX grid's order."""
+    at once, one job column at a time, exactly the JAX grid's order.
+    With ``k_scales``/``v_scales`` the pages are int8 codes."""
     T, H, D = q.shape
     KVH, _, P, _ = k_pages.shape
     G = H // KVH
@@ -221,8 +239,8 @@ def qblock_attention_plain(q, k_pages, v_pages, plan, sm_scale):
     iota = torch.arange(P, device=q.device, dtype=torch.int32)
     for j in range(J):
         jp = d["job_page"][:, j].long()
-        k = k_pages[:, jp].float().transpose(0, 1)       # [B, KVH, P, D]
-        v = v_pages[:, jp].float().transpose(0, 1)
+        k, v = _gather_pages(k_pages, v_pages, k_scales, v_scales,
+                             jp)                         # [B, KVH, P, D]
         s = (qg @ k.transpose(-1, -2)) * sm_scale        # [B, KVH, R, P]
         pos = (d["job_kv"][:, j, None] + iota)[:, None, None, :]
         s = torch.where(pos < rc, s, NEG_INF)
@@ -235,11 +253,13 @@ def qblock_attention_plain(q, k_pages, v_pages, plan, sm_scale):
     return out[:T].to(q.dtype)
 
 
-def token_attention_plain(q, k_pages, v_pages, plan, sm_scale):
+def token_attention_plain(q, k_pages, v_pages, plan, sm_scale,
+                          k_scales=None, v_scales=None):
     """The per-token kernel's recurrence in PyTorch, every token at once,
     one page column at a time. It stops at the longest context's last
     page: a page past a token's context is fully masked, which leaves m,
-    l and acc unchanged bit for bit (w = 0, corr = exp(0) = 1)."""
+    l and acc unchanged bit for bit (w = 0, corr = exp(0) = 1). With
+    ``k_scales``/``v_scales`` the pages are int8 codes."""
     T, H, D = q.shape
     KVH, _, P, _ = k_pages.shape
     G = H // KVH
@@ -255,9 +275,8 @@ def token_attention_plain(q, k_pages, v_pages, plan, sm_scale):
     iota = torch.arange(P, device=q.device, dtype=torch.int32)
     rows = d["tables"][d["tok_slot"].long()]             # [T, pages]
     for p in range(n_pages):
-        page = rows[:, p].long()
-        k = k_pages[:, page].float().transpose(0, 1)     # [T, KVH, P, D]
-        v = v_pages[:, page].float().transpose(0, 1)
+        k, v = _gather_pages(k_pages, v_pages, k_scales, v_scales,
+                             rows[:, p].long())          # [T, KVH, P, D]
         s = (qg @ k.transpose(-1, -2)) * sm_scale        # [T, KVH, G, P]
         s = torch.where(p * P + iota < ctx, s, NEG_INF)
         m, l, acc = _online_step(s, v, m, l, acc)
@@ -270,15 +289,28 @@ def token_attention_plain(q, k_pages, v_pages, plan, sm_scale):
 # the plain version, anything else raises
 # ---------------------------------------------------------------------------
 
-def _check_cuda_inputs(q, k_pages, v_pages, plan, impl):
+def _check_cuda_inputs(q, k_pages, v_pages, plan, impl, k_scales=None,
+                       v_scales=None):
     if plan.impl != impl:
         raise ValueError(f"plan was built for {plan.impl!r}, not {impl!r}")
     _build.dtype_code(q.dtype)
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+    quant = k_scales is not None
+    page_dtype = torch.int8 if quant else q.dtype
+    operands = [("q", q, q.dtype), ("k_pages", k_pages, page_dtype),
+                ("v_pages", v_pages, page_dtype)]
+    if quant:
+        operands += [("k_scales", k_scales, torch.float32),
+                     ("v_scales", v_scales, torch.float32)]
+        if k_scales.shape != k_pages.shape[:3] \
+                or v_scales.shape != k_scales.shape:
+            raise ValueError(f"scales {tuple(k_scales.shape)}, "
+                             f"{tuple(v_scales.shape)} do not fit pages "
+                             f"{tuple(k_pages.shape)}")
+    for name, t, dtype in operands:
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} dtype {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in plan.dev.items():
@@ -298,26 +330,44 @@ def _check_cuda_inputs(q, k_pages, v_pages, plan, impl):
                          f"{plan.num_tokens} tokens, page {plan.page_size}")
 
 
-def qblock_attention(q, k_pages, v_pages, plan, sm_scale):
-    """Kernel 6 (q-block grid). ``plan`` from :func:`make_plan` with
-    ``impl="qblock"``. Counts its launches in ``qblock_attention.launches``."""
+def _launch(fn_name, q, pages, plan, sm_scale):
+    """Launch ``fn_name`` on ``q``, ``pages`` (K and V, then the scales of
+    int8 pages) and the plan's device arrays; returns the output."""
+    T, H, D = q.shape
+    KVH, NP, P, _ = pages[0].shape
+    d = plan.dev
+    out = torch.empty_like(q)
+    if plan.impl == "qblock":
+        B, J = d["job_page"].shape
+        arrays = [d[n] for n in ("row_slot", "row_ctx", "job_page",
+                                 "job_slot", "job_kv")]
+        sizes = (T, H, KVH, D, NP, P, plan.q_block, B, J)
+    else:
+        arrays = [d[n] for n in ("tok_slot", "tok_ctx", "tables")]
+        sizes = (T, H, KVH, D, NP, P, d["tables"].shape[1])
+    args = [ctypes.c_int(_build.dtype_code(q.dtype))] + [
+        ctypes.c_void_p(t.data_ptr()) for t in (q, *pages, out, *arrays)
+    ] + [ctypes.c_int(x) for x in sizes] + [ctypes.c_float(sm_scale)]
+    _build.launch(fn_name, q.device, args)
+    return out
+
+
+def qblock_attention(q, k_pages, v_pages, plan, sm_scale, k_scales=None,
+                     v_scales=None):
+    """Kernel 6 (q-block grid), or B7 (:func:`qblock_attention_q8`) when
+    ``k_scales``/``v_scales`` come with int8 pages. ``plan`` from
+    :func:`make_plan` with ``impl="qblock"``. Kernel 6 counts its CUDA
+    launches in ``qblock_attention.launches``."""
+    if k_scales is not None:
+        return qblock_attention_q8(q, k_pages, v_pages, k_scales, v_scales,
+                                   plan, sm_scale)
     if q.device.type == "cpu":
         return qblock_attention_plain(q, k_pages, v_pages, plan, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged attention for device {q.device}")
     _check_cuda_inputs(q, k_pages, v_pages, plan, "qblock")
-    T, H, D = q.shape
-    KVH, NP, P, _ = k_pages.shape
-    B, J = plan.dev["job_page"].shape
-    out = torch.empty_like(q)
-    d = plan.dev
-    args = [ctypes.c_int(_build.dtype_code(q.dtype))] + [
-        ctypes.c_void_p(t.data_ptr()) for t in (
-            q, k_pages, v_pages, out, d["row_slot"], d["row_ctx"],
-            d["job_page"], d["job_slot"], d["job_kv"])] + [
-        ctypes.c_int(x) for x in (T, H, KVH, D, NP, P, plan.q_block, B, J)
-    ] + [ctypes.c_float(sm_scale)]
-    _build.launch("ptt_ragged_qblock", q.device, args)
+    out = _launch("ptt_ragged_qblock", q, (k_pages, v_pages), plan,
+                  sm_scale)
     qblock_attention.launches += 1
     return out
 
@@ -325,26 +375,42 @@ def qblock_attention(q, k_pages, v_pages, plan, sm_scale):
 qblock_attention.launches = 0
 
 
-def token_attention(q, k_pages, v_pages, plan, sm_scale):
-    """Kernel 8 (per-token grid). ``plan`` from :func:`make_plan` with
-    ``impl="token"``. Counts its launches in ``token_attention.launches``."""
+def qblock_attention_q8(q, k_pages, v_pages, k_scales, v_scales, plan,
+                        sm_scale):
+    """Kernel B7: the q-block grid over int8 pages with fp32 row scales
+    ``[KVH, NP, P]``. Counts its CUDA launches in
+    ``qblock_attention_q8.launches``."""
+    if q.device.type == "cpu":
+        return qblock_attention_plain(q, k_pages, v_pages, plan, sm_scale,
+                                      k_scales, v_scales)
+    if q.device.type != "cuda":
+        raise ValueError(f"no ragged attention for device {q.device}")
+    _check_cuda_inputs(q, k_pages, v_pages, plan, "qblock", k_scales,
+                       v_scales)
+    out = _launch("ptt_ragged_qblock_q8", q,
+                  (k_pages, v_pages, k_scales, v_scales), plan, sm_scale)
+    qblock_attention_q8.launches += 1
+    return out
+
+
+qblock_attention_q8.launches = 0
+
+
+def token_attention(q, k_pages, v_pages, plan, sm_scale, k_scales=None,
+                    v_scales=None):
+    """Kernel 8 (per-token grid), or B9 (:func:`token_attention_q8`) when
+    ``k_scales``/``v_scales`` come with int8 pages. ``plan`` from
+    :func:`make_plan` with ``impl="token"``. Kernel 8 counts its CUDA
+    launches in ``token_attention.launches``."""
+    if k_scales is not None:
+        return token_attention_q8(q, k_pages, v_pages, k_scales, v_scales,
+                                  plan, sm_scale)
     if q.device.type == "cpu":
         return token_attention_plain(q, k_pages, v_pages, plan, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged attention for device {q.device}")
     _check_cuda_inputs(q, k_pages, v_pages, plan, "token")
-    T, H, D = q.shape
-    KVH, NP, P, _ = k_pages.shape
-    d = plan.dev
-    out = torch.empty_like(q)
-    args = [ctypes.c_int(_build.dtype_code(q.dtype))] + [
-        ctypes.c_void_p(t.data_ptr()) for t in (
-            q, k_pages, v_pages, out, d["tok_slot"], d["tok_ctx"],
-            d["tables"])] + [
-        ctypes.c_int(x) for x in (T, H, KVH, D, NP, P,
-                                  d["tables"].shape[1])
-    ] + [ctypes.c_float(sm_scale)]
-    _build.launch("ptt_ragged_token", q.device, args)
+    out = _launch("ptt_ragged_token", q, (k_pages, v_pages), plan, sm_scale)
     token_attention.launches += 1
     return out
 
@@ -352,9 +418,31 @@ def token_attention(q, k_pages, v_pages, plan, sm_scale):
 token_attention.launches = 0
 
 
+def token_attention_q8(q, k_pages, v_pages, k_scales, v_scales, plan,
+                       sm_scale):
+    """Kernel B9: the per-token grid over int8 pages with fp32 row scales
+    ``[KVH, NP, P]``. Counts its CUDA launches in
+    ``token_attention_q8.launches``."""
+    if q.device.type == "cpu":
+        return token_attention_plain(q, k_pages, v_pages, plan, sm_scale,
+                                     k_scales, v_scales)
+    if q.device.type != "cuda":
+        raise ValueError(f"no ragged attention for device {q.device}")
+    _check_cuda_inputs(q, k_pages, v_pages, plan, "token", k_scales,
+                       v_scales)
+    out = _launch("ptt_ragged_token_q8", q,
+                  (k_pages, v_pages, k_scales, v_scales), plan, sm_scale)
+    token_attention_q8.launches += 1
+    return out
+
+
+token_attention_q8.launches = 0
+
+
 def ragged_paged_attention(q, k_pages, v_pages, block_tables, seq_slots,
                            q_starts, q_lens, context_lens, *, sm_scale=None,
-                           impl="qblock", q_block=DEFAULT_QBLOCK, plan=None):
+                           impl="qblock", q_block=DEFAULT_QBLOCK, plan=None,
+                           k_scales=None, v_scales=None):
     """Mixed prefill+decode attention over a shared paged KV cache.
 
     q               [tokens, heads, head_dim], the flat packed batch
@@ -362,12 +450,17 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, seq_slots,
     block_tables    [slots, pages_per_seq] int32 host array (unused
                     entries = 0)
     seq_slots, q_starts, q_lens, context_lens  [nseq] int32 host arrays
-    impl            "qblock" (kernel 6) or "token" (kernel 8)
+    impl            "qblock" (kernel 6, B7 on int8 pages) or "token"
+                    (kernel 8, B9 on int8 pages)
     plan            a :func:`make_plan` result for these descriptors, to
                     skip rebuilding the schedule (the cache builds it once
                     per forward)
+    k_scales/v_scales [kv_heads, num_pages, page_size] float32 row scales
+                    of int8 pages (None: native pages)
     -> [tokens, heads, head_dim]; rows outside every span are garbage.
     """
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("int8 pages need both k_scales and v_scales")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if plan is None:
@@ -375,9 +468,11 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, seq_slots,
                          context_lens, block_tables, k_pages.shape[2],
                          impl=impl, q_block=q_block, device=q.device)
     if impl == "qblock":
-        return qblock_attention(q, k_pages, v_pages, plan, sm_scale)
+        return qblock_attention(q, k_pages, v_pages, plan, sm_scale,
+                                k_scales, v_scales)
     if impl == "token":
-        return token_attention(q, k_pages, v_pages, plan, sm_scale)
+        return token_attention(q, k_pages, v_pages, plan, sm_scale,
+                               k_scales, v_scales)
     raise ValueError(f"impl {impl!r} not in {IMPLS}")
 
 

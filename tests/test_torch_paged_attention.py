@@ -102,9 +102,21 @@ def test_bf16_plain_accumulates_in_fp32():
 
 
 def test_int8_pages_are_a_later_slice():
+    """int8 pages, a later slice than the native ones, now decode through
+    B5's plain version, matching the reference's quantised kernel in
+    interpret mode (the full parity cases are in
+    ``tests/test_torch_kv_int8.py``); one scale array alone raises."""
+    from paddle_tpu.models.generation import quantize_kv_rows
     q, kp, vp, tbl, ctx = _inputs("mha_one_page")
-    scales = torch.ones(kp.shape[:3])
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tpa.paged_attention(torch.from_numpy(q), torch.from_numpy(kp),
-                            torch.from_numpy(vp), tbl, ctx,
-                            k_scales=scales, v_scales=scales)
+    (kq, ks), (vq, vs) = quantize_kv_rows(kp), quantize_kv_rows(vp)
+    want = jpa.paged_attention(jnp.asarray(q), kq, vq, jnp.asarray(tbl),
+                               jnp.asarray(ctx), k_scales=ks, v_scales=vs,
+                               interpret=True)
+    kq, ks, vq, vs = (torch.from_numpy(np.array(a))
+                      for a in (kq, ks, vq, vs))
+    got = tpa.paged_attention(torch.from_numpy(q), kq, vq, tbl, ctx,
+                              k_scales=ks, v_scales=vs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError, match="both"):
+        tpa.paged_attention(torch.from_numpy(q), kq, vq, tbl, ctx,
+                            k_scales=ks)
