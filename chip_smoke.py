@@ -7,11 +7,14 @@ Phases, each fatal on error (non-zero exit, no result line):
 
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and print every kernel's registers
-   and spills from ``ptxas -v``;
+   and spills from ``ptxas -v``, ptxas's wgmma notes for B1 and the
+   dynamic shared memory of each tensor-core B1 block;
 2. kernel parity at Llama-3-8B attention shapes (32 heads, 8 kv heads,
    head_dim 128, page 16): the two ragged kernels on a mixed layout,
    flash attention forward (B1, out and lse) on causal, offset,
-   non-causal and dead-row cases, the flash backward (B2 dQ, B3 dK/dV)
+   non-causal and dead-row cases and one at head_dim 64, in fp32 through
+   the scalar kernel and in bf16 and fp16 through the tensor-core kernel
+   (its own rule, below), the flash backward (B2 dQ, B3 dK/dV)
    on causal, non-causal ragged, dead-row and lse-cotangent cases, paged
    decode (B4) on a batch of 8 with contexts 1-700 and shared pages; the
    int8-page kernels B7 and B9 on the ragged layout and B5 on the paged
@@ -21,7 +24,15 @@ Phases, each fatal on error (non-zero exit, no result line):
    tolerance 1e-5; for gradients and B10 1e-5 of each output's max) and
    in bf16 against the fp32 plain version rounded to bf16 (one bf16 ulp
    plus the fp32 tolerance per element); the ragged kernels also against
-   each other in fp32 (1e-5), native and int8 alike;
+   each other in fp32 (1e-5), native and int8 alike. The tensor-core B1
+   rounds its weights to bf16 or fp16 before P.V (ROADMAP C15): its lse
+   within 1e-5 (relative) of the plain version on the same inputs; its
+   output within ``ulp + u max|V| + 1e-5`` of the fp32 plain version
+   rounded to the dtype (``wgmma_out_error``, the worst-case bound) and
+   within ``ulp + slack + 1e-5`` of a model of its own rounding points
+   (``rounding_model``, ``model_error``: the tight check, where the
+   slack covers only weights that may round either way), printed beside
+   the one-ulp rule's ratio and SDPA's ratios under all three;
 3. serving a full-width, 32-layer Llama-3-8B in bf16 with seeded random
    weights, every path with the launch counts zeroed just before and read
    just after, after one uncounted warm pass:
@@ -32,7 +43,9 @@ Phases, each fatal on error (non-zero exit, no result line):
       kernel times every tick and captures one tick's layer-0 inputs;
    b. the static ``ServingEngine`` batches 8 concurrent 512-token
       prompts (16 new tokens) into one ``generate``: B1 launches 32 times
-      (the prefill), B4 32 x 15 times (the decode steps); an instrumented
+      (the prefill; every bf16 B1 launch of phase 3 is on the
+      tensor-core kernel, and its own count says so), B4 32 x 15 times
+      (the decode steps); an instrumented
       pass times every forward and captures layer 0's prefill and decode
       attention inputs;
    c. ``ContinuousServingEngine(enable_ragged=False)`` serves the load of
@@ -68,14 +81,20 @@ Phases, each fatal on error (non-zero exit, no result line):
    kernels within 1e-6 and 1e-4 (relative) of the same step with SDPA
    swapped, for the check only, to dense attention in autograd; the
    fully-int8 engine's three schedulers give identical greedy streams on
-   the three prompts; then every kernel against its plain version (phase
-   2's rules) on the inputs captured in phase 3;
+   the three prompts; every B1 launch of this phase takes the scalar
+   fp32 kernel (its launches are the scalar variant's main-path count,
+   and the tensor-core count stays 0); then every kernel against its
+   plain version (phase 2's rules) on the inputs captured in phase 3;
 5. timing (CUDA events, median over 50 launches with L2 flushed between
-   them) of every kernel, its plain version and, where one PyTorch call
+   them and the device then held in a short spin, so that each launch is
+   queued before its start event and the time is the device's) of every
+   kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the bound for the same
    work, all on the inputs captured in phase 3: the ragged kernels at a
-   tick, B1 at the static prefill, at the legacy chunk and at the
-   training step, B2 and B3 at the training step (against SDPA's
+   tick, B1 (tensor cores) at the static prefill, at the legacy chunk
+   and at the training step with its TFLOP/s over visible pairs and the
+   host's time per call, the scalar B1 on the static prefill's inputs in
+   fp32, B2 and B3 at the training step (against SDPA's
    backward, whose kernels a profiler trace names), B4 at each engine's
    decode step, B7 and B9 at an int8 tick, B5 at the int8 legacy decode
    step, B10 at M = 8 and 256 for each weight shape (against
@@ -86,7 +105,8 @@ Phases, each fatal on error (non-zero exit, no result line):
    passes, the forward, the schedule build and the attention calls, and
    both ragged kernels replayed at every tick shape.
 
-Prints a ``{"kernels": [...]}`` line with all ten kernels, the card's
+Prints a ``{"kernels": [...]}`` line with all ten kernels (B1 as its two
+variants, with the dtypes each serves), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -105,6 +125,7 @@ N_LAYERS = 32
 N_LINEARS = 7 * N_LAYERS + 1       # the quantised Llama's, lm_head included
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 FP32_TOL = 1e-5
 NEW_TOKENS = 16
 #: the training phase: Llama-3-8B widths cut to 4 layers (AdamW with fp32
@@ -182,6 +203,43 @@ def ptxas_summary(build):
         log(f"  ptxas {source}: {name} {regs} registers, {spills}")
 
 
+def wgmma_smem(d, nwg, src):
+    """Dynamic shared memory of one tensor-core B1 block, as ``TcSmem<D,
+    NWG>::kBytes`` in ``src`` (the text of ``flash_attention.cu``) lays it
+    out: Q's 64-column boxes, a ring of K and V tiles, the mbarriers and
+    1 KB of alignment slack."""
+    import re
+    tile_k, stages = (int(re.search(rf"constexpr int {name} = (\d+);",
+                                    src).group(1))
+                      for name in ("kTileK", "kStages"))
+    boxes = d // 64
+    return (boxes * nwg * 64 * 128 + 2 * stages * boxes * tile_k * 128
+            + (1 + 3 * stages) * 8 + 1024)
+
+
+def b1_notes(build):
+    """The tensor-core B1's launch shape and dynamic shared memory per
+    instantiation, and ptxas's notes on its wgmma (injected fences,
+    serialised products)."""
+    import re
+    src, so = build._target("flash_attention.cu")
+    for d in (64, 128):
+        for nwg in (1, 2):
+            log(f"  flash_fwd_wgmma_kernel d={d}, {nwg} consumer "
+                f"warpgroup(s) + 1 producer: {(nwg + 1) * 128} threads, "
+                f"{wgmma_smem(d, nwg, src.read_text())} bytes of dynamic "
+                f"shared memory" + (", setmaxnreg 240 consumer / 24 producer"
+                                    if nwg == 2 else ""))
+    log_path = so.with_suffix(".log")
+    for line in log_path.read_text().splitlines():
+        m = re.search(r"\((C75\d\d)\) (.*?) in (?:the )?function '.*?"
+                      r"flash_fwd_wgmma_kernelI(\w+?)Li(\d+)ELi(\d)E", line)
+        if m:
+            log(f"  ptxas {m.group(1)} flash_fwd_wgmma_kernel<"
+                f"{re.sub(r'^[0-9]+', '', m.group(3))}, "
+                f"{m.group(4)}, {m.group(5)}>: {m.group(2)[:120]}")
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernel parity on a synthetic mixed layout
 # ---------------------------------------------------------------------------
@@ -247,35 +305,200 @@ def compare_kernels(torch, rpa, q, kp, vp, tbl, desc, label):
 
 
 #: B1 parity cases at Llama-3-8B widths: (b, sq, sk, causal, q_offset,
-#: kv_offset). 384 and 300 rows end mid-block for the reference's tiling
-#: or the kernel's; the last case has rows 0..39 with no valid key.
-FLASH_CASES = [(2, 384, 384, True, 0, 0), (2, 300, 300, True, 0, 0),
-               (1, 128, 640, True, 512, 0), (2, 200, 333, False, 0, 0),
-               (1, 64, 100, True, 0, 40)]
+#: kv_offset, head_dim). 384 and 300 rows end mid-block for the
+#: reference's tiling or the kernels'; the kv_offset-40 case has rows
+#: 0..39 with no valid key; the last runs the head_dim-64 kernels.
+FLASH_CASES = [(2, 384, 384, True, 0, 0, 128), (2, 300, 300, True, 0, 0, 128),
+               (1, 128, 640, True, 512, 0, 128),
+               (2, 200, 333, False, 0, 0, 128), (1, 64, 100, True, 0, 40, 128),
+               (2, 256, 256, True, 0, 0, 64)]
+
+
+def rel_lse_err(lse, ref_lse):
+    """lse against its plain version, relative to max(1, |lse|)."""
+    return float(((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max())
+
+
+#: unit roundoff of the tensor-core B1's weights P, by dtype name
+P_ROUNDOFF = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+#: relative difference between two fp32 computations of one softmax
+#: weight (scores summed in another order, ``exp2f`` against ``exp``)
+#: that ``rounding_model`` allows for: a weight this close to a rounding
+#: boundary of the dtype may round to either neighbour
+P_ETA = 2.0 ** -14
+
+
+def ulp_of(torch, ref):
+    """One ulp of each element of ``ref`` (bf16 or fp16 values)."""
+    mant = 8 if ref.dtype == torch.bfloat16 else 11
+    r = ref.float()
+    return torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - mant)
+
+
+def wgmma_out_error(torch, out, ref32, v, tol=FP32_TOL):
+    """The tensor-core B1's bound against the reference (ROADMAP C15):
+    ``out`` (bf16 or fp16) against ``ref32``, the fp32 plain version on
+    the same inputs rounded to the dtype, with per-element allowance
+    ``ulp(ref) + u max|V| + tol``. Each weight rounded to the dtype moves
+    by at most u of itself, so ``sum p v / l`` moves by at most ``u
+    max|v|``; the two roundings of the output add at most one ulp.
+    Returns ``(max abs error, max error / allowance, max error / (ulp +
+    tol))``: the bound holds iff the second is <= 1; the third is the
+    one-ulp rule of the fp32-accumulating kernels, for comparison."""
+    ref = ref32.float().to(out.dtype)
+    diff = (out.float() - ref.float()).abs()
+    ulp = ulp_of(torch, ref)
+    u = P_ROUNDOFF[str(out.dtype).removeprefix("torch.")]
+    allow = ulp + u * float(v.float().abs().max()) + tol
+    return (float(diff.max()), float((diff / allow).max()),
+            float((diff / (ulp + tol)).max()))
+
+
+def rounding_model(torch, fa, q, k, v, causal, qo, ko, dtype, eta=P_ETA):
+    """The tensor-core B1's rounding points in plain torch: the
+    reference's recurrence as ``fa.flash_attention_plain`` runs it (its
+    tiles, the keys each row visits, the finite mask), kernel layout, on
+    fp32 copies of q, k, v, with the weights P rounded to ``dtype``
+    before ``P V`` while l sums the fp32 p. Returns ``(out32, slack)``:
+    the output before its final rounding, and per element the most that
+    the weights lying within ``eta`` (relative) of a rounding boundary
+    can move it if a kernel rounds them to their other neighbour:
+    ``sum |gap_i| |v_i| / l`` over those weights, ``gap_i`` the distance
+    between the two neighbours."""
+    b, hq, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g = hq // hk
+    bq, bk = fa.ref_blocks(sq, sk)
+    sq_pad, sk_pad = -(-sq // bq) * bq, -(-sk // bk) * bk
+    dev = q.device
+
+    def pad(x, n):
+        return torch.nn.functional.pad(x.float(), (0, 0, 0, n - x.shape[2]))
+    qg = pad(q, sq_pad).reshape(b, hk, g * sq_pad, d)
+    kf, vf = pad(k, sk_pad), pad(v, sk_pad)
+    rows = torch.arange(sq_pad, device=dev)
+    q_ids = (qo + rows)[:, None]
+    last_q = (qo + rows // bq * bq + bq - 1)[:, None]
+    m = torch.full((b, hk, g * sq_pad, 1), fa.NEG_INF, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hk, g * sq_pad, d), device=dev)
+    slack = torch.zeros_like(acc)
+    run = torch.ones((g * sq_pad, 1), dtype=torch.bool, device=dev)
+    for j in range(sk_pad // bk):
+        kj, vj = kf[:, :, j * bk:(j + 1) * bk], vf[:, :, j * bk:(j + 1) * bk]
+        s = (qg @ kj.transpose(-1, -2)) * d ** -0.5
+        k_ids = j * bk + torch.arange(bk, device=dev)[None, :]
+        mask = (k_ids < sk).expand(sq_pad, bk)
+        if causal:
+            mask = mask & (q_ids >= ko + k_ids)
+            run = (last_q >= ko + j * bk).repeat(g, 1)
+        s = torch.where(mask.repeat(g, 1), s, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        gap = ((p * (1 + eta)).to(dtype).float()
+               - (p * (1 - eta)).to(dtype).float())
+        l = torch.where(run, l * corr + p.sum(-1, keepdim=True), l)
+        acc = torch.where(run, acc * corr + p.to(dtype).float() @ vj, acc)
+        slack = torch.where(run, slack * corr + gap @ vj.abs(), slack)
+        m = torch.where(run, m_new, m)
+    den = l.clamp_min(1e-30)
+    return tuple((x / den).reshape(b, hq, sq_pad, d)[:, :, :sq]
+                 for x in (acc, slack))
+
+
+def model_error(torch, out, model32, slack, tol=FP32_TOL):
+    """The tensor-core B1's tight check: ``out`` against its rounding
+    model (``rounding_model``) rounded to the dtype, per element within
+    ``ulp + slack + tol`` (the final roundings, the weights that may round
+    either way, fp32 sums in another order). Returns ``(max abs error,
+    max error / allowance, max error / (ulp + tol))``: the check holds iff
+    the second is <= 1; the third is without the slack."""
+    ref = model32.to(out.dtype)
+    diff = (out.float() - ref.float()).abs()
+    ulp = ulp_of(torch, ref)
+    return (float(diff.max()), float((diff / (ulp + slack + tol)).max()),
+            float((diff / (ulp + tol)).max()))
+
+
+def sdpa_out(torch, q, k, v, causal, qo, ko):
+    """PyTorch's SDPA on the same kernel-layout inputs, and the query rows
+    that see at least one key (SDPA returns no defined value for the
+    others)."""
+    sq, sk = q.shape[2], k.shape[2]
+    kw, rows = {}, slice(None)
+    if causal and sq == sk and qo == ko == 0:
+        kw = {"is_causal": True}
+    elif causal:
+        i = torch.arange(sq, device=q.device)[:, None] + qo
+        j = torch.arange(sk, device=q.device)[None, :] + ko
+        kw = {"attn_mask": i >= j}
+        rows = kw["attn_mask"].any(1)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, enable_gqa=True, **kw)
+    return out, rows
 
 
 def compare_flash_case(torch, fa, q, k, v, causal, qo, ko, label):
     """B1 against its plain version on kernel-layout ``[b, h, s, d]``
-    tensors (strided views allowed): out and lse in fp32 (lse relative to
-    max(1, |lse|)), and out in bf16 by the one-ulp rule on the inputs
-    rounded to bf16. Returns the errors."""
+    tensors (strided views allowed). fp32, on the scalar kernel: out
+    within FP32_TOL, lse within FP32_TOL relative to max(1, |lse|). bf16
+    and fp16, on the inputs rounded to the dtype, through the tensor-core
+    kernel (its launch count says so): lse within FP32_TOL relative of the
+    plain version on those inputs; out within the C15 bound of the fp32
+    plain version (``wgmma_out_error``) and within the tight check of its
+    rounding model (``model_error``), which fails a kernel whose output
+    strays from those rounding points by more than the final rounding and
+    the weights that may round either way. The one-ulp rule's ratio, and
+    SDPA's ratios under all three, are printed beside them. Returns the
+    errors."""
     q, k, v = (x.float() for x in (q, k, v))
+    n_tc = fa.flash_attention.wgmma_launches
     out, lse = fa.flash_attention_with_lse(q, k, v, causal, None, qo, ko)
     ref, ref_lse = fa.flash_attention_plain(q, k, v, causal, None, qo, ko)
+    if fa.flash_attention.wgmma_launches != n_tc:
+        raise AssertionError(f"{label}: fp32 ran the tensor-core kernel")
     e32 = float((out - ref).abs().max())
-    el = float(((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max())
+    el = rel_lse_err(lse, ref_lse)
     check(f"{label} fp32 out", e32, FP32_TOL)
     check(f"{label} fp32 lse", el, FP32_TOL, "max rel err")
-    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    ob, _ = fa.flash_attention_with_lse(qb, kb, vb, causal, None, qo, ko)
-    rb, _ = fa.flash_attention_plain(qb.float(), kb.float(), vb.float(),
-                                     causal, None, qo, ko)
-    assert ob.dtype == torch.bfloat16
-    eb, ulps = bf16_err(torch, ob, rb, slice(None))
-    check(f"{label} bf16 out vs bf16(fp32 plain)", ulps, 1.0,
-          "max error / (1 bf16 ulp + fp32 tol)")
+    errs = {"fp32": e32, "lse": el}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16")):
+        x = [t.to(dtype) for t in (q, k, v)]
+        n_tc = fa.flash_attention.wgmma_launches
+        o, lse = fa.flash_attention_with_lse(*x, causal, None, qo, ko)
+        if fa.flash_attention.wgmma_launches != n_tc + 1 or o.dtype != dtype:
+            raise AssertionError(f"{label} {name}: not the tensor-core kernel")
+        ref, ref_lse = fa.flash_attention_plain(*(t.float() for t in x),
+                                                causal, None, qo, ko)
+        el = rel_lse_err(lse, ref_lse)
+        check(f"{label} {name} lse (tensor cores)", el, FP32_TOL,
+              "max rel err")
+        e, ratio, one_ulp = wgmma_out_error(torch, o, ref, x[2])
+        model, slack = rounding_model(torch, fa, *x, causal, qo, ko, dtype)
+        em, tight, no_slack = model_error(torch, o, model, slack)
+        lib, rows = sdpa_out(torch, *x, causal, qo, ko)
+        _, lib_rule, lib_one_ulp = wgmma_out_error(
+            torch, lib[:, :, rows], ref[:, :, rows], x[2])
+        _, lib_tight, _ = model_error(torch, lib[:, :, rows],
+                                      model[:, :, rows], slack[:, :, rows])
+        log(f"  {label} {name} out: max_abs_err {e:.3e}, vs the rounding "
+            f"model {em:.3e}; without the slack {no_slack:.3f}; one-ulp "
+            f"rule {one_ulp:.3f}; SDPA on the same inputs: C15 bound "
+            f"{lib_rule:.3f}, tight check {lib_tight:.3f}, one-ulp rule "
+            f"{lib_one_ulp:.3f}")
+        check(f"{label} {name} out vs {name}(fp32 plain)", ratio, 1.0,
+              "max error / (ulp + u max|V| + fp32 tol)")
+        check(f"{label} {name} out vs {name}(rounding model)", tight, 1.0,
+              "max error / (ulp + slack + fp32 tol)")
+        errs.update({name: e, f"{name}_rule": ratio, f"lse_{name}": el,
+                     f"{name}_one_ulp": one_ulp, f"{name}_tight": tight,
+                     f"{name}_no_slack": no_slack,
+                     f"{name}_sdpa_rule": lib_rule,
+                     f"{name}_sdpa_tight": lib_tight,
+                     f"{name}_sdpa_one_ulp": lib_one_ulp})
     torch.cuda.synchronize()
-    return {"fp32": e32, "lse": el, "bf16": eb}
+    return errs
 
 
 def worst_of(*errs):
@@ -286,14 +509,14 @@ def compare_flash(torch, fa, dev):
     """B1 on the synthetic FLASH_CASES; returns the largest errors."""
     g = torch.Generator(device=dev).manual_seed(99)
     errs = []
-    for b, sq, sk, causal, qo, ko in FLASH_CASES:
-        q = torch.randn((b, N_HEADS, sq, HEAD_DIM), generator=g, device=dev)
-        k = torch.randn((b, N_KV, sk, HEAD_DIM), generator=g, device=dev)
-        v = torch.randn((b, N_KV, sk, HEAD_DIM), generator=g, device=dev)
+    for b, sq, sk, causal, qo, ko, d in FLASH_CASES:
+        q = torch.randn((b, N_HEADS, sq, d), generator=g, device=dev)
+        k = torch.randn((b, N_KV, sk, d), generator=g, device=dev)
+        v = torch.randn((b, N_KV, sk, d), generator=g, device=dev)
         errs.append(compare_flash_case(
             torch, fa, q, k, v, causal, qo, ko,
             f"B1 b={b} sq={sq} sk={sk} causal={causal} q_off={qo} "
-            f"kv_off={ko}"))
+            f"kv_off={ko} d={d}"))
     return worst_of(*errs)
 
 
@@ -625,6 +848,24 @@ class TickProbe:
         self.torch.cuda.synchronize()
 
 
+class Count:
+    """One more counter of a kernel wrapper, read and zeroed as
+    ``launches`` like the wrappers' own (``flash_attention`` counts every
+    B1 launch in ``launches``, the tensor-core ones also in
+    ``wgmma_launches``)."""
+
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n):
+        setattr(self.fn, self.attr, n)
+
+
 def zero_counts(kern):
     for fn in kern.values():
         fn.launches = 0
@@ -874,16 +1115,27 @@ def serve_static(torch, pt, kern, model, prompts, probes=()):
 # phase 5: timing
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, iters=50, warmup=5):
+#: device spin after each flush, in clock cycles (~0.2 ms at 1.98 GHz)
+SPIN_CYCLES = 400_000
+
+
+def time_ms(torch, fn, iters=50, warmup=5, spin=True):
     """Median ms of ``fn()`` over ``iters`` launches, CUDA events around
     each, with a 256 MiB write between launches to flush the 50 MB L2
-    (in the engine the previous layer's weights and pools evict it)."""
+    (in the engine the previous layer's weights and pools evict it). The
+    device then spins for SPIN_CYCLES, so that the host has queued the
+    launch before the start event runs: the time is the device's, not
+    the host's enqueue (see ``host_us``). ``spin=False`` is the earlier
+    timer, without the spin: B1's rows also report it (``ms_no_spin``),
+    so that B1 times taken with it compare on one yardstick."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -894,15 +1146,29 @@ def time_ms(torch, fn, iters=50, warmup=5):
     return float(np.median(times))
 
 
-def _bound(nbytes, flops):
+def host_us(torch, fn, calls=50):
+    """The host's time per call of ``fn()`` (microseconds, calls issued
+    back to back, the device draining them behind)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def _bound(nbytes, flops, peak=BF16_FLOPS):
     """A timing row's bound: the larger of the two floors (bytes over
-    3.35 TB/s, FLOPs over the 989 TFLOP/s bf16 peak), which one it is,
-    and the counts behind them."""
+    3.35 TB/s, FLOPs over ``peak``: the 989 TFLOP/s bf16 tensor-core
+    rate, or 67 TFLOP/s for fp32), which one it is, and the counts behind
+    them."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": int(nbytes), "flops": int(flops)}
+            "bytes": int(nbytes), "flops": int(flops),
+            "peak_tflops": peak / 1e12}
 
 
 def distinct_pages(tbl, rows, ctxs):
@@ -937,7 +1203,7 @@ def bound_ms(q, kp, tbl, desc, quant=False):
 
 
 def flash_bound(b, sq, sk, q_offset, el, flops_per_d=4, q_side=2,
-                kv_side=2, row_floats=1):
+                kv_side=2, row_floats=1, peak=BF16_FLOPS):
     """Least time for causal flash attention work on an H100: the larger
     of its bytes (``q_side`` query-shaped and ``kv_side`` kv-shaped
     tensors once in their dtype, ``row_floats`` fp32 per query row and
@@ -952,7 +1218,7 @@ def flash_bound(b, sq, sk, q_offset, el, flops_per_d=4, q_side=2,
     flops = flops_per_d * HEAD_DIM * N_HEADS * b * int(visible)
     nbytes = (el * (q_side * b * sq * N_HEADS + kv_side * b * sk * N_KV)
               * HEAD_DIM + 4 * row_floats * b * N_HEADS * sq)
-    return _bound(nbytes, flops)
+    return _bound(nbytes, flops, peak)
 
 
 #: the bounds of B2 and B3 (see ``flash_bound``)
@@ -987,13 +1253,20 @@ def time_flash(torch, fa, cap, label):
         raise AssertionError(f"{label}: the model's SDPA call is causal")
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     row = {"shape": f"{label}: b={b} sq={sq} sk={sk} q_offset={qo} causal "
-                    f"GQA 32/8 d=128 bf16"}
+                    f"GQA 32/8 d=128 {str(q.dtype).removeprefix('torch.')}"}
     out = fa.flash_attention(q, k, v, True, None, qo)
     row["ms"] = time_ms(torch, lambda: fa.flash_attention(
         q, k, v, True, None, qo))
+    row["ms_no_spin"] = time_ms(torch, lambda: fa.flash_attention(
+        q, k, v, True, None, qo), spin=False)
+    row["host_us"] = host_us(torch, lambda: fa.flash_attention(
+        q, k, v, True, None, qo))
     row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(
         qt, kt, vt, True, None, qo), iters=10)
-    row.update(flash_bound(b, sq, sk, qo, q.element_size()))
+    row.update(flash_bound(b, sq, sk, qo, q.element_size(),
+                           peak=FP32_FLOPS if q.dtype == torch.float32
+                           else BF16_FLOPS))
+    row["tflops"] = row["flops"] / row["ms"] * 1e-9
     if sq == sk and qo == 0:
         kw = {"is_causal": True}
         row["library"] = "sdpa(is_causal=True, enable_gqa=True)"
@@ -1102,6 +1375,10 @@ def time_flash_train(torch, fa, cap):
         rows["fwd"] = dict(
             ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, True, None,
                                                          qo)),
+            ms_no_spin=time_ms(torch, lambda: fa.flash_attention(
+                q, k, v, True, None, qo), spin=False),
+            host_us=host_us(torch, lambda: fa.flash_attention(
+                q, k, v, True, None, qo)),
             plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
                 qt, kt, vt, True, None, qo), iters=10),
             **flash_bound(b, sq, sk, qo, el))
@@ -1118,6 +1395,7 @@ def time_flash_train(torch, fa, cap):
                 qt, kt, vt, dt, *args), iters=10),
             **flash_bound(b, sq, sk, qo, el, **BWD_BOUNDS["dkv"]))
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        rows["fwd"]["tflops"] = rows["fwd"]["flops"] / rows["fwd"]["ms"] * 1e-9
         rows["fwd"]["library_ms"] = time_ms(torch, lambda: sdpa(
             qt, kt, vt, is_causal=True, enable_gqa=True))
         rows["fwd"]["library"] = "sdpa(is_causal=True, enable_gqa=True)"
@@ -1235,8 +1513,8 @@ def train(torch, pt, kern, fa, none):
         f"batch {TRAIN_BATCH} x {TRAIN_SEQ}")
     losses, steps, total = [], [], dict(none)
     cap = BackwardCapture(fa)
-    per_step = dict(none, flash=TRAIN_LAYERS, flash_bwd_dq=TRAIN_LAYERS,
-                    flash_bwd_dkv=TRAIN_LAYERS)
+    per_step = dict(none, flash=TRAIN_LAYERS, flash_wgmma=TRAIN_LAYERS,
+                    flash_bwd_dq=TRAIN_LAYERS, flash_bwd_dkv=TRAIN_LAYERS)
     for i in range(TRAIN_STEPS):
         zero_counts(kern)
         with cap if i == TRAIN_STEPS - 1 else contextlib.nullcontext():
@@ -1256,7 +1534,8 @@ def train(torch, pt, kern, fa, none):
     loss, ms = train_step(torch, model, opt, sched, ids, labels)
     recompute = read_counts(kern)
     check_launches("train step with recompute", recompute,
-                   dict(per_step, flash=2 * TRAIN_LAYERS))
+                   dict(per_step, flash=2 * TRAIN_LAYERS,
+                        flash_wgmma=2 * TRAIN_LAYERS))
     log(f"  recompute step: loss {loss:.6f}, " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in ms.items()))
     peak = torch.cuda.max_memory_allocated()
@@ -1469,7 +1748,9 @@ def main():
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", cuda {torch.version.cuda}")
     kern = {"qblock": rpa.qblock_attention, "token": rpa.token_attention,
-            "flash": fa.flash_attention, "paged": pa.paged_attention,
+            "flash": fa.flash_attention,
+            "flash_wgmma": Count(fa.flash_attention, "wgmma_launches"),
+            "paged": pa.paged_attention,
             "flash_bwd_dq": fa.flash_bwd_dq,
             "flash_bwd_dkv": fa.flash_bwd_dkv,
             "qblock_q8": rpa.qblock_attention_q8,
@@ -1482,6 +1763,7 @@ def main():
     _build.load_kernels()
     log(f"  build_seconds {build_s:.2f} ({len(_build.SOURCES)} sources)")
     ptxas_summary(_build)
+    b1_notes(_build)
 
     log("phase 2: kernel parity at Llama-3-8B attention shapes")
     q, kp, vp, tbl, desc = parity_layout(torch, rpa, dev)
@@ -1553,7 +1835,7 @@ def main():
         raise AssertionError(f"static engine ran {static['batches']} "
                              f"batches, expected 1")
     check_launches("static engine", static["launches"],
-                   dict(none, flash=N_LAYERS,
+                   dict(none, flash=N_LAYERS, flash_wgmma=N_LAYERS,
                         paged=N_LAYERS * (NEW_TOKENS - 1)))
     # an instrumented pass: every forward timed to a device sync, layer
     # 0's prefill and decode attention inputs kept
@@ -1582,6 +1864,7 @@ def main():
                              "flash-sized chunks")
     check_launches("legacy engine", legacy["launches"],
                    dict(none, flash=N_LAYERS * big_chunks,
+                        flash_wgmma=N_LAYERS * big_chunks,
                         paged=N_LAYERS * legacy["decode_steps"]))
     same = sum(np.array_equal(a, b) for a, b in
                zip(legacy_outs, runs["qblock"][0]))
@@ -1618,7 +1901,7 @@ def main():
                 raise AssertionError("int8 legacy: no flash-sized chunks or "
                                      "no decode steps")
             want.update(paged_q8=N_LAYERS * st["decode_steps"],
-                        flash=N_LAYERS * big)
+                        flash=N_LAYERS * big, flash_wgmma=N_LAYERS * big)
         else:
             want[f"{name}_q8"] = N_LAYERS * st["steps"]
         log(f"  int8 {name}: {st['steps']} ticks, {st['forwards']} forwards,"
@@ -1685,18 +1968,34 @@ def main():
     rng = np.random.RandomState(13)
     cross_prompts = [short, rng.randint(0, cfg.vocab_size, 300),
                      rng.randint(0, cfg.vocab_size, 160)]
+    # the fp32 paths run B1 on the scalar kernel only: with the counts
+    # zeroed before each run, its launches are that variant's main-path
+    # count and the tensor-core count stays 0
+    zero_counts(kern)
     cross_outs = cross_paths(pt, ref_model, cross_prompts)
     rel = paged_logits_rel_err(torch, gen, ref_model, cross_outs[1][0], 300)
     check("generate's paged cache vs cache-free logits (relative, fp32, "
           "2 layers, prefill of 300 then 7 decode steps)", rel, 1e-4)
+    simt_by_path = {"fp32 cross paths": read_counts(kern)}
     zero_counts(kern)
     cross_paths_int8(pt, ref_model, cross_prompts)     # quantises ref_model
     for key in ("qblock_q8", "token_q8", "paged_q8", "int8_matmul"):
         if not kern[key].launches:
             raise AssertionError(f"int8 cross paths never launched {key}")
+    simt_by_path["fp32 int8 cross paths"] = read_counts(kern)
+    for name, counts in simt_by_path.items():
+        log(f"  {name}: B1 launches {counts['flash']}, tensor-core "
+            f"{counts['flash_wgmma']}")
+        if counts["flash_wgmma"]:
+            raise AssertionError(f"{name}: fp32 B1 took the tensor-core "
+                                 f"kernel {counts['flash_wgmma']} times")
+    simt_by_path = {k: v["flash"] for k, v in simt_by_path.items()}
+    if not simt_by_path["fp32 cross paths"]:
+        raise AssertionError("the fp32 cross paths never launched B1")
     del ref_model
     torch.cuda.empty_cache()
     train_grad_err = train_cross_check(torch, pt, fa, kern, none)
+    simt_by_path["fp32 training step"] = 2      # checked exactly inside
 
     log("  captured tick: " + json.dumps(
         {k: np.asarray(v).tolist() for k, v in
@@ -1773,31 +2072,73 @@ def main():
                   for name, fc in flash_caps.items()]
     train_rows = time_flash_train(torch, fa, tc)
     flash_rows.append(train_rows["fwd"])
+    # the scalar B1 (fp32 serving and training) on the static prefill's
+    # inputs in fp32
+    simt_row = time_flash(torch, fa, {
+        k: v.float() if k in ("q", "k", "v") else v
+        for k, v in static_flash.best.items()},
+        "scalar B1 on the static prefill's inputs")
     paged_rows = [time_paged(torch, pa, decode_caps["static"],
                              "static engine decode step, bf16"),
                   time_paged(torch, pa, decode_caps["legacy"],
                              "legacy engine decode step, bf16")]
-    for r in flash_rows + paged_rows:
+    for r in flash_rows + [simt_row] + paged_rows:
         lib = "none" if r["library_ms"] is None \
             else f"{r['library_ms']:.4f} ms"
         log(f"  {r['shape']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}: "
-            f"{r['bytes']} bytes at 3.35 TB/s, {r['flops']} FLOPs at 989 "
-            f"TFLOP/s), library {lib} ({r['library']})"
+            f"{r['bytes']} bytes at 3.35 TB/s, {r['flops']} FLOPs at "
+            f"{r['peak_tflops']:g} TFLOP/s), library {lib} ({r['library']})"
             + (f", max abs diff to the kernel "
                f"{r['library_vs_kernel_max_abs_diff']:.3e}"
-               if r["library_ms"] is not None else ""))
+               if r["library_ms"] is not None else "")
+            + (f"; {r['tflops']:.1f} TFLOP/s over visible pairs, host "
+               f"{r['host_us']:.1f} us a call, {r['ms_no_spin']:.4f} ms "
+               f"timed without the spin" if "tflops" in r else ""))
     by_path = {"static": static["launches"], "legacy": legacy["launches"],
                "int8_legacy": int8_runs["legacy"][1]["launches"],
                "train": trained["launches"],
                "train_recompute": trained["recompute"]}
+    timed_keys = ("ms", "ms_no_spin", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "library", "shape", "bytes", "flops",
+                  "tflops", "host_us")
+    b1 = {"source": CSRC + "flash_attention.cu", "route": "cuda",
+          "replaces": "paddle_tpu/ops/pallas/flash_attention.py:110"}
+    rows.append({"name": "flash_fwd_wgmma", **b1,
+                 "kernel": "flash_fwd_wgmma_kernel",
+                 "dtypes": "bf16 and fp16 at head_dim 64 and 128",
+                 "launches": sum(v["flash_wgmma"] for v in by_path.values()),
+                 "launches_by_path": {k: v["flash_wgmma"]
+                                      for k, v in by_path.items()},
+                 "max_abs_err": flash_errs["bf16"],
+                 **{f"{key}_{dt}": flash_errs[f"{dt}{suffix}"]
+                    for dt in ("bf16", "fp16")
+                    for key, suffix in (("max_abs_err", ""),
+                                        ("rule_ratio", "_rule"),
+                                        ("model_ratio", "_tight"),
+                                        ("model_ratio_no_slack",
+                                         "_no_slack"),
+                                        ("one_ulp_ratio", "_one_ulp"),
+                                        ("sdpa_rule_ratio", "_sdpa_rule"),
+                                        ("sdpa_model_ratio", "_sdpa_tight"),
+                                        ("sdpa_one_ulp_ratio",
+                                         "_sdpa_one_ulp"))},
+                 **{f"max_rel_err_lse_{dt}": flash_errs[f"lse_{dt}"]
+                    for dt in ("bf16", "fp16")},
+                 **{k: flash_rows[0][k] for k in timed_keys},
+                 "other_shapes": flash_rows[1:]})
+    rows.append({"name": "flash_fwd_simt", **b1, "kernel": "flash_fwd_kernel",
+                 "dtypes": "fp32 at head_dim 64, 128, 192 and 256; bf16 and "
+                           "fp16 at 192 and 256",
+                 "launches": sum(simt_by_path.values()),
+                 "launches_by_path": simt_by_path,
+                 "max_abs_err": flash_errs["fp32"],
+                 "max_rel_err_lse": flash_errs["lse"],
+                 **{k: simt_row[k] for k in timed_keys}})
     for name, src, ref_at, errs, timed, key in (
-            ("flash_fwd", "flash_attention.cu",
-             "paddle_tpu/ops/pallas/flash_attention.py:110", flash_errs,
-             flash_rows, "flash"),
             ("paged_decode", "paged_attention.cu",
              "paddle_tpu/ops/pallas/paged_attention.py:55", paged_errs,
-             paged_rows, "paged")):
+             paged_rows, "paged"),):
         first = timed[0]
         rows.append({"name": name, "route": "cuda", "source": CSRC + src,
                      "replaces": ref_at,

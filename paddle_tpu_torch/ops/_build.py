@@ -7,10 +7,14 @@ land in ``build/kernels/`` at the repository root, named by a digest of
 the source, the headers and the flags, so an edited source or header is
 rebuilt and an unchanged one is reused. All sources compile in parallel,
 one ``nvcc`` each. Nothing is built at import: the first call that needs
-a kernel builds it, and a failed build raises.
+a kernel builds it, and a failed build raises. The tensor-core kernels
+encode their TMA tensor maps with libcuda's ``cuTensorMapEncodeTiled``,
+looked up at run time through the CUDA runtime's entry-point query, so
+no library links against ``libcuda``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -45,6 +49,8 @@ SIGNATURES = {
     },
     "flash_attention": {
         "ptt_flash_fwd": [_I] + [_P] * 5 + [_L] * 12 + [_I] * 11 + [_F, _P],
+        "ptt_flash_fwd_wgmma": [_I] + [_P] * 5 + [_L] * 12 + [_I] * 11
+                               + [_F, _P],
     },
     "flash_attention_bwd": {
         "ptt_flash_bwd_dq": [_I] + [_P] * 7 + [_L] * 15 + [_I] * 9
@@ -142,14 +148,18 @@ def dtype_code(dtype):
 
 
 def launch(fn_name, device, args):
-    """Call the exported ``fn_name`` with ``args`` (ctypes values) on
-    ``device``'s current stream. The C side returns the cudaError_t of
-    its shared-memory request and launch; any error raises (an oversized
-    block is refused by cudaFuncSetAttribute)."""
+    """Call the exported ``fn_name`` with ``args`` (ctypes values, or
+    Python numbers its argtypes convert) on ``device``'s current stream.
+    The C side returns the cudaError_t of its shared-memory request and
+    launch; any error raises (an oversized block is refused by
+    cudaFuncSetAttribute). The device context is entered only when
+    ``device`` is not the current one."""
     lib = load_kernels()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*args, ctypes.c_void_p(stream))
+    with (contextlib.nullcontext()
+          if device.index == torch.cuda.current_device()
+          else torch.cuda.device(device)):
+        rc = getattr(lib, fn_name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: "
                            f"{lib.ptt_error_string(rc).decode()} ({rc})")

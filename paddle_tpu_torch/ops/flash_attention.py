@@ -27,9 +27,18 @@ reference kept as they are:
   (``_FlashAttention``), on either device.
 
 A CUDA tensor goes to the kernels or raises: B1 forward
-(``csrc/flash_attention.cu``), B2 dQ and B3 dK/dV
+(``csrc/flash_attention.cu``, two variants chosen by :func:`fwd_variant`:
+the tensor-core kernel for bf16 and fp16 at head_dim 64 and 128, the
+scalar fp32 kernel for fp32 and the other head dims), B2 dQ and B3 dK/dV
 (``csrc/flash_attention_bwd.cu``). A CPU tensor runs
 :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`.
+
+The tensor-core forward rounds the softmax weights to q's dtype before
+``P V`` (the reference dots in fp32; ROADMAP C15): its lse stays within
+1e-5 (relative) of the plain version on the same inputs, and each output
+element within ``ulp(ref) + u max|V| + 1e-5`` of the fp32 plain version
+rounded to the dtype, ``u`` the dtype's unit roundoff (2^-8 for bf16,
+2^-11 for fp16).
 """
 from __future__ import annotations
 
@@ -48,12 +57,45 @@ NEG_INF = -1e30
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 
-#: head widths the CUDA kernel is instantiated for
+#: head widths the CUDA kernels take
 KERNEL_HEAD_DIMS = (64, 128, 192, 256)
+#: head widths of the tensor-core variant (bf16 and fp16)
+WGMMA_HEAD_DIMS = (64, 128)
+_FWD_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _cdiv(a, b):
     return (a + b - 1) // b
+
+
+def fwd_variant(dtype, head_dim):
+    """Which B1 kernel a CUDA call takes: ``"wgmma"`` (tensor cores) for
+    bf16 and fp16 at head_dim 64 and 128, ``"simt"`` (scalar fp32) for
+    fp32, which keeps the reference's fp32 parity, and for the other
+    head dims. Raises for a dtype or head_dim neither kernel takes."""
+    if dtype not in _FWD_DTYPES:
+        raise TypeError(f"flash attention takes {list(_FWD_DTYPES)}, got "
+                        f"{dtype}")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} not in {KERNEL_HEAD_DIMS}")
+    if dtype != torch.float32 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def tma_operand(t):
+    """``t`` itself if the tensor-core kernel's TMA can read it in place:
+    a 16-byte-aligned base, unit stride on head_dim and positive strides
+    of a multiple of 16 bytes on every other axis longer than 1 (so
+    aligned ``[b, s, h, d]`` views of a fused projection pass, and a
+    broadcast view, stride 0, does not). Otherwise a contiguous copy,
+    which is always aligned."""
+    el, shape, stride = t.element_size(), t.shape, t.stride()
+    ok = t.data_ptr() % 16 == 0 and stride[3] == 1
+    for i in range(3):
+        ok = ok and (shape[i] == 1
+                     or (stride[i] > 0 and stride[i] * el % 16 == 0))
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def ref_blocks(sq, sk):
@@ -295,28 +337,33 @@ def _strides(ts, seq_dim):
     for t in ts:
         st = t.stride()
         out += [st[0], st[3 - seq_dim], st[seq_dim]]
-    return [ctypes.c_longlong(x) for x in out]
+    return out
 
 
 def _flash_cuda(q, k, v, causal, sm_scale, q_offset, kv_offset, seq_dim):
     """Launch B1 on tensors whose sequence axis is ``seq_dim`` (2 in
-    kernel layout, 1 in the public one), head_dim contiguous. Returns
-    ``(out, lse)``, out in q's layout."""
+    kernel layout, 1 in the public one): the variant of
+    :func:`fwd_variant`, its operands passed in place where it can read
+    them (:func:`tma_operand` for the tensor-core kernel; head_dim
+    contiguous for the scalar one) and copied otherwise. Returns ``(out,
+    lse)``, out in q's layout."""
     code = _build.dtype_code(q.dtype)
     b, hq, hk, sq, sk, d = _check_qkv(q, k, v, seq_dim)
-    q, k, v = _unit_last(q, k, v)
+    wgmma = fwd_variant(q.dtype, d) == "wgmma"
+    q, k, v = ([tma_operand(t) for t in (q, k, v)] if wgmma
+               else _unit_last(q, k, v))
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     bq, bk = ref_blocks(sq, sk)
-    args = ([ctypes.c_int(code)]
-            + [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out, lse)]
-            + _strides((q, k, v, out), seq_dim)
-            + [ctypes.c_int(int(x)) for x in (b, hq, hk, sq, sk, d, q_offset,
-                                              kv_offset, bool(causal), bq,
-                                              bk)]
-            + [ctypes.c_float(sm_scale)])
-    _build.launch("ptt_flash_fwd", q.device, args)
+    # plain Python numbers: the exported function's argtypes convert them
+    args = (code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *_strides((q, k, v, out), seq_dim), b, hq, hk,
+            sq, sk, d, int(q_offset), int(kv_offset), int(bool(causal)), bq,
+            bk, float(sm_scale))
+    _build.launch("ptt_flash_fwd_wgmma" if wgmma else "ptt_flash_fwd",
+                  q.device, args)
     flash_attention.launches += 1
+    flash_attention.wgmma_launches += wgmma
     return out, lse
 
 
@@ -475,13 +522,15 @@ def flash_attention(q, k, v, causal=True, sm_scale=None, q_offset=0,
     """Flash attention. Layout ``[b, s, h, d]``, or ``[b, h, s, d]`` with
     ``kernel_layout=True``; the output comes back in the input's layout.
     Differentiable in q, k and v. CUDA launches are counted in
-    ``flash_attention.launches`` (B1), ``flash_bwd_dq.launches`` (B2) and
-    ``flash_bwd_dkv.launches`` (B3)."""
+    ``flash_attention.launches`` (B1, both variants; the tensor-core ones
+    also in ``flash_attention.wgmma_launches``), ``flash_bwd_dq.launches``
+    (B2) and ``flash_bwd_dkv.launches`` (B3)."""
     return _attention(q, k, v, causal, sm_scale, q_offset, kv_offset,
                       kernel_layout)[0]
 
 
 flash_attention.launches = 0
+flash_attention.wgmma_launches = 0
 
 
 def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None,
