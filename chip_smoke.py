@@ -7,15 +7,19 @@ Phases, each fatal on error (non-zero exit, no result line):
 
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and print every kernel's registers
-   and spills from ``ptxas -v``, ptxas's wgmma notes for B1 and the
-   dynamic shared memory of each tensor-core B1 block;
+   and spills from ``ptxas -v``, ptxas's wgmma notes for B1, B2 and B3
+   and the dynamic shared memory of each tensor-core B1, B2 and B3
+   block;
 2. kernel parity at Llama-3-8B attention shapes (32 heads, 8 kv heads,
    head_dim 128, page 16): the two ragged kernels on a mixed layout,
    flash attention forward (B1, out and lse) on causal, offset,
    non-causal and dead-row cases and one at head_dim 64, in fp32 through
    the scalar kernel and in bf16 and fp16 through the tensor-core kernel
    (its own rule, below), the flash backward (B2 dQ, B3 dK/dV)
-   on causal, non-causal ragged, dead-row and lse-cotangent cases, paged
+   on causal, non-causal ragged, dead-row, lse-cotangent and
+   head_dim-64 chunk-after-cache cases, in
+   fp32 through the scalar kernels and in bf16 and fp16 through the
+   tensor-core kernels (their own rule, below), paged
    decode (B4) on a batch of 8 with contexts 1-700 and shared pages; the
    int8-page kernels B7 and B9 on the ragged layout and B5 on the paged
    one, pages quantised by the cache's codec; the weight-only int8 matmul
@@ -32,7 +36,14 @@ Phases, each fatal on error (non-zero exit, no result line):
    within ``ulp + slack + 1e-5`` of a model of its own rounding points
    (``rounding_model``, ``model_error``: the tight check, where the
    slack covers only weights that may round either way), printed beside
-   the one-ulp rule's ratio and SDPA's ratios under all three;
+   the one-ulp rule's ratio and SDPA's ratios under all three. The
+   tensor-core B2 and B3 round p and ds to bf16 or fp16 before their
+   products (ROADMAP C17): each gradient within ``ulp + rounding + 1e-5
+   max`` of the fp32 plain version rounded to the dtype
+   (``wgmma_grad_error``; ``rounding`` is u |dS||K|, u |dS|^T|Q| or u
+   |P|^T|dO|, plus the subnormal floor for fp16) and within ``ulp +
+   slack + 1e-5 max`` of a model of their rounding points
+   (``bwd_rounding_model``, ``grad_model_error``);
 3. serving a full-width, 32-layer Llama-3-8B in bf16 with seeded random
    weights, every path with the launch counts zeroed just before and read
    just after, after one uncounted warm pass:
@@ -68,8 +79,9 @@ Phases, each fatal on error (non-zero exit, no result line):
       model(ids, labels=labels)``, ``loss.backward()``, ``AdamW`` with
       ``multi_precision``, ``ClipGradByGlobalNorm(1.0)``, warmup into
       cosine decay) on one repeated 2 x 2048-token batch: the loss finite
-      and falling, B1, B2 and B3 each 4 launches a step; then one step
-      with ``use_recompute``, B1 8. Each step timed (forward, backward,
+      and falling, B1, B2 and B3 each 4 launches a step, every one on
+      the tensor-core kernels; then one step with ``use_recompute``, B1
+      8. Each step timed (forward, backward,
       optimizer), with tokens/s and the peak memory; the last step's
       layer-0 attention inputs and dO are captured;
 4. paths against each other on a two-layer fp32 model at the same widths
@@ -81,9 +93,10 @@ Phases, each fatal on error (non-zero exit, no result line):
    kernels within 1e-6 and 1e-4 (relative) of the same step with SDPA
    swapped, for the check only, to dense attention in autograd; the
    fully-int8 engine's three schedulers give identical greedy streams on
-   the three prompts; every B1 launch of this phase takes the scalar
-   fp32 kernel (its launches are the scalar variant's main-path count,
-   and the tensor-core count stays 0); then every kernel against its
+   the three prompts; every B1, B2 and B3 launch of this phase takes
+   the scalar fp32 kernels (their launches are the scalar variants'
+   main-path counts, and the tensor-core counts stay 0); then every
+   kernel against its
    plain version (phase 2's rules) on the inputs captured in phase 3;
 5. timing (CUDA events, median over 50 launches with L2 flushed between
    them and the device then held in a short spin, so that each launch is
@@ -94,8 +107,10 @@ Phases, each fatal on error (non-zero exit, no result line):
    tick, B1 (tensor cores) at the static prefill, at the legacy chunk
    and at the training step with its TFLOP/s over visible pairs and the
    host's time per call, the scalar B1 on the static prefill's inputs in
-   fp32, B2 and B3 at the training step (against SDPA's
-   backward, whose kernels a profiler trace names), B4 at each engine's
+   fp32, B2 and B3 at the training step (tensor cores, with TFLOP/s
+   over visible pairs, against SDPA's backward, whose kernels a profiler
+   trace names; and the scalar kernels on fp32 copies of the same
+   inputs, against SDPA's fp32 backward), B4 at each engine's
    decode step, B7 and B9 at an int8 tick, B5 at the int8 legacy decode
    step, B10 at M = 8 and 256 for each weight shape (against
    ``torch.matmul`` on the layer's dequantised bf16 weight); the serving
@@ -105,8 +120,8 @@ Phases, each fatal on error (non-zero exit, no result line):
    passes, the forward, the schedule build and the attention calls, and
    both ragged kernels replayed at every tick shape.
 
-Prints a ``{"kernels": [...]}`` line with all ten kernels (B1 as its two
-variants, with the dtypes each serves), the card's
+Prints a ``{"kernels": [...]}`` line with all ten kernels (B1, B2 and B3
+each as its two variants, with the dtypes each serves), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -240,6 +255,51 @@ def b1_notes(build):
                 f"{m.group(4)}, {m.group(5)}>: {m.group(2)[:120]}")
 
 
+def bwd_smem(d, nwg, dkv, src):
+    """Dynamic shared memory of one tensor-core B2 (``dkv`` False) or B3
+    block, as ``TcBwdSmem`` in ``src`` (the text of
+    ``flash_attention_bwd.cu``) lays it out: the two resident operands
+    (NWG * 64 rows), the ring of the two streamed 64-row tiles (B3's
+    stages also hold the tile's lse and delta rows), the mbarriers and 1
+    KB of alignment slack."""
+    import re
+    tile, stages = (int(re.search(rf"constexpr int {name} = (\d+);",
+                                  src).group(1))
+                    for name in ("kTcTile", "kTcStages"))
+    boxes = d // 64
+    return (2 * boxes * nwg * 64 * 128 + 2 * stages * boxes * tile * 128
+            + stages * (2 * tile * 4 if dkv else 0) + (1 + 2 * stages) * 8
+            + 1024)
+
+
+def bwd_notes(build):
+    """The tensor-core B2 and B3's launch shape and dynamic shared memory
+    per instantiation, and ptxas's notes on their wgmma."""
+    import re
+    src, so = build._target("flash_attention_bwd.cu")
+    text = src.read_text()
+    for kernel, dkv in (("flash_bwd_dq_wgmma_kernel", False),
+                        ("flash_bwd_dkv_wgmma_kernel", True)):
+        for d in (64, 128):
+            for nwg in (1, 2):
+                log(f"  {kernel} d={d}, {nwg} consumer warpgroup(s) + 1 "
+                    f"producer: {(nwg + 1) * 128} threads, "
+                    f"{bwd_smem(d, nwg, dkv, text)} bytes of dynamic shared "
+                    f"memory" + (", setmaxnreg 240 consumer / 24 producer"
+                                 if nwg == 2 else ""))
+    notes = 0
+    for line in so.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"\((C75\d\d)\) (.*?) in (?:the )?function '.*?"
+                      r"(flash_bwd_dk?v?q?_wgmma_kernel)I(\w+?)Li(\d+)"
+                      r"ELi(\d)E", line)
+        if m:
+            notes += 1
+            log(f"  ptxas {m.group(1)} {m.group(3)}<"
+                f"{re.sub(r'^[0-9]+', '', m.group(4))}, {m.group(5)}, "
+                f"{m.group(6)}>: {m.group(2)[:120]}")
+    log(f"  ptxas wgmma notes for B2/B3: {notes}")
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernel parity on a synthetic mixed layout
 # ---------------------------------------------------------------------------
@@ -321,6 +381,10 @@ def rel_lse_err(lse, ref_lse):
 
 #: unit roundoff of the tensor-core B1's weights P, by dtype name
 P_ROUNDOFF = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+#: the most that rounding a value below the dtype's normal range moves
+#: it: half the spacing of its subnormals (fp16 gradients at training
+#: scale reach them; bf16's lie far below any value here)
+P_UNDERFLOW = {"bfloat16": 2.0 ** -134, "float16": 2.0 ** -25}
 #: relative difference between two fp32 computations of one softmax
 #: weight (scores summed in another order, ``exp2f`` against ``exp``)
 #: that ``rounding_model`` allows for: a weight this close to a rounding
@@ -419,6 +483,112 @@ def model_error(torch, out, model32, slack, tol=FP32_TOL):
     ulp = ulp_of(torch, ref)
     return (float(diff.max()), float((diff / (ulp + slack + tol)).max()),
             float((diff / (ulp + tol)).max()))
+
+
+def grad_ulp(torch, ref):
+    """One ulp of each element of ``ref`` (bf16 or fp16), counting the
+    dtype's subnormal spacing below its normal range (fp16 gradients at
+    training scale lie there) and at 0, so that a gradient's exact zeros
+    (rows with no valid key) allow one subnormal step and no more."""
+    spacing = 2 * P_UNDERFLOW[str(ref.dtype).removeprefix("torch.")]
+    return torch.where(ref == 0, 0.0, ulp_of(torch, ref)).clamp_min(spacing)
+
+
+def bwd_rounding_model(torch, fa, q, k, v, dout, lse, delta, causal, qo, ko,
+                       dtype, eta=P_ETA):
+    """The tensor-core B2 and B3's rounding points in plain torch (ROADMAP
+    C17): the reference backward as ``fa.flash_bwd_dq_plain`` and
+    ``fa.flash_bwd_dkv_plain`` run it (their padding, tiles and order,
+    kernel layout, fp32 copies of the inputs), with p rounded to ``dtype``
+    before ``P^T dO`` and ds before ``dS K`` and ``dS^T Q``, ds in the
+    kernels' order (``p (dp - delta) scale``, then rounded). Returns
+    ``{name: (model32, slack, rounding)}`` for dq, dk and dv: the gradient
+    before its final rounding; per element the most that the values lying
+    within ``eta`` of a rounding boundary can move it if a kernel rounds
+    them to their other neighbour (``sum gap |y|``, ``gap`` the distance
+    between the two neighbours; for ds the window is ``eta p scale (|dp|
+    + |delta|)``, relative to the magnitudes before the cancellation in
+    ``dp - delta``); and the C17 bound's rounding term, the most that
+    rounding p and ds to the dtype can move it: ``u sum |x| |y| + e sum_{x
+    != 0} |y|`` over the products' terms (``x`` the fp32 ds or p, ``y`` K,
+    Q or dO), u the dtype's unit roundoff and e its subnormal floor
+    (``P_UNDERFLOW``); 0 for fp32."""
+    b, hq, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    name = str(dtype).removeprefix("torch.")
+    u, e = P_ROUNDOFF.get(name, 0.0), P_UNDERFLOW.get(name, 0.0)
+    qg, kf, vf, dog, lse_p, delta_p, tiling = fa._bwd_setup(q, k, v, dout,
+                                                            lse, delta)
+    g, sq_pad = tiling[0], tiling[3]
+    qh, doh = (x.view(b, hk, g, sq_pad, d) for x in (qg, dog))
+
+    def rnd(x):
+        return x.to(dtype).float()
+
+    def gap(x, w):
+        return rnd(x + w) - rnd(x - w)
+
+    def heads(x):
+        return x.view(b, hk, g, sq_pad, -1).transpose(-1, -2)
+
+    def c17(x):
+        return u * x.abs() + e * (x != 0)
+
+    dq = [torch.zeros_like(qg) for _ in range(3)]
+    dk, dv = [[], [], []], [[], [], []]
+    for j in range(tiling[4] // tiling[2]):
+        p, ds, kj, vj = fa._bwd_tile(qg, kf, vf, dog, lse_p, delta_p, tiling,
+                                     j, sk, causal, scale, qo, ko)
+        dp = dog @ vj.transpose(-1, -2)
+        w_ds = eta * p * (dp.abs() + delta_p.abs()) * scale
+        for acc, x in zip(dq, (rnd(ds) @ kj, gap(ds, w_ds) @ kj.abs(),
+                               c17(ds) @ kj.abs())):
+            acc += x
+        for out, x, y in ((dk, (rnd(ds), gap(ds, w_ds), c17(ds)),
+                           (qh, qh.abs(), qh.abs())),
+                          (dv, (rnd(p), gap(p, eta * p), c17(p)),
+                           (doh, doh.abs(), doh.abs()))):
+            for lst, xi, yi in zip(out, x, y):
+                lst.append((heads(xi) @ yi).sum(2))
+    return {"dq": tuple(x.view(b, hq, -1, d)[:, :, :sq] for x in dq),
+            "dk": tuple(torch.cat(x, dim=2)[:, :, :sk] for x in dk),
+            "dv": tuple(torch.cat(x, dim=2)[:, :, :sk] for x in dv)}
+
+
+def wgmma_grad_error(torch, got, ref32, rounding, tol=FP32_TOL):
+    """The tensor-core B2/B3's bound against the reference (ROADMAP C17):
+    a bf16 or fp16 gradient ``got`` against ``ref32``, the fp32 plain
+    version on the same inputs rounded to the dtype, with per-element
+    allowance ``ulp(ref) + rounding + tol max|ref32|``: each p or ds
+    rounded to the dtype moves by at most u of itself (or by the
+    subnormal floor below the normal range), so the gradient moves by at
+    most ``rounding`` (from ``bwd_rounding_model``); the two roundings of
+    the output add at most one ulp, and ``tol`` of the gradient's max
+    covers fp32 sums in another order (a gradient sums terms of either
+    sign). Returns ``(max abs error, max error / allowance, max error /
+    (ulp + tol max|ref32|))``: the bound holds iff the second is <= 1;
+    the third is the one-ulp rule."""
+    ref = ref32.float().to(got.dtype)
+    diff = (got.float() - ref.float()).abs()
+    ulp = grad_ulp(torch, ref)
+    t = tol * float(ref32.float().abs().max())
+    return (float(diff.max()), float((diff / (ulp + rounding + t)).max()),
+            float((diff / (ulp + t)).max()))
+
+
+def grad_model_error(torch, got, model32, slack, tol=FP32_TOL):
+    """The tensor-core B2/B3's tight check: ``got`` against its rounding
+    model (``bwd_rounding_model``) rounded to the dtype, per element
+    within ``ulp + slack + tol max|model32|``. Returns ``(max abs error,
+    max error / allowance, max error / (ulp + tol max|model32|))``: the
+    check holds iff the second is <= 1; the third is without the slack."""
+    ref = model32.to(got.dtype)
+    diff = (got.float() - ref.float()).abs()
+    ulp = grad_ulp(torch, ref)
+    t = tol * float(model32.abs().max())
+    return (float(diff.max()), float((diff / (ulp + slack + t)).max()),
+            float((diff / (ulp + t)).max()))
 
 
 def sdpa_out(torch, q, k, v, causal, qo, ko):
@@ -528,57 +698,75 @@ def grad_err(got, ref):
                  / ref.abs().max().clamp_min(1e-30))
 
 
-def grad_bf16_err(torch, got, ref32):
-    """A bf16 gradient against its fp32 plain version rounded to bf16:
-    (max abs error, max of error / allowance), the allowance per element
-    one bf16 ulp of the rounded reference plus FP32_TOL of the gradient's
-    max (the fp32 rule, since a gradient sums terms of either sign)."""
-    ref = ref32.float().bfloat16().float()
-    diff = (got.float() - ref).abs()
-    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
-    allow = ulp + FP32_TOL * ref32.float().abs().max()
-    return float(diff.max()), float((diff / allow).max())
-
-
 #: B2/B3 parity cases at Llama-3-8B widths: (b, sq, sk, causal, q_offset,
-#: kv_offset, lse cotangent). 384 and 300 rows end mid-tile, 200 x 333 is
-#: ragged on both axes, the kv_offset-40 case has rows 0..39 with no
-#: valid key (their forward is the mean of V, their gradient zero).
-FLASH_BWD_CASES = [(2, 384, 384, True, 0, 0, False),
-                   (1, 200, 333, False, 0, 0, False),
-                   (1, 64, 100, True, 0, 40, False),
-                   (2, 300, 300, True, 0, 0, True)]
+#: kv_offset, lse cotangent, head_dim). 384 and 300 rows end mid-tile,
+#: 200 x 333 is ragged on both axes, the kv_offset-40 case has rows 0..39
+#: with no valid key (their forward is the mean of V, their gradient
+#: zero), the last is a chunk after 170 cached tokens on the head_dim-64
+#: kernels.
+FLASH_BWD_CASES = [(2, 384, 384, True, 0, 0, False, 128),
+                   (1, 200, 333, False, 0, 0, False, 128),
+                   (1, 64, 100, True, 0, 40, False, 128),
+                   (2, 300, 300, True, 0, 0, True, 128),
+                   (1, 130, 300, True, 170, 0, False, 64)]
 
 
 def compare_flash_bwd_case(torch, fa, q, k, v, dout, g_lse, causal, qo, ko,
                            label):
     """B2 and B3 against their plain versions on kernel-layout tensors
     (strided views allowed), with out and lse from B1 and delta from
-    them: fp32 within FP32_TOL of each gradient's max, bf16 within one
-    ulp plus that (``grad_bf16_err``). Returns the errors."""
+    them. fp32, on the scalar kernels (their launch counts say so): each
+    gradient within FP32_TOL of its max. bf16 and fp16, on the inputs
+    rounded to the dtype, through the tensor-core kernels: each gradient
+    within the C17 bound of the fp32 plain version (``wgmma_grad_error``)
+    and within the tight check of its rounding model
+    (``grad_model_error``), with the one-ulp rule's ratio and the ratio
+    without the slack printed beside them. Returns the errors."""
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    kinds = (fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        name = {torch.float32: "fp32", torch.bfloat16: "bf16",
+                torch.float16: "fp16"}[dtype]
         qx, kx, vx, dx = (t.to(dtype) for t in (q, k, v, dout))
         out, lse = fa.flash_attention_with_lse(qx, kx, vx, causal, None, qo,
                                                ko)
         delta = fa.bwd_delta(out, dx, g_lse)
         args = (lse, delta, causal, None, qo, ko)
+        n_tc = [f.wgmma_launches for f in kinds]
         got = (fa.flash_bwd_dq(qx, kx, vx, dx, *args),
                *fa.flash_bwd_dkv(qx, kx, vx, dx, *args))
+        want_tc = [n + (dtype != torch.float32) for n in n_tc]
+        if [f.wgmma_launches for f in kinds] != want_tc:
+            raise AssertionError(f"{label} {name}: B2/B3 variant wrong "
+                                 f"({[f.wgmma_launches for f in kinds]} "
+                                 f"tensor-core launches, expected {want_tc})")
         f32 = [t.float() for t in (qx, kx, vx, dx)]
         ref = (fa.flash_bwd_dq_plain(*f32, *args),
                *fa.flash_bwd_dkv_plain(*f32, *args))
-        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
-            assert g.dtype == dtype and g.shape == r.shape, name
+        model = (None if dtype == torch.float32 else bwd_rounding_model(
+            torch, fa, *f32, lse, delta, causal, qo, ko, dtype))
+        for gname, gr, r in zip(("dq", "dk", "dv"), got, ref):
+            assert gr.dtype == dtype and gr.shape == r.shape, gname
             if dtype == torch.float32:
-                e = grad_err(g, r)
-                check(f"{label} fp32 {name}", e, FP32_TOL, "max err / max")
-                errs[f"{name}_fp32"] = e
-            else:
-                e, ulps = grad_bf16_err(torch, g, r)
-                check(f"{label} bf16 {name} vs bf16(fp32 plain)", ulps, 1.0,
-                      "max error / (1 bf16 ulp + fp32 tol)")
-                errs[f"{name}_bf16"] = e
+                e = grad_err(gr, r)
+                check(f"{label} fp32 {gname}", e, FP32_TOL, "max err / max")
+                errs[f"{gname}_fp32"] = e
+                errs[f"{gname}_fp32_abs"] = float((gr - r).abs().max())
+                continue
+            m32, slack, rounding = model[gname]
+            e, ratio, one_ulp = wgmma_grad_error(torch, gr, r, rounding)
+            em, tight, no_slack = grad_model_error(torch, gr, m32, slack)
+            log(f"  {label} {name} {gname}: max_abs_err {e:.3e}, vs the "
+                f"rounding model {em:.3e}; without the slack "
+                f"{no_slack:.3f}; one-ulp rule {one_ulp:.3f}")
+            check(f"{label} {name} {gname} vs {name}(fp32 plain)", ratio,
+                  1.0, "max error / (ulp + rounding + tol max)")
+            check(f"{label} {name} {gname} vs {name}(rounding model)",
+                  tight, 1.0, "max error / (ulp + slack + tol max)")
+            errs.update({f"{gname}_{name}": e, f"{gname}_{name}_rule": ratio,
+                         f"{gname}_{name}_tight": tight,
+                         f"{gname}_{name}_no_slack": no_slack,
+                         f"{gname}_{name}_one_ulp": one_ulp})
     torch.cuda.synchronize()
     return errs
 
@@ -587,18 +775,17 @@ def compare_flash_bwd(torch, fa, dev):
     """B2 and B3 on FLASH_BWD_CASES; returns the largest errors."""
     g = torch.Generator(device=dev).manual_seed(98)
     errs = []
-    for b, sq, sk, causal, qo, ko, with_lse in FLASH_BWD_CASES:
-        q = torch.randn((b, N_HEADS, sq, HEAD_DIM), generator=g, device=dev)
-        k = torch.randn((b, N_KV, sk, HEAD_DIM), generator=g, device=dev)
-        v = torch.randn((b, N_KV, sk, HEAD_DIM), generator=g, device=dev)
-        dout = torch.randn((b, N_HEADS, sq, HEAD_DIM), generator=g,
-                           device=dev)
+    for b, sq, sk, causal, qo, ko, with_lse, d in FLASH_BWD_CASES:
+        q = torch.randn((b, N_HEADS, sq, d), generator=g, device=dev)
+        k = torch.randn((b, N_KV, sk, d), generator=g, device=dev)
+        v = torch.randn((b, N_KV, sk, d), generator=g, device=dev)
+        dout = torch.randn((b, N_HEADS, sq, d), generator=g, device=dev)
         g_lse = (torch.randn((b, N_HEADS, sq), generator=g, device=dev)
                  if with_lse else None)
         errs.append(compare_flash_bwd_case(
             torch, fa, q, k, v, dout, g_lse, causal, qo, ko,
             f"B2/B3 b={b} sq={sq} sk={sk} causal={causal} q_off={qo} "
-            f"kv_off={ko} lse_cotangent={with_lse}"))
+            f"kv_off={ko} lse_cotangent={with_lse} d={d}"))
     return worst_of(*errs)
 
 
@@ -850,8 +1037,9 @@ class TickProbe:
 
 class Count:
     """One more counter of a kernel wrapper, read and zeroed as
-    ``launches`` like the wrappers' own (``flash_attention`` counts every
-    B1 launch in ``launches``, the tensor-core ones also in
+    ``launches`` like the wrappers' own (``flash_attention``,
+    ``flash_bwd_dq`` and ``flash_bwd_dkv`` count every B1, B2 and B3
+    launch in ``launches``, the tensor-core ones also in
     ``wgmma_launches``)."""
 
     def __init__(self, fn, attr):
@@ -1382,18 +1570,34 @@ def time_flash_train(torch, fa, cap):
             plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
                 qt, kt, vt, True, None, qo), iters=10),
             **flash_bound(b, sq, sk, qo, el))
-        rows["dq"] = dict(
-            ms=time_ms(torch, lambda: fa.flash_bwd_dq(
-                q, k, v, dout, *args, kernel_layout=False)),
-            plain_ms=time_ms(torch, lambda: fa.flash_bwd_dq_plain(
-                qt, kt, vt, dt, *args), iters=10),
-            **flash_bound(b, sq, sk, qo, el, **BWD_BOUNDS["dq"]))
-        rows["dkv"] = dict(
-            ms=time_ms(torch, lambda: fa.flash_bwd_dkv(
-                q, k, v, dout, *args, kernel_layout=False)),
-            plain_ms=time_ms(torch, lambda: fa.flash_bwd_dkv_plain(
-                qt, kt, vt, dt, *args), iters=10),
-            **flash_bound(b, sq, sk, qo, el, **BWD_BOUNDS["dkv"]))
+        # the scalar variants on fp32 copies of the same inputs (the
+        # fp32 paths' kernels; bf16 at head_dim 128 takes tensor cores)
+        q32, k32, v32, do32 = (x.float() for x in (q, k, v, dout))
+        qt32, kt32, vt32, dt32 = (x.float() for x in (qt, kt, vt, dt))
+        for key, kern_fn, plain_fn in (
+                ("dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain),
+                ("dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain)):
+            n_tc = kern_fn.wgmma_launches
+            rows[key] = dict(
+                ms=time_ms(torch, lambda: kern_fn(
+                    q, k, v, dout, *args, kernel_layout=False)),
+                plain_ms=time_ms(torch, lambda: plain_fn(
+                    qt, kt, vt, dt, *args), iters=10),
+                **flash_bound(b, sq, sk, qo, el, **BWD_BOUNDS[key]))
+            if kern_fn.wgmma_launches == n_tc:
+                raise AssertionError(f"bf16 {key} did not take tensor cores")
+            rows[key]["tflops"] = rows[key]["flops"] / rows[key]["ms"] * 1e-9
+            n_tc = kern_fn.wgmma_launches
+            rows[f"{key}_simt"] = dict(
+                ms=time_ms(torch, lambda: kern_fn(
+                    q32, k32, v32, do32, *args, kernel_layout=False),
+                    iters=10),
+                plain_ms=time_ms(torch, lambda: plain_fn(
+                    qt32, kt32, vt32, dt32, *args), iters=10),
+                **flash_bound(b, sq, sk, qo, 4, peak=FP32_FLOPS,
+                              **BWD_BOUNDS[key]))
+            if kern_fn.wgmma_launches != n_tc:
+                raise AssertionError(f"fp32 {key} took tensor cores")
         sdpa = torch.nn.functional.scaled_dot_product_attention
         rows["fwd"]["tflops"] = rows["fwd"]["flops"] / rows["fwd"]["ms"] * 1e-9
         rows["fwd"]["library_ms"] = time_ms(torch, lambda: sdpa(
@@ -1402,30 +1606,35 @@ def time_flash_train(torch, fa, cap):
         rows["fwd"]["library_vs_kernel_max_abs_diff"] = float(
             (sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).float()
              - out.float()).abs().max())
-    ql, kl, vl = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
-    lib_out = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
+    for suffix, ins, grads in (
+            ("", (qt, kt, vt, dt), (q, k, v, dout)),
+            ("_simt", (qt32, kt32, vt32, dt32), (q32, k32, v32, do32))):
+        ql, kl, vl = (x.detach().requires_grad_(True) for x in ins[:3])
+        lib_out = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
 
-    def lib_bwd():
-        return torch.autograd.grad(lib_out, (ql, kl, vl), dt,
-                                   retain_graph=True)
-    lib_ms = time_ms(torch, lib_bwd)
-    try:
-        ran = sdpa_backends(torch, lib_bwd)
-    except RuntimeError as e:          # the profiler may not see the card
-        ran = f"not recorded ({e})"
-    with torch.no_grad():
-        dq = fa.flash_bwd_dq(q, k, v, dout, *args, kernel_layout=False)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, dout, *args, kernel_layout=False)
-    lq, lk, lv = lib_bwd()
-    diff = {n: float((a.transpose(1, 2).float() - r.float()).abs().max())
-            for n, a, r in (("dq", dq, lq), ("dk", dk, lk), ("dv", dv, lv))}
-    for key in ("dq", "dkv"):
-        rows[key].update(
-            library_ms=lib_ms,
-            library=("sdpa backward (is_causal=True, enable_gqa=True): dq, "
-                     "dk and dv in one call, the B2 + B3 pair"),
-            library_kernels=ran, library_vs_kernel_max_abs_diff=diff)
-    del lib_out, ql, kl, vl
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (ql, kl, vl), ins[3],
+                                       retain_graph=True)
+        lib_ms = time_ms(torch, lib_bwd, iters=50 if not suffix else 10)
+        try:
+            ran = sdpa_backends(torch, lib_bwd)
+        except RuntimeError as e:      # the profiler may not see the card
+            ran = f"not recorded ({e})"
+        with torch.no_grad():
+            dq = fa.flash_bwd_dq(*grads, *args, kernel_layout=False)
+            dk, dv = fa.flash_bwd_dkv(*grads, *args, kernel_layout=False)
+        lq, lk, lv = lib_bwd()
+        diff = {n: float((a.transpose(1, 2).float() - r.float()).abs().max())
+                for n, a, r in (("dq", dq, lq), ("dk", dk, lk),
+                                ("dv", dv, lv))}
+        for key in ("dq", "dkv"):
+            rows[key + suffix].update(
+                library_ms=lib_ms,
+                library=(f"sdpa backward ({'fp32, ' if suffix else ''}"
+                         f"is_causal=True, enable_gqa=True): dq, dk and dv "
+                         f"in one call, the B2 + B3 pair"),
+                library_kernels=ran, library_vs_kernel_max_abs_diff=diff)
+        del lib_out, ql, kl, vl, dq, dk, dv, lq, lk, lv
     for r in rows.values():
         r["shape"] = shape
     return rows
@@ -1514,7 +1723,9 @@ def train(torch, pt, kern, fa, none):
     losses, steps, total = [], [], dict(none)
     cap = BackwardCapture(fa)
     per_step = dict(none, flash=TRAIN_LAYERS, flash_wgmma=TRAIN_LAYERS,
-                    flash_bwd_dq=TRAIN_LAYERS, flash_bwd_dkv=TRAIN_LAYERS)
+                    flash_bwd_dq=TRAIN_LAYERS, flash_bwd_dkv=TRAIN_LAYERS,
+                    flash_bwd_dq_wgmma=TRAIN_LAYERS,
+                    flash_bwd_dkv_wgmma=TRAIN_LAYERS)
     for i in range(TRAIN_STEPS):
         zero_counts(kern)
         with cap if i == TRAIN_STEPS - 1 else contextlib.nullcontext():
@@ -1752,7 +1963,9 @@ def main():
             "flash_wgmma": Count(fa.flash_attention, "wgmma_launches"),
             "paged": pa.paged_attention,
             "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_dq_wgmma": Count(fa.flash_bwd_dq, "wgmma_launches"),
             "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "flash_bwd_dkv_wgmma": Count(fa.flash_bwd_dkv, "wgmma_launches"),
             "qblock_q8": rpa.qblock_attention_q8,
             "token_q8": rpa.token_attention_q8,
             "paged_q8": pa.paged_attention_q8, "int8_matmul": qm.int8_matmul}
@@ -1764,6 +1977,7 @@ def main():
     log(f"  build_seconds {build_s:.2f} ({len(_build.SOURCES)} sources)")
     ptxas_summary(_build)
     b1_notes(_build)
+    bwd_notes(_build)
 
     log("phase 2: kernel parity at Llama-3-8B attention shapes")
     q, kp, vp, tbl, desc = parity_layout(torch, rpa, dev)
@@ -1995,7 +2209,9 @@ def main():
     del ref_model
     torch.cuda.empty_cache()
     train_grad_err = train_cross_check(torch, pt, fa, kern, none)
-    simt_by_path["fp32 training step"] = 2      # checked exactly inside
+    # B1, B2 and B3 launch twice each on the scalar kernels there, and the
+    # tensor-core ones never (checked exactly inside)
+    simt_by_path["fp32 training step"] = bwd_simt_launches = 2
 
     log("  captured tick: " + json.dumps(
         {k: np.asarray(v).tolist() for k, v in
@@ -2152,33 +2368,62 @@ def main():
                                               "library", "shape", "bytes",
                                               "flops")},
                      "other_shapes": timed[1:]})
+    # B2 and B3, each as its two variants: the tensor-core kernels (bf16
+    # and fp16 at head_dim 64, 128; the training step) and the scalar ones
+    # (fp32; phase 4's training step)
+    bwd = {"source": CSRC + "flash_attention_bwd.cu", "route": "cuda"}
+    bwd_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library", "library_kernels", "shape", "bytes", "flops")
     for name, key, line, errs_of in (
-            ("flash_bwd_dq", "flash_bwd_dq", 232, ("dq",)),
-            ("flash_bwd_dkv", "flash_bwd_dkv", 277, ("dk", "dv"))):
-        r = train_rows["dq" if key == "flash_bwd_dq" else "dkv"]
-        lib = ("none" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms")
-        log(f"  {name} at {r['shape']}: {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-            f"({r['bound_by']}: {r['bytes']} bytes, {r['flops']} FLOPs), "
-            f"library {lib} ({r['library']}; kernels "
-            f"{r['library_kernels']}; max abs diff to the kernels "
-            f"{r['library_vs_kernel_max_abs_diff']})")
-        rows.append({"name": name, "route": "cuda",
-                     "source": CSRC + "flash_attention_bwd.cu",
-                     "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:"
-                                 f"{line}",
-                     "launches": sum(v[key] for v in by_path.values()),
-                     "launches_by_path": {k: v[key]
+            ("flash_bwd_dq", "dq", 232, ("dq",)),
+            ("flash_bwd_dkv", "dkv", 277, ("dk", "dv"))):
+        ref_at = f"paddle_tpu/ops/pallas/flash_attention.py:{line}"
+        r, rs = train_rows[key], train_rows[f"{key}_simt"]
+        rs["shape"] = r["shape"].replace("bf16", "fp32 copies")
+        for row, variant in ((r, "tensor cores"), (rs, "scalar")):
+            log(f"  {name} ({variant}) at {row['shape']}: {row['ms']:.4f} "
+                f"ms" + (f" ({row['tflops']:.1f} TFLOP/s over visible "
+                         f"pairs)" if "tflops" in row else "")
+                + f", plain {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.6f} ms ({row['bound_by']}: "
+                f"{row['bytes']} bytes, {row['flops']} FLOPs at "
+                f"{row['peak_tflops']:g} TFLOP/s), library "
+                f"{row['library_ms']:.4f} ms ({row['library']}; kernels "
+                f"{row['library_kernels']}; max abs diff to the kernels "
+                f"{row['library_vs_kernel_max_abs_diff']})")
+        wkey = f"flash_bwd_{key}_wgmma"
+        rows.append({"name": f"{name}_wgmma", **bwd,
+                     "replaces": ref_at,
+                     "kernel": f"flash_bwd_{key}_wgmma_kernel",
+                     "dtypes": "bf16 and fp16 at head_dim 64 and 128",
+                     "launches": sum(v[wkey] for v in by_path.values()),
+                     "launches_by_path": {k: v[wkey]
                                           for k, v in by_path.items()},
                      "max_abs_err": max(bwd_errs[f"{e}_bf16"]
                                         for e in errs_of),
+                     **{f"{what}_{dt}": max(bwd_errs[f"{e}_{dt}{suffix}"]
+                                            for e in errs_of)
+                        for dt in ("bf16", "fp16")
+                        for what, suffix in (("max_abs_err", ""),
+                                             ("rule_ratio", "_rule"),
+                                             ("model_ratio", "_tight"),
+                                             ("model_ratio_no_slack",
+                                              "_no_slack"),
+                                             ("one_ulp_ratio", "_one_ulp"))},
+                     "tflops": r["tflops"],
+                     **{k: r[k] for k in bwd_keys}})
+        rows.append({"name": f"{name}_simt", **bwd, "replaces": ref_at,
+                     "kernel": f"flash_bwd_{key}_kernel",
+                     "dtypes": "fp32 at head_dim 64, 128, 192 and 256; "
+                               "bf16 and fp16 at 192 and 256",
+                     "launches": bwd_simt_launches,
+                     "launches_by_path": {"fp32 training step":
+                                          bwd_simt_launches},
+                     "max_abs_err": max(bwd_errs[f"{e}_fp32_abs"]
+                                        for e in errs_of),
                      "max_rel_err_fp32": max(bwd_errs[f"{e}_fp32"]
                                              for e in errs_of),
-                     **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms",
-                                          "library", "library_kernels",
-                                          "shape", "bytes", "flops")}})
+                     **{k: rs[k] for k in bwd_keys}})
 
     # the int8 kernels, on the inputs captured in phase 3(e)
     q8_bound = bound_ms(ic["q"], ic["kp"], ic["tbl"], ic["desc"], quant=True)

@@ -8,9 +8,9 @@
 //   - setmaxnreg, to move registers from a producer warpgroup to the
 //     consumers;
 //   - wgmma shared-memory descriptors for 128-byte-swizzled tiles, and
-//     the warpgroup products m64n128k16 (A and B in shared memory) and
-//     m64n{64,128}k16 (A in registers, B MN-major in shared memory) with
-//     fp32 accumulators, for bf16 and fp16.
+//     the warpgroup products m64n{64,128}k16 with A and B both K-major in
+//     shared memory, and m64n{64,128}k16 with A in registers and B
+//     MN-major in shared memory, fp32 accumulators, for bf16 and fp16.
 //
 // Shared-memory tile layout used throughout: a box of R rows x 64 columns
 // of a 16-bit type, 128 bytes a row, rows consecutive, the 16-byte chunks
@@ -251,6 +251,7 @@ __device__ __forceinline__ void reg_alloc() {
 // holds row 16 w + l / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (l % 4)
 // + i % 2). `scale_d` 0 overwrites d.
 //   ss128: A (64 x 16) and B (16 x 128) both K-major in shared memory;
+//   ss64:  the same with B 16 x 64 (32 accumulators a thread);
 //   rs:    A from registers (the fragment of the accumulator's layout, two
 //          values of T in each 32-bit register), B (16 x N) MN-major.
 template <typename T> struct Wgmma;
@@ -264,6 +265,14 @@ template <typename T> struct Wgmma;
           "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"       \
           PTT_D64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                          \
           : PTT_F64 : "l"(da), "l"(db), "r"(scale_d));                        \
+    }                                                                         \
+    static __device__ __forceinline__ void ss64(float (&d)[32], uint64_t da,   \
+                                                uint64_t db, int scale_d) {    \
+      asm volatile(                                                           \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"        \
+          PTT_D32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                          \
+          : PTT_F32 : "l"(da), "l"(db), "r"(scale_d));                        \
     }                                                                         \
     static __device__ __forceinline__ void rs(float (&d)[64], uint32_t a0,     \
                                               uint32_t a1, uint32_t a2,        \

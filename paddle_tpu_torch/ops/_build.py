@@ -57,6 +57,10 @@ SIGNATURES = {
                             + [_F, _P],
         "ptt_flash_bwd_dkv": [_I] + [_P] * 8 + [_L] * 18 + [_I] * 9
                              + [_F, _P],
+        "ptt_flash_bwd_dq_wgmma": [_I] + [_P] * 7 + [_L] * 15 + [_I] * 9
+                                  + [_F, _P],
+        "ptt_flash_bwd_dkv_wgmma": [_I] + [_P] * 8 + [_L] * 18 + [_I] * 9
+                                   + [_F, _P],
     },
     "paged_attention": {
         "ptt_paged_decode": [_I] + [_P] * 6 + [_I] * 7 + [_F, _P],

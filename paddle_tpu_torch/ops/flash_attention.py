@@ -27,18 +27,23 @@ reference kept as they are:
   (``_FlashAttention``), on either device.
 
 A CUDA tensor goes to the kernels or raises: B1 forward
-(``csrc/flash_attention.cu``, two variants chosen by :func:`fwd_variant`:
-the tensor-core kernel for bf16 and fp16 at head_dim 64 and 128, the
-scalar fp32 kernel for fp32 and the other head dims), B2 dQ and B3 dK/dV
-(``csrc/flash_attention_bwd.cu``). A CPU tensor runs
-:func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`.
+(``csrc/flash_attention.cu``), B2 dQ and B3 dK/dV
+(``csrc/flash_attention_bwd.cu``), each in two variants chosen by
+:func:`fwd_variant` and :func:`bwd_variant`: the tensor-core kernels for
+bf16 and fp16 at head_dim 64 and 128, the scalar fp32 kernels for fp32
+and the other head dims. A CPU tensor runs :func:`flash_attention_plain`
+and :func:`flash_attention_bwd_plain`.
 
 The tensor-core forward rounds the softmax weights to q's dtype before
 ``P V`` (the reference dots in fp32; ROADMAP C15): its lse stays within
 1e-5 (relative) of the plain version on the same inputs, and each output
 element within ``ulp(ref) + u max|V| + 1e-5`` of the fp32 plain version
 rounded to the dtype, ``u`` the dtype's unit roundoff (2^-8 for bf16,
-2^-11 for fp16).
+2^-11 for fp16). The tensor-core backward rounds p before ``P^T dO`` and
+ds before ``dS K`` and ``dS^T Q`` (ROADMAP C17): each gradient element
+stays within ``ulp(ref) + u (|P|^T |dO|, |dS| |K|, |dS|^T |Q|) + 1e-5
+max|ref|`` of the fp32 plain version rounded to the dtype (plus, in fp16,
+half a subnormal spacing for each rounded value below the normal range).
 """
 from __future__ import annotations
 
@@ -81,6 +86,14 @@ def fwd_variant(dtype, head_dim):
     if dtype != torch.float32 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
+
+
+def bwd_variant(dtype, head_dim):
+    """Which B2 and B3 kernels a CUDA call takes, by the same rule as
+    :func:`fwd_variant`: ``"wgmma"`` (tensor cores) for bf16 and fp16 at
+    head_dim 64 and 128, ``"simt"`` (scalar fp32) for fp32 and the other
+    head dims. Raises for a dtype or head_dim neither kernel takes."""
+    return fwd_variant(dtype, head_dim)
 
 
 def tma_operand(t):
@@ -368,6 +381,11 @@ def _flash_cuda(q, k, v, causal, sm_scale, q_offset, kv_offset, seq_dim):
 
 
 def _bwd_operands(q, k, v, dout, lse, delta, seq_dim):
+    """Checked operands of B2 or B3 and the variant they take: q, k, v and
+    dout passed in place where the kernel can read them
+    (:func:`tma_operand` for the tensor-core kernels; head_dim contiguous
+    for the scalar ones) and copied otherwise; lse and delta contiguous
+    fp32."""
     b, hq, hk, sq, sk, d = _check_qkv(q, k, v, seq_dim)
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
@@ -376,9 +394,11 @@ def _bwd_operands(q, k, v, dout, lse, delta, seq_dim):
         if t.shape != (b, hq, sq) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be fp32 {(b, hq, sq)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-    q, k, v, dout = _unit_last(q, k, v, dout)
+    wgmma = bwd_variant(q.dtype, d) == "wgmma"
+    q, k, v, dout = ([tma_operand(t) for t in (q, k, v, dout)] if wgmma
+                     else _unit_last(q, k, v, dout))
     return (q, k, v, dout, lse.contiguous(), delta.contiguous(),
-            (b, hq, hk, sq, sk, d))
+            (b, hq, hk, sq, sk, d), wgmma)
 
 
 def _bwd_ints(dims, q_offset, kv_offset, causal, sm_scale):
@@ -389,8 +409,10 @@ def _bwd_ints(dims, q_offset, kv_offset, causal, sm_scale):
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal=True, sm_scale=None,
                  q_offset=0, kv_offset=0, kernel_layout=True):
-    """dQ of flash attention (kernel B2 on a CUDA tensor, counted in
-    ``flash_bwd_dq.launches``; :func:`flash_bwd_dq_plain` on a CPU one).
+    """dQ of flash attention (kernel B2 on a CUDA tensor, the variant of
+    :func:`bwd_variant`, counted in ``flash_bwd_dq.launches`` and the
+    tensor-core ones also in ``flash_bwd_dq.wgmma_launches``;
+    :func:`flash_bwd_dq_plain` on a CPU one).
     q, k, v and dout in kernel layout ``[b, h, s, d]`` or, with
     ``kernel_layout=False``, ``[b, s, h, d]`` (strided views allowed);
     lse and delta fp32 ``[b, hq, sq]``. Returns dq in q's layout and
@@ -406,27 +428,32 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal=True, sm_scale=None,
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for device {q.device}")
     seq_dim = 2 if kernel_layout else 1
-    q, k, v, dout, lse, delta, dims = _bwd_operands(q, k, v, dout, lse,
-                                                    delta, seq_dim)
+    q, k, v, dout, lse, delta, dims, wgmma = _bwd_operands(
+        q, k, v, dout, lse, delta, seq_dim)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     args = ([ctypes.c_int(_build.dtype_code(q.dtype))]
             + [ctypes.c_void_p(t.data_ptr())
                for t in (q, k, v, dout, lse, delta, dq)]
             + _strides((q, k, v, dout, dq), seq_dim)
             + _bwd_ints(dims, q_offset, kv_offset, causal, sm_scale))
-    _build.launch("ptt_flash_bwd_dq", q.device, args)
+    _build.launch("ptt_flash_bwd_dq_wgmma" if wgmma else "ptt_flash_bwd_dq",
+                  q.device, args)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.wgmma_launches += wgmma
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.wgmma_launches = 0
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True, sm_scale=None,
                   q_offset=0, kv_offset=0, kernel_layout=True):
     """dK and dV of flash attention, summed over each kv head's query
-    group (kernel B3 on a CUDA tensor, counted in
-    ``flash_bwd_dkv.launches``; :func:`flash_bwd_dkv_plain` on a CPU one).
+    group (kernel B3 on a CUDA tensor, the variant of :func:`bwd_variant`,
+    counted in ``flash_bwd_dkv.launches`` and the tensor-core ones also in
+    ``flash_bwd_dkv.wgmma_launches``; :func:`flash_bwd_dkv_plain` on a CPU
+    one).
     Arguments as :func:`flash_bwd_dq`. Returns ``(dk, dv)`` in k's
     layout and dtype."""
     if sm_scale is None:
@@ -441,8 +468,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True, sm_scale=None,
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for device {q.device}")
     seq_dim = 2 if kernel_layout else 1
-    q, k, v, dout, lse, delta, dims = _bwd_operands(q, k, v, dout, lse,
-                                                    delta, seq_dim)
+    q, k, v, dout, lse, delta, dims, wgmma = _bwd_operands(
+        q, k, v, dout, lse, delta, seq_dim)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     args = ([ctypes.c_int(_build.dtype_code(q.dtype))]
@@ -450,12 +477,15 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True, sm_scale=None,
                for t in (q, k, v, dout, lse, delta, dk, dv)]
             + _strides((q, k, v, dout, dk, dv), seq_dim)
             + _bwd_ints(dims, q_offset, kv_offset, causal, sm_scale))
-    _build.launch("ptt_flash_bwd_dkv", q.device, args)
+    _build.launch("ptt_flash_bwd_dkv_wgmma" if wgmma else "ptt_flash_bwd_dkv",
+                  q.device, args)
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.wgmma_launches += wgmma
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.wgmma_launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=True,
@@ -524,7 +554,8 @@ def flash_attention(q, k, v, causal=True, sm_scale=None, q_offset=0,
     Differentiable in q, k and v. CUDA launches are counted in
     ``flash_attention.launches`` (B1, both variants; the tensor-core ones
     also in ``flash_attention.wgmma_launches``), ``flash_bwd_dq.launches``
-    (B2) and ``flash_bwd_dkv.launches`` (B3)."""
+    (B2) and ``flash_bwd_dkv.launches`` (B3), each with its own
+    ``wgmma_launches``."""
     return _attention(q, k, v, causal, sm_scale, q_offset, kv_offset,
                       kernel_layout)[0]
 

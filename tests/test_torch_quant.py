@@ -144,7 +144,9 @@ def test_quantize_linears_matches_jax(models):
         tm.train(train)
         want = _np(jm(paddle.to_tensor(ids)))
         got = tm(torch.as_tensor(ids))
-        assert _rel(_np(got), want) <= 1e-5
+        rel = _rel(_np(got), want)
+        assert rel <= 1e-5, (f"{'train' if train else 'eval'} logits: "
+                             f"observed rel err {rel:.3e} > limit 1e-5")
         # eval streams the int8 codes, train multiplies by .weight
         assert got.requires_grad == train
     tm.eval()
