@@ -7,9 +7,9 @@ Phases, each fatal on error (non-zero exit, no result line):
 
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and print every kernel's registers
-   and spills from ``ptxas -v``, ptxas's wgmma notes for B1, B2 and B3
-   and the dynamic shared memory of each tensor-core B1, B2 and B3
-   block;
+   and spills from ``ptxas -v``, ptxas's wgmma notes for B1, B2, B3 and
+   B10 and the dynamic shared memory of each tensor-core B1, B2, B3 and
+   B10 block;
 2. kernel parity at Llama-3-8B attention shapes (32 heads, 8 kv heads,
    head_dim 128, page 16): the two ragged kernels on a mixed layout,
    flash attention forward (B1, out and lse) on causal, offset,
@@ -23,7 +23,15 @@ Phases, each fatal on error (non-zero exit, no result line):
    decode (B4) on a batch of 8 with contexts 1-700 and shared pages; the
    int8-page kernels B7 and B9 on the ragged layout and B5 on the paged
    one, pages quantised by the cache's codec; the weight-only int8 matmul
-   (B10) at M in {1, 8, 256, 300} for the five (K, N) of Llama-3-8B.
+   (B10) at 14 M from 1 to 300 (both tensor-core regimes, their
+   crossover and every token-tile edge) for the five (K, N) of
+   Llama-3-8B, each tensor-core variant also forced at the other's M, a
+   K that is no whole number of k-tiles, a K % 16 != 0 that takes the
+   scalar kernel by rule, and two split-K launches that must give the
+   same bits: bf16 and fp16 on the tensor-core kernels under ROADMAP C20
+   (``c20_error``: one ulp of the fp32 plain version rounded to the
+   dtype plus 1e-5 of its max; the worst ratio per weight shape is
+   printed), fp32 on the scalar kernel.
    Each kernel against its plain PyTorch version in fp32 (TF32 off,
    tolerance 1e-5; for gradients and B10 1e-5 of each output's max) and
    in bf16 against the fp32 plain version rounded to bf16 (one bf16 ulp
@@ -66,13 +74,20 @@ Phases, each fatal on error (non-zero exit, no result line):
       of a flash-sized chunk that reads back a prefix;
    e. right after (c), on the same model, the fully-int8 configuration,
       ``ContinuousServingEngine(kv_dtype="int8", weight_dtype="int8")``,
-      serves the load of (a) three times: ragged q-block (B7 = 32 x ticks), ragged
-      per-token (B9 = 32 x ticks) and legacy (B5 = 32 x decode steps, B1
-      = 32 x chunks padded to >= 128); B10 = 225 x forwards in each, and
-      kernels 6 and 8 and B4 never launch. The first engine quantises the
-      model's 225 Linears in place, the others find none left. Prints the
-      native and int8 ``page_nbytes``; instrumented passes time every tick
-      and capture layer 0's inputs of B7/B9, B5 and B10 (M = 8 and 256);
+      serves the load of (a) three times, after one uncounted q-block
+      pass whose engine quantises the model's 225 Linears in place (its
+      wall is printed; the counted engines find none left): ragged
+      q-block (B7 = 32 x ticks), ragged per-token (B9 = 32 x ticks) and
+      legacy (B5 = 32 x decode steps, B1 = 32 x chunks padded to >=
+      128); B10 = 225 x forwards in each, every call (bf16) on the
+      tensor-core variant its M names (the stream at M <= 32, the GEMM
+      above; the two counts add up to B10's), and kernels 6 and 8 and B4
+      never launch. B10's calls by M are counted in each of the three
+      runs (``MatmulHistogram``: one more Python call and a ``Counter``
+      increment a B10 call, which their ticks carry) and printed. Prints
+      the native and int8 ``page_nbytes``; instrumented passes time every
+      tick and capture layer 0's inputs of B7/B9, B5 and B10 (M = 8 and
+      256);
    d. training: Llama-3-8B widths cut to 4 layers (bf16, 1.92 B
       parameters; AdamW's fp32 master weights and moments leave no room
       for more on one card), four Paddle-style steps (``loss, logits =
@@ -93,7 +108,7 @@ Phases, each fatal on error (non-zero exit, no result line):
    kernels within 1e-6 and 1e-4 (relative) of the same step with SDPA
    swapped, for the check only, to dense attention in autograd; the
    fully-int8 engine's three schedulers give identical greedy streams on
-   the three prompts; every B1, B2 and B3 launch of this phase takes
+   the three prompts; every B1, B2, B3 and B10 launch of this phase takes
    the scalar fp32 kernels (their launches are the scalar variants'
    main-path counts, and the tensor-core counts stay 0); then every
    kernel against its
@@ -112,16 +127,22 @@ Phases, each fatal on error (non-zero exit, no result line):
    trace names; and the scalar kernels on fp32 copies of the same
    inputs, against SDPA's fp32 backward), B4 at each engine's
    decode step, B7 and B9 at an int8 tick, B5 at the int8 legacy decode
-   step, B10 at M = 8 and 256 for each weight shape (against
-   ``torch.matmul`` on the layer's dequantised bf16 weight); the serving
-   numbers of every path, the legacy, ragged and int8 ones from
-   uninstrumented runs, and the training step's;
+   step, B10 at M = 8 and 256 for each weight shape (with GB/s or
+   TFLOP/s, against ``torch.matmul`` on the layer's dequantised bf16
+   weight and the scalar kernel on fp32 copies, the host's time per call
+   of both; summed over one forward), both tensor-core B10 variants at
+   M = 16-64 (their crossover) and the stream at M = 8 under split plans
+   for 0.5, 1 and 2 blocks an SM; the serving numbers of every path, the
+   legacy and ragged ones from uninstrumented runs, the int8 ones from
+   the runs of 3e (instrumented only by B10's M histogram), and the
+   training step's;
 6. tick breakdown of the ragged engines: per tick of the instrumented
    passes, the forward, the schedule build and the attention calls, and
    both ragged kernels replayed at every tick shape.
 
 Prints a ``{"kernels": [...]}`` line with all ten kernels (B1, B2 and B3
-each as its two variants, with the dtypes each serves), the card's
+each as its two variants, B10 as its three, with the dtypes each
+serves), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -298,6 +319,43 @@ def bwd_notes(build):
                 f"{re.sub(r'^[0-9]+', '', m.group(4))}, {m.group(5)}, "
                 f"{m.group(6)}>: {m.group(2)[:120]}")
     log(f"  ptxas wgmma notes for B2/B3: {notes}")
+
+
+#: the tensor-core B10's instantiations: (token tile, consumer warpgroups)
+B10_TILES = ((8, 1), (16, 1), (32, 1), (128, 2))
+
+
+def b10_smem(mt, nwg, src):
+    """Dynamic shared memory of one tensor-core B10 block, as ``MmSmem<MT,
+    NWG>::kBytes`` in ``src`` (the text of ``quant_matmul.cu``) lays it
+    out: a ring of [weight box, two x boxes], the mbarriers and 1 KB of
+    alignment slack."""
+    import re
+    tk, stages = (int(re.search(rf"constexpr int {name} = (\d+);",
+                                src).group(1))
+                  for name in ("kTK", "kStages"))
+    return stages * (nwg * 64 * tk + 2 * mt * 128) + 2 * stages * 8 + 1024
+
+
+def b10_notes(build):
+    """The tensor-core B10's launch shape and dynamic shared memory per
+    instantiation, and ptxas's notes on its wgmma."""
+    import re
+    src, so = build._target("quant_matmul.cu")
+    text = src.read_text()
+    for mt, nwg in B10_TILES:
+        log(f"  int8_matmul_wgmma_kernel token tile {mt}, {nwg} consumer "
+            f"warpgroup(s) + 1 producer warp: {nwg * 128 + 32} threads, "
+            f"{b10_smem(mt, nwg, text)} bytes of dynamic shared memory")
+    notes = 0
+    for line in so.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"\((C75\d\d)\) (.*?) in (?:the )?function '.*?"
+                      r"int8_matmul_wgmma_kernel", line)
+        if m:
+            notes += 1
+            log(f"  ptxas {m.group(1)} int8_matmul_wgmma_kernel: "
+                f"{m.group(2)[:120]}")
+    log(f"  ptxas wgmma notes for B10: {notes}")
 
 
 # ---------------------------------------------------------------------------
@@ -896,47 +954,177 @@ def compare_paged_q8(torch, pa, q, kq, vq, ks, vs, tbl, ctx, label):
 #: B10's (K, N) at Llama-3-8B: q/o, k/v, gate/up, down, lm_head
 MATMUL_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
                  (4096, 128256)]
+#: B10's parity M: both tensor-core regimes, their crossover and every
+#: token-tile edge
+MATMUL_MS = (1, 8, 9, 16, 17, 32, 33, 63, 64, 65, 128, 200, 256, 300)
+#: significant bits of the tensor-core dtypes (one ulp of v is
+#: 2^(exponent(v) - bits), frexp's exponent) and fp16's subnormal spacing
+ULP_BITS = {"bfloat16": 8, "float16": 11}
+FP16_TINY = 2.0 ** -24
+#: B10's tensor-core variants, and the ``STREAM_MAX_M`` that sends every
+#: tensor-core call to each (``forced_variant``)
+TENSOR_CORE_VARIANTS = {"wgmma_stream": 1 << 30, "wgmma_gemm": -1}
 
 
-def compare_int8_matmul_case(torch, qm, x, wq, ws, label):
-    """B10 against its plain version: fp32 within 1e-5 of the output's
-    largest magnitude (sums of up to 14336 products in another order),
-    bf16 within one bf16 ulp of the fp32 plain version rounded, plus that
-    tolerance. Returns (fp32 error / max, bf16 max abs error)."""
+@contextlib.contextmanager
+def forced_variant(qm, variant):
+    """Inside the block, every B10 call that ``matmul_variant`` sends to
+    the tensor cores takes ``variant`` (None: the rule's): the wrapper's
+    ``STREAM_MAX_M`` is moved past or below every M, and put back after.
+    fp32 calls and K % 16 != 0 stay on the scalar kernel."""
+    rule = qm.STREAM_MAX_M
+    if variant is not None:
+        qm.STREAM_MAX_M = TENSOR_CORE_VARIANTS[variant]
+    try:
+        yield
+    finally:
+        qm.STREAM_MAX_M = rule
+
+
+def c20_error(torch, out, ref32):
+    """ROADMAP C20: a bf16 or fp16 B10 output against its fp32 plain
+    version on the same inputs, rounded to the dtype. The products are
+    exact and only the order of the fp32 sum differs (k-steps inside
+    wgmma, split-K partials in a fixed order), so before its one rounding
+    the kernel's sum lies within 1e-5 of the largest output of the plain
+    one; both roundings together add at most one ulp of the reference.
+    Allowance per element: ``ulp(ref) + 1e-5 max|ref32|`` (fp16's ulp no
+    less than its subnormal spacing). Returns (max abs error, max error /
+    allowance); the rule holds at a ratio <= 1."""
+    name = str(out.dtype).split(".")[-1]
+    ref = ref32.to(out.dtype).float()
+    ulp = torch.ldexp(torch.ones_like(ref),
+                      torch.frexp(ref).exponent - ULP_BITS[name])
+    if name == "float16":
+        ulp = ulp.clamp_min(FP16_TINY)
+    diff = (out.float() - ref).abs()
+    return (float(diff.max()),
+            float((diff / (ulp + FP32_TOL * ref32.abs().max())).max()))
+
+
+def compare_int8_matmul_case(torch, qm, x, wq, ws, label, variant=None):
+    """B10 against its plain version: fp32 x on the scalar kernel within
+    1e-5 of the output's largest magnitude (sums of up to 14336 products
+    in another order); bf16 and fp16 x on the variant ``matmul_variant``
+    names (or the tensor-core ``variant``, ``forced_variant``) under C20
+    (``c20_error``); the variant's own count must rise by one. Returns ``{"fp32": error / max, "<dt>": max abs
+    error, "<dt>_ratio": C20 ratio, "<dt>_variant": ...}``."""
     x32 = x.float()
+    (m, k), n = x.shape, wq.shape[0]
+    res = {}
+    if qm.matmul_variant(torch.float32, m, n, k) != "simt":
+        raise AssertionError(f"{label}: fp32 not on the scalar kernel")
     out = qm.int8_matmul(x32, wq, ws)
     ref = qm.int8_matmul_plain(x32, wq, ws)
-    top = ref.abs().max()
-    e32 = float((out - ref).abs().max() / top)
-    check(f"{label} fp32 kernel vs plain", e32, FP32_TOL, "max err / max")
-    xb = x.bfloat16()
-    ob = qm.int8_matmul(xb, wq, ws)
-    rb = qm.int8_matmul_plain(xb.float(), wq, ws)
-    assert ob.dtype == torch.bfloat16
-    ref_b = rb.bfloat16().float()
-    diff = (ob.float() - ref_b).abs()
-    ulp = torch.ldexp(torch.ones_like(ref_b), torch.frexp(ref_b).exponent - 8)
-    check(f"{label} bf16 kernel vs bf16(fp32 plain)",
-          float((diff / (ulp + FP32_TOL * rb.abs().max())).max()), 1.0,
-          "max error / (1 bf16 ulp + fp32 tol of the max)")
+    res["fp32_abs"] = float((out - ref).abs().max())
+    res["fp32"] = res["fp32_abs"] / float(ref.abs().max())
+    check(f"{label} fp32 (simt) vs plain", res["fp32"], FP32_TOL,
+          "max err / max")
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16")):
+        xd = x.to(dt)
+        with forced_variant(qm, variant):
+            took = qm.matmul_variant(dt, m, n, k)
+            count = f"{took}_launches"
+            before = getattr(qm.int8_matmul, count)
+            got = qm.int8_matmul(xd, wq, ws)
+        assert got.dtype == dt
+        if getattr(qm.int8_matmul, count) != before + 1 or \
+                variant not in (None, took):
+            raise AssertionError(f"{label} {name}: not launched on "
+                                 f"{variant or took}")
+        res[f"{name}_variant"] = took
+        res[name], res[f"{name}_ratio"] = c20_error(
+            torch, got, qm.int8_matmul_plain(xd.float(), wq, ws))
+        check(f"{label} {name} ({res[f'{name}_variant']}) vs "
+              f"{name}(fp32 plain)", res[f"{name}_ratio"], 1.0,
+              "C20 ratio (max error / (1 ulp + 1e-5 max))")
     torch.cuda.synchronize()
-    return e32, float(diff.max())
+    return res
+
+
+def merge_mm_errs(errs, res, key):
+    """Keeps the worst of each B10 parity figure, and the worst C20 ratio
+    per weight shape ``key``."""
+    for f in ("fp32", "fp32_abs", "bf16", "fp16", "bf16_ratio",
+              "fp16_ratio"):
+        errs[f] = max(errs.get(f, 0.0), res[f])
+    ratios = errs.setdefault("ratio_by_shape", {})
+    ratios[key] = max(ratios.get(key, 0.0), res["bf16_ratio"],
+                      res["fp16_ratio"])
+    return errs
 
 
 def compare_int8_matmul(torch, qm, dev):
-    """B10 at M in {1, 8, 256, 300} for the five (K, N) of Llama-3-8B, on
-    seeded N(0, 0.02) bf16 weights quantised as the model's are."""
+    """B10 at every M of MATMUL_MS for the five (K, N) of Llama-3-8B, on
+    seeded N(0, 0.02) bf16 weights quantised as the model's are; then a K
+    that is not a whole number of k-tiles (a split-K part ends inside the
+    weight's last tile), a K % 16 != 0 that takes the scalar kernel by
+    rule in every dtype, each tensor-core variant forced at the other's
+    M, and determinism: a split-K case twice gives the same bits."""
     g = torch.Generator(device=dev).manual_seed(10)
-    errs = []
-    for k, n in MATMUL_SHAPES:
+    errs = {}
+
+    def weight(n, k):
         w = (torch.randn((n, k), generator=g, device=dev) * 0.02).bfloat16()
-        wq, ws = qm.quantize_weight(w)
-        del w
-        for m in (1, 8, 256, 300):
+        return qm.quantize_weight(w)
+
+    for k, n in MATMUL_SHAPES:
+        wq, ws = weight(n, k)
+        for m in MATMUL_MS:
             x = torch.randn((m, k), generator=g, device=dev)
-            errs.append(compare_int8_matmul_case(
-                torch, qm, x, wq, ws, f"B10 M={m} K={k} N={n}"))
-    return max(e[0] for e in errs), max(e[1] for e in errs)
+            merge_mm_errs(errs, compare_int8_matmul_case(
+                torch, qm, x, wq, ws, f"B10 M={m} K={k} N={n}"),
+                f"{k}x{n}")
+        for m, variant in ((8, "wgmma_gemm"), (256, "wgmma_stream")):
+            x = torch.randn((m, k), generator=g, device=dev)
+            merge_mm_errs(errs, compare_int8_matmul_case(
+                torch, qm, x, wq, ws, f"B10 M={m} K={k} N={n} forced "
+                f"{variant}", variant), f"{k}x{n}")
+        del wq, ws
+    k, n = 4096 + 48, 1000                      # 33 k-tiles, ragged N
+    wq, ws = weight(n, k)
+    for m in (8, 256):
+        parts = qm.split_parts(qm.matmul_variant(torch.bfloat16, m, n, k),
+                               m, n, k)
+        log(f"  B10 K={k} N={n} M={m}: split-K parts {parts}")
+        merge_mm_errs(errs, compare_int8_matmul_case(
+            torch, qm, torch.randn((m, k), generator=g, device=dev), wq, ws,
+            f"B10 M={m} K={k} N={n}"), f"{k}x{n}")
+    k = 4104                                    # K % 16 == 8
+    wq, ws = weight(n, k)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        if qm.matmul_variant(dt, 8, n, k) != "simt":
+            raise AssertionError(f"K={k} {dt} does not take the scalar "
+                                 f"kernel")
+        x = torch.randn((8, k), generator=g, device=dev).to(dt)
+        before = (qm.int8_matmul.wgmma_stream_launches
+                  + qm.int8_matmul.wgmma_gemm_launches)
+        got = qm.int8_matmul(x, wq, ws)
+        ref = qm.int8_matmul_plain(x.float(), wq, ws)
+        if dt == torch.float32:
+            e = float((got - ref).abs().max() / ref.abs().max())
+            check(f"B10 M=8 K={k} N={n} fp32 (simt) vs plain", e, FP32_TOL,
+                  "max err / max")
+        else:
+            _, e = c20_error(torch, got, ref)
+            check(f"B10 M=8 K={k} N={n} {dt} (simt) vs plain", e, 1.0,
+                  "C20 ratio")
+        if qm.int8_matmul.wgmma_stream_launches \
+                + qm.int8_matmul.wgmma_gemm_launches != before:
+            raise AssertionError(f"K={k} took a tensor-core kernel")
+    k, n = 4096, 1024
+    wq, ws = weight(n, k)
+    x = torch.randn((8, k), generator=g, device=dev).bfloat16()
+    if qm.split_plan("wgmma_stream", 8, n, k)[2] < 2:
+        raise AssertionError("the determinism case does not split K")
+    a, b = qm.int8_matmul(x, wq, ws), qm.int8_matmul(x, wq, ws)
+    same = bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
+    log(f"  B10 M=8 K={k} N={n} split-K twice: bit-identical {same}")
+    if not same:
+        raise AssertionError("two split-K launches differ")
+    torch.cuda.synchronize()
+    log(f"  B10 worst C20 ratio by (K, N): {errs['ratio_by_shape']}")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -1254,6 +1442,26 @@ class MatmulCapture:
         self.layers = None          # hold no other layer past the run
 
 
+class MatmulHistogram:
+    """For one run, wraps the ``int8_matmul`` that ``int8_linear`` calls
+    and counts its calls by M (``by_m``)."""
+
+    def __init__(self, quant_mod):
+        self.mod, self.by_m = quant_mod, Counter()
+        self.orig = quant_mod.int8_matmul
+
+    def call(self, x, w, scale):
+        self.by_m[x.shape[0]] += 1
+        return self.orig(x, w, scale)
+
+    def __enter__(self):
+        self.mod.int8_matmul = self.call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.int8_matmul = self.orig
+
+
 class ForwardTimer:
     """Times every model forward to a device sync: (seq_len, ms)."""
 
@@ -1493,13 +1701,19 @@ def time_paged(torch, pa, cap, label):
 
 def time_int8_matmul(torch, qm, cap, label):
     """B10 on captured main-path inputs (bf16 x, a layer's int8 codes and
-    scales), its plain version, and ``torch.matmul`` of x by the layer's
-    dequantised bf16 ``.weight`` (transposed outside the timed call).
-    Bound: x, the codes, the scales and the output once, against 2 M N K
-    flops at the bf16 peak (int8 codes are exact in bf16)."""
+    scales) on the variant the main path took, its plain version,
+    ``torch.matmul`` of x by the layer's dequantised bf16 ``.weight``
+    (transposed outside the timed call), and the scalar kernel (the fp32
+    variant) on fp32 copies of x; the host's time per call of B10 and of
+    ``torch.matmul`` (``host_us``). Bound: x, the codes, the scales and
+    the output once, against 2 M N K flops at the bf16 peak (int8 codes
+    are exact in bf16); the rate is GB/s over those bytes where bytes
+    bound it, TFLOP/s where operations do."""
     x, wq, ws, weight = cap["x"], cap["wq"], cap["ws"], cap["weight"]
     (m, k), n = x.shape, wq.shape[0]
-    row = {"shape": f"{label}: M={m} K={k} N={n}, bf16 x, int8 w"}
+    variant = qm.matmul_variant(x.dtype, m, n, k)
+    row = {"shape": f"{label}: M={m} K={k} N={n}, bf16 x, int8 w",
+           "variant": variant, "plan": qm.split_plan(variant, m, n, k)}
     out = qm.int8_matmul(x, wq, ws)
     row["ms"] = time_ms(torch, lambda: qm.int8_matmul(x, wq, ws))
     row["plain_ms"] = time_ms(torch, lambda: qm.int8_matmul_plain(x, wq, ws),
@@ -1507,13 +1721,65 @@ def time_int8_matmul(torch, qm, cap, label):
     el = x.element_size()
     row.update(_bound(x.numel() * el + wq.numel() + 4 * n + m * n * el,
                       2 * m * n * k))
+    if row["bound_by"] == "bytes":
+        row["gb_per_s"] = row["bytes"] / row["ms"] * 1e-6
+    else:
+        row["tflops"] = row["flops"] / row["ms"] * 1e-9
     wt = weight.detach().t()
     row["library"] = ("torch.matmul(x, w.T), w the layer's dequantised "
                       "bf16 .weight")
     row["library_ms"] = time_ms(torch, lambda: torch.matmul(x, wt))
     row["library_vs_kernel_max_abs_diff"] = float(
         (torch.matmul(x, wt).float() - out.float()).abs().max())
+    row["host_us"] = host_us(torch, lambda: qm.int8_matmul(x, wq, ws))
+    row["library_host_us"] = host_us(torch, lambda: torch.matmul(x, wt))
+    x32 = x.float()
+    row["simt_fp32_ms"] = time_ms(torch, lambda: qm.int8_matmul(x32, wq, ws),
+                                  iters=10 if n > 100_000 else 50)
     return row
+
+
+def time_crossover(torch, qm, caps, ms=(16, 32, 48, 64)):
+    """Both tensor-core variants at the M around their crossover, on the
+    captured weights of q/o and gate/up with seeded bf16 x: ``{(K, N):
+    {M: {variant: ms}}}``."""
+    dev = caps[(4096, 4096, 8)]["wq"].device
+    g = torch.Generator(device=dev).manual_seed(11)
+    res = {}
+    for (k, n) in ((4096, 4096), (4096, 14336)):
+        cap = caps[(k, n, 8)]
+        res[(k, n)] = {}
+        for m in ms:
+            x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+            res[(k, n)][m] = {}
+            for v in TENSOR_CORE_VARIANTS:
+                with forced_variant(qm, v):
+                    res[(k, n)][m][v] = time_ms(torch, lambda: qm.int8_matmul(
+                        x, cap["wq"], cap["ws"]), iters=20)
+    return res
+
+
+def time_split_plan(torch, qm, caps, sms=(66, 132, 264)):
+    """The stream variant at M = 8 on the captured inputs of every weight
+    shape whose plan splits K, under the plan's target of 0.5, 1 and 2
+    blocks an SM (``PLAN_SMS`` 66, 132 and 264; the plan's own is 132):
+    ``{(K, N): {PLAN_SMS: (splits, ms)}}``."""
+    res = {}
+    rule = qm.PLAN_SMS
+    try:
+        for (k, n, m), cap in sorted(caps.items()):
+            if m != 8 or qm.split_plan("wgmma_stream", m, n, k)[2] < 2:
+                continue
+            res[(k, n)] = {}
+            for s in sms:
+                qm.PLAN_SMS = s
+                res[(k, n)][s] = (
+                    qm.split_plan("wgmma_stream", m, n, k)[2],
+                    time_ms(torch, lambda: qm.int8_matmul(
+                        cap["x"], cap["wq"], cap["ws"]), iters=20))
+    finally:
+        qm.PLAN_SMS = rule
+    return res
 
 
 def sdpa_backends(torch, fn):
@@ -1968,7 +2234,10 @@ def main():
             "flash_bwd_dkv_wgmma": Count(fa.flash_bwd_dkv, "wgmma_launches"),
             "qblock_q8": rpa.qblock_attention_q8,
             "token_q8": rpa.token_attention_q8,
-            "paged_q8": pa.paged_attention_q8, "int8_matmul": qm.int8_matmul}
+            "paged_q8": pa.paged_attention_q8, "int8_matmul": qm.int8_matmul,
+            "int8_matmul_stream": Count(qm.int8_matmul,
+                                        "wgmma_stream_launches"),
+            "int8_matmul_gemm": Count(qm.int8_matmul, "wgmma_gemm_launches")}
     none = {name: 0 for name in kern}
 
     log("phase 1: build")
@@ -1978,6 +2247,7 @@ def main():
     ptxas_summary(_build)
     b1_notes(_build)
     bwd_notes(_build)
+    b10_notes(_build)
 
     log("phase 2: kernel parity at Llama-3-8B attention shapes")
     q, kp, vp, tbl, desc = parity_layout(torch, rpa, dev)
@@ -2096,18 +2366,37 @@ def main():
     log(" 3e: ContinuousServingEngine(kv_dtype='int8', weight_dtype='int8'),"
         " the load of (a) on all three schedulers")
     int8_kw = dict(kv_dtype="int8", weight_dtype="int8")
-    int8_runs = {}
+    # one uncounted pass, as in (a) and (c): its engine quantises the
+    # model's Linears in place, and the three counted runs find none left
+    _, st = serve(torch, pt, kern, model, prompts, warm, **int8_kw)
+    log(f"  int8 warm pass (q-block, uncounted): {st['steps']} ticks, "
+        f"wall {st['wall']:.3f} s, {st['quantized']} Linears quantised")
+    if st["quantized"] != N_LINEARS:
+        raise AssertionError(f"int8: {st['quantized']} Linears quantised")
+    int8_runs, mm_hist = {}, {}
     for name, kw in INT8_PATHS.items():
         kw = dict(kw)
         kw["impl"] = kw.pop("ragged_impl", "qblock")
+        hist = MatmulHistogram(quant_mod)
         outs, st = serve(torch, pt, kern, model, prompts, warm, **kw,
-                         **int8_kw)
-        int8_runs[name] = (outs, st)
+                         probes=[hist], **int8_kw)
+        int8_runs[name], mm_hist[name] = (outs, st), hist.by_m
         check_outputs(prompts, outs, cfg.vocab_size, f"int8 {name}")
-        if st["quantized"] != (N_LINEARS if name == "qblock" else 0):
+        if st["quantized"]:
             raise AssertionError(f"int8 {name}: {st['quantized']} Linears "
-                                 f"quantised")
-        want = dict(none, int8_matmul=N_LINEARS * st["forwards"])
+                                 f"quantised again")
+        # every B10 call is bf16: each takes the tensor-core variant its M
+        # names, and the two counts add up to the calls
+        stream = sum(n for m, n in mm_hist[name].items()
+                     if qm.matmul_variant(torch.bfloat16, m, 1, 4096)
+                     == "wgmma_stream")
+        want = dict(none, int8_matmul=N_LINEARS * st["forwards"],
+                    int8_matmul_stream=stream,
+                    int8_matmul_gemm=N_LINEARS * st["forwards"] - stream)
+        log(f"  int8 {name}: B10 calls by M {dict(sorted(mm_hist[name].items()))}")
+        if sum(mm_hist[name].values()) != N_LINEARS * st["forwards"]:
+            raise AssertionError(f"int8 {name}: B10 histogram "
+                                 f"{mm_hist[name]} misses calls")
         if name == "legacy":
             big = sum(n for size, n in st["chunk_buckets"].items()
                       if size >= 128)
@@ -2119,8 +2408,7 @@ def main():
         else:
             want[f"{name}_q8"] = N_LAYERS * st["steps"]
         log(f"  int8 {name}: {st['steps']} ticks, {st['forwards']} forwards,"
-            f" {st['hits']} prefix hits, wall {st['wall']:.3f} s, "
-            f"{st['quantized']} Linears quantised by this engine")
+            f" {st['hits']} prefix hits, wall {st['wall']:.3f} s")
         if st["hits"] <= 0:
             raise AssertionError(f"int8 {name}: no prefix hits")
         check_launches(f"int8 {name} engine", st["launches"], want)
@@ -2196,6 +2484,14 @@ def main():
     for key in ("qblock_q8", "token_q8", "paged_q8", "int8_matmul"):
         if not kern[key].launches:
             raise AssertionError(f"int8 cross paths never launched {key}")
+    b10_tc = kern["int8_matmul_stream"].launches \
+        + kern["int8_matmul_gemm"].launches
+    log(f"  fp32 int8 cross paths: B10 launches "
+        f"{kern['int8_matmul'].launches}, tensor-core {b10_tc}")
+    if b10_tc:
+        raise AssertionError(f"fp32 B10 took the tensor-core kernels "
+                             f"{b10_tc} times")
+    b10_simt = {"fp32 int8 cross paths": kern["int8_matmul"].launches}
     simt_by_path["fp32 int8 cross paths"] = read_counts(kern)
     for name, counts in simt_by_path.items():
         log(f"  {name}: B1 launches {counts['flash']}, tensor-core "
@@ -2258,9 +2554,11 @@ def main():
         torch, pa, dc["q"], dc["kp"], dc["vp"], dc["ks"], dc["vs"],
         dc["tables"], dc["ctx"], "captured int8 legacy"))
     for (k, n, m), mc in sorted(mm_cap.best.items()):
-        e = compare_int8_matmul_case(torch, qm, mc["x"], mc["wq"], mc["ws"],
-                                     f"captured B10 M={m} K={k} N={n}")
-        mm_errs = (max(mm_errs[0], e[0]), max(mm_errs[1], e[1]))
+        merge_mm_errs(mm_errs, compare_int8_matmul_case(
+            torch, qm, mc["x"], mc["wq"], mc["ws"],
+            f"captured B10 M={m} K={k} N={n}"), f"{k}x{n}")
+    log(f"  B10 worst C20 ratio by (K, N), captured inputs included: "
+        f"{mm_errs['ratio_by_shape']}")
 
     log("phase 5: timing (bf16)")
     scale = HEAD_DIM ** -0.5
@@ -2464,26 +2762,90 @@ def main():
                                      != cfg.vocab_size else "lm_head")
                for key, mc in sorted(mm_cap.best.items())}
     for r in mm_rows.values():
-        log(f"  int8_matmul at {r['shape']}: {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-            f"({r['bound_by']}: {r['bytes']} bytes, {r['flops']} FLOPs), "
-            f"library {r['library_ms']:.4f} ms ({r['library']}; max abs "
-            f"diff {r['library_vs_kernel_max_abs_diff']:.3e})")
-    first = mm_rows[(4096, 14336, 8)]
-    rows.append({"name": "int8_matmul", "route": "cuda",
-                 "source": CSRC + "quant_matmul.cu",
-                 "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:65",
-                 "launches": sum(st["launches"]["int8_matmul"]
-                                 for _, st in int8_runs.values()),
-                 "launches_by_path": {k: st["launches"]["int8_matmul"]
-                                      for k, (_, st) in int8_runs.items()},
-                 "max_abs_err": mm_errs[1], "max_rel_err_fp32": mm_errs[0],
-                 **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms",
-                                          "library", "shape", "bytes",
-                                          "flops")},
-                 "other_shapes": [r for key, r in mm_rows.items()
-                                  if key != (4096, 14336, 8)]})
+        rate = (f"{r['gb_per_s']:.1f} GB/s" if "gb_per_s" in r
+                else f"{r['tflops']:.1f} TFLOP/s")
+        log(f"  int8_matmul at {r['shape']}: {r['variant']} {r['plan']}, "
+            f"{r['ms']:.4f} ms ({rate}), plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}: {r['bytes']} "
+            f"bytes, {r['flops']} FLOPs), library {r['library_ms']:.4f} ms "
+            f"({r['library']}; max abs diff "
+            f"{r['library_vs_kernel_max_abs_diff']:.3e}), scalar kernel on "
+            f"fp32 copies {r['simt_fp32_ms']:.4f} ms; host per call "
+            f"{r['host_us']:.1f} us, torch.matmul {r['library_host_us']:.1f}"
+            f" us")
+    # one forward's B10 calls at M = 8 and 256: 32 layers of q, k, v, o,
+    # gate, up, down, and lm_head
+    per_layer = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2,
+                 (14336, 4096): 1}
+    for m in (8, 256):
+        for key in ("ms", "library_ms", "bound_ms"):
+            total = mm_rows[(4096, cfg.vocab_size, m)][key] + N_LAYERS * sum(
+                c * mm_rows[(k, n, m)][key] for (k, n), c in per_layer.items())
+            log(f"  B10 over one forward at M={m} (225 calls): {key} "
+                f"{total:.3f}")
+    for (k, n), by_m in time_crossover(torch, qm, mm_cap.best).items():
+        log(f"  B10 crossover K={k} N={n}: " + ", ".join(
+            f"M={m} " + "/".join(f"{v} {t:.4f}" for v, t in ts.items())
+            for m, ts in by_m.items()) + " ms")
+    for (k, n), by_sms in time_split_plan(torch, qm, mm_cap.best).items():
+        log(f"  B10 split plan K={k} N={n} M=8: " + ", ".join(
+            f"PLAN_SMS {s}: {parts} parts {t:.4f} ms"
+            for s, (parts, t) in by_sms.items()))
+    mm_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+               "library", "shape", "bytes", "flops")
+    b10 = {"route": "cuda", "source": CSRC + "quant_matmul.cu",
+           "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:65"}
+    for variant, key, first_key, dtypes in (
+            ("wgmma_stream", "int8_matmul_stream", (4096, 14336, 8),
+             f"bf16 and fp16 at M <= {qm.STREAM_MAX_M}, K % 16 == 0"),
+            ("wgmma_gemm", "int8_matmul_gemm", (4096, 14336, 256),
+             f"bf16 and fp16 at M > {qm.STREAM_MAX_M}, K % 16 == 0")):
+        first = mm_rows[first_key]
+        rows.append({"name": f"int8_matmul_{variant}", **b10,
+                     "kernel": "int8_matmul_wgmma_kernel (+ "
+                               "int8_matmul_reduce_kernel where K is split)",
+                     "dtypes": dtypes,
+                     "launches": sum(st["launches"][key]
+                                     for _, st in int8_runs.values()),
+                     "launches_by_path": {k: st["launches"][key]
+                                          for k, (_, st) in
+                                          int8_runs.items()},
+                     "calls_by_m": {k: dict(sorted(h.items()))
+                                    for k, h in mm_hist.items()},
+                     "max_abs_err": mm_errs["bf16"],
+                     "max_abs_err_fp16": mm_errs["fp16"],
+                     "c20_ratio_bf16": mm_errs["bf16_ratio"],
+                     "c20_ratio_fp16": mm_errs["fp16_ratio"],
+                     "c20_ratio_by_shape": mm_errs["ratio_by_shape"],
+                     **{k: first[k] for k in mm_keys + (
+                         "variant", "plan", "simt_fp32_ms", "gb_per_s",
+                         "tflops") if k in first},
+                     "other_shapes": [r for key2, r in mm_rows.items()
+                                      if r["variant"] == variant
+                                      and key2 != first_key]})
+    # the scalar kernel (fp32; phase 4's int8 cross paths) on fp32 copies
+    # of the gate/up decode inputs
+    sc = mm_cap.best[(4096, 14336, 8)]
+    x32, wt32 = sc["x"].float(), sc["weight"].detach().float().t()
+    simt = {"shape": "layer 0 gate/up: M=8 K=4096 N=14336, fp32 copies of "
+                     "x, int8 w",
+            "ms": mm_rows[(4096, 14336, 8)]["simt_fp32_ms"],
+            "plain_ms": time_ms(torch, lambda: qm.int8_matmul_plain(
+                x32, sc["wq"], sc["ws"]), iters=10),
+            **_bound(x32.numel() * 4 + sc["wq"].numel() + 4 * 14336
+                     + 8 * 14336 * 4, 2 * 8 * 14336 * 4096, FP32_FLOPS),
+            "library": "torch.matmul(x, w.T), x and the dequantised weight "
+                       "in fp32",
+            "library_ms": time_ms(torch, lambda: torch.matmul(x32, wt32))}
+    del x32, wt32
+    rows.append({"name": "int8_matmul_simt", **b10,
+                 "kernel": "int8_matmul_kernel",
+                 "dtypes": "fp32; bf16 and fp16 at K % 16 != 0",
+                 "launches": sum(b10_simt.values()),
+                 "launches_by_path": b10_simt,
+                 "max_abs_err": mm_errs["fp32_abs"],
+                 "max_rel_err_fp32": mm_errs["fp32"],
+                 **{k: simt[k] for k in mm_keys}})
 
     tick_breakdown(torch, rpa, probes, scale, N_LAYERS)
     for impl in rpa.IMPLS:

@@ -2,20 +2,24 @@
 // so that a source builds in seconds without CUTLASS:
 //   - mbarrier init / arrive / expect_tx / parity wait;
 //   - TMA (cp.async.bulk.tensor) loads of one 64-column box of a rank-4
-//     tensor into 128-byte-swizzled shared memory, and the host encoding
-//     of its tensor map (cuTensorMapEncodeTiled, fetched through
-//     cudaGetDriverEntryPoint so the library needs no -lcuda);
+//     tensor, or of one 128-byte-wide box of a 2-D tensor of 1- or
+//     2-byte elements, into 128-byte-swizzled shared memory, and the host
+//     encoding of their tensor maps (cuTensorMapEncodeTiled, fetched
+//     through cudaGetDriverEntryPoint so the library needs no -lcuda);
 //   - setmaxnreg, to move registers from a producer warpgroup to the
 //     consumers;
 //   - wgmma shared-memory descriptors for 128-byte-swizzled tiles, and
 //     the warpgroup products m64n{64,128}k16 with A and B both K-major in
-//     shared memory, and m64n{64,128}k16 with A in registers and B
-//     MN-major in shared memory, fp32 accumulators, for bf16 and fp16.
+//     shared memory, m64n{64,128}k16 with A in registers and B MN-major
+//     in shared memory, and m64n{8,16,32,64,128}k16 with A in registers
+//     and B K-major in shared memory, fp32 accumulators, for bf16 and
+//     fp16.
 //
 // Shared-memory tile layout used throughout: a box of R rows x 64 columns
 // of a 16-bit type, 128 bytes a row, rows consecutive, the 16-byte chunks
 // of row r XOR-permuted by r % 8 (what TMA's CU_TENSOR_MAP_SWIZZLE_128B
 // writes). A tile of D columns is D / 64 such boxes one after the other.
+// A box of 1-byte elements is the same 128 bytes a row: 128 columns.
 // Every box starts on a 1024-byte boundary (eight rows, one swizzle
 // period), so descriptors carry base offset 0.
 #pragma once
@@ -93,6 +97,18 @@ __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
   const int c2 = pr == 2 ? row : ph == 2 ? head : batch;
   const int c3 = pr == 3 ? row : ph == 3 ? head : batch;
   tma_load_4d(dst, map, bar, col, c1, c2, c3);
+}
+
+// Loads the box at (column `col`, row `row`) of a map made by
+// encode_2d_map.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
 }
 
 // Host: libcuda's cuTensorMapEncodeTiled, looked up through the CUDA
@@ -175,6 +191,37 @@ inline cudaError_t encode_rows_map(CUtensorMap* map, CUtensorMapDataType dt,
   *order = pos[0] | (pos[1] << 2);
   const CUresult r = encode(
       map, dt, 4, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Host: a tensor map over a row-major 2-D tensor of `rows` rows of `cols`
+// elements of `elem_bytes` (1: dt CU_TENSOR_MAP_DATA_TYPE_UINT8, e.g. int8
+// codes; 2: bf16 or fp16), consecutive rows `row_bytes` apart. One box is
+// the 128 bytes of a row that start at a multiple of 128 bytes (128
+// 1-byte or 64 2-byte columns) x `box_rows` rows, 128-byte swizzled;
+// elements past either edge read as zero (and still count in the
+// barrier's transaction bytes). Needs a 16-byte-aligned base, `row_bytes`
+// a positive multiple of 16 and 1 <= box_rows <= 256; returns
+// cudaErrorInvalidValue otherwise or if cuTensorMapEncodeTiled refuses
+// the map.
+inline cudaError_t encode_2d_map(CUtensorMap* map, CUtensorMapDataType dt,
+                                 int elem_bytes, const void* base,
+                                 long long cols, long long rows,
+                                 long long row_bytes, int box_rows) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) != 0 ||
+      (elem_bytes != 1 && elem_bytes != 2) || cols <= 0 || rows <= 0 ||
+      row_bytes <= 0 || row_bytes % 16 != 0 || box_rows < 1 || box_rows > 256)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes),
+                             (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, dt, 2, const_cast<void*>(base), dims, strides, box, elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -306,6 +353,53 @@ template <typename T> struct Wgmma;
 PTT_WGMMA(__nv_bfloat16, "bf16", __floats2bfloat162_rn)
 PTT_WGMMA(__half, "f16", __floats2half2_rn)
 
+// WgmmaRsK<T, N>::mma: d (+)= A B for one k16 step, m64nNk16, per
+// warpgroup: A from registers (the fragment of `rs`: thread t, warp w,
+// lane l holds rows 16 w + l / 4 (+ 8), columns 2 (l % 4) (+ 1, + 8, + 9)
+// of the 64 x 16 step, two values of T in each 32-bit register: a0 row
+// r columns c, c + 1; a1 row r + 8; a2 row r, columns c + 8, c + 9; a3
+// row r + 8), B (16 x N) K-major in shared memory: N rows of the K
+// extent, 128-byte swizzled, as ss128 reads its B (descriptor lbo 16, sbo
+// 1024; a k16 step is 32 bytes into the row). N / 2 fp32 accumulators a
+// thread in the standard fragment. N in {8, 16, 32, 64, 128}.
+template <typename T, int N> struct WgmmaRsK;
+
+#define PTT_D4 "%0, %1, %2, %3"
+#define PTT_D8 PTT_D4 ", %4, %5, %6, %7"
+#define PTT_D16 PTT_D8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define PTT_F4 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+#define PTT_F16 PTT_F8(0), PTT_F8(8)
+#define PTT_RSK(T, TY, N, DREGS, FOUT, AB, SD)                               \
+  template <> struct WgmmaRsK<T, N> {                                        \
+    static __device__ __forceinline__ void mma(float (&d)[N / 2],            \
+                                               uint32_t a0, uint32_t a1,     \
+                                               uint32_t a2, uint32_t a3,     \
+                                               uint64_t db, int scale_d) {   \
+      asm volatile(                                                          \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, " SD ", 0;\n"                    \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {"   \
+          DREGS "}, " AB ", p, 1, 1, 0;\n}\n"                                \
+          : FOUT                                                             \
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));      \
+    }                                                                        \
+  };
+#define PTT_RSK_ALL(T, TY)                                                   \
+  PTT_RSK(T, TY, 8, PTT_D4, PTT_F4, "{%4, %5, %6, %7}, %8", "%9")            \
+  PTT_RSK(T, TY, 16, PTT_D8, PTT_F8(0), "{%8, %9, %10, %11}, %12", "%13")    \
+  PTT_RSK(T, TY, 32, PTT_D16, PTT_F16, "{%16, %17, %18, %19}, %20", "%21")   \
+  PTT_RSK(T, TY, 64, PTT_D32, PTT_F32, "{%32, %33, %34, %35}, %36", "%37")   \
+  PTT_RSK(T, TY, 128, PTT_D64, PTT_F64, "{%64, %65, %66, %67}, %68", "%69")
+
+PTT_RSK_ALL(__nv_bfloat16, "bf16")
+PTT_RSK_ALL(__half, "f16")
+
+#undef PTT_RSK_ALL
+#undef PTT_RSK
+#undef PTT_F16
+#undef PTT_F4
+#undef PTT_D16
+#undef PTT_D8
+#undef PTT_D4
 #undef PTT_WGMMA
 #undef PTT_F64
 #undef PTT_F32

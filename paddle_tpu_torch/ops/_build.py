@@ -68,6 +68,7 @@ SIGNATURES = {
     },
     "quant_matmul": {
         "ptt_int8_matmul": [_I] + [_P] * 4 + [_I] * 3 + [_P],
+        "ptt_int8_matmul_wgmma": [_I] + [_P] * 5 + [_I] * 7 + [_P],
     },
 }
 

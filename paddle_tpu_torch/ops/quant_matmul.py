@@ -4,14 +4,18 @@
 A weight is stored as int8 codes ``[N, K]`` (torch's ``[out, in]``
 Linear layout; the reference keeps ``[K, N]``) and one fp32 scale per
 output channel ``[N]``. The product ``x @ (q * scale).T`` is computed as
-the reference's kernel computes it: both operands in fp32, an fp32
-accumulator over the whole K reduction, times ``scale[n]`` once at the
-end, then cast to x's dtype. There is no int8 x int8 product.
+the reference's kernel computes it: exact products, one fp32 sum over the
+whole K reduction, times ``scale[n]`` once at the end, then cast to x's
+dtype. There is no int8 x int8 product.
 
 A CUDA tensor goes to kernel B10 (``csrc/quant_matmul.cu``) or raises; a
 CPU tensor runs :func:`int8_matmul_plain`. The reference's
 dequantise-and-matmul fallback behind its compile guard has no
-counterpart.
+counterpart. B10 has three variants, chosen by :func:`matmul_variant`
+before the launch: two on the tensor cores for bf16 and fp16 x (a split-K
+weight stream for decode M, a GEMM for prefill M; their fp32 sums differ
+from the reference's only in order, ROADMAP C20) and the scalar fp32
+kernel for fp32 x and for K % 16 != 0.
 """
 from __future__ import annotations
 
@@ -20,6 +24,80 @@ import ctypes
 import torch
 
 from . import _build
+
+#: codes of K per tensor-core k-tile (one 128-byte row of a weight box)
+K_TILE = 128
+#: token tiles (wgmma's N) of the stream variant, one consumer warpgroup
+STREAM_TILES = (8, 16, 32)
+#: the largest M the stream variant takes; the GEMM takes larger M (the
+#: two cross over between M = 32 and 48 on an H100, PERF.md section 6)
+STREAM_MAX_M = 32
+#: the GEMM's token tile and consumer warpgroups (128 channels a block)
+GEMM_TILE, GEMM_WARPGROUPS = 128, 2
+#: SMs the split-K plan fills (an H100 SXM's), fixed so that the plan,
+#: and with it the order of every sum, depends on (M, N, K) alone
+PLAN_SMS = 132
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def matmul_variant(dtype, M, N, K):
+    """Which B10 kernel a CUDA call ``x [M, K]`` by ``w_int8 [N, K]``
+    takes: ``"wgmma_stream"`` (tensor cores, split-K weight stream) for
+    bf16 and fp16 at ``M <= STREAM_MAX_M``, ``"wgmma_gemm"`` (tensor
+    cores, 128 x 128 tiles) above it, both only where TMA can read the
+    operands (``K % 16 == 0``; the wrapper copies an x whose base is not
+    16-byte aligned and refuses such a weight); ``"simt"`` (scalar fp32)
+    for fp32, which keeps the reference's fp32 parity, and for any other
+    K. Raises for a dtype no kernel takes or a shape with no work
+    defined."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"int8 matmul takes x in {list(_DTYPES)}, got "
+                        f"{dtype}")
+    if M < 0 or N <= 0 or K <= 0:
+        raise ValueError(f"int8 matmul shape M={M} N={N} K={K}")
+    if dtype == torch.float32 or K % 16:
+        return "simt"
+    return "wgmma_stream" if M <= STREAM_MAX_M else "wgmma_gemm"
+
+
+def split_plan(variant, M, N, K):
+    """The launch plan of a tensor-core variant: ``(mt, nwg, splits,
+    tpp)``: the token tile ``mt`` (wgmma's N), consumer warpgroups
+    ``nwg`` (64 output channels each), and K's ``ceil(K / K_TILE)``
+    k-tiles cut into ``splits`` parts of ``tpp`` tiles (the last part
+    may be shorter, none is empty). The stream variant asks for the
+    parts that bring its blocks to at least one per SM, the GEMM for the
+    parts that fit one wave (none while its tiles fill the SMs); the
+    parts are then the shortest runs of whole k-tiles that need no more
+    parts than asked. The parts' fp32 partials are added in the order of
+    the parts."""
+    k_tiles = _cdiv(K, K_TILE)
+    if variant == "wgmma_stream":
+        mt = next((t for t in STREAM_TILES if t >= M), STREAM_TILES[-1])
+        nwg = 1
+        tiles = _cdiv(M, mt) * _cdiv(N, 64 * nwg)
+        splits = _cdiv(PLAN_SMS, tiles)
+    elif variant == "wgmma_gemm":
+        mt, nwg = GEMM_TILE, GEMM_WARPGROUPS
+        tiles = _cdiv(M, mt) * _cdiv(N, 64 * nwg)
+        splits = PLAN_SMS // tiles
+    else:
+        raise ValueError(f"no split plan for variant {variant!r}")
+    splits = max(1, min(k_tiles, splits))
+    tpp = _cdiv(k_tiles, splits)
+    return mt, nwg, _cdiv(k_tiles, tpp), tpp
+
+
+def split_parts(variant, M, N, K):
+    """The K range ``(k0, k1)`` of every part of :func:`split_plan`, in
+    the order their partials are added."""
+    _, _, splits, tpp = split_plan(variant, M, N, K)
+    return [(s * tpp * K_TILE, min(K, (s + 1) * tpp * K_TILE))
+            for s in range(splits)]
 
 
 def quantize_weight(w):
@@ -47,8 +125,10 @@ def int8_matmul_plain(x, w_int8, scale):
 def int8_matmul(x, w_int8, scale):
     """Kernel B10: ``x [M, K]`` (fp32, bf16 or fp16) times the int8
     weight ``w_int8 [N, K]`` with per-channel ``scale [N]`` -> ``[M, N]``
-    in x's dtype. A CPU tensor runs :func:`int8_matmul_plain`; CUDA
-    launches are counted in ``int8_matmul.launches``."""
+    in x's dtype. A CPU tensor runs :func:`int8_matmul_plain`. A CUDA
+    call launches the kernel :func:`matmul_variant` names. CUDA calls
+    are counted in ``int8_matmul.launches``, those on the tensor cores
+    also in ``.wgmma_stream_launches`` or ``.wgmma_gemm_launches``."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w_int8, scale)
     if x.device.type != "cuda":
@@ -63,18 +143,40 @@ def int8_matmul(x, w_int8, scale):
             or tuple(scale.shape) != (w_int8.shape[0],):
         raise ValueError(f"shapes x {tuple(x.shape)}, w_int8 "
                          f"{tuple(w_int8.shape)}, scale {tuple(scale.shape)}")
+    (M, K), N = x.shape, w_int8.shape[0]
+    variant = matmul_variant(x.dtype, M, N, K)
     x, w_int8 = x.contiguous(), w_int8.contiguous()
     scale = scale.contiguous()
     if w_int8.data_ptr() % 16:
-        w_int8 = w_int8.clone()         # the kernel loads 16-byte rows
-    (M, K), N = x.shape, w_int8.shape[0]
+        raise ValueError("w_int8 must start on a 16-byte boundary (as "
+                         "quantize_weight's codes do): the kernels load "
+                         "16-byte rows and TMA boxes of it")
+    if x.data_ptr() % 16:
+        x = x.clone()                   # a fresh allocation is aligned
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    args = ([ctypes.c_int(code)]
-            + [ctypes.c_void_p(t.data_ptr()) for t in (x, w_int8, scale, out)]
-            + [ctypes.c_int(v) for v in (M, N, K)])
-    _build.launch("ptt_int8_matmul", x.device, args)
+    if M == 0:
+        return out
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (x, w_int8, scale, out)]
+    if variant == "simt":
+        _build.launch("ptt_int8_matmul", x.device,
+                      [ctypes.c_int(code)] + ptrs
+                      + [ctypes.c_int(v) for v in (M, N, K)])
+    else:
+        mt, nwg, splits, tpp = split_plan(variant, M, N, K)
+        part = (torch.empty((splits, M, N), dtype=torch.float32,
+                            device=x.device) if splits > 1 else None)
+        _build.launch("ptt_int8_matmul_wgmma", x.device,
+                      [ctypes.c_int(code)] + ptrs
+                      + [ctypes.c_void_p(None if part is None
+                                         else part.data_ptr())]
+                      + [ctypes.c_int(v)
+                         for v in (M, N, K, mt, nwg, splits, tpp)])
+        name = f"{variant}_launches"
+        setattr(int8_matmul, name, getattr(int8_matmul, name) + 1)
     int8_matmul.launches += 1
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.wgmma_stream_launches = 0
+int8_matmul.wgmma_gemm_launches = 0
