@@ -8,8 +8,8 @@ Phases, each fatal on error (non-zero exit, no result line):
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and print every kernel's registers
    and spills from ``ptxas -v``, ptxas's wgmma notes for B1, B2, B3 and
-   B10 and the dynamic shared memory of each tensor-core B1, B2, B3 and
-   B10 block;
+   B10 and the dynamic shared memory of each q-block (kernel 6, B7) and
+   tensor-core B1, B2, B3 and B10 block;
 2. kernel parity at Llama-3-8B attention shapes (32 heads, 8 kv heads,
    head_dim 128, page 16): the two ragged kernels on a mixed layout,
    flash attention forward (B1, out and lse) on causal, offset,
@@ -36,7 +36,11 @@ Phases, each fatal on error (non-zero exit, no result line):
    tolerance 1e-5; for gradients and B10 1e-5 of each output's max) and
    in bf16 against the fp32 plain version rounded to bf16 (one bf16 ulp
    plus the fp32 tolerance per element); the ragged kernels also against
-   each other in fp32 (1e-5), native and int8 alike. The tensor-core B1
+   each other in fp32 (1e-5), native and int8 alike, and under ROADMAP
+   C21 (``check_c21``): kernel 6 gives the same bits as kernel 8, and B7
+   as B9, on every span row, in fp32, bf16 and fp16 (wherever the ragged
+   kernels are compared: here, on the captured ticks of phase 4 and on
+   every replayed tick of phase 6). The tensor-core B1
    rounds its weights to bf16 or fp16 before P.V (ROADMAP C15): its lse
    within 1e-5 (relative) of the plain version on the same inputs; its
    output within ``ulp + u max|V| + 1e-5`` of the fp32 plain version
@@ -112,21 +116,24 @@ Phases, each fatal on error (non-zero exit, no result line):
    the scalar fp32 kernels (their launches are the scalar variants'
    main-path counts, and the tensor-core counts stay 0); then every
    kernel against its
-   plain version (phase 2's rules) on the inputs captured in phase 3;
+   plain version (phase 2's rules) on the inputs captured in phase 3,
+   the ragged kernels at both captured ticks (the largest mixed one and
+   the pure-decode one with the most tokens), native and int8;
 5. timing (CUDA events, median over 50 launches with L2 flushed between
    them and the device then held in a short spin, so that each launch is
    queued before its start event and the time is the device's) of every
    kernel, its plain version and, where one PyTorch call
    computes the same function, that call, beside the bound for the same
-   work, all on the inputs captured in phase 3: the ragged kernels at a
-   tick, B1 (tensor cores) at the static prefill, at the legacy chunk
+   work, all on the inputs captured in phase 3: the ragged kernels at
+   the captured mixed and pure-decode ticks (``time_ragged``; a q-block
+   row carries the per-token kernel's time on the same inputs), B1 (tensor cores) at the static prefill, at the legacy chunk
    and at the training step with its TFLOP/s over visible pairs and the
    host's time per call, the scalar B1 on the static prefill's inputs in
    fp32, B2 and B3 at the training step (tensor cores, with TFLOP/s
    over visible pairs, against SDPA's backward, whose kernels a profiler
    trace names; and the scalar kernels on fp32 copies of the same
    inputs, against SDPA's fp32 backward), B4 at each engine's
-   decode step, B7 and B9 at an int8 tick, B5 at the int8 legacy decode
+   decode step, B7 and B9 at the two int8 ticks, B5 at the int8 legacy decode
    step, B10 at M = 8 and 256 for each weight shape (with GB/s or
    TFLOP/s, against ``torch.matmul`` on the layer's dequantised bf16
    weight and the scalar kernel on fp32 copies, the host's time per call
@@ -138,7 +145,9 @@ Phases, each fatal on error (non-zero exit, no result line):
    training step's;
 6. tick breakdown of the ragged engines: per tick of the instrumented
    passes, the forward, the schedule build and the attention calls, and
-   both ragged kernels replayed at every tick shape.
+   both ragged kernels replayed at every tick shape, with C21 held there
+   on a random q over layer 0's pool and over that pool quantised by the
+   cache's codec.
 
 Prints a ``{"kernels": [...]}`` line with all ten kernels (B1, B2 and B3
 each as its two variants, B10 as its three, with the dtypes each
@@ -358,6 +367,18 @@ def b10_notes(build):
     log(f"  ptxas wgmma notes for B10: {notes}")
 
 
+def qblock_notes(build):
+    """The q-block kernels' (6 and B7) launch shape and dynamic shared
+    memory at Llama-3-8B widths (32 heads over 8 kv heads, head_dim 128,
+    page 16, q-block 8, 128 jobs a block) for each page type."""
+    lib = build.load_kernels()
+    for name, el in (("fp32 pages", 4), ("bf16/fp16 pages", 2),
+                     ("int8 pages (B7)", 1)):
+        log(f"  qblock_unit_kernel, {name}: 256 threads, "
+            f"{lib.ptt_ragged_qblock_smem(el, N_HEADS, N_KV, HEAD_DIM, PAGE, 8, 128)}"
+            f" bytes of dynamic shared memory")
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernel parity on a synthetic mixed layout
 # ---------------------------------------------------------------------------
@@ -419,6 +440,7 @@ def compare_kernels(torch, rpa, q, kp, vp, tbl, desc, label):
     torch.cuda.synchronize()
     check(f"{label} qblock vs token kernel fp32",
           max_err(out32["qblock"], out32["token"], rows), FP32_TOL)
+    check_c21(torch, rpa, q, (kp, vp), plans, rows, label)
     return errs, plans
 
 
@@ -923,7 +945,41 @@ def compare_kernels_q8(torch, rpa, q, kq, vq, ks, vs, tbl, desc, label):
     torch.cuda.synchronize()
     check(f"{label} qblock_q8 vs token_q8 kernel fp32",
           max_err(out32["qblock"], out32["token"], rows), FP32_TOL)
+    check_c21(torch, rpa, q, (kq, vq, ks, vs), plans, rows, label)
     return errs, plans
+
+
+#: the query dtypes C21 is held in
+C21_DTYPES = ("float32", "bfloat16", "float16")
+
+
+def check_c21(torch, rpa, q, pages, plans, rows, label, verbose=True):
+    """ROADMAP C21: kernel 6 returns the same bits as kernel 8 on every
+    real token's row, and B7 as B9, for fp32, bf16 and fp16 queries.
+    ``pages`` is (k, v) of native pages in q's dtype family (cast with q)
+    or (k_codes, v_codes, k_scales, v_scales) of int8 pages. Compares the
+    bit patterns of the span rows; returns the number of cases held."""
+    quant = len(pages) == 4
+    kern = ((rpa.qblock_attention_q8, rpa.token_attention_q8) if quant
+            else (rpa.qblock_attention, rpa.token_attention))
+    scale = HEAD_DIM ** -0.5
+    for name in C21_DTYPES:
+        dt = getattr(torch, name)
+        pg = pages if quant else tuple(x.to(dt) for x in pages)
+        qd = q.to(dt)
+        a = kern[0](qd, *pg, plans["qblock"], scale)[rows]
+        b = kern[1](qd, *pg, plans["token"], scale)[rows]
+        bits = torch.int32 if dt == torch.float32 else torch.int16
+        differ = int((a.view(bits) != b.view(bits)).sum())
+        if differ:
+            raise AssertionError(
+                f"C21 {label} {name}{' int8' if quant else ''}: {differ} "
+                f"elements differ, max {float((a.float() - b.float()).abs().max())}")
+    torch.cuda.synchronize()
+    if verbose:
+        log(f"  C21 {label}: q-block == per-token bit for bit on "
+            f"{len(rows)} span rows in {', '.join(C21_DTYPES)}")
+    return len(C21_DTYPES)
 
 
 def compare_paged_q8(torch, pa, q, kq, vq, ks, vs, tbl, ctx, label):
@@ -1149,7 +1205,9 @@ class TickProbe:
     (``make_plan``, host clock, its device copies included) and every
     layer's attention call between two CUDA events. Keeps each tick's
     descriptors and block tables, and layer 0's inputs of the largest
-    tick that mixes decode and prefill spans."""
+    tick that mixes decode and prefill spans (``best``) and of the
+    pure-decode tick with the most tokens, then the longest contexts
+    (``decode``)."""
 
     def __init__(self, torch, gen_module, model, n_layers):
         self.torch, self.mod, self.model = torch, gen_module, model
@@ -1157,6 +1215,7 @@ class TickProbe:
         self.orig_attn = gen_module.ragged_paged_attention
         self.orig_plan = gen_module.make_plan
         self.calls, self.best, self.score = 0, None, -1
+        self.decode, self.decode_score = None, (-1, -1)
         self.ticks = []          # dict per forward
 
     def attention(self, q, kp, vp, tables, slots, starts, lens, ctx, **kw):
@@ -1166,14 +1225,19 @@ class TickProbe:
                                   desc=(slots, starts, lens, ctx))
             mixed = (lens == 1).any() and (lens > 1).any()
             score = int(lens.sum()) + (10 ** 6 if mixed else 0)
-            if score > self.score:
-                self.score = score
+            decode = (len(lens), int(ctx.sum())) if (lens == 1).all() \
+                else (-1, -1)
+            if score > self.score or decode > self.decode_score:
                 ks, vs = kw.get("k_scales"), kw.get("v_scales")
-                self.best = dict(q=q.clone(), kp=kp.clone(), vp=vp.clone(),
-                                 tbl=tables.copy(),
-                                 desc=(slots, starts, lens, ctx),
-                                 ks=None if ks is None else ks.clone(),
-                                 vs=None if vs is None else vs.clone())
+                keep = dict(q=q.clone(), kp=kp.clone(), vp=vp.clone(),
+                            tbl=tables.copy(),
+                            desc=(slots, starts, lens, ctx),
+                            ks=None if ks is None else ks.clone(),
+                            vs=None if vs is None else vs.clone())
+                if score > self.score:
+                    self.score, self.best = score, keep
+                if decode > self.decode_score:
+                    self.decode_score, self.decode = decode, keep
         self.calls += 1
         a = self.torch.cuda.Event(enable_timing=True)
         b = self.torch.cuda.Event(enable_timing=True)
@@ -1682,6 +1746,42 @@ def time_flash(torch, fa, cap, label):
     return row
 
 
+RAGGED_LIBRARY = "none: no single PyTorch call computes ragged paged attention"
+
+
+def time_ragged(torch, kern, plain, ticks, scale, quant=False):
+    """Kernels 6 and 8 (or B7 and B9 over int8 pages) and their plain
+    versions on each captured tick's layer-0 inputs, beside the tick's
+    bound. ``ticks``: (label, capture, plans, errors by kernel). Returns
+    one row per tick for each kernel; a q-block row also carries the
+    per-token kernel's time on the same inputs (``per_token_ms``)."""
+    out = {impl: [] for impl in kern}
+    for label, cap, plans, errs in ticks:
+        scales = (cap["ks"], cap["vs"]) if quant else ()
+        bound = bound_ms(cap["q"], cap["kp"], cap["tbl"], cap["desc"],
+                         quant=quant)
+        shape = (f"{label}: q_lens {np.asarray(cap['desc'][2]).tolist()}, "
+                 f"ctx {np.asarray(cap['desc'][3]).tolist()}, bf16 q")
+        for impl in kern:
+            args = (cap["q"], cap["kp"], cap["vp"], *scales, plans[impl],
+                    scale)
+            pargs = (cap["q"], cap["kp"], cap["vp"], plans[impl], scale,
+                     *scales)
+            ms = time_ms(torch, lambda: kern[impl](*args))
+            pms = time_ms(torch, lambda: plain[impl](*pargs), iters=10)
+            out[impl].append({"shape": shape, "ms": ms, "plain_ms": pms,
+                              **bound, "max_abs_err": errs[impl]["bf16"],
+                              "max_abs_err_fp32": errs[impl]["fp32"]})
+        out["qblock"][-1]["per_token_ms"] = out["token"][-1]["ms"]
+        for impl in kern:
+            r = out[impl][-1]
+            log(f"  {impl}{'_q8' if quant else ''} at the {label}: "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.6f} ms ({r['bound_by']}: {r['bytes']} "
+                f"bytes, {r['flops']} FLOPs), library: none")
+    return out
+
+
 def time_paged(torch, pa, cap, label):
     """B4 (native pages) or B5 (int8 pages, ``cap["ks"]`` set) on a
     captured decode step, its plain version and its bound."""
@@ -2159,16 +2259,19 @@ def paged_logits_rel_err(torch, gen, model, full, n_prompt):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-def tick_breakdown(torch, rpa, probes, scale, n_layers):
+def tick_breakdown(torch, rpa, gen, probes, scale, n_layers):
     """Where each engine's tick time goes. For every tick of the two
     instrumented runs: the forward (host clock to a device sync), the
     schedule build and the attention calls in place (CUDA events around
     each layer's call). For the q-block run's ticks also both kernels
     replayed alone at that tick's descriptors (L2 flushed, median of 10)
-    times the layer count."""
+    times the layer count, and C21 held at those descriptors on a random
+    q: kernel 6 against kernel 8 over layer 0's pool, and B7 against B9
+    over the pool quantised by the cache's codec, in fp32, bf16 and
+    fp16."""
     log("phase 6: tick breakdown (bf16, every tick of the 8-request load)")
     kern = {"qblock": rpa.qblock_attention, "token": rpa.token_attention}
-    out = {}
+    out, c21_cases, pools = {}, 0, {}
     for run, probe in probes.items():
         log(f"  run {run}: tick tokens q_lens | fwd_ms attn_ms plan_ms"
             + (" | replay x32: qblock_ms token_ms" if run == "qblock"
@@ -2184,12 +2287,26 @@ def tick_breakdown(torch, rpa, probes, scale, n_layers):
                 g = torch.Generator(device="cuda").manual_seed(i)
                 q = torch.randn((t["tokens"], N_HEADS, HEAD_DIM),
                                 generator=g, device="cuda", dtype=kp.dtype)
+                plans = {}
                 for impl in rpa.IMPLS:
-                    plan = rpa.make_plan(t["tokens"], *t["desc"], t["tbl"],
-                                         PAGE, impl=impl, device="cuda")
+                    plan = plans[impl] = rpa.make_plan(
+                        t["tokens"], *t["desc"], t["tbl"], PAGE, impl=impl,
+                        device="cuda")
                     s[f"replay_{impl}_ms"] = n_layers * time_ms(
                         torch, lambda: kern[impl](q, kp, vp, plan, scale),
                         iters=10, warmup=2)
+                if id(kp) not in pools:
+                    pools[id(kp)] = (*gen.quantize_kv_rows(kp),
+                                     *gen.quantize_kv_rows(vp))
+                kq, ks, vq, vs = pools[id(kp)]
+                rows = torch.as_tensor(span_rows(*t["desc"][1:3]),
+                                       device="cuda")
+                q32 = torch.randn((t["tokens"], N_HEADS, HEAD_DIM),
+                                  generator=g, device="cuda")
+                for pages in ((kp, vp), (kq, vq, ks, vs)):
+                    c21_cases += check_c21(torch, rpa, q32, pages, plans,
+                                           rows, f"replayed tick {i}",
+                                           verbose=False)
                 line += (f" | {s['replay_qblock_ms']:.3f} "
                          f"{s['replay_token_ms']:.3f}")
             log(line)
@@ -2199,6 +2316,8 @@ def tick_breakdown(torch, rpa, probes, scale, n_layers):
         log(f"  run {run} sums over {len(ticks)} ticks: " + ", ".join(
             f"{k} {v:.3f}" for k, v in tot.items()))
         out[run] = dict(ticks=len(ticks), **tot)
+    log(f"  C21 held on every replayed tick: {c21_cases} cases (native and "
+        f"int8, {', '.join(C21_DTYPES)})")
     log(json.dumps({"tick_breakdown": out}))
 
 
@@ -2245,6 +2364,7 @@ def main():
     _build.load_kernels()
     log(f"  build_seconds {build_s:.2f} ({len(_build.SOURCES)} sources)")
     ptxas_summary(_build)
+    qblock_notes(_build)
     b1_notes(_build)
     bwd_notes(_build)
     b10_notes(_build)
@@ -2515,6 +2635,13 @@ def main():
     c = cap.best
     cerrs, plans = compare_kernels(torch, rpa, c["q"], c["kp"], c["vp"],
                                    c["tbl"], c["desc"], "captured")
+    dcap = cap.decode
+    log("  captured pure-decode tick: " + json.dumps(
+        {k: np.asarray(v).tolist() for k, v in
+         zip(("slots", "q_starts", "q_lens", "ctx"), dcap["desc"])}))
+    dcerrs, dplans = compare_kernels(torch, rpa, dcap["q"], dcap["kp"],
+                                     dcap["vp"], dcap["tbl"], dcap["desc"],
+                                     "captured decode")
     decode_caps = {"static": static_cap.best, "legacy": legacy_cap.best}
     for name, dc in decode_caps.items():
         log(f"  captured {name} decode step: ctx "
@@ -2547,6 +2674,13 @@ def main():
     q8_cerrs, q8_plans = compare_kernels_q8(
         torch, rpa, ic["q"], ic["kp"], ic["vp"], ic["ks"], ic["vs"],
         ic["tbl"], ic["desc"], "captured int8")
+    idc = int8_probe.decode
+    log("  captured int8 pure-decode tick: " + json.dumps(
+        {k: np.asarray(v).tolist() for k, v in
+         zip(("slots", "q_starts", "q_lens", "ctx"), idc["desc"])}))
+    q8_dcerrs, q8_dplans = compare_kernels_q8(
+        torch, rpa, idc["q"], idc["kp"], idc["vp"], idc["ks"], idc["vs"],
+        idc["tbl"], idc["desc"], "captured int8 decode")
     dc = int8_decode.best
     log(f"  captured int8 legacy decode step: ctx "
         f"{dc['ctx'].cpu().numpy().tolist()}")
@@ -2564,24 +2698,19 @@ def main():
     scale = HEAD_DIM ** -0.5
     plain = {"qblock": rpa.qblock_attention_plain,
              "token": rpa.token_attention_plain}
-    bound = bound_ms(c["q"], c["kp"], c["tbl"], c["desc"])
     rows = []
+    timed = time_ragged(torch, {impl: kern[impl] for impl in rpa.IMPLS},
+                        plain, (
+        ("captured mixed tick", c, plans, cerrs),
+        ("captured pure-decode tick", dcap, dplans, dcerrs)), scale)
     for impl, name, line in (("qblock", "ragged_qblock", 215),
                              ("token", "ragged_token", 389)):
-        args = (c["q"], c["kp"], c["vp"], plans[impl], scale)
-        ms = time_ms(torch, lambda: kern[impl](*args))
-        pms = time_ms(torch, lambda: plain[impl](*args), iters=10)
-        log(f"  {name}: {ms:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), library: "
-            f"none (no single PyTorch call computes ragged paged "
-            f"attention)")
+        first, *other = timed[impl]
         rows.append({"name": name, "route": "cuda", "source": SOURCE,
                      "replaces": f"{REF}:{line}",
-                     "launches": runs[impl][1]["launches"][impl],
-                     "max_abs_err": cerrs[impl]["bf16"],
-                     "max_abs_err_fp32": cerrs[impl]["fp32"],
-                     "ms": ms, "plain_ms": pms, **bound,
-                     "library_ms": None})
+                     "launches": runs[impl][1]["launches"][impl], **first,
+                     "library_ms": None, "library": RAGGED_LIBRARY,
+                     "other_shapes": other})
     flash_rows = [time_flash(torch, fa, fc, name)
                   for name, fc in flash_caps.items()]
     train_rows = time_flash_train(torch, fa, tc)
@@ -2724,29 +2853,20 @@ def main():
                      **{k: rs[k] for k in bwd_keys}})
 
     # the int8 kernels, on the inputs captured in phase 3(e)
-    q8_bound = bound_ms(ic["q"], ic["kp"], ic["tbl"], ic["desc"], quant=True)
     q8_kern = {"qblock": rpa.qblock_attention_q8,
                "token": rpa.token_attention_q8}
+    timed = time_ragged(torch, q8_kern, plain, (
+        ("captured int8 mixed tick", ic, q8_plans, q8_cerrs),
+        ("captured int8 pure-decode tick", idc, q8_dplans, q8_dcerrs)),
+        scale, quant=True)
     for impl, name, line in (("qblock", "ragged_qblock_q8", 258),
                              ("token", "ragged_token_q8", 431)):
-        pages = (ic["q"], ic["kp"], ic["vp"])
-        ms = time_ms(torch, lambda: q8_kern[impl](
-            *pages, ic["ks"], ic["vs"], q8_plans[impl], scale))
-        pms = time_ms(torch, lambda: plain[impl](
-            *pages, q8_plans[impl], scale, ic["ks"], ic["vs"]), iters=10)
-        log(f"  {name} at the captured int8 tick: {ms:.4f} ms, plain "
-            f"{pms:.4f} ms, bound {q8_bound['bound_ms']:.6f} ms "
-            f"({q8_bound['bound_by']}: {q8_bound['bytes']} bytes, "
-            f"{q8_bound['flops']} FLOPs), library: none")
+        first, *other = timed[impl]
         rows.append({"name": name, "route": "cuda", "source": SOURCE,
                      "replaces": f"{REF}:{line}",
                      "launches": int8_runs[impl][1]["launches"][f"{impl}_q8"],
-                     "max_abs_err": q8_cerrs[impl]["bf16"],
-                     "max_abs_err_fp32": q8_cerrs[impl]["fp32"],
-                     "ms": ms, "plain_ms": pms, **q8_bound,
-                     "library_ms": None,
-                     "library": "none: no single PyTorch call computes "
-                                "ragged paged attention"})
+                     **first, "library_ms": None, "library": RAGGED_LIBRARY,
+                     "other_shapes": other})
     r = time_paged(torch, pa, dc, "int8 legacy engine decode step, bf16 q, "
                                   "int8 pages")
     log(f"  paged_decode_q8 at the {r['shape']}: {r['ms']:.4f} ms, plain "
@@ -2847,7 +2967,7 @@ def main():
                  "max_rel_err_fp32": mm_errs["fp32"],
                  **{k: simt[k] for k in mm_keys}})
 
-    tick_breakdown(torch, rpa, probes, scale, N_LAYERS)
+    tick_breakdown(torch, rpa, gen, probes, scale, N_LAYERS)
     for impl in rpa.IMPLS:
         st = runs[impl][1]
         gen_tokens = NEW_TOKENS * len(prompts)

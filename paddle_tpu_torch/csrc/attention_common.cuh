@@ -1,13 +1,23 @@
 // Device helpers shared by the paged attention kernels (ragged q-block,
 // ragged per-token, paged decode, each over native or int8 pages):
-// element conversion, the page operands, and the shared-memory tile that
-// holds R query rows against one KV page and runs one online-softmax step
-// over it.
+// element conversion, the page operands, the per-row arithmetic of the
+// online softmax, and the shared-memory tile that holds R query rows
+// against one KV page and runs one online-softmax step over it.
 //
 // The recurrence, per query row, over KV pages in ascending order:
 //   m' = max(m, max_p s), w = exp(s - m'), c = exp(m - m'),
 //   l' = l c + sum w, acc' = acc c + w V,   out = acc / max(l, 1e-30)
 // in fp32 whatever the input type.
+//
+// The per-row arithmetic below (score_of, weight_of, softmax_weights,
+// rescale, l_update, acc_update, finish, dequant) is shared by every
+// kernel that must give the same bits as another (ROADMAP C21: the
+// q-block kernels and the per-token ones). Each rounding point is
+// spelled out: an fmaf where a multiply feeds an add, __fmul_rn /
+// __fsub_rn / __fadd_rn elsewhere, which nvcc never contracts into an
+// fma, so two kernels that call these helpers on the same values in the
+// same order produce the same bits whatever else the compiler does
+// around them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +42,75 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half(x);
+}
+
+// The score of a key: the dot product (one fmaf chain over e = 0..D-1
+// from 0.f, in the caller) times the softmax scale.
+__device__ __forceinline__ float score_of(float dot, float sm_scale) {
+  return __fmul_rn(dot, sm_scale);
+}
+
+// An int8 page value: its code (as an fp32 value, which is exact) times
+// its row's scale, one fp32 product (the reference's dequantisation
+// before both dots).
+__device__ __forceinline__ float dequant(float code, float scale) {
+  return __fmul_rn(code, scale);
+}
+
+// The parts of one row's online-softmax step over a page's P masked
+// scores s[0..P), in key order:
+//   m_cur = fmaxf over s from -inf (exact: any order gives the same max),
+//   m_new = fmaxf(m_prev, m_cur),
+//   w = exp(s - m_new), written over the scores, and their sum from 0.f,
+//   corr = exp(m_prev - m_new),   l = l corr + sum.
+__device__ __forceinline__ float weight_of(float s, float m_new) {
+  return expf(__fsub_rn(s, m_new));
+}
+
+__device__ __forceinline__ float softmax_weights(float* s, int P,
+                                                 float m_new) {
+  float sum = 0.f;
+#pragma unroll 16
+  for (int c = 0; c < P; ++c) {
+    const float w = weight_of(s[c], m_new);
+    s[c] = w;
+    sum = __fadd_rn(sum, w);
+  }
+  return sum;
+}
+
+__device__ __forceinline__ float rescale(float m_prev, float m_new) {
+  return expf(__fsub_rn(m_prev, m_new));
+}
+
+__device__ __forceinline__ float l_update(float l, float corr, float sum) {
+  return fmaf(l, corr, sum);
+}
+
+// The whole step for one row, as one thread runs it: updates m and l and
+// returns corr.
+__device__ __forceinline__ float softmax_row(float* s, int P, float& m,
+                                             float& l) {
+  const float m_prev = m;
+  float m_cur = -INFINITY;
+  for (int c = 0; c < P; ++c) m_cur = fmaxf(m_cur, s[c]);
+  const float m_new = fmaxf(m_prev, m_cur);
+  const float sum = softmax_weights(s, P, m_new);
+  const float corr = rescale(m_prev, m_new);
+  l = l_update(l, corr, sum);
+  m = m_new;
+  return corr;
+}
+
+// acc' = acc corr + pv, where pv is the page's fmaf chain over its P keys
+// from 0.f (in the caller).
+__device__ __forceinline__ float acc_update(float acc, float corr, float pv) {
+  return fmaf(acc, corr, pv);
+}
+
+// The output of a row: acc / max(l, 1e-30), before the cast to q's type.
+__device__ __forceinline__ float finish(float acc, float l) {
+  return __fdiv_rn(acc, fmaxf(l, 1e-30f));
 }
 
 // Shared memory of one block: R query rows against one page of P keys of
@@ -129,8 +208,8 @@ __device__ inline void load_page_q8(const Tile& t,
   const size_t base = row0 * D;
   for (int i = threadIdx.x; i < P * D; i += blockDim.x) {
     const int r = i / D, c = i - r * D;
-    t.k[r * (D + 1) + c] = to_f32(kp[base + i]) * ks[row0 + r];
-    t.v[i] = to_f32(vp[base + i]) * vs[row0 + r];
+    t.k[r * (D + 1) + c] = dequant(to_f32(kp[base + i]), ks[row0 + r]);
+    t.v[i] = dequant(to_f32(vp[base + i]), vs[row0 + r]);
   }
 }
 
@@ -146,35 +225,20 @@ __device__ inline float score(const Tile& t, int r, int c, int D,
   const float* kr = t.k + (size_t)c * (D + 1);
   float dot = 0.f;
   for (int e = 0; e < D; ++e) dot = fmaf(qr[e], kr[e], dot);
-  return dot * sm_scale;
+  return score_of(dot, sm_scale);
 }
 
 // One online-softmax step over the masked scores in t.s. Ends synchronised.
 __device__ inline void online_step(const Tile& t, int R, int P, int D) {
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    float* sr = t.s + (size_t)r * P;
-    const float m_prev = t.m[r];
-    float m_cur = -INFINITY;
-    for (int c = 0; c < P; ++c) m_cur = fmaxf(m_cur, sr[c]);
-    const float m_new = fmaxf(m_prev, m_cur);
-    float sum = 0.f;
-    for (int c = 0; c < P; ++c) {
-      const float w = expf(sr[c] - m_new);
-      sr[c] = w;
-      sum += w;
-    }
-    const float corr = expf(m_prev - m_new);
-    t.l[r] = t.l[r] * corr + sum;
-    t.m[r] = m_new;
-    t.corr[r] = corr;
-  }
+  for (int r = threadIdx.x; r < R; r += blockDim.x)
+    t.corr[r] = softmax_row(t.s + (size_t)r * P, P, t.m[r], t.l[r]);
   __syncthreads();
   for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
     const int r = i / D, e = i - r * D;
     const float* wr = t.s + (size_t)r * P;
     float pv = 0.f;
     for (int c = 0; c < P; ++c) pv = fmaf(wr[c], t.v[(size_t)c * D + e], pv);
-    t.acc[i] = t.acc[i] * t.corr[r] + pv;
+    t.acc[i] = acc_update(t.acc[i], t.corr[r], pv);
   }
   __syncthreads();
 }

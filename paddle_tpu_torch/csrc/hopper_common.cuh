@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks for the tensor-core kernels, in raw PTX
-// so that a source builds in seconds without CUTLASS:
+// Hopper (sm_90a) building blocks for the tensor-core and paged-attention
+// kernels, in raw PTX so that a source builds in seconds without CUTLASS:
 //   - mbarrier init / arrive / expect_tx / parity wait;
+//   - 16-byte cp.async copies with commit groups, and 1-D bulk copies
+//     (TMA) completing on an mbarrier;
 //   - TMA (cp.async.bulk.tensor) loads of one 64-column box of a rank-4
 //     tensor, or of one 128-byte-wide box of a 2-D tensor of 1- or
 //     2-byte elements, into 128-byte-swizzled shared memory, and the host
@@ -72,6 +74,44 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   } while (!done);
+}
+
+// ---------------------------------------------------------------- cp.async
+
+// One 16-byte copy from global to shared memory, cached in L2 only. Both
+// addresses 16-byte aligned. Completes with the thread's commit group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Returns once at most N of this thread's commit groups are still in
+// flight; a __syncthreads() after it makes every thread's copies visible.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// One bulk copy (TMA, 1-D) of `bytes` from global to shared memory that
+// completes on `bar` as transaction bytes. Addresses 16-byte aligned,
+// bytes a multiple of 16.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Orders this thread's earlier generic-proxy accesses of shared memory
+// before later async-proxy (TMA) ones, e.g. a refill of a buffer just read.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // --------------------------------------------------------------------- TMA

@@ -80,7 +80,7 @@ paged_decode_kernel(const T* __restrict__ q, const Pages<PT> pg,
   for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
     const int r = i / D, e = i - r * D;
     out[((size_t)b * H + h * G + r) * D + e] =
-        from_f32<T>(t.acc[i] / fmaxf(t.l[r], 1e-30f));
+        from_f32<T>(finish(t.acc[i], t.l[r]));
   }
 }
 

@@ -4,107 +4,561 @@
 // Replaces the four Pallas TPU kernels of
 // paddle_tpu/ops/pallas/ragged_paged_attention.py:
 //   * _qblock_kernel (:215, grid (q_blocks, kv_heads, jobs))
-//       -> qblock_kernel<T, T>      (kernel 6, ptt_ragged_qblock)
+//       -> qblock_unit_kernel<T, T>      (kernel 6, ptt_ragged_qblock)
 //   * _qblock_kernel_quant (:258, same call :374 with two scale operands)
-//       -> qblock_kernel<T, int8_t> (B7, ptt_ragged_qblock_q8)
+//       -> qblock_unit_kernel<T, int8_t> (B7, ptt_ragged_qblock_q8)
 //   * _ragged_kernel (:389, grid (tokens, kv_heads, pages))
-//       -> token_kernel<T, T>       (kernel 8, ptt_ragged_token)
+//       -> token_kernel<T, T>            (kernel 8, ptt_ragged_token)
 //   * _ragged_kernel_quant (:431, call :510)
-//       -> token_kernel<T, int8_t>  (B9, ptt_ragged_token_q8)
+//       -> token_kernel<T, int8_t>       (B9, ptt_ragged_token_q8)
 // The int8 variants take pages of int8 codes with one fp32 scale per
-// (kv head, page, slot) row and dequantise each row (int8 * scale, in
-// fp32) as the page is staged in shared memory, as the reference does
-// right before its dots; the rest is the native kernel's. All compute, per query row, the online-softmax recurrence
+// (kv head, page, slot) row and dequantise each value (int8 * scale, in
+// fp32) before both dots, as the reference does. All compute, per query
+// row, the online-softmax recurrence
 //   m' = max(m, max_p s), w = exp(s - m'), c = exp(m - m'),
 //   l' = l c + sum w, acc' = acc c + w V,   out = acc / max(l, 1e-30)
-// over KV pages in ascending order, in fp32 whatever the input type, and
-// write the output in q's type. Masks are the reference's: a key past the
-// row's causal bound scores -inf; in the q-block kernel a key of another
-// sequence's job then scores BIG_NEG = -1e30 (finite, see below).
+// over the row's own KV pages in ascending order, in fp32 whatever the
+// input type, and write the output in q's type. A key past the row's
+// causal bound scores -inf (the reference's constant).
 //
 // What bounds it on an H100: a decode-heavy tick does ~4 flops per KV byte
 // it reads (one dot and one axpy per key for each of the group's query
 // heads), far under the ~295 flops/byte where bf16 tensor cores become the
 // limit, so the floor is the bytes of K/V pages read at 3.35 TB/s (int8
 // pages: (d + 4) / 2d of the bf16 bytes, with their scales). A large
-// prefill span reads each page once per q-block that needs it and is still
-// well below the tensor-core line at these tile sizes.
+// prefill span is still bytes-bound at these tile sizes.
 //
-// The design is the simple one that is right first. One thread block holds
-// R query rows (q-block: q_block * group rows, 8 * 4 = 32 at Llama-3-8B;
-// token: group rows) in shared memory, stages one K/V page (16 x 128) at a
-// time in shared memory as fp32, computes scores and the PV product with
-// scalar FMAs, and keeps m, l and acc in shared memory. The TPU grid's
-// sequential "arbitrary" axis becomes a loop inside the block. What it
-// leaves on the table, for later work: tensor cores (wgmma / mma.sync)
-// for QK^T and PV, TMA or cp.async double buffering so the next page
-// loads while this one is used, keeping acc in registers, vectorised
-// 16-byte loads, and splitting a long context across blocks (flash
-// decoding) so a decode tick with few sequences fills all 132 SMs.
+// The q-block kernels (ROADMAP C21). The reference's q-block grid walks,
+// for every (q-block, kv head), the union of the pages of every sequence
+// in the block, and masks another owner's keys with the finite BIG_NEG so
+// that those jobs are exact no-ops for a row (ragged_paged_attention.py
+// :72-81). A row's arithmetic is therefore its own pages' recurrence, in
+// ascending order, which is what the per-token kernel computes. So the
+// q-block kernel here walks only that: one thread block per work unit
+// (q-block b, owner slot s) and kv head, built on the host from the
+// schedule (qblock_units in ops/ragged_paged_attention.py): the unit's
+// pages are slot s's run of block b's job list, its rows the rows of
+// block b whose slot is s. No alien page is read, no merge is needed
+// (each row has one owner), and a pure-decode tick of 8 sequences runs
+// 8 x KVH blocks instead of KVH. Each row stops at its own
+// ceil(ctx / P) pages, exactly where the per-token kernel stops, so the
+// two grids give a real row the same bits (ROADMAP C21), and the same
+// row-level helpers of attention_common.cuh fix every rounding point.
 //
-// The qblock schedule (jobs, row descriptors) is built on the host by
-// qblock_schedule() in ops/ragged_paged_attention.py and copied to the
-// device; the kernels only read it.
+// Within a block: the unit's pages are staged raw (in their own type, not
+// converted) into a double buffer of kChunk pages, the next chunk in
+// flight while this one computes: K rows by 16-byte cp.async into rows
+// padded by 16 bytes, so that lanes scoring different keys at one column
+// hit different banks; V pages (and int8 scales) by one bulk copy each,
+// completing on an mbarrier, since the lanes of one V row read
+// neighbouring columns.
+//
+// A chunk runs three phases, each ended by a barrier, that spread a row's
+// serial recurrence over threads without changing one operation of it
+// (see qblock_unit_kernel): the scores of all the chunk's pages at once
+// (they do not depend on the recurrence; a thread runs one key's fmaf
+// chains over e for one or four query rows, the q rows staged once per
+// unit as fp32), with each page's max; the weights of every (page, row)
+// at once, since the running max at a page is an exact fmaxf over the
+// page maxima before it; then acc' = acc c + w V page after page, two
+// columns of one or four rows a thread, and l' = l c + sum. No tensor
+// cores: their products sum e in another order, which C21 forbids, and
+// the work is bytes-bound anyway. On an H100 a pure-decode unit (4 rows)
+// is latency-bound: each phase leaves most of the block's threads idle
+// and pays its chains' latency once a chunk.
+//
+// The per-token kernels are the simple first design: one block per (token,
+// kv head) stages one page at a time in shared memory as fp32.
+//
+// Schedules (units, jobs, row descriptors; per-token slots and contexts)
+// are built on the host in ops/ragged_paged_attention.py and copied to the
+// device; the kernels only read them.
+
+#include <type_traits>
 
 #include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr float kBigNeg = -1e30f;
+constexpr int kThreads = 128;      // per-token kernels
+constexpr int kUnitThreads = 256;  // q-block unit kernels
+// Pages a q-block unit stages, scores and steps through per chunk.
+constexpr int kChunk = 4;
+// Query rows whose score chains one thread runs side by side.
+constexpr int kQuad = 4;
 
-// Kernel 6 (PT = T) and B7 (PT = int8_t). Grid (q_blocks, kv_heads). Row
-// r of block b is token b * qb + r / G, query head h * G + r % G.
-template <typename T, typename PT>
-__global__ void __launch_bounds__(kThreads)
-qblock_kernel(const T* __restrict__ q, const Pages<PT> pg, T* __restrict__ out,
-              const int* __restrict__ row_slot, const int* __restrict__ row_ctx,
-              const int* __restrict__ job_page, const int* __restrict__ job_slot,
-              const int* __restrict__ job_kv, int T_tok, int H, int KVH, int D,
-              int NP, int P, int qb, int J, float sm_scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int G = H / KVH, R = qb * G;
-  const Tile t = carve(smem, R, P, D);
+// Bytes of one staged K row: D values of `el` bytes, padded by 16 (V rows
+// are staged packed).
+__host__ __device__ inline int staged_row(int D, int el) { return D * el + 16; }
 
-  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
-    const int r = i / D, e = i - r * D;
-    const int tok = b * qb + r / G;
-    t.q[r * (D + 1) + e] =
-        tok < T_tok ? to_f32(q[((size_t)tok * H + h * G + r % G) * D + e]) : 0.f;
+// Dynamic shared memory of a q-block unit block with up to R rows, qb
+// tokens and J jobs a block, laid out as the top of qblock_unit_kernel
+// carves it.
+__host__ __device__ inline size_t unit_smem_bytes(int el, bool quant, int R,
+                                                  int P, int D, int qb,
+                                                  int J) {
+  const size_t ring = 2 * (size_t)kChunk * P * (staged_row(D, el) + D * el);
+  const size_t scales = quant ? 2 * (size_t)kChunk * 2 * P * sizeof(float) : 0;
+  const size_t floats = (size_t)R * (D + 4) + (size_t)kChunk * R * (P + 1) +
+                        4 * (size_t)kChunk * R + (size_t)R * D + 2 * (size_t)R;
+  return 2 * sizeof(uint64_t) + ring + scales + floats * sizeof(float) +
+         (3 * (size_t)qb + 1 + (size_t)J) * sizeof(int);
+}
+
+// The fp32 value of int8 code i (0..3) of a word whose bytes were XORed
+// with 0x80 (code + 128, unsigned): the byte in the mantissa of 2^23, less
+// 2^23 + 128. Exact, as (float)code is, in two full-rate instructions.
+__device__ __forceinline__ float code_f32(uint32_t biased, int i) {
+  return __fsub_rn(__int_as_float((int)__byte_perm(biased, 0x4B000000u,
+                                                   0x7650u + i)),
+                   8388736.0f);
+}
+
+// Converts 16 staged bytes of a page row into fp32 values, exactly as the
+// per-token kernel stages them (to_f32, or dequant for int8 codes).
+template <typename PT> struct Staged;
+template <> struct Staged<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void cvt(uint4 raw, float, float* x) {
+    x[0] = __uint_as_float(raw.x); x[1] = __uint_as_float(raw.y);
+    x[2] = __uint_as_float(raw.z); x[3] = __uint_as_float(raw.w);
   }
-  init_state(t, R, D);
+};
+template <> struct Staged<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void cvt(uint4 raw, float, float* x) {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = to_f32(__ushort_as_bfloat16((unsigned short)(w[i] & 0xffffu)));
+      x[2 * i + 1] = to_f32(__ushort_as_bfloat16((unsigned short)(w[i] >> 16)));
+    }
+  }
+};
+template <> struct Staged<__half> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void cvt(uint4 raw, float, float* x) {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = to_f32(__ushort_as_half((unsigned short)(w[i] & 0xffffu)));
+      x[2 * i + 1] = to_f32(__ushort_as_half((unsigned short)(w[i] >> 16)));
+    }
+  }
+};
+template <> struct Staged<int8_t> {
+  static constexpr int N = 16;
+  static __device__ __forceinline__ void cvt(uint4 raw, float scale, float* x) {
+    const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u,
+                           raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      x[i] = dequant(code_f32(w[i / 4], i % 4), scale);
+  }
+};
+
+// Values e and e + 1 of a staged V row (e even), as the per-token kernel
+// stages them.
+template <typename PT>
+__device__ __forceinline__ void staged2(const unsigned char* row, int e,
+                                        float scale, float (&v)[2]);
+template <>
+__device__ __forceinline__ void staged2<float>(const unsigned char* row, int e,
+                                               float, float (&v)[2]) {
+  const float2 x = *reinterpret_cast<const float2*>(row + 4 * e);
+  v[0] = x.x;
+  v[1] = x.y;
+}
+template <>
+__device__ __forceinline__ void staged2<__nv_bfloat16>(const unsigned char* row,
+                                                       int e, float,
+                                                       float (&v)[2]) {
+  const uint32_t x = *reinterpret_cast<const uint32_t*>(row + 2 * e);
+  v[0] = to_f32(__ushort_as_bfloat16((unsigned short)(x & 0xffffu)));
+  v[1] = to_f32(__ushort_as_bfloat16((unsigned short)(x >> 16)));
+}
+template <>
+__device__ __forceinline__ void staged2<__half>(const unsigned char* row,
+                                                int e, float, float (&v)[2]) {
+  const uint32_t x = *reinterpret_cast<const uint32_t*>(row + 2 * e);
+  v[0] = to_f32(__ushort_as_half((unsigned short)(x & 0xffffu)));
+  v[1] = to_f32(__ushort_as_half((unsigned short)(x >> 16)));
+}
+template <>
+__device__ __forceinline__ void staged2<int8_t>(const unsigned char* row,
+                                                int e, float scale,
+                                                float (&v)[2]) {
+  const uint32_t x =
+      (uint32_t)*reinterpret_cast<const unsigned short*>(row + e) ^ 0x8080u;
+  v[0] = dequant(code_f32(x, 0), scale);
+  v[1] = dequant(code_f32(x, 1), scale);
+}
+
+// The dot products of the staged key row krow with kRows fp32 query rows
+// qr[0..kRows), each one fmaf chain over e = 0..D-1 from 0.f. The key is
+// converted once for the kRows rows.
+template <typename PT, int kRows>
+__device__ __forceinline__ void dots(const float* const (&qr)[kRows],
+                                     const unsigned char* krow, float ks,
+                                     int D, float (&dot)[kRows]) {
+  constexpr int N = Staged<PT>::N;
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) dot[j] = 0.f;
+#pragma unroll 2
+  for (int e0 = 0; e0 < D; e0 += N) {
+    float kx[N];
+    Staged<PT>::cvt(*reinterpret_cast<const uint4*>(krow + e0 * sizeof(PT)),
+                    ks, kx);
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const float4 qv = *reinterpret_cast<const float4*>(qr[j] + e0 + i);
+        dot[j] = fmaf(qv.x, kx[i], dot[j]);
+        dot[j] = fmaf(qv.y, kx[i + 1], dot[j]);
+        dot[j] = fmaf(qv.z, kx[i + 2], dot[j]);
+        dot[j] = fmaf(qv.w, kx[i + 3], dot[j]);
+      }
+    }
+  }
+}
+
+// What the phases of one chunk of a q-block unit share.
+struct UnitChunk {
+  const float* qs;            // [R][D + 4] fp32 query rows
+  const unsigned char* buf;   // the chunk's staged pages
+  const float* sbuf;          // their int8 row scales, [page][K, V][P]
+  float* sw;                  // [page][R][P + 1] scores, then weights
+  float* mcur;                // [page][R] page maxima
+  const float* mnew;          // [page][R] running maxima
+  const float* corr;          // [page][R] rescale factors
+  const float* sums;          // [page][R] sums of the weights
+  float* acc;                 // [R][D]
+  float* m;                   // [R]
+  float* l;                   // [R]
+  const int* ctx;             // [token] contexts of the unit's tokens
+  const int* npg;             // [token] their own page counts
+  size_t page_bytes;          // a staged page: K rows padded, V rows packed
+  int stride, row_bytes, D, R, G, first, cnt;
+};
+
+// The scores phase: thread (page p, rows r0 .. r0 + kRows - 1, key c), the
+// keys' chains masked at the causal bound, and each row's page maximum by
+// fmaxf across the page's P lanes (exact in any order). An item's P
+// lanes are neighbours, all in or all out.
+template <typename PT, int kP, int kRows>
+__device__ __forceinline__ void unit_scores(const UnitChunk& u,
+                                            float sm_scale) {
+  constexpr bool kQuant = std::is_same<PT, int8_t>::value;
+  const int lane = threadIdx.x & 31;
+  const unsigned page_lanes = ((1u << kP) - 1) << (lane & ~(kP - 1));
+  const int RQ = (u.R + kRows - 1) / kRows;
+  for (int i = threadIdx.x; i < u.cnt * RQ * kP; i += kUnitThreads) {
+    const int c = i % kP, pr = i / kP, rq = pr % RQ, p = pr / RQ;
+    const int r0 = rq * kRows;
+    const float* qr[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j)
+      qr[j] = u.qs + (size_t)min(r0 + j, u.R - 1) * (u.D + 4);
+    float dot[kRows];
+    dots<PT, kRows>(qr, u.buf + p * u.page_bytes + (size_t)c * u.stride,
+                    kQuant ? u.sbuf[(size_t)p * 2 * kP + c] : 0.f, u.D, dot);
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int r = r0 + j, tl = min(r, u.R - 1) / u.G;
+      const bool own = r < u.R && u.first + p < u.npg[tl];
+      const float sc = (u.first + p) * kP + c < u.ctx[tl]
+                           ? score_of(dot[j], sm_scale) : -INFINITY;
+      if (own) u.sw[((size_t)p * u.R + r) * (kP + 1) + c] = sc;
+      float mx = own ? sc : -INFINITY;
+#pragma unroll
+      for (int o = 1; o < kP; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(page_lanes, mx, o));
+      if (own && c == 0) u.mcur[p * u.R + r] = mx;
+    }
+  }
+}
+
+// The values phase: thread (rows r0 .. r0 + kRows - 1, columns e, e + 1).
+// Each page's pv chains are computed for every page of the chunk (past a
+// row's own pages from stale data, then dropped), so that they run side
+// by side, then acc' = acc corr + pv page after page; the thread of
+// column 0 also runs l' = l corr + sum page after page and keeps m.
+template <typename PT, int kP, int kRows>
+__device__ __forceinline__ void unit_values(const UnitChunk& u) {
+  constexpr bool kQuant = std::is_same<PT, int8_t>::value;
+  const int half = u.D / 2;
+  const int RQ = (u.R + kRows - 1) / kRows;
+  for (int i = threadIdx.x; i < RQ * half; i += kUnitThreads) {
+    const int rq = i / half, e = 2 * (i - rq * half), r0 = rq * kRows;
+    int row[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) row[j] = min(r0 + j, u.R - 1);
+    float pv[kChunk][kRows][2];
+#pragma unroll
+    for (int p = 0; p < kChunk; ++p) {
+      const unsigned char* vpage =
+          u.buf + p * u.page_bytes + (size_t)kP * u.stride;
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) pv[p][j][0] = pv[p][j][1] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kP; ++c) {
+        float v[2];
+        staged2<PT>(vpage + (size_t)c * u.row_bytes, e,
+                    kQuant ? u.sbuf[((size_t)p * 2 + 1) * kP + c] : 0.f, v);
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) {
+          const float w = u.sw[((size_t)p * u.R + row[j]) * (kP + 1) + c];
+          pv[p][j][0] = fmaf(w, v[0], pv[p][j][0]);
+          pv[p][j][1] = fmaf(w, v[1], pv[p][j][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int r = r0 + j;
+      if (r >= u.R) break;
+      const int cnt_r = min(u.cnt, u.npg[r / u.G] - u.first);
+      float* a = u.acc + (size_t)r * u.D + e;
+      float a0 = a[0], a1 = a[1];
+#pragma unroll
+      for (int p = 0; p < kChunk; ++p) {
+        if (p < cnt_r) {
+          a0 = acc_update(a0, u.corr[p * u.R + r], pv[p][j][0]);
+          a1 = acc_update(a1, u.corr[p * u.R + r], pv[p][j][1]);
+        }
+      }
+      a[0] = a0;
+      a[1] = a1;
+      if (e == 0 && cnt_r > 0) {
+        float lr = u.l[r];
+        for (int p = 0; p < cnt_r; ++p)
+          lr = l_update(lr, u.corr[p * u.R + r], u.sums[p * u.R + r]);
+        u.l[r] = lr;
+        u.m[r] = u.mnew[(cnt_r - 1) * u.R + r];
+      }
+    }
+  }
+}
+
+// Kernel 6 (PT = T) and B7 (PT = int8_t), for pages of kP keys. Grid
+// (units, kv_heads). Unit u is units[4u .. 4u + 3] = (q-block b, owner
+// slot s, first job j0, job count n): its pages are job_page[b, j0 .. j0 +
+// n), the pages 0..n-1 of slot s in order; its tokens are those of block
+// b with row_slot == s, in order (not a range: bucket padding shares slot
+// 0). Row r of the block is token r / G of the unit, query head h * G + r
+// % G.
+//
+// The block stages chunk k + 1 while it computes chunk k. A chunk's steps
+// per row, each one the per-token kernel's arithmetic (attention_common
+// .cuh), spread over threads:
+//   scores  thread (page, one or four rows, key): the rows' fmaf chains,
+//           masked, and each row's page max m_cur (unit_scores);
+//   weights thread (page, row), or (page, row, key) when that leaves
+//           threads idle: m_prev and m_new by fmaxf over the row's m_cur
+//           of the pages before (exact), the weights, their sum in key
+//           order (gathered by shuffles in the second form), and corr;
+//   values  thread (one or four rows, two columns): the pv chains of
+//           every page, then acc', l' and m page after page (unit_values).
+template <typename T, typename PT, int kP>
+__global__ void __launch_bounds__(kUnitThreads, 2)
+qblock_unit_kernel(const T* __restrict__ q, const Pages<PT> pg,
+                   T* __restrict__ out, const int* __restrict__ row_slot,
+                   const int* __restrict__ row_ctx,
+                   const int* __restrict__ job_page,
+                   const int* __restrict__ units, int H, int KVH, int D,
+                   int NP, int qb, int J, float sm_scale) {
+  constexpr bool kQuant = std::is_same<PT, int8_t>::value;
+  constexpr int P = kP;
+  // a page's keys are neighbouring lanes of one warp
+  static_assert(kP < 32 && (kP & (kP - 1)) == 0, "page size");
+  extern __shared__ float4 unit_smem[];
+  const int u = blockIdx.x, h = blockIdx.y;
+  const int G = H / KVH, Rmax = qb * G;
+  const int b = units[4 * u], slot = units[4 * u + 1];
+  const int n = units[4 * u + 3];
+  const int* pages = job_page + (size_t)b * J + units[4 * u + 2];
+  const int lane = threadIdx.x & 31;
+
+  // A staged page: its K rows padded to `stride` bytes (lanes scoring
+  // different keys at one column hit different banks), then its V rows
+  // packed (lanes of one row read neighbouring columns).
+  const int row_bytes = D * (int)sizeof(PT);
+  const int stride = staged_row(D, sizeof(PT));
+  const size_t page_bytes = (size_t)P * (stride + row_bytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(unit_smem);   // [2]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(bars + 2);
+  float* scl = reinterpret_cast<float*>(ring + 2 * kChunk * page_bytes);
+  float* qs = scl + (kQuant ? 2 * kChunk * 2 * P : 0);   // [Rmax][D + 4]
+  float* sw = qs + (size_t)Rmax * (D + 4);   // [kChunk][R][P + 1]
+  float* mcur = sw + (size_t)kChunk * Rmax * (P + 1);   // [kChunk][R]
+  float* mnew = mcur + kChunk * Rmax;        // [kChunk][R]
+  float* corr = mnew + kChunk * Rmax;        // [kChunk][R]
+  float* sums = corr + kChunk * Rmax;        // [kChunk][R]
+  float* acc = sums + kChunk * Rmax;         // [R][D]
+  float* m = acc + (size_t)Rmax * D;
+  float* l = m + Rmax;
+  int* tok = reinterpret_cast<int*>(l + Rmax);  // [qb] the unit's tokens
+  int* ctx = tok + qb;                          // their contexts
+  int* npg = ctx + qb;                          // their own page counts
+  int* n_tok = npg + qb;
+  int* upg = n_tok + 1;                         // [n] the unit's pages
+
+  // K rows go by 16-byte cp.async pieces (into padded rows), a thread's
+  // pieces kUnitThreads apart; V pages and int8 scales by one bulk copy
+  // each, completing on the buffer's mbarrier.
+  const int row_chunks = row_bytes / 16;
+  const int row0 = threadIdx.x / row_chunks;
+  const int ch0 = threadIdx.x - row0 * row_chunks;
+  const int step_rows = kUnitThreads / row_chunks;
+  const int step_ch = kUnitThreads - step_rows * row_chunks;
+
+  // Stage the pages of chunk k (pages k * kChunk ..) into buffer k & 1.
+  auto stage = [&](int k) {
+    const int first = k * kChunk, cnt = min(kChunk, n - first);
+    unsigned char* buf = ring + (size_t)(k & 1) * kChunk * page_bytes;
+    float* sbuf = scl + (size_t)(k & 1) * kChunk * 2 * P;
+    uint64_t* bar = bars + (k & 1);
+    if (threadIdx.x == 0) {
+      fence_proxy_async();
+      mbar_expect_tx(bar, cnt * P * (row_bytes + (kQuant ? 8 : 0)));
+      for (int p = 0; p < cnt; ++p) {
+        const size_t page0 = ((size_t)h * NP + upg[first + p]) * P;
+        bulk_copy(buf + p * page_bytes + (size_t)P * stride, pg.v + page0 * D,
+                  P * row_bytes, bar);
+        if (kQuant) {
+          bulk_copy(sbuf + (size_t)p * 2 * P, pg.ks + page0, P * 4, bar);
+          bulk_copy(sbuf + (size_t)p * 2 * P + P, pg.vs + page0, P * 4, bar);
+        }
+      }
+    }
+    for (int p = 0; p < cnt; ++p) {
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(
+          pg.k + ((size_t)h * NP + upg[first + p]) * P * D);
+      unsigned char* dst = buf + p * page_bytes;
+      int row = row0, ch = ch0;
+      for (int i = threadIdx.x; i < P * row_chunks; i += kUnitThreads) {
+        cp_async16(dst + (size_t)row * stride + ch * 16, src + (size_t)i * 16);
+        row += step_rows;
+        ch += step_ch;
+        if (ch >= row_chunks) {
+          ch -= row_chunks;
+          ++row;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int i = threadIdx.x; i < n; i += kUnitThreads) upg[i] = pages[i];
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 1, 1);
+    mbar_fence_init();
+    int nt = 0;
+    for (int r = 0; r < qb; ++r) {
+      const int t = b * qb + r;
+      if (row_slot[t] != slot) continue;
+      tok[nt] = t;
+      ctx[nt] = row_ctx[t];
+      npg[nt] = min((row_ctx[t] + P - 1) / P, n);
+      ++nt;
+    }
+    *n_tok = nt;
+  }
+  __syncthreads();
+  stage(0);
+  const int R = *n_tok * G;
+  for (int i = threadIdx.x; i < R * D; i += kUnitThreads) {
+    const int r = i / D, e = i - r * D;
+    qs[(size_t)r * (D + 4) + e] =
+        to_f32(q[((size_t)tok[r / G] * H + h * G + r % G) * D + e]);
+    acc[i] = 0.f;
+  }
+  for (int r = threadIdx.x; r < R; r += kUnitThreads) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
   __syncthreads();
 
-  for (int j = 0; j < J; ++j) {
-    const int js = job_slot[b * J + j];
-    // Padding jobs (slot -2) sit at the tail of each block's list. For a
-    // row that has seen a real job they are exact no-ops: every score is
-    // BIG_NEG, so w = exp(-1e30 - m) = 0 and corr = 1. Rows that have
-    // seen none are padding, whose output the caller discards. Stopping
-    // here changes no real row's bits.
-    if (js == -2) break;
-    const int jkv = job_kv[b * J + j];
-    load_page(t, pg, h, job_page[b * J + j], NP, P, D);
+  const unsigned page_lanes = ((1u << P) - 1) << (lane & ~(P - 1));
+  const int n_chunks = (n + kChunk - 1) / kChunk;
+  for (int k = 0; k < n_chunks; ++k) {
+    // buffer (k + 1) & 1 was last read by chunk k - 1, before the barrier
+    if (k + 1 < n_chunks) stage(k + 1);
+    else cp_async_commit();
+    cp_async_wait<1>();
+    mbar_wait(bars + (k & 1), (k >> 1) & 1);
     __syncthreads();
-    for (int i = threadIdx.x; i < R * P; i += blockDim.x) {
-      const int r = i / P, c = i - r * P;
-      const int row = b * qb + r / G;
-      float sc = score(t, r, c, D, sm_scale);
-      if (jkv + c >= row_ctx[row]) sc = -INFINITY;  // causal bound
-      if (row_slot[row] != js) sc = kBigNeg;        // another owner's page
-      t.s[i] = sc;
+    const int first = k * kChunk, cnt = min(kChunk, n - first);
+    const unsigned char* buf = ring + (size_t)(k & 1) * kChunk * page_bytes;
+    const float* sbuf = scl + (size_t)(k & 1) * kChunk * 2 * P;
+    const UnitChunk uc{qs, buf, sbuf, sw, mcur, mnew, corr, sums, acc, m, l,
+                       ctx, npg, page_bytes, stride, row_bytes, D, R, G,
+                       first, cnt};
+
+    // scores: four rows an item when that fills the block, else one
+    if (cnt * ((R + kQuad - 1) / kQuad) * P >= kUnitThreads)
+      unit_scores<PT, P, kQuad>(uc, sm_scale);
+    else
+      unit_scores<PT, P, 1>(uc, sm_scale);
+    __syncthreads();
+
+    // weights: one thread a (page, row) when that fills the block, else
+    // one a (page, row, key), the page's sum gathered in key order by
+    // shuffles across its P neighbouring lanes (all in or all out)
+    if (cnt * R >= kUnitThreads / 2) {
+      for (int i = threadIdx.x; i < cnt * R; i += kUnitThreads) {
+        const int p = i / R, r = i - p * R;
+        if (first + p >= npg[r / G]) continue;
+        float m_prev = m[r], m_new = fmaxf(m_prev, mcur[r]);
+        for (int pp = 1; pp <= p; ++pp) {
+          m_prev = m_new;
+          m_new = fmaxf(m_prev, mcur[pp * R + r]);
+        }
+        sums[i] = softmax_weights(sw + (size_t)i * (P + 1), P, m_new);
+        corr[i] = rescale(m_prev, m_new);
+        mnew[i] = m_new;
+      }
+    } else {
+      for (int i = threadIdx.x; i < cnt * R * P; i += kUnitThreads) {
+        const int c = i % P, pr = i / P, p = pr / R, r = pr - p * R;
+        if (first + p >= npg[r / G]) continue;
+        float m_prev = m[r], m_new = fmaxf(m_prev, mcur[r]);
+        for (int pp = 1; pp <= p; ++pp) {
+          m_prev = m_new;
+          m_new = fmaxf(m_prev, mcur[pp * R + r]);
+        }
+        float* sr = sw + (size_t)pr * (P + 1);
+        const float w = weight_of(sr[c], m_new);
+        sr[c] = w;
+        float sum = 0.f;
+#pragma unroll
+        for (int cc = 0; cc < P; ++cc)
+          sum = __fadd_rn(sum,
+                          __shfl_sync(page_lanes, w, (lane & ~(P - 1)) + cc));
+        if (c == 0) {
+          sums[pr] = sum;
+          corr[pr] = rescale(m_prev, m_new);
+          mnew[pr] = m_new;
+        }
+      }
     }
     __syncthreads();
-    online_step(t, R, P, D);
+
+    // values: four rows an item when that fills the block, else one
+    if (((R + kQuad - 1) / kQuad) * (D / 2) >= kUnitThreads)
+      unit_values<PT, P, kQuad>(uc);
+    else
+      unit_values<PT, P, 1>(uc);
+    __syncthreads();
   }
 
-  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
+  for (int i = threadIdx.x; i < R * D; i += kUnitThreads) {
     const int r = i / D, e = i - r * D;
-    const int tok = b * qb + r / G;
-    if (tok < T_tok)
-      out[((size_t)tok * H + h * G + r % G) * D + e] =
-          from_f32<T>(t.acc[i] / fmaxf(t.l[r], 1e-30f));
+    out[((size_t)tok[r / G] * H + h * G + r % G) * D + e] =
+        from_f32<T>(finish(acc[i], l[r]));
   }
 }
 
@@ -149,25 +603,40 @@ token_kernel(const T* __restrict__ q, const Pages<PT> pg, T* __restrict__ out,
   for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
     const int r = i / D, e = i - r * D;
     out[((size_t)tok * H + h * G + r) * D + e] =
-        from_f32<T>(t.acc[i] / fmaxf(t.l[r], 1e-30f));
+        from_f32<T>(finish(t.acc[i], t.l[r]));
   }
+}
+
+template <typename T, typename PT, int kP>
+cudaError_t launch_qblock_p(const void* q, const Pages<PT>& pg, void* out,
+                            const int* rs, const int* rc, const int* jp,
+                            const int* units, int H, int KVH, int D, int NP,
+                            int qb, int U, int J, float sm_scale,
+                            cudaStream_t stream) {
+  const size_t smem =
+      unit_smem_bytes(sizeof(PT), std::is_same<PT, int8_t>::value,
+                      qb * (H / KVH), kP, D, qb, J);
+  cudaError_t err = cudaFuncSetAttribute(
+      qblock_unit_kernel<T, PT, kP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  qblock_unit_kernel<T, PT, kP><<<dim3(U, KVH), kUnitThreads, smem, stream>>>(
+      (const T*)q, pg, (T*)out, rs, rc, jp, units, H, KVH, D, NP, qb, J,
+      sm_scale);
+  return cudaGetLastError();
 }
 
 template <typename T, typename PT>
 cudaError_t launch_qblock(const void* q, const Pages<PT>& pg, void* out,
                           const int* rs, const int* rc, const int* jp,
-                          const int* js, const int* jk, int T_tok, int H,
-                          int KVH, int D, int NP, int P, int qb, int B, int J,
-                          float sm_scale, cudaStream_t stream) {
-  const size_t smem = smem_floats(qb * (H / KVH), P, D) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      qblock_kernel<T, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  qblock_kernel<T, PT><<<dim3(B, KVH), kThreads, smem, stream>>>(
-      (const T*)q, pg, (T*)out, rs, rc, jp, js, jk, T_tok, H, KVH, D, NP, P,
-      qb, J, sm_scale);
-  return cudaGetLastError();
+                          const int* units, int H, int KVH, int D, int NP,
+                          int P, int qb, int U, int J, float sm_scale,
+                          cudaStream_t stream) {
+  if (D % 16 || H % KVH) return cudaErrorInvalidValue;
+  // one instantiation, for the page size every cache here uses (16)
+  if (P != 16) return cudaErrorInvalidValue;
+  return launch_qblock_p<T, PT, 16>(q, pg, out, rs, rc, jp, units, H, KVH, D,
+                                    NP, qb, U, J, sm_scale, stream);
 }
 
 template <typename T, typename PT>
@@ -192,22 +661,24 @@ cudaError_t launch_token(const void* q, const Pages<PT>& pg, void* out,
 // 1 bfloat16, 2 float16. Every pointer is a device pointer of a
 // contiguous tensor; the Python wrapper checks shapes, types and devices.
 // The _q8 functions take int8 pages kp/vp [KVH, NP, P, D] and their fp32
-// row scales ks/vs [KVH, NP, P]. Returns the cudaError_t of the launch (0
-// on success).
+// row scales ks/vs [KVH, NP, P]. The q-block functions take the unit list
+// units [U, 4] and the job pages [B, J] of the schedule, need D % 16 == 0,
+// P == 16 and 16-byte aligned pages and scales (cp.async and bulk
+// copies), and refuse other shapes with cudaErrorInvalidValue. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" {
 
 int ptt_ragged_qblock(int dtype, const void* q, const void* kp, const void* vp,
                       void* out, const int* row_slot, const int* row_ctx,
-                      const int* job_page, const int* job_slot,
-                      const int* job_kv, int T_tok, int H, int KVH, int D,
-                      int NP, int P, int qb, int B, int J, float sm_scale,
-                      void* stream) {
-  if (T_tok <= 0 || B <= 0) return (int)cudaSuccess;
+                      const int* job_page, const int* units, int T_tok, int H,
+                      int KVH, int D, int NP, int P, int qb, int U, int J,
+                      float sm_scale, void* stream) {
+  if (T_tok <= 0 || U <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case 0: return (int)launch_qblock<float>(q, native_pages<float>(kp, vp), out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
-    case 1: return (int)launch_qblock<__nv_bfloat16>(q, native_pages<__nv_bfloat16>(kp, vp), out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
-    case 2: return (int)launch_qblock<__half>(q, native_pages<__half>(kp, vp), out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
+    case 0: return (int)launch_qblock<float>(q, native_pages<float>(kp, vp), out, row_slot, row_ctx, job_page, units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
+    case 1: return (int)launch_qblock<__nv_bfloat16>(q, native_pages<__nv_bfloat16>(kp, vp), out, row_slot, row_ctx, job_page, units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
+    case 2: return (int)launch_qblock<__half>(q, native_pages<__half>(kp, vp), out, row_slot, row_ctx, job_page, units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -215,19 +686,26 @@ int ptt_ragged_qblock(int dtype, const void* q, const void* kp, const void* vp,
 int ptt_ragged_qblock_q8(int dtype, const void* q, const void* kp,
                          const void* vp, const float* ks, const float* vs,
                          void* out, const int* row_slot, const int* row_ctx,
-                         const int* job_page, const int* job_slot,
-                         const int* job_kv, int T_tok, int H, int KVH, int D,
-                         int NP, int P, int qb, int B, int J, float sm_scale,
-                         void* stream) {
-  if (T_tok <= 0 || B <= 0) return (int)cudaSuccess;
+                         const int* job_page, const int* units, int T_tok,
+                         int H, int KVH, int D, int NP, int P, int qb, int U,
+                         int J, float sm_scale, void* stream) {
+  if (T_tok <= 0 || U <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   const Pages<int8_t> pg = int8_pages(kp, vp, ks, vs);
   switch (dtype) {
-    case 0: return (int)launch_qblock<float>(q, pg, out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
-    case 1: return (int)launch_qblock<__nv_bfloat16>(q, pg, out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
-    case 2: return (int)launch_qblock<__half>(q, pg, out, row_slot, row_ctx, job_page, job_slot, job_kv, T_tok, H, KVH, D, NP, P, qb, B, J, sm_scale, s);
+    case 0: return (int)launch_qblock<float>(q, pg, out, row_slot, row_ctx, job_page, units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
+    case 1: return (int)launch_qblock<__nv_bfloat16>(q, pg, out, row_slot, row_ctx, job_page, units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
+    case 2: return (int)launch_qblock<__half>(q, pg, out, row_slot, row_ctx, job_page, units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Dynamic shared memory of a q-block launch, in bytes, for pages of
+// `page_el` bytes a value (4 fp32, 2 bf16/fp16, 1 int8 with scales).
+int ptt_ragged_qblock_smem(int page_el, int H, int KVH, int D, int P, int qb,
+                           int J) {
+  return (int)unit_smem_bytes(page_el, page_el == 1, qb * (H / KVH), P, D,
+                              qb, J);
 }
 
 int ptt_ragged_token(int dtype, const void* q, const void* kp, const void* vp,

@@ -42,9 +42,10 @@ _L = ctypes.c_longlong
 #: argtypes of every exported function, by library stem
 SIGNATURES = {
     "ragged_paged_attention": {
-        "ptt_ragged_qblock": [_I] + [_P] * 9 + [_I] * 9 + [_F, _P],
+        "ptt_ragged_qblock": [_I] + [_P] * 8 + [_I] * 9 + [_F, _P],
         "ptt_ragged_token": [_I] + [_P] * 7 + [_I] * 7 + [_F, _P],
-        "ptt_ragged_qblock_q8": [_I] + [_P] * 11 + [_I] * 9 + [_F, _P],
+        "ptt_ragged_qblock_q8": [_I] + [_P] * 10 + [_I] * 9 + [_F, _P],
+        "ptt_ragged_qblock_smem": [_I] * 7,
         "ptt_ragged_token_q8": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P],
     },
     "flash_attention": {

@@ -24,13 +24,20 @@ Two grids compute the same function, each a kernel written for Hopper
 in ``csrc/ragged_paged_attention.cu`` for native pages and another for
 int8 pages:
 
-* **q-block** (default; kernel 6, B7 on int8 pages): one thread block
-  per (q-block, kv head) walks a host-built job list, one (page, owner slot, kv offset) per KV page any
-  sequence in the block needs. Rows of a block may belong to different
-  sequences; keys of another owner's job are masked with the finite
-  ``BIG_NEG`` so such jobs are exact no-ops (see ``BIG_NEG``).
+* **q-block** (default; kernel 6, B7 on int8 pages): the reference tiles
+  the batch into q-blocks and walks, per (q-block, kv head), a host-built
+  job list, one (page, owner slot, kv offset) per KV page any sequence in
+  the block needs. Rows of a block may belong to different sequences;
+  keys of another owner's job are masked with the finite ``BIG_NEG`` so
+  such jobs are exact no-ops (see ``BIG_NEG``). The kernel therefore runs
+  one thread block per work unit (q-block, owner slot) and kv head over
+  that owner's pages alone (:func:`qblock_units`); the plain version
+  keeps the reference's job walk.
 * **token** (kernel 8, B9 on int8 pages): one thread block per (token,
   kv head) walks that token's own pages through its block-table row.
+
+Both kernels give a real token's row the same bits (ROADMAP C21): the
+same per-row arithmetic over the row's own pages in the same order.
 
 A CUDA tensor goes to the kernel or raises. A CPU tensor runs the plain
 PyTorch version of the same recurrence, which is also what the kernels
@@ -62,6 +69,9 @@ BIG_NEG = -1e30
 DEFAULT_QBLOCK = 8
 
 IMPLS = ("qblock", "token")
+
+#: page sizes the q-block kernel is built for (one instantiation each)
+QBLOCK_PAGE_SIZES = (16,)
 
 
 def _token_descriptors(num_tokens, seq_slots, q_starts, q_lens,
@@ -151,6 +161,24 @@ def qblock_schedule(num_tokens, seq_slots, q_starts, q_lens, context_lens,
     return row_slot, row_ctx, job_page, job_slot, job_kv
 
 
+def qblock_units(job_slot):
+    """The q-block kernel's work units from a schedule's ``job_slot [B,
+    J]``: one ``(block b, owner slot s, first job j0, job count n)`` per
+    run of equal slots >= 0 in a block's job list, in block and list
+    order. The schedule lists each slot's pages as one ascending run, so a
+    unit's pages are ``job_page[b, j0:j0 + n]``, pages 0..n-1 of slot
+    ``s``, and its rows are the rows of block ``b`` whose ``row_slot`` is
+    ``s``. Padding jobs (slot -2) get no unit. Returns int32 ``[U, 4]``."""
+    js = np.asarray(job_slot, np.int32)
+    edge = np.full((js.shape[0], 1), -3, np.int32)
+    before = np.concatenate([edge, js[:, :-1]], axis=1)
+    after = np.concatenate([js[:, 1:], edge], axis=1)
+    b, j0 = np.nonzero((js >= 0) & (js != before))
+    _, j1 = np.nonzero((js >= 0) & (js != after))      # same row order
+    return np.stack([b, js[b, j0], j0, j1 - j0 + 1], axis=1).astype(
+        np.int32).reshape(-1, 4)
+
+
 @dataclass
 class RaggedPlan:
     """What one ragged call needs besides q and the pages: the schedule
@@ -174,9 +202,11 @@ def make_plan(num_tokens, seq_slots, q_starts, q_lens, context_lens,
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
     tbl = np.ascontiguousarray(np.asarray(block_tables, np.int32))
     if impl == "qblock":
-        names = ("row_slot", "row_ctx", "job_page", "job_slot", "job_kv")
+        names = ("row_slot", "row_ctx", "job_page", "job_slot", "job_kv",
+                 "units")
         arrays = qblock_schedule(num_tokens, seq_slots, q_starts, q_lens,
                                  context_lens, tbl, q_block, page_size)
+        arrays += (qblock_units(arrays[3]),)
     else:
         names = ("tok_slot", "tok_ctx", "tables")
         arrays = _token_descriptors(num_tokens, seq_slots, q_starts,
@@ -328,6 +358,15 @@ def _check_cuda_inputs(q, k_pages, v_pages, plan, impl, k_scales=None,
         raise ValueError(f"q {tuple(q.shape)} does not fit pages "
                          f"{tuple(k_pages.shape)} and plan of "
                          f"{plan.num_tokens} tokens, page {plan.page_size}")
+    if impl == "qblock":
+        # the q-block kernel stages page rows and scales by 16-byte copies
+        if D % 16 or P not in QBLOCK_PAGE_SIZES:
+            raise ValueError(f"the q-block kernel needs head_dim % 16 == 0 "
+                             f"and page_size in {QBLOCK_PAGE_SIZES}, got "
+                             f"{D}, {P}")
+        for name, t, _ in operands[1:]:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _launch(fn_name, q, pages, plan, sm_scale):
@@ -338,10 +377,10 @@ def _launch(fn_name, q, pages, plan, sm_scale):
     d = plan.dev
     out = torch.empty_like(q)
     if plan.impl == "qblock":
-        B, J = d["job_page"].shape
         arrays = [d[n] for n in ("row_slot", "row_ctx", "job_page",
-                                 "job_slot", "job_kv")]
-        sizes = (T, H, KVH, D, NP, P, plan.q_block, B, J)
+                                 "units")]
+        sizes = (T, H, KVH, D, NP, P, plan.q_block, d["units"].shape[0],
+                 d["job_page"].shape[1])
     else:
         arrays = [d[n] for n in ("tok_slot", "tok_ctx", "tables")]
         sizes = (T, H, KVH, D, NP, P, d["tables"].shape[1])
