@@ -8,8 +8,10 @@ Phases, each fatal on error (non-zero exit, no result line):
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and print every kernel's registers
    and spills from ``ptxas -v``, ptxas's wgmma notes for B1, B2, B3 and
-   B10 and the dynamic shared memory of each q-block (kernel 6, B7) and
-   tensor-core B1, B2, B3 and B10 block;
+   B10 and the dynamic shared memory of each q-block (kernel 6, B7),
+   cluster B4/B5 (with its splits and ring stages at the decode shapes,
+   held equal to the wrapper's formula) and tensor-core B1, B2, B3 and
+   B10 block;
 2. kernel parity at Llama-3-8B attention shapes (32 heads, 8 kv heads,
    head_dim 128, page 16): the two ragged kernels on a mixed layout,
    flash attention forward (B1, out and lse) on causal, offset,
@@ -20,9 +22,15 @@ Phases, each fatal on error (non-zero exit, no result line):
    head_dim-64 chunk-after-cache cases, in
    fp32 through the scalar kernels and in bf16 and fp16 through the
    tensor-core kernels (their own rule, below), paged
-   decode (B4) on a batch of 8 with contexts 1-700 and shared pages; the
+   decode (B4) on a batch of 8 with contexts 1-700 and shared pages and on
+   the context split's edge cases (every context 1 token over 128-page
+   tables, fewer pages than splits, contexts ending on page edges, G = 1,
+   one sequence, 128-page tables under 3-39-page contexts), both variants
+   (the rule's cluster kernel and the block kernel, forced), in fp32, bf16
+   and fp16 (``ulp_err``: one ulp of the rounded fp32 plain version plus
+   1e-5), the cluster kernel twice in bf16 giving the same bits; the
    int8-page kernels B7 and B9 on the ragged layout and B5 on the paged
-   one, pages quantised by the cache's codec; the weight-only int8 matmul
+   ones, pages quantised by the cache's codec; the weight-only int8 matmul
    (B10) at 14 M from 1 to 300 (both tensor-core regimes, their
    crossover and every token-tile edge) for the five (K, N) of
    Llama-3-8B, each tensor-core variant also forced at the other's M, a
@@ -68,12 +76,14 @@ Phases, each fatal on error (non-zero exit, no result line):
       prompts (16 new tokens) into one ``generate``: B1 launches 32 times
       (the prefill; every bf16 B1 launch of phase 3 is on the
       tensor-core kernel, and its own count says so), B4 32 x 15 times
-      (the decode steps); an instrumented
+      (the decode steps, every one on the cluster kernel, whose count
+      says so; the block kernel's count, 0, is printed); an instrumented
       pass times every forward and captures layer 0's prefill and decode
       attention inputs;
    c. ``ContinuousServingEngine(enable_ragged=False)`` serves the load of
       (a): B1 launches 32 x the prefill chunks padded to >= 128 tokens,
-      B4 32 x the decode steps, with prefix hits; an instrumented pass
+      B4 32 x the decode steps (all on the cluster kernel), with prefix
+      hits; an instrumented pass
       times every tick and captures layer 0's inputs of a decode step and
       of a flash-sized chunk that reads back a prefix;
    e. right after (c), on the same model, the fully-int8 configuration,
@@ -82,7 +92,8 @@ Phases, each fatal on error (non-zero exit, no result line):
       pass whose engine quantises the model's 225 Linears in place (its
       wall is printed; the counted engines find none left): ragged
       q-block (B7 = 32 x ticks), ragged per-token (B9 = 32 x ticks) and
-      legacy (B5 = 32 x decode steps, B1 = 32 x chunks padded to >=
+      legacy (B5 = 32 x decode steps, all on the cluster kernel, B1 = 32
+      x chunks padded to >=
       128); B10 = 225 x forwards in each, every call (bf16) on the
       tensor-core variant its M names (the stream at M <= 32, the GEMM
       above; the two counts add up to B10's), and kernels 6 and 8 and B4
@@ -134,7 +145,9 @@ Phases, each fatal on error (non-zero exit, no result line):
    trace names; and the scalar kernels on fp32 copies of the same
    inputs, against SDPA's fp32 backward), B4 at each engine's
    decode step, B7 and B9 at the two int8 ticks, B5 at the int8 legacy decode
-   step, B10 at M = 8 and 256 for each weight shape (with GB/s or
+   step (B4 and B5 as the rule's cluster kernel, beside the block kernel,
+   the parent's design, forced on the same inputs, and the cluster kernel
+   under other splits), B10 at M = 8 and 256 for each weight shape (with GB/s or
    TFLOP/s, against ``torch.matmul`` on the layer's dequantised bf16
    weight and the scalar kernel on fp32 copies, the host's time per call
    of both; summed over one forward), both tensor-core B10 variants at
@@ -151,7 +164,8 @@ Phases, each fatal on error (non-zero exit, no result line):
 
 Prints a ``{"kernels": [...]}`` line with all ten kernels (B1, B2 and B3
 each as its two variants, B10 as its three, with the dtypes each
-serves), the card's
+serves; B4 and B5 as the cluster kernel the main paths run, the block
+kernel under ``block_variant``), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -196,16 +210,21 @@ def check(name, err, tol, what="max_abs_err"):
         raise AssertionError(f"{name}: {err} > {tol}")
 
 
-def bf16_err(torch, out, ref32, rows):
-    """A bf16 kernel output against its fp32 plain version rounded to
-    bf16: (max abs error, max of error / allowance). The kernel
-    accumulates in fp32 like the plain version, so before its final
-    rounding it lies within FP32_TOL of it; both roundings together add
-    at most one bf16 ulp of the reference. The allowance per element is
-    therefore ``ulp_bf16(ref) + FP32_TOL``, and the check is <= 1."""
-    ref = ref32[rows].float().bfloat16().float()
-    diff = (out[rows].float() - ref).abs()
-    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+def ulp_err(torch, out, ref32):
+    """A bf16 or fp16 kernel output against its fp32 plain version on the
+    same (rounded) inputs, rounded to the dtype: the kernel accumulates in
+    fp32 like the plain version, so before its one rounding it lies within
+    FP32_TOL of it, and both roundings add at most one ulp of the
+    reference (fp16's no less than its subnormal spacing). The allowance
+    per element is therefore ``ulp(ref) + FP32_TOL``. Returns (max abs
+    error, max error / allowance); the rule holds at <= 1."""
+    name = str(out.dtype).split(".")[-1]
+    ref = ref32.to(out.dtype).float()
+    ulp = torch.ldexp(torch.ones_like(ref),
+                      torch.frexp(ref).exponent - ULP_BITS[name])
+    if name == "float16":
+        ulp = ulp.clamp_min(FP16_TINY)
+    diff = (out.float() - ref).abs()
     return float(diff.max()), float((diff / (ulp + FP32_TOL)).max())
 
 
@@ -379,6 +398,31 @@ def qblock_notes(build):
             f" bytes of dynamic shared memory")
 
 
+def paged_notes(build, pa):
+    """The cluster B4/B5 kernel's launch at Llama-3-8B's decode (batch 8,
+    32 heads over 8 kv heads, head_dim 128, page 16) on this card's SMs,
+    for the static engine's 33-page and the legacy cache's 128-page tables:
+    the splits (the cluster's blocks), the ring's stages and the dynamic
+    shared memory of a block for each page type, from the C library, held
+    equal to the wrapper's formula."""
+    lib = build.load_kernels()
+    n_sm = pa._sm_count(0)
+    for pps in (33, 128):
+        splits = pa.paged_decode_splits(8, N_KV, pps, n_sm)
+        for name, el, quant in (("fp32 pages", 4, 0), ("bf16/fp16 pages", 2, 0),
+                                ("int8 pages (B5)", 1, 1)):
+            args = (el, bool(quant), N_HEADS // N_KV, HEAD_DIM, pps, splits)
+            stages = pa.split_stages(*args)
+            smem = lib.ptt_paged_decode_split_smem(el, quant, *args[2:],
+                                                   stages)
+            if smem != pa.split_smem_bytes(*args, stages):
+                raise AssertionError(f"split shared memory {smem} != "
+                                     f"{pa.split_smem_bytes(*args, stages)}")
+            log(f"  paged_decode_split_kernel, {name}, {pps}-page tables: "
+                f"128 threads, clusters of {splits} on {n_sm} SMs, "
+                f"{stages} stages, {smem} bytes of dynamic shared memory")
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernel parity on a synthetic mixed layout
 # ---------------------------------------------------------------------------
@@ -431,7 +475,7 @@ def compare_kernels(torch, rpa, q, kp, vp, tbl, desc, label):
         rb = plain[impl](qb.float(), kb.float(), vb.float(), plans[impl],
                          scale)
         assert ob.dtype == torch.bfloat16
-        eb, ulps = bf16_err(torch, ob, rb, rows)
+        eb, ulps = ulp_err(torch, ob[rows], rb[rows])
         log(f"  {label} {impl} bf16 kernel vs bf16(fp32 plain): "
             f"max_abs_err {eb:.3e}")
         check(f"{label} {impl} bf16 kernel vs bf16(fp32 plain)", ulps,
@@ -889,29 +933,101 @@ def paged_layout(torch, dev):
             torch.from_numpy(ctx).to(dev))
 
 
-def compare_paged(torch, pa, q, kp, vp, tbl, ctx, label):
-    """B4 against its plain version (fp32 1e-5, bf16 one ulp) and its
-    dense reference (fp32, the reference's own 2e-5)."""
+def paged_edge_layouts(torch, dev):
+    """Edge cases of B4/B5's context split at Llama-3-8B widths (head_dim
+    128, page 16; 32 query heads over 8 kv heads, G = 4, unless named):
+    every context 1 token over 128-page tables (the legacy step's idle
+    slots), contexts of fewer pages than splits, contexts ending on page
+    edges, G = 1 (8 heads over 8 kv heads), one sequence (the most
+    splits), and the legacy cache's 128-page tables under contexts of 3-39
+    pages; rows 1 and the last share their first 3 pages. Yields (label,
+    (q, k_pages, v_pages, tables, context_lens))."""
+    cases = {"ctx 1 on 128-page tables": (N_HEADS, [1] * 8, 128),
+             "fewer pages than splits": (N_HEADS, [2, 17, 20, 33, 48, 64,
+                                                   70, 80], 128),
+             "contexts on page edges": (N_HEADS, [16, 32, 64, 96, 128, 160,
+                                                  512, 528], 40),
+             "G=1": (N_KV, [5, 300, 520, 1, 16, 64, 100, 700], 48),
+             "one sequence": (N_HEADS, [700], 48),
+             "128-page tables, 3-39 pages": (N_HEADS, [40, 100, 200, 300,
+                                                      400, 500, 600, 615],
+                                             128)}
+    g = torch.Generator(device=dev).manual_seed(17)
+    for i, (label, (heads, ctx, pps)) in enumerate(cases.items()):
+        b = len(ctx)
+        tbl = np.zeros((b, pps), np.int32)
+        perm = np.random.RandomState(20 + i).permutation(b * pps) + 1
+        for r, c in enumerate(ctx):
+            n = -(-c // PAGE)
+            tbl[r, :n] = perm[r * pps:r * pps + n]
+        if b > 3:
+            tbl[-1, :3] = tbl[1, :3]
+        shape = (N_KV, b * pps + 1, PAGE, HEAD_DIM)
+        kp = torch.randn(shape, generator=g, device=dev)
+        vp = torch.randn(shape, generator=g, device=dev)
+        q = torch.randn((b, heads, HEAD_DIM), generator=g, device=dev)
+        yield label, (q, kp, vp, torch.from_numpy(tbl).to(dev),
+                      torch.from_numpy(np.asarray(ctx, np.int32)).to(dev))
+
+
+#: B4/B5's output dtypes on the card, by the short name of the errors
+PAGED_DTYPES = {"fp32": "float32", "bf16": "bfloat16", "fp16": "float16"}
+
+
+def compare_paged(torch, pa, q, kp, vp, tbl, ctx, label, ks=None, vs=None):
+    """B4 (native pages) or B5 (int8 codes with row scales ``ks``/``vs``),
+    both variants, the rule's ``"cluster"`` and the forced ``"block"``:
+    in fp32 (TF32 off) against the plain version (1e-5) and the dense
+    reference (the reference's 2e-5; on the dequantised pages for int8),
+    in bf16 and fp16 against the fp32 plain version on the rounded inputs,
+    rounded (``ulp_err`` <= 1); the cluster kernel twice in bf16 gives the
+    same bits. Returns the largest errors as ``{variant}_{dtype}``."""
+    from paddle_tpu_torch.models.generation import dequantize_kv_rows
+    quant = ks is not None
+    kernel = "B5" if quant else "B4"
     scale = HEAD_DIM ** -0.5
-    out = pa.paged_attention(q.float(), kp.float(), vp.float(), tbl, ctx)
-    ref = pa.paged_decode_plain(q.float(), kp.float(), vp.float(), tbl, ctx,
-                                scale)
-    e32 = float((out - ref).abs().max())
-    check(f"{label} B4 fp32 kernel vs plain", e32, FP32_TOL)
-    dense = pa.paged_attention_reference(q.float(), kp.float(), vp.float(),
-                                         tbl, ctx)
-    check(f"{label} B4 fp32 kernel vs dense reference",
-          float((out - dense).abs().max()), 2e-5)
-    qb, kb, vb = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
-    ob = pa.paged_attention(qb, kb, vb, tbl, ctx)
-    rb = pa.paged_decode_plain(qb.float(), kb.float(), vb.float(), tbl, ctx,
-                               scale)
-    assert ob.dtype == torch.bfloat16
-    eb, ulps = bf16_err(torch, ob, rb, slice(None))
-    check(f"{label} B4 bf16 kernel vs bf16(fp32 plain)", ulps, 1.0,
-          "max error / (1 bf16 ulp + fp32 tol)")
+    kw = dict(k_scales=ks, v_scales=vs) if quant else {}
+    plain_scales = (ks, vs) if quant else ()
+
+    def pools(dt):
+        return (kp, vp) if quant else (kp.to(dt), vp.to(dt))
+
+    q32 = q.float()
+    dense = pa.paged_attention_reference(
+        q32, *((dequantize_kv_rows(kp, ks), dequantize_kv_rows(vp, vs))
+               if quant else pools(torch.float32)), tbl, ctx)
+    errs = {}
+    for variant in pa.VARIANTS:
+        for short, name in PAGED_DTYPES.items():
+            dt = getattr(torch, name)
+            qd, pd = q.to(dt), pools(dt)
+            out = pa.paged_attention(qd, *pd, tbl, ctx, variant=variant,
+                                     **kw)
+            ref = pa.paged_decode_plain(
+                qd.float(), *(pd if quant else (p.float() for p in pd)),
+                tbl, ctx, scale, *plain_scales)
+            if out.dtype != dt:
+                raise AssertionError(f"{label} {kernel}: {out.dtype} out")
+            what = f"{label} {kernel} {variant} {short}"
+            if short == "fp32":
+                e = float((out - ref).abs().max())
+                check(f"{what} kernel vs plain", e, FP32_TOL)
+                check(f"{what} kernel vs dense reference",
+                      float((out - dense).abs().max()), 2e-5)
+            else:
+                e, ratio = ulp_err(torch, out, ref)
+                check(f"{what} kernel vs {short}(fp32 plain)", ratio, 1.0,
+                      "max error / (1 ulp + fp32 tol)")
+            errs[f"{variant}_{short}"] = e
+            if variant == "cluster" and short == "bf16":
+                again = pa.paged_attention(qd, *pd, tbl, ctx,
+                                           variant=variant, **kw)
+                if not torch.equal(out.view(torch.int16),
+                                   again.view(torch.int16)):
+                    raise AssertionError(f"{what}: two launches differ")
+                log(f"  {what} twice: bit-identical")
     torch.cuda.synchronize()
-    return {"fp32": e32, "bf16": eb}
+    return errs
 
 
 def compare_kernels_q8(torch, rpa, q, kq, vq, ks, vs, tbl, desc, label):
@@ -938,7 +1054,7 @@ def compare_kernels_q8(torch, rpa, q, kq, vq, ks, vs, tbl, desc, label):
         ob = kern[impl](qb, kq, vq, ks, vs, plans[impl], scale)
         rb = plain[impl](qb.float(), kq, vq, plans[impl], scale, ks, vs)
         assert ob.dtype == torch.bfloat16
-        eb, ulps = bf16_err(torch, ob, rb, rows)
+        eb, ulps = ulp_err(torch, ob[rows], rb[rows])
         check(f"{label} {impl}_q8 bf16 kernel vs bf16(fp32 plain)", ulps,
               1.0, "max error / (1 bf16 ulp + fp32 tol)")
         errs[impl] = {"fp32": e32, "bf16": eb}
@@ -980,31 +1096,6 @@ def check_c21(torch, rpa, q, pages, plans, rows, label, verbose=True):
         log(f"  C21 {label}: q-block == per-token bit for bit on "
             f"{len(rows)} span rows in {', '.join(C21_DTYPES)}")
     return len(C21_DTYPES)
-
-
-def compare_paged_q8(torch, pa, q, kq, vq, ks, vs, tbl, ctx, label):
-    """B5 against its plain version (fp32 1e-5, bf16 one ulp) and against
-    the dense reference on the dequantised pages (fp32, 2e-5)."""
-    from paddle_tpu_torch.models.generation import dequantize_kv_rows
-    scale = HEAD_DIM ** -0.5
-    q32 = q.float()
-    out = pa.paged_attention(q32, kq, vq, tbl, ctx, k_scales=ks, v_scales=vs)
-    ref = pa.paged_decode_plain(q32, kq, vq, tbl, ctx, scale, ks, vs)
-    e32 = float((out - ref).abs().max())
-    check(f"{label} B5 fp32 kernel vs plain", e32, FP32_TOL)
-    dense = pa.paged_attention_reference(q32, dequantize_kv_rows(kq, ks),
-                                         dequantize_kv_rows(vq, vs), tbl, ctx)
-    check(f"{label} B5 fp32 kernel vs dense reference on dequantised pages",
-          float((out - dense).abs().max()), 2e-5)
-    qb = q.bfloat16()
-    ob = pa.paged_attention(qb, kq, vq, tbl, ctx, k_scales=ks, v_scales=vs)
-    rb = pa.paged_decode_plain(qb.float(), kq, vq, tbl, ctx, scale, ks, vs)
-    assert ob.dtype == torch.bfloat16
-    eb, ulps = bf16_err(torch, ob, rb, slice(None))
-    check(f"{label} B5 bf16 kernel vs bf16(fp32 plain)", ulps, 1.0,
-          "max error / (1 bf16 ulp + fp32 tol)")
-    torch.cuda.synchronize()
-    return {"fp32": e32, "bf16": eb}
 
 
 #: B10's (K, N) at Llama-3-8B: q/o, k/v, gate/up, down, lm_head
@@ -1782,14 +1873,41 @@ def time_ragged(torch, kern, plain, ticks, scale, quant=False):
     return out
 
 
+#: ``pa.SPLIT_BLOCKS_PER_SM`` values timed beside the rule's
+SPLIT_TARGETS = (0, 1, 2, 3, 4)
+
+
 def time_paged(torch, pa, cap, label):
     """B4 (native pages) or B5 (int8 pages, ``cap["ks"]`` set) on a
-    captured decode step, its plain version and its bound."""
+    captured decode step: the rule's kernel (``ms``, the cluster variant
+    on the main path), the block variant forced on the same inputs
+    (``block_ms``, the parent's kernel), the cluster kernel under the
+    splits of SPLIT_TARGETS blocks an SM (``ms_by_splits``), its plain
+    version and its bound."""
     row = {"shape": label}
     args = (cap["q"], cap["kp"], cap["vp"], cap["tables"], cap["ctx"])
     scales = (cap["ks"], cap["vs"]) if cap.get("ks") is not None else ()
     kw = dict(zip(("k_scales", "v_scales"), scales))
+    row["variant"], row["splits"], row["stages"] = pa.decode_variant(
+        cap["q"], cap["kp"], cap["vp"], cap["tables"].shape[1],
+        pa._sm_count(0), *scales)
     row["ms"] = time_ms(torch, lambda: pa.paged_attention(*args, **kw))
+    row["block_ms"] = time_ms(torch, lambda: pa.paged_attention(
+        *args, variant="block", **kw))
+    row["speedup_over_block"] = row["block_ms"] / row["ms"]
+    rule, by_splits = pa.SPLIT_BLOCKS_PER_SM, {}
+    try:
+        for target in SPLIT_TARGETS:
+            pa.SPLIT_BLOCKS_PER_SM = target
+            splits = pa.paged_decode_splits(
+                cap["q"].shape[0], cap["kp"].shape[0],
+                cap["tables"].shape[1], pa._sm_count(0))
+            if splits not in by_splits:
+                by_splits[splits] = time_ms(torch, lambda: pa.paged_attention(
+                    *args, variant="cluster", **kw))
+    finally:
+        pa.SPLIT_BLOCKS_PER_SM = rule
+    row["ms_by_splits"] = by_splits
     row["plain_ms"] = time_ms(torch, lambda: pa.paged_decode_plain(
         *args, HEAD_DIM ** -0.5, *scales), iters=10)
     row.update(paged_bound(cap["q"], cap["kp"], cap["tables"], cap["ctx"],
@@ -1797,6 +1915,53 @@ def time_paged(torch, pa, cap, label):
     row["library"] = "none: no single PyTorch call reads a block-table cache"
     row["library_ms"] = None
     return row
+
+
+def log_paged(r):
+    log(f"  {r['shape']}: {r['variant']} ({r['splits']} splits, "
+        f"{r['stages']} stages) {r['ms']:.4f} ms; block, the parent's "
+        f"kernel, forced on the same inputs {r['block_ms']:.4f} ms "
+        f"({r['speedup_over_block']:.2f}x); cluster kernel by splits "
+        + ", ".join(f"S={k} {v:.4f}" for k, v in r["ms_by_splits"].items())
+        + f" ms; plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+        f"({r['bound_by']}: {r['bytes']} bytes at 3.35 TB/s, {r['flops']} "
+        f"FLOPs), library: none")
+
+
+def paged_row(name, line, errs, timed, key, by_path):
+    """B4's or B5's entry of the kernels line: the cluster kernel, which
+    every main path runs, timed on ``timed``'s captured steps, with the
+    block kernel (the parent's design, kept for the shapes the cluster
+    kernel does not take; forced on the same inputs) under
+    ``block_variant``. ``key`` names the launch counts in ``by_path``."""
+    first = timed[0]
+
+    def launches(variant):
+        return {path: c[f"{key}_{variant}"] for path, c in by_path.items()}
+
+    return {"name": name, "route": "cuda",
+            "source": CSRC + "paged_attention.cu",
+            "replaces": f"paddle_tpu/ops/pallas/paged_attention.py:{line}",
+            "variant": "cluster", "kernel": "paged_decode_split_kernel",
+            "launches": sum(launches("cluster").values()),
+            "launches_by_path": launches("cluster"),
+            "max_abs_err": errs["cluster_bf16"],
+            "max_abs_err_fp32": errs["cluster_fp32"],
+            "max_abs_err_fp16": errs["cluster_fp16"],
+            **{k: first[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library", "shape", "bytes", "flops", "splits", "stages",
+                "ms_by_splits", "speedup_over_block")},
+            "other_shapes": timed[1:],
+            "block_variant": {
+                "kernel": "paged_decode_kernel",
+                "launches": sum(launches("block").values()),
+                "launches_by_path": launches("block"),
+                "max_abs_err": errs["block_bf16"],
+                "max_abs_err_fp32": errs["block_fp32"],
+                "max_abs_err_fp16": errs["block_fp16"],
+                "ms": first["block_ms"],
+                "ms_other_shapes": [t["block_ms"] for t in timed[1:]]}}
 
 
 def time_int8_matmul(torch, qm, cap, label):
@@ -2347,13 +2512,19 @@ def main():
             "flash": fa.flash_attention,
             "flash_wgmma": Count(fa.flash_attention, "wgmma_launches"),
             "paged": pa.paged_attention,
+            "paged_cluster": Count(pa.paged_attention, "cluster_launches"),
+            "paged_block": Count(pa.paged_attention, "block_launches"),
             "flash_bwd_dq": fa.flash_bwd_dq,
             "flash_bwd_dq_wgmma": Count(fa.flash_bwd_dq, "wgmma_launches"),
             "flash_bwd_dkv": fa.flash_bwd_dkv,
             "flash_bwd_dkv_wgmma": Count(fa.flash_bwd_dkv, "wgmma_launches"),
             "qblock_q8": rpa.qblock_attention_q8,
             "token_q8": rpa.token_attention_q8,
-            "paged_q8": pa.paged_attention_q8, "int8_matmul": qm.int8_matmul,
+            "paged_q8": pa.paged_attention_q8,
+            "paged_q8_cluster": Count(pa.paged_attention_q8,
+                                      "cluster_launches"),
+            "paged_q8_block": Count(pa.paged_attention_q8, "block_launches"),
+            "int8_matmul": qm.int8_matmul,
             "int8_matmul_stream": Count(qm.int8_matmul,
                                         "wgmma_stream_launches"),
             "int8_matmul_gemm": Count(qm.int8_matmul, "wgmma_gemm_launches")}
@@ -2365,6 +2536,7 @@ def main():
     log(f"  build_seconds {build_s:.2f} ({len(_build.SOURCES)} sources)")
     ptxas_summary(_build)
     qblock_notes(_build)
+    paged_notes(_build, pa)
     b1_notes(_build)
     bwd_notes(_build)
     b10_notes(_build)
@@ -2383,10 +2555,19 @@ def main():
                                     "synthetic int8")
     pq, pkp, pvp, ptbl, pctx = paged_layout(torch, dev)
     (kq, ks), (vq, vs) = gen.quantize_kv_rows(pkp), gen.quantize_kv_rows(pvp)
-    paged_q8_errs = compare_paged_q8(torch, pa, pq, kq, vq, ks, vs, ptbl,
-                                     pctx, "synthetic int8")
+    paged_q8_errs = compare_paged(torch, pa, pq, kq, vq, ptbl, pctx,
+                                  "synthetic int8", ks, vs)
+    # B4 and B5 on the context split's edge cases, int8 pages by the
+    # cache's codec
+    for label, (eq, ekp, evp, etbl, ectx) in paged_edge_layouts(torch, dev):
+        paged_errs = worst_of(paged_errs, compare_paged(
+            torch, pa, eq, ekp, evp, etbl, ectx, label))
+        (kq, ks), (vq, vs) = (gen.quantize_kv_rows(ekp),
+                              gen.quantize_kv_rows(evp))
+        paged_q8_errs = worst_of(paged_q8_errs, compare_paged(
+            torch, pa, eq, kq, vq, etbl, ectx, f"{label} int8", ks, vs))
     mm_errs = compare_int8_matmul(torch, qm, dev)
-    del q, kp, vp, pq, pkp, pvp, kq, vq
+    del q, kp, vp, pq, pkp, pvp, kq, vq, eq, ekp, evp
     torch.cuda.empty_cache()
 
     log("phase 3: serving Llama-3-8B (32 layers, bf16, random weights)")
@@ -2440,7 +2621,8 @@ def main():
                              f"batches, expected 1")
     check_launches("static engine", static["launches"],
                    dict(none, flash=N_LAYERS, flash_wgmma=N_LAYERS,
-                        paged=N_LAYERS * (NEW_TOKENS - 1)))
+                        paged=N_LAYERS * (NEW_TOKENS - 1),
+                        paged_cluster=N_LAYERS * (NEW_TOKENS - 1)))
     # an instrumented pass: every forward timed to a device sync, layer
     # 0's prefill and decode attention inputs kept
     static_cap = decode_capture(gen, N_LAYERS)
@@ -2469,7 +2651,8 @@ def main():
     check_launches("legacy engine", legacy["launches"],
                    dict(none, flash=N_LAYERS * big_chunks,
                         flash_wgmma=N_LAYERS * big_chunks,
-                        paged=N_LAYERS * legacy["decode_steps"]))
+                        paged=N_LAYERS * legacy["decode_steps"],
+                        paged_cluster=N_LAYERS * legacy["decode_steps"]))
     same = sum(np.array_equal(a, b) for a, b in
                zip(legacy_outs, runs["qblock"][0]))
     log(f"  legacy vs ragged bf16 streams: {same} of {len(prompts)} "
@@ -2524,6 +2707,7 @@ def main():
                 raise AssertionError("int8 legacy: no flash-sized chunks or "
                                      "no decode steps")
             want.update(paged_q8=N_LAYERS * st["decode_steps"],
+                        paged_q8_cluster=N_LAYERS * st["decode_steps"],
                         flash=N_LAYERS * big, flash_wgmma=N_LAYERS * big)
         else:
             want[f"{name}_q8"] = N_LAYERS * st["steps"]
@@ -2684,9 +2868,9 @@ def main():
     dc = int8_decode.best
     log(f"  captured int8 legacy decode step: ctx "
         f"{dc['ctx'].cpu().numpy().tolist()}")
-    paged_q8_errs = worst_of(paged_q8_errs, compare_paged_q8(
-        torch, pa, dc["q"], dc["kp"], dc["vp"], dc["ks"], dc["vs"],
-        dc["tables"], dc["ctx"], "captured int8 legacy"))
+    paged_q8_errs = worst_of(paged_q8_errs, compare_paged(
+        torch, pa, dc["q"], dc["kp"], dc["vp"], dc["tables"], dc["ctx"],
+        "captured int8 legacy", dc["ks"], dc["vs"]))
     for (k, n, m), mc in sorted(mm_cap.best.items()):
         merge_mm_errs(mm_errs, compare_int8_matmul_case(
             torch, qm, mc["x"], mc["wq"], mc["ws"],
@@ -2725,7 +2909,9 @@ def main():
                              "static engine decode step, bf16"),
                   time_paged(torch, pa, decode_caps["legacy"],
                              "legacy engine decode step, bf16")]
-    for r in flash_rows + [simt_row] + paged_rows:
+    for r in paged_rows:
+        log_paged(r)
+    for r in flash_rows + [simt_row]:
         lib = "none" if r["library_ms"] is None \
             else f"{r['library_ms']:.4f} ms"
         log(f"  {r['shape']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -2778,23 +2964,8 @@ def main():
                  "max_abs_err": flash_errs["fp32"],
                  "max_rel_err_lse": flash_errs["lse"],
                  **{k: simt_row[k] for k in timed_keys}})
-    for name, src, ref_at, errs, timed, key in (
-            ("paged_decode", "paged_attention.cu",
-             "paddle_tpu/ops/pallas/paged_attention.py:55", paged_errs,
-             paged_rows, "paged"),):
-        first = timed[0]
-        rows.append({"name": name, "route": "cuda", "source": CSRC + src,
-                     "replaces": ref_at,
-                     "launches": sum(v[key] for v in by_path.values()),
-                     "launches_by_path": {k: v[key]
-                                          for k, v in by_path.items()},
-                     "max_abs_err": errs["bf16"],
-                     "max_abs_err_fp32": errs["fp32"],
-                     **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms",
-                                              "library", "shape", "bytes",
-                                              "flops")},
-                     "other_shapes": timed[1:]})
+    rows.append(paged_row("paged_decode", 55, paged_errs, paged_rows,
+                          "paged", by_path))
     # B2 and B3, each as its two variants: the tensor-core kernels (bf16
     # and fp16 at head_dim 64, 128; the training step) and the scalar ones
     # (fp32; phase 4's training step)
@@ -2869,15 +3040,9 @@ def main():
                      "other_shapes": other})
     r = time_paged(torch, pa, dc, "int8 legacy engine decode step, bf16 q, "
                                   "int8 pages")
-    log(f"  paged_decode_q8 at the {r['shape']}: {r['ms']:.4f} ms, plain "
-        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-        f"({r['bound_by']}: {r['bytes']} bytes), library: none")
-    rows.append({"name": "paged_decode_q8", "route": "cuda",
-                 "source": CSRC + "paged_attention.cu",
-                 "replaces": "paddle_tpu/ops/pallas/paged_attention.py:97",
-                 "launches": int8_runs["legacy"][1]["launches"]["paged_q8"],
-                 "max_abs_err": paged_q8_errs["bf16"],
-                 "max_abs_err_fp32": paged_q8_errs["fp32"], **r})
+    log_paged(r)
+    rows.append(paged_row("paged_decode_q8", 97, paged_q8_errs, [r],
+                          "paged_q8", by_path))
     mm_rows = {key: time_int8_matmul(torch, qm, mc, "layer 0" if key[1]
                                      != cfg.vocab_size else "lm_head")
                for key, mc in sorted(mm_cap.best.items())}

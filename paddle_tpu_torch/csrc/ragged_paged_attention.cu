@@ -106,95 +106,6 @@ __host__ __device__ inline size_t unit_smem_bytes(int el, bool quant, int R,
          (3 * (size_t)qb + 1 + (size_t)J) * sizeof(int);
 }
 
-// The fp32 value of int8 code i (0..3) of a word whose bytes were XORed
-// with 0x80 (code + 128, unsigned): the byte in the mantissa of 2^23, less
-// 2^23 + 128. Exact, as (float)code is, in two full-rate instructions.
-__device__ __forceinline__ float code_f32(uint32_t biased, int i) {
-  return __fsub_rn(__int_as_float((int)__byte_perm(biased, 0x4B000000u,
-                                                   0x7650u + i)),
-                   8388736.0f);
-}
-
-// Converts 16 staged bytes of a page row into fp32 values, exactly as the
-// per-token kernel stages them (to_f32, or dequant for int8 codes).
-template <typename PT> struct Staged;
-template <> struct Staged<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void cvt(uint4 raw, float, float* x) {
-    x[0] = __uint_as_float(raw.x); x[1] = __uint_as_float(raw.y);
-    x[2] = __uint_as_float(raw.z); x[3] = __uint_as_float(raw.w);
-  }
-};
-template <> struct Staged<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void cvt(uint4 raw, float, float* x) {
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[2 * i] = to_f32(__ushort_as_bfloat16((unsigned short)(w[i] & 0xffffu)));
-      x[2 * i + 1] = to_f32(__ushort_as_bfloat16((unsigned short)(w[i] >> 16)));
-    }
-  }
-};
-template <> struct Staged<__half> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void cvt(uint4 raw, float, float* x) {
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[2 * i] = to_f32(__ushort_as_half((unsigned short)(w[i] & 0xffffu)));
-      x[2 * i + 1] = to_f32(__ushort_as_half((unsigned short)(w[i] >> 16)));
-    }
-  }
-};
-template <> struct Staged<int8_t> {
-  static constexpr int N = 16;
-  static __device__ __forceinline__ void cvt(uint4 raw, float scale, float* x) {
-    const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u,
-                           raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      x[i] = dequant(code_f32(w[i / 4], i % 4), scale);
-  }
-};
-
-// Values e and e + 1 of a staged V row (e even), as the per-token kernel
-// stages them.
-template <typename PT>
-__device__ __forceinline__ void staged2(const unsigned char* row, int e,
-                                        float scale, float (&v)[2]);
-template <>
-__device__ __forceinline__ void staged2<float>(const unsigned char* row, int e,
-                                               float, float (&v)[2]) {
-  const float2 x = *reinterpret_cast<const float2*>(row + 4 * e);
-  v[0] = x.x;
-  v[1] = x.y;
-}
-template <>
-__device__ __forceinline__ void staged2<__nv_bfloat16>(const unsigned char* row,
-                                                       int e, float,
-                                                       float (&v)[2]) {
-  const uint32_t x = *reinterpret_cast<const uint32_t*>(row + 2 * e);
-  v[0] = to_f32(__ushort_as_bfloat16((unsigned short)(x & 0xffffu)));
-  v[1] = to_f32(__ushort_as_bfloat16((unsigned short)(x >> 16)));
-}
-template <>
-__device__ __forceinline__ void staged2<__half>(const unsigned char* row,
-                                                int e, float, float (&v)[2]) {
-  const uint32_t x = *reinterpret_cast<const uint32_t*>(row + 2 * e);
-  v[0] = to_f32(__ushort_as_half((unsigned short)(x & 0xffffu)));
-  v[1] = to_f32(__ushort_as_half((unsigned short)(x >> 16)));
-}
-template <>
-__device__ __forceinline__ void staged2<int8_t>(const unsigned char* row,
-                                                int e, float scale,
-                                                float (&v)[2]) {
-  const uint32_t x =
-      (uint32_t)*reinterpret_cast<const unsigned short*>(row + e) ^ 0x8080u;
-  v[0] = dequant(code_f32(x, 0), scale);
-  v[1] = dequant(code_f32(x, 1), scale);
-}
-
 // The dot products of the staged key row krow with kRows fp32 query rows
 // qr[0..kRows), each one fmaf chain over e = 0..D-1 from 0.f. The key is
 // converted once for the kRows rows.

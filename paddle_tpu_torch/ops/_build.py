@@ -66,6 +66,11 @@ SIGNATURES = {
     "paged_attention": {
         "ptt_paged_decode": [_I] + [_P] * 6 + [_I] * 7 + [_F, _P],
         "ptt_paged_decode_q8": [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
+        "ptt_paged_decode_split": [_I] + [_P] * 6 + [_I] * 7 + [_F]
+                                  + [_I] * 2 + [_P],
+        "ptt_paged_decode_split_q8": [_I] + [_P] * 8 + [_I] * 7 + [_F]
+                                     + [_I] * 2 + [_P],
+        "ptt_paged_decode_split_smem": [_I] * 7,
     },
     "quant_matmul": {
         "ptt_int8_matmul": [_I] + [_P] * 4 + [_I] * 3 + [_P],

@@ -12,14 +12,22 @@ Pages are native (the query's dtype, kernel B4) or int8 with one fp32
 scale per ``(kv head, page, slot)`` row (kernel B5), each row
 dequantised in fp32 as ``int8 * scale`` before both dots.
 
-A CUDA tensor goes to the kernel (``csrc/paged_attention.cu``) or
-raises; a CPU tensor runs :func:`paged_decode_plain`, the kernel's
-recurrence in PyTorch. The reference's XLA and production-kernel tiers
-are not Pallas and have no counterpart.
+A CUDA tensor goes to a kernel of ``csrc/paged_attention.cu`` or
+raises; a CPU tensor runs :func:`paged_decode_plain`, the reference's
+recurrence in PyTorch. The kernels come in two variants, chosen by
+:func:`decode_variant` before the launch: ``"cluster"`` splits each
+sequence's context across a thread-block cluster of
+:func:`paged_decode_splits` blocks and merges their partial softmax
+states in the same launch (:func:`paged_decode_split_model` is its
+algorithm in PyTorch, for the tests); ``"block"`` runs one block per
+(sequence, kv head) over the whole context, for the shapes the first
+cannot take. The reference's XLA and production-kernel tiers are not
+Pallas and have no counterpart.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -29,6 +37,22 @@ from . import _build
 
 #: the reference's mask for positions past the context (``:52``)
 NEG_INF = float("-inf")
+
+#: the kernels' variants (see :func:`decode_variant`)
+VARIANTS = ("cluster", "block")
+#: the page size the ``"cluster"`` kernel takes, the consecutive pages
+#: dealt to a split together (a chunk), and the most splits a sequence's
+#: context takes (the portable cluster size)
+SPLIT_PAGE, CHUNK_PAGES, MAX_SPLITS = 16, 2, 8
+#: the widest head the ``"cluster"`` kernel takes (8 columns a lane, 32
+#: lanes a key)
+SPLIT_MAX_D = 256
+#: the blocks an SM that :func:`paged_decode_splits` aims the grid at
+SPLIT_BLOCKS_PER_SM = 2
+#: dynamic shared memory a block may use on Hopper, and the ring depths
+#: the ``"cluster"`` kernel tries, deepest first
+SMEM_LIMIT = 232448
+SPLIT_STAGES = (4, 3, 2)
 
 
 def _as_int32(x, device):
@@ -77,6 +101,160 @@ def paged_decode_plain(q, k_pages, v_pages, block_tables, context_lens,
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def paged_decode_splits(batch, kv_heads, pages_per_seq, n_sm):
+    """The ``"cluster"`` kernel's splits S per (sequence, kv head): enough
+    that the grid of S x kv_heads x batch blocks gives each of the ``n_sm``
+    SMs about SPLIT_BLOCKS_PER_SM, at most MAX_SPLITS and at most the
+    table's chunks. Shapes alone decide it: the context lengths live on
+    the device, and reading them would stall the host once a layer."""
+    chunks = -(-pages_per_seq // CHUNK_PAGES)
+    want = -(-SPLIT_BLOCKS_PER_SM * n_sm // max(batch * kv_heads, 1))
+    return max(1, min(MAX_SPLITS, chunks, want))
+
+
+def split_pages(split, splits, n_pages):
+    """The pages below ``n_pages`` that split ``split`` of ``splits``
+    walks, as its chunks in order: CHUNK_PAGES consecutive pages a chunk,
+    chunk k to split k mod ``splits``. A split past the last chunk gets
+    none."""
+    n_chunks = -(-n_pages // CHUNK_PAGES)
+    return [list(range(k * CHUNK_PAGES, min((k + 1) * CHUNK_PAGES, n_pages)))
+            for k in range(split, n_chunks, splits)]
+
+
+def split_partial(qg, k_pages, v_pages, row, steps, limit, sm_scale,
+                  k_scales=None, v_scales=None):
+    """One split's partial state over its steps (lists of pages of the
+    table row ``row``, each step one online-softmax update over its
+    pages' keys) in fp32, keys at or past ``limit`` masked. ``qg`` [KVH,
+    G, D]; returns m, l [KVH, G, 1] and acc [KVH, G, D] (m -inf, l and acc
+    0 for a split with no step)."""
+    KVH, G, D = qg.shape
+    P = k_pages.shape[2]
+    m = torch.full((KVH, G, 1), NEG_INF, device=qg.device)
+    l = torch.zeros((KVH, G, 1), device=qg.device)
+    acc = torch.zeros((KVH, G, D), device=qg.device)
+    for pages in steps:
+        ids = torch.as_tensor(np.asarray(row)[pages].astype(np.int64),
+                              device=qg.device)
+        k, v = k_pages[:, ids].float(), v_pages[:, ids].float()
+        if k_scales is not None:
+            k = k * k_scales[:, ids][..., None]
+            v = v * v_scales[:, ids][..., None]
+        k, v = k.reshape(KVH, -1, D), v.reshape(KVH, -1, D)
+        pos = (torch.as_tensor(pages, device=qg.device)[:, None] * P
+               + torch.arange(P, device=qg.device)).reshape(-1)
+        s = (qg @ k.transpose(-1, -2)) * sm_scale          # [KVH, G, keys]
+        s = torch.where(pos < limit, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        w = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + w.sum(-1, keepdim=True)
+        acc = acc * corr + w @ v
+        m = m_new
+    return m, l, acc
+
+
+def merge_partials(parts):
+    """The splits' partials (m, l, acc) merged in split order: M = max
+    m_s, L = sum l_s e^(m_s - M), out = sum acc_s e^(m_s - M) / max(L,
+    1e-30); an empty split (m_s = -inf) is skipped."""
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = torch.zeros_like(parts[0][1])
+    A = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        f = torch.where(torch.isneginf(m), 0.0, torch.exp(m - M))
+        L = L + l * f
+        A = A + acc * f
+    return A / L.clamp_min(1e-30)
+
+
+def paged_decode_split_model(q, k_pages, v_pages, block_tables, context_lens,
+                             sm_scale, splits, k_scales=None, v_scales=None,
+                             stages=SPLIT_STAGES[0]):
+    """The ``"cluster"`` kernel's algorithm in fp32 PyTorch, for the tests
+    and the chip check (no main path runs it): per sequence, each of
+    ``splits`` splits runs :func:`split_partial` over the chunks
+    :func:`split_pages` deals it, one online-softmax update per round of
+    ``stages`` chunks (the kernel's resident ring), and
+    :func:`merge_partials` merges them in split order. Same arguments as
+    :func:`paged_decode_plain`."""
+    B, H, D = q.shape
+    KVH, _, P, _ = k_pages.shape
+    G = H // KVH
+    tables = np.asarray(block_tables.cpu() if isinstance(
+        block_tables, torch.Tensor) else block_tables)
+    lens = np.asarray(context_lens.cpu() if isinstance(
+        context_lens, torch.Tensor) else context_lens).reshape(-1)
+    qg = q.float().view(B, KVH, G, D)
+    outs = []
+    for b in range(B):
+        ctx = int(lens[b])
+        n_pages = min(-(-ctx // P), tables.shape[1])
+        limit = min(ctx, n_pages * P)
+        parts = []
+        for s in range(splits):
+            chunks = split_pages(s, splits, n_pages)
+            rounds = [sum(chunks[i:i + stages], [])
+                      for i in range(0, len(chunks), stages)]
+            parts.append(split_partial(qg[b], k_pages, v_pages, tables[b],
+                                       rounds, limit, sm_scale, k_scales,
+                                       v_scales))
+        outs.append(merge_partials(parts))
+    return torch.stack(outs).reshape(B, H, D).to(q.dtype)
+
+
+def split_smem_bytes(el, quant, G, D, pages_per_seq, splits, stages):
+    """Dynamic shared memory of one ``"cluster"`` block (the formula of
+    ``split_smem_bytes`` in ``csrc/paged_attention.cu``): the stages'
+    mbarriers, a ring of ``stages`` chunks of K and V pages of ``el``-byte
+    values (and their int8 row scales), q, acc, a round's scores and the
+    row state in fp32, and the split's table entries."""
+    slab = SPLIT_PAGE * D * el
+    chunks = -(-pages_per_seq // CHUNK_PAGES)
+    cap = CHUNK_PAGES * -(-chunks // splits)
+    keys = CHUNK_PAGES * SPLIT_PAGE
+    return (-(-8 * stages // 16) * 16 + stages * 2 * CHUNK_PAGES * slab
+            + (stages * 2 * keys * 4 if quant else 0)
+            + 4 * (2 * G * D + G * stages * keys + 3 * G) + 4 * cap)
+
+
+def split_stages(el, quant, G, D, pages_per_seq, splits):
+    """The deepest ring of SPLIT_STAGES whose block fits SMEM_LIMIT, or 0
+    when none does."""
+    for stages in SPLIT_STAGES:
+        if split_smem_bytes(el, quant, G, D, pages_per_seq, splits,
+                            stages) <= SMEM_LIMIT:
+            return stages
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_variant(q, k_pages, v_pages, pages_per_seq, n_sm, k_scales=None,
+                   v_scales=None):
+    """The rule: ``("cluster", splits, stages)`` when the ``"cluster"``
+    kernel takes these operands (page size SPLIT_PAGE, head_dim % 16 ==
+    0 and <= SPLIT_MAX_D, every pool and scale array 16-byte aligned, a
+    ring that fits shared memory), else ``("block", 0, 0)``. Depends on
+    shapes, types and addresses only."""
+    B, H, D = q.shape
+    KVH, _, P, _ = k_pages.shape
+    quant = k_scales is not None
+    pools = [t for t in (k_pages, v_pages, k_scales, v_scales)
+             if t is not None]
+    if P != SPLIT_PAGE or D % 16 or D > SPLIT_MAX_D or H % KVH \
+            or pages_per_seq < 1 or any(t.data_ptr() % 16 for t in pools):
+        return "block", 0, 0
+    splits = paged_decode_splits(B, KVH, pages_per_seq, n_sm)
+    stages = split_stages(k_pages.element_size(), quant, H // KVH, D,
+                          pages_per_seq, splits)
+    return ("cluster", splits, stages) if stages else ("block", 0, 0)
+
+
 def _check_cuda_inputs(q, k_pages, v_pages, tables, ctx, k_scales,
                        v_scales):
     quant = k_scales is not None
@@ -111,54 +289,68 @@ def _check_cuda_inputs(q, k_pages, v_pages, tables, ctx, k_scales,
                          f"{tuple(ctx.shape)}")
 
 
-def _launch(fn_name, q, pages, tables, ctx, sm_scale):
+def _paged_cuda(fn, q, k_pages, v_pages, block_tables, context_lens,
+                sm_scale, k_scales, v_scales, variant):
+    """Check, pick the variant (or take the forced one), launch, count:
+    ``fn`` is the wrapper whose counters the launch adds to."""
+    tables = _as_int32(block_tables, q.device)
+    ctx = _as_int32(context_lens, q.device)
+    _check_cuda_inputs(q, k_pages, v_pages, tables, ctx, k_scales, v_scales)
     B, H, _ = q.shape
-    KVH, NP, P, D = pages[0].shape
+    KVH, NP, P, D = k_pages.shape
+    rule, splits, stages = decode_variant(
+        q, k_pages, v_pages, tables.shape[1], _sm_count(q.device.index),
+        k_scales, v_scales)
+    if variant == "cluster" and rule != "cluster":
+        raise ValueError(f"the cluster kernel does not take pages "
+                         f"{tuple(k_pages.shape)} with q {tuple(q.shape)}")
+    variant = variant or rule
+    quant = k_scales is not None
+    pools = (k_pages, v_pages) + ((k_scales, v_scales) if quant else ())
+    name = "ptt_paged_decode" + ("_split" if variant == "cluster" else "") \
+        + ("_q8" if quant else "")
     out = torch.empty_like(q)
     args = ([ctypes.c_int(_build.dtype_code(q.dtype))]
             + [ctypes.c_void_p(t.data_ptr())
-               for t in (q, *pages, out, tables, ctx)]
+               for t in (q, *pools, out, tables, ctx)]
             + [ctypes.c_int(x) for x in (B, H, KVH, D, NP, P,
                                          tables.shape[1])]
-            + [ctypes.c_float(sm_scale)])
-    _build.launch(fn_name, q.device, args)
-    return out
-
-
-def _paged_cuda(q, k_pages, v_pages, tables, ctx, sm_scale):
-    _check_cuda_inputs(q, k_pages, v_pages, tables, ctx, None, None)
-    out = _launch("ptt_paged_decode", q, (k_pages, v_pages), tables, ctx,
-                  sm_scale)
-    paged_attention.launches += 1
+            + [ctypes.c_float(sm_scale)]
+            + ([ctypes.c_int(splits), ctypes.c_int(stages)]
+               if variant == "cluster" else []))
+    _build.launch(name, q.device, args)
+    fn.launches += 1
+    setattr(fn, f"{variant}_launches",
+            getattr(fn, f"{variant}_launches") + 1)
     return out
 
 
 def paged_attention_q8(q, k_pages, v_pages, k_scales, v_scales,
-                       block_tables, context_lens, sm_scale):
+                       block_tables, context_lens, sm_scale, variant=None):
     """Kernel B5: :func:`paged_attention` over int8 pages ``[KVH, NP, P,
     D]`` with fp32 row scales ``[KVH, NP, P]``. A CPU tensor runs
     :func:`paged_decode_plain`; CUDA launches are counted in
-    ``paged_attention_q8.launches``."""
+    ``paged_attention_q8.launches`` and, by variant, in
+    ``.cluster_launches`` and ``.block_launches``."""
+    if variant not in (None, *VARIANTS):
+        raise ValueError(f"variant {variant!r}, expected one of {VARIANTS}")
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, block_tables,
                                   context_lens, sm_scale, k_scales, v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention for device {q.device}")
-    tables = _as_int32(block_tables, q.device)
-    ctx = _as_int32(context_lens, q.device)
-    _check_cuda_inputs(q, k_pages, v_pages, tables, ctx, k_scales, v_scales)
-    out = _launch("ptt_paged_decode_q8", q,
-                  (k_pages, v_pages, k_scales, v_scales), tables, ctx,
-                  sm_scale)
-    paged_attention_q8.launches += 1
-    return out
+    return _paged_cuda(paged_attention_q8, q, k_pages, v_pages, block_tables,
+                       context_lens, sm_scale, k_scales, v_scales, variant)
 
 
 paged_attention_q8.launches = 0
+paged_attention_q8.cluster_launches = 0
+paged_attention_q8.block_launches = 0
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
-                    sm_scale=None, k_scales=None, v_scales=None):
+                    sm_scale=None, k_scales=None, v_scales=None,
+                    variant=None):
     """One-token decode attention over a paged KV cache.
 
     q               [batch, heads, head_dim]
@@ -168,30 +360,38 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     context_lens    [batch] int32, tokens in context including this one
     k_scales/v_scales [kv_heads, num_pages, page_size] float32 row scales
                     of int8 pages (None: native pages)
+    variant         None (the rule, :func:`decode_variant`), or
+                    ``"cluster"`` / ``"block"`` to force one kernel (a
+                    forced ``"cluster"`` raises where it does not apply);
+                    CUDA tensors only
     -> [batch, heads, head_dim] in q's dtype.
 
     Native pages run B4, whose CUDA launches are counted in
-    ``paged_attention.launches``; int8 pages run B5
+    ``paged_attention.launches`` and, by variant, in
+    ``.cluster_launches`` and ``.block_launches``; int8 pages run B5
     (:func:`paged_attention_q8`)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if variant not in (None, *VARIANTS):
+        raise ValueError(f"variant {variant!r}, expected one of {VARIANTS}")
     if (k_scales is None) != (v_scales is None):
         raise ValueError("int8 pages need both k_scales and v_scales")
     if k_scales is not None:
         return paged_attention_q8(q, k_pages, v_pages, k_scales, v_scales,
                                   block_tables, context_lens,
-                                  float(sm_scale))
+                                  float(sm_scale), variant)
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, block_tables,
                                   context_lens, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention for device {q.device}")
-    return _paged_cuda(q, k_pages, v_pages,
-                       _as_int32(block_tables, q.device),
-                       _as_int32(context_lens, q.device), float(sm_scale))
+    return _paged_cuda(paged_attention, q, k_pages, v_pages, block_tables,
+                       context_lens, float(sm_scale), None, None, variant)
 
 
 paged_attention.launches = 0
+paged_attention.cluster_launches = 0
+paged_attention.block_launches = 0
 
 
 def paged_attention_reference(q, k_pages, v_pages, block_tables,
