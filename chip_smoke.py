@@ -9,11 +9,21 @@ Phases, each fatal on error (non-zero exit, no result line):
    process per source, all at once, and print every kernel's registers
    and spills from ``ptxas -v``, ptxas's wgmma notes for B1, B2, B3 and
    B10 and the dynamic shared memory of each q-block (kernel 6, B7),
-   cluster B4/B5 (with its splits and ring stages at the decode shapes,
-   held equal to the wrapper's formula) and tensor-core B1, B2, B3 and
-   B10 block;
+   cluster kernel 8/B9 (with its splits and pages a round at the mixed
+   and pure-decode ticks, held equal to the wrapper's formula), cluster
+   B4/B5 (with its splits and ring stages at the decode shapes, held
+   equal to the wrapper's formula) and tensor-core B1, B2, B3 and B10
+   block;
 2. kernel parity at Llama-3-8B attention shapes (32 heads, 8 kv heads,
-   head_dim 128, page 16): the two ragged kernels on a mixed layout,
+   head_dim 128, page 16): the two ragged kernels on a mixed layout and
+   on the per-token split's edge cases (every token seeing 1 key over
+   128-page tables, fewer pages than splits, contexts ending on page
+   edges, G = 1, one token over three rounds of 8 splits, a 64-token
+   prefill of 19 rounds, bucket padding), kernel 8 and B9 as both
+   variants (the cluster kernel the rule takes and the block kernel,
+   each forced) in fp32, bf16 and fp16, the cluster kernel twice in bf16
+   giving the same bits, and at every split count 1-8 on a decode
+   layout,
    flash attention forward (B1, out and lse) on causal, offset,
    non-causal and dead-row cases and one at head_dim 64, in fp32 through
    the scalar kernel and in bf16 and fp16 through the tensor-core kernel
@@ -70,7 +80,9 @@ Phases, each fatal on error (non-zero exit, no result line):
    a. ``ContinuousServingEngine`` (ragged) serves 8 concurrent requests
       (prompts of 32-600 tokens, four sharing a 64-token prefix, 16 new
       tokens each), once on the q-block kernel and once on the per-token
-      kernel (launches = 32 x ticks); one further instrumented pass per
+      kernel (launches = 32 x ticks, every per-token launch on the
+      cluster kernel, whose count says so); one further instrumented pass
+      per
       kernel times every tick and captures one tick's layer-0 inputs;
    b. the static ``ServingEngine`` batches 8 concurrent 512-token
       prompts (16 new tokens) into one ``generate``: B1 launches 32 times
@@ -91,7 +103,8 @@ Phases, each fatal on error (non-zero exit, no result line):
       serves the load of (a) three times, after one uncounted q-block
       pass whose engine quantises the model's 225 Linears in place (its
       wall is printed; the counted engines find none left): ragged
-      q-block (B7 = 32 x ticks), ragged per-token (B9 = 32 x ticks) and
+      q-block (B7 = 32 x ticks), ragged per-token (B9 = 32 x ticks, all
+      on the cluster kernel) and
       legacy (B5 = 32 x decode steps, all on the cluster kernel, B1 = 32
       x chunks padded to >=
       128); B10 = 225 x forwards in each, every call (bf16) on the
@@ -116,7 +129,8 @@ Phases, each fatal on error (non-zero exit, no result line):
       layer-0 attention inputs and dO are captured;
 4. paths against each other on a two-layer fp32 model at the same widths
    (TF32 off): ``generate`` over the concat and the paged cache, the
-   legacy and the ragged engine give identical greedy streams on three
+   legacy engine and the ragged engine on both grids (q-block and
+   per-token) give identical greedy streams on three
    prompts (47, 300 and 160 tokens); the ragged forward and ``generate``'s
    paged cache give logits within 1e-4 (relative) of the cache-free
    forward; one training step's loss and every gradient through the
@@ -137,7 +151,11 @@ Phases, each fatal on error (non-zero exit, no result line):
    computes the same function, that call, beside the bound for the same
    work, all on the inputs captured in phase 3: the ragged kernels at
    the captured mixed and pure-decode ticks (``time_ragged``; a q-block
-   row carries the per-token kernel's time on the same inputs), B1 (tensor cores) at the static prefill, at the legacy chunk
+   row carries the per-token kernel's time on the same inputs; kernel 8
+   and B9 as the rule's cluster kernel beside the block kernel, the
+   parent's design, forced on the same inputs, and at the pure-decode
+   tick the cluster kernel at every split count), B1 (tensor cores) at
+   the static prefill, at the legacy chunk
    and at the training step with its TFLOP/s over visible pairs and the
    host's time per call, the scalar B1 on the static prefill's inputs in
    fp32, B2 and B3 at the training step (tensor cores, with TFLOP/s
@@ -164,8 +182,8 @@ Phases, each fatal on error (non-zero exit, no result line):
 
 Prints a ``{"kernels": [...]}`` line with all ten kernels (B1, B2 and B3
 each as its two variants, B10 as its three, with the dtypes each
-serves; B4 and B5 as the cluster kernel the main paths run, the block
-kernel under ``block_variant``), the card's
+serves; kernel 8, B9, B4 and B5 as the cluster kernels the main paths
+run, the block kernels under ``block_variant``), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -398,6 +416,33 @@ def qblock_notes(build):
             f" bytes of dynamic shared memory")
 
 
+def token_notes(build, rpa):
+    """The cluster kernel 8/B9's launch at Llama-3-8B's ragged ticks (32
+    heads over 8 kv heads, head_dim 128, page 16, the engine's 128-page
+    tables) on this card's SMs, for the mixed tick's 256 tokens and a
+    pure-decode tick's 8: the splits (the cluster's blocks), the pages a
+    block takes a round and the dynamic shared memory of a block for each
+    page type, from the C library, held equal to the wrapper's formula."""
+    lib = build.load_kernels()
+    n_sm = rpa._sm_count(0)
+    for tokens in (256, 8):
+        splits = rpa.token_splits(tokens, N_KV, 128, n_sm)
+        for name, el, quant in (("fp32 pages", 4, 0), ("bf16/fp16 pages", 2, 0),
+                                ("int8 pages (B9)", 1, 1)):
+            args = (el, bool(quant), N_HEADS // N_KV, HEAD_DIM, 128, splits)
+            smem = lib.ptt_ragged_token_split_smem(
+                el, quant, N_HEADS // N_KV, PAGE, HEAD_DIM, 128, splits,
+                rpa.token_round_pages(splits))
+            if smem != rpa.token_smem_bytes(*args):
+                raise AssertionError(f"token split shared memory {smem} != "
+                                     f"{rpa.token_smem_bytes(*args)}")
+            log(f"  token_split_kernel, {name}, {tokens} tokens: 128 "
+                f"threads, clusters of {splits} on {n_sm} SMs, "
+                f"{rpa.token_round_pages(splits)} pages a block a round, "
+                f"{smem} bytes of "
+                f"dynamic shared memory")
+
+
 def paged_notes(build, pa):
     """The cluster B4/B5 kernel's launch at Llama-3-8B's decode (batch 8,
     32 heads over 8 kv heads, head_dim 128, page 16) on this card's SMs,
@@ -485,7 +530,166 @@ def compare_kernels(torch, rpa, q, kp, vp, tbl, desc, label):
     check(f"{label} qblock vs token kernel fp32",
           max_err(out32["qblock"], out32["token"], rows), FP32_TOL)
     check_c21(torch, rpa, q, (kp, vp), plans, rows, label)
+    errs["token_variants"] = compare_token_variants(
+        torch, rpa, q, (kp, vp), plans["token"], rows, label)
     return errs, plans
+
+
+def compare_token_variants(torch, rpa, q, pages, plan, rows, label):
+    """Kernel 8 (native pages ``(k, v)``, cast with q) or B9 (``(k_codes,
+    v_codes, k_scales, v_scales)``), both variants, the ``"cluster"`` the
+    rule takes here (asserted) and the ``"block"``, each forced: in fp32
+    (TF32 off) against the plain version (1e-5), in bf16 and fp16 against
+    the fp32 plain version on the rounded inputs, rounded (``ulp_err`` <=
+    1), on the span rows; each forced launch adds one to its variant's
+    count; the cluster kernel twice in bf16 gives the same bits. Returns
+    the largest errors as ``{variant}_{dtype}``."""
+    quant = len(pages) == 4
+    fn = rpa.token_attention_q8 if quant else rpa.token_attention
+    kernel = "B9" if quant else "kernel 8"
+    scale = HEAD_DIM ** -0.5
+    rule = rpa.token_variant(q, *pages[:2], plan.dev["tables"].shape[1],
+                             rpa._sm_count(q.device.index), *pages[2:])
+    if rule[0] != "cluster":
+        raise AssertionError(f"{label} {kernel}: the rule took {rule}")
+    errs = {}
+    for variant in rpa.TOKEN_VARIANTS:
+        for short, name in PAGED_DTYPES.items():
+            dt = getattr(torch, name)
+            qd = q.to(dt)
+            pd = pages if quant else tuple(p.to(dt) for p in pages)
+            before = getattr(fn, f"{variant}_launches")
+            out = fn(qd, *pd, plan, scale, variant=variant)
+            if getattr(fn, f"{variant}_launches") != before + 1:
+                raise AssertionError(f"{label} {kernel}: {variant} not "
+                                     f"counted")
+            ref = rpa.token_attention_plain(
+                qd.float(), *(pd[:2] if quant else (p.float() for p in pd)),
+                plan, scale, *pd[2:])
+            if out.dtype != dt:
+                raise AssertionError(f"{label} {kernel}: {out.dtype} out")
+            what = f"{label} {kernel} {variant} {short}"
+            if short == "fp32":
+                e = max_err(out, ref, rows)
+                check(f"{what} kernel vs plain", e, FP32_TOL)
+            else:
+                e, ratio = ulp_err(torch, out[rows], ref[rows])
+                check(f"{what} kernel vs {short}(fp32 plain)", ratio, 1.0,
+                      "max error / (1 ulp + fp32 tol)")
+            errs[f"{variant}_{short}"] = e
+            if variant == "cluster" and short == "bf16":
+                again = fn(qd, *pd, plan, scale, variant=variant)
+                if not torch.equal(out.view(torch.int16),
+                                   again.view(torch.int16)):
+                    raise AssertionError(f"{what}: two launches differ")
+                log(f"  {what} twice: bit-identical")
+    torch.cuda.synchronize()
+    return errs
+
+
+@contextlib.contextmanager
+def forced_token_splits(rpa, splits):
+    """Inside the block, the cluster kernel 8/B9 splits every (token, kv
+    head) over ``splits`` blocks (None: the rule's): the wrapper's
+    ``token_splits`` is replaced, and put back after."""
+    rule = rpa.token_splits
+    if splits is not None:
+        rpa.token_splits = lambda *args: splits
+    try:
+        yield
+    finally:
+        rpa.token_splits = rule
+
+
+#: the cluster kernel's splits held to C21 and the plain version on one
+#: layout, and timed at the pure-decode tick
+TOKEN_SPLITS = tuple(range(1, 9))
+
+
+def compare_token_splits(torch, rpa, q, kp, vp, tbl, desc, label):
+    """The cluster kernel 8 and B9 under every split count of
+    TOKEN_SPLITS on one layout: C21 against the q-block kernels in fp32,
+    bf16 and fp16, and the fp32 plain version within 1e-5."""
+    from paddle_tpu_torch.models.generation import quantize_kv_rows
+    rows = torch.as_tensor(span_rows(desc[1], desc[2]), device=q.device)
+    plans = {impl: rpa.make_plan(q.shape[0], *desc, tbl, PAGE, impl=impl,
+                                 device=q.device) for impl in rpa.IMPLS}
+    (kq, ks), (vq, vs) = quantize_kv_rows(kp), quantize_kv_rows(vp)
+    scale = HEAD_DIM ** -0.5
+    worst = 0.0
+    for splits in TOKEN_SPLITS:
+        with forced_token_splits(rpa, splits):
+            for pages in ((kp, vp), (kq, vq, ks, vs)):
+                check_c21(torch, rpa, q, pages, plans, rows,
+                          f"{label} S={splits}", verbose=False)
+                fn = (rpa.token_attention_q8 if len(pages) == 4
+                      else rpa.token_attention)
+                out = fn(q, *pages, plans["token"], scale,
+                         variant="cluster")
+                ref = rpa.token_attention_plain(
+                    q, *pages[:2], plans["token"], scale, *pages[2:])
+                worst = max(worst, max_err(out, ref, rows))
+    check(f"{label} cluster kernel 8 and B9 at S = "
+          f"{', '.join(map(str, TOKEN_SPLITS))} vs plain (fp32)", worst,
+          FP32_TOL)
+    log(f"  C21 {label}: q-block == per-token (cluster) bit for bit at "
+        f"every S, native and int8, in {', '.join(C21_DTYPES)}")
+
+
+def ragged_edge_layouts(torch, dev):
+    """Edge cases of kernel 8/B9's context split at Llama-3-8B widths
+    (head_dim 128, page 16, the engine's 128-page tables; 32 query heads
+    over 8 kv heads, G = 4, unless named): every token seeing 1 key (idle
+    rows, padding), fewer pages than splits (3 tokens, 8 splits, 1-3
+    pages), contexts ending on page edges, G = 1 (8 heads over 8 kv
+    heads), one token (8 splits, 44 pages: three rounds), a 64-token
+    prefill of 38-page contexts (one split, 19 rounds) and bucket padding
+    (10 tokens outside every span). Yields (label, (q, k_pages, v_pages,
+    tables, descriptors))."""
+    cases = {
+        "ctx 1 on 128-page tables": (N_HEADS, [(s, s, 1, 1)
+                                               for s in range(8)], 8),
+        "fewer pages than splits": (N_HEADS, [(0, 0, 1, 2), (1, 1, 1, 17),
+                                              (2, 2, 1, 40)], 3),
+        "contexts on page edges": (N_HEADS, [
+            (s, s, 1, c) for s, c in enumerate([16, 32, 64, 96, 128, 160,
+                                                512, 528])], 8),
+        "G=1": (N_KV, [(0, 0, 1, 5), (1, 1, 1, 300), (2, 2, 3, 520),
+                       (3, 5, 1, 700)], 6),
+        "one token": (N_HEADS, [(0, 0, 1, 700)], 1),
+        "64-token prefill, 38 pages": (N_HEADS, [(0, 0, 64, 600)], 64),
+        "bucket padding": (N_HEADS, [(0, 0, 1, 300), (1, 1, 5, 77)], 16),
+    }
+    nslots, pps = 8, 128
+    g = torch.Generator(device=dev).manual_seed(29)
+    for i, (label, (heads, spans, tokens)) in enumerate(cases.items()):
+        perm = np.random.RandomState(40 + i).permutation(nslots * pps) + 1
+        tbl = perm.reshape(nslots, pps).astype(np.int32)
+        tbl[-1, :3] = tbl[1, :3]
+        desc = tuple(np.asarray([x[j] for x in spans], np.int32)
+                     for j in range(4))
+        shape = (N_KV, nslots * pps + 1, PAGE, HEAD_DIM)
+        kp = torch.randn(shape, generator=g, device=dev)
+        vp = torch.randn(shape, generator=g, device=dev)
+        q = torch.randn((tokens, heads, HEAD_DIM), generator=g, device=dev)
+        yield label, (q, kp, vp, tbl, desc)
+
+
+def decode_layout(torch, dev):
+    """A pure-decode tick like the serving load's: 8 tokens over contexts
+    of 47-615 (3-39 pages) in the engine's 128-page tables."""
+    nslots, pps = 8, 128
+    ctx = [47, 100, 200, 300, 400, 500, 600, 615]
+    tbl = (np.random.RandomState(31).permutation(nslots * pps).reshape(
+        nslots, pps) + 1).astype(np.int32)
+    desc = tuple(np.asarray(x, np.int32) for x in (
+        range(8), range(8), [1] * 8, ctx))
+    g = torch.Generator(device=dev).manual_seed(37)
+    shape = (N_KV, nslots * pps + 1, PAGE, HEAD_DIM)
+    kp = torch.randn(shape, generator=g, device=dev)
+    vp = torch.randn(shape, generator=g, device=dev)
+    q = torch.randn((8, N_HEADS, HEAD_DIM), generator=g, device=dev)
+    return q, kp, vp, tbl, desc
 
 
 #: B1 parity cases at Llama-3-8B widths: (b, sq, sk, causal, q_offset,
@@ -1062,6 +1266,8 @@ def compare_kernels_q8(torch, rpa, q, kq, vq, ks, vs, tbl, desc, label):
     check(f"{label} qblock_q8 vs token_q8 kernel fp32",
           max_err(out32["qblock"], out32["token"], rows), FP32_TOL)
     check_c21(torch, rpa, q, (kq, vq, ks, vs), plans, rows, label)
+    errs["token_variants"] = compare_token_variants(
+        torch, rpa, q, (kq, vq, ks, vs), plans["token"], rows, label)
     return errs, plans
 
 
@@ -1070,11 +1276,12 @@ C21_DTYPES = ("float32", "bfloat16", "float16")
 
 
 def check_c21(torch, rpa, q, pages, plans, rows, label, verbose=True):
-    """ROADMAP C21: kernel 6 returns the same bits as kernel 8 on every
-    real token's row, and B7 as B9, for fp32, bf16 and fp16 queries.
-    ``pages`` is (k, v) of native pages in q's dtype family (cast with q)
-    or (k_codes, v_codes, k_scales, v_scales) of int8 pages. Compares the
-    bit patterns of the span rows; returns the number of cases held."""
+    """ROADMAP C21: kernel 6 returns the same bits as kernel 8 (its
+    ``"cluster"`` variant, forced) on every real token's row, and B7 as
+    B9, for fp32, bf16 and fp16 queries. ``pages`` is (k, v) of native
+    pages in q's dtype family (cast with q) or (k_codes, v_codes,
+    k_scales, v_scales) of int8 pages. Compares the bit patterns of the
+    span rows; returns the number of cases held."""
     quant = len(pages) == 4
     kern = ((rpa.qblock_attention_q8, rpa.token_attention_q8) if quant
             else (rpa.qblock_attention, rpa.token_attention))
@@ -1084,7 +1291,8 @@ def check_c21(torch, rpa, q, pages, plans, rows, label, verbose=True):
         pg = pages if quant else tuple(x.to(dt) for x in pages)
         qd = q.to(dt)
         a = kern[0](qd, *pg, plans["qblock"], scale)[rows]
-        b = kern[1](qd, *pg, plans["token"], scale)[rows]
+        b = kern[1](qd, *pg, plans["token"], scale,
+                    variant="cluster")[rows]
         bits = torch.int32 if dt == torch.float32 else torch.int16
         differ = int((a.view(bits) != b.view(bits)).sum())
         if differ:
@@ -1093,7 +1301,7 @@ def check_c21(torch, rpa, q, pages, plans, rows, label, verbose=True):
                 f"elements differ, max {float((a.float() - b.float()).abs().max())}")
     torch.cuda.synchronize()
     if verbose:
-        log(f"  C21 {label}: q-block == per-token bit for bit on "
+        log(f"  C21 {label}: q-block == per-token (cluster) bit for bit on "
             f"{len(rows)} span rows in {', '.join(C21_DTYPES)}")
     return len(C21_DTYPES)
 
@@ -1840,12 +2048,16 @@ def time_flash(torch, fa, cap, label):
 RAGGED_LIBRARY = "none: no single PyTorch call computes ragged paged attention"
 
 
-def time_ragged(torch, kern, plain, ticks, scale, quant=False):
+def time_ragged(torch, rpa, kern, plain, ticks, scale, quant=False):
     """Kernels 6 and 8 (or B7 and B9 over int8 pages) and their plain
     versions on each captured tick's layer-0 inputs, beside the tick's
     bound. ``ticks``: (label, capture, plans, errors by kernel). Returns
     one row per tick for each kernel; a q-block row also carries the
-    per-token kernel's time on the same inputs (``per_token_ms``)."""
+    per-token kernel's time on the same inputs (``per_token_ms``). The
+    per-token row is the rule's kernel (the cluster variant, with its
+    splits), beside the block variant, the parent's kernel, forced on the
+    same inputs (``block_ms``), and at a pure-decode tick the cluster
+    kernel at every split count of TOKEN_SPLITS (``ms_by_splits``)."""
     out = {impl: [] for impl in kern}
     for label, cap, plans, errs in ticks:
         scales = (cap["ks"], cap["vs"]) if quant else ()
@@ -1863,14 +2075,65 @@ def time_ragged(torch, kern, plain, ticks, scale, quant=False):
             out[impl].append({"shape": shape, "ms": ms, "plain_ms": pms,
                               **bound, "max_abs_err": errs[impl]["bf16"],
                               "max_abs_err_fp32": errs[impl]["fp32"]})
-        out["qblock"][-1]["per_token_ms"] = out["token"][-1]["ms"]
+        row = out["token"][-1]
+        targs = (cap["q"], cap["kp"], cap["vp"], *scales, plans["token"],
+                 scale)
+        row["variant"], row["splits"] = rpa.token_variant(
+            cap["q"], cap["kp"], cap["vp"], cap["tbl"].shape[1],
+            rpa._sm_count(0), *scales)
+        row["round_pages"] = rpa.token_round_pages(row["splits"])
+        row["block_ms"] = time_ms(torch, lambda: kern["token"](
+            *targs, variant="block"))
+        row["speedup_over_block"] = row["block_ms"] / row["ms"]
+        if np.all(np.asarray(cap["desc"][2]) == 1):
+            row["ms_by_splits"] = {}
+            for splits in TOKEN_SPLITS:
+                with forced_token_splits(rpa, splits):
+                    row["ms_by_splits"][splits] = time_ms(
+                        torch, lambda: kern["token"](*targs,
+                                                     variant="cluster"))
+        out["qblock"][-1]["per_token_ms"] = row["ms"]
         for impl in kern:
             r = out[impl][-1]
             log(f"  {impl}{'_q8' if quant else ''} at the {label}: "
-                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                f"{r['ms']:.4f} ms"
+                + (f" ({r['variant']}, {r['splits']} splits; block, the "
+                   f"parent's kernel, forced on the same inputs "
+                   f"{r['block_ms']:.4f} ms, {r['speedup_over_block']:.2f}x"
+                   + ("; cluster by splits " + ", ".join(
+                       f"S={k} {v:.4f}" for k, v in
+                       r["ms_by_splits"].items()) if "ms_by_splits" in r
+                      else "") + ")" if impl == "token" else "")
+                + f", plain {r['plain_ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.6f} ms ({r['bound_by']}: {r['bytes']} "
                 f"bytes, {r['flops']} FLOPs), library: none")
     return out
+
+
+def token_row(name, line, timed, launches, errs):
+    """Kernel 8's or B9's entry of the kernels line: the cluster kernel,
+    which the per-token paths run, timed on the captured ticks (``timed``,
+    first the mixed one), with the block kernel (the parent's design, kept
+    for the shapes the cluster kernel does not take; forced on the same
+    inputs) under ``block_variant``. ``launches``: the per-token path's
+    counts by variant; ``errs``: the forced variants' worst errors."""
+    first, *other = timed
+    return {"name": name, "route": "cuda", "source": SOURCE,
+            "replaces": f"{REF}:{line}", "variant": "cluster",
+            "kernel": "token_split_kernel",
+            "launches": launches["cluster"],
+            "launches_by_variant": launches,
+            **{k: v for k, v in first.items() if k != "block_ms"},
+            "max_abs_err_fp16": errs["cluster_fp16"],
+            "library_ms": None, "library": RAGGED_LIBRARY,
+            "other_shapes": other,
+            "block_variant": {
+                "kernel": "token_kernel", "launches": launches["block"],
+                "max_abs_err": errs["block_bf16"],
+                "max_abs_err_fp32": errs["block_fp32"],
+                "max_abs_err_fp16": errs["block_fp16"],
+                "ms": first["block_ms"],
+                "ms_other_shapes": [t["block_ms"] for t in other]}}
 
 
 #: ``pa.SPLIT_BLOCKS_PER_SM`` values timed beside the rule's
@@ -2347,8 +2610,9 @@ def train_cross_check(torch, pt, fa, kern, none):
 
 
 def cross_paths(pt, model, prompts):
-    """Greedy streams of ``generate`` over both caches and of both engine
-    schedulers, one prompt at a time; all must be identical."""
+    """Greedy streams of ``generate`` over both caches and of the engine's
+    legacy scheduler and ragged ticks on both grids (q-block, per-token),
+    one prompt at a time; all must be identical."""
     streams = {
         "generate": [model.generate(p[None], max_new_tokens=8).cpu().numpy()
                      for p in prompts],
@@ -2356,10 +2620,13 @@ def cross_paths(pt, model, prompts):
                                           use_paged_cache=True,
                                           page_size=PAGE).cpu().numpy()
                            for p in prompts]}
-    for name, ragged in (("legacy", False), ("ragged", True)):
+    for name, ragged, impl in (("legacy", False, "qblock"),
+                               ("ragged", True, "qblock"),
+                               ("ragged_token", True, "token")):
         eng = pt.ContinuousServingEngine(model, max_batch_size=4,
                                          max_len=1024, page_size=PAGE,
-                                         enable_ragged=ragged)
+                                         enable_ragged=ragged,
+                                         ragged_impl=impl)
         with eng:
             streams[name] = [eng.generate(p, max_new_tokens=8,
                                           timeout=600).numpy()
@@ -2509,6 +2776,8 @@ def main():
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", cuda {torch.version.cuda}")
     kern = {"qblock": rpa.qblock_attention, "token": rpa.token_attention,
+            "token_cluster": Count(rpa.token_attention, "cluster_launches"),
+            "token_block": Count(rpa.token_attention, "block_launches"),
             "flash": fa.flash_attention,
             "flash_wgmma": Count(fa.flash_attention, "wgmma_launches"),
             "paged": pa.paged_attention,
@@ -2520,6 +2789,9 @@ def main():
             "flash_bwd_dkv_wgmma": Count(fa.flash_bwd_dkv, "wgmma_launches"),
             "qblock_q8": rpa.qblock_attention_q8,
             "token_q8": rpa.token_attention_q8,
+            "token_q8_cluster": Count(rpa.token_attention_q8,
+                                      "cluster_launches"),
+            "token_q8_block": Count(rpa.token_attention_q8, "block_launches"),
             "paged_q8": pa.paged_attention_q8,
             "paged_q8_cluster": Count(pa.paged_attention_q8,
                                       "cluster_launches"),
@@ -2536,6 +2808,7 @@ def main():
     log(f"  build_seconds {build_s:.2f} ({len(_build.SOURCES)} sources)")
     ptxas_summary(_build)
     qblock_notes(_build)
+    token_notes(_build, rpa)
     paged_notes(_build, pa)
     b1_notes(_build)
     bwd_notes(_build)
@@ -2566,6 +2839,17 @@ def main():
                               gen.quantize_kv_rows(evp))
         paged_q8_errs = worst_of(paged_q8_errs, compare_paged(
             torch, pa, eq, kq, vq, etbl, ectx, f"{label} int8", ks, vs))
+    # kernel 8 and B9's context split (the cluster kernel) on its edge
+    # cases, int8 pages by the cache's codec, and at every split count
+    for label, (eq, ekp, evp, etbl, edesc) in ragged_edge_layouts(torch,
+                                                                  dev):
+        compare_kernels(torch, rpa, eq, ekp, evp, etbl, edesc, label)
+        (kq, ks), (vq, vs) = (gen.quantize_kv_rows(ekp),
+                              gen.quantize_kv_rows(evp))
+        compare_kernels_q8(torch, rpa, eq, kq, vq, ks, vs, etbl, edesc,
+                           f"{label} int8")
+    compare_token_splits(torch, rpa, *decode_layout(torch, dev),
+                         "decode layout")
     mm_errs = compare_int8_matmul(torch, qm, dev)
     del q, kp, vp, pq, pkp, pvp, kq, vq, eq, ekp, evp
     torch.cuda.empty_cache()
@@ -2592,8 +2876,12 @@ def main():
         check_outputs(prompts, outs, cfg.vocab_size, impl)
         if st["steps"] <= 0 or st["hits"] <= 0:
             raise AssertionError(f"{impl}: no ticks or no prefix hits")
+        # every per-token launch on the cluster kernel, by its own count
+        want = {impl: N_LAYERS * st["steps"]}
+        if impl == "token":
+            want["token_cluster"] = want["token"]
         check_launches(f"ragged {impl} engine", st["launches"],
-                       dict(none, **{impl: N_LAYERS * st["steps"]}))
+                       dict(none, **want))
     for a, b in zip(runs["qblock"][0], runs["token"][0]):
         if not np.array_equal(a, b):
             raise AssertionError("q-block and per-token engines disagree")
@@ -2711,6 +2999,8 @@ def main():
                         flash=N_LAYERS * big, flash_wgmma=N_LAYERS * big)
         else:
             want[f"{name}_q8"] = N_LAYERS * st["steps"]
+            if name == "token":
+                want["token_q8_cluster"] = want["token_q8"]
         log(f"  int8 {name}: {st['steps']} ticks, {st['forwards']} forwards,"
             f" {st['hits']} prefix hits, wall {st['wall']:.3f} s")
         if st["hits"] <= 0:
@@ -2883,18 +3173,22 @@ def main():
     plain = {"qblock": rpa.qblock_attention_plain,
              "token": rpa.token_attention_plain}
     rows = []
-    timed = time_ragged(torch, {impl: kern[impl] for impl in rpa.IMPLS},
+    timed = time_ragged(torch, rpa, {impl: kern[impl] for impl in rpa.IMPLS},
                         plain, (
         ("captured mixed tick", c, plans, cerrs),
         ("captured pure-decode tick", dcap, dplans, dcerrs)), scale)
-    for impl, name, line in (("qblock", "ragged_qblock", 215),
-                             ("token", "ragged_token", 389)):
-        first, *other = timed[impl]
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": f"{REF}:{line}",
-                     "launches": runs[impl][1]["launches"][impl], **first,
-                     "library_ms": None, "library": RAGGED_LIBRARY,
-                     "other_shapes": other})
+    first, *other = timed["qblock"]
+    rows.append({"name": "ragged_qblock", "route": "cuda", "source": SOURCE,
+                 "replaces": f"{REF}:215",
+                 "launches": runs["qblock"][1]["launches"]["qblock"],
+                 **first, "library_ms": None, "library": RAGGED_LIBRARY,
+                 "other_shapes": other})
+    token_launches = {v: runs["token"][1]["launches"][f"token_{v}"]
+                      for v in rpa.TOKEN_VARIANTS}
+    rows.append(token_row("ragged_token", 389, timed["token"],
+                          token_launches,
+                          worst_of(cerrs["token_variants"],
+                                   dcerrs["token_variants"])))
     flash_rows = [time_flash(torch, fa, fc, name)
                   for name, fc in flash_caps.items()]
     train_rows = time_flash_train(torch, fa, tc)
@@ -3026,18 +3320,22 @@ def main():
     # the int8 kernels, on the inputs captured in phase 3(e)
     q8_kern = {"qblock": rpa.qblock_attention_q8,
                "token": rpa.token_attention_q8}
-    timed = time_ragged(torch, q8_kern, plain, (
+    timed = time_ragged(torch, rpa, q8_kern, plain, (
         ("captured int8 mixed tick", ic, q8_plans, q8_cerrs),
         ("captured int8 pure-decode tick", idc, q8_dplans, q8_dcerrs)),
         scale, quant=True)
-    for impl, name, line in (("qblock", "ragged_qblock_q8", 258),
-                             ("token", "ragged_token_q8", 431)):
-        first, *other = timed[impl]
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": f"{REF}:{line}",
-                     "launches": int8_runs[impl][1]["launches"][f"{impl}_q8"],
-                     **first, "library_ms": None, "library": RAGGED_LIBRARY,
-                     "other_shapes": other})
+    first, *other = timed["qblock"]
+    rows.append({"name": "ragged_qblock_q8", "route": "cuda",
+                 "source": SOURCE, "replaces": f"{REF}:258",
+                 "launches": int8_runs["qblock"][1]["launches"]["qblock_q8"],
+                 **first, "library_ms": None, "library": RAGGED_LIBRARY,
+                 "other_shapes": other})
+    token_launches = {v: int8_runs["token"][1]["launches"][f"token_q8_{v}"]
+                      for v in rpa.TOKEN_VARIANTS}
+    rows.append(token_row("ragged_token_q8", 431, timed["token"],
+                          token_launches,
+                          worst_of(q8_cerrs["token_variants"],
+                                   q8_dcerrs["token_variants"])))
     r = time_paged(torch, pa, dc, "int8 legacy engine decode step, bf16 q, "
                                   "int8 pages")
     log_paged(r)

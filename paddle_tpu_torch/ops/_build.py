@@ -47,6 +47,11 @@ SIGNATURES = {
         "ptt_ragged_qblock_q8": [_I] + [_P] * 10 + [_I] * 9 + [_F, _P],
         "ptt_ragged_qblock_smem": [_I] * 7,
         "ptt_ragged_token_q8": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P],
+        "ptt_ragged_token_split": [_I] + [_P] * 7 + [_I] * 7 + [_F]
+                                  + [_I] * 2 + [_P],
+        "ptt_ragged_token_split_q8": [_I] + [_P] * 9 + [_I] * 7 + [_F]
+                                     + [_I] * 2 + [_P],
+        "ptt_ragged_token_split_smem": [_I] * 8,
     },
     "flash_attention": {
         "ptt_flash_fwd": [_I] + [_P] * 5 + [_L] * 12 + [_I] * 11 + [_F, _P],

@@ -33,11 +33,17 @@ int8 pages:
   one thread block per work unit (q-block, owner slot) and kv head over
   that owner's pages alone (:func:`qblock_units`); the plain version
   keeps the reference's job walk.
-* **token** (kernel 8, B9 on int8 pages): one thread block per (token,
-  kv head) walks that token's own pages through its block-table row.
+* **token** (kernel 8, B9 on int8 pages): each (token, kv head) walks
+  that token's own pages through its block-table row. Two variants,
+  chosen by :func:`token_variant` before the launch: ``"cluster"`` splits
+  the walk across a thread-block cluster of :func:`token_splits` blocks,
+  which exchange page maxima and fold every page's partial terms in page
+  order (:func:`token_split_model` is its algorithm in PyTorch, for the
+  tests); ``"block"`` runs one block per (token, kv head) over the whole
+  context, for the shapes the first cannot take.
 
-Both kernels give a real token's row the same bits (ROADMAP C21): the
-same per-row arithmetic over the row's own pages in the same order.
+Both grids give a real token's row the same bits (ROADMAP C21): the same
+per-row arithmetic over the row's own pages in the same order.
 
 A CUDA tensor goes to the kernel or raises. A CPU tensor runs the plain
 PyTorch version of the same recurrence, which is also what the kernels
@@ -53,6 +59,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .paged_attention import SMEM_LIMIT, _sm_count
 
 #: causal mask inside a row's own pages (``paged_attention.py:52``)
 NEG_INF = float("-inf")
@@ -72,6 +79,24 @@ IMPLS = ("qblock", "token")
 
 #: page sizes the q-block kernel is built for (one instantiation each)
 QBLOCK_PAGE_SIZES = (16,)
+
+#: the per-token kernels' variants (see :func:`token_variant`)
+TOKEN_VARIANTS = ("cluster", "block")
+#: the page size the ``"cluster"`` kernel takes, the most blocks a (token,
+#: kv head) splits over (the portable cluster size) and the most pages a
+#: block may take a round (``token_split_kernel``'s limit)
+SPLIT_PAGE, MAX_SPLITS, MAX_ROUND_PAGES = 16, 8, 8
+#: the pages c a block takes a round in a cluster, and alone (one split:
+#: the block is one of many on its SM, and fewer, larger rounds cut the
+#: serial latency of a (token, kv head))
+ROUND_PAGES, ROUND_PAGES_ALONE = 4, 6
+#: the blocks an SM that :func:`token_splits` aims the grid at
+SPLIT_BLOCKS_PER_SM = 2
+
+
+def token_round_pages(splits):
+    """The pages c each of ``splits`` blocks takes a round."""
+    return ROUND_PAGES_ALONE if splits == 1 else ROUND_PAGES
 
 
 def _token_descriptors(num_tokens, seq_slots, q_starts, q_lens,
@@ -315,6 +340,168 @@ def token_attention_plain(q, k_pages, v_pages, plan, sm_scale,
 
 
 # ---------------------------------------------------------------------------
+# the "cluster" per-token kernel: its schedule, rule and algorithm
+# ---------------------------------------------------------------------------
+
+def token_splits(num_tokens, kv_heads, pages_per_seq, n_sm):
+    """The ``"cluster"`` kernel's splits S per (token, kv head): enough
+    that the grid of S x kv_heads x tokens blocks gives each of the
+    ``n_sm`` SMs about SPLIT_BLOCKS_PER_SM, at most MAX_SPLITS and at most
+    the table's rounds of ROUND_PAGES pages a block. Shapes alone decide
+    it: the contexts live on the device, and reading them would stall the
+    host once a layer."""
+    rounds = -(-pages_per_seq // ROUND_PAGES)
+    want = -(-SPLIT_BLOCKS_PER_SM * n_sm // max(num_tokens * kv_heads, 1))
+    return max(1, min(MAX_SPLITS, rounds, want))
+
+
+def token_split_rounds(split, splits, n_pages, round_pages=None):
+    """The pages below ``n_pages`` that block ``split`` of ``splits``
+    takes, round by round: round k covers pages k S c .. (k + 1) S c - 1
+    (c = ``round_pages``, :func:`token_round_pages` by default) and the
+    block takes the c consecutive ones from k S c + split c. Every block
+    has the same rounds; one with no page in a round gets an empty
+    list."""
+    c = token_round_pages(splits) if round_pages is None else round_pages
+    per = splits * c
+    return [list(range(k * per + split * c,
+                       min(k * per + (split + 1) * c, n_pages)))
+            for k in range(-(-n_pages // per))]
+
+
+def round_maxima(m, parts):
+    """Step (b) of a round: each page's running max before (``m_prev``)
+    and after (``m_new``) it, in page order from the carried ``m``, over
+    the page maxima the blocks exchange (a page past a token's context is
+    skipped); returns the max carried into the next round."""
+    for part in parts:
+        m_new = torch.where(part["live"], torch.maximum(m, part["mcur"]), m)
+        part["m_prev"], part["m_new"] = m, m_new
+        m = m_new
+    return m
+
+
+def page_terms(part):
+    """Step (c), one page where its block holds it: the weights against
+    the running max after the page, their sum, ``corr`` and ``pv``."""
+    w = torch.exp(part["s"] - part["m_new"])
+    part.update(sum=w.sum(-1, keepdim=True),
+                corr=torch.exp(part["m_prev"] - part["m_new"]),
+                pv=w @ part["v"])
+
+
+def ordered_fold(acc, l, parts):
+    """Step (d): the round's pages folded into acc and l in page order,
+    ``acc corr + pv`` and ``l corr + sum``, a page past a token's context
+    skipped."""
+    for part in parts:
+        live = part["live"]
+        l = torch.where(live, l * part["corr"] + part["sum"], l)
+        acc = torch.where(live, acc * part["corr"] + part["pv"], acc)
+    return acc, l
+
+
+def token_split_model(q, k_pages, v_pages, plan, sm_scale, splits,
+                      k_scales=None, v_scales=None, round_pages=None):
+    """The ``"cluster"`` kernel's algorithm in fp32 PyTorch, for the tests
+    (no main path runs it): every token at once, its pages in rounds of
+    ``splits`` x c (c = ``round_pages``, :func:`token_round_pages` by
+    default), each block's pages dealt by :func:`token_split_rounds`;
+    per round the blocks' scores and page maxima, :func:`round_maxima`,
+    :func:`page_terms` and :func:`ordered_fold`. Each step is the plain
+    version's operation on the same values, so in fp32 the model gives
+    :func:`token_attention_plain`'s bits (the kernel gives the q-block
+    kernel's, ROADMAP C21). Same arguments as the plain version."""
+    T, H, D = q.shape
+    KVH, _, P, _ = k_pages.shape
+    G = H // KVH
+    d = plan.dev
+    pps = d["tables"].shape[1]
+    npg = torch.from_numpy(np.minimum(-(-plan.host["tok_ctx"] // P),
+                                      pps)).to(q.device)
+    n_pages = int(npg.max()) if T else 0
+    qg = q.float().view(T, KVH, G, D)
+    ctx = d["tok_ctx"][:, None, None, None]
+    m = torch.full((T, KVH, G, 1), NEG_INF, device=q.device)
+    l = torch.zeros((T, KVH, G, 1), device=q.device)
+    acc = torch.zeros((T, KVH, G, D), device=q.device)
+    iota = torch.arange(P, device=q.device, dtype=torch.int32)
+    rows = d["tables"][d["tok_slot"].long()]             # [T, pages]
+    dealt = [token_split_rounds(s, splits, n_pages, round_pages)
+             for s in range(splits)]
+    for k in range(len(dealt[0])):
+        # (a) each block scores its pages and takes their maxima
+        parts = []
+        for split, rounds in enumerate(dealt):
+            for p in rounds[k]:
+                kk, v = _gather_pages(k_pages, v_pages, k_scales, v_scales,
+                                      rows[:, p].long())  # [T, KVH, P, D]
+                s = (qg @ kk.transpose(-1, -2)) * sm_scale
+                s = torch.where(p * P + iota < ctx, s, NEG_INF)
+                parts.append(dict(page=p, split=split, s=s, v=v,
+                                  mcur=s.amax(-1, keepdim=True),
+                                  live=(p < npg)[:, None, None, None]))
+        parts.sort(key=lambda part: part["page"])
+        # (b) the page maxima exchanged; (c) each page's terms where its
+        # block holds it; (d) the ordered fold
+        m = round_maxima(m, parts)
+        for part in parts:
+            page_terms(part)
+        acc, l = ordered_fold(acc, l, parts)
+    out = acc / l.clamp_min(1e-30)
+    return out.reshape(T, H, D).to(q.dtype)
+
+
+def token_slice(G, D, splits):
+    """The G x D outputs of a (token, kv head) that each of ``splits``
+    blocks folds: an even count (``token_slice`` in the kernel)."""
+    return 2 * -(-G * D // (2 * splits))
+
+
+def token_smem_bytes(el, quant, G, D, pages_per_seq, splits,
+                     round_pages=None):
+    """Dynamic shared memory of one ``"cluster"`` block (the formula of
+    ``token_split_smem_bytes`` in ``csrc/ragged_paged_attention.cu``): an
+    mbarrier, the block's c pages of a round (:func:`token_round_pages` by
+    default) in ``el``-byte values (K rows padded by 16 bytes, V rows
+    packed) and their int8 row scales; in fp32 q, the block's scores of a
+    round (G rounded up to four a key), the round's page maxima, corr and
+    sums for every row and, with more than one split, pv over the block's
+    slice, the slice's acc, m and l; and the block's table entries."""
+    c = token_round_pages(splits) if round_pages is None else round_pages
+    P = SPLIT_PAGE
+    page = P * ((D * el + 16) + D * el)
+    per_round = splits * c
+    slice_ = token_slice(G, D, splits)
+    floats = (G * (D + 4) + c * P * -(-G // 4) * 4 + 3 * per_round * G
+              + (per_round * slice_ if splits > 1 else 0) + slice_ + 2 * G)
+    cap = c * -(-pages_per_seq // per_round)
+    return (16 + c * page + (c * 2 * P * 4 if quant else 0) + 4 * floats
+            + 4 * cap)
+
+
+def token_variant(q, k_pages, v_pages, pages_per_seq, n_sm, k_scales=None,
+                  v_scales=None):
+    """The rule: ``("cluster", splits)`` when the ``"cluster"`` kernel
+    takes these operands (page size SPLIT_PAGE, head_dim % 16 == 0, every
+    pool and scale array 16-byte aligned, a block that fits shared
+    memory), else ``("block", 0)``. Depends on shapes, types and addresses
+    only."""
+    T, H, D = q.shape
+    KVH, _, P, _ = k_pages.shape
+    pools = [t for t in (k_pages, v_pages, k_scales, v_scales)
+             if t is not None]
+    if P != SPLIT_PAGE or D % 16 or H % KVH or pages_per_seq < 1 \
+            or T > 65535 or any(t.data_ptr() % 16 for t in pools):
+        return "block", 0
+    splits = token_splits(T, KVH, pages_per_seq, n_sm)
+    if token_smem_bytes(k_pages.element_size(), k_scales is not None,
+                        H // KVH, D, pages_per_seq, splits) > SMEM_LIMIT:
+        return "block", 0
+    return "cluster", splits
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers: a CUDA tensor launches the kernel, a CPU tensor runs
 # the plain version, anything else raises
 # ---------------------------------------------------------------------------
@@ -369,9 +556,10 @@ def _check_cuda_inputs(q, k_pages, v_pages, plan, impl, k_scales=None,
                 raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(fn_name, q, pages, plan, sm_scale):
+def _launch(fn_name, q, pages, plan, sm_scale, extra=()):
     """Launch ``fn_name`` on ``q``, ``pages`` (K and V, then the scales of
-    int8 pages) and the plan's device arrays; returns the output."""
+    int8 pages), the plan's device arrays and the ints ``extra`` after the
+    scale; returns the output."""
     T, H, D = q.shape
     KVH, NP, P, _ = pages[0].shape
     d = plan.dev
@@ -386,7 +574,8 @@ def _launch(fn_name, q, pages, plan, sm_scale):
         sizes = (T, H, KVH, D, NP, P, d["tables"].shape[1])
     args = [ctypes.c_int(_build.dtype_code(q.dtype))] + [
         ctypes.c_void_p(t.data_ptr()) for t in (q, *pages, out, *arrays)
-    ] + [ctypes.c_int(x) for x in sizes] + [ctypes.c_float(sm_scale)]
+    ] + [ctypes.c_int(x) for x in sizes] + [ctypes.c_float(sm_scale)] + [
+        ctypes.c_int(x) for x in extra]
     _build.launch(fn_name, q.device, args)
     return out
 
@@ -435,47 +624,82 @@ def qblock_attention_q8(q, k_pages, v_pages, k_scales, v_scales, plan,
 qblock_attention_q8.launches = 0
 
 
+def _token_cuda(fn, q, k_pages, v_pages, plan, sm_scale, k_scales,
+                v_scales, variant):
+    """Check, pick the variant (or take the forced one), launch, count:
+    ``fn`` is the wrapper whose counters the launch adds to."""
+    _check_cuda_inputs(q, k_pages, v_pages, plan, "token", k_scales,
+                       v_scales)
+    rule, splits = token_variant(q, k_pages, v_pages,
+                                 plan.dev["tables"].shape[1],
+                                 _sm_count(q.device.index), k_scales,
+                                 v_scales)
+    if variant == "cluster" and rule != "cluster":
+        raise ValueError(f"the cluster kernel does not take pages "
+                         f"{tuple(k_pages.shape)} with q {tuple(q.shape)}")
+    variant = variant or rule
+    quant = k_scales is not None
+    pages = (k_pages, v_pages) + ((k_scales, v_scales) if quant else ())
+    name = "ptt_ragged_token" + ("_split" if variant == "cluster" else "") \
+        + ("_q8" if quant else "")
+    out = _launch(name, q, pages, plan, sm_scale,
+                  (splits, token_round_pages(splits))
+                  if variant == "cluster" else ())
+    fn.launches += 1
+    setattr(fn, f"{variant}_launches", getattr(fn, f"{variant}_launches") + 1)
+    return out
+
+
 def token_attention(q, k_pages, v_pages, plan, sm_scale, k_scales=None,
-                    v_scales=None):
+                    v_scales=None, variant=None):
     """Kernel 8 (per-token grid), or B9 (:func:`token_attention_q8`) when
     ``k_scales``/``v_scales`` come with int8 pages. ``plan`` from
-    :func:`make_plan` with ``impl="token"``. Kernel 8 counts its CUDA
-    launches in ``token_attention.launches``."""
+    :func:`make_plan` with ``impl="token"``. ``variant`` None takes the
+    rule (:func:`token_variant`); ``"cluster"`` / ``"block"`` forces one
+    kernel (a forced ``"cluster"`` raises where it does not apply), CUDA
+    tensors only. Kernel 8 counts its CUDA launches in
+    ``token_attention.launches`` and, by variant, in
+    ``.cluster_launches`` and ``.block_launches``."""
     if k_scales is not None:
         return token_attention_q8(q, k_pages, v_pages, k_scales, v_scales,
-                                  plan, sm_scale)
+                                  plan, sm_scale, variant)
+    if variant not in (None, *TOKEN_VARIANTS):
+        raise ValueError(f"variant {variant!r}, expected one of "
+                         f"{TOKEN_VARIANTS}")
     if q.device.type == "cpu":
         return token_attention_plain(q, k_pages, v_pages, plan, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged attention for device {q.device}")
-    _check_cuda_inputs(q, k_pages, v_pages, plan, "token")
-    out = _launch("ptt_ragged_token", q, (k_pages, v_pages), plan, sm_scale)
-    token_attention.launches += 1
-    return out
+    return _token_cuda(token_attention, q, k_pages, v_pages, plan, sm_scale,
+                       None, None, variant)
 
 
 token_attention.launches = 0
+token_attention.cluster_launches = 0
+token_attention.block_launches = 0
 
 
 def token_attention_q8(q, k_pages, v_pages, k_scales, v_scales, plan,
-                       sm_scale):
+                       sm_scale, variant=None):
     """Kernel B9: the per-token grid over int8 pages with fp32 row scales
-    ``[KVH, NP, P]``. Counts its CUDA launches in
-    ``token_attention_q8.launches``."""
+    ``[KVH, NP, P]``, ``variant`` as in :func:`token_attention`. Counts
+    its CUDA launches in ``token_attention_q8.launches`` and, by variant,
+    in ``.cluster_launches`` and ``.block_launches``."""
+    if variant not in (None, *TOKEN_VARIANTS):
+        raise ValueError(f"variant {variant!r}, expected one of "
+                         f"{TOKEN_VARIANTS}")
     if q.device.type == "cpu":
         return token_attention_plain(q, k_pages, v_pages, plan, sm_scale,
                                      k_scales, v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged attention for device {q.device}")
-    _check_cuda_inputs(q, k_pages, v_pages, plan, "token", k_scales,
-                       v_scales)
-    out = _launch("ptt_ragged_token_q8", q,
-                  (k_pages, v_pages, k_scales, v_scales), plan, sm_scale)
-    token_attention_q8.launches += 1
-    return out
+    return _token_cuda(token_attention_q8, q, k_pages, v_pages, plan,
+                       sm_scale, k_scales, v_scales, variant)
 
 
 token_attention_q8.launches = 0
+token_attention_q8.cluster_launches = 0
+token_attention_q8.block_launches = 0
 
 
 def ragged_paged_attention(q, k_pages, v_pages, block_tables, seq_slots,
