@@ -76,7 +76,12 @@ Phases, each fatal on error (non-zero exit, no result line):
    (``bwd_rounding_model``, ``grad_model_error``);
 3. serving a full-width, 32-layer Llama-3-8B in bf16 with seeded random
    weights, every path with the launch counts zeroed just before and read
-   just after, after one uncounted warm pass:
+   just after, after one uncounted warm pass. The continuous engines'
+   counted runs take their default, CUDA graphs (each ragged token bucket
+   and the legacy decode step captured at its first use, then replayed;
+   a replay credits the launches its graph recorded, so the counts stay
+   exact); their instrumented passes run eagerly (``cuda_graphs=False``),
+   since the probes wrap Python that a replay does not run:
    a. ``ContinuousServingEngine`` (ragged) serves 8 concurrent requests
       (prompts of 32-600 tokens, four sharing a 64-token prefix, 16 new
       tokens each), once on the q-block kernel and once on the per-token
@@ -110,12 +115,42 @@ Phases, each fatal on error (non-zero exit, no result line):
       128); B10 = 225 x forwards in each, every call (bf16) on the
       tensor-core variant its M names (the stream at M <= 32, the GEMM
       above; the two counts add up to B10's), and kernels 6 and 8 and B4
-      never launch. B10's calls by M are counted in each of the three
-      runs (``MatmulHistogram``: one more Python call and a ``Counter``
-      increment a B10 call, which their ticks carry) and printed. Prints
+      never launch. B10's launches by M, as its wrapper counts them
+      (``int8_matmul.launches_by_m``; a replay credits what its graph
+      recorded), are 225 x the forwards by token count
+      (``count_tick_shapes``) and printed. Prints
       the native and int8 ``page_nbytes``; instrumented passes time every
       tick and capture layer 0's inputs of B7/B9, B5 and B10 (M = 8 and
       256);
+   f. right after (c), CUDA graphs against eager, bf16: the q-block,
+      per-token and legacy engines each serve the load of (a) twice in
+      the same order (``run_in_order``: every request queued while the
+      serve loop is held, so both runs have the same ticks), once eagerly
+      and once with graphs after ``warmup_programs`` captured every
+      declared shape: greedy streams bit-identical, launch counts equal
+      by kernel and variant (each ragged kernel 32 a tick, the decode
+      kernel 32 a decode step), every tick of the graph run a replay and
+      none a capture, each kernel in both traced runs' traces as many
+      times as its counters say, less records the trace dropped (at most
+      half; so the trace observes the replayed kernels whose counts are
+      credits), and C21 (``check_c21``) on the
+      engines' fixed
+      q-block grid (``max_slots=8``) at every tick of the graph run, over
+      layer 0's live pool. Each run takes a CUDA-only ``torch.profiler``
+      trace; a marker kernel at each tick's start splits it into ticks on
+      the device's clock (``split_ticks``): per tick the host's wall, the
+      host's time in the forward, the device's window and busy time and
+      the idle share (1 - busy / window); the eager run also the host's
+      time by module (``HostBreakdown``). Then seeded sampling
+      (``SAMPLED``) on the q-block engine, two graph runs and one eager
+      run of the load in order, all equal, and ``abort`` under load: the
+      8 requests fail with ``RuntimeError("ServingEngine aborted")``
+      after the first decode tick, every slot freed, and ``start()``
+      serves again on a new cache, capturing anew, the stream a fresh
+      engine serves;
+   g. right after (e), the same as (f) for the fully-int8 engines, and
+      B10's launches by M equal in every run and 225 x the forwards by
+      token count;
    d. training: Llama-3-8B widths cut to 4 layers (bf16, 1.92 B
       parameters; AdamW's fp32 master weights and moments leave no room
       for more on one card), four Paddle-style steps (``loss, logits =
@@ -151,7 +186,9 @@ Phases, each fatal on error (non-zero exit, no result line):
    computes the same function, that call, beside the bound for the same
    work, all on the inputs captured in phase 3: the ragged kernels at
    the captured mixed and pure-decode ticks (``time_ragged``; a q-block
-   row carries the per-token kernel's time on the same inputs; kernel 8
+   row is the engines' fixed grid, its output held bit-equal to the
+   live-units grid's, whose time it carries beside, and the per-token
+   kernel's time on the same inputs; kernel 8
    and B9 as the rule's cluster kernel beside the block kernel, the
    parent's design, forced on the same inputs, and at the pure-decode
    tick the cluster kernel at every split count), B1 (tensor cores) at
@@ -176,11 +213,13 @@ Phases, each fatal on error (non-zero exit, no result line):
    training step's;
 6. tick breakdown of the ragged engines: per tick of the instrumented
    passes, the forward, the schedule build and the attention calls, and
-   both ragged kernels replayed at every tick shape, with C21 held there
+   both ragged kernels replayed at every tick shape (kernel 6 on the
+   engines' fixed grid), with C21 held there
    on a random q over layer 0's pool and over that pool quantised by the
    cache's codec.
 
-Prints a ``{"kernels": [...]}`` line with all ten kernels (B1, B2 and B3
+Prints a ``{"graph_breakdown": ...}`` line (phases 3f and 3g, per engine
+and mode), a ``{"kernels": [...]}`` line with all ten kernels (B1, B2 and B3
 each as its two variants, B10 as its three, with the dtypes each
 serves; kernel 8, B9, B4 and B5 as the cluster kernels the main paths
 run, the block kernels under ``block_variant``), the card's
@@ -199,12 +238,18 @@ import numpy as np
 
 N_HEADS, N_KV, HEAD_DIM, PAGE = 32, 8, 128, 16
 N_LAYERS = 32
+#: the least share of a kernel's counted launches a CUDA trace must show
+#: (traces have dropped up to 7 % of a kernel's records)
+TRACE_KEEPS = 0.5
 N_LINEARS = 7 * N_LAYERS + 1       # the quantised Llama's, lm_head included
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 FP32_TOL = 1e-5
 NEW_TOKENS = 16
+#: the engines' slots: the q-block kernels' fixed grid takes at most
+#: this many owners a q-block
+ENGINE_SLOTS = 8
 #: the training phase: Llama-3-8B widths cut to 4 layers (AdamW with fp32
 #: master weights and moments needs ~16 B a parameter: 32 layers, 8.0 B
 #: parameters, would need ~128 GB; 4 layers, 1.92 B, ~31 GB)
@@ -404,15 +449,22 @@ def b10_notes(build):
     log(f"  ptxas wgmma notes for B10: {notes}")
 
 
-def qblock_notes(build):
+def qblock_notes(build, rpa):
     """The q-block kernels' (6 and B7) launch shape and dynamic shared
     memory at Llama-3-8B widths (32 heads over 8 kv heads, head_dim 128,
-    page 16, q-block 8, 128 jobs a block) for each page type."""
+    page 16, q-block 8, tables of 128 pages) for each page type, and the
+    fixed grid the engines launch (8 slots): its units and job width at
+    the 8- and 256-token buckets. The units' page lists take min(J,
+    table width) ints, so the fixed job width costs no shared memory."""
     lib = build.load_kernels()
+    for b in (8, 256):
+        u_max, j_max = rpa.qblock_caps(b, 8, 8, 128)
+        log(f"  qblock_unit_kernel fixed grid at a {b}-token bucket: "
+            f"{u_max} x {N_KV} blocks, {j_max} jobs a q-block")
     for name, el in (("fp32 pages", 4), ("bf16/fp16 pages", 2),
                      ("int8 pages (B7)", 1)):
         log(f"  qblock_unit_kernel, {name}: 256 threads, "
-            f"{lib.ptt_ragged_qblock_smem(el, N_HEADS, N_KV, HEAD_DIM, PAGE, 8, 128)}"
+            f"{lib.ptt_ragged_qblock_smem(el, N_HEADS, N_KV, HEAD_DIM, PAGE, 8, 1024, 128)}"
             f" bytes of dynamic shared memory")
 
 
@@ -1499,23 +1551,24 @@ def make_prompts():
 
 
 class TickProbe:
-    """Instruments one serving run, tick by tick: the model forward on
-    the host clock up to a device sync, the schedule build
-    (``make_plan``, host clock, its device copies included) and every
-    layer's attention call between two CUDA events. Keeps each tick's
-    descriptors and block tables, and layer 0's inputs of the largest
-    tick that mixes decode and prefill spans (``best``) and of the
-    pure-decode tick with the most tokens, then the longest contexts
-    (``decode``)."""
+    """Instruments one eager serving run, tick by tick: the model forward
+    on the host clock up to a device sync, the schedule build
+    (``plan_arrays`` in the step's ``begin_ragged``, host clock, before
+    the forward) and every layer's attention call between two CUDA
+    events. Keeps each tick's descriptors and block tables, and layer 0's
+    inputs of the largest tick that mixes decode and prefill spans
+    (``best``) and of the pure-decode tick with the most tokens, then the
+    longest contexts (``decode``)."""
 
     def __init__(self, torch, gen_module, model, n_layers):
         self.torch, self.mod, self.model = torch, gen_module, model
         self.n_layers = n_layers
         self.orig_attn = gen_module.ragged_paged_attention
-        self.orig_plan = gen_module.make_plan
+        self.orig_plan = gen_module.plan_arrays
         self.calls, self.best, self.score = 0, None, -1
         self.decode, self.decode_score = None, (-1, -1)
         self.ticks = []          # dict per forward
+        self.plan_ms = 0.0       # the next forward's schedule build
 
     def attention(self, q, kp, vp, tables, slots, starts, lens, ctx, **kw):
         if self.calls % self.n_layers == 0:
@@ -1547,14 +1600,15 @@ class TickProbe:
         self.ticks[-1]["events"].append((a, b))
         return out
 
-    def make_plan(self, *args, **kw):
+    def plan_arrays(self, *args, **kw):
         t0 = time.perf_counter()
         plan = self.orig_plan(*args, **kw)
-        self.ticks[-1]["plan_ms"] += (time.perf_counter() - t0) * 1e3
+        self.plan_ms += (time.perf_counter() - t0) * 1e3
         return plan
 
     def forward(self, *args, **kw):
-        self.ticks.append(dict(events=[], plan_ms=0.0))
+        self.ticks.append(dict(events=[], plan_ms=self.plan_ms))
+        self.plan_ms = 0.0
         t0 = time.perf_counter()
         out = self.orig_forward(*args, **kw)
         self.torch.cuda.synchronize()
@@ -1563,7 +1617,7 @@ class TickProbe:
 
     def summary(self):
         """Per tick: tokens, forward ms, attention ms (sum over layers of
-        the event pairs), make_plan ms."""
+        the event pairs), schedule build ms."""
         return [dict(tokens=int(np.asarray(t["desc"][2]).sum()),
                      fwd_ms=t["fwd_ms"], plan_ms=t["plan_ms"],
                      attn_ms=sum(a.elapsed_time(b) for a, b in t["events"]))
@@ -1571,14 +1625,14 @@ class TickProbe:
 
     def __enter__(self):
         self.mod.ragged_paged_attention = self.attention
-        self.mod.make_plan = self.make_plan
+        self.mod.plan_arrays = self.plan_arrays
         self.orig_forward = self.model.forward
         self.model.forward = self.forward
         return self
 
     def __exit__(self, *exc):
         self.mod.ragged_paged_attention = self.orig_attn
-        self.mod.make_plan = self.orig_plan
+        self.mod.plan_arrays = self.orig_plan
         del self.model.forward
         # the serving model must not outlive its phase (a bound method
         # holds it too)
@@ -1608,6 +1662,13 @@ class Count:
 def zero_counts(kern):
     for fn in kern.values():
         fn.launches = 0
+    kern["int8_matmul"].launches_by_m.clear()
+
+
+def b10_by_m(kern):
+    """B10's launches by M since the counts were zeroed, as its wrapper
+    counts them (a replay credits what its graph recorded)."""
+    return dict(sorted(kern["int8_matmul"].launches_by_m.items()))
 
 
 def read_counts(kern):
@@ -1639,12 +1700,19 @@ def run_concurrently(eng, prompts, **kw):
 
 def serve(torch, pt, kern, model, prompts, warm, impl="qblock",
           enable_ragged=True, probes=(), tick_ms=None, **engine_kw):
-    """Warm the engine (compiles nothing, but fills cuBLAS workspaces and
-    registers the shared prefix), then zero the launch counts and serve
-    all prompts concurrently under ``probes``. ``steps`` counts the ticks
-    that ran a forward (ragged ticks, or legacy ticks that ran a chunk or
-    a decode step: an integer sum, no sync), ``forwards`` the model
-    forwards (a legacy tick may run a chunk and a decode step). With
+    """Warm the engine (one request fills cuBLAS workspaces and registers
+    the shared prefix, then ``warmup_programs`` captures the graph of
+    every declared tick shape), then zero the launch counts and serve all
+    prompts concurrently under
+    ``probes``. A run with probes is eager (``cuda_graphs=False``: the
+    probes wrap Python that a replayed graph does not run); the others
+    run the engine's default, CUDA graphs, whose replays credit their
+    recorded launches, so the counts stay exact. ``steps`` counts the
+    ticks that ran a forward (ragged ticks, or legacy ticks that ran a
+    chunk or a decode step: an integer sum, no sync), ``forwards`` the
+    model forwards (a legacy tick may run a chunk and a decode step),
+    ``forwards_by_m`` the forwards by token count, ``b10_by_m`` B10's
+    launches by M. With
     ``tick_ms`` (a list) every such legacy tick also appends its time, to
     a device sync. ``engine_kw`` (``kv_dtype``, ``weight_dtype``) goes to
     the engine. Returns outputs, counts and timings."""
@@ -1653,7 +1721,7 @@ def serve(torch, pt, kern, model, prompts, warm, impl="qblock",
                                      prefill_chunk_tokens=256,
                                      ragged_impl=impl,
                                      enable_ragged=enable_ragged,
-                                     **engine_kw)
+                                     cuda_graphs=not probes, **engine_kw)
     legacy_ticks = [0]
     if not enable_ragged:
         legacy_tick = eng._legacy_tick
@@ -1671,12 +1739,17 @@ def serve(torch, pt, kern, model, prompts, warm, impl="qblock",
         eng._legacy_tick = counted_tick
     with eng:
         eng.generate(warm, max_new_tokens=NEW_TOKENS, timeout=600)
+        # every declared shape captured before the timed run (no capture
+        # falls in it; eager engines just run each shape once)
+        eng.run_on_loop(lambda e: e.warmup_programs(), 600)
         if tick_ms is not None:
             tick_ms.clear()
         steps0 = eng.ragged_steps + legacy_ticks[0]
         rag0 = eng.ragged_steps
         hits0 = eng.prefix_hits
         dec0, buckets0 = eng.decode_steps, Counter(eng.prefill_chunk_buckets)
+        graphs0 = (eng.graph_captures, eng.graph_replays)
+        by_m = count_tick_shapes(eng)
         zero_counts(kern)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1690,15 +1763,47 @@ def serve(torch, pt, kern, model, prompts, warm, impl="qblock",
         decode_steps = eng.decode_steps - dec0
         stats = dict(steps=eng.ragged_steps + legacy_ticks[0] - steps0,
                      hits=eng.prefix_hits - hits0, wall=wall,
-                     launches=launches, decode_steps=decode_steps,
+                     launches=launches, b10_by_m=b10_by_m(kern),
+                     decode_steps=decode_steps,
                      chunk_buckets=buckets,
+                     # a ragged tick counts a decode step too (as the
+                     # reference's does) but runs one forward
                      forwards=(eng.ragged_steps - rag0
-                               + sum(buckets.values()) + decode_steps),
+                               + sum(buckets.values())
+                               + (0 if enable_ragged else decode_steps)),
+                     forwards_by_m=by_m + buckets,
+                     captures=eng.graph_captures - graphs0[0],
+                     replays=eng.graph_replays - graphs0[1],
                      useful=eng.useful_tokens_total,
                      padded=eng.padded_tokens_total,
                      quantized=eng.quantized_linears,
                      page_nbytes=eng._cache.page_nbytes)
+    if eng.cuda_graphs:
+        ticks = stats["steps"] if enable_ragged else decode_steps
+        if stats["captures"] or stats["replays"] != ticks:
+            raise AssertionError(f"{stats['captures']} captures and "
+                                 f"{stats['replays']} replays in a counted "
+                                 f"run of {ticks} tick forwards")
+    # the wrappers close over the engine: no cycle keeps its pools alive
+    for name in ("_forward", "_legacy_tick"):
+        vars(eng).pop(name, None)
     return results, stats
+
+
+def count_tick_shapes(eng):
+    """From now on, count the engine's tick forwards (ragged ticks and
+    legacy decode steps, graph replays included) by token count: the
+    ``Counter`` returned fills as the engine runs. With the legacy
+    chunks' bucket counts these are the forwards by M, which B10's
+    launches by M must be 225 times."""
+    by_m = Counter()
+    run = eng._forward
+
+    def counted(key, ids, pos, cache):
+        by_m[int(np.asarray(ids).size)] += 1
+        return run(key, ids, pos, cache)
+    eng._forward = counted
+    return by_m
 
 
 def check_outputs(prompts, outs, vocab, label):
@@ -1805,26 +1910,6 @@ class MatmulCapture:
         self.layers = None          # hold no other layer past the run
 
 
-class MatmulHistogram:
-    """For one run, wraps the ``int8_matmul`` that ``int8_linear`` calls
-    and counts its calls by M (``by_m``)."""
-
-    def __init__(self, quant_mod):
-        self.mod, self.by_m = quant_mod, Counter()
-        self.orig = quant_mod.int8_matmul
-
-    def call(self, x, w, scale):
-        self.by_m[x.shape[0]] += 1
-        return self.orig(x, w, scale)
-
-    def __enter__(self):
-        self.mod.int8_matmul = self.call
-        return self
-
-    def __exit__(self, *exc):
-        self.mod.int8_matmul = self.orig
-
-
 class ForwardTimer:
     """Times every model forward to a device sync: (seq_len, ms)."""
 
@@ -1868,6 +1953,686 @@ def serve_static(torch, pt, kern, model, prompts, probes=()):
         launches = read_counts(kern)
         stats = dict(batches=eng.batches_run, wall=wall, launches=launches)
     return results, stats
+
+
+# ---------------------------------------------------------------------------
+# phases 3f and 3g: CUDA graphs against eager
+# ---------------------------------------------------------------------------
+
+#: the engines the graph phases hold replay against eager on
+GRAPH_PATHS = {"qblock": dict(impl="qblock"), "token": dict(impl="token"),
+               "legacy": dict(enable_ragged=False)}
+#: the options of the seeded sampled streams
+SAMPLED = dict(do_sample=True, temperature=0.8, top_p=0.95, seed=1234)
+
+
+def run_in_order(eng, prompts, **gen_kw):
+    """Submit the prompts one at a time, in order, while the serve loop is
+    held at a tick boundary, then release it: every engine this runs on
+    admits the same rows on the same ticks, so two runs are comparable
+    tick for tick. ``gen_kw`` goes to every ``generate``. Returns the
+    outputs."""
+    results, errors = [None] * len(prompts), []
+    entered, release = threading.Event(), threading.Event()
+
+    def hold(_):
+        entered.set()
+        release.wait(600)
+
+    holder = threading.Thread(target=lambda: eng.run_on_loop(hold, 600))
+    holder.start()
+    if not entered.wait(600):
+        raise RuntimeError("the serve loop was not held")
+    threads = []
+    for i, p in enumerate(prompts):
+        def run(i=i, p=p):
+            try:
+                results[i] = eng.generate(p, max_new_tokens=NEW_TOKENS,
+                                          timeout=600, **gen_kw).numpy()
+            except Exception as e:      # noqa: BLE001 — reported below
+                errors.append(e)
+        n = eng._q.qsize()
+        threads.append(threading.Thread(target=run))
+        threads[-1].start()
+        deadline = time.monotonic() + 60
+        while eng._q.qsize() == n and time.monotonic() < deadline:
+            time.sleep(0.001)
+    release.set()
+    for t in threads + [holder]:
+        t.join(900)
+    if errors or any(t.is_alive() for t in threads + [holder]):
+        raise RuntimeError(f"serving failed: {errors!r}")
+    return results
+
+
+class Patches:
+    """Attribute swaps undone in reverse order: an instance attribute set
+    by an earlier swap is put back, not deleted."""
+
+    def __init__(self):
+        self.undo = []
+
+    def swap(self, obj, name, value):
+        own = name in vars(obj)
+        self.undo.append((obj, name, own, vars(obj).get(name)))
+        setattr(obj, name, value)
+
+    def restore(self):
+        for obj, name, own, old in reversed(self.undo):
+            if own:
+                setattr(obj, name, old)
+            else:
+                delattr(obj, name)
+        self.undo = []
+
+
+class HostBreakdown:
+    """The host's time in the tick's modules, exclusive: each wrapped
+    callable adds the time spent in it, less the time of the wrapped
+    callables it calls, to its category, so the categories add up to the
+    time spent inside any of them. Eager runs only (a replayed graph runs
+    no Python). Categories: the model forward's own Python (residual
+    adds, reshapes), the embedding, rope, the norms, the Linears' own
+    forward (cuBLAS launches for native weights), B10's wrapper (int8
+    weights), SwiGLU, the cache's attention (layer Python), the ragged or
+    paged kernel's wrapper (plan checks, launch), the KV scatter (int8:
+    quantise + scatter), and the step's staging before the forward
+    (``begin_ragged`` / ``begin_decode``: schedule build and copies)."""
+
+    def __init__(self, torch, model, gen, fused, quant_mod):
+        self.totals, self.stack, self.t = Counter(), [], 0.0
+        self.torch, self.model = torch, model
+        self.gen, self.fused, self.quant = gen, fused, quant_mod
+        self.patches = Patches()
+
+    def wrap(self, category, fn):
+        def inner(*args, **kw):
+            now = time.perf_counter()
+            if self.stack:
+                self.totals[self.stack[-1]] += now - self.t
+            self.stack.append(category)
+            self.t = now
+            try:
+                return fn(*args, **kw)
+            finally:
+                now = time.perf_counter()
+                self.totals[self.stack.pop()] += now - self.t
+                self.t = now
+        return inner
+
+    def __enter__(self):
+        nn, m, sw = self.torch.nn, self.model, self.patches.swap
+        sw(m, "forward", self.wrap("forward (rest)", m.forward))
+        emb = m.llama.embed_tokens
+        sw(emb, "forward", self.wrap("embedding", emb.forward))
+        for mod in m.modules():
+            if isinstance(mod, nn.Linear):
+                sw(mod, "forward", self.wrap("Linears", mod.forward))
+            elif type(mod).__name__ == "RMSNorm":
+                sw(mod, "forward", self.wrap("norms", mod.forward))
+        for obj, name, cat in (
+                (self.fused, "fused_rotary_position_embedding", "rope"),
+                (self.fused, "fused_swiglu", "swiglu"),
+                (self.quant, "int8_matmul", "B10 wrapper"),
+                (self.gen, "ragged_paged_attention", "attention kernel "
+                                                     "wrapper"),
+                (self.gen, "paged_attention", "attention kernel wrapper"),
+                (self.gen.SlotPagedKVCache, "attend", "attention (cache)"),
+                (self.gen.SlotPagedKVCache, "_scatter", "KV scatter"),
+                (self.gen.SlotPagedKVCache, "begin_ragged", "step staging"),
+                (self.gen.SlotPagedKVCache, "begin_decode", "step staging")):
+            sw(obj, name, self.wrap(cat, getattr(obj, name)))
+        return self
+
+    def __exit__(self, *exc):
+        self.patches.restore()
+        self.model = None        # hold no model past the run
+
+
+class TickTimeline:
+    """Per call of one engine's tick method: the host's wall, the host's
+    time in the tick's forward (``_forward``: the eager launches, or the
+    graph's enqueue), whether it ran a forward and whether a prefill
+    span or chunk (``"mixed"``) or decode rows alone (``"decode"``), the
+    device's window (CUDA events at the tick's start and end), and a
+    marker kernel
+    (``torch.cuda._sleep(0)``) launched first, so that a CUDA trace of
+    the run splits into ticks on the device's own clock. Entered before
+    the engine starts (its serve loop takes its tick method then); it
+    records only while :meth:`arm` is on, which the serve loop sets at a
+    tick boundary, from the tick after that boundary's own (an idle one,
+    which would launch its marker as a trace starts), so the loop's
+    ticks and the recorded ones match one for one."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng, self.ticks = torch, eng, []
+        self.patches = Patches()
+        self.armed = self.skip = False
+
+    def arm(self, on):
+        """On the serve loop (``run_on_loop``): record from the tick after
+        this boundary's, or stop."""
+        self.armed = self.skip = on
+
+    def __enter__(self):
+        eng, torch = self.eng, self.torch
+        name = "_tick" if eng.enable_ragged else "_legacy_tick"
+        tick, fwd = getattr(eng, name), eng._forward
+
+        def work():
+            return eng.ragged_steps + eng.decode_steps + eng.prefill_chunks
+
+        def timed_tick(*args):
+            if not self.armed or self.skip:
+                self.skip = False
+                return tick(*args)
+            rec = dict(fwd_ms=0.0, work=False,
+                       events=[torch.cuda.Event(enable_timing=True)
+                               for _ in "ab"])
+            self.ticks.append(rec)
+            w0, p0 = work(), eng.prefill_chunks
+            torch.cuda._sleep(0)
+            rec["events"][0].record()
+            t0 = time.perf_counter()
+            tick(*args)
+            rec["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["events"][1].record()
+            rec["work"] = work() > w0
+            rec["kind"] = "mixed" if eng.prefill_chunks > p0 else "decode"
+
+        def timed_forward(*args):
+            if not self.armed:
+                return fwd(*args)
+            t0 = time.perf_counter()
+            out = fwd(*args)
+            self.ticks[-1]["fwd_ms"] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        self.patches.swap(eng, name, timed_tick)
+        self.patches.swap(eng, "_forward", timed_forward)
+        return self
+
+    def __exit__(self, *exc):
+        self.patches.restore()
+        self.eng = None
+
+
+def device_intervals(torch, prof):
+    """The CUDA activities (kernels, copies) of a profiler trace as
+    ``(start_ns, end_ns, name)``, sorted."""
+    from torch.autograd import DeviceType
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        start = e.start_ns() if hasattr(e, "start_ns") else e.start_us() * 1e3
+        dur = (e.duration_ns() if hasattr(e, "duration_ns")
+               else e.duration_us() * 1e3)
+        out.append((float(start), float(start + dur), e.name()))
+    return sorted(out)
+
+
+def union_ns(intervals, lo=float("-inf"), hi=float("inf")):
+    """Length of the union of ``(start, end, name)`` intervals clipped to
+    [lo, hi)."""
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for a, b, _ in intervals:
+        a, b = max(a, lo), min(b, hi)
+        if b <= a:
+            continue
+        if cur_hi is None or a > cur_hi:
+            if cur_hi is not None:
+                busy += cur_hi - cur_lo
+            cur_lo, cur_hi = a, b
+        else:
+            cur_hi = max(cur_hi, b)
+    return busy + (cur_hi - cur_lo if cur_hi is not None else 0.0)
+
+
+def split_ticks(timeline, intervals):
+    """The device's busy ms in each working tick: the union of the trace's
+    activities other than the markers between the tick's marker kernel
+    and the next one's (the last tick's to the trace's end). When the
+    markers do not match the ticks one for one, every working tick gets
+    the run's busy time over their count (``"busy_by"`` says which)."""
+    marks = [iv for iv in intervals if "spin_kernel" in iv[2]]
+    rest = [iv for iv in intervals if "spin_kernel" not in iv[2]]
+    work = [rec["work"] for rec in timeline.ticks]
+    # the loop's idle pass after the last delivery may start as the
+    # trace stops: idle ticks at the end may lack their marker
+    while len(work) > len(marks) and work and not work[-1]:
+        work.pop()
+    if len(marks) != len(work) or not marks:
+        log(f"    trace: {len(marks)} markers for {len(work)} ticks, "
+            f"{len(rest)} other activities: the run's busy time is spread "
+            f"over its working ticks")
+        busy = union_ns(rest) / 1e6
+        return {"busy_by": "run", "busy_ms": [busy / max(sum(work), 1)]
+                * sum(work)}
+    end = max(iv[1] for iv in intervals)
+    edges = [(marks[i][0], marks[i + 1][0] if i + 1 < len(marks) else end)
+             for i in range(len(marks))]
+    busy = [union_ns(rest, lo, hi) / 1e6 for lo, hi in edges]
+    # device ms by kernel name over the decode ticks (a tick's activities
+    # lie inside its window)
+    by_name, n_decode = Counter(), 0
+    for (lo, hi), w, rec in zip(edges, work, timeline.ticks):
+        if w and rec["kind"] == "decode":
+            n_decode += 1
+            for a, b, name in rest:
+                if lo <= a < hi:
+                    by_name[short_name(name)] += (b - a) / 1e6
+    top = {k: v / max(n_decode, 1) for k, v in by_name.most_common(10)}
+    return {"busy_by": "tick", "busy_ms": [b for b, w in zip(busy, work)
+                                           if w],
+            "decode_ms_by_kernel": top}
+
+
+def short_name(name):
+    """A kernel's trace name without its return type, template arguments
+    and parameters, at most 60 characters."""
+    name = name[5:] if name.startswith("void ") else name
+    name = name.replace("(anonymous namespace)::", "")
+    for stop in "<(":
+        name = name.split(stop)[0]
+    return name[:60]
+
+
+class TickRecorder:
+    """Keeps every ragged step's schedule input (tokens, descriptors,
+    block table), as ``begin_ragged`` hands it to ``plan_arrays``; the
+    host arrays only, so it works under graphs."""
+
+    def __init__(self, gen_module):
+        self.mod, self.orig, self.ticks = gen_module, gen_module.plan_arrays, []
+
+    def call(self, num_tokens, *desc_and_tables, **kw):
+        self.ticks.append((int(num_tokens),
+                           tuple(np.array(a) for a in desc_and_tables[:4]),
+                           np.array(desc_and_tables[4])))
+        return self.orig(num_tokens, *desc_and_tables, **kw)
+
+    def __enter__(self):
+        self.mod.plan_arrays = self.call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.plan_arrays = self.orig
+
+
+def graph_run(torch, pt, kern, model, prompts, warm, graphs, path_kw,
+              gen_kw=None, probes=(), profile=False):
+    """One engine run of the prompts in order (``run_in_order``), eager or
+    with graphs: the warm request, then ``warmup_programs`` (with graphs it
+    captures every declared shape, so no capture falls in the run), then
+    the counted run under ``probes``, a ``TickTimeline`` and, with
+    ``profile``, a CUDA-only ``torch.profiler`` trace (its callbacks slow
+    the host's launches: the busy times come from it, the walls from an
+    untraced run). Returns the outputs, the stats and the engine's cache
+    (its pools)."""
+    kw = dict(path_kw)
+    impl = kw.pop("impl", "qblock")
+    eng = pt.ContinuousServingEngine(model, max_batch_size=ENGINE_SLOTS,
+                                     max_len=2048, page_size=PAGE,
+                                     token_budget=256,
+                                     prefill_chunk_tokens=256,
+                                     ragged_impl=impl, cuda_graphs=graphs,
+                                     **kw)
+    timeline = TickTimeline(torch, eng)
+    # the serve loop takes its tick method at start(): the timeline goes
+    # on first
+    with timeline, eng:
+        eng.generate(warm, max_new_tokens=NEW_TOKENS, timeout=600)
+        warm_s = eng.run_on_loop(lambda e: e.warmup_programs(), 600)
+        g0 = (eng.graph_captures, eng.graph_replays)
+        work0 = (eng.ragged_steps, eng.decode_steps,
+                 Counter(eng.prefill_chunk_buckets))
+        by_m = count_tick_shapes(eng)
+        zero_counts(kern)
+        torch.cuda.synchronize()
+        with contextlib.ExitStack() as stack:
+            for probe in probes:
+                stack.enter_context(probe)
+            prof = (stack.enter_context(torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]))
+                if profile else None)
+            if prof is not None:
+                # a trace may drop the activities of its first moments:
+                # let them be these, not a tick's marker
+                for _ in range(8):
+                    torch.ones(1, device="cuda").add_(1)
+                torch.cuda.synchronize()
+                time.sleep(0.05)
+            eng.run_on_loop(lambda e: timeline.arm(True), 600)
+            t0 = time.perf_counter()
+            outs = run_in_order(eng, prompts, **(gen_kw or {}))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            # the last request is delivered inside the last tick: the
+            # timeline stops at the next boundary, before the probes come
+            # off
+            eng.run_on_loop(lambda e: timeline.arm(False), 600)
+        launches = read_counts(kern)
+        chunks = eng.prefill_chunk_buckets - work0[2]
+        ticks = [t for t in timeline.ticks if t["work"]]
+        for t in ticks:
+            a, b = t.pop("events")
+            t["window_ms"] = a.elapsed_time(b)
+        stats = dict(launches=launches, b10_by_m=b10_by_m(kern),
+                     wall=wall, warmup_s=warm_s,
+                     captures=eng.graph_captures - g0[0],
+                     replays=eng.graph_replays - g0[1],
+                     ragged_steps=eng.ragged_steps - work0[0],
+                     decode_steps=eng.decode_steps - work0[1],
+                     chunk_buckets=chunks, forwards_by_m=by_m + chunks,
+                     ticks=ticks)
+        if prof is not None:
+            intervals = device_intervals(torch, prof)
+            stats["device"] = split_ticks(timeline, intervals)
+            stats["traced_kernels"] = Counter(short_name(n)
+                                              for _, _, n in intervals)
+        cache = eng._cache
+    vars(eng).pop("_forward", None)      # no cycle through the wrapper
+    return outs, stats, cache
+
+
+def traced_launches(c):
+    """The launches a trace must show of each kernel that the serving
+    paths launch, by its name in the trace, from the counters ``c``
+    (``read_counts``)."""
+    b10_tc = c["int8_matmul_stream"] + c["int8_matmul_gemm"]
+    return {"qblock_unit_kernel": c["qblock"] + c["qblock_q8"],
+            "token_split_kernel": c["token_cluster"] + c["token_q8_cluster"],
+            "token_kernel": c["token_block"] + c["token_q8_block"],
+            "paged_decode_split_kernel": c["paged_cluster"]
+            + c["paged_q8_cluster"],
+            "paged_decode_kernel": c["paged_block"] + c["paged_q8_block"],
+            "flash_fwd_wgmma_kernel": c["flash_wgmma"],
+            "flash_fwd_kernel": c["flash"] - c["flash_wgmma"],
+            "int8_matmul_wgmma_kernel": b10_tc,
+            "int8_matmul_kernel": c["int8_matmul"] - b10_tc}
+
+
+def check_traced_launches(label, st):
+    """The kernels a traced run's trace shows, by name, against what its
+    counters say they launched. A CUDA trace may drop records (eager or
+    replayed; up to 53 of a kernel's 768 in one run), so a kernel may
+    show fewer launches, but never more, and at least ``TRACE_KEEPS`` of
+    them; the shortfall is printed."""
+    want = traced_launches(st["launches"])
+    got = {name: st["traced_kernels"].get(name, 0) for name in want}
+    if any(got[k] > n or got[k] < TRACE_KEEPS * n for k, n in want.items()):
+        raise AssertionError(f"{label}: the trace shows {got}, the launch "
+                             f"counters say {want}")
+    short = {k: n - got[k] for k, n in want.items() if got[k] != n}
+    log(f"    {label}: the trace shows the counted launches "
+        f"{ {k: v for k, v in got.items() if v} }"
+        + (f", short by {short} (records the trace dropped)" if short
+           else ""))
+
+
+def tick_summary(clean, traced, host=None, host_stats=None):
+    """Per working tick, from an untraced run (``clean``): the host's wall
+    (mean and median), the host's time in the forward and the device's
+    window (CUDA events); from a traced run of the same ticks
+    (``traced``): the device's busy time; the idle share, 1 - busy /
+    window summed over the ticks; and with ``host`` (a ``HostBreakdown``
+    of the run ``host_stats``) the host's ms a tick in each module
+    category."""
+    ticks = clean["ticks"]
+    n = len(ticks)
+    walls = [t["wall_ms"] for t in ticks]
+    window = sum(t["window_ms"] for t in ticks)
+    dev = traced["device"]
+    if len(dev["busy_ms"]) != n:
+        raise AssertionError(f"the traced run has {len(dev['busy_ms'])} "
+                             f"working ticks, the untraced {n}")
+    busy = sum(dev["busy_ms"])
+    out = {"ticks": n, "wall_ms": float(np.mean(walls)),
+           "wall_ms_median": float(np.median(walls)),
+           "fwd_host_ms": float(np.mean([t["fwd_ms"] for t in ticks])),
+           "window_ms": window / n, "busy_ms": busy / n,
+           "busy_by": dev["busy_by"], "idle_share": 1.0 - busy / window,
+           "traced_wall_ms": float(np.mean([t["wall_ms"]
+                                            for t in traced["ticks"]])),
+           "decode_ms_by_kernel": dev.get("decode_ms_by_kernel")}
+    for kind in ("decode", "mixed"):
+        idx = [i for i, t in enumerate(ticks) if t["kind"] == kind]
+        if not idx:
+            continue
+        w = sum(ticks[i]["window_ms"] for i in idx)
+        b = (sum(dev["busy_ms"][i] for i in idx)
+             if dev["busy_by"] == "tick" else None)
+        out[f"{kind}_ticks"] = {
+            "ticks": len(idx),
+            "wall_ms": float(np.mean([ticks[i]["wall_ms"] for i in idx])),
+            "wall_ms_median": float(np.median([ticks[i]["wall_ms"]
+                                               for i in idx])),
+            "window_ms": w / len(idx),
+            "busy_ms": None if b is None else b / len(idx),
+            "idle_share": None if b is None else 1.0 - b / w}
+    if host is not None:
+        m = len(host_stats["ticks"])
+        out["host_ms_by_module"] = {k: v * 1e3 / m for k, v in
+                                    sorted(host.totals.items())}
+        out["instrumented_wall_ms"] = float(np.mean(
+            [t["wall_ms"] for t in host_stats["ticks"]]))
+    return out
+
+
+def c21_at_ticks(torch, rpa, gen, cache, layer, ticks, quant, label):
+    """C21 on the engines' fixed grid at every recorded ragged tick: the
+    padded kernel-6 (B7) plan against kernel 8 (B9, cluster) over layer
+    0's live pool (and scales), on a random q; returns the cases held."""
+    kp, vp = cache._pools[id(layer)]
+    pages = ((kp, vp, *cache._scales[id(layer)]) if quant else (kp, vp))
+    cases, dev = 0, kp.device
+    for i, (n, desc, tbl) in enumerate(ticks):
+        plans = {impl: rpa.make_plan(n, *desc, tbl, PAGE, impl=impl,
+                                     device=dev, max_slots=ENGINE_SLOTS)
+                 for impl in rpa.IMPLS}
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        q = torch.randn((n, N_HEADS, HEAD_DIM), generator=g, device=dev)
+        rows = torch.as_tensor(span_rows(desc[1], desc[2]), device=dev)
+        cases += check_c21(torch, rpa, q, pages, plans, rows,
+                           f"{label} tick {i}", verbose=False)
+    log(f"  C21 {label}: the fixed q-block grid == per-token (cluster) bit "
+        f"for bit at all {len(ticks)} ticks of the graph run, {cases} cases "
+        f"({', '.join(C21_DTYPES)})")
+    return cases
+
+
+def graphs_against_eager(torch, pt, gen, rpa, fused, quant_mod, kern, model,
+                         prompts, warm, int8):
+    """Phase 3f (native bf16) or 3g (``int8``: the fully-int8 engines, the
+    model already quantised): for the q-block, per-token and legacy
+    engines, the 8-request load in order, three times eagerly (plain; with
+    ``HostBreakdown``; traced) and twice with graphs (plain; traced).
+    Against the plain eager run, every other run's greedy streams must be
+    bit-identical and its launch counts equal by kernel and variant (B10's
+    by M too); in both traced runs the trace must show each kernel as
+    many times as its counters say, less records the trace dropped
+    (under graphs the counts are the replays' credits, so the trace
+    observes the replayed kernels); each
+    ragged kernel must
+    launch 32 times a tick and each decode kernel 32 times a decode step;
+    the graph runs must replay every tick and capture none
+    (``warmup_programs`` captured every declared shape); C21 must hold on
+    the fixed q-block grid at every tick of the plain graph run, over
+    layer 0's live pool; B10's launches by M must be 225 x the forwards
+    by token count.
+    Walls, the host's time in the forward and the device's windows come
+    from the plain runs, busy times from the traced ones (same ticks).
+    Returns the per-tick summaries."""
+    label = "int8" if int8 else "bf16"
+    engine_kw = dict(kv_dtype="int8", weight_dtype="int8") if int8 else {}
+    layer = model.llama.layers[0].self_attn
+    out = {}
+    for name, path_kw in GRAPH_PATHS.items():
+        path_kw = dict(path_kw, **engine_kw)
+        tag = f"{label} {name}"
+
+        def run(graphs, probes=(), profile=False):
+            return graph_run(torch, pt, kern, model, prompts, warm, graphs,
+                             path_kw, probes=probes, profile=profile)
+
+        e_outs, eager, _ = run(False)
+        host = HostBreakdown(torch, model, gen, fused, quant_mod)
+        runs = {"eager, module breakdown": run(False, [host]),
+                "eager, traced": run(False, profile=True)}
+        rec = TickRecorder(gen)
+        runs["graphs"] = run(True, [rec])
+        runs["graphs, traced"] = run(True, profile=True)
+        check_outputs(prompts, e_outs, model.config.vocab_size, tag)
+        for what, (outs, st, _) in runs.items():
+            for a, b in zip(e_outs, outs):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{tag}: the {what} run's greedy "
+                                         f"stream differs from the eager "
+                                         f"one")
+            if st["launches"] != eager["launches"] or \
+                    st["b10_by_m"] != eager["b10_by_m"]:
+                raise AssertionError(f"{tag}: launches eager "
+                                     f"{eager['launches']} (B10 by M "
+                                     f"{eager['b10_by_m']}), {what} "
+                                     f"{st['launches']} ({st['b10_by_m']})")
+            if "traced_kernels" in st:
+                check_traced_launches(f"{tag}, {what}", st)
+        graph, cache = runs["graphs"][1], runs["graphs"][2]
+        key = {"qblock": "qblock", "token": "token",
+               "legacy": "paged"}[name] + ("_q8" if int8 else "")
+        per = graph["decode_steps"] if name == "legacy" else \
+            graph["ragged_steps"]
+        if graph["launches"][key] != N_LAYERS * per or not per:
+            raise AssertionError(f"{tag}: {key} launched "
+                                 f"{graph['launches'][key]} times over "
+                                 f"{per} ticks")
+        for what in ("graphs", "graphs, traced"):
+            st = runs[what][1]
+            if st["captures"] != 0 or st["replays"] != per:
+                raise AssertionError(f"{tag}, {what}: {st['captures']} "
+                                     f"captures and {st['replays']} replays "
+                                     f"in a run of {per} tick forwards")
+        derived = {m: N_LINEARS * n for m, n in
+                   sorted(graph["forwards_by_m"].items())} if int8 else {}
+        if graph["b10_by_m"] != derived:
+            raise AssertionError(f"{tag}: B10 launches by M "
+                                 f"{graph['b10_by_m']}, 225 x the forwards "
+                                 f"by M {derived}")
+        c21 = 0
+        if name != "legacy":
+            c21 = c21_at_ticks(torch, rpa, gen, cache, layer, rec.ticks,
+                               int8, f"graphs {tag}")
+        del cache
+        runs = {k: v[1] for k, v in runs.items()}
+        e_sum = tick_summary(eager, runs["eager, traced"], host,
+                             runs["eager, module breakdown"])
+        g_sum = tick_summary(graph, runs["graphs, traced"])
+        out[name] = {"eager": e_sum, "graphs": g_sum, "c21_cases": c21,
+                     "warmup_s": graph["warmup_s"],
+                     "launches": {k: v for k, v in graph["launches"].items()
+                                  if v}}
+        log(f"  {tag}: greedy streams bit-identical and launches equal over "
+            f"3 eager and 2 graph runs {out[name]['launches']}; "
+            f"{graph['replays']} replays, 0 captures a graph run "
+            f"(warmup_programs {graph['warmup_s']})")
+        for mode, sm in (("eager", e_sum), ("graphs", g_sum)):
+            log(f"    {mode}: {sm['ticks']} ticks, tick {sm['wall_ms']:.3f} "
+                f"ms (median {sm['wall_ms_median']:.3f}), forward on the "
+                f"host {sm['fwd_host_ms']:.3f} ms, device window "
+                f"{sm['window_ms']:.3f} ms, busy {sm['busy_ms']:.3f} ms (by "
+                f"{sm['busy_by']}), idle share {sm['idle_share']:.4f}; "
+                f"traced tick {sm['traced_wall_ms']:.3f} ms")
+            for kind in ("decode", "mixed"):
+                k = sm.get(f"{kind}_ticks")
+                if k is None:
+                    continue
+                log(f"      {kind} ticks: {k['ticks']}, tick "
+                    f"{k['wall_ms']:.3f} ms (median "
+                    f"{k['wall_ms_median']:.3f}), window "
+                    f"{k['window_ms']:.3f} ms" + (
+                        "" if k["busy_ms"] is None else
+                        f", busy {k['busy_ms']:.3f} ms, idle share "
+                        f"{k['idle_share']:.4f}"))
+        top = g_sum["decode_ms_by_kernel"]
+        if top:
+            log("    graphs, device ms a decode tick by kernel (the ten "
+                "largest): " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in top.items()))
+        log(f"    eager host ms a tick by module (instrumented tick "
+            f"{e_sum['instrumented_wall_ms']:.3f} ms): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in
+                e_sum["host_ms_by_module"].items()))
+    return out
+
+
+def sampled_and_abort(torch, pt, kern, model, prompts, warm):
+    """Seeded sampled streams (``SAMPLED``) of the q-block engine: two
+    graph runs and one eager run of the load in order, all equal. Then
+    ``abort`` under load: the 8 requests submitted at once to a graph
+    engine, aborted after its first decode tick, must all fail with
+    ``RuntimeError("ServingEngine aborted")`` with every slot freed; the
+    engine then serves again on a new cache (whose graphs it captures
+    anew), one request, as a fresh engine serves it."""
+    path = GRAPH_PATHS["qblock"]
+    runs = [graph_run(torch, pt, kern, model, prompts, warm, g, path,
+                      gen_kw=SAMPLED, profile=False)[0]
+            for g in (True, True, False)]
+    for outs in runs[1:]:
+        for a, b in zip(runs[0], outs):
+            if not np.array_equal(a, b):
+                raise AssertionError("seeded sampled streams differ between "
+                                     "runs (graphs, graphs, eager)")
+    check_outputs(prompts, runs[0], model.config.vocab_size, "sampled")
+    log(f"  seeded sampled streams ({SAMPLED}) equal over two graph runs "
+        f"and one eager run of the q-block engine")
+    eng = pt.ContinuousServingEngine(model, max_batch_size=ENGINE_SLOTS,
+                                     max_len=2048, page_size=PAGE,
+                                     token_budget=256,
+                                     prefill_chunk_tokens=256)
+    errors = []
+
+    def run(p):
+        try:
+            eng.generate(p, max_new_tokens=NEW_TOKENS, timeout=600)
+        except RuntimeError as e:
+            errors.append(str(e))
+
+    with eng:
+        threads = [threading.Thread(target=run, args=(p,)) for p in prompts]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 300
+        while eng.decode_steps == 0 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        eng.abort()
+        for t in threads:
+            t.join(300)
+        cache = eng._cache
+        if errors != ["ServingEngine aborted"] * len(prompts) or \
+                any(t.is_alive() for t in threads):
+            raise AssertionError(f"abort under load: {errors}")
+        if cache.lens.any() or cache._n_blocks.any():
+            raise AssertionError("abort left slots allocated")
+        captured = eng.graph_captures
+        eng.start()
+        again = eng.generate(prompts[1], max_new_tokens=NEW_TOKENS,
+                             timeout=600).numpy()
+        if eng._cache is cache or eng.graph_captures <= captured:
+            raise AssertionError("the restarted engine kept the old cache "
+                                 "or captured no graph")
+    with pt.ContinuousServingEngine(model, max_batch_size=ENGINE_SLOTS,
+                                    max_len=2048, page_size=PAGE,
+                                    token_budget=256,
+                                    prefill_chunk_tokens=256) as fresh:
+        want = fresh.generate(prompts[1], max_new_tokens=NEW_TOKENS,
+                              timeout=600).numpy()
+    if not np.array_equal(again, want):
+        raise AssertionError("the engine restarted after abort serves "
+                             "another stream than a fresh engine")
+    log(f"  abort under load: {len(errors)} requests failed with "
+        f"'ServingEngine aborted' after the first decode tick, slots freed; "
+        f"start() served again on a new cache (graphs captured anew)")
 
 
 # ---------------------------------------------------------------------------
@@ -2052,8 +2817,12 @@ def time_ragged(torch, rpa, kern, plain, ticks, scale, quant=False):
     """Kernels 6 and 8 (or B7 and B9 over int8 pages) and their plain
     versions on each captured tick's layer-0 inputs, beside the tick's
     bound. ``ticks``: (label, capture, plans, errors by kernel). Returns
-    one row per tick for each kernel; a q-block row also carries the
-    per-token kernel's time on the same inputs (``per_token_ms``). The
+    one row per tick for each kernel; a q-block row is the fixed grid the
+    engines launch (``max_slots=ENGINE_SLOTS``, the live unit count read
+    on the device; its output held bit-equal to the live-units grid's),
+    with the live-units grid's time on the same inputs beside it
+    (``ms_live_grid``), and carries the per-token kernel's time on the
+    same inputs (``per_token_ms``). The
     per-token row is the rule's kernel (the cluster variant, with its
     splits), beside the block variant, the parent's kernel, forced on the
     same inputs (``block_ms``), and at a pure-decode tick the cluster
@@ -2075,6 +2844,20 @@ def time_ragged(torch, rpa, kern, plain, ticks, scale, quant=False):
             out[impl].append({"shape": shape, "ms": ms, "plain_ms": pms,
                               **bound, "max_abs_err": errs[impl]["bf16"],
                               "max_abs_err_fp32": errs[impl]["fp32"]})
+        fixed = rpa.make_plan(cap["q"].shape[0], *cap["desc"], cap["tbl"],
+                              PAGE, impl="qblock", device="cuda",
+                              max_slots=ENGINE_SLOTS)
+        live = (cap["q"], cap["kp"], cap["vp"], *scales, plans["qblock"],
+                scale)
+        fargs = live[:-2] + (fixed, scale)
+        if not torch.equal(kern["qblock"](*live), kern["qblock"](*fargs)):
+            raise AssertionError(f"{label}: the fixed q-block grid's output "
+                                 f"differs from the live-units grid's")
+        row = out["qblock"][-1]
+        row["ms_live_grid"] = row["ms"]
+        row["ms"] = time_ms(torch, lambda: kern["qblock"](*fargs))
+        row["grid_units"] = [int(fixed.dev["units"].shape[0]),
+                             int(plans["qblock"].dev["units"].shape[0])]
         row = out["token"][-1]
         targs = (cap["q"], cap["kp"], cap["vp"], *scales, plans["token"],
                  scale)
@@ -2097,6 +2880,10 @@ def time_ragged(torch, rpa, kern, plain, ticks, scale, quant=False):
             r = out[impl][-1]
             log(f"  {impl}{'_q8' if quant else ''} at the {label}: "
                 f"{r['ms']:.4f} ms"
+                + (f" (the fixed grid, {r['grid_units'][0]} units of which "
+                   f"{r['grid_units'][1]} live; the live-units grid "
+                   f"{r['ms_live_grid']:.4f} ms)" if impl == "qblock"
+                   else "")
                 + (f" ({r['variant']}, {r['splits']} splits; block, the "
                    f"parent's kernel, forced on the same inputs "
                    f"{r['block_ms']:.4f} ms, {r['speedup_over_block']:.2f}x"
@@ -2696,9 +3483,10 @@ def tick_breakdown(torch, rpa, gen, probes, scale, n_layers):
     instrumented runs: the forward (host clock to a device sync), the
     schedule build and the attention calls in place (CUDA events around
     each layer's call). For the q-block run's ticks also both kernels
-    replayed alone at that tick's descriptors (L2 flushed, median of 10)
-    times the layer count, and C21 held at those descriptors on a random
-    q: kernel 6 against kernel 8 over layer 0's pool, and B7 against B9
+    replayed alone at that tick's descriptors (kernel 6 on the engines'
+    fixed grid; L2 flushed, median of 10) times the layer count, and C21
+    held at those descriptors on a random q: kernel 6 on the fixed grid
+    against kernel 8 over layer 0's pool, and B7 against B9
     over the pool quantised by the cache's codec, in fp32, bf16 and
     fp16."""
     log("phase 6: tick breakdown (bf16, every tick of the 8-request load)")
@@ -2721,9 +3509,10 @@ def tick_breakdown(torch, rpa, gen, probes, scale, n_layers):
                                 generator=g, device="cuda", dtype=kp.dtype)
                 plans = {}
                 for impl in rpa.IMPLS:
+                    # the q-block kernels on the engines' fixed grid
                     plan = plans[impl] = rpa.make_plan(
                         t["tokens"], *t["desc"], t["tbl"], PAGE, impl=impl,
-                        device="cuda")
+                        device="cuda", max_slots=ENGINE_SLOTS)
                     s[f"replay_{impl}_ms"] = n_layers * time_ms(
                         torch, lambda: kern[impl](q, kp, vp, plan, scale),
                         iters=10, warmup=2)
@@ -2767,6 +3556,7 @@ def main():
     from paddle_tpu_torch.nn import functional as nn_functional
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused
     from paddle_tpu_torch import quantization as quant_mod
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import quant_matmul as qm
@@ -2807,7 +3597,7 @@ def main():
     _build.load_kernels()
     log(f"  build_seconds {build_s:.2f} ({len(_build.SOURCES)} sources)")
     ptxas_summary(_build)
-    qblock_notes(_build)
+    qblock_notes(_build, rpa)
     token_notes(_build, rpa)
     paged_notes(_build, pa)
     b1_notes(_build)
@@ -2954,6 +3744,14 @@ def main():
     serve(torch, pt, kern, model, prompts, warm, enable_ragged=False,
           probes=[legacy_cap, legacy_flash], tick_ms=legacy_ticks)
 
+    log(" 3f: CUDA graphs against eager, bf16: the q-block, per-token and "
+        "legacy engines on the load of (a) in order")
+    graph_bf16 = graphs_against_eager(torch, pt, gen, rpa, fused, quant_mod,
+                                      kern, model, prompts, warm, int8=False)
+    sampled_and_abort(torch, pt, kern, model, prompts, warm)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     log(" 3e: ContinuousServingEngine(kv_dtype='int8', weight_dtype='int8'),"
         " the load of (a) on all three schedulers")
     int8_kw = dict(kv_dtype="int8", weight_dtype="int8")
@@ -2968,10 +3766,18 @@ def main():
     for name, kw in INT8_PATHS.items():
         kw = dict(kw)
         kw["impl"] = kw.pop("ragged_impl", "qblock")
-        hist = MatmulHistogram(quant_mod)
         outs, st = serve(torch, pt, kern, model, prompts, warm, **kw,
-                         probes=[hist], **int8_kw)
-        int8_runs[name], mm_hist[name] = (outs, st), hist.by_m
+                         **int8_kw)
+        int8_runs[name] = (outs, st)
+        # B10's launches by M as its wrapper counted them in this run
+        # (replays credited); 225 a forward of each token count
+        mm_hist[name] = Counter(st["b10_by_m"])
+        derived = {m: N_LINEARS * n for m, n in
+                   sorted(st["forwards_by_m"].items())}
+        if dict(mm_hist[name]) != derived:
+            raise AssertionError(f"int8 {name}: B10 launches by M "
+                                 f"{st['b10_by_m']}, 225 x the forwards "
+                                 f"by M {derived}")
         check_outputs(prompts, outs, cfg.vocab_size, f"int8 {name}")
         if st["quantized"]:
             raise AssertionError(f"int8 {name}: {st['quantized']} Linears "
@@ -2984,7 +3790,7 @@ def main():
         want = dict(none, int8_matmul=N_LINEARS * st["forwards"],
                     int8_matmul_stream=stream,
                     int8_matmul_gemm=N_LINEARS * st["forwards"] - stream)
-        log(f"  int8 {name}: B10 calls by M {dict(sorted(mm_hist[name].items()))}")
+        log(f"  int8 {name}: B10 launches by M {st['b10_by_m']}")
         if sum(mm_hist[name].values()) != N_LINEARS * st["forwards"]:
             raise AssertionError(f"int8 {name}: B10 histogram "
                                  f"{mm_hist[name]} misses calls")
@@ -3035,6 +3841,10 @@ def main():
     int8_legacy_ticks = []
     serve(torch, pt, kern, model, prompts, warm, enable_ragged=False,
           probes=[int8_decode], tick_ms=int8_legacy_ticks, **int8_kw)
+    log(" 3g: CUDA graphs against eager, fully int8: the three engines on "
+        "the load of (a) in order")
+    graph_int8 = graphs_against_eager(torch, pt, gen, rpa, fused, quant_mod,
+                                      kern, model, prompts, warm, int8=True)
     del model
     gc.collect()              # engines and their threads may hold it in cycles
     torch.cuda.empty_cache()
@@ -3050,7 +3860,8 @@ def main():
     ref_model = pt.LlamaForCausalLM(ref_cfg, device="cuda", seed=0)
     with torch.inference_mode():
         ref = ref_model(short[None])[0]
-        cache = gen.SlotPagedKVCache(1, page_size=PAGE, max_len=2048)
+        cache = gen.SlotPagedKVCache(1, page_size=PAGE, max_len=2048,
+                                     device=dev)
         cache.assign(0, short)
         cache.begin_ragged([(0, 0, short.shape[0])])
         got = ref_model(short[None], cache=cache,
@@ -3466,6 +4277,8 @@ def main():
         f"tick): tick mean {np.mean(legacy_ticks):.2f} ms, median "
         f"{np.median(legacy_ticks):.2f} ms over {len(legacy_ticks)}")
 
+    log(json.dumps({"graph_breakdown": {"bf16": graph_bf16,
+                                        "int8": graph_int8}}))
     med = trained["median"]
     log(f"  training: losses {trained['losses']}; steady step "
         f"{med['step']:.2f} ms (forward {med['forward']:.2f}, backward "

@@ -143,17 +143,18 @@ constexpr int kQuad = 4;
 __host__ __device__ inline int staged_row(int D, int el) { return D * el + 16; }
 
 // Dynamic shared memory of a q-block unit block with up to R rows, qb
-// tokens and J jobs a block, laid out as the top of qblock_unit_kernel
-// carves it.
+// tokens and units of at most `unit_pages` pages (min(J, the table's
+// width): the schedule's jobs a block, or a slot's pages), laid out as the
+// top of qblock_unit_kernel carves it.
 __host__ __device__ inline size_t unit_smem_bytes(int el, bool quant, int R,
                                                   int P, int D, int qb,
-                                                  int J) {
+                                                  int unit_pages) {
   const size_t ring = 2 * (size_t)kChunk * P * (staged_row(D, el) + D * el);
   const size_t scales = quant ? 2 * (size_t)kChunk * 2 * P * sizeof(float) : 0;
   const size_t floats = (size_t)R * (D + 4) + (size_t)kChunk * R * (P + 1) +
                         4 * (size_t)kChunk * R + (size_t)R * D + 2 * (size_t)R;
   return 2 * sizeof(uint64_t) + ring + scales + floats * sizeof(float) +
-         (3 * (size_t)qb + 1 + (size_t)J) * sizeof(int);
+         (3 * (size_t)qb + 1 + (size_t)unit_pages) * sizeof(int);
 }
 
 // The dot products of the staged key row krow with kRows fp32 query rows
@@ -304,7 +305,12 @@ __device__ __forceinline__ void unit_values(const UnitChunk& u) {
 }
 
 // Kernel 6 (PT = T) and B7 (PT = int8_t), for pages of kP keys. Grid
-// (units, kv_heads). Unit u is units[4u .. 4u + 3] = (q-block b, owner
+// (units, kv_heads), fixed by the tick's shape (a captured launch keeps
+// its grid while the live unit count U = *live_units changes tick by
+// tick): block L, in launch order, is unit L % U of kv head L / U, so the
+// first U x kv_heads blocks are the live grid in its own order and the
+// blocks past them return at once.
+// Unit u is units[4u .. 4u + 3] = (q-block b, owner
 // slot s, first job j0, job count n): its pages are job_page[b, j0 .. j0 +
 // n), the pages 0..n-1 of slot s in order; its tokens are those of block
 // b with row_slot == s, in order (not a range: bucket padding shares slot
@@ -328,14 +334,18 @@ qblock_unit_kernel(const T* __restrict__ q, const Pages<PT> pg,
                    T* __restrict__ out, const int* __restrict__ row_slot,
                    const int* __restrict__ row_ctx,
                    const int* __restrict__ job_page,
-                   const int* __restrict__ units, int H, int KVH, int D,
+                   const int* __restrict__ units,
+                   const int* __restrict__ live_units, int H, int KVH, int D,
                    int NP, int qb, int J, float sm_scale) {
   constexpr bool kQuant = std::is_same<PT, int8_t>::value;
   constexpr int P = kP;
   // a page's keys are neighbouring lanes of one warp
   static_assert(kP < 32 && (kP & (kP - 1)) == 0, "page size");
   extern __shared__ float4 unit_smem[];
-  const int u = blockIdx.x, h = blockIdx.y;
+  const int live = __ldg(live_units);
+  const int L = blockIdx.y * gridDim.x + blockIdx.x;
+  if (L >= live * KVH) return;               // the whole block, at once
+  const int u = L % live, h = L / live;
   const int G = H / KVH, Rmax = qb * G;
   const int b = units[4 * u], slot = units[4 * u + 1];
   const int n = units[4 * u + 3];
@@ -1100,33 +1110,34 @@ token_split_kernel(const T* __restrict__ q, const Pages<PT> pg,
 template <typename T, typename PT, int kP>
 cudaError_t launch_qblock_p(const void* q, const Pages<PT>& pg, void* out,
                             const int* rs, const int* rc, const int* jp,
-                            const int* units, int H, int KVH, int D, int NP,
-                            int qb, int U, int J, float sm_scale,
-                            cudaStream_t stream) {
+                            const int* units, const int* live, int H,
+                            int KVH, int D, int NP, int qb, int U, int J,
+                            int pps, float sm_scale, cudaStream_t stream) {
   const size_t smem =
       unit_smem_bytes(sizeof(PT), std::is_same<PT, int8_t>::value,
-                      qb * (H / KVH), kP, D, qb, J);
+                      qb * (H / KVH), kP, D, qb, min(J, pps));
   cudaError_t err = cudaFuncSetAttribute(
       qblock_unit_kernel<T, PT, kP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   qblock_unit_kernel<T, PT, kP><<<dim3(U, KVH), kUnitThreads, smem, stream>>>(
-      (const T*)q, pg, (T*)out, rs, rc, jp, units, H, KVH, D, NP, qb, J,
-      sm_scale);
+      (const T*)q, pg, (T*)out, rs, rc, jp, units, live, H, KVH, D, NP, qb,
+      J, sm_scale);
   return cudaGetLastError();
 }
 
 template <typename T, typename PT>
 cudaError_t launch_qblock(const void* q, const Pages<PT>& pg, void* out,
                           const int* rs, const int* rc, const int* jp,
-                          const int* units, int H, int KVH, int D, int NP,
-                          int P, int qb, int U, int J, float sm_scale,
-                          cudaStream_t stream) {
-  if (D % 16 || H % KVH) return cudaErrorInvalidValue;
+                          const int* units, const int* live, int H,
+                          int KVH, int D, int NP, int P, int qb, int U, int J,
+                          int pps, float sm_scale, cudaStream_t stream) {
+  if (D % 16 || H % KVH || pps <= 0) return cudaErrorInvalidValue;
   // one instantiation, for the page size every cache here uses (16)
   if (P != 16) return cudaErrorInvalidValue;
-  return launch_qblock_p<T, PT, 16>(q, pg, out, rs, rc, jp, units, H, KVH, D,
-                                    NP, qb, U, J, sm_scale, stream);
+  return launch_qblock_p<T, PT, 16>(q, pg, out, rs, rc, jp, units, live, H,
+                                    KVH, D, NP, qb, U, J, pps, sm_scale,
+                                    stream);
 }
 
 template <typename T, typename PT>
@@ -1195,7 +1206,9 @@ cudaError_t launch_token_split(const void* q, const Pages<PT>& pg, void* out,
 // contiguous tensor; the Python wrapper checks shapes, types and devices.
 // The _q8 functions take int8 pages kp/vp [KVH, NP, P, D] and their fp32
 // row scales ks/vs [KVH, NP, P]. The q-block functions take the unit list
-// units [U, 4] and the job pages [B, J] of the schedule, need D % 16 == 0,
+// units [U, 4] (U is the grid; the device int *n_units says how many of
+// its rows are live), the job pages [B, J] of the schedule and the block
+// table's width pps (the most pages a unit walks), need D % 16 == 0,
 // P == 16 and 16-byte aligned pages and scales (cp.async and bulk
 // copies), and refuse other shapes with cudaErrorInvalidValue. Returns the
 // cudaError_t of the launch (0 on success).
@@ -1203,15 +1216,16 @@ extern "C" {
 
 int ptt_ragged_qblock(int dtype, const void* q, const void* kp, const void* vp,
                       void* out, const int* row_slot, const int* row_ctx,
-                      const int* job_page, const int* units, int T_tok, int H,
-                      int KVH, int D, int NP, int P, int qb, int U, int J,
+                      const int* job_page, const int* units,
+                      const int* n_units, int T_tok, int H, int KVH, int D,
+                      int NP, int P, int qb, int U, int J, int pps,
                       float sm_scale, void* stream) {
   if (T_tok <= 0 || U <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case 0: return (int)launch_qblock<float>(q, native_pages<float>(kp, vp), out, row_slot, row_ctx, job_page, units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
-    case 1: return (int)launch_qblock<__nv_bfloat16>(q, native_pages<__nv_bfloat16>(kp, vp), out, row_slot, row_ctx, job_page, units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
-    case 2: return (int)launch_qblock<__half>(q, native_pages<__half>(kp, vp), out, row_slot, row_ctx, job_page, units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
+    case 0: return (int)launch_qblock<float>(q, native_pages<float>(kp, vp), out, row_slot, row_ctx, job_page, units, n_units, H, KVH, D, NP, P, qb, U, J, pps, sm_scale, s);
+    case 1: return (int)launch_qblock<__nv_bfloat16>(q, native_pages<__nv_bfloat16>(kp, vp), out, row_slot, row_ctx, job_page, units, n_units, H, KVH, D, NP, P, qb, U, J, pps, sm_scale, s);
+    case 2: return (int)launch_qblock<__half>(q, native_pages<__half>(kp, vp), out, row_slot, row_ctx, job_page, units, n_units, H, KVH, D, NP, P, qb, U, J, pps, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1219,26 +1233,28 @@ int ptt_ragged_qblock(int dtype, const void* q, const void* kp, const void* vp,
 int ptt_ragged_qblock_q8(int dtype, const void* q, const void* kp,
                          const void* vp, const float* ks, const float* vs,
                          void* out, const int* row_slot, const int* row_ctx,
-                         const int* job_page, const int* units, int T_tok,
-                         int H, int KVH, int D, int NP, int P, int qb, int U,
-                         int J, float sm_scale, void* stream) {
+                         const int* job_page, const int* units,
+                         const int* n_units, int T_tok, int H, int KVH, int D,
+                         int NP, int P, int qb, int U, int J, int pps,
+                         float sm_scale, void* stream) {
   if (T_tok <= 0 || U <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   const Pages<int8_t> pg = int8_pages(kp, vp, ks, vs);
   switch (dtype) {
-    case 0: return (int)launch_qblock<float>(q, pg, out, row_slot, row_ctx, job_page, units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
-    case 1: return (int)launch_qblock<__nv_bfloat16>(q, pg, out, row_slot, row_ctx, job_page, units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
-    case 2: return (int)launch_qblock<__half>(q, pg, out, row_slot, row_ctx, job_page, units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
+    case 0: return (int)launch_qblock<float>(q, pg, out, row_slot, row_ctx, job_page, units, n_units, H, KVH, D, NP, P, qb, U, J, pps, sm_scale, s);
+    case 1: return (int)launch_qblock<__nv_bfloat16>(q, pg, out, row_slot, row_ctx, job_page, units, n_units, H, KVH, D, NP, P, qb, U, J, pps, sm_scale, s);
+    case 2: return (int)launch_qblock<__half>(q, pg, out, row_slot, row_ctx, job_page, units, n_units, H, KVH, D, NP, P, qb, U, J, pps, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // Dynamic shared memory of a q-block launch, in bytes, for pages of
-// `page_el` bytes a value (4 fp32, 2 bf16/fp16, 1 int8 with scales).
+// `page_el` bytes a value (4 fp32, 2 bf16/fp16, 1 int8 with scales), J
+// jobs a block and tables pps pages wide.
 int ptt_ragged_qblock_smem(int page_el, int H, int KVH, int D, int P, int qb,
-                           int J) {
+                           int J, int pps) {
   return (int)unit_smem_bytes(page_el, page_el == 1, qb * (H / KVH), P, D,
-                              qb, J);
+                              qb, J < pps ? J : pps);
 }
 
 int ptt_ragged_token(int dtype, const void* q, const void* kp, const void* vp,

@@ -4,8 +4,10 @@
   shape that arrive within ``batch_window_s`` run as one batch through
   ``model.generate`` over a paged KV cache.
 * :class:`ContinuousServingEngine`, continuous batching over a
-  :class:`~paddle_tpu_torch.models.generation.SlotPagedKVCache`, greedy,
-  with chunked prefill and a prefix cache. By default each tick packs up
+  :class:`~paddle_tpu_torch.models.generation.SlotPagedKVCache`, greedy
+  or sampled per request row (seeded draws depend on the request's seed,
+  the row and the token's index alone), with chunked prefill and a
+  prefix cache. By default each tick packs up
   to ``token_budget`` tokens into ONE flat batch: every live decode
   slot's single token, then as many prefill tokens as fit (per-span cap
   ``prefill_chunk_tokens``), padded to a power of two and run through one
@@ -18,10 +20,16 @@
   ``kv_dtype="int8"`` the KV pages are int8 with fp32 row scales, and
   with ``weight_dtype="int8"`` every ``nn.Linear`` of the model is
   quantised in place (``quantization.quantize_linears``): together the
-  fully-int8 serving configuration.
+  fully-int8 serving configuration. The tick shapes form a bounded
+  family (:meth:`ContinuousServingEngine.declared_token_buckets`,
+  :meth:`~ContinuousServingEngine.declared_chunk_buckets` and the one
+  decode step); on CUDA each ragged bucket and the decode step is a CUDA
+  graph, captured at its first use (or by
+  :meth:`~ContinuousServingEngine.warmup_programs`) and replayed after.
 
 Both engines run the model on a serve thread of their own, which enters
-``torch.inference_mode()`` itself.
+``torch.inference_mode()`` itself. ``abort()`` fails every queued and
+in-flight request at the next tick boundary instead of draining them.
 
     engine = ContinuousServingEngine(model)           # model on "cuda"
     with engine:
@@ -38,7 +46,9 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..models.generation import KV_DTYPES, SlotPagedKVCache
+from ..models.generation import (KV_DTYPES, SlotPagedKVCache, StagedBuffer,
+                                 _row_generator, _sample_logits)
+from ..ops import _build
 from ..quantization import quantize_linears
 
 #: default cap on one prefill span per tick
@@ -66,6 +76,10 @@ def _token_bucket(n, cap):
         b *= 2
     return min(b, max(int(cap), 1)) if n <= cap else int(cap)
 
+
+#: the options ContinuousServingEngine.generate takes besides the lengths
+SAMPLING_OPTIONS = ("do_sample", "top_k", "top_p", "temperature", "seed",
+                    "eos_token_id")
 
 class _Control:
     """A function to run on the serve-loop thread at a tick boundary."""
@@ -106,10 +120,12 @@ class _Request:
 
 
 class _Row:
-    """One sequence of a request inside the scheduler."""
+    """One sequence of a request inside the scheduler; ``row_idx`` is its
+    row within the request (seeded draws depend on it)."""
 
-    def __init__(self, req, ids):
+    def __init__(self, req, ids, row_idx=0):
         self.req = req
+        self.row_idx = int(row_idx)
         self.prompt = np.asarray(ids)        # [s]
         self.generated: list = []
         self.done = False
@@ -143,6 +159,12 @@ class _Engine:
         self._q: queue.Queue = queue.Queue()
         self._thread = None
         self._running = False
+        self._aborted = False
+
+    def _stop_error(self):
+        """What a request the engine drops gets: aborted or stopped."""
+        return RuntimeError("ServingEngine aborted" if self._aborted
+                            else "engine stopped")
 
     # -- client API ----------------------------------------------------------
     def run_on_loop(self, fn, timeout=30.0):
@@ -177,7 +199,7 @@ class _Engine:
                 # raced with stop() and the worker that fails queued
                 # requests is gone
                 if not req.done.is_set():
-                    req.error = RuntimeError("engine stopped")
+                    req.error = self._stop_error()
                     req.done.set()
                 break
             req.done.wait(0.5 if remaining is None else min(0.5, remaining))
@@ -199,6 +221,7 @@ class _Engine:
         except queue.Empty:
             pass
         self._running = True
+        self._aborted = False
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
         return self
@@ -211,6 +234,14 @@ class _Engine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+
+    def abort(self):
+        """Hard stop (a replica's death): at the next tick boundary every
+        queued and in-flight request fails with ``RuntimeError("ServingEngine
+        aborted")``, its slots are freed, and the serve thread exits
+        without draining. ``start()`` serves again."""
+        self._aborted = True
+        self.stop()
 
     def __enter__(self):
         return self.start()
@@ -229,10 +260,10 @@ class _Engine:
                 while True:
                     item = self._q.get_nowait()
                     if isinstance(item, _Request):
-                        item.error = RuntimeError("engine stopped")
+                        item.error = self._stop_error()
                         item.done.set()
                     elif isinstance(item, _Control):
-                        item.fail(RuntimeError("engine stopped"))
+                        item.fail(self._stop_error())
             except queue.Empty:
                 pass
 
@@ -338,6 +369,8 @@ class ServingEngine(_Engine):
                 out = self.model.generate(
                     torch.as_tensor(batch, device=self.device),
                     max_new_tokens=group[0].max_new_tokens, **kwargs)
+                if self._aborted:       # the batch is the tick: no delivery
+                    raise self._stop_error()
                 arr = out.cpu().numpy()
                 self.batches_run += 1
                 prompt_len = group[0].ids.shape[1]
@@ -364,9 +397,23 @@ class ServingEngine(_Engine):
                     r.done.set()
 
 
+class _TickProgram:
+    """One declared tick shape: the staged buffers its forward reads the
+    token ids and positions from and, on a CUDA engine with graphs, the
+    graph captured at its first use, its logits and the kernel launches
+    it records (credited at each replay)."""
+
+    def __init__(self, ids_shape, pos_shape, device):
+        self.ids = StagedBuffer(ids_shape, torch.int64, device)
+        self.pos = StagedBuffer(pos_shape, torch.int64, device)
+        self.graph = None
+        self.logits = None
+        self.launches = None
+
+
 class ContinuousServingEngine(_Engine):
-    """Thread-safe continuous-batching ``generate`` front end with greedy
-    decoding, chunked prefill and a prefix cache.
+    """Thread-safe continuous-batching ``generate`` front end with chunked
+    prefill and a prefix cache, greedy or sampled per request row.
 
     ``device=None`` means ``"cuda"`` (raises where CUDA is absent); the
     model's parameters must live on that device. ``enable_ragged`` picks
@@ -377,14 +424,26 @@ class ContinuousServingEngine(_Engine):
     model's ``nn.Linear`` layers in place (layers already quantised are
     skipped) and records their count in ``quantized_linears``; ``None``
     leaves the weights as they are. Unlike the reference, no environment
-    variable sets either."""
+    variable sets either.
+
+    Every ragged tick pads to one of :meth:`declared_token_buckets` and
+    every legacy decode step is ``[max_batch, 1]``: each such shape reads
+    its inputs from fixed buffers, so on CUDA it is one CUDA graph
+    (``cuda_graphs=True``, the default), captured at its first use (that
+    tick runs eagerly on the capture stream first) or ahead of traffic by
+    :meth:`warmup_programs`, and replayed after; all of an engine's graphs
+    share one memory pool. The launches a graph recorded are credited to
+    the kernel wrappers' counters at each replay. A capture or replay that
+    fails raises to the requests in flight; nothing falls back to eager.
+    ``cuda_graphs=False`` runs the same ticks eagerly (the CPU always
+    does). Legacy prefill chunks stay eager."""
 
     def __init__(self, model, max_batch_size=8, page_size=16, max_len=2048,
                  pad_token_id=0, prefill_chunk_tokens=None,
                  enable_prefix_cache=True, num_pages=None,
                  token_budget=None, enable_ragged=True,
                  ragged_impl="qblock", kv_dtype=None, weight_dtype=None,
-                 device=None):
+                 cuda_graphs=True, device=None):
         super().__init__()
         self.device = _engine_device(model, device)
         self.model = model
@@ -414,28 +473,54 @@ class ContinuousServingEngine(_Engine):
         self.num_pages = num_pages
         self.enable_ragged = bool(enable_ragged)
         self.ragged_impl = ragged_impl
+        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
         self._cache = None
+        self._adopt = None             # a warmed cache the next serve takes
+        self._programs = {}            # tick shape -> _TickProgram
+        self._graph_pool = None
+        self._capture_stream = None
         self.ragged_steps = 0          # ragged packed forwards run
-        self.prefill_chunks = 0        # legacy: chunk forwards run
+        self.prefills = 0              # rows admitted
+        self.prefill_chunks = 0        # prefill spans / legacy chunks run
         self.prefill_chunk_buckets = Counter()   # legacy: padded size -> n
-        self.decode_steps = 0          # legacy: fixed-shape decode steps
+        self.decode_steps = 0          # ticks or steps with decode rows
+        self.cancelled_rows = 0
+        self.ragged_prefill_tokens = 0
+        self.ragged_decode_tokens = 0
         # padded counts every token position a forward processed, useful
         # only the real ones
         self.padded_tokens_total = 0
         self.useful_tokens_total = 0
+        self.ragged_buckets_used: set = set()
+        self.graph_captures = 0
+        self.graph_replays = 0
+        # ("chunk", slot, n_valid, done) and ("decode", n_active), in order
+        self.events: deque = deque(maxlen=4096)
 
     @property
     def prefix_hits(self):
         """Prompt blocks served from the prefix index by the live cache."""
         return 0 if self._cache is None else self._cache.prefix_hits
 
-    def generate(self, input_ids, max_new_tokens=32, timeout=None,
-                 eos_token_id=None):
-        """Greedy-decode ``input_ids`` (``[s]`` or ``[rows, s]``, array or
-        tensor) and block until done. Returns an int64 CPU tensor
-        ``[rows, s + generated]``; rows that stop early at
-        ``eos_token_id`` are padded with it."""
+    def generate(self, input_ids, max_new_tokens=32, max_length=None,
+                 timeout=None, **kwargs):
+        """Decode ``input_ids`` (``[s]`` or ``[rows, s]``, array or tensor)
+        and block until done. Returns an int64 CPU tensor ``[rows, s +
+        generated]``; rows that stop early at ``eos_token_id`` are padded
+        with it. ``max_length`` overrides ``max_new_tokens`` as the total
+        length; a zero budget returns the prompt unchanged. Options:
+        ``do_sample`` (greedy without it), ``top_k``, ``top_p``,
+        ``temperature``, ``seed`` (token ``i`` of row ``r`` draws from a
+        generator of ``(seed, r, i)`` alone; without a seed, from the
+        global generator) and ``eos_token_id``; any other raises
+        ``TypeError``."""
+        unknown = sorted(set(kwargs) - set(SAMPLING_OPTIONS))
+        if unknown:
+            raise TypeError(f"generate() got unexpected options {unknown}; "
+                            f"it takes {SAMPLING_OPTIONS}")
         ids = _as_ids(input_ids)
+        if max_length is not None:           # GenerationMixin's contract
+            max_new_tokens = max(int(max_length) - ids.shape[1], 0)
         if max_new_tokens <= 0:
             return torch.as_tensor(ids)
         if ids.shape[1] + max_new_tokens > self.max_len:
@@ -444,17 +529,163 @@ class ContinuousServingEngine(_Engine):
             raise ValueError(
                 f"request needs {ids.shape[1]} + {max_new_tokens} tokens "
                 f"> engine max_len {self.max_len}")
-        return self._submit(_Request(ids, max_new_tokens,
-                                     eos_token_id=eos_token_id), timeout)
+        return self._submit(_Request(ids, max_new_tokens, **kwargs), timeout)
+
+    # -- the bounded program family -----------------------------------------
+    def declared_token_buckets(self):
+        """Every width a ragged tick pads to (:func:`_token_bucket`): the
+        powers of two below ``token_budget``, and the budget."""
+        out, b = set(), 1
+        while b < self.token_budget:
+            out.add(b)
+            b *= 2
+        out.add(self.token_budget)
+        return out
+
+    def declared_chunk_buckets(self):
+        """Every width a legacy prefill chunk pads to
+        (:func:`_chunk_bucket`): the powers of two from 8 below
+        ``prefill_chunk_tokens``, and that cap."""
+        out, b = set(), 8
+        while b < self.chunk_tokens:
+            out.add(b)
+            b *= 2
+        out.add(self.chunk_tokens)
+        return out
+
+    def warmup_programs(self, families=None):
+        """Run every declared tick shape once before traffic, so that no
+        request pays a first use: ``"serving.ragged"`` (each token
+        bucket), or with ``enable_ragged=False`` ``"serving.prefill_chunk"``
+        (each chunk bucket) and ``"serving.decode"``. The ragged buckets
+        and the decode step run as ticks of padding alone on the engine's
+        own cache (writing only its scratch page), so on CUDA their graphs
+        are captured here for the live cache; the chunks run on a
+        one-slot scratch cache. Call it before :meth:`start` (the next
+        serve adopts the warmed cache) or through :meth:`run_on_loop`.
+        Leaves the cache as it found it. Returns ``{family: seconds}``."""
+        names = None if families is None else set(families)
+
+        def want(name):
+            return names is None or name in names
+
+        if self._running:
+            cache = self._cache
+        else:
+            cache = self._adopt = self._adopt or self._new_cache()
+        out = {}
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.inference_mode():
+                if self.enable_ragged and want("serving.ragged"):
+                    t0 = time.perf_counter()
+                    for b in sorted(self.declared_token_buckets()):
+                        cache.begin_ragged([], num_tokens=b)
+                        self._forward(("ragged", b),
+                                      np.full((1, b), self.pad_token_id),
+                                      np.zeros(b), cache)
+                        cache.end_step()
+                    self._sync()
+                    out["serving.ragged"] = time.perf_counter() - t0
+                if not self.enable_ragged and want("serving.prefill_chunk"):
+                    t0 = time.perf_counter()
+                    scratch = SlotPagedKVCache(
+                        1, page_size=self.page_size, max_len=self.max_len,
+                        num_pages=cache.pages_per_seq + 1,
+                        enable_prefix_cache=False, kv_dtype=self.kv_dtype,
+                        device=self.device)
+                    for b in sorted(self.declared_chunk_buckets()):
+                        scratch.assign(0, np.zeros(1, np.int64))
+                        scratch.begin_prefill(0, 1)
+                        self.model.forward(
+                            np.full((1, b), self.pad_token_id),
+                            cache=scratch, position_ids=np.zeros(b))
+                        scratch.free(0)
+                    self._sync()
+                    out["serving.prefill_chunk"] = time.perf_counter() - t0
+                if not self.enable_ragged and want("serving.decode"):
+                    t0 = time.perf_counter()
+                    cache.begin_decode(np.zeros(self.max_batch, bool))
+                    self._forward(("decode",),
+                                  np.full((self.max_batch, 1),
+                                          self.pad_token_id),
+                                  cache.lens[:, None], cache)
+                    cache.end_step()
+                    self._sync()
+                    out["serving.decode"] = time.perf_counter() - t0
+        finally:
+            if was_training:
+                self.model.train()
+        return out
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _forward(self, key, ids, pos, cache):
+        """One forward of tick shape ``key`` (``("ragged", tokens)`` or
+        ``("decode",)``) over the armed ``cache``: the ids and positions
+        staged into the shape's buffers, then the eager forward, or on a
+        CUDA engine with graphs its graph (captured at the shape's first
+        use). Returns the logits."""
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = _TickProgram(
+                ids.shape, ids.shape if key[0] == "decode" else (ids.shape[1],),
+                self.device)
+        prog.ids.fill(ids)
+        prog.pos.fill(pos)
+        if not self.cuda_graphs:
+            return self.model.forward(prog.ids.dev, cache=cache,
+                                      position_ids=prog.pos.dev)
+        if prog.graph is None:
+            return self._capture(prog, cache)
+        prog.graph.replay()
+        prog.launches.credit()
+        self.graph_replays += 1
+        return prog.logits
+
+    def _capture(self, prog, cache):
+        """Run the armed tick eagerly on the capture stream (which also
+        makes its lazy state: cuBLAS handles, kernel libraries, the KV
+        pools), then capture the same forward into ``prog``'s graph. The
+        launches made while capturing run at the replays, not now: they go
+        to the graph's launch record, credited at each replay. Returns the
+        eager tick's logits."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            logits = self.model.forward(prog.ids.dev, cache=cache,
+                                        position_ids=prog.pos.dev)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        if not cache._pools:
+            raise RuntimeError("no KV pools to capture a tick over")
+        graph = torch.cuda.CUDAGraph()
+        with _build.record_launches() as launches, \
+                torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
+                                 capture_error_mode="thread_local"):
+            out = self.model.forward(prog.ids.dev, cache=cache,
+                                     position_ids=prog.pos.dev)
+        prog.graph, prog.logits, prog.launches = graph, out, launches
+        self.graph_captures += 1
+        return logits
 
     # -- scheduler ----------------------------------------------------------
     def _new_cache(self):
+        """A new cache; the graphs captured over the last one's pools and
+        buffers are dropped, and the next ticks capture again."""
         cache = SlotPagedKVCache(self.max_batch, page_size=self.page_size,
                                  max_len=self.max_len,
                                  num_pages=self.num_pages,
                                  enable_prefix_cache=self.enable_prefix_cache,
                                  ragged_impl=self.ragged_impl,
-                                 kv_dtype=self.kv_dtype)
+                                 kv_dtype=self.kv_dtype, device=self.device)
+        self._programs = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.cuda_graphs else None)
         self._cache = cache           # test and smoke-run introspection
         return cache
 
@@ -465,6 +696,7 @@ class ContinuousServingEngine(_Engine):
             row = pending.popleft()
             if row.req.cancelled:
                 row.done = True
+                self.cancelled_rows += 1
                 continue
             if row.prompt.shape[0] < 1:
                 raise ValueError("cannot serve an empty prompt")
@@ -473,6 +705,25 @@ class ContinuousServingEngine(_Engine):
             row.state = "prefill"
             active[slot] = row
             prefill_q.append(slot)
+            self.prefills += 1
+
+    def _token(self, row, logits, idx, greedy=None):
+        """Row ``row``'s next token from ``logits[idx]``: the argmax (read
+        from ``greedy``, the tick's argmax on the host, when given) unless
+        the request samples; then one draw through ``_sample_logits`` from
+        the row's generator of (seed, row, token index), or the global one
+        without a seed."""
+        kw = row.req.kwargs
+        if not kw.get("do_sample", False):
+            return int(greedy[idx] if greedy is not None
+                       else logits[idx].float().argmax())
+        seed = kw.get("seed")
+        gen = (None if seed is None else
+               _row_generator(seed, row.row_idx, len(row.generated),
+                              logits.device))
+        return int(_sample_logits(
+            logits[idx:idx + 1].float(), True, kw.get("top_k", 0),
+            kw.get("top_p", 1.0), kw.get("temperature", 1.0), gen)[0])
 
     def _push_token(self, cache, free, active, slot, token):
         row = active[slot]
@@ -507,9 +758,9 @@ class ContinuousServingEngine(_Engine):
     def _serve(self):
         was_training = self.model.training
         self.model.eval()
-        tick = self._tick if self.enable_ragged else self._legacy_tick
         try:
-            cache = self._new_cache()
+            cache, self._adopt = self._adopt or self._new_cache(), None
+            tick = self._tick if self.enable_ragged else self._legacy_tick
             free: deque = deque(range(self.max_batch))
             active: list = [None] * self.max_batch
             pending: deque = deque()
@@ -522,7 +773,8 @@ class ContinuousServingEngine(_Engine):
                 if isinstance(item, _Control):
                     item.run(self)       # tick boundary: scheduler-safe
                     return True
-                item._rows = [_Row(item, row) for row in item.ids]
+                item._rows = [_Row(item, row, i)
+                              for i, row in enumerate(item.ids)]
                 pending.extend(item._rows)
                 return True
 
@@ -534,6 +786,19 @@ class ContinuousServingEngine(_Engine):
                 free.append(i)
 
             while True:
+                if self._aborted:
+                    # no drain: every queued and in-flight request fails
+                    # now, and the slots it held are freed
+                    err = self._stop_error()
+                    for row in list(pending) + [r for r in active
+                                                if r is not None]:
+                        row.req.error = err
+                        row.req.done.set()
+                    pending.clear()
+                    for i, r in enumerate(active):
+                        if r is not None:
+                            drop_slot(i)
+                    break
                 draining = not self._running
                 if draining and all(r is None for r in active):
                     break
@@ -556,7 +821,7 @@ class ContinuousServingEngine(_Engine):
                     # their admitted sibling rows
                     dropped = {row.req for row in pending}
                     for row in pending:
-                        row.req.error = RuntimeError("engine stopped")
+                        row.req.error = self._stop_error()
                         row.req.done.set()
                     pending.clear()
                     for i, r in enumerate(active):
@@ -566,6 +831,7 @@ class ContinuousServingEngine(_Engine):
                 for i, r in enumerate(active):
                     if r is not None and r.req.cancelled:
                         r.done = True
+                        self.cancelled_rows += 1
                         drop_slot(i)
                 try:
                     if self._running:
@@ -623,33 +889,46 @@ class ContinuousServingEngine(_Engine):
             else:
                 flat[qs:qs + n] = row.prompt[start:start + n]
             pos[qs:qs + n] = np.arange(start, start + n)
-        cache.begin_ragged([(slot, qs, n) for slot, qs, _, n, _ in spans])
-        logits = self.model.forward(flat[None], cache=cache,
-                                    position_ids=pos)
-        greedy = logits[0].float().argmax(-1).cpu().numpy()
+        cache.begin_ragged([(slot, qs, n) for slot, qs, _, n, _ in spans],
+                           num_tokens=padded)
+        lg = self._forward(("ragged", padded), flat[None], pos, cache)[0]
+        cache.end_step()
+        greedy = lg.float().argmax(-1).cpu().numpy()
         self.ragged_steps += 1
+        self.ragged_buckets_used.add(padded)
         self.padded_tokens_total += padded
         self.useful_tokens_total += total
+        n_decode = len(decode_slots)
+        self.ragged_decode_tokens += n_decode
+        self.ragged_prefill_tokens += total - n_decode
 
         # prefill spans: register finished prompts, hand them to decode
         for slot, qs, start, n, kind in spans:
             if kind != "prefill":
                 continue
             row = active[slot]
-            if start + n < row.prompt.shape[0]:
+            self.prefill_chunks += 1
+            done = start + n >= row.prompt.shape[0]
+            self.events.append(("chunk", slot, n, done))
+            if not done:
                 continue
             prefill_q.remove(slot)
             cache.commit_prefix(slot)
             row.state = "decode"
             self._push_token(cache, free, active, slot,
-                             int(greedy[qs + n - 1]))
+                             self._token(row, lg, qs + n - 1, greedy))
+        if not decode_slots:
+            return
+        self.decode_steps += 1
+        self.events.append(("decode", n_decode))
         for slot, qs, start, n, kind in spans:
             if kind != "decode":
                 continue
             row = active[slot]
             if row is None or row.done:
                 continue
-            self._push_token(cache, free, active, slot, int(greedy[qs]))
+            self._push_token(cache, free, active, slot,
+                             self._token(row, lg, qs, greedy))
 
     # -- legacy two-program scheduler ---------------------------------------
     def _legacy_tick(self, cache, free, active, prefill_q):
@@ -667,15 +946,18 @@ class ContinuousServingEngine(_Engine):
         for i, r in enumerate(active):
             if mask[i]:
                 cur[i, 0] = r.generated[-1] if r.generated else r.prompt[-1]
-        pos = cache.lens.astype(np.int64)[:, None]
-        logits = self.model.forward(cur, cache=cache, position_ids=pos)
-        greedy = logits[:, -1].float().argmax(-1).cpu().numpy()
+        lg = self._forward(("decode",), cur, cache.lens[:, None],
+                           cache)[:, -1]
+        cache.end_step()
+        greedy = lg.float().argmax(-1).cpu().numpy()
         self.decode_steps += 1
         # the fixed-shape step spends a token position on every slot
         self.padded_tokens_total += self.max_batch
         self.useful_tokens_total += n_active
+        self.events.append(("decode", n_active))
         for i in np.nonzero(mask)[0]:
-            self._push_token(cache, free, active, int(i), int(greedy[i]))
+            self._push_token(cache, free, active, int(i),
+                             self._token(active[i], lg, int(i), greedy))
 
     def _prefill_chunk(self, cache, free, active, prefill_q):
         """Run one bucket-padded prefill chunk for ``prefill_q[0]``. On the
@@ -693,16 +975,19 @@ class ContinuousServingEngine(_Engine):
         pos = np.minimum(np.arange(start, start + padded),
                          start + n_valid - 1)
         cache.begin_prefill(slot, n_valid)
-        logits = self.model.forward(chunk[None], cache=cache,
-                                    position_ids=pos)
+        lg = self.model.forward(chunk[None], cache=cache,
+                                position_ids=pos)[0]
+        cache.end_step()
         self.prefill_chunks += 1
         self.prefill_chunk_buckets[padded] += 1
         self.padded_tokens_total += padded
         self.useful_tokens_total += n_valid
-        if start + n_valid < row.prompt.shape[0]:
+        done = start + n_valid >= row.prompt.shape[0]
+        self.events.append(("chunk", slot, n_valid, done))
+        if not done:
             return
         prefill_q.popleft()
         cache.commit_prefix(slot)
         row.state = "decode"
         self._push_token(cache, free, active, slot,
-                         int(logits[0, n_valid - 1].float().argmax()))
+                         self._token(row, lg, n_valid - 1))

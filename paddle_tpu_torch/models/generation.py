@@ -36,7 +36,9 @@ import torch
 
 from ..nn.functional import scaled_dot_product_attention
 from ..ops.paged_attention import paged_attention
-from ..ops.ragged_paged_attention import make_plan, ragged_paged_attention
+from ..ops.ragged_paged_attention import (DEFAULT_QBLOCK, RaggedPlan,
+                                          plan_arrays,
+                                          ragged_paged_attention)
 
 #: kv_dtype values SlotPagedKVCache takes; "auto" means "native"
 KV_DTYPES = ("auto", "int8", "native")
@@ -238,6 +240,43 @@ class PagedKVCache(KVCache):
         return paged_attention(q[:, 0], k_pages, v_pages, tables, ctx)[:, None]
 
 
+class StagedBuffer:
+    """A tensor on ``device`` that is refilled from a host array before
+    each forward, outside any captured region, so that a CUDA graph
+    captured over it reads each tick's values. On CUDA the array goes
+    through a pinned host copy and a non-blocking copy on the current
+    stream (the pinned copy is reused once the last copy out of it has
+    completed); on the CPU it is copied in place."""
+
+    def __init__(self, shape, dtype, device):
+        self.dev = torch.zeros(shape, dtype=dtype, device=device)
+        self._pinned = self._copied = None
+        if self.dev.is_cuda:
+            self._pinned = torch.zeros(shape, dtype=dtype, pin_memory=True)
+            self._copied = torch.cuda.Event()
+
+    def fill(self, array):
+        src = torch.from_numpy(np.ascontiguousarray(array)).to(self.dev.dtype)
+        if src.shape != self.dev.shape:
+            raise ValueError(f"staged buffer {tuple(self.dev.shape)} "
+                             f"filled with {tuple(src.shape)}")
+        if self._pinned is None:
+            self.dev.copy_(src)
+            return
+        self._copied.synchronize()
+        self._pinned.copy_(src)
+        self.dev.copy_(self._pinned, non_blocking=True)
+        self._copied.record()
+
+
+def _staged(arrays, device, dtypes=None):
+    """``{name: StagedBuffer}`` shaped like ``arrays`` (int32 unless
+    ``dtypes`` names another torch dtype)."""
+    dtypes = dtypes or {}
+    return {n: StagedBuffer(a.shape, dtypes.get(n, torch.int32), device)
+            for n, a in arrays.items()}
+
+
 class SlotPagedKVCache:
     """Per-slot paged KV cache over a shared refcounted page pool.
 
@@ -248,11 +287,26 @@ class SlotPagedKVCache:
     hatch). ``kv_dtype`` is one of :data:`KV_DTYPES`; ``None`` and
     ``"auto"`` mean ``"native"`` (the model's dtype), ``"int8"`` stores
     int8 codes with one fp32 scale per ``(kv head, page, slot)`` row,
-    quantised on scatter (:func:`quantize_kv_rows`)."""
+    quantised on scatter (:func:`quantize_kv_rows`).
+
+    A ragged step and a decode step read their scatter indices, block
+    tables, contexts and ragged schedule from buffers of fixed shape, one
+    set per tick shape (the ragged tick's token count, or the decode
+    step), which the ``begin_*`` call refills from the host. The q-block
+    schedule takes its fixed grid (``max_slots=max_batch`` in
+    :func:`~paddle_tpu_torch.ops.ragged_paged_attention.plan_arrays`). So
+    a forward over these buffers launches the same kernels at the same
+    shapes whatever the tick holds, and a CUDA graph captured over it
+    replays every later tick of its shape. ``device`` is where those
+    buffers live (``None``: the CPU); it must be the device of the
+    model's activations. A step ends with :meth:`end_step`, the one place
+    its lengths advance: the model's forward leaves a slot cache's
+    lengths alone, so a replayed graph, which runs no Python, needs
+    nothing of it."""
 
     def __init__(self, max_batch, page_size=16, max_len=2048,
                  num_pages=None, enable_prefix_cache=True,
-                 ragged_impl="qblock", kv_dtype=None):
+                 ragged_impl="qblock", kv_dtype=None, device=None):
         self.max_batch = int(max_batch)
         self.page_size = int(page_size)
         self.max_len = int(max_len)
@@ -284,6 +338,11 @@ class SlotPagedKVCache:
         #                          | ("decode", active mask)
         self._idx = None                  # per-forward index memo
         self._prefill_valid = None        # real tokens of a padded chunk
+        self.device = torch.device("cpu" if device is None else device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # where tensors made on "cuda" land, as activations report it
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self._steps = {}                  # tick shape -> staged buffers
         self.prefix_hits = 0              # full blocks served from the index
         self.prefix_misses = 0            # full blocks that had to prefill
         self.cow_copies = 0
@@ -436,18 +495,19 @@ class SlotPagedKVCache:
         their own pages, the others write to the scratch page."""
         mask = np.asarray(active_mask, bool)
         self._mode = ("decode", mask)
-        self._idx = None
         for i in np.nonzero(mask)[0]:
             self._ensure_blocks(int(i), int(self.lens[i]) + 1)
             self._make_writable(int(i), int(self.lens[i]) // self.page_size)
+        self._stage(self.max_batch)
 
-    def begin_ragged(self, spans):
+    def begin_ragged(self, spans, num_tokens=None):
         """Arm the next forward as one ragged mixed prefill+decode step.
         ``spans`` lists ``(slot, q_start, n_new)``: the slot's next
         ``n_new`` context tokens sit at ``q_start`` of the flat
-        ``[1, tokens]`` batch, ``q_start`` non-decreasing. Tokens outside
-        every span are padding. Pages are allocated and copy-on-write
-        resolved here, once per step."""
+        ``[1, num_tokens]`` batch, ``q_start`` non-decreasing. Tokens
+        outside every span are padding; ``num_tokens`` ``None`` means the
+        spans' end. Pages are allocated, copy-on-write resolved and the
+        step's buffers refilled here, once per step."""
         spans = [(int(s), int(qs), int(n)) for s, qs, n in spans]
         for slot, _, n_new in spans:
             start = int(self.lens[slot])
@@ -459,7 +519,15 @@ class SlotPagedKVCache:
                              -(-(start + n_new) // self.page_size)):
                 self._make_writable(slot, blk)
         self._mode = ("ragged", spans)
-        self._idx = None
+        if num_tokens is None:
+            num_tokens = max((qs + n for _, qs, n in spans), default=1)
+        self._stage(int(num_tokens))
+
+    def end_step(self):
+        """End the step its forward ran: advance the lengths by it (a
+        prefill chunk by its real tokens)."""
+        self.advance(self._prefill_valid
+                     if self._mode[0] == "prefill" else 0)
 
     def free(self, slot):
         slot = int(slot)
@@ -479,6 +547,9 @@ class SlotPagedKVCache:
         return 0
 
     def advance(self, s):
+        """Advance the lengths by the armed step: a prefill chunk of ``s``
+        tokens by ``s`` (at most its ``n_valid``), every decode row or
+        ragged span by its own tokens."""
         mode, arg = self._mode
         if mode == "prefill":
             n = self._prefill_valid
@@ -488,6 +559,58 @@ class SlotPagedKVCache:
                 self.lens[slot] += n_new
         else:                                  # decode: the active mask
             self.lens[arg] += 1
+
+    def _stage(self, s):
+        """Refill the armed step's buffers (``s`` tokens) from the host and
+        point every layer's attention at them."""
+        mode, arg = self._mode
+        if mode == "decode":
+            lens = self.lens.copy()
+            wr_blk = np.minimum(lens // self.page_size, self.pages_per_seq - 1)
+            host = {"page_ids": np.where(
+                        arg, self._tables[np.arange(s), wr_blk], 0)[:, None],
+                    "slot_ids": np.where(arg, lens % self.page_size,
+                                         0)[:, None],
+                    "tables": self._tables,
+                    "ctx": np.where(arg, lens + 1, 1)}
+            bufs = self._step_buffers(("decode", s), host)
+            self._idx = tuple(bufs[n].dev for n in host)
+            return
+        page_ids = np.zeros(s, np.int64)          # default: scratch page
+        slot_ids = np.zeros(s, np.int64)
+        for slot, qs, n_new in arg:
+            pos = np.arange(self.lens[slot], self.lens[slot] + n_new)
+            page_ids[qs:qs + n_new] = self._tables[slot, pos // self.page_size]
+            slot_ids[qs:qs + n_new] = pos % self.page_size
+        desc = (np.asarray([sl for sl, _, _ in arg], np.int32),
+                np.asarray([qs for _, qs, _ in arg], np.int32),
+                np.asarray([n for _, _, n in arg], np.int32),
+                np.asarray([int(self.lens[sl]) + n for sl, _, n in arg],
+                           np.int32))
+        tables = self._tables.copy()
+        sched = plan_arrays(s, *desc, tables, self.page_size,
+                            impl=self.ragged_impl, q_block=DEFAULT_QBLOCK,
+                            max_slots=self.max_batch)
+        bufs = self._step_buffers(("ragged", s),
+                                  dict(sched, page_ids=page_ids,
+                                       slot_ids=slot_ids))
+        plan = RaggedPlan(self.ragged_impl, s, self.page_size,
+                          DEFAULT_QBLOCK, sched,
+                          {n: bufs[n].dev for n in sched},
+                          self.pages_per_seq)
+        self._idx = (bufs["page_ids"].dev, bufs["slot_ids"].dev, tables,
+                     desc, plan)
+
+    def _step_buffers(self, key, host):
+        """The staged buffers of tick shape ``key``, made at its first
+        step, refilled from ``host`` (``{name: array}``)."""
+        if key not in self._steps:
+            self._steps[key] = _staged(host, self.device, {
+                "page_ids": torch.int64, "slot_ids": torch.int64})
+        bufs = self._steps[key]
+        for name, array in host.items():
+            bufs[name].fill(array)
+        return bufs
 
     def _pool(self, layer, kv_heads, d, dtype, device):
         key = id(layer)
@@ -530,6 +653,10 @@ class SlotPagedKVCache:
         d]``, ``k``/``v [b, s, kv_heads, d]`` -> ``[b, s, heads, d]``."""
         mode, arg = self._mode
         b, s, kv_heads, d = k.shape
+        if mode != "prefill" and k.device != self.device:
+            raise ValueError(f"the step's buffers are on {self.device}, the "
+                             f"activations on {k.device}: pass the model's "
+                             f"device to SlotPagedKVCache")
         k_pages, v_pages = self._pool(layer, kv_heads, d, k.dtype, k.device)
         if mode == "prefill":
             return self._attend_prefill(layer, arg, q, k, v, k_pages, v_pages)
@@ -557,6 +684,7 @@ class SlotPagedKVCache:
             raise ValueError(f"slot overflow: {start}+{n_valid} > "
                              f"{self.max_len}")
         if self._idx is None:       # shared by every layer of the forward
+            self._prefill_valid = n_valid          # what end_step advances
             self._ensure_blocks(slot, start + n_valid)
             for blk in range(start // self.page_size,
                              -(-(start + n_valid) // self.page_size)):
@@ -599,19 +727,6 @@ class SlotPagedKVCache:
         if b != self.max_batch or s != 1:
             raise ValueError(f"a decode step is [{self.max_batch}, 1], got "
                              f"[{b}, {s}]")
-        if self._idx is None:       # shared by every layer of the forward
-            lens = self.lens.copy()
-            wr_blk = np.minimum(lens // self.page_size, self.pages_per_seq - 1)
-            page_ids = np.where(mask, self._tables[np.arange(b), wr_blk], 0)
-            slot_ids = np.where(mask, lens % self.page_size, 0)
-            ctx = np.where(mask, lens + 1, 1).astype(np.int32)
-            dev = k.device
-            self._idx = (torch.from_numpy(page_ids.astype(np.int64)[:, None]
-                                          ).to(dev),
-                         torch.from_numpy(slot_ids.astype(np.int64)[:, None]
-                                          ).to(dev),
-                         torch.from_numpy(self._tables.copy()).to(dev),
-                         torch.from_numpy(ctx).to(dev))
         page_ids, slot_ids, tables, ctx = self._idx
         self._scatter(layer, k_pages, v_pages, k.permute(2, 0, 1, 3),
                       v.permute(2, 0, 1, 3), page_ids, slot_ids)
@@ -625,26 +740,10 @@ class SlotPagedKVCache:
         b, s = k.shape[:2]
         if b != 1:
             raise ValueError("a ragged step packs one flat token batch")
-        if self._idx is None:       # shared by every layer of the forward
-            page_ids = np.zeros(s, np.int64)     # default: scratch page
-            slot_ids = np.zeros(s, np.int64)
-            for slot, qs, n_new in spans:
-                pos = np.arange(self.lens[slot], self.lens[slot] + n_new)
-                page_ids[qs:qs + n_new] = \
-                    self._tables[slot, pos // self.page_size]
-                slot_ids[qs:qs + n_new] = pos % self.page_size
-            desc = (np.asarray([sl for sl, _, _ in spans], np.int32),
-                    np.asarray([qs for _, qs, _ in spans], np.int32),
-                    np.asarray([n for _, _, n in spans], np.int32),
-                    np.asarray([int(self.lens[sl]) + n
-                                for sl, _, n in spans], np.int32))
-            tables = self._tables.copy()
-            plan = make_plan(s, *desc, tables, self.page_size,
-                             impl=self.ragged_impl, device=k.device)
-            self._idx = (torch.from_numpy(page_ids).to(k.device),
-                         torch.from_numpy(slot_ids).to(k.device),
-                         tables, desc, plan)
         page_ids, slot_ids, tables, desc, plan = self._idx
+        if page_ids.shape[0] != s:
+            raise ValueError(f"a ragged step armed for {page_ids.shape[0]} "
+                             f"tokens got {s}")
         self._scatter(layer, k_pages, v_pages, k[0].transpose(0, 1),
                       v[0].transpose(0, 1), page_ids, slot_ids)
         ks, vs = self._layer_scales(layer)
@@ -661,6 +760,17 @@ def _step_generator(seed, step, device):
     gen = torch.Generator(device=device)
     gen.manual_seed((int(seed) * 1_000_003 + int(step)) % (1 << 63))
     return gen
+
+
+def _row_generator(seed, row_idx, token_idx, device):
+    """The generator of token ``token_idx`` of row ``row_idx`` of a
+    request seeded with ``seed``: a function of the triple alone, so a
+    seeded request draws the same numbers whatever it shares a tick with
+    and whichever scheduler runs it (the counterpart of the reference
+    engine's ``_row_key``, which folds the row and the token index into
+    the request's PRNG key)."""
+    return _step_generator(int(seed) * 1_000_003 + int(row_idx), token_idx,
+                           device)
 
 
 def _sample_logits(logits, do_sample, top_k, top_p, temperature,

@@ -17,7 +17,7 @@ from .._device import resolve_device
 from ..nn.functional import scaled_dot_product_attention
 from ..nn.norm import RMSNorm
 from ..ops import fused
-from .generation import GenerationMixin
+from .generation import GenerationMixin, SlotPagedKVCache
 
 
 class LlamaConfig:
@@ -180,7 +180,9 @@ class LlamaModel(nn.Module):
                 hidden = layer(hidden, self.rope_cos, self.rope_sin,
                                position_ids, cache)
         hidden = self.norm(hidden)
-        if cache is not None:
+        # a slot cache's step ends in its own end_step(), outside any
+        # captured forward
+        if cache is not None and not isinstance(cache, SlotPagedKVCache):
             cache.advance(input_ids.shape[1])
         return hidden
 

@@ -7,10 +7,14 @@ land in ``build/kernels/`` at the repository root, named by a digest of
 the source, the headers and the flags, so an edited source or header is
 rebuilt and an unchanged one is reused. All sources compile in parallel,
 one ``nvcc`` each. Nothing is built at import: the first call that needs
-a kernel builds it, and a failed build raises. The tensor-core kernels
-encode their TMA tensor maps with libcuda's ``cuTensorMapEncodeTiled``,
-looked up at run time through the CUDA runtime's entry-point query, so
-no library links against ``libcuda``.
+a kernel builds it, and a failed build raises. Every launch goes through
+:func:`launch`, the one place the wrappers' launch counters rise; a
+launch made while a CUDA graph is being captured runs only at the
+graph's replays, so it is recorded instead (:func:`record_launches`) and
+credited at each replay (:meth:`LaunchRecord.credit`). The tensor-core
+kernels encode their TMA tensor maps with libcuda's
+``cuTensorMapEncodeTiled``, looked up at run time through the CUDA
+runtime's entry-point query, so no library links against ``libcuda``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -42,10 +47,10 @@ _L = ctypes.c_longlong
 #: argtypes of every exported function, by library stem
 SIGNATURES = {
     "ragged_paged_attention": {
-        "ptt_ragged_qblock": [_I] + [_P] * 8 + [_I] * 9 + [_F, _P],
+        "ptt_ragged_qblock": [_I] + [_P] * 9 + [_I] * 10 + [_F, _P],
         "ptt_ragged_token": [_I] + [_P] * 7 + [_I] * 7 + [_F, _P],
-        "ptt_ragged_qblock_q8": [_I] + [_P] * 10 + [_I] * 9 + [_F, _P],
-        "ptt_ragged_qblock_smem": [_I] * 7,
+        "ptt_ragged_qblock_q8": [_I] + [_P] * 11 + [_I] * 10 + [_F, _P],
+        "ptt_ragged_qblock_smem": [_I] * 8,
         "ptt_ragged_token_q8": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P],
         "ptt_ragged_token_split": [_I] + [_P] * 7 + [_I] * 7 + [_F]
                                   + [_I] * 2 + [_P],
@@ -163,14 +168,74 @@ def dtype_code(dtype):
     return _DTYPE_CODE[dtype]
 
 
-def launch(fn_name, device, args):
+def _bump(target, key, n):
+    """Add ``n`` to counter ``key`` of ``target``: an attribute of a
+    wrapper function, or an item of a dict (counts by shape)."""
+    if isinstance(target, dict):
+        target[key] = target.get(key, 0) + n
+    else:
+        setattr(target, key, getattr(target, key) + n)
+
+
+class LaunchRecord:
+    """The launches one CUDA graph capture recorded, by counter;
+    :meth:`credit` adds them once, for one replay of the graph."""
+
+    def __init__(self):
+        self.counts = {}            # (id(target), key) -> [target, key, n]
+
+    def add(self, counters):
+        for target, key in counters:
+            self.counts.setdefault((id(target), key), [target, key, 0])[2] += 1
+
+    def credit(self):
+        for target, key, n in self.counts.values():
+            _bump(target, key, n)
+
+
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Yields the :class:`LaunchRecord` that the launches made on this
+    thread while a CUDA graph is being captured go to (they run at the
+    graph's replays, not now). A launch under a capture with no record
+    open raises."""
+    if getattr(_capture, "record", None) is not None:
+        raise RuntimeError("record_launches() is already open on this "
+                           "thread")
+    _capture.record = rec = LaunchRecord()
+    try:
+        yield rec
+    finally:
+        _capture.record = None
+
+
+def _open_record(capturing):
+    """The record a launch goes to: none when no capture is under way;
+    under one, this thread's open record (raises if there is none)."""
+    if not capturing:
+        return None
+    rec = getattr(_capture, "record", None)
+    if rec is None:
+        raise RuntimeError("a kernel launched under a CUDA graph capture "
+                           "outside record_launches(): its replays would "
+                           "go uncounted")
+    return rec
+
+
+def launch(fn_name, device, args, counters=()):
     """Call the exported ``fn_name`` with ``args`` (ctypes values, or
-    Python numbers its argtypes convert) on ``device``'s current stream.
-    The C side returns the cudaError_t of its shared-memory request and
-    launch; any error raises (an oversized block is refused by
+    Python numbers its argtypes convert) on ``device``'s current stream,
+    and count it in ``counters`` (``(target, key)`` pairs, see
+    :func:`_bump`), or record it under a graph capture. The C
+    side returns the cudaError_t of its shared-memory request and launch;
+    any error raises (an oversized block is refused by
     cudaFuncSetAttribute). The device context is entered only when
     ``device`` is not the current one."""
     lib = load_kernels()
+    rec = _open_record(torch.cuda.is_current_stream_capturing())
     with (contextlib.nullcontext()
           if device.index == torch.cuda.current_device()
           else torch.cuda.device(device)):
@@ -179,3 +244,8 @@ def launch(fn_name, device, args):
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: "
                            f"{lib.ptt_error_string(rc).decode()} ({rc})")
+    if rec is not None:
+        rec.add(counters)
+        return
+    for target, key in counters:
+        _bump(target, key, 1)

@@ -374,10 +374,14 @@ def _flash_cuda(q, k, v, causal, sm_scale, q_offset, kv_offset, seq_dim):
             sq, sk, d, int(q_offset), int(kv_offset), int(bool(causal)), bq,
             bk, float(sm_scale))
     _build.launch("ptt_flash_fwd_wgmma" if wgmma else "ptt_flash_fwd",
-                  q.device, args)
-    flash_attention.launches += 1
-    flash_attention.wgmma_launches += wgmma
+                  q.device, args, _counters(flash_attention, wgmma))
     return out, lse
+
+
+def _counters(fn, wgmma):
+    """The launch counters of wrapper ``fn`` that a launch adds one to."""
+    return ((fn, "launches"),) + (((fn, "wgmma_launches"),) if wgmma
+                                  else ())
 
 
 def _bwd_operands(q, k, v, dout, lse, delta, seq_dim):
@@ -437,9 +441,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal=True, sm_scale=None,
             + _strides((q, k, v, dout, dq), seq_dim)
             + _bwd_ints(dims, q_offset, kv_offset, causal, sm_scale))
     _build.launch("ptt_flash_bwd_dq_wgmma" if wgmma else "ptt_flash_bwd_dq",
-                  q.device, args)
-    flash_bwd_dq.launches += 1
-    flash_bwd_dq.wgmma_launches += wgmma
+                  q.device, args, _counters(flash_bwd_dq, wgmma))
     return dq
 
 
@@ -478,9 +480,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True, sm_scale=None,
             + _strides((q, k, v, dout, dk, dv), seq_dim)
             + _bwd_ints(dims, q_offset, kv_offset, causal, sm_scale))
     _build.launch("ptt_flash_bwd_dkv_wgmma" if wgmma else "ptt_flash_bwd_dkv",
-                  q.device, args)
-    flash_bwd_dkv.launches += 1
-    flash_bwd_dkv.wgmma_launches += wgmma
+                  q.device, args, _counters(flash_bwd_dkv, wgmma))
     return dk, dv
 
 

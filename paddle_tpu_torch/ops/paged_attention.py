@@ -318,10 +318,8 @@ def _paged_cuda(fn, q, k_pages, v_pages, block_tables, context_lens,
             + [ctypes.c_float(sm_scale)]
             + ([ctypes.c_int(splits), ctypes.c_int(stages)]
                if variant == "cluster" else []))
-    _build.launch(name, q.device, args)
-    fn.launches += 1
-    setattr(fn, f"{variant}_launches",
-            getattr(fn, f"{variant}_launches") + 1)
+    _build.launch(name, q.device, args,
+                  ((fn, "launches"), (fn, f"{variant}_launches")))
     return out
 
 

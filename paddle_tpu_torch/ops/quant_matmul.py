@@ -128,7 +128,8 @@ def int8_matmul(x, w_int8, scale):
     in x's dtype. A CPU tensor runs :func:`int8_matmul_plain`. A CUDA
     call launches the kernel :func:`matmul_variant` names. CUDA calls
     are counted in ``int8_matmul.launches``, those on the tensor cores
-    also in ``.wgmma_stream_launches`` or ``.wgmma_gemm_launches``."""
+    also in ``.wgmma_stream_launches`` or ``.wgmma_gemm_launches``, and
+    every one by M in ``.launches_by_m`` (``{M: count}``)."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w_int8, scale)
     if x.device.type != "cuda":
@@ -157,10 +158,11 @@ def int8_matmul(x, w_int8, scale):
     if M == 0:
         return out
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (x, w_int8, scale, out)]
+    counters = ((int8_matmul, "launches"), (int8_matmul.launches_by_m, M))
     if variant == "simt":
         _build.launch("ptt_int8_matmul", x.device,
                       [ctypes.c_int(code)] + ptrs
-                      + [ctypes.c_int(v) for v in (M, N, K)])
+                      + [ctypes.c_int(v) for v in (M, N, K)], counters)
     else:
         mt, nwg, splits, tpp = split_plan(variant, M, N, K)
         part = (torch.empty((splits, M, N), dtype=torch.float32,
@@ -170,13 +172,12 @@ def int8_matmul(x, w_int8, scale):
                       + [ctypes.c_void_p(None if part is None
                                          else part.data_ptr())]
                       + [ctypes.c_int(v)
-                         for v in (M, N, K, mt, nwg, splits, tpp)])
-        name = f"{variant}_launches"
-        setattr(int8_matmul, name, getattr(int8_matmul, name) + 1)
-    int8_matmul.launches += 1
+                         for v in (M, N, K, mt, nwg, splits, tpp)],
+                      counters + ((int8_matmul, f"{variant}_launches"),))
     return out
 
 
 int8_matmul.launches = 0
 int8_matmul.wgmma_stream_launches = 0
 int8_matmul.wgmma_gemm_launches = 0
+int8_matmul.launches_by_m = {}

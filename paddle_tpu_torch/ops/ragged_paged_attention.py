@@ -110,6 +110,8 @@ def _token_descriptors(num_tokens, seq_slots, q_starts, q_lens,
     ql = np.asarray(q_lens, np.int32).reshape(-1)
     cl = np.asarray(context_lens, np.int32).reshape(-1)
     tok = np.arange(int(num_tokens), dtype=np.int32)
+    if qs.size == 0:                   # a tick of padding alone
+        return np.zeros_like(tok), np.ones_like(tok)
     seq_of = np.clip(
         np.searchsorted(qs, tok, side="right").astype(np.int32) - 1,
         0, max(qs.shape[0] - 1, 0))
@@ -122,7 +124,7 @@ def _token_descriptors(num_tokens, seq_slots, q_starts, q_lens,
 
 
 def qblock_schedule(num_tokens, seq_slots, q_starts, q_lens, context_lens,
-                    block_tables, q_block, page_size):
+                    block_tables, q_block, page_size, num_jobs=None):
     """Host-side schedule for the q-block grid.
 
     Tiles the flat batch into fixed ``q_block``-row blocks and lists, per
@@ -130,7 +132,8 @@ def qblock_schedule(num_tokens, seq_slots, q_starts, q_lens, context_lens,
     per KV page any sequence in the block still needs. Pages of one slot
     ascend, slots come in first-appearance order, so each row sees its
     own pages in the per-token kernel's order. The job count is padded
-    to a power of two.
+    to a power of two, or to ``num_jobs`` when given (a fixed width, see
+    :func:`qblock_caps`; a schedule that needs more raises).
 
     Sentinels: rows past ``num_tokens`` (block padding) get slot -1 /
     ctx 0; padding jobs get slot -2 / page 0. They never match each
@@ -174,7 +177,11 @@ def qblock_schedule(num_tokens, seq_slots, q_starts, q_lens, context_lens,
         jobs.append(block_jobs)
         max_jobs = max(max_jobs, len(block_jobs))
 
-    num_jobs = 1 << (max_jobs - 1).bit_length()
+    if num_jobs is None:
+        num_jobs = 1 << (max_jobs - 1).bit_length()
+    elif max_jobs > num_jobs:
+        raise ValueError(f"a q-block needs {max_jobs} jobs, more than the "
+                         f"fixed width {num_jobs}")
     job_page = np.zeros((nblocks, num_jobs), np.int32)
     job_slot = np.full((nblocks, num_jobs), -2, np.int32)
     job_kv = np.zeros((nblocks, num_jobs), np.int32)
@@ -204,42 +211,98 @@ def qblock_units(job_slot):
         np.int32).reshape(-1, 4)
 
 
+def qblock_caps(num_tokens, q_block, max_slots, pages_per_seq):
+    """The fixed q-block grid of a ``num_tokens`` bucket whose sequences
+    come from at most ``max_slots`` slots of ``pages_per_seq`` pages:
+    ``(U_max, J_max)``. A block of ``q_block`` rows holds at most
+    ``min(q_block, max_slots)`` slots, each a unit of at most
+    ``pages_per_seq`` jobs, so ``J_max = min(q_block, max_slots) *
+    pages_per_seq``. A block's units are one plus the changes of slot
+    inside it; rows packed as the engines pack them (spans back to back
+    from row 0, then padding, which reads slot 0) change slot at most
+    once a span, and a tick holds at most ``max_slots`` spans, so with
+    ``B = ceil(num_tokens / q_block)`` blocks ``U_max = min(B *
+    min(q_block, max_slots), B + max_slots)`` (:func:`plan_arrays`
+    raises for a layout that needs more).
+    Shapes alone decide both: a tick of that bucket launches the same
+    grid whatever its spans (a CUDA graph replays it)."""
+    per_block = min(max(int(q_block), 1), int(max_slots))
+    blocks = -(-int(num_tokens) // max(int(q_block), 1))
+    return (min(blocks * per_block, blocks + int(max_slots)),
+            per_block * int(pages_per_seq))
+
+
+def plan_arrays(num_tokens, seq_slots, q_starts, q_lens, context_lens,
+                block_tables, page_size, *, impl="qblock",
+                q_block=DEFAULT_QBLOCK, max_slots=None):
+    """The host arrays (int32 numpy, by name) of ``impl``'s schedule.
+
+    q-block: ``row_slot``, ``row_ctx``, ``job_page``, ``job_slot``,
+    ``job_kv``, ``units`` and ``n_units`` (the live unit count, which the
+    kernel reads on the device: a block at or past it returns at once).
+    With ``max_slots`` the grid is the fixed one of :func:`qblock_caps`:
+    the job lists are padded to ``J_max`` with padding jobs (slot -2,
+    which get no unit) and ``units`` to ``U_max`` rows of zeros past the
+    live ones. Per-token: ``tok_slot``, ``tok_ctx`` and ``tables``, whose
+    shapes already depend on ``num_tokens`` and the table alone."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r} not in {IMPLS}")
+    tbl = np.ascontiguousarray(np.asarray(block_tables, np.int32))
+    if impl == "token":
+        names = ("tok_slot", "tok_ctx", "tables")
+        arrays = _token_descriptors(num_tokens, seq_slots, q_starts,
+                                    q_lens, context_lens) + (tbl,)
+        return {n: np.ascontiguousarray(a) for n, a in zip(names, arrays)}
+    caps = (None if max_slots is None
+            else qblock_caps(num_tokens, q_block, max_slots, tbl.shape[1]))
+    arrays = qblock_schedule(num_tokens, seq_slots, q_starts, q_lens,
+                             context_lens, tbl, q_block, page_size,
+                             num_jobs=None if caps is None else caps[1])
+    units = qblock_units(arrays[3])
+    live = units.shape[0]
+    if caps is not None and live > caps[0]:
+        raise ValueError(f"{live} q-block units, more than the fixed grid's "
+                         f"{caps[0]}: the spans come from more than "
+                         f"{max_slots} slots")
+    if caps is not None:
+        units = np.concatenate([units, np.zeros((caps[0] - live, 4),
+                                                np.int32)])
+    names = ("row_slot", "row_ctx", "job_page", "job_slot", "job_kv",
+             "units", "n_units")
+    arrays += (units, np.asarray([live], np.int32))
+    return {n: np.ascontiguousarray(a) for n, a in zip(names, arrays)}
+
+
 @dataclass
 class RaggedPlan:
     """What one ragged call needs besides q and the pages: the schedule
     of its grid as int32 tensors on the device, plus the host copies the
     plain versions loop over. Built once per forward and shared by every
     layer (the descriptors and block tables do not change between
-    layers)."""
+    layers). ``pages_per_seq`` is the block table's width, the most
+    pages a q-block unit walks."""
     impl: str
     num_tokens: int
     page_size: int
     q_block: int
     host: dict
     dev: dict
+    pages_per_seq: int
 
 
 def make_plan(num_tokens, seq_slots, q_starts, q_lens, context_lens,
               block_tables, page_size, *, impl="qblock",
-              q_block=DEFAULT_QBLOCK, device="cpu"):
-    """Build the schedule of ``impl``'s grid from host descriptors."""
-    if impl not in IMPLS:
-        raise ValueError(f"impl {impl!r} not in {IMPLS}")
-    tbl = np.ascontiguousarray(np.asarray(block_tables, np.int32))
-    if impl == "qblock":
-        names = ("row_slot", "row_ctx", "job_page", "job_slot", "job_kv",
-                 "units")
-        arrays = qblock_schedule(num_tokens, seq_slots, q_starts, q_lens,
-                                 context_lens, tbl, q_block, page_size)
-        arrays += (qblock_units(arrays[3]),)
-    else:
-        names = ("tok_slot", "tok_ctx", "tables")
-        arrays = _token_descriptors(num_tokens, seq_slots, q_starts,
-                                    q_lens, context_lens) + (tbl,)
-    host = {n: np.ascontiguousarray(a) for n, a in zip(names, arrays)}
+              q_block=DEFAULT_QBLOCK, device="cpu", max_slots=None):
+    """Build the schedule of ``impl``'s grid from host descriptors
+    (:func:`plan_arrays`; ``max_slots`` gives the q-block grid its fixed
+    shape) and copy it to ``device``."""
+    host = plan_arrays(num_tokens, seq_slots, q_starts, q_lens,
+                       context_lens, block_tables, page_size, impl=impl,
+                       q_block=q_block, max_slots=max_slots)
     dev = {n: torch.from_numpy(a).to(device) for n, a in host.items()}
     return RaggedPlan(impl, int(num_tokens), int(page_size),
-                      max(int(q_block), 1), host, dev)
+                      max(int(q_block), 1), host, dev,
+                      int(np.shape(block_tables)[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -271,14 +334,20 @@ def _online_step(s, v, m, l, acc):
 def qblock_attention_plain(q, k_pages, v_pages, plan, sm_scale,
                            k_scales=None, v_scales=None):
     """The q-block kernel's recurrence in PyTorch: every block and kv head
-    at once, one job column at a time, exactly the JAX grid's order.
-    With ``k_scales``/``v_scales`` the pages are int8 codes."""
+    at once, one job column at a time, exactly the JAX grid's order. It
+    stops after the last column that holds a real job in some block: a
+    column of padding jobs alone leaves every real row's state unchanged
+    bit for bit (see ``BIG_NEG``), so a plan padded to a fixed job width
+    costs no more. With ``k_scales``/``v_scales`` the pages are int8
+    codes."""
     T, H, D = q.shape
     KVH, _, P, _ = k_pages.shape
     G = H // KVH
     qb = plan.q_block
     d = plan.dev
-    B, J = d["job_page"].shape
+    B = d["job_page"].shape[0]
+    real = np.flatnonzero((plan.host["job_slot"] >= 0).any(axis=0))
+    J = int(real[-1]) + 1 if real.size else 1
     R = qb * G
     qp = torch.zeros(B * qb, H, D, dtype=torch.float32, device=q.device)
     qp[:T] = q.float()
@@ -556,19 +625,21 @@ def _check_cuda_inputs(q, k_pages, v_pages, plan, impl, k_scales=None,
                 raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(fn_name, q, pages, plan, sm_scale, extra=()):
+def _launch(fn_name, q, pages, plan, sm_scale, counters, extra=()):
     """Launch ``fn_name`` on ``q``, ``pages`` (K and V, then the scales of
     int8 pages), the plan's device arrays and the ints ``extra`` after the
-    scale; returns the output."""
+    scale, counted in ``counters`` (see ``_build.launch``); returns the
+    output."""
     T, H, D = q.shape
     KVH, NP, P, _ = pages[0].shape
     d = plan.dev
     out = torch.empty_like(q)
     if plan.impl == "qblock":
+        # the grid is units' rows; the kernel reads the live count
         arrays = [d[n] for n in ("row_slot", "row_ctx", "job_page",
-                                 "units")]
+                                 "units", "n_units")]
         sizes = (T, H, KVH, D, NP, P, plan.q_block, d["units"].shape[0],
-                 d["job_page"].shape[1])
+                 d["job_page"].shape[1], plan.pages_per_seq)
     else:
         arrays = [d[n] for n in ("tok_slot", "tok_ctx", "tables")]
         sizes = (T, H, KVH, D, NP, P, d["tables"].shape[1])
@@ -576,7 +647,7 @@ def _launch(fn_name, q, pages, plan, sm_scale, extra=()):
         ctypes.c_void_p(t.data_ptr()) for t in (q, *pages, out, *arrays)
     ] + [ctypes.c_int(x) for x in sizes] + [ctypes.c_float(sm_scale)] + [
         ctypes.c_int(x) for x in extra]
-    _build.launch(fn_name, q.device, args)
+    _build.launch(fn_name, q.device, args, counters)
     return out
 
 
@@ -594,10 +665,8 @@ def qblock_attention(q, k_pages, v_pages, plan, sm_scale, k_scales=None,
     if q.device.type != "cuda":
         raise ValueError(f"no ragged attention for device {q.device}")
     _check_cuda_inputs(q, k_pages, v_pages, plan, "qblock")
-    out = _launch("ptt_ragged_qblock", q, (k_pages, v_pages), plan,
-                  sm_scale)
-    qblock_attention.launches += 1
-    return out
+    return _launch("ptt_ragged_qblock", q, (k_pages, v_pages), plan,
+                   sm_scale, ((qblock_attention, "launches"),))
 
 
 qblock_attention.launches = 0
@@ -615,10 +684,9 @@ def qblock_attention_q8(q, k_pages, v_pages, k_scales, v_scales, plan,
         raise ValueError(f"no ragged attention for device {q.device}")
     _check_cuda_inputs(q, k_pages, v_pages, plan, "qblock", k_scales,
                        v_scales)
-    out = _launch("ptt_ragged_qblock_q8", q,
-                  (k_pages, v_pages, k_scales, v_scales), plan, sm_scale)
-    qblock_attention_q8.launches += 1
-    return out
+    return _launch("ptt_ragged_qblock_q8", q,
+                   (k_pages, v_pages, k_scales, v_scales), plan, sm_scale,
+                   ((qblock_attention_q8, "launches"),))
 
 
 qblock_attention_q8.launches = 0
@@ -642,12 +710,10 @@ def _token_cuda(fn, q, k_pages, v_pages, plan, sm_scale, k_scales,
     pages = (k_pages, v_pages) + ((k_scales, v_scales) if quant else ())
     name = "ptt_ragged_token" + ("_split" if variant == "cluster" else "") \
         + ("_q8" if quant else "")
-    out = _launch(name, q, pages, plan, sm_scale,
-                  (splits, token_round_pages(splits))
-                  if variant == "cluster" else ())
-    fn.launches += 1
-    setattr(fn, f"{variant}_launches", getattr(fn, f"{variant}_launches") + 1)
-    return out
+    return _launch(name, q, pages, plan, sm_scale,
+                   ((fn, "launches"), (fn, f"{variant}_launches")),
+                   (splits, token_round_pages(splits))
+                   if variant == "cluster" else ())
 
 
 def token_attention(q, k_pages, v_pages, plan, sm_scale, k_scales=None,

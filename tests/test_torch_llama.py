@@ -164,9 +164,10 @@ def test_ragged_cache_forward_matches_jax(models):
         with no_grad():      # the Pallas call has no JVP
             want = _np(jm.forward(Tensor(jnp.asarray(flat[None])), cache=jc,
                                   position_ids=pos.astype(np.int32)))
-        tc.begin_ragged(spans)
+        tc.begin_ragged(spans, num_tokens=flat.size)
         with torch.no_grad():
             got = tm.forward(flat[None], cache=tc, position_ids=pos)
+        tc.end_step()
         rows = np.concatenate([np.arange(qs, qs + n) for _, qs, n in spans])
         np.testing.assert_allclose(got.numpy()[0, rows], want[0, rows],
                                    **TOL)
