@@ -158,10 +158,26 @@ Phases, each fatal on error (non-zero exit, no result line):
       ``multi_precision``, ``ClipGradByGlobalNorm(1.0)``, warmup into
       cosine decay) on one repeated 2 x 2048-token batch: the loss finite
       and falling, B1, B2 and B3 each 4 launches a step, every one on
-      the tensor-core kernels; then one step with ``use_recompute``, B1
-      8. Each step timed (forward, backward,
-      optimizer), with tokens/s and the peak memory; the last step's
-      layer-0 attention inputs and dO are captured;
+      the tensor-core kernels, and the optimizer the fused engine
+      (``fuse_step`` on auto: 39 tensors): K-A once for each of its 2
+      groups (the decayed weights, the norms), K-B twice, no eager
+      dispatch; then one step with ``use_recompute``, B1 8; a step whose
+      forward, backward and optimizer each run under a CUDA-only
+      ``torch.profiler`` trace (device ms by kernel name); then, on one
+      more backward's grads, K-B twice (the same bits) within 1e-6 of an
+      fp64 sum, and K-A against its plain version (the eager loop's ops)
+      on copies of layer 0's q_proj, gate_proj and norm and the final
+      norm's state and a 4099-element tensor (K-A's tail), bf16 with
+      masters and fp32, bit for bit, twice (the same bits); K-A over the
+      step's groups and K-B over every grad timed against their byte
+      bounds. Then the four steps again from the same seed with
+      ``fuse_step = False`` (the eager loop; its clip sums through K-B):
+      the losses within 1e-5 relative of the fused run's and every master
+      weight within 1e-5 of its max. Each step timed (forward, backward,
+      optimizer) with each phase's peak memory, the steady step's peak
+      accounted by category (weights, grads, masters, moments, logits,
+      the rest), with tokens/s; the fused run's last step's layer-0
+      attention inputs and dO are captured;
 4. paths against each other on a two-layer fp32 model at the same widths
    (TF32 off): ``generate`` over the concat and the paged cache, the
    legacy engine and the ragged engine on both grids (q-block and
@@ -219,7 +235,9 @@ Phases, each fatal on error (non-zero exit, no result line):
    cache's codec.
 
 Prints a ``{"graph_breakdown": ...}`` line (phases 3f and 3g, per engine
-and mode), a ``{"kernels": [...]}`` line with all ten kernels (B1, B2 and B3
+and mode), a ``{"kernels": [...]}`` line with all ten TPU kernels and the
+fused optimizer step's two (K-A and K-B, no Pallas counterpart,
+``"pallas": false``; B1, B2 and B3
 each as its two variants, B10 as its three, with the dtypes each
 serves; kernel 8, B9, B4 and B5 as the cluster kernels the main paths
 run, the block kernels under ``block_variant``), the card's
@@ -254,6 +272,9 @@ ENGINE_SLOTS = 8
 #: master weights and moments needs ~16 B a parameter: 32 layers, 8.0 B
 #: parameters, would need ~128 GB; 4 layers, 1.92 B, ~31 GB)
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 2048, 4
+#: the fused optimizer's groups in a training step (K-A launches): the
+#: decayed weights, and the norms
+TRAIN_GROUPS = 2
 CSRC = "paddle_tpu_torch/csrc/"
 SOURCE = CSRC + "ragged_paged_attention.cu"
 REF = "paddle_tpu/ops/pallas/ragged_paged_attention.py"
@@ -1657,6 +1678,38 @@ class Count:
     @launches.setter
     def launches(self, n):
         setattr(self.fn, self.attr, n)
+
+
+def kernel_counters(rpa, fa, pa, qm, ost):
+    """Every counted kernel launch by name: the wrappers' ``launches`` and
+    their variants' counters (``Count``)."""
+    return {"qblock": rpa.qblock_attention, "token": rpa.token_attention,
+            "token_cluster": Count(rpa.token_attention, "cluster_launches"),
+            "token_block": Count(rpa.token_attention, "block_launches"),
+            "flash": fa.flash_attention,
+            "flash_wgmma": Count(fa.flash_attention, "wgmma_launches"),
+            "paged": pa.paged_attention,
+            "paged_cluster": Count(pa.paged_attention, "cluster_launches"),
+            "paged_block": Count(pa.paged_attention, "block_launches"),
+            "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_dq_wgmma": Count(fa.flash_bwd_dq, "wgmma_launches"),
+            "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "flash_bwd_dkv_wgmma": Count(fa.flash_bwd_dkv, "wgmma_launches"),
+            "qblock_q8": rpa.qblock_attention_q8,
+            "token_q8": rpa.token_attention_q8,
+            "token_q8_cluster": Count(rpa.token_attention_q8,
+                                      "cluster_launches"),
+            "token_q8_block": Count(rpa.token_attention_q8, "block_launches"),
+            "paged_q8": pa.paged_attention_q8,
+            "paged_q8_cluster": Count(pa.paged_attention_q8,
+                                      "cluster_launches"),
+            "paged_q8_block": Count(pa.paged_attention_q8, "block_launches"),
+            "int8_matmul": qm.int8_matmul,
+            "int8_matmul_stream": Count(qm.int8_matmul,
+                                        "wgmma_stream_launches"),
+            "int8_matmul_gemm": Count(qm.int8_matmul, "wgmma_gemm_launches"),
+            "adam_step": ost.adam_step_multi_tensor,
+            "sum_squares": ost.sum_squares_multi_tensor}
 
 
 def zero_counts(kern):
@@ -3249,42 +3302,43 @@ class BackwardCapture:
 
 def train_step(torch, model, opt, sched, ids, labels):
     """One Paddle-style eager step, each phase timed on the host clock up
-    to a device sync: (loss, {phase: ms})."""
-    ms = {}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss, _ = model(ids, labels=labels)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    loss.backward()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    opt.step()
-    opt.clear_grad()
-    sched.step()
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    ms.update(forward=(t1 - t0) * 1e3, backward=(t2 - t1) * 1e3,
-              optimizer=(t3 - t2) * 1e3, step=(t3 - t0) * 1e3)
-    return float(loss.detach()), ms
+    to a device sync: (loss, {phase: ms}, {phase: peak bytes})."""
+    ms, peak = {}, {}
+
+    def phase(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        peak[name] = torch.cuda.max_memory_allocated()
+        return out
+
+    def optimize():
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+
+    loss, _ = phase("forward", lambda: model(ids, labels=labels))
+    phase("backward", loss.backward)
+    phase("optimizer", optimize)
+    ms["step"] = ms["forward"] + ms["backward"] + ms["optimizer"]
+    return float(loss.detach()), ms, peak
 
 
-def train(torch, pt, kern, fa, none):
-    """Four AdamW steps of a full-width Llama-3-8B cut to TRAIN_LAYERS
-    layers (bf16, fp32 master weights and moments, global-norm clip,
-    warmup into cosine decay) on one repeated batch, the launch counts
-    zeroed before each step and read after it; then one step with
-    recompute. Returns the losses, per-step times and counts, the peak
-    memory, and layer 0's captured attention inputs of the last step."""
+def trainer(torch, pt, fuse_step):
+    """The training phase's model (Llama-3-8B widths, TRAIN_LAYERS layers,
+    bf16, seed 0), its ``AdamW`` (fp32 master weights, global-norm clip,
+    decay off for the norms, warmup into cosine decay; ``fuse_step`` as
+    given) and the repeated batch."""
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.optimizer import lr as lr_mod
     cfg = pt.llama3_8b(dtype="bfloat16")
     cfg.num_hidden_layers = TRAIN_LAYERS
-    torch.cuda.reset_peak_memory_stats()
     model = pt.LlamaForCausalLM(cfg, device="cuda", seed=0)
     model.train()
-    n_params = sum(p.numel() for p in model.parameters())
     # small rates, as at the start of a warmup: at 1e-4 the first step
     # already takes the repeated batch's loss from 12.6 to 2.2, and the
     # third to ~0, where it stops falling
@@ -3295,53 +3349,362 @@ def train(torch, pt, kern, fa, none):
                 weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0),
                 multi_precision=True,
                 apply_decay_param_fun=lambda n: "norm" not in n)
+    opt.fuse_step = fuse_step
     tokens = np.random.RandomState(21).randint(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
     ids = torch.as_tensor(tokens[:, :-1], device="cuda")
     labels = torch.as_tensor(tokens[:, 1:], device="cuda")
-    log(f"  model: {TRAIN_LAYERS} layers, {n_params / 1e9:.3f} B params, "
-        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}")
-    losses, steps, total = [], [], dict(none)
+    return cfg, model, opt, sched, ids, labels
+
+
+def counted_steps(torch, kern, model, opt, sched, ids, labels, label,
+                  per_step, dispatch, cap=None):
+    """TRAIN_STEPS steps, the launch counts zeroed before each and held to
+    ``per_step`` after it, the engine's dispatches to ``dispatch`` a step;
+    ``cap`` (a context) around the last. Returns the losses, times, peaks
+    and summed launches."""
+    losses, steps, peaks, total = [], [], [], None
+    engine = opt._fused_engine
+    for i in range(TRAIN_STEPS):
+        zero_counts(kern)
+        before = dict(engine.dispatches)
+        with (cap if cap is not None and i == TRAIN_STEPS - 1
+              else contextlib.nullcontext()):
+            loss, ms, peak = train_step(torch, model, opt, sched, ids,
+                                        labels)
+        counts = read_counts(kern)
+        check_launches(f"{label} step {i}", counts, per_step)
+        got = {k: engine.dispatches[k] - before[k] for k in before}
+        if got != dispatch:
+            raise AssertionError(f"{label} step {i}: dispatches {got}, "
+                                 f"expected {dispatch}")
+        total = counts if total is None else {n: total[n] + counts[n]
+                                              for n in total}
+        losses.append(loss)
+        steps.append(ms)
+        peaks.append(peak)
+        log(f"  {label} step {i}: loss {loss:.6f}, " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in ms.items()) + ", peak GiB " + ", "
+            .join(f"{k} {v / 2**30:.2f}" for k, v in peak.items()))
+    if not all(np.isfinite(losses)) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{label}: losses not finite and decreasing: "
+                             f"{losses}")
+    med = {k: float(np.median([s[k] for s in steps[1:]])) for k in steps[0]}
+    return dict(losses=losses, steps=steps, peaks=peaks, median=med,
+                launches=total)
+
+
+def memory_by_category(model, peaks, base, label):
+    """The step's peak (the largest phase peak) beside what lives then:
+    what was allocated before the training phase began (``base``: the
+    earlier phases' captured inputs), weights, grads, fp32 master
+    weights and moments, the logits with the loss's fp32 copies (bf16
+    logits, their fp32 upcast and log-softmax: 10 bytes a logit), and the
+    rest (activations, temporaries)."""
+    n = sum(p.numel() for p in model.parameters())
+    cfg = model.config
+    phase, peak = max(peaks.items(), key=lambda kv: kv[1])
+    cats = {"before the phase": base, "weights": 2 * n, "grads": 2 * n,
+            "masters": 4 * n, "moments": 8 * n,
+            "logits": 10 * TRAIN_BATCH * TRAIN_SEQ * cfg.vocab_size}
+    cats["rest"] = peak - sum(cats.values())
+    log(f"  {label}: peak {peak / 2**30:.2f} GiB in the {phase}: " + ", "
+        .join(f"{k} {v / 2**30:.2f}" for k, v in cats.items()) + " GiB")
+    return dict(peak=peak, phase=phase, **cats)
+
+
+def traced_step(torch, model, opt, sched, ids, labels):
+    """One step whose forward, backward and optimizer each run under a
+    CUDA-only ``torch.profiler`` trace of its own: per phase, the device's
+    busy ms and ms by kernel name (the twelve largest)."""
+    from torch.profiler import ProfilerActivity, profile
+    out, state = {}, {}
+
+    def forward():
+        state["loss"], _ = model(ids, labels=labels)
+
+    def optimize():
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+
+    for name, fn in (("forward", forward),
+                     ("backward", lambda: state["loss"].backward()),
+                     ("optimizer", optimize)):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ev[0].record()
+            fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+        intervals = device_intervals(torch, prof)
+        by_name = Counter()
+        for a, b, kname in intervals:
+            by_name[short_name(kname)] += (b - a) / 1e6
+        window = ev[0].elapsed_time(ev[1])
+        busy = union_ns(intervals) / 1e6
+        # the trace drops records now and then; a phase whose traced
+        # kernels cover under half its window is marked incomplete
+        out[name] = dict(window_ms=window, busy_ms=busy,
+                         complete=busy >= 0.5 * window,
+                         kernels_ms=sum(by_name.values()),
+                         by_kernel=dict(by_name.most_common(12)))
+        log(f"  traced step, {name}: window {window:.2f} ms, device busy "
+            f"{busy:.2f} ms" + ("" if out[name]["complete"] else
+                                " (the trace lost records)")
+            + "; by kernel: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in by_name.most_common(12)))
+    return out
+
+
+def optimizer_kernels(torch, ost, model, opt, ids, labels):
+    """On one more backward's grads (uncounted launches): K-B twice (the
+    same bits) against an fp64 sum (1e-6 relative); K-A against its plain
+    version on copies of a few parameters' state, bf16 with the master and
+    fp32, with the clip's scale, and twice (the same bits); then K-A over
+    the step's groups, K-B over every grad, their plain versions and K-B's
+    library call, timed (the state drifts in place as they run)."""
+    loss, _ = model(ids, labels=labels)
+    loss.backward()
+    del loss
+    pg = [(p, p.grad) for p in opt._parameter_list]
+    grads = [g for _, g in pg]
+    kb = [ost.sum_squares_multi_tensor(grads) for _ in range(2)]
+    if not torch.equal(kb[0], kb[1]):
+        raise AssertionError("K-B: two runs differ")
+    ref = sum(float(g.double().square().sum()) for g in grads)
+    kb_err = abs(float(kb[0]) - ref) / ref
+    check("K-B on the step's grads vs an fp64 sum (relative)", kb_err, 1e-6)
+    scale = opt._grad_clip.global_scale(pg)
+    params = dict(model.named_parameters())
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(12)
+    # a tensor of no whole number of 8-element vectors: K-A's tail path
+    odd = torch.randn(4099, device=model.device, generator=gen) * 0.02
+    odd_state = {"master": odd.clone(), "moment1": odd * 0.01,
+                 "moment2": (odd * 0.01).square()}
+    picks = {0.1: ["llama.layers.0.self_attn.q_proj.weight",
+                   "llama.layers.0.mlp.gate_proj.weight", "odd"],
+             0.0: ["llama.layers.0.input_layernorm.weight",
+                   "llama.norm.weight"]}
+    ka_err, checked = 0.0, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for wd, names in picks.items():
+            p0, g0, st0 = [], [], []
+            for n in names:
+                if n == "odd":
+                    st = odd_state
+                    p, g = odd.bfloat16(), (odd * 3).bfloat16()
+                else:
+                    p, st = params[n], opt.state[params[n]]
+                    g = p.grad
+                if dtype == torch.float32:
+                    p, g = st["master"], g.float()
+                p0.append(p)
+                g0.append(g)
+                st0.append(st)
+            t = opt.state[params[picks[0.0][0]]]["step"] + 1
+            hp = ost.AdamHyper(opt.get_lr(), opt._beta1, opt._beta2,
+                               opt._epsilon, wd, t, True)
+            before = [(p.detach().clone(), st["master"].clone(),
+                       st["moment1"].clone(), st["moment2"].clone())
+                      for p, st in zip(p0, st0)]
+            copies = []
+            for _ in range(3):
+                copies.append(ost.AdamGroup(
+                    [p.detach().clone() for p in p0],
+                    [st["master"].clone() if dtype != torch.float32 else None
+                     for st in st0],
+                    [st["moment1"].clone() for st in st0],
+                    [st["moment2"].clone() for st in st0],
+                    [True] * len(p0)))
+            n0 = ost.adam_step_multi_tensor.launches
+            ost.adam_step_multi_tensor(copies[0], g0, hp, scale)
+            ost.adam_step_multi_tensor(copies[1], g0, hp, scale)
+            ost.adam_step_multi_tensor_plain(copies[2], g0, hp, scale)
+            if ost.adam_step_multi_tensor.launches != n0 + 2:
+                raise AssertionError("K-A did not launch")
+            bad = []
+            for what in ("params", "masters", "moment1s", "moment2s"):
+                for i, (a, b, c, name) in enumerate(zip(
+                        getattr(copies[0], what), getattr(copies[1], what),
+                        getattr(copies[2], what), names)):
+                    if a is None:
+                        continue
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"K-A {dtype} {name} {what}: "
+                                             f"two launches differ")
+                    err = float((a.float() - c.float()).abs().max())
+                    ka_err = max(ka_err, err)
+                    checked += a.numel()
+                    if not torch.equal(a, c):
+                        bad.append((what, name, i, int((a != c).sum()), err,
+                                    int((a != c).flatten().nonzero()[0])))
+            if bad:
+                # the first differing element, its inputs and both results
+                what, name, i, _, _, e = bad[0]
+                row = {"scale": float(scale), "g": float(
+                    g0[i].flatten()[e].float())}
+                for k, t in zip(("p", "master", "m", "v"), before[i]):
+                    row[f"{k}_in"] = float(t.flatten()[e].float())
+                for tag, grp in (("kernel", copies[0]), ("plain", copies[2])):
+                    for k in ("params", "masters", "moment1s", "moment2s"):
+                        t = getattr(grp, k)[i]
+                        if t is not None:
+                            row[f"{k}_{tag}"] = float(t.flatten()[e].float())
+                log("  K-A mismatch at element " + json.dumps(
+                    {k: v.hex() for k, v in row.items()}))
+                raise AssertionError(f"K-A {dtype} wd {wd} {hp}: elements "
+                                     f"differ from the eager loop's ops "
+                                     f"(slot, tensor, index, count, max abs, "
+                                     f"first): {bad}")
+            del copies, before
+    log(f"  K-A on copies of {checked} state elements (bf16 with masters "
+        f"and fp32, wd 0.1 and 0): bit for bit equal to the plain version "
+        f"(the eager loop's ops), two launches equal; K-B {float(kb[0])!r} "
+        f"vs fp64 {ref!r}, {kb_err:.3e} relative, two runs equal")
+    # timing over the whole step, on the engine's own groups and tables
+    groups, _ = opt._fused_engine.plan(pg)
+    jobs = []
+    for key, members in groups.items():
+        lr_mult, wd, _, _, _, t = key
+        jobs.append((opt._fused_engine._tables[key[:5]],
+                     [g for _, g in members],
+                     ost.AdamHyper(opt.get_lr() * lr_mult, opt._beta1,
+                                   opt._beta2, opt._epsilon, wd, t, True)))
+    n_el = sum(p.numel() for p, _ in pg)
+
+    def ka():
+        for grp, gl, hp in jobs:
+            ost.adam_step_multi_tensor(grp, gl, hp, scale)
+
+    def ka_plain():
+        for grp, gl, hp in jobs:
+            ost.adam_step_multi_tensor_plain(grp, gl, hp, scale)
+
+    rows = {}
+    rows["adam"] = dict(
+        ms=time_ms(torch, ka, iters=20, warmup=2),
+        plain_ms=time_ms(torch, ka_plain, iters=3, warmup=1),
+        # per element: read g, the master, m, v; write them and p
+        **_bound(n_el * (2 + 12 + 12 + 2), 15 * n_el, FP32_FLOPS),
+        library_ms=None,
+        library="none: torch.optim.AdamW(fused=True) decays after its "
+                "Adam step and has no bf16 master round trip",
+        max_abs_err=ka_err, groups=len(jobs), elements=n_el)
+    lib = getattr(torch.nn.utils, "get_total_norm", None)
+    rows["sumsq"] = dict(
+        ms=time_ms(torch, lambda: ost.sum_squares_multi_tensor(grads),
+                   iters=20, warmup=2),
+        plain_ms=time_ms(torch, lambda: ost.sum_squares_multi_tensor_plain(
+            grads), iters=5, warmup=1),
+        **_bound(n_el * 2 + 4, 2 * n_el, FP32_FLOPS),
+        library_ms=None if lib is None else time_ms(
+            torch, lambda: lib(grads, 2.0), iters=20, warmup=2),
+        library="torch.nn.utils.get_total_norm(grads) (the norm, the root "
+                "of the same sum)" if lib is not None else "none",
+        max_abs_err=abs(float(kb[0]) - ref), max_rel_err_fp64=kb_err,
+        elements=n_el)
+    for name, r in rows.items():
+        lib_ms = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
+        log(f"  {name} over the step ({n_el} elements): {r['ms']:.4f} ms "
+            f"({r['bytes'] / r['ms'] * 1e-6:.1f} GB/s), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {r['bytes']} bytes), library {lib_ms}")
+    opt.clear_grad()
+    return rows
+
+
+def train(torch, pt, kern, fa, none, ost):
+    """The training phase. The main path: TRAIN_STEPS steps of the fused
+    optimizer (``AdamW`` with fuse_step on auto), K-A once a group and
+    K-B twice a step, no eager dispatch; then one step with recompute, a
+    traced step, and the optimizer kernels' checks and times on one more
+    backward's grads. Then the same TRAIN_STEPS steps from the same seed
+    with ``fuse_step = False`` (the eager loop; its clip sums through
+    K-B): the losses within 1e-5 relative of the fused run's and every
+    master weight within 1e-5 of its max. Returns the runs' numbers and
+    layer 0's captured attention inputs of the fused run's last step."""
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg, model, opt, sched, ids, labels = trainer(torch, pt, None)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    if not opt._use_fused(n_tensors):
+        raise AssertionError(f"{n_tensors} parameters do not engage the "
+                             f"fused step")
+    log(f"  model: {TRAIN_LAYERS} layers, {n_params / 1e9:.3f} B params in "
+        f"{n_tensors} tensors, batch {TRAIN_BATCH} x {TRAIN_SEQ}")
     cap = BackwardCapture(fa)
     per_step = dict(none, flash=TRAIN_LAYERS, flash_wgmma=TRAIN_LAYERS,
                     flash_bwd_dq=TRAIN_LAYERS, flash_bwd_dkv=TRAIN_LAYERS,
                     flash_bwd_dq_wgmma=TRAIN_LAYERS,
-                    flash_bwd_dkv_wgmma=TRAIN_LAYERS)
-    for i in range(TRAIN_STEPS):
-        zero_counts(kern)
-        with cap if i == TRAIN_STEPS - 1 else contextlib.nullcontext():
-            loss, ms = train_step(torch, model, opt, sched, ids, labels)
-        counts = read_counts(kern)
-        check_launches(f"train step {i}", counts, per_step)
-        total = {n: total[n] + counts[n] for n in total}
-        losses.append(loss)
-        steps.append(ms)
-        log(f"  step {i}: loss {loss:.6f}, " + ", ".join(
-            f"{k} {v:.2f} ms" for k, v in ms.items()))
-    if not all(np.isfinite(losses)) or not all(
-            b < a for a, b in zip(losses, losses[1:])):
-        raise AssertionError(f"losses not finite and decreasing: {losses}")
+                    flash_bwd_dkv_wgmma=TRAIN_LAYERS,
+                    adam_step=TRAIN_GROUPS, sum_squares=2)
+    fused = counted_steps(torch, kern, model, opt, sched, ids, labels,
+                          "fused", per_step,
+                          {"eager": 0, "fused": TRAIN_GROUPS}, cap)
+    fused["memory"] = memory_by_category(
+        model, {k: max(p[k] for p in fused["peaks"][1:])
+                for k in fused["peaks"][0]}, base, "fused step")
+    # on the host, so that the eager run's peak memory is its own
+    masters = {n: opt.state[p]["master"].cpu()
+               for n, p in model.named_parameters()}
     model.config.use_recompute = True
     zero_counts(kern)
-    loss, ms = train_step(torch, model, opt, sched, ids, labels)
+    loss, ms, _ = train_step(torch, model, opt, sched, ids, labels)
     recompute = read_counts(kern)
-    check_launches("train step with recompute", recompute,
+    check_launches("fused step with recompute", recompute,
                    dict(per_step, flash=2 * TRAIN_LAYERS,
                         flash_wgmma=2 * TRAIN_LAYERS))
     log(f"  recompute step: loss {loss:.6f}, " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in ms.items()))
-    peak = torch.cuda.max_memory_allocated()
-    med = {k: float(np.median([s[k] for s in steps[1:]])) for k in steps[0]}
-    log(f"  steady step (median of steps 1-{TRAIN_STEPS - 1}): "
-        + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
-        + f"; {TRAIN_BATCH * TRAIN_SEQ / med['step'] * 1e3:.1f} tokens/s; "
-        f"peak memory {peak / 2**30:.2f} GiB; recompute step "
-        f"{ms['step']:.2f} ms")
-    del model, opt
+    model.config.use_recompute = False
+    try:
+        trace = traced_step(torch, model, opt, sched, ids, labels)
+    except RuntimeError as e:          # the profiler may not see the card
+        log(f"  traced step: no trace ({e})")
+        trace = None
+    opt_rows = optimizer_kernels(torch, ost, model, opt, ids, labels)
+    fused.update(recompute=recompute, recompute_ms=ms, trace=trace,
+                 capture=cap.best, n_params=n_params)
+    del model, opt, sched
+    gc.collect()
     torch.cuda.empty_cache()
-    return dict(losses=losses, steps=steps, median=med, peak=peak,
-                launches=total, recompute=recompute, recompute_ms=ms,
-                capture=cap.best, n_params=n_params)
+
+    cfg, model, opt, sched, ids, labels = trainer(torch, pt, False)
+    eager = counted_steps(torch, kern, model, opt, sched, ids, labels,
+                          "eager", dict(per_step, adam_step=0),
+                          {"eager": n_tensors, "fused": 0})
+    eager["memory"] = memory_by_category(
+        model, {k: max(p[k] for p in eager["peaks"][1:])
+                for k in eager["peaks"][0]}, base, "eager step")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(fused["losses"],
+                                                      eager["losses"]))
+    check("fused vs eager run: losses (relative)", loss_err, 1e-5)
+    worst = (0.0, "")
+    for n, p in model.named_parameters():
+        ref = opt.state[p]["master"]
+        err = float((masters[n].to(ref.device) - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+        worst = max(worst, (err, n))
+    check(f"fused vs eager run: master weights after {TRAIN_STEPS} steps "
+          f"(relative to each one's max; worst {worst[1]})", worst[0], 1e-5)
+    del model, opt, sched, masters
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, run in (("fused", fused), ("eager", eager)):
+        med = run["median"]
+        log(f"  {name} steady step (median of steps 1-{TRAIN_STEPS - 1}): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
+            + f"; {TRAIN_BATCH * TRAIN_SEQ / med['step'] * 1e3:.1f} "
+            f"tokens/s; peak {run['memory']['peak'] / 2**30:.2f} GiB")
+    return dict(fused, eager=eager, optimizer_rows=opt_rows,
+                fused_vs_eager=dict(loss_rel=loss_err,
+                                    master_rel=worst[0]))
 
 
 def train_cross_check(torch, pt, fa, kern, none):
@@ -3557,6 +3920,7 @@ def main():
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.ops import optimizer_step as ost
     from paddle_tpu_torch import quantization as quant_mod
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import quant_matmul as qm
@@ -3565,31 +3929,7 @@ def main():
     dev = torch.device("cuda")
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", cuda {torch.version.cuda}")
-    kern = {"qblock": rpa.qblock_attention, "token": rpa.token_attention,
-            "token_cluster": Count(rpa.token_attention, "cluster_launches"),
-            "token_block": Count(rpa.token_attention, "block_launches"),
-            "flash": fa.flash_attention,
-            "flash_wgmma": Count(fa.flash_attention, "wgmma_launches"),
-            "paged": pa.paged_attention,
-            "paged_cluster": Count(pa.paged_attention, "cluster_launches"),
-            "paged_block": Count(pa.paged_attention, "block_launches"),
-            "flash_bwd_dq": fa.flash_bwd_dq,
-            "flash_bwd_dq_wgmma": Count(fa.flash_bwd_dq, "wgmma_launches"),
-            "flash_bwd_dkv": fa.flash_bwd_dkv,
-            "flash_bwd_dkv_wgmma": Count(fa.flash_bwd_dkv, "wgmma_launches"),
-            "qblock_q8": rpa.qblock_attention_q8,
-            "token_q8": rpa.token_attention_q8,
-            "token_q8_cluster": Count(rpa.token_attention_q8,
-                                      "cluster_launches"),
-            "token_q8_block": Count(rpa.token_attention_q8, "block_launches"),
-            "paged_q8": pa.paged_attention_q8,
-            "paged_q8_cluster": Count(pa.paged_attention_q8,
-                                      "cluster_launches"),
-            "paged_q8_block": Count(pa.paged_attention_q8, "block_launches"),
-            "int8_matmul": qm.int8_matmul,
-            "int8_matmul_stream": Count(qm.int8_matmul,
-                                        "wgmma_stream_launches"),
-            "int8_matmul_gemm": Count(qm.int8_matmul, "wgmma_gemm_launches")}
+    kern = kernel_counters(rpa, fa, pa, qm, ost)
     none = {name: 0 for name in kern}
 
     log("phase 1: build")
@@ -3851,7 +4191,7 @@ def main():
 
     log(f" 3d: training, Llama-3-8B widths cut to {TRAIN_LAYERS} layers, "
         f"bf16, AdamW(multi_precision) + global-norm clip + warmup/cosine")
-    trained = train(torch, pt, kern, fa, none)
+    trained = train(torch, pt, kern, fa, none, ost)
 
     log("phase 4: paths against each other (fp32, TF32 off, 2 layers, "
         "full width)")
@@ -4032,7 +4372,8 @@ def main():
     by_path = {"static": static["launches"], "legacy": legacy["launches"],
                "int8_legacy": int8_runs["legacy"][1]["launches"],
                "train": trained["launches"],
-               "train_recompute": trained["recompute"]}
+               "train_recompute": trained["recompute"],
+               "train_eager": trained["eager"]["launches"]}
     timed_keys = ("ms", "ms_no_spin", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "library", "shape", "bytes", "flops",
                   "tflops", "host_us")
@@ -4241,6 +4582,24 @@ def main():
                  "max_rel_err_fp32": mm_errs["fp32"],
                  **{k: simt[k] for k in mm_keys}})
 
+    # the fused optimizer step's kernels (no Pallas counterpart), timed
+    # over the training step's whole state in phase 3d
+    opt_src = CSRC + "optimizer_step.cu"
+    for name, key, counter, ref_at, kernels in (
+            ("adam_step_multi_tensor", "adam", "adam_step",
+             "paddle_tpu/optimizer/fused.py:65", "adam_step_kernel"),
+            ("sum_squares_multi_tensor", "sumsq", "sum_squares",
+             "paddle_tpu/nn/clip_grad.py:52",
+             "sumsq_partial_kernel + sumsq_finish_kernel")):
+        r = trained["optimizer_rows"][key]
+        rows.append({"name": name, "route": "cuda", "source": opt_src,
+                     "replaces": ref_at, "pallas": False, "kernel": kernels,
+                     "launches": sum(v[counter] for v in by_path.values()),
+                     "launches_by_path": {k: v[counter]
+                                          for k, v in by_path.items()},
+                     **r, "shape": f"the training step's {r['elements']} "
+                                   f"parameters, bf16 with fp32 masters"})
+
     tick_breakdown(torch, rpa, gen, probes, scale, N_LAYERS)
     for impl in rpa.IMPLS:
         st = runs[impl][1]
@@ -4279,12 +4638,18 @@ def main():
 
     log(json.dumps({"graph_breakdown": {"bf16": graph_bf16,
                                         "int8": graph_int8}}))
-    med = trained["median"]
+    med, emed = trained["median"], trained["eager"]["median"]
     log(f"  training: losses {trained['losses']}; steady step "
         f"{med['step']:.2f} ms (forward {med['forward']:.2f}, backward "
         f"{med['backward']:.2f}, optimizer {med['optimizer']:.2f}), "
         f"{TRAIN_BATCH * TRAIN_SEQ / med['step'] * 1e3:.1f} tokens/s, peak "
-        f"memory {trained['peak'] / 2**30:.2f} GiB; recompute step "
+        f"memory {trained['memory']['peak'] / 2**30:.2f} GiB; eager "
+        f"optimizer: step {emed['step']:.2f} ms, optimizer "
+        f"{emed['optimizer']:.2f} ms, peak "
+        f"{trained['eager']['memory']['peak'] / 2**30:.2f} GiB; fused vs "
+        f"eager: losses {trained['fused_vs_eager']['loss_rel']:.3e}, "
+        f"masters {trained['fused_vs_eager']['master_rel']:.3e} (relative)"
+        f"; recompute step "
         f"{trained['recompute_ms']['step']:.2f} ms; fp32 2-layer gradients "
         f"within {train_grad_err:.3e} of dense attention")
     log(json.dumps({"kernels": rows}))

@@ -16,7 +16,9 @@ def load_jax_state(model, arrays):
     ``{name: numpy array}``. Names are the same in both packages; a
     Linear weight is ``[in, out]`` there and ``[out, in]`` here, so it is
     transposed. Missing, extra or mis-shaped keys raise ``KeyError`` /
-    ``ValueError``. Returns ``model``."""
+    ``ValueError`` (a model with ``tie_word_embeddings`` has no
+    ``lm_head.weight``, nor has the reference's then). Returns
+    ``model``."""
     linear = _linear_weights(model)
     own = model.state_dict()
     missing = sorted(set(own) - set(arrays))

@@ -26,12 +26,8 @@ class LlamaConfig:
                  num_attention_heads=32, num_key_value_heads=None,
                  max_position_embeddings=4096, rms_norm_eps=1e-5,
                  rope_theta=10000.0, initializer_range=0.02,
-                 use_recompute=False, recompute_granularity="full",
-                 dtype="float32"):
-        if recompute_granularity != "full":
-            raise ValueError(f"recompute_granularity "
-                             f"{recompute_granularity!r}: only 'full' "
-                             f"(recompute each decoder layer) is ported")
+                 tie_word_embeddings=False, use_recompute=False,
+                 recompute_granularity="full", dtype="float32"):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.intermediate_size = intermediate_size
@@ -42,6 +38,7 @@ class LlamaConfig:
         self.rms_norm_eps = rms_norm_eps
         self.rope_theta = rope_theta
         self.initializer_range = initializer_range
+        self.tie_word_embeddings = tie_word_embeddings
         self.use_recompute = use_recompute
         self.recompute_granularity = recompute_granularity
         self.dtype = dtype
@@ -168,7 +165,8 @@ class LlamaModel(nn.Module):
                                         device=input_ids.device)
         # per-layer recompute (reference ``:213-223``): each layer's
         # activations are dropped after its forward and recomputed in
-        # backward, so attention's forward runs twice per step
+        # backward, so attention's forward runs twice per step. As in the
+        # reference, every recompute_granularity recomputes whole layers
         recompute = (self.config.use_recompute and self.training
                      and cache is None)
         for layer in self.layers:
@@ -213,6 +211,9 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
     parameters are allocated directly on ``device`` in ``config.dtype``
     and filled from a ``torch.Generator`` seeded with ``seed``: linear
     and embedding weights from N(0, initializer_range), norm weights 1.
+    With ``config.tie_word_embeddings`` there is no ``lm_head``: the
+    logits are the hidden states times the embedding's weight (reference
+    ``:273``), one parameter for both.
     ``generate`` comes from :class:`GenerationMixin`.
     """
 
@@ -224,8 +225,10 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         self.config = config
         with torch.device("meta"):
             self.llama = LlamaModel(config)
-            self.lm_head = _linear(config.hidden_size, config.vocab_size,
-                                   config.torch_dtype)
+            self.lm_head = (None if config.tie_word_embeddings
+                            else _linear(config.hidden_size,
+                                         config.vocab_size,
+                                         config.torch_dtype))
         self.to_empty(device=dev)
         self.llama.init_rope(dev)
         self.criterion = LlamaPretrainingCriterion()
@@ -257,7 +260,12 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         if position_ids is not None:
             position_ids = torch.as_tensor(position_ids, dtype=torch.long,
                                            device=self.device)
-        logits = self.lm_head(self.llama(input_ids, position_ids, cache))
+        hidden = self.llama(input_ids, position_ids, cache)
+        if self.lm_head is None:
+            logits = nn.functional.linear(hidden,
+                                          self.llama.embed_tokens.weight)
+        else:
+            logits = self.lm_head(hidden)
         if labels is None:
             return logits
         labels = torch.as_tensor(labels, dtype=torch.long, device=self.device)

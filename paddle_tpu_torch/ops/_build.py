@@ -35,7 +35,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("ragged_paged_attention.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu", "paged_attention.cu", "quant_matmul.cu")
+           "flash_attention_bwd.cu", "paged_attention.cu", "quant_matmul.cu",
+           "optimizer_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -85,6 +86,12 @@ SIGNATURES = {
     "quant_matmul": {
         "ptt_int8_matmul": [_I] + [_P] * 4 + [_I] * 3 + [_P],
         "ptt_int8_matmul_wgmma": [_I] + [_P] * 5 + [_I] * 7 + [_P],
+    },
+    "optimizer_step": {
+        "ptt_adam_step": [_I, _P, _P, _I, _L, _L, _P] + [_F] * 10
+                         + [_I, _P],
+        "ptt_sum_squares_partial": [_P, _I, _L, _L, _P, _P],
+        "ptt_sum_squares_finish": [_P, _I, _P, _P, _P],
     },
 }
 
