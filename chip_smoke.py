@@ -54,7 +54,13 @@ Phases, each fatal on error (non-zero exit, no result line):
    tolerance 1e-5; for gradients and B10 1e-5 of each output's max) and
    in bf16 against the fp32 plain version rounded to bf16 (one bf16 ulp
    plus the fp32 tolerance per element); the ragged kernels also against
-   each other in fp32 (1e-5), native and int8 alike, and under ROADMAP
+   each other in fp32 (1e-5), native and int8 alike; (a) kernel 6 and
+   B7 at pages of 4, 8, 12, 32 and 64, head_dim 72 and misaligned pools
+   (``page_shapes``: the rule's variant, the runtime kernel forced where
+   the unit one runs giving the same bits, C21 against kernel 8 / B9's
+   block variant, times against page 16), and at pages of 128, head_dim
+   256 (the runtime kernel in runs of keys; kernel 8 takes no such page,
+   so the plain version alone holds it); and under ROADMAP
    C21 (``check_c21``): kernel 6 gives the same bits as kernel 8, and B7
    as B9, on every span row, in fp32, bf16 and fp16 (wherever the ragged
    kernels are compared: here, on the captured ticks of phase 4 and on
@@ -178,6 +184,18 @@ Phases, each fatal on error (non-zero exit, no result line):
       accounted by category (weights, grads, masters, moments, logits,
       the rest), with tokens/s; the fused run's last step's layer-0
       attention inputs and dO are captured;
+   h. right after (f), speculative decoding (``spec_full_width``): the
+      load of (a) in order on the q-block engine with graphs, spec off,
+      then ``spec_k=4`` with the n-gram drafter and with a two-layer
+      draft model at full width (seed 1), each plainly and traced: verify
+      ticks replay the declared buckets' graphs (no capture, a replay a
+      tick), kernel 6 32 times a tick, every rejected draft rolled back;
+      drafted and accepted tokens, target forwards per generated token,
+      the replayed forwards' device ms by token bucket, busy ms and idle
+      share, tokens/s, and whether the streams equal spec off's (at the
+      first difference, the logits gap between the verify position and
+      the same position decoded alone: ROADMAP C23, reported, not held);
+   i. right after (g), the same fully int8;
 4. paths against each other on a two-layer fp32 model at the same widths
    (TF32 off): ``generate`` over the concat and the paged cache, the
    legacy engine and the ragged engine on both grids (q-block and
@@ -188,7 +206,15 @@ Phases, each fatal on error (non-zero exit, no result line):
    kernels within 1e-6 and 1e-4 (relative) of the same step with SDPA
    swapped, for the check only, to dense attention in autograd; the
    fully-int8 engine's three schedulers give identical greedy streams on
-   the three prompts; every B1, B2, B3 and B10 launch of this phase takes
+   the three prompts; (b) the q-block engine at pages of 8 and 32
+   (native) and 8 and 64 (int8 KV pages) on the load of (a) in order,
+   with graphs: greedy streams equal to page 16's and ``generate``'s,
+   kernel 6 / B7 twice a tick by the variant the rule takes (the runtime
+   kernel at fp32 pages of 32 and int8 pages of 64); (d) self-speculation
+   (``draft_model=`` the target) and (e) an always-wrong drafter on eight
+   short prompts: streams equal spec off's and ``generate``'s,
+   acceptance > 0.9 with fewer target forwards than tokens, every wrong
+   draft rolled back; every B1, B2, B3 and B10 launch of this phase takes
    the scalar fp32 kernels (their launches are the scalar variants'
    main-path counts, and the tensor-core counts stay 0); then every
    kernel against its
@@ -235,7 +261,9 @@ Phases, each fatal on error (non-zero exit, no result line):
    cache's codec.
 
 Prints a ``{"graph_breakdown": ...}`` line (phases 3f and 3g, per engine
-and mode), a ``{"kernels": [...]}`` line with all ten TPU kernels and the
+and mode), a ``{"spec": ...}`` line (3h, 3i, 4(d), 4(e)), a
+``{"kernels": [...]}`` line with all ten TPU kernels (kernel 6 and B7
+also as their runtime variants, with launches by variant and path) and the
 fused optimizer step's two (K-A and K-B, no Pallas counterpart,
 ``"pallas": false``; B1, B2 and B3
 each as its two variants, B10 as its three, with the dtypes each
@@ -244,6 +272,7 @@ run, the block kernels under ``block_variant``), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import ctypes
 import gc
 import json
 import subprocess
@@ -277,11 +306,20 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 2048, 4
 TRAIN_GROUPS = 2
 CSRC = "paddle_tpu_torch/csrc/"
 SOURCE = CSRC + "ragged_paged_attention.cu"
+QBLOCK_SOURCE = CSRC + "qblock.cuh"
 REF = "paddle_tpu/ops/pallas/ragged_paged_attention.py"
+
+
+_T0 = time.perf_counter()
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def phase(title):
+    """A phase's heading, with the seconds since the script started."""
+    log(f"{title} [{time.perf_counter() - _T0:.0f} s]")
 
 
 def max_err(a, b, rows):
@@ -484,9 +522,25 @@ def qblock_notes(build, rpa):
             f"{u_max} x {N_KV} blocks, {j_max} jobs a q-block")
     for name, el in (("fp32 pages", 4), ("bf16/fp16 pages", 2),
                      ("int8 pages (B7)", 1)):
-        log(f"  qblock_unit_kernel, {name}: 256 threads, "
-            f"{lib.ptt_ragged_qblock_smem(el, N_HEADS, N_KV, HEAD_DIM, PAGE, 8, 1024, 128)}"
-            f" bytes of dynamic shared memory")
+        for page in rpa.UNIT_PAGE_SIZES:
+            pps = -(-2048 // page)
+            smem = lib.ptt_ragged_qblock_smem(el, N_HEADS, N_KV, HEAD_DIM,
+                                              page, 8, 8 * pps, pps)
+            want = rpa.unit_smem_bytes(el, el == 1, 8 * N_HEADS // N_KV,
+                                       page, HEAD_DIM, 8, pps)
+            if smem != want:
+                raise AssertionError(f"unit shared memory {smem} != {want}")
+            log(f"  qblock_unit_kernel<{page}>, {name}: 256 threads, "
+                f"{smem} bytes of dynamic shared memory")
+    plan = (ctypes.c_int * 3)()
+    for page, d, _ in PAGE_SHAPES:
+        smem = lib.ptt_ragged_qblock_rt_smem(N_HEADS, N_KV, d, page, 8, plan)
+        if not smem:
+            raise AssertionError(f"no runtime q-block plan at page {page}, "
+                                 f"head_dim {d}")
+        log(f"  qblock_runtime_kernel, page {page}, head_dim {d}: 256 "
+            f"threads, {plan[0]} rows a pass, chunks of {plan[1]} pages, "
+            f"{plan[2]} keys a run, {smem} bytes of dynamic shared memory")
 
 
 def token_notes(build, rpa):
@@ -746,6 +800,195 @@ def ragged_edge_layouts(torch, dev):
         vp = torch.randn(shape, generator=g, device=dev)
         q = torch.randn((tokens, heads, HEAD_DIM), generator=g, device=dev)
         yield label, (q, kp, vp, tbl, desc)
+
+
+#: phase 2(a)'s layouts of kernel 6 and B7 beyond the engines' page of
+#: 16: (page size, head_dim, pools 16-byte misaligned), at Llama-3-8B's 32
+#: query heads over 8 kv heads
+PAGE_SHAPES = ((4, 128, False), (8, 128, False), (12, 128, False),
+               (32, 128, False), (64, 128, False), (16, 72, False),
+               (16, 128, True), (128, 256, False))
+
+
+def token_block_fits(g, page, d):
+    """Whether kernel 8 / B9's ``"block"`` variant takes pages of ``page``
+    keys at head_dim ``d`` with ``g`` query heads a kv head: its fp32
+    tile (``smem_floats`` in ``attention_common.cuh``) within
+    SMEM_LIMIT."""
+    from paddle_tpu_torch.ops.paged_attention import SMEM_LIMIT
+    floats = (g * (d + 1) + page * (d + 1) + page * d + g * page + g * d
+              + 3 * g)
+    return 4 * floats <= SMEM_LIMIT
+
+
+def page_layout(torch, dev, page, d):
+    """``parity_layout``'s spans (decode spans, a 37-token prefill
+    straddling q-blocks, two sequences aliasing their first pages, bucket
+    padding) at pages of ``page`` keys and head_dim ``d``: tables of
+    ceil(2048 / page) pages, slot 5 sharing slot 4's first 64 // page
+    pages. fp32 pools and q."""
+    max_len, nslots = 2048, 8
+    pps = -(-max_len // page)
+    num_pages = nslots * pps + 1
+    tbl = np.zeros((nslots, pps), np.int32)
+    for s in range(nslots):
+        tbl[s] = np.arange(1 + s * pps, 1 + (s + 1) * pps)
+    shared = 64 // page
+    tbl[5, :shared] = tbl[4, :shared]
+    spans = [(0, 0, 1, 700), (1, 1, 1, 33), (2, 2, 1, 1),
+             (3, 3, 37, 137), (4, 40, 20, 84), (5, 60, 1, 70)]
+    desc = tuple(np.asarray([s[i] for s in spans], np.int32)
+                 for i in range(4))
+    g = torch.Generator(device=dev).manual_seed(1234 + 1000 * page + d)
+    shape = (N_KV, num_pages, page, d)
+    kp = torch.randn(shape, generator=g, device=dev)
+    vp = torch.randn(shape, generator=g, device=dev)
+    q = torch.randn((64, N_HEADS, d), generator=g, device=dev)
+    return q, kp, vp, tbl, desc
+
+
+def misalign(torch, t):
+    """A copy of ``t`` whose data starts one element past its storage's
+    (16-byte aligned) start: an address that is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    if out.data_ptr() % 16 == 0:
+        raise AssertionError("misalign gave an aligned copy")
+    return out
+
+
+def page_shape_case(torch, rpa, gen, page, d, misaligned, base_ms=None):
+    """Kernel 6 and B7 at pages of ``page`` keys, head_dim ``d`` (pools
+    misaligned when asked) on ``page_layout``, on the engines' fixed grid,
+    in fp32, bf16 and fp16: the rule's variant (``qblock_variant``: the
+    unit kernel at pages of 4, 8, 16 and 32 with head_dim % 16 == 0,
+    aligned pools and a block that fits shared memory, else the runtime
+    one; each launch counted by its variant) against the plain version
+    (1e-5 in fp32, ``ulp_err`` <= 1 in bf16 and fp16); C21 bit for bit
+    against kernel 8 / B9 (their ``"block"`` variant, which takes every
+    shape; the cluster one too at page 16, head_dim % 16 == 0, aligned);
+    where the rule takes the unit kernel, the runtime kernel forced on the
+    same inputs gives the same bits. Then times (bf16 q, bf16 or int8
+    pages) of the rule's variant and, where it is the unit kernel, of the
+    runtime one forced, beside the plain version, the bound and
+    ``base_ms`` (the unit kernel at page 16 on the same contexts). Returns
+    the row."""
+    dev = torch.device("cuda")
+    q, kp, vp, tbl, desc = page_layout(torch, dev, page, d)
+    rows = torch.as_tensor(span_rows(desc[1], desc[2]), device=dev)
+    scale = d ** -0.5
+    plans = {"qblock": rpa.make_plan(q.shape[0], *desc, tbl, page,
+                                     impl="qblock", device=dev,
+                                     max_slots=ENGINE_SLOTS),
+             "token": rpa.make_plan(q.shape[0], *desc, tbl, page,
+                                    impl="token", device=dev)}
+    prep = misalign if misaligned else None
+    label = f"page {page}, head_dim {d}" + (", misaligned pools"
+                                            if misaligned else "")
+    (kq, ks), (vq, vs) = gen.quantize_kv_rows(kp), gen.quantize_kv_rows(vp)
+    row = {"shape": label}
+    for quant, fn in ((False, rpa.qblock_attention),
+                      (True, rpa.qblock_attention_q8)):
+        kernel = "B7" if quant else "kernel 6"
+        worst, ran = {}, {}
+        for short, name in PAGED_DTYPES.items():
+            dt = getattr(torch, name)
+            qd = q.to(dt)
+            pd = (kq, vq, ks, vs) if quant else (kp.to(dt), vp.to(dt))
+            if prep is not None:
+                pd = tuple(prep(torch, x) for x in pd)
+            want = rpa.qblock_variant(qd, pd[0], pd[1], plans["qblock"],
+                                      *pd[2:])
+            if misaligned and want != "runtime":
+                raise AssertionError(f"{label}: the rule took {want}")
+            ran[short] = want
+            before = getattr(fn, f"{want}_launches")
+            out = fn(qd, *pd, plans["qblock"], scale)
+            if getattr(fn, f"{want}_launches") != before + 1:
+                raise AssertionError(f"{label} {kernel}: {want} not counted")
+            ref = rpa.qblock_attention_plain(
+                qd.float(), *(pd[:2] if quant else (x.float() for x in pd)),
+                plans["qblock"], scale, *pd[2:])
+            what = f"{label} {kernel} {want} {short}"
+            if short == "fp32":
+                worst[short] = max_err(out, ref, rows)
+                check(f"{what} kernel vs plain", worst[short], FP32_TOL)
+            else:
+                worst[short], ratio = ulp_err(torch, out[rows], ref[rows])
+                check(f"{what} kernel vs {short}(fp32 plain)", ratio, 1.0,
+                      "max error / (1 ulp + fp32 tol)")
+            if want == "unit":
+                other = fn(qd, *pd, plans["qblock"], scale,
+                           variant="runtime")
+                bits = torch.int32 if dt == torch.float32 else torch.int16
+                if not torch.equal(out[rows].view(bits),
+                                   other[rows].view(bits)):
+                    raise AssertionError(f"{what}: the runtime kernel's "
+                                         f"bits differ from the unit's")
+        pages = (kq, vq, ks, vs) if quant else (kp, vp)
+        c21 = token_block_fits(N_HEADS // N_KV, page, d)
+        if c21:
+            check_c21(torch, rpa, q, pages, plans, rows, label + (
+                " int8" if quant else ""), verbose=False,
+                token_variant="block", prep=prep)
+        if page == rpa.SPLIT_PAGE and d % 16 == 0 and not misaligned:
+            check_c21(torch, rpa, q, pages, plans, rows, label + (
+                " int8" if quant else ""), verbose=False)
+        # times on bf16 q (pages bf16 or int8)
+        qb = q.bfloat16()
+        pb = (kq, vq, ks, vs) if quant else (kp.bfloat16(), vp.bfloat16())
+        if prep is not None:
+            pb = tuple(prep(torch, x) for x in pb)
+        key = "int8" if quant else "bf16"
+        timed = {"variant": ran["bf16"],
+                 "variants_by_dtype": ran,
+                 "ms": time_ms(torch, lambda: fn(qb, *pb, plans["qblock"],
+                                                 scale)),
+                 "plain_ms": time_ms(torch, lambda: rpa.qblock_attention_plain(
+                     qb, *pb[:2], plans["qblock"], scale, *pb[2:]),
+                     iters=3, warmup=1),
+                 **bound_ms(qb, pb[0], tbl, desc, quant=quant),
+                 "max_abs_err": worst["bf16"],
+                 "max_abs_err_fp32": worst["fp32"],
+                 "max_abs_err_fp16": worst["fp16"]}
+        if ran["bf16"] == "unit":
+            timed["runtime_ms"] = time_ms(torch, lambda: fn(
+                qb, *pb, plans["qblock"], scale, variant="runtime"))
+        if base_ms is not None:
+            timed["page16_ms"] = base_ms[key]
+        row[key] = timed
+        log(f"  {label}, {kernel} (by dtype {ran}): parity fp32 "
+            f"{worst['fp32']:.3e}, bf16 {worst['bf16']:.3e}, fp16 "
+            f"{worst['fp16']:.3e}; "
+            + (f"C21 against kernel {'B9' if quant else '8'} held in "
+               f"{', '.join(C21_DTYPES)}" if c21 else
+               f"no C21 check: kernel {'B9' if quant else '8'} takes no "
+               f"pages of {page} keys at head_dim {d} (its block's fp32 "
+               f"tile outgrows shared memory)")
+            + f"; {timed['ms']:.4f} ms"
+            + (f" (the runtime kernel forced: {timed['runtime_ms']:.4f} ms,"
+               f" the same bits)" if "runtime_ms" in timed else "")
+            + (f", the unit kernel at page 16 on the same contexts "
+               f"{timed['page16_ms']:.4f} ms" if base_ms is not None
+               else "")
+            + f", plain {timed['plain_ms']:.4f} ms, bound "
+            f"{timed['bound_ms']:.6f} ms ({timed['bound_by']})")
+    return row
+
+
+def page_shapes(torch, rpa, gen):
+    """Phase 2(a): kernel 6 and B7 on the engines' page of 16 (the base
+    of the times) and at every shape of PAGE_SHAPES (``page_shape_case``).
+    Returns the rows, the base first."""
+    base = page_shape_case(torch, rpa, gen, PAGE, HEAD_DIM, False)
+    rows = [base]
+    ms = {key: base[key]["ms"] for key in ("bf16", "int8")}
+    for page, d, misaligned in PAGE_SHAPES:
+        rows.append(page_shape_case(torch, rpa, gen, page, d, misaligned,
+                                    base_ms=ms if d == HEAD_DIM else None))
+    torch.cuda.empty_cache()
+    return rows
 
 
 def decode_layout(torch, dev):
@@ -1348,24 +1591,29 @@ def compare_kernels_q8(torch, rpa, q, kq, vq, ks, vs, tbl, desc, label):
 C21_DTYPES = ("float32", "bfloat16", "float16")
 
 
-def check_c21(torch, rpa, q, pages, plans, rows, label, verbose=True):
+def check_c21(torch, rpa, q, pages, plans, rows, label, verbose=True,
+              token_variant="cluster", prep=None):
     """ROADMAP C21: kernel 6 returns the same bits as kernel 8 (its
-    ``"cluster"`` variant, forced) on every real token's row, and B7 as
+    ``token_variant``, forced: ``"cluster"``, or ``"block"`` at the shapes
+    the cluster kernel does not take) on every real token's row, and B7 as
     B9, for fp32, bf16 and fp16 queries. ``pages`` is (k, v) of native
     pages in q's dtype family (cast with q) or (k_codes, v_codes,
-    k_scales, v_scales) of int8 pages. Compares the bit patterns of the
-    span rows; returns the number of cases held."""
+    k_scales, v_scales) of int8 pages; ``prep`` (e.g. ``misalign``) is
+    applied to each page array after the cast. Compares the bit patterns
+    of the span rows; returns the number of cases held."""
     quant = len(pages) == 4
     kern = ((rpa.qblock_attention_q8, rpa.token_attention_q8) if quant
             else (rpa.qblock_attention, rpa.token_attention))
-    scale = HEAD_DIM ** -0.5
+    scale = q.shape[-1] ** -0.5
     for name in C21_DTYPES:
         dt = getattr(torch, name)
         pg = pages if quant else tuple(x.to(dt) for x in pages)
+        if prep is not None:
+            pg = tuple(prep(torch, x) for x in pg)
         qd = q.to(dt)
         a = kern[0](qd, *pg, plans["qblock"], scale)[rows]
         b = kern[1](qd, *pg, plans["token"], scale,
-                    variant="cluster")[rows]
+                    variant=token_variant)[rows]
         bits = torch.int32 if dt == torch.float32 else torch.int16
         differ = int((a.view(bits) != b.view(bits)).sum())
         if differ:
@@ -1374,8 +1622,8 @@ def check_c21(torch, rpa, q, pages, plans, rows, label, verbose=True):
                 f"elements differ, max {float((a.float() - b.float()).abs().max())}")
     torch.cuda.synchronize()
     if verbose:
-        log(f"  C21 {label}: q-block == per-token (cluster) bit for bit on "
-            f"{len(rows)} span rows in {', '.join(C21_DTYPES)}")
+        log(f"  C21 {label}: q-block == per-token ({token_variant}) bit for "
+            f"bit on {len(rows)} span rows in {', '.join(C21_DTYPES)}")
     return len(C21_DTYPES)
 
 
@@ -1695,7 +1943,12 @@ def kernel_counters(rpa, fa, pa, qm, ost):
             "flash_bwd_dq_wgmma": Count(fa.flash_bwd_dq, "wgmma_launches"),
             "flash_bwd_dkv": fa.flash_bwd_dkv,
             "flash_bwd_dkv_wgmma": Count(fa.flash_bwd_dkv, "wgmma_launches"),
+            "qblock_unit": Count(rpa.qblock_attention, "unit_launches"),
+            "qblock_runtime": Count(rpa.qblock_attention, "runtime_launches"),
             "qblock_q8": rpa.qblock_attention_q8,
+            "qblock_q8_unit": Count(rpa.qblock_attention_q8, "unit_launches"),
+            "qblock_q8_runtime": Count(rpa.qblock_attention_q8,
+                                       "runtime_launches"),
             "token_q8": rpa.token_attention_q8,
             "token_q8_cluster": Count(rpa.token_attention_q8,
                                       "cluster_launches"),
@@ -2313,20 +2566,28 @@ class TickRecorder:
         self.mod.plan_arrays = self.orig
 
 
+#: the speculating engine's counters a graph run reports, over its
+#: counted run
+SPEC_STATS = ("spec_drafted_tokens", "spec_accepted_tokens", "spec_rounds",
+              "spec_draft_forwards", "spec_draft_ticks")
+
+
 def graph_run(torch, pt, kern, model, prompts, warm, graphs, path_kw,
-              gen_kw=None, probes=(), profile=False):
+              gen_kw=None, probes=(), profile=False, page=PAGE):
     """One engine run of the prompts in order (``run_in_order``), eager or
     with graphs: the warm request, then ``warmup_programs`` (with graphs it
     captures every declared shape, so no capture falls in the run), then
     the counted run under ``probes``, a ``TickTimeline`` and, with
     ``profile``, a CUDA-only ``torch.profiler`` trace (its callbacks slow
     the host's launches: the busy times come from it, the walls from an
-    untraced run). Returns the outputs, the stats and the engine's cache
-    (its pools)."""
+    untraced run). ``path_kw`` goes to the engine (``spec_decode=True``
+    and its options too; the speculation counters of the counted run are
+    in ``stats["spec"]``), ``page`` is its page size. Returns the outputs,
+    the stats and the engine's cache (its pools)."""
     kw = dict(path_kw)
     impl = kw.pop("impl", "qblock")
     eng = pt.ContinuousServingEngine(model, max_batch_size=ENGINE_SLOTS,
-                                     max_len=2048, page_size=PAGE,
+                                     max_len=2048, page_size=page,
                                      token_budget=256,
                                      prefill_chunk_tokens=256,
                                      ragged_impl=impl, cuda_graphs=graphs,
@@ -2340,6 +2601,8 @@ def graph_run(torch, pt, kern, model, prompts, warm, graphs, path_kw,
         g0 = (eng.graph_captures, eng.graph_replays)
         work0 = (eng.ragged_steps, eng.decode_steps,
                  Counter(eng.prefill_chunk_buckets))
+        spec0 = {k: getattr(eng, k) for k in SPEC_STATS}
+        rolled0 = eng._cache.tokens_rolled_back
         by_m = count_tick_shapes(eng)
         zero_counts(kern)
         torch.cuda.synchronize()
@@ -2378,7 +2641,11 @@ def graph_run(torch, pt, kern, model, prompts, warm, graphs, path_kw,
                      ragged_steps=eng.ragged_steps - work0[0],
                      decode_steps=eng.decode_steps - work0[1],
                      chunk_buckets=chunks, forwards_by_m=by_m + chunks,
-                     ticks=ticks)
+                     ticks=ticks,
+                     spec=dict({k: getattr(eng, k) - spec0[k]
+                                for k in SPEC_STATS},
+                               tokens_rolled_back=eng._cache
+                               .tokens_rolled_back - rolled0))
         if prof is not None:
             intervals = device_intervals(torch, prof)
             stats["device"] = split_ticks(timeline, intervals)
@@ -2394,7 +2661,9 @@ def traced_launches(c):
     paths launch, by its name in the trace, from the counters ``c``
     (``read_counts``)."""
     b10_tc = c["int8_matmul_stream"] + c["int8_matmul_gemm"]
-    return {"qblock_unit_kernel": c["qblock"] + c["qblock_q8"],
+    return {"qblock_unit_kernel": c["qblock_unit"] + c["qblock_q8_unit"],
+            "qblock_runtime_kernel": c["qblock_runtime"]
+            + c["qblock_q8_runtime"],
             "token_split_kernel": c["token_cluster"] + c["token_q8_cluster"],
             "token_kernel": c["token_block"] + c["token_q8_block"],
             "paged_decode_split_kernel": c["paged_cluster"]
@@ -2496,7 +2765,7 @@ def c21_at_ticks(torch, rpa, gen, cache, layer, ticks, quant, label):
 
 
 def graphs_against_eager(torch, pt, gen, rpa, fused, quant_mod, kern, model,
-                         prompts, warm, int8):
+                         prompts, warm, int8, keep=None):
     """Phase 3f (native bf16) or 3g (``int8``: the fully-int8 engines, the
     model already quantised): for the q-block, per-token and legacy
     engines, the 8-request load in order, three times eagerly (plain; with
@@ -2516,7 +2785,9 @@ def graphs_against_eager(torch, pt, gen, rpa, fused, quant_mod, kern, model,
     by token count.
     Walls, the host's time in the forward and the device's windows come
     from the plain runs, busy times from the traced ones (same ticks).
-    Returns the per-tick summaries."""
+    Returns the per-tick summaries; ``keep`` (a dict) gets the q-block
+    engine's plain graph run (outputs, stats, per-tick summary and its
+    forwards' device ms by token bucket), spec off for 3h and 3i."""
     label = "int8" if int8 else "bf16"
     engine_kw = dict(kv_dtype="int8", weight_dtype="int8") if int8 else {}
     layer = model.llama.layers[0].self_attn
@@ -2533,8 +2804,9 @@ def graphs_against_eager(torch, pt, gen, rpa, fused, quant_mod, kern, model,
         host = HostBreakdown(torch, model, gen, fused, quant_mod)
         runs = {"eager, module breakdown": run(False, [host]),
                 "eager, traced": run(False, profile=True)}
-        rec = TickRecorder(gen)
-        runs["graphs"] = run(True, [rec])
+        rec, fwd = TickRecorder(gen), ForwardEvents(torch, pt)
+        with fwd:
+            runs["graphs"] = run(True, [rec])
         runs["graphs, traced"] = run(True, profile=True)
         check_outputs(prompts, e_outs, model.config.vocab_size, tag)
         for what, (outs, st, _) in runs.items():
@@ -2581,6 +2853,10 @@ def graphs_against_eager(torch, pt, gen, rpa, fused, quant_mod, kern, model,
         e_sum = tick_summary(eager, runs["eager, traced"], host,
                              runs["eager, module breakdown"])
         g_sum = tick_summary(graph, runs["graphs, traced"])
+        if name == "qblock" and keep is not None:
+            keep.update(outs=e_outs, st=graph, sum=g_sum,
+                        forward_ms=fwd.ms_by_bucket(len(fwd.events)
+                                                    - graph["ragged_steps"]))
         out[name] = {"eager": e_sum, "graphs": g_sum, "c21_cases": c21,
                      "warmup_s": graph["warmup_s"],
                      "launches": {k: v for k, v in graph["launches"].items()
@@ -2689,6 +2965,282 @@ def sampled_and_abort(torch, pt, kern, model, prompts, warm):
 
 
 # ---------------------------------------------------------------------------
+# phases 3h and 3i: speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+#: the drafted tokens a decode slot may take a tick, at full width
+SPEC_K = 4
+
+
+class LogitsProbe:
+    """While on, keeps the fp32 logits row that each token of every
+    engine came from, by (prompt, token index): the last draw of an index
+    is the one emitted (a verify span's rejected positions are drawn
+    again at the next tick). Patches the engine class's ``_token``."""
+
+    def __init__(self, pt):
+        self.cls, self.rows = pt.ContinuousServingEngine, {}
+        self.patches = Patches()
+
+    def __enter__(self):
+        token = self.cls._token
+
+        def kept(eng, row, logits, idx, greedy=None, offset=0):
+            key = (row.prompt.tobytes(), len(row.generated) + offset)
+            self.rows[key] = logits[idx].float().clone()
+            return token(eng, row, logits, idx, greedy, offset)
+        self.patches.swap(self.cls, "_token", kept)
+        return self
+
+    def __exit__(self, *exc):
+        self.patches.restore()
+
+
+def first_difference(prompts, on, off, rows_on, rows_off):
+    """Where the spec-on streams first leave the spec-off ones: the
+    prompt, the token index, both tokens, the logits gap between the
+    verify position and the same position decoded alone (max |on - off|
+    over the vocabulary) and each run's margin of its own token over the
+    other's. None when the streams are equal."""
+    for i, (p, a, b) in enumerate(zip(prompts, on, off)):
+        diff = np.flatnonzero(a[0] != b[0])
+        if not diff.size:
+            continue
+        t = int(diff[0]) - p.shape[0]
+        key = (p.tobytes(), t)
+        lo_on, lo_off = rows_on[key], rows_off[key]
+        ta, tb = int(a[0, p.shape[0] + t]), int(b[0, p.shape[0] + t])
+        return {"prompt": i, "token": t, "on": ta, "off": tb,
+                "logits_max_abs_diff": float((lo_on - lo_off).abs().max()),
+                "logits_scale": float(lo_off.abs().max()),
+                "margin_on": float(lo_on[ta] - lo_on[tb]),
+                "margin_off": float(lo_off[tb] - lo_off[ta])}
+    return None
+
+
+class DraftTimer:
+    """Times every drafting prepass of a speculating engine's ticks
+    (``_drafts``: the drafter's forwards, to a device sync), on the engine
+    class while on."""
+
+    def __init__(self, torch, pt):
+        self.torch, self.cls, self.ms = torch, pt.ContinuousServingEngine, []
+        self.patches = Patches()
+
+    def __enter__(self):
+        drafts, torch = self.cls._drafts, self.torch
+
+        def timed(eng, *args):
+            if eng._drafter is None:
+                return drafts(eng, *args)
+            t0 = time.perf_counter()
+            out = drafts(eng, *args)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        self.patches.swap(self.cls, "_drafts", timed)
+        return self
+
+    def __exit__(self, *exc):
+        self.patches.restore()
+
+
+class ForwardEvents:
+    """CUDA events around every tick forward (``_forward``: a graph's
+    replay, after the warm-up captured it) of the engines made while on,
+    by token bucket: the device's ms of the forward alone, without the
+    tick's drafting and host work. Patches the engine class."""
+
+    def __init__(self, torch, pt):
+        self.torch, self.events = torch, []
+        self.cls = pt.ContinuousServingEngine
+        self.patches = Patches()
+
+    def __enter__(self):
+        forward, torch = self.cls._forward, self.torch
+
+        def timed(eng, key, ids, pos, cache):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            ev[0].record()
+            out = forward(eng, key, ids, pos, cache)
+            ev[1].record()
+            self.events.append((int(np.asarray(ids).size), ev))
+            return out
+        self.patches.swap(self.cls, "_forward", timed)
+        return self
+
+    def __exit__(self, *exc):
+        self.patches.restore()
+
+    def ms_by_bucket(self, skip=0):
+        """Mean device ms of the forwards after the first ``skip``, by
+        token bucket."""
+        self.torch.cuda.synchronize()
+        by = {}
+        for n, (a, b) in self.events[skip:]:
+            by.setdefault(n, []).append(a.elapsed_time(b))
+        return {n: float(np.mean(v)) for n, v in sorted(by.items())}
+
+
+def spec_runs(torch, pt, kern, model, prompts, warm, kw, n_layers, key,
+              label):
+    """One setting of the 8-request load in order through the q-block
+    engine with CUDA graphs, plainly (drafting timed) and traced: no
+    capture in a counted run, a replay a tick, kernel 6 (B7, ``key``)
+    ``n_layers`` times a tick, the trace's launches within the counted
+    ones. Returns the outputs, the plain run's stats, the per-tick
+    summary, the drafting ms of each drafting tick and the replayed
+    forwards' device ms by token bucket (the counted run's: its ticks
+    are the last forwards)."""
+    timer, fwd = DraftTimer(torch, pt), ForwardEvents(torch, pt)
+    with timer, fwd:
+        outs, st, _ = graph_run(torch, pt, kern, model, prompts, warm, True,
+                                kw)
+    traced = graph_run(torch, pt, kern, model, prompts, warm, True, kw,
+                       profile=True)[1]
+    if st["captures"] or st["replays"] != st["ragged_steps"]:
+        raise AssertionError(f"{label}: {st['captures']} captures, "
+                             f"{st['replays']} replays over "
+                             f"{st['ragged_steps']} ticks")
+    if st["launches"][key] != n_layers * st["ragged_steps"]:
+        raise AssertionError(f"{label}: {key} launched "
+                             f"{st['launches'][key]} times over "
+                             f"{st['ragged_steps']} ticks")
+    check_outputs(prompts, outs, model.config.vocab_size, label)
+    check_traced_launches(f"{label}, traced", traced)
+    return dict(outs=outs, st=st, sum=tick_summary(st, traced),
+                draft_ms=timer.ms,
+                forward_ms=fwd.ms_by_bucket(len(fwd.events)
+                                            - st["ragged_steps"]))
+
+
+def spec_full_width(torch, pt, kern, model, prompts, warm, int8, n_layers,
+                    draft_model, off):
+    """Phase 3h (native bf16) and 3i (fully int8): the 8-request load in order
+    through the q-block engine with CUDA graphs (``spec_runs``), speculative
+    decoding on (``spec_k=SPEC_K``) with the n-gram drafter and with
+    ``draft_model``, a two-layer model at the target's widths, against spec
+    off (``off``: the same engine's plain graph run of 3f or 3g,
+    ``graphs_against_eager``'s ``keep``). Verify ticks pad to the declared
+    token buckets, so they replay the same graphs as every other tick.
+    Random prompts over 128,256 tokens give the n-gram drafter little to
+    find; the draft model drafts every tick it has room. For each drafter:
+    drafted and accepted tokens, target forwards per generated token, the
+    replayed verify tick against the plain decode tick, the device's busy
+    time and idle share, generated tokens/s, and whether the streams equal
+    spec off's (bf16 GEMMs may reduce in another order at another M, ROADMAP
+    C23: reported, not held) with the logits gap at the first difference.
+    Every drafted token that was not accepted must have rolled back, and the
+    draft model must have drafted."""
+    label = "int8" if int8 else "bf16"
+    engine_kw = dict(kv_dtype="int8", weight_dtype="int8") if int8 else {}
+    key = "qblock_q8" if int8 else "qblock"
+    tiers = {"off": engine_kw,
+             "ngram": dict(engine_kw, spec_decode=True, spec_k=SPEC_K),
+             "draft model": dict(engine_kw, spec_decode=True, spec_k=SPEC_K,
+                                 draft_model=draft_model)}
+    runs = {name: spec_runs(torch, pt, kern, model, prompts, warm, kw,
+                            n_layers, key, f"{label} spec {name}")
+            for name, kw in tiers.items() if name != "off"}
+    tokens = NEW_TOKENS * len(prompts)
+    dec_off = off["sum"].get("decode_ticks")
+    log(f"  {label} spec off: {off['st']['ragged_steps']} target forwards "
+        f"({off['st']['ragged_steps'] / tokens:.4f} a generated token), "
+        f"{tokens / off['st']['wall']:.1f} generated tokens/s; "
+        f"{off['sum']['ticks']} replayed ticks, tick "
+        f"{off['sum']['wall_ms']:.3f} ms, busy {off['sum']['busy_ms']:.3f} "
+        f"ms, idle share {off['sum']['idle_share']:.4f}" + (
+            "" if dec_off is None else
+            f"; decode ticks {dec_off['ticks']}: {dec_off['wall_ms']:.3f} "
+            f"ms" + ("" if dec_off["busy_ms"] is None else
+                     f", busy {dec_off['busy_ms']:.3f} ms, idle share "
+                     f"{dec_off['idle_share']:.4f}")))
+    log(f"    spec off: replayed forwards' device ms by token bucket "
+        f"{ {n: round(v, 4) for n, v in off['forward_ms'].items()} }")
+    out = {"off": {"target_forwards": off["st"]["ragged_steps"],
+                   "forwards_per_token": off["st"]["ragged_steps"] / tokens,
+                   "tokens_per_s": tokens / off["st"]["wall"],
+                   "forward_ms_by_bucket": off["forward_ms"],
+                   "ticks": off["sum"]}}
+    for name, run in runs.items():
+        st, sp = run["st"], run["st"]["spec"]
+        if sp["tokens_rolled_back"] != (sp["spec_drafted_tokens"]
+                                        - sp["spec_accepted_tokens"]):
+            raise AssertionError(f"{label} {name}: rolled back "
+                                 f"{sp['tokens_rolled_back']} of {sp}")
+        if name == "draft model" and not sp["spec_drafted_tokens"]:
+            raise AssertionError(f"{label} {name}: nothing drafted {sp}")
+        equal = all(np.array_equal(a, b) for a, b in zip(run["outs"],
+                                                          off["outs"]))
+        gap = None
+        if not equal:
+            rows = {}
+            for which in ("off", name):
+                with LogitsProbe(pt) as probe:
+                    got = graph_run(torch, pt, kern, model, prompts, warm,
+                                    True, tiers[which])[0]
+                rows[which] = (got, probe.rows)
+            gap = first_difference(prompts, rows[name][0],
+                                   rows["off"][0], rows[name][1],
+                                   rows["off"][1])
+        drafted = sp["spec_drafted_tokens"]
+        r = {"drafted": drafted, "accepted": sp["spec_accepted_tokens"],
+             "acceptance": (sp["spec_accepted_tokens"] / drafted
+                            if drafted else None),
+             "rounds": sp["spec_rounds"],
+             "draft_forwards": sp["spec_draft_forwards"],
+             "draft_ticks": sp["spec_draft_ticks"],
+             "tokens_rolled_back": sp["tokens_rolled_back"],
+             "target_forwards": st["ragged_steps"],
+             "forwards_per_token": st["ragged_steps"] / tokens,
+             "tokens_per_s": tokens / st["wall"],
+             "streams_equal": equal, "first_difference": gap,
+             "buckets": sorted(st["forwards_by_m"]),
+             "draft_ms_per_tick": (float(np.mean(run["draft_ms"]))
+                                   if run["draft_ms"] else 0.0),
+             "forward_ms_by_bucket": run["forward_ms"],
+             "ticks": run["sum"],
+             "launches": {k: v for k, v in st["launches"].items() if v}}
+        out[name] = r
+        dec = run["sum"].get("decode_ticks")
+        acc = "none drafted" if r["acceptance"] is None \
+            else f"{r['acceptance']:.4f}"
+        log(f"  {label} spec on, {name} (k={SPEC_K}): drafted "
+            f"{r['drafted']}, accepted {r['accepted']} ({acc}), "
+            f"{r['rounds']} verify spans, {r['tokens_rolled_back']} tokens "
+            f"rolled back; target forwards {r['target_forwards']} "
+            f"({r['forwards_per_token']:.4f} a generated token); "
+            f"{r['tokens_per_s']:.1f} generated tokens/s; draft forwards "
+            f"{r['draft_forwards']} over {r['draft_ticks']} drafting ticks, "
+            f"{r['draft_ms_per_tick']:.3f} ms of drafting a tick; token "
+            f"buckets {r['buckets']}")
+        sm = run["sum"]
+        log(f"    replayed forwards' device ms by token bucket "
+            f"{ {n: round(v, 4) for n, v in run['forward_ms'].items()} } "
+            f"(spec off's decode tick: bucket {ENGINE_SLOTS})")
+        log(f"    {sm['ticks']} replayed ticks, tick {sm['wall_ms']:.3f} ms, "
+            f"busy {sm['busy_ms']:.3f} ms, idle share "
+            f"{sm['idle_share']:.4f}" + (
+                "" if dec is None else
+                f"; verify (decode-only) ticks {dec['ticks']}: "
+                f"{dec['wall_ms']:.3f} ms, window {dec['window_ms']:.3f} ms"
+                + ("" if dec["busy_ms"] is None else
+                   f", busy {dec['busy_ms']:.3f} ms, idle share "
+                   f"{dec['idle_share']:.4f}")))
+        log(f"    streams {'equal to' if equal else 'differ from'} spec "
+            f"off's" + ("" if gap is None else
+                        f": first at prompt {gap['prompt']} token "
+                        f"{gap['token']} (spec on {gap['on']}, off "
+                        f"{gap['off']}); logits at the verify position "
+                        f"against the same position decoded alone: max abs "
+                        f"diff {gap['logits_max_abs_diff']:.4e} of "
+                        f"{gap['logits_scale']:.3f}, margins on "
+                        f"{gap['margin_on']:.4e}, off "
+                        f"{gap['margin_off']:.4e}"))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 
@@ -2748,33 +3300,36 @@ def _bound(nbytes, flops, peak=BF16_FLOPS):
             "peak_tflops": peak / 1e12}
 
 
-def distinct_pages(tbl, rows, ctxs):
-    """Distinct pages that the contexts cover: the first ceil(ctx / PAGE)
+def distinct_pages(tbl, rows, ctxs, page=PAGE):
+    """Distinct pages that the contexts cover: the first ceil(ctx / page)
     table entries of each row, a page shared by rows counted once."""
     pages = set()
     for r, c in zip(rows, ctxs):
-        pages.update(tbl[r, :-(-int(c) // PAGE)].tolist())
+        pages.update(tbl[r, :-(-int(c) // page)].tolist())
     return len(pages)
 
 
 def page_row_bytes(kp, quant):
     """Bytes of one K or V page row: the head_dim values in the pool's
     type, plus the fp32 scale of an int8 row."""
-    return HEAD_DIM * kp.element_size() + (4 if quant else 0)
+    return kp.shape[-1] * kp.element_size() + (4 if quant else 0)
 
 
 def bound_ms(q, kp, tbl, desc, quant=False):
     """Least time for this tick's ragged attention on an H100: the bytes
     it must move (q and out once, every K/V page the spans' contexts
     cover once with its scales when int8, the descriptors) against its
-    flops (QK^T and PV for every visible key of every span token)."""
+    flops (QK^T and PV for every visible key of every span token), at
+    the shapes of ``q`` and the pages ``kp``."""
     slots, starts, lens, ctxs = (np.asarray(a) for a in desc)
     el = q.element_size()
-    flops = sum(4 * N_HEADS * HEAD_DIM               # keys each token sees
+    heads, d = q.shape[1], q.shape[2]
+    kv, page = kp.shape[0], kp.shape[2]
+    flops = sum(4 * heads * d                          # keys each token sees
                 * int(np.arange(c - ql + 1, c + 1).sum())
                 for ql, c in zip(lens, ctxs))
     nbytes = (2 * q.numel() * el
-              + 2 * distinct_pages(tbl, slots, ctxs) * N_KV * PAGE
+              + 2 * distinct_pages(tbl, slots, ctxs, page) * kv * page
               * page_row_bytes(kp, quant) + tbl.nbytes + 4 * 4 * len(slots))
     return _bound(nbytes, flops)
 
@@ -3826,6 +4381,141 @@ def cross_paths_int8(pt, model, prompts):
         f"({n_linear} Linears quantised by the first engine)")
 
 
+#: phase 4(b)'s page sizes beside the engines' 16, by KV page type, and
+#: the variant of kernel 6 / B7 the rule takes for each on the two-layer
+#: fp32 model (fp32 pages of 32 outgrow the unit kernel's shared memory)
+SMALL_PAGES = {"native": {PAGE: "unit", 8: "unit", 32: "runtime"},
+               "int8": {PAGE: "unit", 8: "unit", 64: "runtime"}}
+
+
+def page_engines(torch, pt, kern, model, prompts, warm):
+    """Phase 4(b): the 8-request load in order through the q-block engine
+    with CUDA graphs on a two-layer fp32 model (TF32 off) at the page
+    sizes of SMALL_PAGES, native and int8 KV pages: the greedy streams of
+    every page size equal the page-16 engine's, and the native ones
+    ``generate``'s; kernel 6 (B7) launches twice a tick, every launch the
+    variant SMALL_PAGES names. Returns each run's launches by (page,
+    pages)."""
+    n_layers = model.config.num_hidden_layers
+    want = [model.generate(p[None], max_new_tokens=NEW_TOKENS).cpu().numpy()
+            for p in prompts[:3]]
+    out, streams = {}, {}
+    for pages in ("native", "int8"):
+        kw = {} if pages == "native" else dict(kv_dtype="int8")
+        key = "qblock" if pages == "native" else "qblock_q8"
+        for page, variant in SMALL_PAGES[pages].items():
+            outs, st, _ = graph_run(torch, pt, kern, model, prompts, warm,
+                                    True, kw, page=page)
+            check_outputs(prompts, outs, model.config.vocab_size,
+                          f"page {page} {pages}")
+            other = "runtime" if variant == "unit" else "unit"
+            n = n_layers * st["ragged_steps"]
+            got = st["launches"]
+            if got[key] != n or got[f"{key}_{variant}"] != n \
+                    or got[f"{key}_{other}"] or st["captures"] \
+                    or st["replays"] != st["ragged_steps"]:
+                raise AssertionError(f"page {page} {pages}: launches "
+                                     f"{got}, {st['captures']} captures, "
+                                     f"{st['replays']} replays over "
+                                     f"{st['ragged_steps']} ticks")
+            streams[page, pages] = outs
+            out[page, pages] = {k: v for k, v in got.items() if v}
+            log(f"  page {page}, {pages} KV pages: {st['ragged_steps']} "
+                f"replayed ticks, launches {out[page, pages]}")
+        for page in SMALL_PAGES[pages]:
+            for a, b in zip(streams[page, pages], streams[PAGE, pages]):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"page {page} {pages}: a greedy "
+                                         f"stream differs from page 16's")
+    for a, b in zip(streams[PAGE, "native"], want):
+        if not np.array_equal(a, b):
+            raise AssertionError("the page-16 engine's stream differs from "
+                                 "generate's")
+    log(f"  greedy streams equal across page sizes "
+        f"{ {k: sorted(v) for k, v in SMALL_PAGES.items()} }, and the native "
+        f"ones to generate's on the first three prompts")
+    return out
+
+
+def short_prompts():
+    """Eight prompts of 21-41 tokens, four sharing a 16-token prefix: with
+    16 new tokens a history stays inside the draft model's 64-token
+    window, so self-speculation drafts what the target decodes."""
+    rng = np.random.RandomState(17)
+    prefix = rng.randint(0, 128256, 16)
+    prompts = [rng.randint(0, 128256, n) for n in (21, 33, 41, 27)]
+    prompts += [np.concatenate([prefix, rng.randint(0, 128256, n)])
+                for n in (9, 17, 25, 5)]
+    warm = np.concatenate([prefix, rng.randint(0, 128256, 8)])
+    return [p.astype(np.int64) for p in prompts], warm.astype(np.int64)
+
+
+class WrongDrafter:
+    """Always wrong, for all practical purposes: proposes the token after
+    the history's last one, k times."""
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+
+    def propose(self, history, k):
+        return [(int(history[-1]) + 1) % self.vocab] * int(k)
+
+
+def spec_cross_paths(torch, pt, kern, model):
+    """Phases 4(d) and 4(e) on the two-layer fp32 model: the short load in
+    order with graphs, spec off, self-speculation (``draft_model=`` the
+    target) and an always-wrong drafter. Every stream equals spec off's
+    and ``generate``'s; self-speculation accepts more than 0.9 of its
+    drafts with fewer target forwards than generated tokens; the wrong
+    drafter rolls back every draft."""
+    prompts, warm = short_prompts()
+    vocab = model.config.vocab_size
+    runs = {}
+    for name, kw in (("off", {}),
+                     ("self", dict(spec_decode=True, spec_k=SPEC_K,
+                                   draft_model=model)),
+                     ("wrong", dict(spec_decode=True, spec_k=SPEC_K,
+                                    drafter=WrongDrafter(vocab)))):
+        outs, st, _ = graph_run(torch, pt, kern, model, prompts, warm, True,
+                                kw)
+        check_outputs(prompts, outs, vocab, f"spec {name}")
+        runs[name] = (outs, st)
+    for p, a in zip(prompts, runs["off"][0]):
+        want = model.generate(p[None], max_new_tokens=NEW_TOKENS)
+        if not np.array_equal(a, want.cpu().numpy()):
+            raise AssertionError("spec off differs from generate")
+    for name in ("self", "wrong"):
+        for a, b in zip(runs[name][0], runs["off"][0]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"spec ({name} drafter) stream differs "
+                                     f"from spec off's (fp32)")
+    tokens = NEW_TOKENS * len(prompts)
+    sp, st = runs["self"][1]["spec"], runs["self"][1]
+    ratio = sp["spec_accepted_tokens"] / max(sp["spec_drafted_tokens"], 1)
+    if ratio <= 0.9 or st["ragged_steps"] >= tokens \
+            or st["decode_steps"] >= runs["off"][1]["decode_steps"]:
+        raise AssertionError(f"self-speculation: acceptance {ratio}, "
+                             f"{st['ragged_steps']} target forwards for "
+                             f"{tokens} tokens")
+    wp = runs["wrong"][1]["spec"]
+    if not wp["spec_drafted_tokens"] or \
+            wp["tokens_rolled_back"] < wp["spec_drafted_tokens"]:
+        raise AssertionError(f"always-wrong drafter: {wp}")
+    log(f"  spec fp32, 2 layers: streams equal spec off's and generate's "
+        f"for self-speculation (drafted {sp['spec_drafted_tokens']}, "
+        f"accepted {sp['spec_accepted_tokens']}, {ratio:.4f}; "
+        f"{st['ragged_steps']} target forwards for {tokens} tokens against "
+        f"{runs['off'][1]['ragged_steps']} spec off; "
+        f"{sp['spec_draft_forwards']} draft forwards) and for the "
+        f"always-wrong drafter (drafted {wp['spec_drafted_tokens']}, "
+        f"accepted {wp['spec_accepted_tokens']}, rolled back "
+        f"{wp['tokens_rolled_back']})")
+    return {name: dict(st["spec"], target_forwards=st["ragged_steps"],
+                       launches={k: v for k, v in st["launches"].items()
+                                 if v})
+            for name, (_, st) in runs.items()}
+
+
 def paged_logits_rel_err(torch, gen, model, full, n_prompt):
     """Logits of a prefill then decode steps over a ``PagedKVCache``
     against the cache-free forward of the same tokens."""
@@ -3852,7 +4542,7 @@ def tick_breakdown(torch, rpa, gen, probes, scale, n_layers):
     against kernel 8 over layer 0's pool, and B7 against B9
     over the pool quantised by the cache's codec, in fp32, bf16 and
     fp16."""
-    log("phase 6: tick breakdown (bf16, every tick of the 8-request load)")
+    phase("phase 6: tick breakdown (bf16, every tick of the 8-request load)")
     kern = {"qblock": rpa.qblock_attention, "token": rpa.token_attention}
     out, c21_cases, pools = {}, 0, {}
     for run, probe in probes.items():
@@ -3932,7 +4622,7 @@ def main():
     kern = kernel_counters(rpa, fa, pa, qm, ost)
     none = {name: 0 for name in kern}
 
-    log("phase 1: build")
+    phase("phase 1: build")
     _, build_s = _build.build()
     _build.load_kernels()
     log(f"  build_seconds {build_s:.2f} ({len(_build.SOURCES)} sources)")
@@ -3944,7 +4634,7 @@ def main():
     bwd_notes(_build)
     b10_notes(_build)
 
-    log("phase 2: kernel parity at Llama-3-8B attention shapes")
+    phase("phase 2: kernel parity at Llama-3-8B attention shapes")
     q, kp, vp, tbl, desc = parity_layout(torch, rpa, dev)
     compare_kernels(torch, rpa, q, kp, vp, tbl, desc, "synthetic")
     flash_errs = compare_flash(torch, fa, dev)
@@ -3983,8 +4673,11 @@ def main():
     mm_errs = compare_int8_matmul(torch, qm, dev)
     del q, kp, vp, pq, pkp, pvp, kq, vq, eq, ekp, evp
     torch.cuda.empty_cache()
+    phase("phase 2(a): kernel 6 and B7 at pages of 4, 8, 12, 32, 64, head_dim "
+        "72, misaligned pools and pages of 128 at head_dim 256")
+    page_rows = page_shapes(torch, rpa, gen)
 
-    log("phase 3: serving Llama-3-8B (32 layers, bf16, random weights)")
+    phase("phase 3: serving Llama-3-8B (32 layers, bf16, random weights)")
     cfg = pt.llama3_8b(dtype="bfloat16")
     t0 = time.perf_counter()
     model = pt.LlamaForCausalLM(cfg, device="cuda", seed=0)
@@ -3993,7 +4686,7 @@ def main():
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params")
     prompts, warm = make_prompts()
 
-    log(" 3a: ContinuousServingEngine, ragged ticks")
+    phase(" 3a: ContinuousServingEngine, ragged ticks")
     # one uncounted pass fills cuBLAS's choices for every tick shape, so
     # the two counted runs below are timed warm and alike
     serve(torch, pt, kern, model, prompts, warm)
@@ -4010,6 +4703,8 @@ def main():
         want = {impl: N_LAYERS * st["steps"]}
         if impl == "token":
             want["token_cluster"] = want["token"]
+        else:
+            want["qblock_unit"] = want["qblock"]
         check_launches(f"ragged {impl} engine", st["launches"],
                        dict(none, **want))
     for a, b in zip(runs["qblock"][0], runs["token"][0]):
@@ -4027,7 +4722,7 @@ def main():
     cap = probes["qblock"]
     short = np.concatenate([prompts[1], runs["qblock"][0][1][0, 32:47]])
 
-    log(" 3b: static ServingEngine, one batch of 8 x 512-token prompts")
+    phase(" 3b: static ServingEngine, one batch of 8 x 512-token prompts")
     static_prompts = list(np.random.RandomState(11).randint(
         0, cfg.vocab_size, (8, 512)).astype(np.int64))
     serve_static(torch, pt, kern, model, static_prompts)        # warm
@@ -4052,7 +4747,7 @@ def main():
         f"instrumented forwards (seq, ms): "
         + ", ".join(f"({n}, {ms:.2f})" for n, ms in static_fwd.times))
 
-    log(" 3c: ContinuousServingEngine(enable_ragged=False), legacy ticks")
+    phase(" 3c: ContinuousServingEngine(enable_ragged=False), legacy ticks")
     serve(torch, pt, kern, model, prompts, warm, enable_ragged=False)
     legacy_outs, legacy = serve(torch, pt, kern, model, prompts, warm,
                                 enable_ragged=False)
@@ -4084,15 +4779,25 @@ def main():
     serve(torch, pt, kern, model, prompts, warm, enable_ragged=False,
           probes=[legacy_cap, legacy_flash], tick_ms=legacy_ticks)
 
-    log(" 3f: CUDA graphs against eager, bf16: the q-block, per-token and "
+    phase(" 3f: CUDA graphs against eager, bf16: the q-block, per-token and "
         "legacy engines on the load of (a) in order")
+    off_bf16 = {}
     graph_bf16 = graphs_against_eager(torch, pt, gen, rpa, fused, quant_mod,
-                                      kern, model, prompts, warm, int8=False)
+                                      kern, model, prompts, warm, int8=False,
+                                      keep=off_bf16)
     sampled_and_abort(torch, pt, kern, model, prompts, warm)
+    phase(f" 3h: speculative decoding, bf16: the load of (a) in order, "
+        f"spec_k={SPEC_K}, the n-gram drafter and a two-layer draft model "
+        f"at full width")
+    draft_cfg = pt.llama3_8b(dtype="bfloat16")
+    draft_cfg.num_hidden_layers = 2
+    draft = pt.LlamaForCausalLM(draft_cfg, device="cuda", seed=1)
+    spec = {"bf16": spec_full_width(torch, pt, kern, model, prompts, warm,
+                                    False, N_LAYERS, draft, off_bf16)}
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(" 3e: ContinuousServingEngine(kv_dtype='int8', weight_dtype='int8'),"
+    phase(" 3e: ContinuousServingEngine(kv_dtype='int8', weight_dtype='int8'),"
         " the load of (a) on all three schedulers")
     int8_kw = dict(kv_dtype="int8", weight_dtype="int8")
     # one uncounted pass, as in (a) and (c): its engine quantises the
@@ -4147,6 +4852,8 @@ def main():
             want[f"{name}_q8"] = N_LAYERS * st["steps"]
             if name == "token":
                 want["token_q8_cluster"] = want["token_q8"]
+            else:
+                want["qblock_q8_unit"] = want["qblock_q8"]
         log(f"  int8 {name}: {st['steps']} ticks, {st['forwards']} forwards,"
             f" {st['hits']} prefix hits, wall {st['wall']:.3f} s")
         if st["hits"] <= 0:
@@ -4181,19 +4888,25 @@ def main():
     int8_legacy_ticks = []
     serve(torch, pt, kern, model, prompts, warm, enable_ragged=False,
           probes=[int8_decode], tick_ms=int8_legacy_ticks, **int8_kw)
-    log(" 3g: CUDA graphs against eager, fully int8: the three engines on "
+    phase(" 3g: CUDA graphs against eager, fully int8: the three engines on "
         "the load of (a) in order")
+    off_int8 = {}
     graph_int8 = graphs_against_eager(torch, pt, gen, rpa, fused, quant_mod,
-                                      kern, model, prompts, warm, int8=True)
-    del model
+                                      kern, model, prompts, warm, int8=True,
+                                      keep=off_int8)
+    phase(f" 3i: speculative decoding, fully int8: the load of (a) in order, "
+        f"spec_k={SPEC_K}, the n-gram drafter and the draft model of 3h")
+    spec["int8"] = spec_full_width(torch, pt, kern, model, prompts, warm,
+                                   True, N_LAYERS, draft, off_int8)
+    del model, draft
     gc.collect()              # engines and their threads may hold it in cycles
     torch.cuda.empty_cache()
 
-    log(f" 3d: training, Llama-3-8B widths cut to {TRAIN_LAYERS} layers, "
+    phase(f" 3d: training, Llama-3-8B widths cut to {TRAIN_LAYERS} layers, "
         f"bf16, AdamW(multi_precision) + global-norm clip + warmup/cosine")
     trained = train(torch, pt, kern, fa, none, ost)
 
-    log("phase 4: paths against each other (fp32, TF32 off, 2 layers, "
+    phase("phase 4: paths against each other (fp32, TF32 off, 2 layers, "
         "full width)")
     ref_cfg = pt.llama3_8b()
     ref_cfg.num_hidden_layers = 2
@@ -4224,6 +4937,12 @@ def main():
     check("generate's paged cache vs cache-free logits (relative, fp32, "
           "2 layers, prefill of 300 then 7 decode steps)", rel, 1e-4)
     simt_by_path = {"fp32 cross paths": read_counts(kern)}
+    phase("  4(b): the q-block engine at pages of 16, 8 and 32, native and "
+        "int8 KV pages")
+    page_launches = page_engines(torch, pt, kern, ref_model, prompts, warm)
+    phase("  4(d), 4(e): speculative decoding, fp32: self-speculation and an "
+        "always-wrong drafter")
+    spec["fp32 cross paths"] = spec_cross_paths(torch, pt, kern, ref_model)
     zero_counts(kern)
     cross_paths_int8(pt, ref_model, cross_prompts)     # quantises ref_model
     for key in ("qblock_q8", "token_q8", "paged_q8", "int8_matmul"):
@@ -4319,7 +5038,7 @@ def main():
     log(f"  B10 worst C20 ratio by (K, N), captured inputs included: "
         f"{mm_errs['ratio_by_shape']}")
 
-    log("phase 5: timing (bf16)")
+    phase("phase 5: timing (bf16)")
     scale = HEAD_DIM ** -0.5
     plain = {"qblock": rpa.qblock_attention_plain,
              "token": rpa.token_attention_plain}
@@ -4329,11 +5048,36 @@ def main():
         ("captured mixed tick", c, plans, cerrs),
         ("captured pure-decode tick", dcap, dplans, dcerrs)), scale)
     first, *other = timed["qblock"]
-    rows.append({"name": "ragged_qblock", "route": "cuda", "source": SOURCE,
-                 "replaces": f"{REF}:215",
+    q_paths = {"3a q-block engine": runs["qblock"][1]["launches"],
+               "3h spec on, draft model": spec["bf16"]["draft model"]
+               ["launches"],
+               "4b page 8": page_launches[8, "native"],
+               "4b page 32": page_launches[32, "native"]}
+    rows.append({"name": "ragged_qblock", "route": "cuda",
+                 "source": QBLOCK_SOURCE,
+                 "replaces": f"{REF}:215", "variant": "unit",
+                 "kernel": "qblock_unit_kernel",
                  "launches": runs["qblock"][1]["launches"]["qblock"],
+                 "launches_by_path": {
+                     k: {v: c.get(f"qblock_{v}", 0)
+                         for v in rpa.QBLOCK_VARIANTS}
+                     for k, c in q_paths.items()},
                  **first, "library_ms": None, "library": RAGGED_LIBRARY,
-                 "other_shapes": other})
+                 "other_shapes": other,
+                 "page_shapes": [dict(r["bf16"], shape=r["shape"])
+                                 for r in page_rows]})
+    rt = next(r for r in page_rows if r["shape"].startswith("page 64,"))
+    rows.append({"name": "ragged_qblock_runtime", "route": "cuda",
+                 "source": QBLOCK_SOURCE, "replaces": f"{REF}:215",
+                 "variant": "runtime", "kernel": "qblock_runtime_kernel",
+                 "launches": page_launches[32, "native"]["qblock_runtime"],
+                 **rt["bf16"],
+                 "shape": "phase 2(a) layout at page 64, head_dim 128, bf16",
+                 "library_ms": None, "library": RAGGED_LIBRARY,
+                 "other_shapes": [dict(r["bf16"], shape=r["shape"])
+                                  for r in page_rows
+                                  if r["bf16"]["variant"] == "runtime"
+                                  and r is not rt]})
     token_launches = {v: runs["token"][1]["launches"][f"token_{v}"]
                       for v in rpa.TOKEN_VARIANTS}
     rows.append(token_row("ragged_token", 389, timed["token"],
@@ -4477,11 +5221,35 @@ def main():
         ("captured int8 pure-decode tick", idc, q8_dplans, q8_dcerrs)),
         scale, quant=True)
     first, *other = timed["qblock"]
+    q8_paths = {"3e int8 q-block engine": int8_runs["qblock"][1]["launches"],
+                "3i spec on, draft model": spec["int8"]["draft model"]
+                ["launches"],
+                "4b page 8 int8": page_launches[8, "int8"],
+                "4b page 64 int8": page_launches[64, "int8"]}
     rows.append({"name": "ragged_qblock_q8", "route": "cuda",
-                 "source": SOURCE, "replaces": f"{REF}:258",
+                 "source": QBLOCK_SOURCE, "replaces": f"{REF}:258",
+                 "variant": "unit", "kernel": "qblock_unit_kernel",
                  "launches": int8_runs["qblock"][1]["launches"]["qblock_q8"],
+                 "launches_by_path": {
+                     k: {v: c.get(f"qblock_q8_{v}", 0)
+                         for v in rpa.QBLOCK_VARIANTS}
+                     for k, c in q8_paths.items()},
                  **first, "library_ms": None, "library": RAGGED_LIBRARY,
-                 "other_shapes": other})
+                 "other_shapes": other,
+                 "page_shapes": [dict(r["int8"], shape=r["shape"])
+                                 for r in page_rows]})
+    rows.append({"name": "ragged_qblock_q8_runtime", "route": "cuda",
+                 "source": QBLOCK_SOURCE, "replaces": f"{REF}:258",
+                 "variant": "runtime", "kernel": "qblock_runtime_kernel",
+                 "launches": page_launches[64, "int8"]["qblock_q8_runtime"],
+                 **rt["int8"],
+                 "shape": "phase 2(a) layout at page 64, head_dim 128, bf16 "
+                          "q, int8 pages",
+                 "library_ms": None, "library": RAGGED_LIBRARY,
+                 "other_shapes": [dict(r["int8"], shape=r["shape"])
+                                  for r in page_rows
+                                  if r["int8"]["variant"] == "runtime"
+                                  and r is not rt]})
     token_launches = {v: int8_runs["token"][1]["launches"][f"token_q8_{v}"]
                       for v in rpa.TOKEN_VARIANTS}
     rows.append(token_row("ragged_token_q8", 431, timed["token"],
@@ -4638,6 +5406,7 @@ def main():
 
     log(json.dumps({"graph_breakdown": {"bf16": graph_bf16,
                                         "int8": graph_int8}}))
+    log(json.dumps({"spec": spec}))
     med, emed = trained["median"], trained["eager"]["median"]
     log(f"  training: losses {trained['losses']}; steady step "
         f"{med['step']:.2f} ms (forward {med['forward']:.2f}, backward "

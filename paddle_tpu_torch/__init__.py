@@ -6,7 +6,9 @@ It serves Llama three ways: ``LlamaForCausalLM.generate`` (greedy,
 seeded sampling, beam search; concat or paged KV cache), the static
 window batcher ``ServingEngine`` around it, and the continuous-batching
 ``ContinuousServingEngine`` (ragged ticks, or the legacy prefill-chunk
-plus decode-step scheduler with ``enable_ragged=False``). It trains
+plus decode-step scheduler with ``enable_ragged=False``), with
+speculative decoding (``spec_decode=True``: the drafters of
+``inference.speculative``) on the ragged ticks. It trains
 Llama in Paddle's eager loop: ``loss, logits = model(ids,
 labels=labels)``, ``loss.backward()``, then an optimizer of
 ``optimizer`` (``AdamW`` and Paddle's others) with

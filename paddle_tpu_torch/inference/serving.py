@@ -20,7 +20,9 @@
   ``kv_dtype="int8"`` the KV pages are int8 with fp32 row scales, and
   with ``weight_dtype="int8"`` every ``nn.Linear`` of the model is
   quantised in place (``quantization.quantize_linears``): together the
-  fully-int8 serving configuration. The tick shapes form a bounded
+  fully-int8 serving configuration. With ``spec_decode=True`` a drafter
+  (``inference/speculative.py``) proposes tokens that each tick verifies
+  as decode spans of ``1 + k`` tokens. The tick shapes form a bounded
   family (:meth:`ContinuousServingEngine.declared_token_buckets`,
   :meth:`~ContinuousServingEngine.declared_chunk_buckets` and the one
   decode step); on CUDA each ragged bucket and the decode step is a CUDA
@@ -50,6 +52,7 @@ from ..models.generation import (KV_DTYPES, SlotPagedKVCache, StagedBuffer,
                                  _row_generator, _sample_logits)
 from ..ops import _build
 from ..quantization import quantize_linears
+from .speculative import DEFAULT_SPEC_K, _pow2_bucket, make_drafter
 
 #: default cap on one prefill span per tick
 DEFAULT_PREFILL_CHUNK_TOKENS = 256
@@ -436,14 +439,31 @@ class ContinuousServingEngine(_Engine):
     the kernel wrappers' counters at each replay. A capture or replay that
     fails raises to the requests in flight; nothing falls back to eager.
     ``cuda_graphs=False`` runs the same ticks eagerly (the CPU always
-    does). Legacy prefill chunks stay eager."""
+    does). Legacy prefill chunks stay eager.
+
+    ``spec_decode=True`` turns on speculative decoding (the ragged
+    scheduler only): each tick a drafter proposes up to ``spec_k``
+    (``None``: ``DEFAULT_SPEC_K``) tokens for every decode slot from the
+    budget left over, the tick's forward verifies them as one span of
+    ``1 + k`` tokens, and the longest prefix that matches the target's own
+    tokens is kept with the token after it; the rest rolls back out of
+    the cache (``SlotPagedKVCache.rollback``). ``drafter`` is any object
+    with ``propose(history, k)``; without one, ``draft_model`` gives a
+    :class:`~paddle_tpu_torch.inference.speculative.DraftModelDrafter`,
+    else the n-gram drafter. ``draft_batch`` drafts for every slot with
+    one padded forward a draft step. Greedy streams are spec off's, and a
+    seeded row draws each token from the generator of its final index.
+    Verify ticks pad to the same token buckets, so they replay the same
+    graphs; draft forwards run eagerly."""
 
     def __init__(self, model, max_batch_size=8, page_size=16, max_len=2048,
                  pad_token_id=0, prefill_chunk_tokens=None,
                  enable_prefix_cache=True, num_pages=None,
                  token_budget=None, enable_ragged=True,
                  ragged_impl="qblock", kv_dtype=None, weight_dtype=None,
-                 cuda_graphs=True, device=None):
+                 cuda_graphs=True, device=None, spec_decode=False,
+                 spec_k=None, drafter=None, draft_model=None,
+                 draft_batch=True):
         super().__init__()
         self.device = _engine_device(model, device)
         self.model = model
@@ -474,6 +494,28 @@ class ContinuousServingEngine(_Engine):
         self.enable_ragged = bool(enable_ragged)
         self.ragged_impl = ragged_impl
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        # speculative decoding: a drafter proposes up to spec_k tokens a
+        # decode slot a tick, the ragged forward verifies them as one span
+        # of 1 + k tokens, and the longest matching prefix is kept
+        self.enable_spec = bool(spec_decode)
+        self.spec_k = max(int(DEFAULT_SPEC_K if spec_k is None else spec_k),
+                          1)
+        if self.enable_spec and not self.enable_ragged:
+            raise ValueError("speculative decoding needs the ragged "
+                             "scheduler (enable_ragged=True): a verify span "
+                             "is a ragged span of 1 + k tokens")
+        self._drafter = None
+        if self.enable_spec:
+            self._drafter = (drafter if drafter is not None
+                             else make_drafter(draft_model=draft_model))
+        # one padded draft forward a draft step for every decode slot
+        # (the drafter's propose_batch), instead of one per slot
+        self.draft_batch = bool(draft_batch)
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_rounds = 0           # verify spans with >= 1 draft
+        self.spec_draft_forwards = 0   # draft-model forwards
+        self.spec_draft_ticks = 0      # ticks that ran the drafter
         self._cache = None
         self._adopt = None             # a warmed cache the next serve takes
         self._programs = {}            # tick shape -> _TickProgram
@@ -553,11 +595,35 @@ class ContinuousServingEngine(_Engine):
         out.add(self.chunk_tokens)
         return out
 
+    def declared_draft_buckets(self):
+        """Every ``(rows, width)`` a batched draft forward pads to
+        (:func:`~paddle_tpu_torch.inference.speculative._pow2_bucket`):
+        ``(rows_buckets, width_buckets)``, rows up to the slot count's
+        bucket, widths up to the drafter's window; None when batched
+        drafting is off or the drafter has no batch path."""
+        if not (self.enable_spec and self.draft_batch
+                and hasattr(self._drafter, "propose_batch")):
+            return None
+        rows, b = set(), 1
+        while b < _pow2_bucket(self.max_batch):
+            rows.add(b)
+            b *= 2
+        rows.add(_pow2_bucket(self.max_batch))
+        window = int(getattr(self._drafter, "window", 64))
+        widths, b = set(), 1
+        while b < window:
+            widths.add(b)
+            b *= 2
+        widths.add(window)
+        return rows, widths
+
     def warmup_programs(self, families=None):
         """Run every declared tick shape once before traffic, so that no
         request pays a first use: ``"serving.ragged"`` (each token
         bucket), or with ``enable_ragged=False`` ``"serving.prefill_chunk"``
-        (each chunk bucket) and ``"serving.decode"``. The ragged buckets
+        (each chunk bucket) and ``"serving.decode"``; with batched drafting
+        ``"spec.draft_batch"`` (each of :meth:`declared_draft_buckets`, one
+        draft forward of padding, uncounted). The ragged buckets
         and the decode step run as ticks of padding alone on the engine's
         own cache (writing only its scratch page), so on CUDA their graphs
         are captured here for the live cache; the chunks run on a
@@ -614,6 +680,15 @@ class ContinuousServingEngine(_Engine):
                     cache.end_step()
                     self._sync()
                     out["serving.decode"] = time.perf_counter() - t0
+                draft = self.declared_draft_buckets()
+                if draft is not None and want("spec.draft_batch"):
+                    t0 = time.perf_counter()
+                    for r in sorted(draft[0]):
+                        for w in sorted(draft[1]):
+                            self._drafter.model.forward(
+                                np.zeros((r, w), np.int64))
+                    self._sync()
+                    out["spec.draft_batch"] = time.perf_counter() - t0
         finally:
             if was_training:
                 self.model.train()
@@ -707,20 +782,22 @@ class ContinuousServingEngine(_Engine):
             prefill_q.append(slot)
             self.prefills += 1
 
-    def _token(self, row, logits, idx, greedy=None):
-        """Row ``row``'s next token from ``logits[idx]``: the argmax (read
-        from ``greedy``, the tick's argmax on the host, when given) unless
-        the request samples; then one draw through ``_sample_logits`` from
-        the row's generator of (seed, row, token index), or the global one
-        without a seed."""
+    def _token(self, row, logits, idx, greedy=None, offset=0):
+        """Row ``row``'s token from ``logits[idx]``: the argmax (read from
+        ``greedy``, the tick's argmax on the host, when given) unless the
+        request samples; then one draw through ``_sample_logits`` from the
+        row's generator of (seed, row, token index), or the global one
+        without a seed. ``offset`` is the token's place past the row's
+        generated ones (a verify span's positions), so a seeded draw
+        depends on the token's final index alone."""
         kw = row.req.kwargs
         if not kw.get("do_sample", False):
             return int(greedy[idx] if greedy is not None
                        else logits[idx].float().argmax())
         seed = kw.get("seed")
         gen = (None if seed is None else
-               _row_generator(seed, row.row_idx, len(row.generated),
-                              logits.device))
+               _row_generator(seed, row.row_idx,
+                              len(row.generated) + offset, logits.device))
         return int(_sample_logits(
             logits[idx:idx + 1].float(), True, kw.get("top_k", 0),
             kw.get("top_p", 1.0), kw.get("temperature", 1.0), gen)[0])
@@ -852,16 +929,68 @@ class ContinuousServingEngine(_Engine):
             if was_training:
                 self.model.train()
 
+    def _drafts(self, cache, active, decode_slots):
+        """The drafter's proposals of this tick, ``{slot: tokens}``. Drafts
+        ride on leftover budget alone: every decode slot keeps its one
+        token, and no draft passes ``max_len`` or the row's remaining
+        ``max_new_tokens``. Batched drafting asks every slot for the most
+        any packing could grant it and trims each greedy proposal (prefix
+        stable in k) to the room the packing below grants, so both paths
+        propose the same tokens."""
+        drafter = self._drafter
+        if drafter is None or not decode_slots:
+            return {}
+        f0 = getattr(drafter, "forwards", None)
+
+        def history(row):
+            return np.concatenate([row.prompt, np.asarray(row.generated,
+                                                          row.prompt.dtype)])
+
+        def room(row, start, budget):
+            return min(budget, self.spec_k, self.max_len - start - 1,
+                       row.req.max_new_tokens - len(row.generated) - 1)
+
+        batch = None
+        if self.draft_batch and hasattr(drafter, "propose_batch"):
+            caps = [max(0, room(active[i], int(cache.lens[i]),
+                                self.token_budget - len(decode_slots)))
+                    for i in decode_slots]
+            batch = (drafter.propose_batch([history(active[i])
+                                            for i in decode_slots], caps)
+                     if max(caps) > 0 else [[] for _ in caps])
+        drafts, off = {}, 0
+        for di, i in enumerate(decode_slots):
+            row = active[i]
+            n = room(row, int(cache.lens[i]), self.token_budget - off - 1
+                     - (len(decode_slots) - di - 1))
+            if n <= 0:
+                draft = []
+            elif batch is not None:
+                draft = batch[di][:n]
+            else:
+                draft = drafter.propose(history(row), n)[:n]
+            if draft:
+                drafts[i] = [int(t) for t in draft]
+            off += 1 + len(draft)
+        self.spec_draft_ticks += 1
+        if f0 is not None:
+            self.spec_draft_forwards += drafter.forwards - f0
+        return drafts
+
     def _tick(self, cache, free, active, prefill_q):
-        """Pack and run one ragged tick: decode tokens first, then as many
-        prefill tokens as the budget admits."""
+        """Pack and run one ragged tick: decode tokens first (each with
+        the drafter's proposal behind it, a verify span, when speculative
+        decoding is on), then as many prefill tokens as the budget
+        admits."""
         decode_slots = [i for i, r in enumerate(active)
                         if r is not None and r.state == "decode"]
+        drafts = self._drafts(cache, active, decode_slots)
         spans = []        # (slot, q_start, start, n, kind)
         off = 0
         for i in decode_slots:
-            spans.append((i, off, int(cache.lens[i]), 1, "decode"))
-            off += 1
+            n = 1 + len(drafts.get(i, ()))
+            spans.append((i, off, int(cache.lens[i]), n, "decode"))
+            off += n
         remaining = self.token_budget - off
         for slot in list(prefill_q):
             if remaining <= 0:
@@ -886,6 +1015,7 @@ class ContinuousServingEngine(_Engine):
             if kind == "decode":
                 flat[qs] = (row.generated[-1] if row.generated
                             else row.prompt[-1])
+                flat[qs + 1:qs + n] = drafts.get(slot, ())
             else:
                 flat[qs:qs + n] = row.prompt[start:start + n]
             pos[qs:qs + n] = np.arange(start, start + n)
@@ -898,7 +1028,7 @@ class ContinuousServingEngine(_Engine):
         self.ragged_buckets_used.add(padded)
         self.padded_tokens_total += padded
         self.useful_tokens_total += total
-        n_decode = len(decode_slots)
+        n_decode = sum(n for _, _, _, n, kind in spans if kind == "decode")
         self.ragged_decode_tokens += n_decode
         self.ragged_prefill_tokens += total - n_decode
 
@@ -920,15 +1050,34 @@ class ContinuousServingEngine(_Engine):
         if not decode_slots:
             return
         self.decode_steps += 1
-        self.events.append(("decode", n_decode))
+        self.events.append(("decode", len(decode_slots)))
+        # decode spans: the target's token at span offset j stands only if
+        # every draft before it matched, so the longest matching prefix and
+        # the token after it are emitted, and the rejected drafts' K/V
+        # leave the context
         for slot, qs, start, n, kind in spans:
             if kind != "decode":
                 continue
             row = active[slot]
             if row is None or row.done:
                 continue
-            self._push_token(cache, free, active, slot,
-                             self._token(row, lg, qs, greedy))
+            draft = drafts.get(slot, ())
+            kd = len(draft)
+            targets = [self._token(row, lg, qs + j, greedy, offset=j)
+                       for j in range(kd + 1)]
+            m = 0
+            while m < kd and draft[m] == targets[m]:
+                m += 1
+            if kd:
+                self.spec_rounds += 1
+                self.spec_drafted_tokens += kd
+                self.spec_accepted_tokens += m
+                if kd > m:
+                    cache.rollback(slot, kd - m)
+            for t in targets[:m + 1]:
+                self._push_token(cache, free, active, slot, t)
+                if active[slot] is None:
+                    break
 
     # -- legacy two-program scheduler ---------------------------------------
     def _legacy_tick(self, cache, free, active, prefill_q):

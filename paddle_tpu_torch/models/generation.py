@@ -347,6 +347,9 @@ class SlotPagedKVCache:
         self.prefix_misses = 0            # full blocks that had to prefill
         self.cow_copies = 0
         self.prefix_evictions_device = 0
+        # speculative decoding's rejections (rollback())
+        self.rollbacks = 0
+        self.tokens_rolled_back = 0
 
     # -- page allocator ------------------------------------------------------
     def _alloc_page(self):
@@ -424,6 +427,37 @@ class SlotPagedKVCache:
         total = sum(a.nbytes + b.nbytes for a, b in (*self._pools.values(),
                                                      *self._scales.values()))
         return total // self.num_pages if total else 0
+
+    def rollback(self, slot, n):
+        """Truncate the last ``n`` context tokens of ``slot``: speculative
+        decoding's rejection path (a verify span wrote K/V for ``k``
+        drafted tokens and the target model accepted ``m``). Pages wholly
+        past the new end leave the slot's table (refcount - 1): a page
+        another slot maps, or one the prefix index registered, keeps its
+        other references; a private page returns to the free list. The
+        kept partial page may hold stale K/V (and int8 row scales) past
+        the new length: every reader's context bound masks them, and the
+        next write overwrites them. The device's block table and schedule
+        are refilled from these host tables at the next ``begin_*``, so a
+        replayed tick never reads an unmapped entry. Returns ``n``; raises
+        when ``n`` exceeds the context."""
+        slot = int(slot)
+        n = int(n)
+        if n <= 0:
+            return 0
+        if n > int(self.lens[slot]):
+            raise ValueError(f"rollback {n} > slot context "
+                             f"{int(self.lens[slot])}")
+        new_len = int(self.lens[slot]) - n
+        keep = -(-new_len // self.page_size)
+        for blk in range(keep, int(self._n_blocks[slot])):
+            self._decref(int(self._tables[slot, blk]))
+            self._tables[slot, blk] = 0
+        self._n_blocks[slot] = keep
+        self.lens[slot] = new_len
+        self.rollbacks += 1
+        self.tokens_rolled_back += n
+        return n
 
     # -- engine-facing lifecycle -------------------------------------------
     def assign(self, slot, prompt):

@@ -34,9 +34,12 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
+#: the q-block kernels' unit variant, one source a page size
+UNIT_PAGES = (4, 8, 16, 32)
 SOURCES = ("ragged_paged_attention.cu", "flash_attention.cu",
            "flash_attention_bwd.cu", "paged_attention.cu", "quant_matmul.cu",
-           "optimizer_step.cu")
+           "optimizer_step.cu", "qblock_runtime.cu") + tuple(
+               f"qblock_unit_p{p}.cu" for p in UNIT_PAGES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,10 +50,18 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 #: argtypes of every exported function, by library stem
 SIGNATURES = {
+    **{f"qblock_unit_p{p}": {
+        f"ptt_ragged_qblock_p{p}": [_I] + [_P] * 9 + [_I] * 9 + [_F, _P],
+        f"ptt_ragged_qblock_p{p}_q8": [_I] + [_P] * 11 + [_I] * 9
+                                      + [_F, _P],
+    } for p in UNIT_PAGES},
+    "qblock_runtime": {
+        "ptt_ragged_qblock_rt": [_I] + [_P] * 9 + [_I] * 9 + [_F, _P],
+        "ptt_ragged_qblock_rt_q8": [_I] + [_P] * 11 + [_I] * 9 + [_F, _P],
+        "ptt_ragged_qblock_rt_smem": [_I] * 5 + [_P],
+    },
     "ragged_paged_attention": {
-        "ptt_ragged_qblock": [_I] + [_P] * 9 + [_I] * 10 + [_F, _P],
         "ptt_ragged_token": [_I] + [_P] * 7 + [_I] * 7 + [_F, _P],
-        "ptt_ragged_qblock_q8": [_I] + [_P] * 11 + [_I] * 10 + [_F, _P],
         "ptt_ragged_qblock_smem": [_I] * 8,
         "ptt_ragged_token_q8": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P],
         "ptt_ragged_token_split": [_I] + [_P] * 7 + [_I] * 7 + [_F]

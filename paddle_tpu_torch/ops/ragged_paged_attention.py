@@ -21,8 +21,9 @@ Pages are native (the query's dtype) or int8 with one fp32 scale per
 dequantised in fp32 as ``int8 * scale`` before both dots.
 
 Two grids compute the same function, each a kernel written for Hopper
-in ``csrc/ragged_paged_attention.cu`` for native pages and another for
-int8 pages:
+(``csrc/qblock.cuh`` for the q-block grid, ``csrc/ragged_paged_attention
+.cu`` for the per-token one) for native pages and another for int8
+pages:
 
 * **q-block** (default; kernel 6, B7 on int8 pages): the reference tiles
   the batch into q-blocks and walks, per (q-block, kv head), a host-built
@@ -32,7 +33,13 @@ int8 pages:
   such jobs are exact no-ops (see ``BIG_NEG``). The kernel therefore runs
   one thread block per work unit (q-block, owner slot) and kv head over
   that owner's pages alone (:func:`qblock_units`); the plain version
-  keeps the reference's job walk.
+  keeps the reference's job walk. Two variants on the same units and
+  grid, chosen by :func:`qblock_variant` before the launch: ``"unit"``
+  (pages of 4, 8, 16 or 32 keys, head_dim % 16 == 0, 16-byte aligned
+  pools, a block that fits shared memory)
+  stages pages by asynchronous copies and spreads a row's recurrence over
+  threads; ``"runtime"`` takes the page size as an argument and every
+  other shape, staging pages by plain loads.
 * **token** (kernel 8, B9 on int8 pages): each (token, kv head) walks
   that token's own pages through its block-table row. Two variants,
   chosen by :func:`token_variant` before the launch: ``"cluster"`` splits
@@ -77,8 +84,15 @@ DEFAULT_QBLOCK = 8
 
 IMPLS = ("qblock", "token")
 
-#: page sizes the q-block kernel is built for (one instantiation each)
-QBLOCK_PAGE_SIZES = (16,)
+#: the q-block kernels' variants (see :func:`qblock_variant`)
+QBLOCK_VARIANTS = ("unit", "runtime")
+#: the page sizes the ``"unit"`` kernel is built for (one source each;
+#: its lane scheme takes powers of two up to 32, and bulk copies of int8
+#: row scales need pages of at least 4)
+UNIT_PAGE_SIZES = _build.UNIT_PAGES
+#: the ``"unit"`` kernel's pages a staged chunk and its K rows' padding in
+#: bytes (``kChunk``, ``staged_row`` in ``csrc/qblock.cuh``)
+UNIT_CHUNK, UNIT_ROW_PAD = 4, 16
 
 #: the per-token kernels' variants (see :func:`token_variant`)
 TOKEN_VARIANTS = ("cluster", "block")
@@ -521,6 +535,45 @@ def token_split_model(q, k_pages, v_pages, plan, sm_scale, splits,
     return out.reshape(T, H, D).to(q.dtype)
 
 
+def unit_smem_bytes(el, quant, R, P, D, q_block, unit_pages):
+    """Dynamic shared memory of one ``"unit"`` block (the formula of
+    ``unit_smem_bytes`` in ``csrc/ragged_paged_attention.cu``): two
+    mbarriers; a double buffer of UNIT_CHUNK staged pages in ``el``-byte
+    values (K rows padded by UNIT_ROW_PAD bytes, V rows packed) and their
+    int8 row scales; in fp32 the R query rows, the chunk's scores, page
+    maxima, running maxima, corr and sums, acc, m and l; the unit's
+    tokens, contexts and page counts, and its ``unit_pages`` table
+    entries."""
+    ring = 2 * UNIT_CHUNK * P * ((D * el + UNIT_ROW_PAD) + D * el)
+    scales = 2 * UNIT_CHUNK * 2 * P * 4 if quant else 0
+    floats = (R * (D + 4) + UNIT_CHUNK * R * (P + 1) + 4 * UNIT_CHUNK * R
+              + R * D + 2 * R)
+    return 16 + ring + scales + 4 * floats + 4 * (3 * q_block + 1
+                                                  + unit_pages)
+
+
+def qblock_variant(q, k_pages, v_pages, plan, k_scales=None, v_scales=None):
+    """The rule: ``"unit"`` when the ``"unit"`` kernel takes these operands
+    (a page size of UNIT_PAGE_SIZES, head_dim % 16 == 0, every pool and
+    scale array 16-byte aligned, a block that fits shared memory), else
+    ``"runtime"``, which takes every shape. Depends on shapes, types and
+    addresses only (``plan`` gives the q-block size, the job width and the
+    table width)."""
+    T, H, D = q.shape
+    KVH, _, P, _ = k_pages.shape
+    pools = [t for t in (k_pages, v_pages, k_scales, v_scales)
+             if t is not None]
+    if P not in UNIT_PAGE_SIZES or D % 16 \
+            or any(t.data_ptr() % 16 for t in pools):
+        return "runtime"
+    unit_pages = min(plan.dev["job_page"].shape[1], plan.pages_per_seq)
+    if unit_smem_bytes(k_pages.element_size(), k_scales is not None,
+                       plan.q_block * (H // KVH), P, D, plan.q_block,
+                       unit_pages) > SMEM_LIMIT:
+        return "runtime"
+    return "unit"
+
+
 def token_slice(G, D, splits):
     """The G x D outputs of a (token, kv head) that each of ``splits``
     blocks folds: an even count (``token_slice`` in the kernel)."""
@@ -614,15 +667,6 @@ def _check_cuda_inputs(q, k_pages, v_pages, plan, impl, k_scales=None,
         raise ValueError(f"q {tuple(q.shape)} does not fit pages "
                          f"{tuple(k_pages.shape)} and plan of "
                          f"{plan.num_tokens} tokens, page {plan.page_size}")
-    if impl == "qblock":
-        # the q-block kernel stages page rows and scales by 16-byte copies
-        if D % 16 or P not in QBLOCK_PAGE_SIZES:
-            raise ValueError(f"the q-block kernel needs head_dim % 16 == 0 "
-                             f"and page_size in {QBLOCK_PAGE_SIZES}, got "
-                             f"{D}, {P}")
-        for name, t, _ in operands[1:]:
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _launch(fn_name, q, pages, plan, sm_scale, counters, extra=()):
@@ -635,11 +679,14 @@ def _launch(fn_name, q, pages, plan, sm_scale, counters, extra=()):
     d = plan.dev
     out = torch.empty_like(q)
     if plan.impl == "qblock":
-        # the grid is units' rows; the kernel reads the live count
+        # the grid is units' rows; the kernel reads the live count. The
+        # unit kernel's page size is in its name, and it takes the table
+        # width; the runtime kernel takes the page size
         arrays = [d[n] for n in ("row_slot", "row_ctx", "job_page",
                                  "units", "n_units")]
-        sizes = (T, H, KVH, D, NP, P, plan.q_block, d["units"].shape[0],
-                 d["job_page"].shape[1], plan.pages_per_seq)
+        grid = (plan.q_block, d["units"].shape[0], d["job_page"].shape[1])
+        sizes = ((T, H, KVH, D, NP, P) + grid if "_rt" in fn_name
+                 else (T, H, KVH, D, NP) + grid + (plan.pages_per_seq,))
     else:
         arrays = [d[n] for n in ("tok_slot", "tok_ctx", "tables")]
         sizes = (T, H, KVH, D, NP, P, d["tables"].shape[1])
@@ -651,45 +698,76 @@ def _launch(fn_name, q, pages, plan, sm_scale, counters, extra=()):
     return out
 
 
+def _qblock_cuda(fn, q, k_pages, v_pages, plan, sm_scale, k_scales,
+                 v_scales, variant):
+    """Check, pick the variant (or take the forced one), launch, count:
+    ``fn`` is the wrapper whose counters the launch adds to."""
+    _check_cuda_inputs(q, k_pages, v_pages, plan, "qblock", k_scales,
+                       v_scales)
+    rule = qblock_variant(q, k_pages, v_pages, plan, k_scales, v_scales)
+    if variant == "unit" and rule != "unit":
+        raise ValueError(f"the unit kernel does not take pages "
+                         f"{tuple(k_pages.shape)} with q {tuple(q.shape)}")
+    variant = variant or rule
+    quant = k_scales is not None
+    pages = (k_pages, v_pages) + ((k_scales, v_scales) if quant else ())
+    name = "ptt_ragged_qblock" + ("_rt" if variant == "runtime" else
+                                  f"_p{k_pages.shape[2]}") \
+        + ("_q8" if quant else "")
+    return _launch(name, q, pages, plan, sm_scale,
+                   ((fn, "launches"), (fn, f"{variant}_launches")))
+
+
 def qblock_attention(q, k_pages, v_pages, plan, sm_scale, k_scales=None,
-                     v_scales=None):
+                     v_scales=None, variant=None):
     """Kernel 6 (q-block grid), or B7 (:func:`qblock_attention_q8`) when
     ``k_scales``/``v_scales`` come with int8 pages. ``plan`` from
-    :func:`make_plan` with ``impl="qblock"``. Kernel 6 counts its CUDA
-    launches in ``qblock_attention.launches``."""
+    :func:`make_plan` with ``impl="qblock"``. ``variant`` None takes the
+    rule (:func:`qblock_variant`); ``"unit"`` / ``"runtime"`` forces one
+    kernel (a forced ``"unit"`` raises where it does not apply), CUDA
+    tensors only. Kernel 6 counts its CUDA launches in
+    ``qblock_attention.launches`` and, by variant, in ``.unit_launches``
+    and ``.runtime_launches``."""
     if k_scales is not None:
         return qblock_attention_q8(q, k_pages, v_pages, k_scales, v_scales,
-                                   plan, sm_scale)
+                                   plan, sm_scale, variant)
+    if variant not in (None, *QBLOCK_VARIANTS):
+        raise ValueError(f"variant {variant!r}, expected one of "
+                         f"{QBLOCK_VARIANTS}")
     if q.device.type == "cpu":
         return qblock_attention_plain(q, k_pages, v_pages, plan, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged attention for device {q.device}")
-    _check_cuda_inputs(q, k_pages, v_pages, plan, "qblock")
-    return _launch("ptt_ragged_qblock", q, (k_pages, v_pages), plan,
-                   sm_scale, ((qblock_attention, "launches"),))
+    return _qblock_cuda(qblock_attention, q, k_pages, v_pages, plan,
+                        sm_scale, None, None, variant)
 
 
 qblock_attention.launches = 0
+qblock_attention.unit_launches = 0
+qblock_attention.runtime_launches = 0
 
 
 def qblock_attention_q8(q, k_pages, v_pages, k_scales, v_scales, plan,
-                        sm_scale):
+                        sm_scale, variant=None):
     """Kernel B7: the q-block grid over int8 pages with fp32 row scales
-    ``[KVH, NP, P]``. Counts its CUDA launches in
-    ``qblock_attention_q8.launches``."""
+    ``[KVH, NP, P]``, ``variant`` as in :func:`qblock_attention`. Counts
+    its CUDA launches in ``qblock_attention_q8.launches`` and, by
+    variant, in ``.unit_launches`` and ``.runtime_launches``."""
+    if variant not in (None, *QBLOCK_VARIANTS):
+        raise ValueError(f"variant {variant!r}, expected one of "
+                         f"{QBLOCK_VARIANTS}")
     if q.device.type == "cpu":
         return qblock_attention_plain(q, k_pages, v_pages, plan, sm_scale,
                                       k_scales, v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged attention for device {q.device}")
-    _check_cuda_inputs(q, k_pages, v_pages, plan, "qblock", k_scales,
-                       v_scales)
-    return _launch("ptt_ragged_qblock_q8", q,
-                   (k_pages, v_pages, k_scales, v_scales), plan, sm_scale,
-                   ((qblock_attention_q8, "launches"),))
+    return _qblock_cuda(qblock_attention_q8, q, k_pages, v_pages, plan,
+                        sm_scale, k_scales, v_scales, variant)
 
 
 qblock_attention_q8.launches = 0
+qblock_attention_q8.unit_launches = 0
+qblock_attention_q8.runtime_launches = 0
 
 
 def _token_cuda(fn, q, k_pages, v_pages, plan, sm_scale, k_scales,
