@@ -81,10 +81,13 @@ Phases, each fatal on error (non-zero exit, no result line):
    slack + 1e-5 max`` of a model of their rounding points
    (``bwd_rounding_model``, ``grad_model_error``);
 3. serving a full-width, 32-layer Llama-3-8B in bf16 with seeded random
-   weights, every path with the launch counts zeroed just before and read
-   just after, after one uncounted warm pass. The continuous engines'
-   counted runs take their default, CUDA graphs (each ragged token bucket
-   and the legacy decode step captured at its first use, then replayed;
+   weights (created in fp32, as the reference creates them, and cast to
+   bf16 before any cache exists; the caches' attention takes q, k and v
+   in the parameters' dtype, ROADMAP C25), every path with the launch
+   counts zeroed just before and read just after, after one uncounted
+   warm pass. The continuous engines' counted runs take their default,
+   CUDA graphs (each ragged token bucket and the legacy decode step
+   captured at its first use, then replayed;
    a replay credits the launches its graph recorded, so the counts stay
    exact); their instrumented passes run eagerly (``cuda_graphs=False``),
    since the probes wrap Python that a replay does not run:
@@ -157,12 +160,15 @@ Phases, each fatal on error (non-zero exit, no result line):
    g. right after (e), the same as (f) for the fully-int8 engines, and
       B10's launches by M equal in every run and 225 x the forwards by
       token count;
-   d. training: Llama-3-8B widths cut to 4 layers (bf16, 1.92 B
-      parameters; AdamW's fp32 master weights and moments leave no room
-      for more on one card), four Paddle-style steps (``loss, logits =
-      model(ids, labels=labels)``, ``loss.backward()``, ``AdamW`` with
-      ``multi_precision``, ``ClipGradByGlobalNorm(1.0)``, warmup into
-      cosine decay) on one repeated 2 x 2048-token batch: the loss finite
+   d. training: Llama-3-8B widths cut to 4 layers (1.92 B parameters;
+      AdamW's fp32 master weights and moments leave no room for more on
+      one card), built in fp32 and made bf16 by the PaddleNLP recipe,
+      ``amp.decorate(model, opt, level="O2", dtype="bfloat16")``, four
+      Paddle-style steps (``loss, logits = model(ids, labels=labels)``
+      under ``amp.auto_cast(level="O2", dtype="bfloat16")``,
+      ``loss.backward()``, ``AdamW`` with the master weights ``decorate``
+      asks for, ``ClipGradByGlobalNorm(1.0)``, warmup into cosine decay)
+      on one repeated 2 x 2048-token batch: the loss finite
       and falling, B1, B2 and B3 each 4 launches a step, every one on
       the tensor-core kernels, and the optimizer the fused engine
       (``fuse_step`` on auto: 39 tensors): K-A once for each of its 2
@@ -196,6 +202,29 @@ Phases, each fatal on error (non-zero exit, no result line):
       first difference, the logits gap between the verify position and
       the same position decoded alone: ROADMAP C23, reported, not held);
    i. right after (g), the same fully int8;
+   j. right after (d), ``paddle.amp`` on the training step at the same
+      widths and batch, each step's launch counts zeroed before and held
+      after, and a step the scaler skips held to leave the watched
+      parameters, masters, moments and step counts as they were: (a) O2
+      fp16 (``decorate``, ``auto_cast``) with a default ``GradScaler``,
+      4 steps: B1, B2, B3 on the tensor-core kernels, K-A once a group and
+      K-B twice on each step taken, none on a skipped one; the scale
+      after each step; (b) O1 fp16 on fp32 parameters with a
+      ``GradScaler``, 2 steps: the rope's fp32 q and k beside fp16 v take
+      B1, B2, B3's scalar fp32 kernels (as the reference's Pallas kernel
+      casts all three to fp32); (c) a bf16 model without AMP (``.to``),
+      one step at 2 layers: fp32 logits, the scalar flash kernels (C24);
+      each with times and peaks; (d) two layers, fp32 parameters: the
+      dtype trace (``amp.debugging.collect_operator_stats``) under O1
+      fp16 and O2 bf16 at 16 tokens (the dense route) and 128 (flash)
+      equal op by op to the same model's on the CPU (whose trace
+      ``tests/test_torch_amp.py`` holds to the reference's); then O2
+      fp16 with a ``GradScaler`` over 4 steps of one 512-token sequence,
+      inf and nan planted in a grad at steps 1 and 2: exactly those
+      skipped, the card's unscale (PyTorch's multi-tensor pass) bit for
+      bit ``(g.float() * inv).to(g.dtype)``, and the fused run's losses
+      and master weights equal to the eager run's (C22; within 1e-5,
+      bit-equality printed);
 4. paths against each other on a two-layer fp32 model at the same widths
    (TF32 off): ``generate`` over the concat and the paged cache, the
    legacy engine and the ragged engine on both grids (q-block and
@@ -261,7 +290,8 @@ Phases, each fatal on error (non-zero exit, no result line):
    cache's codec.
 
 Prints a ``{"graph_breakdown": ...}`` line (phases 3f and 3g, per engine
-and mode), a ``{"spec": ...}`` line (3h, 3i, 4(d), 4(e)), a
+and mode), a ``{"spec": ...}`` line (3h, 3i, 4(d), 4(e)), an
+``{"amp": ...}`` line (3j), a
 ``{"kernels": [...]}`` line with all ten TPU kernels (kernel 6 and B7
 also as their runtime variants, with launches by variant and path) and the
 fused optimizer step's two (K-A and K-B, no Pallas counterpart,
@@ -3855,9 +3885,16 @@ class BackwardCapture:
         self.fa.flash_attention_bwd = self.orig
 
 
-def train_step(torch, model, opt, sched, ids, labels):
+def train_step(torch, model, opt, sched, ids, labels,
+               cast=contextlib.nullcontext, scaler=None,
+               after_backward=None):
     """One Paddle-style eager step, each phase timed on the host clock up
-    to a device sync: (loss, {phase: ms}, {phase: peak bytes})."""
+    to a device sync: (loss, {phase: ms}, {phase: peak bytes}). The
+    forward runs under ``cast()`` (an ``amp.auto_cast`` block, the
+    PaddleNLP recipe); with a ``GradScaler`` the backward starts from the
+    scaled loss and ``scaler.step`` steps the optimizer, or skips it on
+    an inf/nan grad. ``after_backward(model)`` runs after the backward
+    (to plant an inf or nan in a grad, or to check the unscale)."""
     ms, peak = {}, {}
 
     def phase(name, fn):
@@ -3870,29 +3907,50 @@ def train_step(torch, model, opt, sched, ids, labels):
         peak[name] = torch.cuda.max_memory_allocated()
         return out
 
+    def forward():
+        with cast():
+            return model(ids, labels=labels)
+
+    def backward():
+        (loss if scaler is None else scaler.scale(loss)).backward()
+        if after_backward is not None:
+            after_backward(model)
+
     def optimize():
-        opt.step()
+        if scaler is None:
+            opt.step()
+        else:
+            scaler.step(opt)
         opt.clear_grad()
         sched.step()
 
-    loss, _ = phase("forward", lambda: model(ids, labels=labels))
-    phase("backward", loss.backward)
+    loss, _ = phase("forward", forward)
+    phase("backward", backward)
     phase("optimizer", optimize)
     ms["step"] = ms["forward"] + ms["backward"] + ms["optimizer"]
     return float(loss.detach()), ms, peak
 
 
-def trainer(torch, pt, fuse_step):
-    """The training phase's model (Llama-3-8B widths, TRAIN_LAYERS layers,
-    bf16, seed 0), its ``AdamW`` (fp32 master weights, global-norm clip,
-    decay off for the norms, warmup into cosine decay; ``fuse_step`` as
-    given) and the repeated batch."""
+def trainer(torch, pt, fuse_step, level="O2", dtype="bfloat16",
+            layers=TRAIN_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """A training phase's model (Llama-3-8B widths, ``layers`` layers,
+    fp32 parameters from seed 0), its ``AdamW`` (global-norm clip, decay
+    off for the norms, warmup into cosine decay; ``fuse_step`` as given),
+    the repeated batch and the forward's AMP block. ``level="O2"``: the
+    PaddleNLP recipe, ``amp.decorate(model, opt, level="O2", dtype=)``
+    (parameters in ``dtype``, fp32 master weights) and each forward under
+    ``amp.auto_cast(level="O2", dtype=)``; ``"O1"``: fp32 parameters,
+    the forward under ``auto_cast(level="O1", dtype=)``; None: the model
+    cast to ``dtype`` (``.to``) with master weights, no AMP."""
+    from paddle_tpu_torch import amp
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.optimizer import lr as lr_mod
-    cfg = pt.llama3_8b(dtype="bfloat16")
-    cfg.num_hidden_layers = TRAIN_LAYERS
+    cfg = pt.llama3_8b()
+    cfg.num_hidden_layers = layers
     model = pt.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    if level is None and dtype != "float32":
+        model.to(getattr(torch, dtype))
     model.train()
     # small rates, as at the start of a warmup: at 1e-4 the first step
     # already takes the repeated batch's loss from 12.6 to 2.2, and the
@@ -3902,18 +3960,25 @@ def trainer(torch, pt, fuse_step):
         start_lr=1e-5, end_lr=2e-5)
     opt = AdamW(learning_rate=sched, parameters=model.named_parameters(),
                 weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0),
-                multi_precision=True,
+                multi_precision=level is None,
                 apply_decay_param_fun=lambda n: "norm" not in n)
     opt.fuse_step = fuse_step
+    if level == "O2":
+        amp.decorate(model, opt, level="O2", dtype=dtype)
+
+    def cast():
+        if level is None:
+            return contextlib.nullcontext()
+        return amp.auto_cast(level=level, dtype=dtype)
     tokens = np.random.RandomState(21).randint(
-        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+        0, cfg.vocab_size, (batch, seq + 1))
     ids = torch.as_tensor(tokens[:, :-1], device="cuda")
     labels = torch.as_tensor(tokens[:, 1:], device="cuda")
-    return cfg, model, opt, sched, ids, labels
+    return cfg, model, opt, sched, ids, labels, cast
 
 
 def counted_steps(torch, kern, model, opt, sched, ids, labels, label,
-                  per_step, dispatch, cap=None):
+                  per_step, dispatch, cap=None, cast=contextlib.nullcontext):
     """TRAIN_STEPS steps, the launch counts zeroed before each and held to
     ``per_step`` after it, the engine's dispatches to ``dispatch`` a step;
     ``cap`` (a context) around the last. Returns the losses, times, peaks
@@ -3926,7 +3991,7 @@ def counted_steps(torch, kern, model, opt, sched, ids, labels, label,
         with (cap if cap is not None and i == TRAIN_STEPS - 1
               else contextlib.nullcontext()):
             loss, ms, peak = train_step(torch, model, opt, sched, ids,
-                                        labels)
+                                        labels, cast)
         counts = read_counts(kern)
         check_launches(f"{label} step {i}", counts, per_step)
         got = {k: engine.dispatches[k] - before[k] for k in before}
@@ -3969,7 +4034,8 @@ def memory_by_category(model, peaks, base, label):
     return dict(peak=peak, phase=phase, **cats)
 
 
-def traced_step(torch, model, opt, sched, ids, labels):
+def traced_step(torch, model, opt, sched, ids, labels,
+                cast=contextlib.nullcontext):
     """One step whose forward, backward and optimizer each run under a
     CUDA-only ``torch.profiler`` trace of its own: per phase, the device's
     busy ms and ms by kernel name (the twelve largest)."""
@@ -3977,7 +4043,8 @@ def traced_step(torch, model, opt, sched, ids, labels):
     out, state = {}, {}
 
     def forward():
-        state["loss"], _ = model(ids, labels=labels)
+        with cast():
+            state["loss"], _ = model(ids, labels=labels)
 
     def optimize():
         opt.step()
@@ -4014,14 +4081,15 @@ def traced_step(torch, model, opt, sched, ids, labels):
     return out
 
 
-def optimizer_kernels(torch, ost, model, opt, ids, labels):
+def optimizer_kernels(torch, ost, model, opt, ids, labels, cast):
     """On one more backward's grads (uncounted launches): K-B twice (the
     same bits) against an fp64 sum (1e-6 relative); K-A against its plain
     version on copies of a few parameters' state, bf16 with the master and
     fp32, with the clip's scale, and twice (the same bits); then K-A over
     the step's groups, K-B over every grad, their plain versions and K-B's
     library call, timed (the state drifts in place as they run)."""
-    loss, _ = model(ids, labels=labels)
+    with cast():
+        loss, _ = model(ids, labels=labels)
     loss.backward()
     del loss
     pg = [(p, p.grad) for p in opt._parameter_list]
@@ -4174,7 +4242,9 @@ def optimizer_kernels(torch, ost, model, opt, ids, labels):
 
 
 def train(torch, pt, kern, fa, none, ost):
-    """The training phase. The main path: TRAIN_STEPS steps of the fused
+    """The training phase. The main path: TRAIN_STEPS steps of the
+    PaddleNLP recipe (``amp.decorate(level="O2", dtype="bfloat16")``, each
+    forward under ``amp.auto_cast(level="O2")``) with the fused
     optimizer (``AdamW`` with fuse_step on auto), K-A once a group and
     K-B twice a step, no eager dispatch; then one step with recompute, a
     traced step, and the optimizer kernels' checks and times on one more
@@ -4185,7 +4255,7 @@ def train(torch, pt, kern, fa, none, ost):
     layer 0's captured attention inputs of the fused run's last step."""
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    cfg, model, opt, sched, ids, labels = trainer(torch, pt, None)
+    cfg, model, opt, sched, ids, labels, cast = trainer(torch, pt, None)
     n_params = sum(p.numel() for p in model.parameters())
     n_tensors = len(list(model.parameters()))
     if not opt._use_fused(n_tensors):
@@ -4201,7 +4271,7 @@ def train(torch, pt, kern, fa, none, ost):
                     adam_step=TRAIN_GROUPS, sum_squares=2)
     fused = counted_steps(torch, kern, model, opt, sched, ids, labels,
                           "fused", per_step,
-                          {"eager": 0, "fused": TRAIN_GROUPS}, cap)
+                          {"eager": 0, "fused": TRAIN_GROUPS}, cap, cast)
     fused["memory"] = memory_by_category(
         model, {k: max(p[k] for p in fused["peaks"][1:])
                 for k in fused["peaks"][0]}, base, "fused step")
@@ -4210,7 +4280,7 @@ def train(torch, pt, kern, fa, none, ost):
                for n, p in model.named_parameters()}
     model.config.use_recompute = True
     zero_counts(kern)
-    loss, ms, _ = train_step(torch, model, opt, sched, ids, labels)
+    loss, ms, _ = train_step(torch, model, opt, sched, ids, labels, cast)
     recompute = read_counts(kern)
     check_launches("fused step with recompute", recompute,
                    dict(per_step, flash=2 * TRAIN_LAYERS,
@@ -4219,21 +4289,21 @@ def train(torch, pt, kern, fa, none, ost):
         f"{k} {v:.2f} ms" for k, v in ms.items()))
     model.config.use_recompute = False
     try:
-        trace = traced_step(torch, model, opt, sched, ids, labels)
+        trace = traced_step(torch, model, opt, sched, ids, labels, cast)
     except RuntimeError as e:          # the profiler may not see the card
         log(f"  traced step: no trace ({e})")
         trace = None
-    opt_rows = optimizer_kernels(torch, ost, model, opt, ids, labels)
+    opt_rows = optimizer_kernels(torch, ost, model, opt, ids, labels, cast)
     fused.update(recompute=recompute, recompute_ms=ms, trace=trace,
                  capture=cap.best, n_params=n_params)
     del model, opt, sched
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg, model, opt, sched, ids, labels = trainer(torch, pt, False)
+    cfg, model, opt, sched, ids, labels, cast = trainer(torch, pt, False)
     eager = counted_steps(torch, kern, model, opt, sched, ids, labels,
                           "eager", dict(per_step, adam_step=0),
-                          {"eager": n_tensors, "fused": 0})
+                          {"eager": n_tensors, "fused": 0}, cast=cast)
     eager["memory"] = memory_by_category(
         model, {k: max(p[k] for p in eager["peaks"][1:])
                 for k in eager["peaks"][0]}, base, "eager step")
@@ -4262,6 +4332,300 @@ def train(torch, pt, kern, fa, none, ost):
                                     master_rel=worst[0]))
 
 
+# phase 3j: paddle.amp on the training step
+
+#: 3j(a) O2 fp16 steps, 3j(b) O1 fp16 steps, at the training phase's widths
+AMP_O2_STEPS, AMP_O1_STEPS = 4, 2
+#: 3j(c): the bf16 model without AMP, at this many layers
+NO_AMP_LAYERS = 2
+#: 3j(d): the two-layer checks' sequence (batch 1), steps, and the steps
+#: whose grads are planted with inf or nan (one element of one grad)
+CHECK_SEQ, CHECK_STEPS = 512, 4
+PLANTED = {1: float("inf"), 2: float("nan")}
+#: the tensors a skipped step must leave as they were
+WATCHED = ("llama.layers.0.mlp.down_proj.weight", "llama.norm.weight")
+
+
+def watched_state(torch, model, opt):
+    """Copies of the WATCHED parameters and their optimizer state (master,
+    moments, step), where they exist yet."""
+    params = dict(model.named_parameters())
+    out = {}
+    for name in WATCHED:
+        p = params[name]
+        out[name] = (p.detach().clone(), {
+            k: v.clone() if torch.is_tensor(v) else v
+            for k, v in opt.state.get(p, {}).items()})
+    return out
+
+
+def same_state(torch, a, b):
+    for name in a:
+        (pa, sa), (pb, sb) = a[name], b[name]
+        if not torch.equal(pa, pb) or sa.keys() != sb.keys():
+            return False
+        for k in sa:
+            if not (torch.equal(sa[k], sb[k]) if torch.is_tensor(sa[k])
+                    else sa[k] == sb[k]):
+                return False
+    return True
+
+
+def plant(value):
+    """A step hook planting ``value`` (inf or nan) in one element of one
+    grad."""
+    def hook(model, scaler, opt):
+        model.llama.layers[0].mlp.down_proj.weight.grad.view(-1)[7] = value
+    return hook
+
+
+def scaled_steps(torch, kern, none, run, steps, label, flash_variant,
+                 layers, hooks=None):
+    """``steps`` steps of ``run`` (a ``trainer`` tuple) under its AMP block
+    and a ``GradScaler`` at its defaults, the launch counts zeroed before
+    each: B1, B2, B3 ``layers`` times a step on ``flash_variant``
+    ("wgmma": the tensor-core kernels; "simt": the scalar fp32 ones), K-A
+    once a group and K-B twice on a step the scaler takes, none on one it
+    skips, which must leave the watched parameters, masters, moments and
+    step counts as they were. ``hooks`` maps a step to a function of the
+    model, the scaler and the optimizer run after its backward (a
+    :func:`plant`, a check). Returns per step the loss, whether it was
+    skipped, the scale after it, times and peaks, and the summed
+    launches."""
+    from paddle_tpu_torch import amp
+    cfg, model, opt, sched, ids, labels, cast = run
+    scaler = amp.GradScaler()
+    wg = flash_variant == "wgmma"
+    rows, total = [], None
+    for i in range(steps):
+        hook = (hooks or {}).get(i)
+        before = watched_state(torch, model, opt)
+        zero_counts(kern)
+        loss, ms, peak = train_step(
+            torch, model, opt, sched, ids, labels, cast, scaler,
+            None if hook is None else lambda m: hook(m, scaler, opt))
+        counts = read_counts(kern)
+        skipped = scaler._found_inf
+        want = dict(none, flash=layers, flash_bwd_dq=layers,
+                    flash_bwd_dkv=layers)
+        if wg:
+            want.update(flash_wgmma=layers, flash_bwd_dq_wgmma=layers,
+                        flash_bwd_dkv_wgmma=layers)
+        if not skipped:
+            fused = opt._use_fused(len(opt._parameter_list))
+            want.update(adam_step=TRAIN_GROUPS if fused else 0,
+                        sum_squares=2)
+        check_launches(f"{label} step {i}", counts, want)
+        after = watched_state(torch, model, opt)
+        if skipped and not same_state(torch, before, after):
+            raise AssertionError(f"{label} step {i}: a skipped step changed "
+                                 f"the watched state")
+        if not skipped and same_state(torch, before, after):
+            raise AssertionError(f"{label} step {i}: a taken step left the "
+                                 f"watched state as it was")
+        total = counts if total is None else {n: total[n] + counts[n]
+                                              for n in total}
+        rows.append(dict(loss=loss, skipped=skipped,
+                         scale=scaler.get_scale_ratio(), ms=ms, peak=peak))
+        log(f"  {label} step {i}: loss {loss:.6f}, "
+            + ("skipped" if skipped else "taken")
+            + f", scale after {scaler.get_scale_ratio():g}, " + ", ".join(
+                f"{k} {v:.2f} ms" for k, v in ms.items()) + ", peak GiB "
+            + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in peak.items()))
+    if not all(np.isfinite([r["loss"] for r in rows])):
+        raise AssertionError(f"{label}: a loss is not finite")
+    return dict(steps=rows, launches=total, scaler=scaler.state_dict())
+
+
+def amp_trace(model, ids, labels, level, dtype):
+    """The port's dtype trace of one forward and loss
+    (``debugging.collect_operator_stats``): (op, input dtypes, cast
+    dtypes) a call."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.amp import debugging
+    with debugging.collect_operator_stats() as stats:
+        with amp.auto_cast(level=level, dtype=dtype):
+            model(ids, labels=labels)
+    return stats.records
+
+
+def amp_traces(torch, pt):
+    """3j(d): the dtype traces under O1 fp16 and O2 bf16 of a two-layer
+    model on the card (full width, fp32 parameters) and on the CPU (the
+    same structure at head_dim 64, where
+    ``tests/test_torch_amp.py`` holds the trace to the reference's), at 16
+    tokens (the dense route) and 128 (the flash route): equal, op by
+    op."""
+    from paddle_tpu_torch import amp
+    cfg = pt.llama3_8b()
+    cfg.num_hidden_layers = 2
+    card = pt.LlamaForCausalLM(cfg, device="cuda", seed=2)
+    cpu = pt.LlamaForCausalLM(pt.llama_tiny(
+        num_hidden_layers=2, hidden_size=128, num_attention_heads=2,
+        num_key_value_heads=1, intermediate_size=256,
+        max_position_embeddings=256), device="cpu", seed=2)
+    rng = np.random.RandomState(23)
+    out = {}
+    for level, dtype in (("O1", "float16"), ("O2", "bfloat16")):
+        if level == "O2":
+            for m in (card, cpu):
+                amp.decorate(m, level="O2", dtype=dtype)
+        for seq in (16, 128):
+            toks = rng.randint(0, 128, (1, seq + 1))
+            ids, labels = toks[:, :-1], toks[:, 1:]
+            got = amp_trace(card, ids, labels, level, dtype)
+            want = amp_trace(cpu, ids, labels, level, dtype)
+            if got != want:
+                bad = next(i for i, (a, b) in enumerate(zip(got, want))
+                           if a != b) if len(got) == len(want) else None
+                where = ((got[bad], want[bad]) if bad is not None
+                         else (len(got), len(want)))
+                raise AssertionError(f"dtype trace {level} {dtype} seq {seq}"
+                                     f": the card's differs from the CPU's "
+                                     f"at {bad}: {where}")
+            route = sorted({op for op, _, _ in got} & {"sdpa", "flash_attn"})
+            out[f"{level} {dtype} seq {seq}"] = dict(ops=len(got),
+                                                     route=route)
+            log(f"  dtype trace {level} {dtype} at {seq} tokens: {len(got)} "
+                f"ops, route {route}, the card's equal to the CPU's")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_unscale(torch):
+    """A step's hook: the grads unscaled by ``scaler.unscale_`` (PyTorch's
+    multi-tensor pass on the card) against ``(g.float() * inv).to(
+    g.dtype)`` on clones, bit for bit. Returns the hook and its result."""
+    res = {}
+
+    def hook(model, scaler, opt):
+        grads = list({id(p.grad): p.grad for p in opt._parameter_list
+                      if p.grad is not None}.values())
+        inv = 1.0 / scaler.get_scale_ratio()
+        want = [(g.float() * inv).to(g.dtype) for g in grads]
+        scaler.unscale_(opt)
+        bits = {torch.float32: torch.int32, torch.float16: torch.int16,
+                torch.bfloat16: torch.int16}
+        res["differing"] = sum(int((g.view(bits[g.dtype])
+                                    != w.view(bits[w.dtype])).sum())
+                               for g, w in zip(grads, want))
+        res["elements"] = sum(g.numel() for g in grads)
+    return hook, res
+
+
+def amp_phase(torch, pt, kern, none):
+    """Phase 3j: ``paddle.amp`` on the training step at the training
+    phase's widths. (a) O2 fp16 (``decorate``, fp16 parameters and fp32
+    masters, each forward under ``auto_cast(level="O2",
+    dtype="float16")``) with a default ``GradScaler``; (b) O1 fp16 on fp32
+    parameters with a ``GradScaler``: the rope's fp32 q and k beside fp16
+    v take flash's scalar fp32 kernels, as the reference's Pallas kernel
+    computes them; (c) a bf16 model without AMP (``.to``), NO_AMP_LAYERS
+    layers: fp32 logits, fp32 activations after layer 0's rope (C24), the
+    scalar flash kernels; (d) two layers, fp32 parameters: the dtype
+    traces equal the CPU's; O2 fp16 steps under the scaler with inf and
+    nan planted in grads, skipped exactly there, the unscale bit for bit
+    ``(g.float() * inv).to(g.dtype)``; and the fused run equal to the
+    eager one (C22). Returns each run's numbers and launches."""
+    out = {}
+    phase("  3j(a): O2 fp16, decorate + auto_cast + GradScaler, "
+          f"{TRAIN_LAYERS} layers")
+    run = trainer(torch, pt, None, "O2", "float16")
+    torch.cuda.reset_peak_memory_stats()
+    out["O2 fp16"] = scaled_steps(torch, kern, none, run, AMP_O2_STEPS,
+                                  "O2 fp16", "wgmma", TRAIN_LAYERS)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"  3j(b): O1 fp16 on fp32 parameters + GradScaler, {TRAIN_LAYERS}"
+          f" layers")
+    run = trainer(torch, pt, None, "O1", "float16")
+    out["O1 fp16"] = scaled_steps(torch, kern, none, run, AMP_O1_STEPS,
+                                  "O1 fp16", "simt", TRAIN_LAYERS)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"  3j(c): a bf16 model without AMP (.to), {NO_AMP_LAYERS} layers")
+    cfg, model, opt, sched, ids, labels, cast = trainer(
+        torch, pt, None, None, "bfloat16", layers=NO_AMP_LAYERS)
+    with torch.no_grad():
+        logits = model(ids[:, :128])
+    dts = sorted({str(p.dtype) for p in model.parameters()})
+    if logits.dtype != torch.float32 or dts != ["torch.bfloat16"] or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"bf16 without AMP: logits {logits.dtype}, "
+                             f"parameters {dts}")
+    del logits
+    zero_counts(kern)
+    loss, ms, peak = train_step(torch, model, opt, sched, ids, labels)
+    counts = read_counts(kern)
+    check_launches("bf16 without AMP", counts, dict(
+        none, flash=NO_AMP_LAYERS, flash_bwd_dq=NO_AMP_LAYERS,
+        flash_bwd_dkv=NO_AMP_LAYERS, adam_step=TRAIN_GROUPS, sum_squares=2))
+    if not np.isfinite(loss):
+        raise AssertionError(f"bf16 without AMP: loss {loss}")
+    log(f"  bf16 without AMP: bf16 parameters, fp32 logits; one step: loss "
+        f"{loss:.6f}, " + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+        + ", peak GiB " + ", ".join(f"{k} {v / 2**30:.2f}"
+                                   for k, v in peak.items()))
+    out["bf16 no AMP"] = dict(steps=[dict(loss=loss, ms=ms, peak=peak)],
+                              launches=counts)
+    del model, opt, sched, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("  3j(d): two layers, fp32 parameters, TF32 off: dtype traces, "
+          "planted inf/nan, fused against eager under the scaler")
+    out["traces"] = amp_traces(torch, pt)
+    runs, masters = {}, {}
+    for fuse in (None, False):
+        run = trainer(torch, pt, fuse, "O2", "float16", layers=2, batch=1,
+                      seq=CHECK_SEQ)
+        hook, unscale = check_unscale(torch)
+        label = "fused" if fuse is None else "eager"
+        runs[label] = scaled_steps(
+            torch, kern, none, run, CHECK_STEPS, f"2-layer O2 fp16 {label}",
+            "wgmma", 2, hooks={0: hook, **{i: plant(v)
+                                           for i, v in PLANTED.items()}})
+        opt = run[2]
+        masters[label] = {n: opt.state[p]["master"].cpu()
+                          for n, p in run[1].named_parameters()}
+        if unscale.get("differing") != 0:
+            raise AssertionError(f"unscale on the card: {unscale}")
+        log(f"  {label}: the card's unscale equals (g.float() * inv).to("
+            f"g.dtype) on all {unscale['elements']} grad elements")
+        skipped = [i for i, r in enumerate(runs[label]["steps"])
+                   if r["skipped"]]
+        if skipped != sorted(PLANTED):
+            raise AssertionError(f"{label}: skipped steps {skipped}, planted "
+                                 f"{sorted(PLANTED)}")
+        del run, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    fl = [r["loss"] for r in runs["fused"]["steps"]]
+    el = [r["loss"] for r in runs["eager"]["steps"]]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fl, el))
+    check("3j(d) fused vs eager under the scaler: losses (relative)",
+          loss_rel, 1e-5)
+    worst, equal = (0.0, ""), True
+    for n, ref in masters["eager"].items():
+        got = masters["fused"][n]
+        equal = equal and torch.equal(got, ref)
+        err = float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                   1e-30)
+        worst = max(worst, (err, n))
+    check(f"3j(d) fused vs eager under the scaler: master weights after "
+          f"{CHECK_STEPS} steps (relative; worst {worst[1]})", worst[0], 1e-5)
+    log(f"  fused vs eager: master weights bit for bit equal: {equal}; "
+        f"skipped steps {sorted(PLANTED)} in both")
+    out["checks"] = dict(runs=runs, loss_rel=loss_rel, master_rel=worst[0],
+                         masters_equal=equal, planted=sorted(PLANTED))
+    return out
+
+
 def train_cross_check(torch, pt, fa, kern, none):
     """One training step's loss and gradients of a two-layer full-width
     fp32 model (TF32 off) through the kernels, against the same step with
@@ -4276,7 +4640,11 @@ def train_cross_check(torch, pt, fa, kern, none):
     ids = torch.as_tensor(tokens[:, :-1], device="cuda")
     labels = torch.as_tensor(tokens[:, 1:], device="cuda")
 
-    def dense(query, key, value, is_causal=False):
+    def dense(query, key, value, attn_mask=None, dropout_p=0.0,
+              is_causal=False, training=True):
+        if attn_mask is not None or (dropout_p and training):
+            raise AssertionError("the model's SDPA call has no mask or "
+                                 "dropout")
         qt, kt, vt = (x.transpose(1, 2) for x in (query, key, value))
         return fa.mha_reference(qt, kt, vt, causal=is_causal,
                                 q_offset=key.shape[1] - query.shape[1]
@@ -4678,10 +5046,13 @@ def main():
     page_rows = page_shapes(torch, rpa, gen)
 
     phase("phase 3: serving Llama-3-8B (32 layers, bf16, random weights)")
-    cfg = pt.llama3_8b(dtype="bfloat16")
+    cfg = pt.llama3_8b()
     t0 = time.perf_counter()
-    model = pt.LlamaForCausalLM(cfg, device="cuda", seed=0)
-    torch.cuda.synchronize()
+    # fp32 parameters, as the reference creates them, cast to bf16 before
+    # any pool exists (the fp32 copy is 32 GB)
+    model = pt.LlamaForCausalLM(cfg, device="cuda", seed=0).to(
+        torch.bfloat16)
+    torch.cuda.empty_cache()
     log(f"  model built in {time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params")
     prompts, warm = make_prompts()
@@ -4789,9 +5160,10 @@ def main():
     phase(f" 3h: speculative decoding, bf16: the load of (a) in order, "
         f"spec_k={SPEC_K}, the n-gram drafter and a two-layer draft model "
         f"at full width")
-    draft_cfg = pt.llama3_8b(dtype="bfloat16")
+    draft_cfg = pt.llama3_8b()
     draft_cfg.num_hidden_layers = 2
-    draft = pt.LlamaForCausalLM(draft_cfg, device="cuda", seed=1)
+    draft = pt.LlamaForCausalLM(draft_cfg, device="cuda", seed=1).to(
+        torch.bfloat16)
     spec = {"bf16": spec_full_width(torch, pt, kern, model, prompts, warm,
                                     False, N_LAYERS, draft, off_bf16)}
     gc.collect()
@@ -4905,6 +5277,10 @@ def main():
     phase(f" 3d: training, Llama-3-8B widths cut to {TRAIN_LAYERS} layers, "
         f"bf16, AdamW(multi_precision) + global-norm clip + warmup/cosine")
     trained = train(torch, pt, kern, fa, none, ost)
+    phase(" 3j: paddle.amp on the training step: O2 fp16 and O1 fp16 with "
+          "GradScaler, bf16 without AMP, the dtype trace and the scaler's "
+          "skips")
+    amp_runs = amp_phase(torch, pt, kern, none)
 
     phase("phase 4: paths against each other (fp32, TF32 off, 2 layers, "
         "full width)")
@@ -5094,13 +5470,19 @@ def main():
         k: v.float() if k in ("q", "k", "v") else v
         for k, v in static_flash.best.items()},
         "scalar B1 on the static prefill's inputs")
+    # and on the training step's, where O1 and a bf16 model without AMP
+    # take it (3j(b), 3j(c): the rope's fp32 q and k beside a 16-bit v)
+    simt_train = time_flash(torch, fa, dict(
+        {x: tc[x].float() for x in "qkv"}, causal=True,
+        q_offset=tc["q_offset"]),
+        "scalar B1 on the training step's inputs in fp32")
     paged_rows = [time_paged(torch, pa, decode_caps["static"],
                              "static engine decode step, bf16"),
                   time_paged(torch, pa, decode_caps["legacy"],
                              "legacy engine decode step, bf16")]
     for r in paged_rows:
         log_paged(r)
-    for r in flash_rows + [simt_row]:
+    for r in flash_rows + [simt_row, simt_train]:
         lib = "none" if r["library_ms"] is None \
             else f"{r['library_ms']:.4f} ms"
         log(f"  {r['shape']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -5117,7 +5499,23 @@ def main():
                "int8_legacy": int8_runs["legacy"][1]["launches"],
                "train": trained["launches"],
                "train_recompute": trained["recompute"],
-               "train_eager": trained["eager"]["launches"]}
+               "train_eager": trained["eager"]["launches"],
+               "train_amp_O2_fp16": amp_runs["O2 fp16"]["launches"],
+               "train_amp_O1_fp16": amp_runs["O1 fp16"]["launches"],
+               "train_bf16_no_amp": amp_runs["bf16 no AMP"]["launches"],
+               "train_amp_checks_fused": amp_runs["checks"]["runs"]["fused"]
+               ["launches"],
+               "train_amp_checks_eager": amp_runs["checks"]["runs"]["eager"]
+               ["launches"]}
+    # the 3j paths whose flash calls take the scalar fp32 kernels
+    for name in ("train_amp_O1_fp16", "train_bf16_no_amp"):
+        simt_by_path[name] = by_path[name]["flash"]
+    bwd_simt_by_path = {
+        "fp32 training step": {"dq": bwd_simt_launches,
+                               "dkv": bwd_simt_launches},
+        **{name: {"dq": by_path[name]["flash_bwd_dq"],
+                  "dkv": by_path[name]["flash_bwd_dkv"]}
+           for name in ("train_amp_O1_fp16", "train_bf16_no_amp")}}
     timed_keys = ("ms", "ms_no_spin", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "library", "shape", "bytes", "flops",
                   "tflops", "host_us")
@@ -5153,7 +5551,8 @@ def main():
                  "launches_by_path": simt_by_path,
                  "max_abs_err": flash_errs["fp32"],
                  "max_rel_err_lse": flash_errs["lse"],
-                 **{k: simt_row[k] for k in timed_keys}})
+                 **{k: simt_row[k] for k in timed_keys},
+                 "other_shapes": [simt_train]})
     rows.append(paged_row("paged_decode", 55, paged_errs, paged_rows,
                           "paged", by_path))
     # B2 and B3, each as its two variants: the tensor-core kernels (bf16
@@ -5204,9 +5603,10 @@ def main():
                      "kernel": f"flash_bwd_{key}_kernel",
                      "dtypes": "fp32 at head_dim 64, 128, 192 and 256; "
                                "bf16 and fp16 at 192 and 256",
-                     "launches": bwd_simt_launches,
-                     "launches_by_path": {"fp32 training step":
-                                          bwd_simt_launches},
+                     "launches": sum(v[key]
+                                     for v in bwd_simt_by_path.values()),
+                     "launches_by_path": {k: v[key] for k, v in
+                                          bwd_simt_by_path.items()},
                      "max_abs_err": max(bwd_errs[f"{e}_fp32_abs"]
                                         for e in errs_of),
                      "max_rel_err_fp32": max(bwd_errs[f"{e}_fp32"]
@@ -5408,7 +5808,8 @@ def main():
                                         "int8": graph_int8}}))
     log(json.dumps({"spec": spec}))
     med, emed = trained["median"], trained["eager"]["median"]
-    log(f"  training: losses {trained['losses']}; steady step "
+    log(f"  training (O2 bf16: decorate + auto_cast): losses "
+        f"{trained['losses']}; steady step "
         f"{med['step']:.2f} ms (forward {med['forward']:.2f}, backward "
         f"{med['backward']:.2f}, optimizer {med['optimizer']:.2f}), "
         f"{TRAIN_BATCH * TRAIN_SEQ / med['step'] * 1e3:.1f} tokens/s, peak "
@@ -5421,6 +5822,33 @@ def main():
         f"; recompute step "
         f"{trained['recompute_ms']['step']:.2f} ms; fp32 2-layer gradients "
         f"within {train_grad_err:.3e} of dense attention")
+    amp_line = {}
+    for name in ("O2 fp16", "O1 fp16", "bf16 no AMP"):
+        st = amp_runs[name]["steps"]
+        timed = st[1:] or st
+        med = {k: float(np.median([r["ms"][k] for r in timed]))
+               for k in timed[0]["ms"]}
+        amp_line[name] = dict(
+            losses=[r["loss"] for r in st],
+            skipped=[i for i, r in enumerate(st) if r.get("skipped")],
+            scales=[r.get("scale") for r in st], step_ms=med,
+            peak_gib=max(max(r["peak"].values()) for r in st) / 2**30,
+            flash_kernels="scalar fp32" if name != "O2 fp16"
+            else "tensor cores")
+        log(f"  amp[{name}]: median step {med['step']:.2f} ms (forward "
+            f"{med['forward']:.2f}, backward {med['backward']:.2f}, "
+            f"optimizer {med['optimizer']:.2f}), peak "
+            f"{amp_line[name]['peak_gib']:.2f} GiB, skipped steps "
+            f"{amp_line[name]['skipped']}, scales {amp_line[name]['scales']}")
+    ck = amp_runs["checks"]
+    amp_line["checks"] = dict(
+        traces=amp_runs["traces"], planted=ck["planted"],
+        skipped={k: [i for i, r in enumerate(v["steps"]) if r["skipped"]]
+                 for k, v in ck["runs"].items()},
+        fused_vs_eager_loss_rel=ck["loss_rel"],
+        fused_vs_eager_master_rel=ck["master_rel"],
+        masters_bit_equal=ck["masters_equal"])
+    log(json.dumps({"amp": amp_line}))
     log(json.dumps({"kernels": rows}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

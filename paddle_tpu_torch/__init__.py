@@ -13,7 +13,12 @@ Llama in Paddle's eager loop: ``loss, logits = model(ids,
 labels=labels)``, ``loss.backward()``, then an optimizer of
 ``optimizer`` (``AdamW`` and Paddle's others) with
 ``nn.ClipGradByGlobalNorm`` and the schedulers of ``optimizer.lr``; Adam
-and AdamW steps run fused, one kernel launch a parameter group. ``save``
+and AdamW steps run fused, one kernel launch a parameter group. Mixed
+precision is Paddle's: ``amp.decorate(model, opt, level="O2",
+dtype="bfloat16")``, the forward under ``amp.auto_cast(level="O2",
+dtype="bfloat16")`` (or O1 on fp32 parameters), and
+``amp.GradScaler`` for fp16; without AMP a bf16 model computes in fp32
+after the rope, as the reference's does. ``save``
 and ``load`` read and write Paddle's checkpoints, the reference's
 included.
 Serving runs fully int8 with ``ContinuousServingEngine(model,
@@ -28,7 +33,7 @@ at first use. Entry points default to
 ``device="cuda"``; pass ``device="cpu"`` to run the plain PyTorch
 versions instead.
 """
-from . import nn, optimizer, quantization
+from . import amp, nn, optimizer, quantization
 from .convert import jax_layout, load_jax_state
 from .framework.io import load, save
 from .inference.serving import ContinuousServingEngine, ServingEngine
@@ -38,4 +43,4 @@ from .models.llama import (LlamaConfig, LlamaForCausalLM,
 __all__ = ["LlamaForCausalLM", "LlamaConfig", "LlamaPretrainingCriterion",
            "llama_tiny", "llama3_8b", "ContinuousServingEngine",
            "ServingEngine", "load_jax_state", "jax_layout", "load", "save",
-           "nn", "optimizer", "quantization"]
+           "amp", "nn", "optimizer", "quantization"]

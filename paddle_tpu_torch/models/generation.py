@@ -106,6 +106,18 @@ def _page_gather(pages, table, scales=None, dtype=None):
     return g.reshape(*g.shape[:-4], -1, *g.shape[-2:])
 
 
+def pool_inputs(q, k, v):
+    """q and k in v's dtype, which a cache's pools hold: the boundary of
+    ROADMAP C25. v is the value projection's output, in the parameters'
+    dtype on every cached path; the rope returns fp32 q and k in a bf16
+    or fp16 model (C24), and the reference then allocates its pools in
+    k's dtype, fp32 (``generation.py:304``, ``:1183``), so its cached
+    attention computes in fp32. The port's pools and attention kernels
+    stay in the parameters' dtype, as it served before the rope
+    promoted."""
+    return q.to(v.dtype), k.to(v.dtype), v
+
+
 class KVCache:
     """Per-attention-layer concat cache. ``update`` returns the full K/V so
     far (including the new tokens); ``pos`` is the filled length, advanced
@@ -142,7 +154,9 @@ class KVCache:
 
     def attend(self, layer, q, k, v):
         """Update the store with this step's K/V and attend over all of it:
-        ``q [b, s, heads, d]`` -> ``[b, s, heads, d]``."""
+        ``q [b, s, heads, d]`` -> ``[b, s, heads, d]``, in the parameters'
+        dtype (:func:`pool_inputs`)."""
+        q, k, v = pool_inputs(q, k, v)
         k, v = self.update(layer, k, v)
         return scaled_dot_product_attention(q, k, v, is_causal=True)
 
@@ -211,6 +225,7 @@ class PagedKVCache(KVCache):
         return self._idx
 
     def attend(self, layer, q, k, v):
+        q, k, v = pool_inputs(q, k, v)
         b, s, kv_heads, d = k.shape
         if self._batch is not None and self._batch != b:
             raise ValueError(f"PagedKVCache was allocated for batch "
@@ -684,7 +699,9 @@ class SlotPagedKVCache:
     # -- attention ----------------------------------------------------------
     def attend(self, layer, q, k, v):
         """Attention for one layer in the armed mode. ``q [b, s, heads,
-        d]``, ``k``/``v [b, s, kv_heads, d]`` -> ``[b, s, heads, d]``."""
+        d]``, ``k``/``v [b, s, kv_heads, d]`` -> ``[b, s, heads, d]``, in
+        the parameters' dtype (:func:`pool_inputs`)."""
+        q, k, v = pool_inputs(q, k, v)
         mode, arg = self._mode
         b, s, kv_heads, d = k.shape
         if mode != "prefill" and k.device != self.device:

@@ -5,14 +5,24 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import amp
+
 
 def rms_norm(x, weight=None, epsilon=1e-6):
-    """Normalise over the last axis in float32, cast back to ``x``'s dtype,
-    then scale by ``weight``."""
+    """The reference's op ``"rms_norm"``: its inputs cast by the AMP
+    policy, then normalised over the last axis in float32, cast back to
+    ``x``'s dtype and scaled by ``weight`` (jnp's promotion where the two
+    dtypes differ)."""
+    args = amp.amp_cast_inputs("rms_norm", [x] + (
+        [weight] if weight is not None else []))
+    x = args[0]
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
     out = (xf * torch.rsqrt(var + epsilon)).to(x.dtype)
-    return out if weight is None else out * weight
+    if weight is None:
+        return out
+    out, w = amp.promote(out, args[1])
+    return out * w
 
 
 class RMSNorm(nn.Module):

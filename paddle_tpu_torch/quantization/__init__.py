@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
+from ..nn.common import Linear
 from ..ops.quant_matmul import int8_matmul, quantize_weight
 
 __all__ = ["int8_linear", "quantize_linears"]
@@ -33,14 +33,14 @@ def int8_linear(x, w_int8, w_scale, bias=None):
         return out + bias if bias is not None else out
 
 
-class _Int8Linear(nn.Linear):
+class _Int8Linear(Linear):
     """The class :func:`quantize_linears` gives a quantised
-    ``nn.Linear``."""
+    ``nn.Linear``; its train forward is the AMP-aware ``Linear``'s."""
 
     def forward(self, x):
         if not self.training:
             return int8_linear(x, self.w_int8, self.w_scale, self.bias)
-        return F.linear(x, self.weight, self.bias)
+        return super().forward(x)
 
 
 def quantize_linears(model):
@@ -51,7 +51,8 @@ def quantize_linears(model):
     routed through B10. Returns the number of layers quantised."""
     count = 0
     for module in model.modules():
-        if type(module) is not nn.Linear:
+        if (not isinstance(module, nn.Linear)
+                or isinstance(module, _Int8Linear)):
             continue
         with torch.no_grad():
             q, scale = quantize_weight(module.weight)

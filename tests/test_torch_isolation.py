@@ -30,6 +30,30 @@ def test_import_and_cpu_model_pull_in_no_jax():
     assert out.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("module", ["paddle_tpu_torch.amp",
+                                    "paddle_tpu_torch.amp.debugging"])
+def test_amp_modules_pull_in_no_jax(module):
+    """The AMP modules alone, and a CPU model's O2 step under them."""
+    code = (
+        "import sys, importlib\n"
+        f"amp = importlib.import_module({module!r})\n"
+        "from paddle_tpu_torch import amp, llama_tiny, LlamaForCausalLM\n"
+        "m = amp.decorate(LlamaForCausalLM(llama_tiny(), device='cpu'),\n"
+        "                 level='O2', dtype='bfloat16')\n"
+        "with amp.auto_cast(level='O2', dtype='bfloat16'):\n"
+        "    loss, _ = m([[1, 2, 3]], labels=[[2, 3, 4]])\n"
+        "amp.GradScaler().scale(loss).backward()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith(('jax.', 'jaxlib')) or k == 'paddle_tpu' or "
+        "k.startswith('paddle_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax_or_reference(path):
