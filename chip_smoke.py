@@ -82,8 +82,12 @@ Phases, each fatal on error (non-zero exit, no result line):
    (``bwd_rounding_model``, ``grad_model_error``);
 3. serving a full-width, 32-layer Llama-3-8B in bf16 with seeded random
    weights (created in fp32, as the reference creates them, and cast to
-   bf16 before any cache exists; the caches' attention takes q, k and v
-   in the parameters' dtype, ROADMAP C25), every path with the launch
+   bf16 before any cache exists; the rope makes q and k fp32 and the
+   caches hold their pages in k's dtype, so the cached attention, every
+   Linear after layer 0's attention and the logits compute in fp32, as
+   the reference's do: every serving path is held to fp32 pools, int8
+   codes with fp32 scales under int8 KV, and fp32 logits, ROADMAP C25,
+   ``check_c25``), every path with the launch
    counts zeroed just before and read just after, after one uncounted
    warm pass. The continuous engines' counted runs take their default,
    CUDA graphs (each ragged token bucket and the legacy decode step
@@ -100,14 +104,17 @@ Phases, each fatal on error (non-zero exit, no result line):
       kernel times every tick and captures one tick's layer-0 inputs;
    b. the static ``ServingEngine`` batches 8 concurrent 512-token
       prompts (16 new tokens) into one ``generate``: B1 launches 32 times
-      (the prefill; every bf16 B1 launch of phase 3 is on the
-      tensor-core kernel, and its own count says so), B4 32 x 15 times
+      (the prefill, whose SDPA gets the rope's fp32 q and k beside the
+      bf16 v and computes them in fp32: every B1 launch of phase 3 is on
+      the scalar kernel, and the tensor-core count, 0, says so), B4 32 x
+      15 times
       (the decode steps, every one on the cluster kernel, whose count
       says so; the block kernel's count, 0, is printed); an instrumented
       pass times every forward and captures layer 0's prefill and decode
       attention inputs;
    c. ``ContinuousServingEngine(enable_ragged=False)`` serves the load of
-      (a): B1 launches 32 x the prefill chunks padded to >= 128 tokens,
+      (a): B1 launches 32 x the prefill chunks padded to >= 128 tokens
+      (scalar: they read fp32 pages back),
       B4 32 x the decode steps (all on the cluster kernel), with prefix
       hits; an instrumented pass
       times every tick and captures layer 0's inputs of a decode step and
@@ -121,10 +128,12 @@ Phases, each fatal on error (non-zero exit, no result line):
       on the cluster kernel) and
       legacy (B5 = 32 x decode steps, all on the cluster kernel, B1 = 32
       x chunks padded to >=
-      128); B10 = 225 x forwards in each, every call (bf16) on the
-      tensor-core variant its M names (the stream at M <= 32, the GEMM
-      above; the two counts add up to B10's), and kernels 6 and 8 and B4
-      never launch. B10's launches by M, as its wrapper counts them
+      128); B10 = 225 x forwards in each: layer 0's q, k and v
+      projections (bf16 x, the first norm's output) on the tensor-core
+      variant their M names (the stream at M <= 32, the GEMM above; the
+      two counts add up to 3 x forwards), the other 222 calls a forward
+      (fp32 x) on the scalar kernel; kernels 6 and 8 and B4 never
+      launch. B10's launches by M, as its wrapper counts them
       (``int8_matmul.launches_by_m``; a replay credits what its graph
       recorded), are 225 x the forwards by token count
       (``count_tick_shapes``) and printed. Prints
@@ -262,21 +271,23 @@ Phases, each fatal on error (non-zero exit, no result line):
    kernel's time on the same inputs; kernel 8
    and B9 as the rule's cluster kernel beside the block kernel, the
    parent's design, forced on the same inputs, and at the pure-decode
-   tick the cluster kernel at every split count), B1 (tensor cores) at
-   the static prefill, at the legacy chunk
-   and at the training step with its TFLOP/s over visible pairs and the
-   host's time per call, the scalar B1 on the static prefill's inputs in
-   fp32, B2 and B3 at the training step (tensor cores, with TFLOP/s
+   tick the cluster kernel at every split count), B1: the scalar kernel
+   at the static prefill and the legacy chunk (the serving paths' fp32
+   inputs since C25) and on fp32 copies of the training step's inputs,
+   the tensor-core kernel at the training step with its TFLOP/s over
+   visible pairs and the host's time per call, and on bf16 copies of the
+   serving captures; B2 and B3 at the training step (tensor cores, with TFLOP/s
    over visible pairs, against SDPA's backward, whose kernels a profiler
    trace names; and the scalar kernels on fp32 copies of the same
    inputs, against SDPA's fp32 backward), B4 at each engine's
    decode step, B7 and B9 at the two int8 ticks, B5 at the int8 legacy decode
    step (B4 and B5 as the rule's cluster kernel, beside the block kernel,
    the parent's design, forced on the same inputs, and the cluster kernel
-   under other splits), B10 at M = 8 and 256 for each weight shape (with GB/s or
-   TFLOP/s, against ``torch.matmul`` on the layer's dequantised bf16
-   weight and the scalar kernel on fp32 copies, the host's time per call
-   of both; summed over one forward), both tensor-core B10 variants at
+   under other splits), B10 at M = 8 and 256 for each weight shape on the
+   captured x (bf16 at layer 0's q, k and v projections, fp32 elsewhere;
+   with GB/s or TFLOP/s, against ``torch.matmul`` on the layer's
+   dequantised weight in x's dtype and the scalar kernel on fp32 copies,
+   the host's time per call of both; summed over one forward), both tensor-core B10 variants at
    M = 16-64 (their crossover) and the stream at M = 8 under split plans
    for 0.5, 1 and 2 blocks an SM; the serving numbers of every path, the
    legacy and ragged ones from uninstrumented runs, the int8 ones from
@@ -287,11 +298,19 @@ Phases, each fatal on error (non-zero exit, no result line):
    both ragged kernels replayed at every tick shape (kernel 6 on the
    engines' fixed grid), with C21 held there
    on a random q over layer 0's pool and over that pool quantised by the
-   cache's codec.
+   cache's codec;
+7. the ops layer (``paddle_tpu_torch.ops``) on the card (``ops_phase``):
+   with the default device creation and random ops land on CUDA, the
+   CUDA generator reproduces a stream after the same ``seed`` and not
+   after another, torch's global RNG untouched; ``OPS_SAMPLE`` (83 ops
+   of the five modules, seeded numpy inputs) on CUDA tensors against the
+   same calls on CPU tensors: dtypes and shapes equal, floats within
+   1e-5 of the CPU result's largest magnitude (TF32 off), the rest
+   exact.
 
 Prints a ``{"graph_breakdown": ...}`` line (phases 3f and 3g, per engine
 and mode), a ``{"spec": ...}`` line (3h, 3i, 4(d), 4(e)), an
-``{"amp": ...}`` line (3j), a
+``{"amp": ...}`` line (3j), an ``{"ops": ...}`` line (phase 7), a
 ``{"kernels": [...]}`` line with all ten TPU kernels (kernel 6 and B7
 also as their runtime variants, with launches by variant and path) and the
 fused optimizer step's two (K-A and K-B, no Pallas counterpart,
@@ -319,6 +338,9 @@ N_LAYERS = 32
 #: (traces have dropped up to 7 % of a kernel's records)
 TRACE_KEEPS = 0.5
 N_LINEARS = 7 * N_LAYERS + 1       # the quantised Llama's, lm_head included
+#: the Linears that see bf16 activations in the bf16 model: layer 0's q,
+#: k and v projections (every later one sees fp32, ROADMAP C24/C25)
+BF16_LINEARS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
@@ -2113,7 +2135,9 @@ def serve(torch, pt, kern, model, prompts, warm, impl="qblock",
                      useful=eng.useful_tokens_total,
                      padded=eng.padded_tokens_total,
                      quantized=eng.quantized_linears,
-                     page_nbytes=eng._cache.page_nbytes)
+                     page_nbytes=eng._cache.page_nbytes,
+                     pool_dtypes=pool_dtypes(eng._cache),
+                     logits_dtypes=sorted(by_m.logits_dtypes))
     if eng.cuda_graphs:
         ticks = stats["steps"] if enable_ragged else decode_steps
         if stats["captures"] or stats["replays"] != ticks:
@@ -2131,15 +2155,41 @@ def count_tick_shapes(eng):
     legacy decode steps, graph replays included) by token count: the
     ``Counter`` returned fills as the engine runs. With the legacy
     chunks' bucket counts these are the forwards by M, which B10's
-    launches by M must be 225 times."""
+    launches by M must be 225 times. The counter's ``logits_dtypes``
+    collects the dtypes of those forwards' logits."""
     by_m = Counter()
     run = eng._forward
 
     def counted(key, ids, pos, cache):
         by_m[int(np.asarray(ids).size)] += 1
-        return run(key, ids, pos, cache)
+        logits = run(key, ids, pos, cache)
+        by_m.logits_dtypes.add(str(logits.dtype))
+        return logits
+    by_m.logits_dtypes = set()
     eng._forward = counted
     return by_m
+
+
+def pool_dtypes(cache):
+    """The dtypes of a cache's KV pools and, for int8 pages, their row
+    scales."""
+    arrays = [a for kv in list(cache._pools.values())
+              + list(getattr(cache, "_scales", {}).values()) for a in kv]
+    return sorted({str(a.dtype) for a in arrays})
+
+
+def check_c25(label, pools, logits, quant=False):
+    """ROADMAP C25: a bf16 model's caches hold their pages in k's dtype,
+    fp32 after the rope (int8 codes with fp32 scales under int8 KV), and
+    its cached forwards return fp32 logits, as the reference's do."""
+    want = (["torch.float32", "torch.int8"] if quant
+            else ["torch.float32"])
+    if sorted(pools) != want or sorted(logits) != ["torch.float32"]:
+        raise AssertionError(f"{label}: pools {sorted(pools)} (expected "
+                             f"{want}), logits {sorted(logits)} (expected "
+                             f"fp32): C25")
+    log(f"  {label}: pools {'int8 codes + fp32 scales' if quant else 'fp32'}"
+        f", logits fp32 (C25)")
 
 
 def check_outputs(prompts, outs, vocab, label):
@@ -2247,10 +2297,12 @@ class MatmulCapture:
 
 
 class ForwardTimer:
-    """Times every model forward to a device sync: (seq_len, ms)."""
+    """Times every model forward to a device sync: (seq_len, ms); keeps
+    the logits' dtypes."""
 
     def __init__(self, torch, model):
         self.torch, self.model, self.times = torch, model, []
+        self.dtypes = set()
 
     def forward(self, *args, **kw):
         t0 = time.perf_counter()
@@ -2258,6 +2310,7 @@ class ForwardTimer:
         self.torch.cuda.synchronize()
         self.times.append((int(out.shape[1]),
                            (time.perf_counter() - t0) * 1e3))
+        self.dtypes.add(str(out.dtype))
         return out
 
     def __enter__(self):
@@ -3330,6 +3383,12 @@ def _bound(nbytes, flops, peak=BF16_FLOPS):
             "peak_tflops": peak / 1e12}
 
 
+def peak_of(x):
+    """The card's peak rate for ``x``'s type: fp32 outside the tensor
+    cores, else the bf16 tensor-core rate."""
+    return FP32_FLOPS if str(x.dtype) == "torch.float32" else BF16_FLOPS
+
+
 def distinct_pages(tbl, rows, ctxs, page=PAGE):
     """Distinct pages that the contexts cover: the first ceil(ctx / page)
     table entries of each row, a page shared by rows counted once."""
@@ -3361,7 +3420,7 @@ def bound_ms(q, kp, tbl, desc, quant=False):
     nbytes = (2 * q.numel() * el
               + 2 * distinct_pages(tbl, slots, ctxs, page) * kv * page
               * page_row_bytes(kp, quant) + tbl.nbytes + 4 * 4 * len(slots))
-    return _bound(nbytes, flops)
+    return _bound(nbytes, flops, peak_of(q))
 
 
 def flash_bound(b, sq, sk, q_offset, el, flops_per_d=4, q_side=2,
@@ -3399,12 +3458,13 @@ def paged_bound(q, kp, tables, ctx, quant=False):
               + 2 * distinct_pages(tbl, range(len(c)), c) * N_KV * PAGE
               * page_row_bytes(kp, quant) + tbl.nbytes + c.nbytes)
     flops = 4 * HEAD_DIM * N_HEADS * int(c.sum())
-    return _bound(nbytes, flops)
+    return _bound(nbytes, flops, peak_of(q))
 
 
 def time_flash(torch, fa, cap, label):
-    """B1 on layer 0's captured inputs of a main-path call (bf16, the
-    public ``[b, s, h, d]`` layout and strides SDPA passes), its plain
+    """B1 on layer 0's captured inputs of a main-path call (as SDPA passed
+    them to the kernel: the public ``[b, s, h, d]`` layout and strides,
+    fp32 on the serving paths since C25), its plain
     version, and PyTorch's SDPA computing the same function on the same
     data in ``[b, h, s, d]``: ``is_causal`` where its top-left mask means
     the same thing (sq == sk), else an explicit bottom-right mask, built
@@ -3471,7 +3531,8 @@ def time_ragged(torch, rpa, kern, plain, ticks, scale, quant=False):
         bound = bound_ms(cap["q"], cap["kp"], cap["tbl"], cap["desc"],
                          quant=quant)
         shape = (f"{label}: q_lens {np.asarray(cap['desc'][2]).tolist()}, "
-                 f"ctx {np.asarray(cap['desc'][3]).tolist()}, bf16 q")
+                 f"ctx {np.asarray(cap['desc'][3]).tolist()}, "
+                 f"{str(cap['q'].dtype).removeprefix('torch.')} q")
         for impl in kern:
             args = (cap["q"], cap["kp"], cap["vp"], *scales, plans[impl],
                     scale)
@@ -3653,42 +3714,48 @@ def paged_row(name, line, errs, timed, key, by_path):
 
 
 def time_int8_matmul(torch, qm, cap, label):
-    """B10 on captured main-path inputs (bf16 x, a layer's int8 codes and
-    scales) on the variant the main path took, its plain version,
-    ``torch.matmul`` of x by the layer's dequantised bf16 ``.weight``
-    (transposed outside the timed call), and the scalar kernel (the fp32
-    variant) on fp32 copies of x; the host's time per call of B10 and of
-    ``torch.matmul`` (``host_us``). Bound: x, the codes, the scales and
-    the output once, against 2 M N K flops at the bf16 peak (int8 codes
-    are exact in bf16); the rate is GB/s over those bytes where bytes
-    bound it, TFLOP/s where operations do."""
+    """B10 on captured main-path inputs (x as the path gave it: bf16 at
+    layer 0's q, k and v projections, fp32 after them since C25; a
+    layer's int8 codes and scales) on the variant the main path took, its
+    plain version, ``torch.matmul`` of x by the layer's dequantised
+    ``.weight`` in x's dtype (cast and transposed outside the timed
+    call), and the scalar kernel (the fp32 variant) on fp32 copies of x;
+    the host's time per call of B10 and of ``torch.matmul``
+    (``host_us``). Bound: x, the codes, the scales and the output once,
+    against 2 M N K flops at x's peak (int8 codes are exact in bf16); the
+    rate is GB/s over those bytes where bytes bound it, TFLOP/s where
+    operations do."""
     x, wq, ws, weight = cap["x"], cap["wq"], cap["ws"], cap["weight"]
     (m, k), n = x.shape, wq.shape[0]
     variant = qm.matmul_variant(x.dtype, m, n, k)
-    row = {"shape": f"{label}: M={m} K={k} N={n}, bf16 x, int8 w",
-           "variant": variant, "plan": qm.split_plan(variant, m, n, k)}
+    dt = str(x.dtype).removeprefix("torch.")
+    row = {"shape": f"{label}: M={m} K={k} N={n}, {dt} x, int8 w",
+           "variant": variant,
+           "plan": None if variant == "simt" else qm.split_plan(variant, m,
+                                                                n, k)}
     out = qm.int8_matmul(x, wq, ws)
     row["ms"] = time_ms(torch, lambda: qm.int8_matmul(x, wq, ws))
     row["plain_ms"] = time_ms(torch, lambda: qm.int8_matmul_plain(x, wq, ws),
                               iters=10)
     el = x.element_size()
     row.update(_bound(x.numel() * el + wq.numel() + 4 * n + m * n * el,
-                      2 * m * n * k))
+                      2 * m * n * k, peak_of(x)))
     if row["bound_by"] == "bytes":
         row["gb_per_s"] = row["bytes"] / row["ms"] * 1e-6
     else:
         row["tflops"] = row["flops"] / row["ms"] * 1e-9
-    wt = weight.detach().t()
-    row["library"] = ("torch.matmul(x, w.T), w the layer's dequantised "
-                      "bf16 .weight")
+    wt = weight.detach().t().to(x.dtype)
+    row["library"] = (f"torch.matmul(x, w.T), w the layer's dequantised "
+                      f".weight in {dt}")
     row["library_ms"] = time_ms(torch, lambda: torch.matmul(x, wt))
     row["library_vs_kernel_max_abs_diff"] = float(
         (torch.matmul(x, wt).float() - out.float()).abs().max())
     row["host_us"] = host_us(torch, lambda: qm.int8_matmul(x, wq, ws))
     row["library_host_us"] = host_us(torch, lambda: torch.matmul(x, wt))
     x32 = x.float()
-    row["simt_fp32_ms"] = time_ms(torch, lambda: qm.int8_matmul(x32, wq, ws),
-                                  iters=10 if n > 100_000 else 50)
+    row["simt_fp32_ms"] = row["ms"] if x32 is x else time_ms(
+        torch, lambda: qm.int8_matmul(x32, wq, ws),
+        iters=10 if n > 100_000 else 50)
     return row
 
 
@@ -3713,8 +3780,9 @@ def time_crossover(torch, qm, caps, ms=(16, 32, 48, 64)):
 
 
 def time_split_plan(torch, qm, caps, sms=(66, 132, 264)):
-    """The stream variant at M = 8 on the captured inputs of every weight
-    shape whose plan splits K, under the plan's target of 0.5, 1 and 2
+    """The stream variant at M = 8 on the captured inputs (as bf16) of
+    every weight shape whose plan splits K, under the plan's target of
+    0.5, 1 and 2
     blocks an SM (``PLAN_SMS`` 66, 132 and 264; the plan's own is 132):
     ``{(K, N): {PLAN_SMS: (splits, ms)}}``."""
     res = {}
@@ -3724,12 +3792,13 @@ def time_split_plan(torch, qm, caps, sms=(66, 132, 264)):
             if m != 8 or qm.split_plan("wgmma_stream", m, n, k)[2] < 2:
                 continue
             res[(k, n)] = {}
+            xb = cap["x"].bfloat16()          # the stream variant's dtype
             for s in sms:
                 qm.PLAN_SMS = s
                 res[(k, n)][s] = (
                     qm.split_plan("wgmma_stream", m, n, k)[2],
                     time_ms(torch, lambda: qm.int8_matmul(
-                        cap["x"], cap["wq"], cap["ws"]), iters=20))
+                        xb, cap["wq"], cap["ws"]), iters=20))
     finally:
         qm.PLAN_SMS = rule
     return res
@@ -4884,6 +4953,247 @@ def spec_cross_paths(torch, pt, kern, model):
             for name, (_, st) in runs.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the ops layer on the card
+# ---------------------------------------------------------------------------
+
+def ops_inputs(seed=23):
+    """The seeded numpy inputs of phase 7's op sample."""
+    rng = np.random.RandomState(seed)
+    a = rng.randn(64, 96).astype(np.float32)
+    m = rng.randn(32, 32).astype(np.float32)
+    return dict(
+        a=a, b=rng.randn(64, 96).astype(np.float32),
+        pos=rng.uniform(0.5, 2.0, (64, 96)).astype(np.float32),
+        ints=rng.randint(0, 10, (64, 96)).astype(np.int64),
+        ints2=rng.randint(1, 5, (64, 96)).astype(np.int64),
+        vec=rng.randn(96).astype(np.float32),
+        idx=rng.randint(0, 64, 20).astype(np.int64),
+        rows=rng.permutation(64)[:12].astype(np.int64),
+        upd=rng.randn(12, 96).astype(np.float32),
+        nd_idx=rng.randint(0, 64, (10, 2)).astype(np.int64) % [64, 96],
+        col_idx=rng.randint(0, 96, (64, 4)).astype(np.int64),
+        bm1=rng.randn(8, 16, 32).astype(np.float32),
+        bm2=rng.randn(8, 32, 24).astype(np.float32),
+        p1=rng.rand(50, 3).astype(np.float32),
+        p2=rng.rand(40, 3).astype(np.float32),
+        ss=np.sort(rng.randn(128)).astype(np.float32),
+        spd=(m @ m.T + 32 * np.eye(32)).astype(np.float32),
+        small=(rng.randn(8, 8) * 0.3).astype(np.float32),
+        rhs=rng.randn(32, 4).astype(np.float32),
+        vol=rng.randn(2, 3, 16, 16).astype(np.float32))
+
+
+def _lu_rebuilt(P, x):
+    p, l_, u = P.linalg.lu_unpack(*P.linalg.lu(x))
+    return p @ l_ @ u
+
+
+#: phase 7's sample: (registry module, name, the call on tensors ``t``
+#: of ``ops_inputs``); factorisations whose signs are not unique are
+#: held by what they reconstruct or by their values
+OPS_SAMPLE = [
+    ("logic", "equal", lambda P, t: P.equal(t["ints"], t["ints2"])),
+    ("logic", "greater_than", lambda P, t: P.greater_than(t["a"], t["b"])),
+    ("logic", "logical_xor",
+     lambda P, t: P.logical_xor(t["a"] > 0, t["b"] > 0)),
+    ("logic", "bitwise_and", lambda P, t: P.bitwise_and(t["ints"],
+                                                        t["ints2"])),
+    ("logic", "argmax", lambda P, t: P.argmax(t["a"], axis=1)),
+    ("logic", "argsort", lambda P, t: P.argsort(t["a"], axis=1)),
+    ("logic", "topk", lambda P, t: P.topk(t["a"], 5)),
+    ("logic", "kthvalue", lambda P, t: P.kthvalue(t["a"], 3, axis=1)),
+    ("logic", "mode", lambda P, t: P.mode(t["ints"], axis=1)),
+    ("logic", "searchsorted", lambda P, t: P.searchsorted(t["ss"],
+                                                          t["vec"])),
+    ("creation", "arange", lambda P, t: P.arange(0, 100, 3)),
+    ("creation", "linspace", lambda P, t: P.linspace(-1.0, 1.0, 257)),
+    ("creation", "eye", lambda P, t: P.eye(33, 17)),
+    ("creation", "full_like", lambda P, t: P.full_like(t["a"], 2.5)),
+    ("creation", "tril", lambda P, t: P.tril(t["a"], -2)),
+    ("creation", "diag_embed", lambda P, t: P.diag_embed(t["vec"])),
+    ("creation", "meshgrid", lambda P, t: P.meshgrid(t["vec"][:10],
+                                                     t["vec"][:7])),
+    ("creation", "vander", lambda P, t: P.vander(t["vec"][:12], 5)),
+    ("math", "add", lambda P, t: P.add(t["a"], t["b"])),
+    ("math", "divide", lambda P, t: P.divide(t["a"], t["pos"])),
+    ("math", "floor_divide", lambda P, t: P.floor_divide(t["ints"] - 5,
+                                                         t["ints2"])),
+    ("math", "mod", lambda P, t: P.mod(t["ints"] - 5, t["ints2"])),
+    ("math", "pow", lambda P, t: P.pow(t["pos"], 1.7)),
+    ("math", "exp", lambda P, t: P.exp(t["a"])),
+    ("math", "log1p", lambda P, t: P.log1p(t["pos"])),
+    ("math", "tanh", lambda P, t: P.tanh(t["a"])),
+    ("math", "erf", lambda P, t: P.erf(t["a"])),
+    ("math", "clip", lambda P, t: P.clip(t["a"], -0.5, 0.5)),
+    ("math", "sum", lambda P, t: P.sum(t["a"], axis=1)),
+    ("math", "mean", lambda P, t: P.mean(t["a"], axis=[0, 1])),
+    ("math", "prod", lambda P, t: P.prod(t["pos"][:, :8], axis=1)),
+    ("math", "max", lambda P, t: P.max(t["a"], axis=0)),
+    ("math", "logsumexp", lambda P, t: P.logsumexp(t["a"], axis=1)),
+    ("math", "std", lambda P, t: P.std(t["a"], axis=1)),
+    ("math", "median", lambda P, t: P.median(t["a"], axis=1)),
+    ("math", "quantile", lambda P, t: P.quantile(t["a"], 0.3, axis=1)),
+    ("math", "cumsum", lambda P, t: P.cumsum(t["a"], axis=1)),
+    ("math", "cummax", lambda P, t: P.cummax(t["a"], axis=1)),
+    ("math", "logcumsumexp", lambda P, t: P.logcumsumexp(t["a"], axis=1)),
+    ("math", "matmul", lambda P, t: P.matmul(t["a"], t["b"],
+                                             transpose_y=True)),
+    ("math", "bmm", lambda P, t: P.bmm(t["bm1"], t["bm2"])),
+    ("math", "einsum", lambda P, t: P.einsum("ij,kj->ik", t["a"], t["b"])),
+    ("math", "cross", lambda P, t: P.cross(t["p1"][:40], t["p2"])),
+    ("math", "cdist", lambda P, t: P.cdist(t["p1"], t["p2"])),
+    ("math", "histogram", lambda P, t: P.histogram(t["a"], bins=20, min=-2,
+                                                   max=2)),
+    ("math", "bincount", lambda P, t: P.bincount(t["ints"].reshape(-1))),
+    ("math", "lerp", lambda P, t: P.lerp(t["a"], t["b"], 0.3)),
+    ("math", "kron", lambda P, t: P.kron(t["small"], t["small"])),
+    ("manipulation", "reshape", lambda P, t: P.reshape(t["a"], [96, 64])),
+    ("manipulation", "transpose", lambda P, t: P.transpose(t["bm1"],
+                                                           [2, 0, 1])),
+    ("manipulation", "concat", lambda P, t: P.concat([t["a"], t["b"]], 1)),
+    ("manipulation", "split", lambda P, t: P.split(t["a"], [10, -1, 20])),
+    ("manipulation", "roll", lambda P, t: P.roll(t["a"], 3, 1)),
+    ("manipulation", "pad", lambda P, t: P.pad(t["vol"], [1, 2, 3, 4],
+                                               mode="reflect")),
+    ("manipulation", "gather", lambda P, t: P.gather(t["a"], t["idx"])),
+    ("manipulation", "gather_nd", lambda P, t: P.gather_nd(t["a"],
+                                                           t["nd_idx"])),
+    ("manipulation", "scatter", lambda P, t: P.scatter(
+        P.zeros_like(t["a"]), t["rows"], t["upd"])),
+    ("manipulation", "index_add", lambda P, t: P.index_add(
+        t["a"], t["rows"], 0, t["upd"])),
+    ("manipulation", "put_along_axis", lambda P, t: P.put_along_axis(
+        t["a"], t["col_idx"][:, :1], 9.0, 1)),
+    ("manipulation", "take_along_axis", lambda P, t: P.take_along_axis(
+        t["a"], t["col_idx"], 1)),
+    ("manipulation", "masked_select", lambda P, t: P.masked_select(
+        t["a"], t["b"] > 0)),
+    ("manipulation", "where", lambda P, t: P.where(t["a"] > 0, t["a"],
+                                                   t["b"])),
+    ("manipulation", "nonzero", lambda P, t: P.nonzero(t["ints"] > 7)),
+    ("manipulation", "unique", lambda P, t: P.unique(
+        t["ints"], return_counts=True)),
+    ("manipulation", "one_hot", lambda P, t: P.one_hot(t["ints"][0], 10)),
+    ("manipulation", "unfold", lambda P, t: P.unfold(t["a"], 1, 8, 4)),
+    ("manipulation", "repeat_interleave", lambda P, t: P.repeat_interleave(
+        t["a"][:4], 3, axis=0)),
+    ("linalg", "norm", lambda P, t: P.linalg.norm(t["a"], p=1, axis=1)),
+    ("linalg", "inv", lambda P, t: P.linalg.inv(t["spd"])),
+    ("linalg", "det", lambda P, t: P.linalg.det(t["small"])),
+    ("linalg", "slogdet", lambda P, t: P.linalg.slogdet(t["spd"])),
+    ("linalg", "solve", lambda P, t: P.linalg.solve(t["spd"], t["rhs"])),
+    ("linalg", "cholesky", lambda P, t: P.linalg.cholesky(t["spd"])),
+    ("linalg", "triangular_solve", lambda P, t: P.linalg.triangular_solve(
+        P.tril(t["spd"]), t["rhs"], upper=False)),
+    ("linalg", "qr", lambda P, t: P.matmul(*P.linalg.qr(t["a"][:, :32]))),
+    ("linalg", "svd", lambda P, t: P.linalg.svd(t["a"])[1]),
+    ("linalg", "eigh", lambda P, t: P.linalg.eigh(t["spd"])[0]),
+    ("linalg", "lu", lambda P, t: _lu_rebuilt(P, t["spd"])),
+    ("linalg", "matrix_power", lambda P, t: P.linalg.matrix_power(
+        t["small"], 3)),
+    ("linalg", "matrix_exp", lambda P, t: P.linalg.matrix_exp(t["small"])),
+    ("linalg", "multi_dot", lambda P, t: P.linalg.multi_dot(
+        [t["a"], t["b"].T, t["a"]])),
+    ("linalg", "pinv", lambda P, t: P.linalg.pinv(t["a"][:16, :8])),
+    ("linalg", "cov", lambda P, t: P.linalg.cov(t["a"][:8])),
+]
+
+
+def _flat_outputs(out):
+    """An op's outputs as a list of numpy arrays."""
+    if isinstance(out, (list, tuple)):
+        return [a for o in out for a in _flat_outputs(o)]
+    return [out.detach().cpu().numpy()]
+
+
+def ops_phase(torch, pt):
+    """Phase 7: the ops layer (``paddle_tpu_torch.ops``) on the card.
+    With the default device, ``"gpu:0"``, creation and random ops land on
+    CUDA; the CUDA generator reproduces a stream after the same ``seed``
+    and gives another after another, and torch's global CUDA RNG is left
+    as it was. Then every op of ``OPS_SAMPLE`` (at least 40, all five
+    modules) runs on CUDA tensors and on CPU tensors (the device set to
+    ``"cpu"`` for the second call) of the same seeded inputs: the same
+    dtypes and shapes, floats within 1e-5 of the CPU result's largest
+    magnitude (TF32 off), everything else exact."""
+    from paddle_tpu_torch.framework import random as prandom
+    if pt.get_device() != "gpu:0":
+        raise AssertionError(f"default device {pt.get_device()}")
+    made = {"zeros": pt.zeros([3, 4]), "full": pt.full([2], 7),
+            "arange": pt.arange(5), "eye": pt.eye(3),
+            "to_tensor": pt.to_tensor([1.0, 2.0]), "randn": pt.randn([4]),
+            "randint": pt.randint(0, 9, [4]), "randperm": pt.randperm(6)}
+    off = {k: str(v.device) for k, v in made.items()
+           if v.device.type != "cuda"}
+    if off:
+        raise AssertionError(f"creation ops off the card: {off}")
+    global_state = torch.cuda.get_rng_state()
+
+    def draws():
+        return [pt.randn([4096]), pt.rand([4096]),
+                pt.randint(0, 100, [4096]), pt.randperm(1000),
+                pt.bernoulli(pt.full([4096], 0.3)),
+                pt.multinomial(pt.full([64], 1.0 / 64), 16),
+                pt.normal(0.0, 2.0, [4096])]
+    pt.seed(11)
+    first = draws()
+    pt.seed(11)
+    again = draws()
+    pt.seed(12)
+    other = draws()
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError("the CUDA generator did not reproduce")
+    if any(torch.equal(x, y) for x, y in zip(first, other)):
+        raise AssertionError("another seed drew the same stream")
+    if not torch.equal(torch.cuda.get_rng_state(), global_state):
+        raise AssertionError("a random op drew from torch's global RNG")
+    gen_dev = prandom.generator("cuda").device
+    log(f"  creation and random ops on {sorted({str(v.device) for v in made.values()})};"
+        f" 7 random ops reproduce under seed(11) on the {gen_dev} "
+        f"generator, differ under seed(12); torch's global CUDA RNG "
+        f"untouched")
+    inputs = ops_inputs()
+    dev_in = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
+    cpu_in = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    worst, by_module, t0 = {}, Counter(), time.perf_counter()
+    for module, name, call in OPS_SAMPLE:
+        got = _flat_outputs(call(pt, dev_in))
+        pt.set_device("cpu")
+        try:
+            want = _flat_outputs(call(pt, cpu_in))
+        finally:
+            pt.set_device("gpu:0")
+        if [(g.dtype, g.shape) for g in got] != [(w.dtype, w.shape)
+                                                 for w in want]:
+            raise AssertionError(f"ops {name}: card "
+                                 f"{[(g.dtype, g.shape) for g in got]}, cpu "
+                                 f"{[(w.dtype, w.shape) for w in want]}")
+        err = 0.0
+        for g, w in zip(got, want):
+            if np.issubdtype(w.dtype, np.floating):
+                scale = max(float(np.abs(w).max()) if w.size else 0.0,
+                            1e-30)
+                err = max(err, float(np.abs(g - w).max()) / scale
+                          if w.size else 0.0)
+            elif not np.array_equal(g, w):
+                raise AssertionError(f"ops {name}: the card's integer or "
+                                     f"bool result differs from the CPU's")
+        check(f"ops {module}.{name} card vs cpu", err, FP32_TOL,
+              "max err / max")
+        worst[name], by_module[module] = err, by_module[module] + 1
+    if len(OPS_SAMPLE) < 40 or len(by_module) != 5:
+        raise AssertionError(f"ops sample {dict(by_module)}")
+    ops_s = time.perf_counter() - t0
+    log(f"  {len(OPS_SAMPLE)} ops ({dict(by_module)}) on the card equal to "
+        f"the CPU's: worst float error {max(worst.values()):.3e} of the "
+        f"largest magnitude ({max(worst, key=worst.get)}), {ops_s:.2f} s")
+    return dict(ops=len(OPS_SAMPLE), by_module=dict(by_module),
+                worst=max(worst.values()), worst_op=max(worst, key=worst.get),
+                seconds=ops_s, creation_devices=sorted(
+                    {str(v.device) for v in made.values()}))
+
+
 def paged_logits_rel_err(torch, gen, model, full, n_prompt):
     """Logits of a prefill then decode steps over a ``PagedKVCache``
     against the cache-free forward of the same tokens."""
@@ -4910,7 +5220,8 @@ def tick_breakdown(torch, rpa, gen, probes, scale, n_layers):
     against kernel 8 over layer 0's pool, and B7 against B9
     over the pool quantised by the cache's codec, in fp32, bf16 and
     fp16."""
-    phase("phase 6: tick breakdown (bf16, every tick of the 8-request load)")
+    phase("phase 6: tick breakdown (the bf16 model, fp32 pages, every tick "
+          "of the 8-request load)")
     kern = {"qblock": rpa.qblock_attention, "token": rpa.token_attention}
     out, c21_cases, pools = {}, 0, {}
     for run, probe in probes.items():
@@ -5068,6 +5379,8 @@ def main():
         log(f"  {impl}: {st['steps']} ticks, {st['hits']} prefix hits, "
             f"wall {st['wall']:.3f} s")
         check_outputs(prompts, outs, cfg.vocab_size, impl)
+        check_c25(f"ragged {impl} engine", st["pool_dtypes"],
+                  st["logits_dtypes"])
         if st["steps"] <= 0 or st["hits"] <= 0:
             raise AssertionError(f"{impl}: no ticks or no prefix hits")
         # every per-token launch on the cluster kernel, by its own count
@@ -5103,8 +5416,11 @@ def main():
     if static["batches"] != 1:
         raise AssertionError(f"static engine ran {static['batches']} "
                              f"batches, expected 1")
+    # C25: the prefill's SDPA gets the rope's fp32 q and k beside the bf16
+    # v, which it computes in fp32 (the scalar B1); the decode steps read
+    # fp32 pages
     check_launches("static engine", static["launches"],
-                   dict(none, flash=N_LAYERS, flash_wgmma=N_LAYERS,
+                   dict(none, flash=N_LAYERS,
                         paged=N_LAYERS * (NEW_TOKENS - 1),
                         paged_cluster=N_LAYERS * (NEW_TOKENS - 1)))
     # an instrumented pass: every forward timed to a device sync, layer
@@ -5114,6 +5430,8 @@ def main():
     static_fwd = ForwardTimer(torch, model)
     serve_static(torch, pt, kern, model, static_prompts,
                  probes=[static_cap, static_flash, static_fwd])
+    check_c25("static engine", [str(static_cap.best["kp"].dtype)],
+              static_fwd.dtypes)
     log(f"  static: wall {static['wall']:.3f} s for one batch; "
         f"instrumented forwards (seq, ms): "
         + ", ".join(f"({n}, {ms:.2f})" for n, ms in static_fwd.times))
@@ -5132,9 +5450,10 @@ def main():
     if legacy["hits"] <= 0 or legacy["decode_steps"] <= 0 or not big_chunks:
         raise AssertionError("legacy: no prefix hits, decode steps or "
                              "flash-sized chunks")
+    check_c25("legacy engine", legacy["pool_dtypes"], legacy["logits_dtypes"])
+    # the chunks read fp32 pages back: the scalar B1 (C25)
     check_launches("legacy engine", legacy["launches"],
                    dict(none, flash=N_LAYERS * big_chunks,
-                        flash_wgmma=N_LAYERS * big_chunks,
                         paged=N_LAYERS * legacy["decode_steps"],
                         paged_cluster=N_LAYERS * legacy["decode_steps"]))
     same = sum(np.array_equal(a, b) for a, b in
@@ -5179,7 +5498,7 @@ def main():
         f"wall {st['wall']:.3f} s, {st['quantized']} Linears quantised")
     if st["quantized"] != N_LINEARS:
         raise AssertionError(f"int8: {st['quantized']} Linears quantised")
-    int8_runs, mm_hist = {}, {}
+    int8_runs, mm_hist, b10_simt = {}, {}, {}
     for name, kw in INT8_PATHS.items():
         kw = dict(kw)
         kw["impl"] = kw.pop("ragged_impl", "qblock")
@@ -5199,14 +5518,20 @@ def main():
         if st["quantized"]:
             raise AssertionError(f"int8 {name}: {st['quantized']} Linears "
                                  f"quantised again")
-        # every B10 call is bf16: each takes the tensor-core variant its M
-        # names, and the two counts add up to the calls
-        stream = sum(n for m, n in mm_hist[name].items()
-                     if qm.matmul_variant(torch.bfloat16, m, 1, 4096)
-                     == "wgmma_stream")
+        # C25: only layer 0's q, k and v projections see bf16 x (the first
+        # norm's output); each takes the tensor-core variant its M names.
+        # Every later Linear sees fp32 x and takes the scalar kernel
+        check_c25(f"int8 {name} engine", st["pool_dtypes"],
+                  st["logits_dtypes"], quant=True)
+        stream = BF16_LINEARS * sum(
+            n for m, n in st["forwards_by_m"].items()
+            if qm.matmul_variant(torch.bfloat16, m, 1, 4096)
+            == "wgmma_stream")
         want = dict(none, int8_matmul=N_LINEARS * st["forwards"],
                     int8_matmul_stream=stream,
-                    int8_matmul_gemm=N_LINEARS * st["forwards"] - stream)
+                    int8_matmul_gemm=BF16_LINEARS * st["forwards"] - stream)
+        b10_simt[f"int8 {name}"] = (N_LINEARS - BF16_LINEARS) \
+            * st["forwards"]
         log(f"  int8 {name}: B10 launches by M {st['b10_by_m']}")
         if sum(mm_hist[name].values()) != N_LINEARS * st["forwards"]:
             raise AssertionError(f"int8 {name}: B10 histogram "
@@ -5219,7 +5544,7 @@ def main():
                                      "no decode steps")
             want.update(paged_q8=N_LAYERS * st["decode_steps"],
                         paged_q8_cluster=N_LAYERS * st["decode_steps"],
-                        flash=N_LAYERS * big, flash_wgmma=N_LAYERS * big)
+                        flash=N_LAYERS * big)
         else:
             want[f"{name}_q8"] = N_LAYERS * st["steps"]
             if name == "token":
@@ -5235,17 +5560,18 @@ def main():
         if not np.array_equal(a, b):
             raise AssertionError("int8 q-block and per-token engines "
                                  "disagree")
-    nbytes = {"native bf16": runs["qblock"][1]["page_nbytes"],
+    # native pages are fp32 in the bf16 model (k's dtype, C25)
+    nbytes = {"native fp32": runs["qblock"][1]["page_nbytes"],
               "int8": int8_runs["qblock"][1]["page_nbytes"]}
-    want_nbytes = {"native bf16": gen.kv_page_nbytes(
-        N_KV, HEAD_DIM, PAGE, "native", "bfloat16", N_LAYERS),
+    want_nbytes = {"native fp32": gen.kv_page_nbytes(
+        N_KV, HEAD_DIM, PAGE, "native", "float32", N_LAYERS),
         "int8": gen.kv_page_nbytes(N_KV, HEAD_DIM, PAGE, "int8",
                                    num_layers=N_LAYERS)}
     if nbytes != want_nbytes:
         raise AssertionError(f"page_nbytes {nbytes}, expected {want_nbytes}")
-    log(f"  page_nbytes (32 layers, K and V): native bf16 "
-        f"{nbytes['native bf16']}, int8 {nbytes['int8']}, ratio "
-        f"{nbytes['native bf16'] / nbytes['int8']:.4f}")
+    log(f"  page_nbytes (32 layers, K and V): native fp32 "
+        f"{nbytes['native fp32']}, int8 {nbytes['int8']}, ratio "
+        f"{nbytes['native fp32'] / nbytes['int8']:.4f}")
     # instrumented passes: the q-block one times every tick and keeps
     # layer 0's attention inputs of one tick and B10's inputs at M = 8
     # and 256; the legacy one times every working tick and keeps layer
@@ -5331,7 +5657,7 @@ def main():
     if b10_tc:
         raise AssertionError(f"fp32 B10 took the tensor-core kernels "
                              f"{b10_tc} times")
-    b10_simt = {"fp32 int8 cross paths": kern["int8_matmul"].launches}
+    b10_simt["fp32 int8 cross paths"] = kern["int8_matmul"].launches
     simt_by_path["fp32 int8 cross paths"] = read_counts(kern)
     for name, counts in simt_by_path.items():
         log(f"  {name}: B1 launches {counts['flash']}, tensor-core "
@@ -5414,7 +5740,8 @@ def main():
     log(f"  B10 worst C20 ratio by (K, N), captured inputs included: "
         f"{mm_errs['ratio_by_shape']}")
 
-    phase("phase 5: timing (bf16)")
+    phase("phase 5: timing (the bf16 model: fp32 pages and activations "
+          "after layer 0's attention, C25)")
     scale = HEAD_DIM ** -0.5
     plain = {"qblock": rpa.qblock_attention_plain,
              "token": rpa.token_attention_plain}
@@ -5460,29 +5787,33 @@ def main():
                           token_launches,
                           worst_of(cerrs["token_variants"],
                                    dcerrs["token_variants"])))
-    flash_rows = [time_flash(torch, fa, fc, name)
-                  for name, fc in flash_caps.items()]
+    # the serving paths' B1 calls take the scalar kernel since C25 (the
+    # rope's fp32 q and k; fp32 pages read back): timed on their captured
+    # fp32 inputs; the tensor-core B1 at the training step, and on bf16
+    # copies of the serving captures for comparison with earlier runs
+    serving_flash = [time_flash(torch, fa, fc, name)
+                     for name, fc in flash_caps.items()]
     train_rows = time_flash_train(torch, fa, tc)
-    flash_rows.append(train_rows["fwd"])
-    # the scalar B1 (fp32 serving and training) on the static prefill's
-    # inputs in fp32
-    simt_row = time_flash(torch, fa, {
-        k: v.float() if k in ("q", "k", "v") else v
-        for k, v in static_flash.best.items()},
-        "scalar B1 on the static prefill's inputs")
-    # and on the training step's, where O1 and a bf16 model without AMP
-    # take it (3j(b), 3j(c): the rope's fp32 q and k beside a 16-bit v)
+    flash_rows = [train_rows["fwd"]] + [
+        time_flash(torch, fa, {k: v.bfloat16() if k in ("q", "k", "v")
+                               else v for k, v in fc.items()},
+                   f"{name} (bf16 copies)")
+        for name, fc in flash_caps.items()]
+    simt_row = serving_flash[0]
+    # the scalar B1 on the training step's inputs, where O1 and a bf16
+    # model without AMP take it (3j(b), 3j(c): the rope's fp32 q and k
+    # beside a 16-bit v)
     simt_train = time_flash(torch, fa, dict(
         {x: tc[x].float() for x in "qkv"}, causal=True,
         q_offset=tc["q_offset"]),
         "scalar B1 on the training step's inputs in fp32")
     paged_rows = [time_paged(torch, pa, decode_caps["static"],
-                             "static engine decode step, bf16"),
+                             "static engine decode step, fp32 pages"),
                   time_paged(torch, pa, decode_caps["legacy"],
-                             "legacy engine decode step, bf16")]
+                             "legacy engine decode step, fp32 pages")]
     for r in paged_rows:
         log_paged(r)
-    for r in flash_rows + [simt_row, simt_train]:
+    for r in flash_rows + serving_flash + [simt_train]:
         lib = "none" if r["library_ms"] is None \
             else f"{r['library_ms']:.4f} ms"
         log(f"  {r['shape']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -5507,8 +5838,10 @@ def main():
                ["launches"],
                "train_amp_checks_eager": amp_runs["checks"]["runs"]["eager"]
                ["launches"]}
-    # the 3j paths whose flash calls take the scalar fp32 kernels
-    for name in ("train_amp_O1_fp16", "train_bf16_no_amp"):
+    # the paths whose flash calls take the scalar fp32 kernels: the
+    # serving paths (C25) and 3j's O1 and bf16 model without AMP
+    for name in ("static", "legacy", "int8_legacy", "train_amp_O1_fp16",
+                 "train_bf16_no_amp"):
         simt_by_path[name] = by_path[name]["flash"]
     bwd_simt_by_path = {
         "fp32 training step": {"dq": bwd_simt_launches,
@@ -5552,7 +5885,7 @@ def main():
                  "max_abs_err": flash_errs["fp32"],
                  "max_rel_err_lse": flash_errs["lse"],
                  **{k: simt_row[k] for k in timed_keys},
-                 "other_shapes": [simt_train]})
+                 "other_shapes": serving_flash[1:] + [simt_train]})
     rows.append(paged_row("paged_decode", 55, paged_errs, paged_rows,
                           "paged", by_path))
     # B2 and B3, each as its two variants: the tensor-core kernels (bf16
@@ -5656,7 +5989,7 @@ def main():
                           token_launches,
                           worst_of(q8_cerrs["token_variants"],
                                    q8_dcerrs["token_variants"])))
-    r = time_paged(torch, pa, dc, "int8 legacy engine decode step, bf16 q, "
+    r = time_paged(torch, pa, dc, "int8 legacy engine decode step, fp32 q, "
                                   "int8 pages")
     log_paged(r)
     rows.append(paged_row("paged_decode_q8", 97, paged_q8_errs, [r],
@@ -5676,16 +6009,22 @@ def main():
             f"fp32 copies {r['simt_fp32_ms']:.4f} ms; host per call "
             f"{r['host_us']:.1f} us, torch.matmul {r['library_host_us']:.1f}"
             f" us")
-    # one forward's B10 calls at M = 8 and 256: 32 layers of q, k, v, o,
-    # gate, up, down, and lm_head
+    # one forward's B10 calls at M = 8 and 256: layer 0's q, k and v on
+    # their captured bf16 inputs, every other call (o, gate, up, down of
+    # every layer, q, k, v after layer 0, lm_head) on the scalar kernel
+    # in fp32 (C25)
     per_layer = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2,
                  (14336, 4096): 1}
+    bf16_calls = {(4096, 4096): 1, (4096, 1024): 2}
     for m in (8, 256):
-        for key in ("ms", "library_ms", "bound_ms"):
-            total = mm_rows[(4096, cfg.vocab_size, m)][key] + N_LAYERS * sum(
-                c * mm_rows[(k, n, m)][key] for (k, n), c in per_layer.items())
-            log(f"  B10 over one forward at M={m} (225 calls): {key} "
-                f"{total:.3f}")
+        total = mm_rows[(4096, cfg.vocab_size, m)]["ms"] + sum(
+            c * (mm_rows[(k, n, m)]["ms"]
+                 + (N_LAYERS - 1) * mm_rows[(k, n, m)]["simt_fp32_ms"])
+            for (k, n), c in bf16_calls.items()) + N_LAYERS * sum(
+            (c - bf16_calls.get((k, n), 0)) * mm_rows[(k, n, m)]["simt_fp32_ms"]
+            for (k, n), c in per_layer.items())
+        log(f"  B10 over one forward at M={m} (225 calls: 3 tensor-core, "
+            f"222 scalar): ms {total:.3f}")
     for (k, n), by_m in time_crossover(torch, qm, mm_cap.best).items():
         log(f"  B10 crossover K={k} N={n}: " + ", ".join(
             f"M={m} " + "/".join(f"{v} {t:.4f}" for v, t in ts.items())
@@ -5698,10 +6037,12 @@ def main():
                "library", "shape", "bytes", "flops")
     b10 = {"route": "cuda", "source": CSRC + "quant_matmul.cu",
            "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:65"}
+    # the tensor-core variants on layer 0's q_proj inputs (bf16: the only
+    # Linears that see bf16 x since C25 are layer 0's q, k and v)
     for variant, key, first_key, dtypes in (
-            ("wgmma_stream", "int8_matmul_stream", (4096, 14336, 8),
+            ("wgmma_stream", "int8_matmul_stream", (4096, 4096, 8),
              f"bf16 and fp16 at M <= {qm.STREAM_MAX_M}, K % 16 == 0"),
-            ("wgmma_gemm", "int8_matmul_gemm", (4096, 14336, 256),
+            ("wgmma_gemm", "int8_matmul_gemm", (4096, 4096, 256),
              f"bf16 and fp16 at M > {qm.STREAM_MAX_M}, K % 16 == 0")):
         first = mm_rows[first_key]
         rows.append({"name": f"int8_matmul_{variant}", **b10,
@@ -5726,21 +6067,10 @@ def main():
                      "other_shapes": [r for key2, r in mm_rows.items()
                                       if r["variant"] == variant
                                       and key2 != first_key]})
-    # the scalar kernel (fp32; phase 4's int8 cross paths) on fp32 copies
-    # of the gate/up decode inputs
-    sc = mm_cap.best[(4096, 14336, 8)]
-    x32, wt32 = sc["x"].float(), sc["weight"].detach().float().t()
-    simt = {"shape": "layer 0 gate/up: M=8 K=4096 N=14336, fp32 copies of "
-                     "x, int8 w",
-            "ms": mm_rows[(4096, 14336, 8)]["simt_fp32_ms"],
-            "plain_ms": time_ms(torch, lambda: qm.int8_matmul_plain(
-                x32, sc["wq"], sc["ws"]), iters=10),
-            **_bound(x32.numel() * 4 + sc["wq"].numel() + 4 * 14336
-                     + 8 * 14336 * 4, 2 * 8 * 14336 * 4096, FP32_FLOPS),
-            "library": "torch.matmul(x, w.T), x and the dequantised weight "
-                       "in fp32",
-            "library_ms": time_ms(torch, lambda: torch.matmul(x32, wt32))}
-    del x32, wt32
+    # the scalar kernel: fp32 x, every serving Linear after layer 0's
+    # q, k and v (C25) and phase 4's fp32 int8 cross paths; on layer 0's
+    # captured gate/up decode inputs
+    simt = mm_rows[(4096, 14336, 8)]
     rows.append({"name": "int8_matmul_simt", **b10,
                  "kernel": "int8_matmul_kernel",
                  "dtypes": "fp32; bf16 and fp16 at K % 16 != 0",
@@ -5748,7 +6078,10 @@ def main():
                  "launches_by_path": b10_simt,
                  "max_abs_err": mm_errs["fp32_abs"],
                  "max_rel_err_fp32": mm_errs["fp32"],
-                 **{k: simt[k] for k in mm_keys}})
+                 **{k: simt[k] for k in mm_keys},
+                 "other_shapes": [r for key2, r in mm_rows.items()
+                                  if r["variant"] == "simt"
+                                  and key2 != (4096, 14336, 8)]})
 
     # the fused optimizer step's kernels (no Pallas counterpart), timed
     # over the training step's whole state in phase 3d
@@ -5849,6 +6182,9 @@ def main():
         fused_vs_eager_master_rel=ck["master_rel"],
         masters_bit_equal=ck["masters_equal"])
     log(json.dumps({"amp": amp_line}))
+    phase("phase 7: the ops layer on the card: creation and random ops, "
+          "and a sample of the five op modules against the CPU")
+    log(json.dumps({"ops": ops_phase(torch, pt)}))
     log(json.dumps({"kernels": rows}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

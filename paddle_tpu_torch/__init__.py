@@ -32,8 +32,31 @@ step's multi-tensor AdamW and sum of squares), built with ``nvcc``
 at first use. Entry points default to
 ``device="cuda"``; pass ``device="cpu"`` to run the plain PyTorch
 versions instead.
+
+The op surface is Paddle's: ``import paddle_tpu_torch as paddle``, then
+``paddle.to_tensor``, the creation, math, manipulation and logic ops at
+the top level and in ``paddle.tensor``, and ``paddle.linalg``. Tensors
+are ``torch.Tensor``; new ones land on ``paddle.get_device()``, ``"gpu:0"``
+(CUDA) by default, so call ``paddle.set_device("cpu")`` first on a
+machine without CUDA. Random ops draw from one ``torch.Generator`` a
+device, reseeded by ``paddle.seed``.
 """
+import sys as _sys
+
 from . import amp, nn, optimizer, quantization
+from .framework.core import get_device, set_device, to_tensor
+from .framework.dtype import (bfloat16, bool_, complex64, complex128,
+                              float16, float32, float64, get_default_dtype,
+                              int8, int16, int32, int64, set_default_dtype,
+                              uint8)
+from .framework.random import (get_cuda_rng_state, get_rng_state, seed,
+                               set_cuda_rng_state, set_rng_state)
+from . import ops as tensor
+from .ops import *  # noqa: F401,F403
+from .ops import bitwise_not as bitwise_invert
+from .ops import linalg
+from .ops.linalg import (corrcoef, cov, dist, inv as inverse, matrix_power,
+                         norm)
 from .convert import jax_layout, load_jax_state
 from .framework.io import load, save
 from .inference.serving import ContinuousServingEngine, ServingEngine
@@ -43,4 +66,13 @@ from .models.llama import (LlamaConfig, LlamaForCausalLM,
 __all__ = ["LlamaForCausalLM", "LlamaConfig", "LlamaPretrainingCriterion",
            "llama_tiny", "llama3_8b", "ContinuousServingEngine",
            "ServingEngine", "load_jax_state", "jax_layout", "load", "save",
-           "amp", "nn", "optimizer", "quantization"]
+           "amp", "nn", "optimizer", "quantization", "set_device",
+           "get_device", "to_tensor", "bfloat16", "bool_", "complex64",
+           "complex128", "float16", "float32", "float64", "int8", "int16",
+           "int32", "int64", "uint8", "get_default_dtype",
+           "set_default_dtype", "seed", "get_rng_state", "set_rng_state",
+           "get_cuda_rng_state", "set_cuda_rng_state", "tensor",
+           "bitwise_invert", "inverse", "norm", "dist", "matrix_power",
+           "cov", "corrcoef"] + tensor.__all__
+
+_sys.modules[__name__ + ".tensor"] = tensor     # import paddle_tpu_torch.tensor

@@ -106,18 +106,6 @@ def _page_gather(pages, table, scales=None, dtype=None):
     return g.reshape(*g.shape[:-4], -1, *g.shape[-2:])
 
 
-def pool_inputs(q, k, v):
-    """q and k in v's dtype, which a cache's pools hold: the boundary of
-    ROADMAP C25. v is the value projection's output, in the parameters'
-    dtype on every cached path; the rope returns fp32 q and k in a bf16
-    or fp16 model (C24), and the reference then allocates its pools in
-    k's dtype, fp32 (``generation.py:304``, ``:1183``), so its cached
-    attention computes in fp32. The port's pools and attention kernels
-    stay in the parameters' dtype, as it served before the rope
-    promoted."""
-    return q.to(v.dtype), k.to(v.dtype), v
-
-
 class KVCache:
     """Per-attention-layer concat cache. ``update`` returns the full K/V so
     far (including the new tokens); ``pos`` is the filled length, advanced
@@ -154,9 +142,10 @@ class KVCache:
 
     def attend(self, layer, q, k, v):
         """Update the store with this step's K/V and attend over all of it:
-        ``q [b, s, heads, d]`` -> ``[b, s, heads, d]``, in the parameters'
-        dtype (:func:`pool_inputs`)."""
-        q, k, v = pool_inputs(q, k, v)
+        ``q [b, s, heads, d]`` -> ``[b, s, heads, d]``. q, k and v keep
+        their dtypes, as the reference's store does: in a bf16 model the
+        rope makes q and k fp32 (ROADMAP C24) and v stays bf16, and SDPA
+        computes the mix in fp32."""
         k, v = self.update(layer, k, v)
         return scaled_dot_product_attention(q, k, v, is_causal=True)
 
@@ -225,7 +214,9 @@ class PagedKVCache(KVCache):
         return self._idx
 
     def attend(self, layer, q, k, v):
-        q, k, v = pool_inputs(q, k, v)
+        """The pools take k's dtype, as the reference's (``generation.py:
+        303``): fp32 in a bf16 model, whose rope makes k fp32 (ROADMAP
+        C25); v is cast to it where it is written."""
         b, s, kv_heads, d = k.shape
         if self._batch is not None and self._batch != b:
             raise ValueError(f"PagedKVCache was allocated for batch "
@@ -241,7 +232,8 @@ class PagedKVCache(KVCache):
                                                              k.device)
         # in place: the pool is ours ([kv, b, s, d] rows from [b, s, kv, d])
         k_pages[:, page_ids, slot_ids] = k.permute(2, 0, 1, 3)
-        v_pages[:, page_ids, slot_ids] = v.permute(2, 0, 1, 3)
+        v_pages[:, page_ids, slot_ids] = v.permute(2, 0, 1, 3).to(
+            v_pages.dtype)
         if s > 1:
             if start > 0:
                 # a reused cache or chunked prefill: read the whole prefix
@@ -694,14 +686,15 @@ class SlotPagedKVCache:
             k_scales[:, page_ids, slot_ids] = ks
             v_scales[:, page_ids, slot_ids] = vs
         k_pages[:, page_ids, slot_ids] = kt
-        v_pages[:, page_ids, slot_ids] = vt
+        v_pages[:, page_ids, slot_ids] = vt.to(v_pages.dtype)
 
     # -- attention ----------------------------------------------------------
     def attend(self, layer, q, k, v):
         """Attention for one layer in the armed mode. ``q [b, s, heads,
-        d]``, ``k``/``v [b, s, kv_heads, d]`` -> ``[b, s, heads, d]``, in
-        the parameters' dtype (:func:`pool_inputs`)."""
-        q, k, v = pool_inputs(q, k, v)
+        d]``, ``k``/``v [b, s, kv_heads, d]`` -> ``[b, s, heads, d]``. The
+        pools take k's dtype, as the reference's (``generation.py:1183``):
+        fp32 in a bf16 model, whose rope makes q and k fp32 (ROADMAP C25),
+        so the serving kernels get fp32 q and pages there."""
         mode, arg = self._mode
         b, s, kv_heads, d = k.shape
         if mode != "prefill" and k.device != self.device:
@@ -723,8 +716,8 @@ class SlotPagedKVCache:
         scratch page, whose keys sit past every real query's causal window
         and are seen only by pad queries. An int8 pool always reads back
         (reference ``:1219-1235``): every chunk, the first included,
-        attends the quantised K/V the decode steps will see, dequantised
-        to k's dtype."""
+        attends the quantised K/V the decode steps will see, k dequantised
+        to k's dtype and v to v's."""
         b, s, kv_heads, d = k.shape
         if b != 1:
             raise ValueError("a prefill chunk holds one sequence")

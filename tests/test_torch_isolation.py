@@ -69,6 +69,33 @@ def test_source_imports_no_jax_or_reference(path):
             assert top not in ("jax", "jaxlib", "paddle_tpu"), (path, name)
 
 
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.framework.core", "paddle_tpu_torch.framework.dtype",
+    "paddle_tpu_torch.framework.random", "paddle_tpu_torch.ops.logic",
+    "paddle_tpu_torch.ops.creation", "paddle_tpu_torch.ops.math",
+    "paddle_tpu_torch.ops.manipulation", "paddle_tpu_torch.ops.linalg",
+    "paddle_tpu_torch.tensor"])
+def test_ops_modules_pull_in_no_jax(module):
+    """The ops layer alone, and a few of its calls on the CPU."""
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "import paddle_tpu_torch as paddle\n"
+        "paddle.set_device('cpu')\n"
+        "x = paddle.randn([3, 4])\n"
+        "paddle.linalg.norm(paddle.matmul(x, x, transpose_y=True))\n"
+        "paddle.concat(paddle.split(x, [1, -1], axis=1), axis=1)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith(('jax.', 'jaxlib')) or k == 'paddle_tpu' or "
+        "k.startswith('paddle_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_entry_points_refuse_cpu_without_being_asked():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid")
