@@ -13,7 +13,8 @@ Phases, each fatal on error (non-zero exit, no result line):
    and pure-decode ticks, held equal to the wrapper's formula), cluster
    B4/B5 (with its splits and ring stages at the decode shapes, held
    equal to the wrapper's formula) and tensor-core B1, B2, B3 and B10
-   block;
+   block, and B10's fp32 stream block at each weight shape (held equal to
+   this script's formula);
 2. kernel parity at Llama-3-8B attention shapes (32 heads, 8 kv heads,
    head_dim 128, page 16): the two ragged kernels on a mixed layout and
    on the per-token split's edge cases (every token seeing 1 key over
@@ -41,15 +42,16 @@ Phases, each fatal on error (non-zero exit, no result line):
    1e-5), the cluster kernel twice in bf16 giving the same bits; the
    int8-page kernels B7 and B9 on the ragged layout and B5 on the paged
    ones, pages quantised by the cache's codec; the weight-only int8 matmul
-   (B10) at 14 M from 1 to 300 (both tensor-core regimes, their
-   crossover and every token-tile edge) for the five (K, N) of
-   Llama-3-8B, each tensor-core variant also forced at the other's M, a
-   K that is no whole number of k-tiles, a K % 16 != 0 that takes the
-   scalar kernel by rule, and two split-K launches that must give the
-   same bits: bf16 and fp16 on the tensor-core kernels under ROADMAP C20
+   (B10) at 14 M from 1 to 300 (both tensor-core regimes, both fp32
+   ones, their crossovers and every token-tile edge) for the five (K, N)
+   of Llama-3-8B, each tensor-core and each fp32 variant also forced at
+   the other's M, a K that is no whole number of k-tiles, a K % 16 != 0
+   that takes the scalar kernel by rule in every dtype, and two split-K
+   launches of each stream and of the fp32 GEMM that must give the same
+   bits: bf16 and fp16 on the tensor-core kernels under ROADMAP C20
    (``c20_error``: one ulp of the fp32 plain version rounded to the
    dtype plus 1e-5 of its max; the worst ratio per weight shape is
-   printed), fp32 on the scalar kernel.
+   printed), fp32 on the fp32 stream and GEMM.
    Each kernel against its plain PyTorch version in fp32 (TF32 off,
    tolerance 1e-5; for gradients and B10 1e-5 of each output's max) and
    in bf16 against the fp32 plain version rounded to bf16 (one bf16 ulp
@@ -132,7 +134,9 @@ Phases, each fatal on error (non-zero exit, no result line):
       projections (bf16 x, the first norm's output) on the tensor-core
       variant their M names (the stream at M <= 32, the GEMM above; the
       two counts add up to 3 x forwards), the other 222 calls a forward
-      (fp32 x) on the scalar kernel; kernels 6 and 8 and B4 never
+      (fp32 x) on the fp32 variant their M names (the stream at M <= 64,
+      the GEMM above), none on the scalar kernel; kernels 6 and 8 and B4
+      never
       launch. B10's launches by M, as its wrapper counts them
       (``int8_matmul.launches_by_m``; a replay credits what its graph
       recorded), are 225 x the forwards by token count
@@ -286,10 +290,13 @@ Phases, each fatal on error (non-zero exit, no result line):
    under other splits), B10 at M = 8 and 256 for each weight shape on the
    captured x (bf16 at layer 0's q, k and v projections, fp32 elsewhere;
    with GB/s or TFLOP/s, against ``torch.matmul`` on the layer's
-   dequantised weight in x's dtype and the scalar kernel on fp32 copies,
-   the host's time per call of both; summed over one forward), both tensor-core B10 variants at
-   M = 16-64 (their crossover) and the stream at M = 8 under split plans
-   for 0.5, 1 and 2 blocks an SM; the serving numbers of every path, the
+   dequantised weight in x's dtype, the host's time per call of both;
+   on fp32 copies the fp32 variant against its fp32 bound, fp32
+   ``torch.matmul`` and the scalar kernel; summed over one forward),
+   both tensor-core B10 variants at M = 16-64 and both fp32 ones at M =
+   48-96 (their crossovers) and the tensor-core stream at M = 8 under
+   split plans for 0.5, 1 and 2 blocks an SM; the serving numbers of
+   every path, the
    legacy and ragged ones from uninstrumented runs, the int8 ones from
    the runs of 3e (instrumented only by B10's M histogram), and the
    training step's;
@@ -541,8 +548,11 @@ def b10_smem(mt, nwg, src):
 
 def b10_notes(build):
     """The tensor-core B10's launch shape and dynamic shared memory per
-    instantiation, and ptxas's notes on its wgmma."""
+    instantiation, and ptxas's notes on its wgmma; the fp32 kernels'
+    shared memory (their registers and spills are in the ptxas
+    summary)."""
     import re
+    from paddle_tpu_torch.ops.quant_matmul import split_plan as qm_plan
     src, so = build._target("quant_matmul.cu")
     text = src.read_text()
     for mt, nwg in B10_TILES:
@@ -558,6 +568,29 @@ def b10_notes(build):
             log(f"  ptxas {m.group(1)} int8_matmul_wgmma_kernel: "
                 f"{m.group(2)[:120]}")
     log(f"  ptxas wgmma notes for B10: {notes}")
+    # the fp32 kernels: the stream's block (the weight ring, the part's x
+    # slice, barriers, alignment slack) at each Llama-3-8B weight and the
+    # token tiles of the M the engines use, as the C side computes it
+    # and as this script does from the source's constants; the GEMM's
+    lib = build.load_kernels()
+    stages, tk = (int(re.search(rf"constexpr int {name} = (\d+);",
+                                text).group(1))
+                  for name in ("kFStages", "kTK"))
+    for k, n in MATMUL_SHAPES:
+        for m in (8, 64):
+            mt, _, splits, tpp = qm_plan("fp32_stream", m, n, k)
+            got = lib.ptt_int8_matmul_fp32_smem(0, mt, tpp)
+            want = stages * 128 * tk + mt * tpp * tk * 4 + 2 * stages * 8 \
+                + 1024
+            log(f"  int8_matmul_fp32_stream_kernel K={k} N={n} M={m}: token "
+                f"tile {mt}, {splits} parts of {tpp} k-tiles, 288 threads, "
+                f"{got} bytes of dynamic shared memory")
+            if got != want or got > 232448:
+                raise AssertionError(f"fp32 stream shared memory {got}, "
+                                     f"expected {want} within 232448")
+    log(f"  int8_matmul_fp32_gemm_kernel: 256 threads, "
+        f"{lib.ptt_int8_matmul_fp32_smem(1, 128, 1)} bytes of dynamic "
+        f"shared memory")
 
 
 def qblock_notes(build, rpa):
@@ -1692,21 +1725,28 @@ FP16_TINY = 2.0 ** -24
 #: B10's tensor-core variants, and the ``STREAM_MAX_M`` that sends every
 #: tensor-core call to each (``forced_variant``)
 TENSOR_CORE_VARIANTS = {"wgmma_stream": 1 << 30, "wgmma_gemm": -1}
+#: B10's fp32 variants, and the ``FP32_STREAM_MAX_M`` that sends every
+#: fp32 call with K % 16 == 0 to each (``forced_variant``)
+FP32_VARIANTS = {"fp32_stream": 1 << 30, "fp32_gemm": -1}
 
 
 @contextlib.contextmanager
 def forced_variant(qm, variant):
     """Inside the block, every B10 call that ``matmul_variant`` sends to
-    the tensor cores takes ``variant`` (None: the rule's): the wrapper's
-    ``STREAM_MAX_M`` is moved past or below every M, and put back after.
-    fp32 calls and K % 16 != 0 stay on the scalar kernel."""
-    rule = qm.STREAM_MAX_M
+    the tensor cores (for a tensor-core ``variant``) or to the fp32 FMA
+    kernels (for an fp32 one) takes ``variant`` (None: the rule's): the
+    wrapper's ``STREAM_MAX_M`` or ``FP32_STREAM_MAX_M`` is moved past or
+    below every M, and put back after. Calls of the other kind and K % 16
+    != 0 (the scalar kernel) keep their variant."""
+    name = "FP32_STREAM_MAX_M" if variant in FP32_VARIANTS \
+        else "STREAM_MAX_M"
+    rule = getattr(qm, name)
     if variant is not None:
-        qm.STREAM_MAX_M = TENSOR_CORE_VARIANTS[variant]
+        setattr(qm, name, {**TENSOR_CORE_VARIANTS, **FP32_VARIANTS}[variant])
     try:
         yield
     finally:
-        qm.STREAM_MAX_M = rule
+        setattr(qm, name, rule)
 
 
 def c20_error(torch, out, ref32):
@@ -1731,22 +1771,34 @@ def c20_error(torch, out, ref32):
 
 
 def compare_int8_matmul_case(torch, qm, x, wq, ws, label, variant=None):
-    """B10 against its plain version: fp32 x on the scalar kernel within
-    1e-5 of the output's largest magnitude (sums of up to 14336 products
-    in another order); bf16 and fp16 x on the variant ``matmul_variant``
-    names (or the tensor-core ``variant``, ``forced_variant``) under C20
-    (``c20_error``); the variant's own count must rise by one. Returns ``{"fp32": error / max, "<dt>": max abs
-    error, "<dt>_ratio": C20 ratio, "<dt>_variant": ...}``."""
+    """B10 against its plain version: fp32 x on the fp32 variant
+    ``matmul_variant`` names within 1e-5 of the output's largest
+    magnitude (sums of up to 14336 products in another order); bf16 and
+    fp16 x on the tensor-core variant it names under C20 (``c20_error``);
+    ``variant`` (``forced_variant``) forces a tensor-core variant and the
+    fp32 one of the other regime (the stream where the GEMM's M is
+    forced, and the other way round); each variant's own count must rise
+    by one. Returns ``{"fp32": error / max, "fp32_abs": ...,
+    "fp32_variant": ..., "<dt>": max abs error, "<dt>_ratio": C20 ratio,
+    "<dt>_variant": ...}``."""
     x32 = x.float()
     (m, k), n = x.shape, wq.shape[0]
     res = {}
-    if qm.matmul_variant(torch.float32, m, n, k) != "simt":
-        raise AssertionError(f"{label}: fp32 not on the scalar kernel")
-    out = qm.int8_matmul(x32, wq, ws)
+    forced32 = None if variant is None else "fp32_" + variant.split("_")[1]
+    with forced_variant(qm, forced32):
+        took = qm.matmul_variant(torch.float32, m, n, k)
+        count = f"{took}_launches"
+        before = getattr(qm.int8_matmul, count, None)
+        out = qm.int8_matmul(x32, wq, ws)
+    if took not in FP32_VARIANTS or forced32 not in (None, took) or \
+            getattr(qm.int8_matmul, count) != before + 1:
+        raise AssertionError(f"{label} fp32: not launched on "
+                             f"{forced32 or took}")
     ref = qm.int8_matmul_plain(x32, wq, ws)
+    res["fp32_variant"] = took
     res["fp32_abs"] = float((out - ref).abs().max())
     res["fp32"] = res["fp32_abs"] / float(ref.abs().max())
-    check(f"{label} fp32 (simt) vs plain", res["fp32"], FP32_TOL,
+    check(f"{label} fp32 ({took}) vs plain", res["fp32"], FP32_TOL,
           "max err / max")
     for dt, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16")):
         xd = x.to(dt)
@@ -1771,11 +1823,14 @@ def compare_int8_matmul_case(torch, qm, x, wq, ws, label, variant=None):
 
 
 def merge_mm_errs(errs, res, key):
-    """Keeps the worst of each B10 parity figure, and the worst C20 ratio
-    per weight shape ``key``."""
-    for f in ("fp32", "fp32_abs", "bf16", "fp16", "bf16_ratio",
-              "fp16_ratio"):
-        errs[f] = max(errs.get(f, 0.0), res[f])
+    """Keeps the worst of each B10 parity figure (fp32 also by variant),
+    and the worst C20 ratio per weight shape ``key``."""
+    v = res["fp32_variant"]
+    for f, g in (("fp32", "fp32"), ("fp32_abs", "fp32_abs"), ("bf16", "bf16"),
+                 ("fp16", "fp16"), ("bf16_ratio", "bf16_ratio"),
+                 ("fp16_ratio", "fp16_ratio"), (v, "fp32"),
+                 (f"{v}_abs", "fp32_abs")):
+        errs[f] = max(errs.get(f, 0.0), res[g])
     ratios = errs.setdefault("ratio_by_shape", {})
     ratios[key] = max(ratios.get(key, 0.0), res["bf16_ratio"],
                       res["fp16_ratio"])
@@ -1787,8 +1842,10 @@ def compare_int8_matmul(torch, qm, dev):
     seeded N(0, 0.02) bf16 weights quantised as the model's are; then a K
     that is not a whole number of k-tiles (a split-K part ends inside the
     weight's last tile), a K % 16 != 0 that takes the scalar kernel by
-    rule in every dtype, each tensor-core variant forced at the other's
-    M, and determinism: a split-K case twice gives the same bits."""
+    rule in every dtype, each tensor-core variant and each fp32 variant
+    forced at the other's M, and determinism: a split-K case of the
+    tensor-core stream, the fp32 stream and the fp32 GEMM twice gives the
+    same bits."""
     g = torch.Generator(device=dev).manual_seed(10)
     errs = {}
 
@@ -1825,31 +1882,42 @@ def compare_int8_matmul(torch, qm, dev):
             raise AssertionError(f"K={k} {dt} does not take the scalar "
                                  f"kernel")
         x = torch.randn((8, k), generator=g, device=dev).to(dt)
-        before = (qm.int8_matmul.wgmma_stream_launches
-                  + qm.int8_matmul.wgmma_gemm_launches)
+
+        def others():
+            return sum(getattr(qm.int8_matmul, f"{v}_launches")
+                       for v in (*TENSOR_CORE_VARIANTS, *FP32_VARIANTS))
+        before = others()
         got = qm.int8_matmul(x, wq, ws)
         ref = qm.int8_matmul_plain(x.float(), wq, ws)
         if dt == torch.float32:
-            e = float((got - ref).abs().max() / ref.abs().max())
+            errs["simt_abs"] = float((got - ref).abs().max())
+            errs["simt"] = e = errs["simt_abs"] / float(ref.abs().max())
             check(f"B10 M=8 K={k} N={n} fp32 (simt) vs plain", e, FP32_TOL,
                   "max err / max")
         else:
             _, e = c20_error(torch, got, ref)
             check(f"B10 M=8 K={k} N={n} {dt} (simt) vs plain", e, 1.0,
                   "C20 ratio")
-        if qm.int8_matmul.wgmma_stream_launches \
-                + qm.int8_matmul.wgmma_gemm_launches != before:
-            raise AssertionError(f"K={k} took a tensor-core kernel")
+        if others() != before:
+            raise AssertionError(f"K={k} took a kernel other than simt")
     k, n = 4096, 1024
     wq, ws = weight(n, k)
-    x = torch.randn((8, k), generator=g, device=dev).bfloat16()
-    if qm.split_plan("wgmma_stream", 8, n, k)[2] < 2:
-        raise AssertionError("the determinism case does not split K")
-    a, b = qm.int8_matmul(x, wq, ws), qm.int8_matmul(x, wq, ws)
-    same = bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
-    log(f"  B10 M=8 K={k} N={n} split-K twice: bit-identical {same}")
-    if not same:
-        raise AssertionError("two split-K launches differ")
+    for variant, m, dt in (("wgmma_stream", 8, torch.bfloat16),
+                           ("fp32_stream", 8, torch.float32),
+                           ("fp32_gemm", 256, torch.float32)):
+        x = torch.randn((m, k), generator=g, device=dev).to(dt)
+        if qm.matmul_variant(dt, m, n, k) != variant \
+                or qm.split_plan(variant, m, n, k)[2] < 2:
+            raise AssertionError(f"the {variant} determinism case does not "
+                                 f"split K")
+        a, b = qm.int8_matmul(x, wq, ws), qm.int8_matmul(x, wq, ws)
+        bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+        same = bool(torch.equal(a.view(bits), b.view(bits)))
+        log(f"  B10 {variant} M={m} K={k} N={n} split-K "
+            f"({qm.split_plan(variant, m, n, k)[2]} parts) twice: "
+            f"bit-identical {same}")
+        if not same:
+            raise AssertionError(f"two split-K {variant} launches differ")
     torch.cuda.synchronize()
     log(f"  B10 worst C20 ratio by (K, N): {errs['ratio_by_shape']}")
     return errs
@@ -2013,6 +2081,10 @@ def kernel_counters(rpa, fa, pa, qm, ost):
             "int8_matmul_stream": Count(qm.int8_matmul,
                                         "wgmma_stream_launches"),
             "int8_matmul_gemm": Count(qm.int8_matmul, "wgmma_gemm_launches"),
+            "int8_matmul_fp32_stream": Count(qm.int8_matmul,
+                                             "fp32_stream_launches"),
+            "int8_matmul_fp32_gemm": Count(qm.int8_matmul,
+                                           "fp32_gemm_launches"),
             "adam_step": ost.adam_step_multi_tensor,
             "sum_squares": ost.sum_squares_multi_tensor}
 
@@ -2744,6 +2816,7 @@ def traced_launches(c):
     paths launch, by its name in the trace, from the counters ``c``
     (``read_counts``)."""
     b10_tc = c["int8_matmul_stream"] + c["int8_matmul_gemm"]
+    b10_fp32 = c["int8_matmul_fp32_stream"] + c["int8_matmul_fp32_gemm"]
     return {"qblock_unit_kernel": c["qblock_unit"] + c["qblock_q8_unit"],
             "qblock_runtime_kernel": c["qblock_runtime"]
             + c["qblock_q8_runtime"],
@@ -2755,7 +2828,9 @@ def traced_launches(c):
             "flash_fwd_wgmma_kernel": c["flash_wgmma"],
             "flash_fwd_kernel": c["flash"] - c["flash_wgmma"],
             "int8_matmul_wgmma_kernel": b10_tc,
-            "int8_matmul_kernel": c["int8_matmul"] - b10_tc}
+            "int8_matmul_fp32_stream_kernel": c["int8_matmul_fp32_stream"],
+            "int8_matmul_fp32_gemm_kernel": c["int8_matmul_fp32_gemm"],
+            "int8_matmul_kernel": c["int8_matmul"] - b10_tc - b10_fp32}
 
 
 def check_traced_launches(label, st):
@@ -3713,18 +3788,37 @@ def paged_row(name, line, errs, timed, key, by_path):
                 "ms_other_shapes": [t["block_ms"] for t in timed[1:]]}}
 
 
+def simt_int8_matmul(torch, x, wq, ws):
+    """B10's scalar kernel (``int8_matmul_kernel``) on any operands,
+    launched directly and counted nowhere: the kernel every fp32 call
+    took before the fp32 variants, timed beside them for the record."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    out = torch.empty((x.shape[0], wq.shape[0]), dtype=x.dtype,
+                      device=x.device)
+    _build.launch("ptt_int8_matmul", x.device,
+                  [ctypes.c_int(_build.dtype_code(x.dtype))]
+                  + [ctypes.c_void_p(t.data_ptr()) for t in (x, wq, ws, out)]
+                  + [ctypes.c_int(v)
+                     for v in (x.shape[0], wq.shape[0], x.shape[1])])
+    return out
+
+
 def time_int8_matmul(torch, qm, cap, label):
     """B10 on captured main-path inputs (x as the path gave it: bf16 at
     layer 0's q, k and v projections, fp32 after them since C25; a
     layer's int8 codes and scales) on the variant the main path took, its
     plain version, ``torch.matmul`` of x by the layer's dequantised
     ``.weight`` in x's dtype (cast and transposed outside the timed
-    call), and the scalar kernel (the fp32 variant) on fp32 copies of x;
-    the host's time per call of B10 and of ``torch.matmul``
+    call); the host's time per call of B10 and of ``torch.matmul``
     (``host_us``). Bound: x, the codes, the scales and the output once,
     against 2 M N K flops at x's peak (int8 codes are exact in bf16); the
     rate is GB/s over those bytes where bytes bound it, TFLOP/s where
-    operations do."""
+    operations do. ``row["fp32"]``: the same on fp32 copies of x (the
+    inputs of every Linear after layer 0's q, k and v): the fp32 variant
+    the rule names, its plan, plain version and bound at the fp32 peak,
+    ``torch.matmul`` by the weight dequantised in fp32 (``q * scale``),
+    and the scalar kernel (``simt_ms``)."""
     x, wq, ws, weight = cap["x"], cap["wq"], cap["ws"], cap["weight"]
     (m, k), n = x.shape, wq.shape[0]
     variant = qm.matmul_variant(x.dtype, m, n, k)
@@ -3753,26 +3847,40 @@ def time_int8_matmul(torch, qm, cap, label):
     row["host_us"] = host_us(torch, lambda: qm.int8_matmul(x, wq, ws))
     row["library_host_us"] = host_us(torch, lambda: torch.matmul(x, wt))
     x32 = x.float()
-    row["simt_fp32_ms"] = row["ms"] if x32 is x else time_ms(
-        torch, lambda: qm.int8_matmul(x32, wq, ws),
-        iters=10 if n > 100_000 else 50)
+    v32 = qm.matmul_variant(torch.float32, m, n, k)
+    fp32 = {"variant": v32, "plan": qm.split_plan(v32, m, n, k)}
+    fp32["ms"] = row["ms"] if x32 is x else time_ms(
+        torch, lambda: qm.int8_matmul(x32, wq, ws))
+    fp32["plain_ms"] = row["plain_ms"] if x32 is x else time_ms(
+        torch, lambda: qm.int8_matmul_plain(x32, wq, ws), iters=10)
+    fp32.update(_bound(x32.numel() * 4 + wq.numel() + 4 * n + m * n * 4,
+                       2 * m * n * k, FP32_FLOPS))
+    w32 = (wq.float() * ws[:, None]).t()
+    fp32["library"] = "torch.matmul(x, w.T), w = q * scale in fp32"
+    fp32["library_ms"] = time_ms(torch, lambda: torch.matmul(x32, w32))
+    del w32
+    fp32["simt_ms"] = time_ms(torch, lambda: simt_int8_matmul(
+        torch, x32, wq, ws), iters=10 if n > 100_000 else 30)
+    row["fp32"] = fp32
     return row
 
 
-def time_crossover(torch, qm, caps, ms=(16, 32, 48, 64)):
-    """Both tensor-core variants at the M around their crossover, on the
-    captured weights of q/o and gate/up with seeded bf16 x: ``{(K, N):
-    {M: {variant: ms}}}``."""
+def time_crossover(torch, qm, caps, ms=(16, 32, 48, 64),
+                   variants=TENSOR_CORE_VARIANTS):
+    """Both tensor-core variants (bf16 x) or both fp32 ones (fp32 x) at
+    the M around their crossover, on the captured weights of q/o and
+    gate/up with seeded x: ``{(K, N): {M: {variant: ms}}}``."""
     dev = caps[(4096, 4096, 8)]["wq"].device
     g = torch.Generator(device=dev).manual_seed(11)
+    dt = torch.float32 if variants is FP32_VARIANTS else torch.bfloat16
     res = {}
     for (k, n) in ((4096, 4096), (4096, 14336)):
         cap = caps[(k, n, 8)]
         res[(k, n)] = {}
         for m in ms:
-            x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+            x = torch.randn((m, k), generator=g, device=dev).to(dt)
             res[(k, n)][m] = {}
-            for v in TENSOR_CORE_VARIANTS:
+            for v in variants:
                 with forced_variant(qm, v):
                     res[(k, n)][m][v] = time_ms(torch, lambda: qm.int8_matmul(
                         x, cap["wq"], cap["ws"]), iters=20)
@@ -5498,7 +5606,7 @@ def main():
         f"wall {st['wall']:.3f} s, {st['quantized']} Linears quantised")
     if st["quantized"] != N_LINEARS:
         raise AssertionError(f"int8: {st['quantized']} Linears quantised")
-    int8_runs, mm_hist, b10_simt = {}, {}, {}
+    int8_runs, mm_hist, b10_fp32 = {}, {}, {}
     for name, kw in INT8_PATHS.items():
         kw = dict(kw)
         kw["impl"] = kw.pop("ragged_impl", "qblock")
@@ -5520,18 +5628,28 @@ def main():
                                  f"quantised again")
         # C25: only layer 0's q, k and v projections see bf16 x (the first
         # norm's output); each takes the tensor-core variant its M names.
-        # Every later Linear sees fp32 x and takes the scalar kernel
+        # Every later Linear sees fp32 x and takes the fp32 variant its M
+        # names; none takes the scalar kernel (every K is a multiple of 16)
         check_c25(f"int8 {name} engine", st["pool_dtypes"],
                   st["logits_dtypes"], quant=True)
         stream = BF16_LINEARS * sum(
             n for m, n in st["forwards_by_m"].items()
             if qm.matmul_variant(torch.bfloat16, m, 1, 4096)
             == "wgmma_stream")
+        fp32_calls = N_LINEARS - BF16_LINEARS
+        fp32_stream = fp32_calls * sum(
+            n for m, n in st["forwards_by_m"].items()
+            if qm.matmul_variant(torch.float32, m, 1, 4096)
+            == "fp32_stream")
         want = dict(none, int8_matmul=N_LINEARS * st["forwards"],
                     int8_matmul_stream=stream,
-                    int8_matmul_gemm=BF16_LINEARS * st["forwards"] - stream)
-        b10_simt[f"int8 {name}"] = (N_LINEARS - BF16_LINEARS) \
-            * st["forwards"]
+                    int8_matmul_gemm=BF16_LINEARS * st["forwards"] - stream,
+                    int8_matmul_fp32_stream=fp32_stream,
+                    int8_matmul_fp32_gemm=fp32_calls * st["forwards"]
+                    - fp32_stream)
+        b10_fp32[f"int8 {name}"] = {
+            "fp32_stream": fp32_stream,
+            "fp32_gemm": fp32_calls * st["forwards"] - fp32_stream}
         log(f"  int8 {name}: B10 launches by M {st['b10_by_m']}")
         if sum(mm_hist[name].values()) != N_LINEARS * st["forwards"]:
             raise AssertionError(f"int8 {name}: B10 histogram "
@@ -5652,12 +5770,17 @@ def main():
             raise AssertionError(f"int8 cross paths never launched {key}")
     b10_tc = kern["int8_matmul_stream"].launches \
         + kern["int8_matmul_gemm"].launches
+    cross_fp32 = {v: kern[f"int8_matmul_{v}"].launches
+                  for v in FP32_VARIANTS}
     log(f"  fp32 int8 cross paths: B10 launches "
-        f"{kern['int8_matmul'].launches}, tensor-core {b10_tc}")
-    if b10_tc:
+        f"{kern['int8_matmul'].launches}, tensor-core {b10_tc}, fp32 "
+        f"{cross_fp32}")
+    scalar = kern["int8_matmul"].launches - sum(cross_fp32.values())
+    if b10_tc or scalar:
         raise AssertionError(f"fp32 B10 took the tensor-core kernels "
-                             f"{b10_tc} times")
-    b10_simt["fp32 int8 cross paths"] = kern["int8_matmul"].launches
+                             f"{b10_tc} times, fp32 variants "
+                             f"{cross_fp32} of {kern['int8_matmul'].launches}")
+    b10_fp32["fp32 int8 cross paths"] = cross_fp32
     simt_by_path["fp32 int8 cross paths"] = read_counts(kern)
     for name, counts in simt_by_path.items():
         log(f"  {name}: B1 launches {counts['flash']}, tensor-core "
@@ -6000,33 +6123,49 @@ def main():
     for r in mm_rows.values():
         rate = (f"{r['gb_per_s']:.1f} GB/s" if "gb_per_s" in r
                 else f"{r['tflops']:.1f} TFLOP/s")
+        f32 = r["fp32"]
         log(f"  int8_matmul at {r['shape']}: {r['variant']} {r['plan']}, "
             f"{r['ms']:.4f} ms ({rate}), plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}: {r['bytes']} "
             f"bytes, {r['flops']} FLOPs), library {r['library_ms']:.4f} ms "
             f"({r['library']}; max abs diff "
-            f"{r['library_vs_kernel_max_abs_diff']:.3e}), scalar kernel on "
-            f"fp32 copies {r['simt_fp32_ms']:.4f} ms; host per call "
+            f"{r['library_vs_kernel_max_abs_diff']:.3e}); host per call "
             f"{r['host_us']:.1f} us, torch.matmul {r['library_host_us']:.1f}"
-            f" us")
+            f" us; on fp32 x: {f32['variant']} {f32['plan']} "
+            f"{f32['ms']:.4f} ms, plain {f32['plain_ms']:.4f} ms, bound "
+            f"{f32['bound_ms']:.6f} ms ({f32['bound_by']}), fp32 library "
+            f"{f32['library_ms']:.4f} ms, scalar kernel {f32['simt_ms']:.4f}"
+            f" ms")
     # one forward's B10 calls at M = 8 and 256: layer 0's q, k and v on
     # their captured bf16 inputs, every other call (o, gate, up, down of
-    # every layer, q, k, v after layer 0, lm_head) on the scalar kernel
-    # in fp32 (C25)
+    # every layer, q, k, v after layer 0, lm_head) in fp32 (C25), on the
+    # fp32 variants and, for the record, on the scalar kernel
     per_layer = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2,
                  (14336, 4096): 1}
     bf16_calls = {(4096, 4096): 1, (4096, 1024): 2}
+    b10_forward = {}
     for m in (8, 256):
-        total = mm_rows[(4096, cfg.vocab_size, m)]["ms"] + sum(
-            c * (mm_rows[(k, n, m)]["ms"]
-                 + (N_LAYERS - 1) * mm_rows[(k, n, m)]["simt_fp32_ms"])
-            for (k, n), c in bf16_calls.items()) + N_LAYERS * sum(
-            (c - bf16_calls.get((k, n), 0)) * mm_rows[(k, n, m)]["simt_fp32_ms"]
-            for (k, n), c in per_layer.items())
-        log(f"  B10 over one forward at M={m} (225 calls: 3 tensor-core, "
-            f"222 scalar): ms {total:.3f}")
+        for key in ("ms", "simt_ms"):
+            def fp32_ms(k, n):
+                return mm_rows[(k, n, m)]["fp32"][key]
+            total = fp32_ms(4096, cfg.vocab_size) + sum(
+                c * (mm_rows[(k, n, m)]["ms"]
+                     + (N_LAYERS - 1) * fp32_ms(k, n))
+                for (k, n), c in bf16_calls.items()) + N_LAYERS * sum(
+                (c - bf16_calls.get((k, n), 0)) * fp32_ms(k, n)
+                for (k, n), c in per_layer.items())
+            kind = "variants" if key == "ms" else "scalar"
+            b10_forward[f"M={m} fp32 {kind}"] = total
+    log(f"  B10 over one forward (225 calls: 3 tensor-core, 222 fp32): "
+        f"{b10_forward} ms")
     for (k, n), by_m in time_crossover(torch, qm, mm_cap.best).items():
         log(f"  B10 crossover K={k} N={n}: " + ", ".join(
+            f"M={m} " + "/".join(f"{v} {t:.4f}" for v, t in ts.items())
+            for m, ts in by_m.items()) + " ms")
+    for (k, n), by_m in time_crossover(torch, qm, mm_cap.best,
+                                       (48, 64, 80, 96),
+                                       FP32_VARIANTS).items():
+        log(f"  B10 fp32 crossover K={k} N={n}: " + ", ".join(
             f"M={m} " + "/".join(f"{v} {t:.4f}" for v, t in ts.items())
             for m, ts in by_m.items()) + " ms")
     for (k, n), by_sms in time_split_plan(torch, qm, mm_cap.best).items():
@@ -6062,26 +6201,53 @@ def main():
                      "c20_ratio_fp16": mm_errs["fp16_ratio"],
                      "c20_ratio_by_shape": mm_errs["ratio_by_shape"],
                      **{k: first[k] for k in mm_keys + (
-                         "variant", "plan", "simt_fp32_ms", "gb_per_s",
-                         "tflops") if k in first},
+                         "variant", "plan", "gb_per_s", "tflops")
+                        if k in first},
                      "other_shapes": [r for key2, r in mm_rows.items()
                                       if r["variant"] == variant
                                       and key2 != first_key]})
-    # the scalar kernel: fp32 x, every serving Linear after layer 0's
-    # q, k and v (C25) and phase 4's fp32 int8 cross paths; on layer 0's
-    # captured gate/up decode inputs
-    simt = mm_rows[(4096, 14336, 8)]
+    # the fp32 variants: every serving Linear after layer 0's q, k and v
+    # (C25) and phase 4's fp32 int8 cross paths; on layer 0's captured
+    # gate/up inputs (fp32), at M = 8 and 256 by the rule, the other
+    # shapes beside
+    fp32_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "library", "bytes", "flops", "variant", "plan", "simt_ms")
+    for variant, m in (("fp32_stream", 8), ("fp32_gemm", 256)):
+        first = mm_rows[(4096, 14336, m)]
+        rows.append({"name": f"int8_matmul_{variant}", **b10,
+                     "kernel": f"int8_matmul_{variant}_kernel (+ "
+                               "int8_matmul_reduce_kernel where K is split)",
+                     "dtypes": f"fp32 at M {'<=' if m == 8 else '>'} "
+                               f"{qm.FP32_STREAM_MAX_M}, K % 16 == 0",
+                     "launches": sum(v[variant] for v in b10_fp32.values()),
+                     "launches_by_path": {k: v[variant]
+                                          for k, v in b10_fp32.items()},
+                     "max_abs_err": mm_errs[f"{variant}_abs"],
+                     "max_rel_err": mm_errs[variant],
+                     "shape": f"layer 0 gate/up: M={m} K=4096 N=14336, fp32 "
+                              f"x, int8 w",
+                     **{k: first["fp32"][k] for k in fp32_keys},
+                     "forward_ms": b10_forward,
+                     "other_shapes": [dict(r["fp32"], shape=r["shape"])
+                                      for key, r in mm_rows.items()
+                                      if r["fp32"]["variant"] == variant
+                                      and key != (4096, 14336, m)]})
+    # the scalar kernel: K % 16 != 0 in every dtype (none on the main
+    # path, whose K are 4096 and 14336); timed on the gate/up decode
+    # inputs in fp32, the calls it took before the fp32 variants
+    simt = mm_rows[(4096, 14336, 8)]["fp32"]
     rows.append({"name": "int8_matmul_simt", **b10,
                  "kernel": "int8_matmul_kernel",
-                 "dtypes": "fp32; bf16 and fp16 at K % 16 != 0",
-                 "launches": sum(b10_simt.values()),
-                 "launches_by_path": b10_simt,
-                 "max_abs_err": mm_errs["fp32_abs"],
-                 "max_rel_err_fp32": mm_errs["fp32"],
-                 **{k: simt[k] for k in mm_keys},
-                 "other_shapes": [r for key2, r in mm_rows.items()
-                                  if r["variant"] == "simt"
-                                  and key2 != (4096, 14336, 8)]})
+                 "dtypes": "fp32, bf16 and fp16 at K % 16 != 0",
+                 "launches": 0, "on_main_path": False,
+                 "max_abs_err": mm_errs["simt_abs"],
+                 "max_rel_err": mm_errs["simt"],
+                 "shape": "layer 0 gate/up: M=8 K=4096 N=14336, fp32 x, "
+                          "int8 w (timed for the record)",
+                 "ms": simt["simt_ms"],
+                 **{k: simt[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "library", "bytes",
+                                         "flops")}})
 
     # the fused optimizer step's kernels (no Pallas counterpart), timed
     # over the training step's whole state in phase 3d

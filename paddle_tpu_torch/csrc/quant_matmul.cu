@@ -7,7 +7,7 @@
 // K reduction is exact and summed in fp32, the sum is multiplied by
 // scale[n] once at the end and cast to x's type once. No int8 x int8
 // product and no int32 accumulator (the reference dots in fp32, see
-// ROADMAP C5). Two kernels, chosen by the wrapper (ops/quant_matmul.py,
+// ROADMAP C5). Four kernels, chosen by the wrapper (ops/quant_matmul.py,
 // matmul_variant) before the launch:
 //
 // int8_matmul_wgmma_kernel, for bf16 and fp16 x with K % 16 == 0 (the
@@ -63,8 +63,54 @@
 //   products inside a warpgroup, staged 16-byte stores of the output, a
 //   persistent grid.
 //
-// int8_matmul_kernel, the simple kernel that was right first: fp32 x (the
-// reference's fp32 parity at 1e-5), and any K % 16 != 0. A block of 256
+// The fp32 kernels, for fp32 x with K % 16 == 0 (every int8 Linear after
+// layer 0's q, k and v since C25). The reference dots in fp32 and the
+// port holds them to 1e-5 of the output's largest magnitude (ROADMAP C20),
+// so no tensor cores and no TF32: products and sums are scalar fp32 FMAs
+// (67 TFLOP/s on an H100), the codes converted exactly by the same
+// magic-number trick in fp32 (0x4B000000 | (q + 128) is 2^23 + q + 128;
+// minus 2^23 + 128 is q). At a decode tick (M = 8) the int8 weight read at
+// 3.35 TB/s and the FMAs at 67 TFLOP/s bound it about equally; at a
+// 256-token tick the FMAs bound it. Every sum runs in an order fixed by
+// (M, N, K): two launches give the same bits.
+//   - int8_matmul_fp32_stream_kernel ("fp32_stream", M <= the wrapper's
+//     FP32_STREAM_MAX_M, 64: the two cross over between M = 64 and 80 on
+//     an H100): a split-K weight stream. A block owns 128 output channels,
+//     MT = 8 G tokens (G = 1, 2, 4, 8) and one K part of the host plan
+//     (ops/quant_matmul.py, split_plan: the parts that fit one wave of one
+//     block an SM, more only where the part's x slice would not fit shared
+//     memory; fewer, larger blocks measured faster than a second, partial
+//     wave). One producer warp keeps kFStages weight boxes (128 rows x 128
+//     codes, 128-byte swizzled, 16 KB) in flight with TMA and mbarriers;
+//     the kFWarps = 8 consumer warps first stage the part's x slice (MT x
+//     K_part fp32) with cp.async, zero past M and K. Consumer warp w takes
+//     token group g = w % G and k-lane l = w / G of L = 8 / G: the part's
+//     16-code chunks q (8 a box) with q % L == l. Lane t owns channels t +
+//     32 c (c < 4) x the group's 8 tokens, 32 accumulators; it reads its
+//     rows' 16-byte chunks (the swizzle puts chunk kk of row r at kk ^ (r
+//     % 8): conflict-free), converts four codes at a time and runs one
+//     fmaf chain per output, k ascending; x is read as warp-wide
+//     broadcasts of float4. The L chains of an output are added in the
+//     order l = 0 .. L - 1 through shared memory; S == 1 writes scale[n]
+//     times the sum, else the part's unscaled fp32 partial, added by
+//     int8_matmul_reduce_kernel<float> in the order s = 0 .. S - 1 with
+//     the scale once. Sixteen consumer warps (more latency hidden, L up to
+//     16) measured no faster.
+//   - int8_matmul_fp32_gemm_kernel ("fp32_gemm", larger M): a
+//     register-tiled SGEMM. A block of 256 threads owns 128 channels x 128
+//     tokens; each thread 8 x 8 outputs (channels and tokens tx * 4 + {0..3,
+//     64..67}), one fmaf chain per output, k ascending. K steps of 32:
+//     cp.async brings the raw int8 weight tile (128 x 32 codes) and x tile
+//     (128 x 32 fp32), chunks XOR-swizzled, into a ring of kGStages; each
+//     step converts its stage once (every code once a block) and transposes
+//     both into [k][n] and [k][m] fp32 buffers that the inner loop reads as
+//     float4 (four LDS.128 a 64 FMAs). Two blocks fit an SM (at most 128
+//     registers a thread, 94,208 bytes of shared memory); split-K only
+//     while the tiles do not fill those 264 slots once, with the same
+//     fixed-order reduce.
+//
+// int8_matmul_kernel, the simple kernel that was right first: any K % 16
+// != 0, in every dtype. A block of 256
 // threads owns a BM x 64 output tile (BM = 16 for M <= 16, else 64) and
 // walks K in 64-wide steps: it stages the x tile as fp32 (rows padded to
 // 65 floats) and the int8 weight tile as fp32, transposed to [k][n] (rows
@@ -361,6 +407,28 @@ int8_matmul_reduce_kernel(const float* __restrict__ part,
   out[i] = from_f32<T>(acc * scale[i % N]);
 }
 
+// Raises a kernel's dynamic shared memory limit to `bytes`, once per
+// device (bit d of *done: done on device d).
+template <typename F>
+cudaError_t raise_smem(F kernel, int bytes, int dev, unsigned long long* done) {
+  if (*done >> dev & 1) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *done |= 1ull << dev;
+  return err;
+}
+
+// The second launch of a split K: the partials added in order, scaled,
+// cast.
+template <typename T>
+cudaError_t launch_reduce(const float* part, const float* scale, T* out,
+                          int M, int N, int splits, cudaStream_t stream) {
+  const long long total = (long long)M * N;
+  int8_matmul_reduce_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0,
+                                 stream>>>(part, scale, out, total, N, splits);
+  return cudaGetLastError();
+}
+
 // Host work per call: two tensor maps and one or two launches; the
 // shared-memory limit is raised once per device and instantiation.
 template <typename T, int MT, int NWG>
@@ -369,23 +437,16 @@ cudaError_t launch_tc(const CUtensorMap& mw, const CUtensorMap& mx,
                       int k_tiles, int splits, int tpp, int dev,
                       cudaStream_t stream) {
   constexpr int bytes = MmSmem<MT, NWG>::kBytes;
-  static unsigned long long raised = 0;  // bit d: done on device d
-  if (!(raised >> dev & 1)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        int8_matmul_wgmma_kernel<T, MT, NWG>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    raised |= 1ull << dev;
-  }
+  static unsigned long long raised = 0;
+  cudaError_t err =
+      raise_smem(int8_matmul_wgmma_kernel<T, MT, NWG>, bytes, dev, &raised);
+  if (err != cudaSuccess) return err;
   const dim3 grid((M + MT - 1) / MT, (N + NWG * 64 - 1) / (NWG * 64), splits);
   int8_matmul_wgmma_kernel<T, MT, NWG><<<grid, NWG * 128 + 32, bytes, stream>>>(
       mw, mx, scale, out, splits > 1 ? part : nullptr, M, N, k_tiles, tpp);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const long long total = (long long)M * N;
-  int8_matmul_reduce_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      part, scale, out, total, N, splits);
-  return cudaGetLastError();
+  return launch_reduce(part, scale, out, M, N, splits, stream);
 }
 
 template <typename T>
@@ -405,6 +466,364 @@ cudaError_t launch_tc_mt(const CUtensorMap& mw, const CUtensorMap& mx,
   if (nwg == 2 && mt == 128)
     return launch_tc<T, 128, 2>(mw, mx, scale, o, part, M, N, k_tiles, splits, tpp, dev, s);
   return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------- fp32 kernels
+
+constexpr int kFChan = 128;             // output channels a block
+constexpr int kFStages = 4;             // stream: depth of the weight ring
+constexpr int kFBox = kFChan * kTK;     // stream: one weight box, bytes
+constexpr int kFConsumers = 256;        // stream: consumer threads
+constexpr int kFWarps = kFConsumers / 32;
+constexpr int kSmemLimit = 232448;      // opt-in shared memory of a block
+
+// 16 bytes from global to shared memory, or 16 zero bytes when !valid
+// (src-size 0: nothing is read). Completes with the commit group.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Barrier 1 over the `threads` consumer threads (the producer warp has
+// returned).
+__device__ __forceinline__ void consumer_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" :: "r"(threads) : "memory");
+}
+
+// Code i (byte i) of the word `u`, already xor 0x80808080, as an exact
+// fp32: bits 0x4B0000bb are 2^23 + bb, minus 2^23 + 128 is the code.
+__device__ __forceinline__ float code_f32(uint32_t u, uint32_t i) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | i)) -
+         8388736.0f;
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Dynamic shared memory of a stream block: the weight ring, the x slice
+// (MT rows of tpp k-tiles), the full and empty barriers, 1 KB of alignment
+// slack.
+__host__ __device__ constexpr int stream_smem_bytes(int mt, int tpp) {
+  return kFStages * kFBox + mt * tpp * kTK * 4 + 2 * kFStages * 8 + 1024;
+}
+
+// Grid (ceil(M / MT), ceil(N / 128), S): block (i, j, s) owns tokens MT i
+// .., channels 128 j .. and k-tiles tpp s .. min(tpp (s + 1), k_tiles) -
+// 1. With part == nullptr (S == 1) it writes out, scaled; otherwise its
+// unscaled partial to part[s].
+template <int G>
+__global__ void __launch_bounds__(kFConsumers + 32, 1)
+int8_matmul_fp32_stream_kernel(const __grid_constant__ CUtensorMap tm_w,
+                               const float* __restrict__ x,
+                               const float* __restrict__ scale,
+                               float* __restrict__ out,
+                               float* __restrict__ part, int M, int N, int K,
+                               int k_tiles, int tpp) {
+  constexpr int MT = 8 * G, L = kFWarps / G;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* xs = reinterpret_cast<float*>(smem + kFStages * kFBox);
+  const int kp = tpp * kTK;                       // x slice row, floats
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + MT * kp);
+  uint64_t* empty = full + kFStages;
+
+  const int m0 = blockIdx.x * MT, n0 = blockIdx.y * kFChan;
+  const int t0 = blockIdx.z * tpp;
+  const int nt = min(k_tiles, t0 + tpp) - t0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kFWarps);   // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == kFWarps) {
+    if (lane == 0) {
+      for (int j = 0; j < nt; ++j) {
+        const int st = j % kFStages;
+        mbar_wait(empty + st, ((j / kFStages) & 1) ^ 1);
+        mbar_expect_tx(full + st, kFBox);
+        tma_load_2d(smem + st * kFBox, &tm_w, full + st, (t0 + j) * kTK, n0);
+      }
+    }
+    return;
+  }
+
+  // the part's x slice, zero past M and K (the producer is already
+  // filling the ring)
+  const int tid = threadIdx.x;
+  const int chunks = nt * kTK / 4;               // 16-byte chunks a row
+  for (int i = tid; i < MT * chunks; i += kFConsumers) {
+    const int r = i / chunks, c = i - r * chunks;
+    const int m = m0 + r, k = t0 * kTK + 4 * c;
+    const bool ok = m < M && k < K;
+    cp_async16_zfill(xs + r * kp + 4 * c, ok ? x + (size_t)m * K + k : x, ok);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  consumer_sync(kFConsumers);
+
+  const int g = warp % G, l = warp / G;
+  const int sw = lane & 7;                       // row % 8 of every row
+  const float* xg = xs + g * 8 * kp;
+  float acc[4][8];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int t = 0; t < 8; ++t) acc[c][t] = 0.f;
+
+  for (int j = 0; j < nt; ++j) {
+    const int st = j % kFStages;
+    mbar_wait(full + st, (j / kFStages) & 1);
+    const uint8_t* box = smem + st * kFBox + lane * kTK;
+    // this warp's chunks of the box: the part's 16-code chunks j 8 + kk
+    // with (j 8 + kk) % L == l
+    const int first = ((l - 8 * j) % L + L) % L;
+#pragma unroll
+    for (int q = 0; q < (8 + L - 1) / L; ++q) {
+      const int kk = first + q * L;
+      if (kk >= 8) break;
+      uint4 raw[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        raw[c] = *reinterpret_cast<const uint4*>(box + c * 32 * kTK +
+                                                 ((kk ^ sw) * 16));
+      const float* xk = xg + j * kTK + kk * 16;
+#pragma unroll
+      for (int wd = 0; wd < 4; ++wd) {           // codes 4 wd .. 4 wd + 3
+        float wf[4][4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t u = word_of(raw[c], wd) ^ 0x80808080u;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) wf[c][e] = code_f32(u, e);
+        }
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const float4 xv = *reinterpret_cast<const float4*>(xk + t * kp + 4 * wd);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[c][t] = fmaf(xv.x, wf[c][0], acc[c][t]);
+            acc[c][t] = fmaf(xv.y, wf[c][1], acc[c][t]);
+            acc[c][t] = fmaf(xv.z, wf[c][2], acc[c][t]);
+            acc[c][t] = fmaf(xv.w, wf[c][3], acc[c][t]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);      // this warp is done with it
+  }
+
+  // the L chains of each output, added in the order l = 0 .. L - 1
+  // through the ring (every box has landed and been read: 32 KB of it)
+  consumer_sync(kFConsumers);
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      red[((l * G + g) * 8 + t) * kFChan + lane + 32 * c] = acc[c][t];
+  consumer_sync(kFConsumers);
+  for (int i = tid; i < MT * kFChan; i += kFConsumers) {
+    const int ch = i % kFChan, tok = i / kFChan;
+    const int m = m0 + tok, n = n0 + ch;
+    if (m >= M || n >= N) continue;
+    const float* r = red + tok * kFChan + ch;   // l = 0: (g 8 + t) = tok
+    float s = r[0];
+#pragma unroll
+    for (int l2 = 1; l2 < L; ++l2) s += r[l2 * G * 8 * kFChan];
+    if (part == nullptr)
+      out[(size_t)m * N + n] = s * scale[n];
+    else
+      part[((size_t)blockIdx.z * M + m) * N + n] = s;
+  }
+}
+
+constexpr int kGTok = 128;              // gemm: tokens a block
+constexpr int kGK = 32;                 // gemm: codes a step
+constexpr int kGStages = 3;             // gemm: depth of the raw ring
+constexpr int kGRawW = kFChan * kGK;    // raw weight tile, bytes
+constexpr int kGRaw = kGRawW + kGTok * kGK * 4;   // + raw x tile
+constexpr int kGBytes = kGStages * kGRaw + 2 * kGK * 128 * 4;
+
+// Grid (ceil(M / 128), ceil(N / 128), S), as the stream's; the part's K
+// range is [tpp s K_TILE, min(K, tpp (s + 1) K_TILE)).
+__global__ void __launch_bounds__(256, 2)
+int8_matmul_fp32_gemm_kernel(const float* __restrict__ x,
+                             const int8_t* __restrict__ w,
+                             const float* __restrict__ scale,
+                             float* __restrict__ out,
+                             float* __restrict__ part, int M, int N, int K,
+                             int tpp) {
+  extern __shared__ __align__(16) uint8_t gsm[];
+  float* wt = reinterpret_cast<float*>(gsm + kGStages * kGRaw);  // [k][n]
+  float* xt = wt + kGK * 128;                                    // [k][m]
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * kGTok, n0 = blockIdx.y * kFChan;
+  const int kb = blockIdx.z * tpp * kTK;
+  const int ke = min(K, kb + tpp * kTK);
+  const int steps = (ke - kb + kGK - 1) / kGK;
+
+  // one step's raw tiles into stage st: the weight's 128 rows of 32 codes
+  // (chunk h of row r at h ^ ((r / 4) % 2)) and x's 128 rows of 32 floats
+  // (chunk c of row r at c ^ (r % 8)), zero past N, M and the part's end
+  auto load = [&](int step, int st) {
+    uint8_t* raw = gsm + st * kGRaw;
+    const int k0 = kb + step * kGK;
+    {
+      const int r = tid >> 1, h = tid & 1;
+      const int n = n0 + r, k = k0 + 16 * h;
+      const bool ok = n < N && k < ke;
+      cp_async16_zfill(raw + r * 32 + 16 * (h ^ ((r >> 2) & 1)),
+                       ok ? w + (size_t)n * K + k : w, ok);
+    }
+    float* rx = reinterpret_cast<float*>(raw + kGRawW);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int id = tid + 256 * i, r = id >> 3, c = id & 7;
+      const int m = m0 + r, k = k0 + 4 * c;
+      const bool ok = m < M && k < ke;
+      cp_async16_zfill(rx + r * 32 + 4 * (c ^ (r & 7)),
+                       ok ? x + (size_t)m * K + k : x, ok);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+
+  const int tx = tid % 16, ty = tid / 16;
+  float acc[8][8];                               // [token][channel]
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kGStages - 2>();
+    __syncthreads();          // the stage has landed; the last step is read
+    {
+      // convert and transpose: thread (r, h) = (tid % 128, tid / 128)
+      // takes codes and x values 16 h .. 16 h + 15 of row r
+      const uint8_t* raw = gsm + (step % kGStages) * kGRaw;
+      const int r = tid & 127, h = tid >> 7;
+      const uint4 cw = *reinterpret_cast<const uint4*>(
+          raw + r * 32 + 16 * (h ^ ((r >> 2) & 1)));
+#pragma unroll
+      for (int wd = 0; wd < 4; ++wd) {
+        const uint32_t u = word_of(cw, wd) ^ 0x80808080u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          wt[(16 * h + 4 * wd + e) * 128 + r] = code_f32(u, e);
+      }
+      const float* rx = reinterpret_cast<const float*>(raw + kGRawW);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int cc = 4 * h + c;
+        const float4 v =
+            *reinterpret_cast<const float4*>(rx + r * 32 + 4 * (cc ^ (r & 7)));
+        xt[(4 * cc + 0) * 128 + r] = v.x;
+        xt[(4 * cc + 1) * 128 + r] = v.y;
+        xt[(4 * cc + 2) * 128 + r] = v.z;
+        xt[(4 * cc + 3) * 128 + r] = v.w;
+      }
+    }
+    {
+      // refill the stage converted at the previous step
+      const int nx = step + kGStages - 1;
+      if (nx < steps) load(nx, nx % kGStages);
+      cp_async_commit();
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < kGK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(xt + k * 128 + ty * 4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(xt + k * 128 + 64 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(wt + k * 128 + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(wt + k * 128 + 64 + tx * 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+
+  const bool vec = (N % 4) == 0;
+#pragma unroll
+  for (int jh = 0; jh < 2; ++jh) {
+    const int n = n0 + 64 * jh + tx * 4;
+    float sc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[j] = n + j < N ? scale[n + j] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i / 4) * 64 + ty * 4 + i % 4;
+      if (m >= M) continue;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = part == nullptr ? acc[i][4 * jh + j] * sc[j] : acc[i][4 * jh + j];
+      float* dst = part == nullptr
+                       ? out + (size_t)m * N + n
+                       : part + ((size_t)blockIdx.z * M + m) * N + n;
+      if (vec && n + 3 < N) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < N) dst[j] = v[j];
+      }
+    }
+  }
+}
+
+template <int G>
+cudaError_t launch_fp32_stream(const CUtensorMap& mw, const float* x,
+                               const float* scale, float* out, float* part,
+                               int M, int N, int K, int k_tiles, int splits,
+                               int tpp, int dev, cudaStream_t stream) {
+  static unsigned long long raised = 0;
+  const int bytes = stream_smem_bytes(8 * G, tpp);
+  if (bytes > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = raise_smem(int8_matmul_fp32_stream_kernel<G>, kSmemLimit,
+                               dev, &raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + 8 * G - 1) / (8 * G), (N + kFChan - 1) / kFChan, splits);
+  int8_matmul_fp32_stream_kernel<G><<<grid, kFConsumers + 32, bytes, stream>>>(
+      mw, x, scale, out, splits > 1 ? part : nullptr, M, N, K, k_tiles, tpp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_reduce(part, scale, out, M, N, splits, stream);
+}
+
+cudaError_t launch_fp32_gemm(const float* x, const int8_t* w,
+                             const float* scale, float* out, float* part,
+                             int M, int N, int K, int splits, int tpp,
+                             int dev, cudaStream_t stream) {
+  static unsigned long long raised = 0;
+  cudaError_t err =
+      raise_smem(int8_matmul_fp32_gemm_kernel, kGBytes, dev, &raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + kGTok - 1) / kGTok, (N + kFChan - 1) / kFChan, splits);
+  int8_matmul_fp32_gemm_kernel<<<grid, 256, kGBytes, stream>>>(
+      x, w, scale, out, splits > 1 ? part : nullptr, M, N, K, tpp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_reduce(part, scale, out, M, N, splits, stream);
 }
 
 }  // namespace
@@ -466,6 +885,54 @@ int ptt_int8_matmul_wgmma(int dtype, const void* x, const void* w,
              : (int)launch_tc_mt<__half>(mw, mx, scale, out, part, M, N,
                                          k_tiles, mt, nwg, splits, tpp, dev,
                                          s);
+}
+
+// The fp32 kernels: x and out float32, K % 16 == 0, x and w 16-byte
+// aligned. variant 0 is the stream (mt = 8, 16, 32 or 64 tokens a
+// block), 1 the GEMM (mt = 128); K's k_tiles = ceil(K / 128) tiles of
+// 128 codes go in `splits` parts of `tpp` tiles, every part nonempty;
+// with splits > 1, part is an fp32 workspace of splits x M x N. Returns
+// cudaErrorInvalidValue for anything else (a stream part whose x slice
+// does not fit shared memory included).
+int ptt_int8_matmul_fp32(int variant, const float* x, const void* w,
+                         const float* scale, float* out, float* part, int M,
+                         int N, int K, int mt, int splits, int tpp,
+                         void* stream) {
+  if (M <= 0 || N <= 0) return (int)cudaSuccess;
+  const int k_tiles = (K + kTK - 1) / kTK;
+  if (K <= 0 || K % 16 != 0 || splits < 1 || tpp < 1 ||
+      (long long)(splits - 1) * tpp >= k_tiles ||
+      (long long)splits * tpp < k_tiles || (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int8_t* wq = (const int8_t*)w;
+  if (variant == 1) {
+    if (mt != kGTok) return (int)cudaErrorInvalidValue;
+    return (int)launch_fp32_gemm(x, wq, scale, out, part, M, N, K, splits,
+                                 tpp, dev, s);
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap mw;
+  err = encode_2d_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, K, N, K,
+                      kFChan);
+  if (err != cudaSuccess) return (int)err;
+  switch (mt) {
+    case 8: return (int)launch_fp32_stream<1>(mw, x, scale, out, part, M, N, K, k_tiles, splits, tpp, dev, s);
+    case 16: return (int)launch_fp32_stream<2>(mw, x, scale, out, part, M, N, K, k_tiles, splits, tpp, dev, s);
+    case 32: return (int)launch_fp32_stream<4>(mw, x, scale, out, part, M, N, K, k_tiles, splits, tpp, dev, s);
+    case 64: return (int)launch_fp32_stream<8>(mw, x, scale, out, part, M, N, K, k_tiles, splits, tpp, dev, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of one fp32 kernel block: the stream's at (mt,
+// tpp), or the GEMM's (variant 1).
+int ptt_int8_matmul_fp32_smem(int variant, int mt, int tpp) {
+  return variant == 1 ? kGBytes : stream_smem_bytes(mt, tpp);
 }
 
 const char* ptt_error_string(int err) {

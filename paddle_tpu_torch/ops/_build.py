@@ -97,6 +97,8 @@ SIGNATURES = {
     "quant_matmul": {
         "ptt_int8_matmul": [_I] + [_P] * 4 + [_I] * 3 + [_P],
         "ptt_int8_matmul_wgmma": [_I] + [_P] * 5 + [_I] * 7 + [_P],
+        "ptt_int8_matmul_fp32": [_I] + [_P] * 5 + [_I] * 6 + [_P],
+        "ptt_int8_matmul_fp32_smem": [_I] * 3,
     },
     "optimizer_step": {
         "ptt_adam_step": [_I, _P, _P, _I, _L, _L, _P] + [_F] * 10

@@ -29,6 +29,7 @@ from paddle_tpu_torch import optimizer as topt_mod
 from paddle_tpu_torch.amp import debugging
 from paddle_tpu_torch.models import llama as llama_mod
 from paddle_tpu_torch.models.generation import PagedKVCache
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28)
 
 
 @pytest.fixture(autouse=True, scope="module")

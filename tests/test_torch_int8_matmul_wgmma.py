@@ -53,16 +53,17 @@ def _one_torch_thread():
     (torch.float16, 256, 4096, None, "wgmma_gemm"),
     (torch.bfloat16, 300, 14336, None, "wgmma_gemm"),
     (torch.bfloat16, 0, 4096, None, "wgmma_stream"),
-    (torch.float32, 8, 4096, None, "simt"),
-    (torch.float32, 256, 14336, None, "simt"),
+    (torch.float32, 8, 4096, None, "fp32_stream"),
+    (torch.float32, 256, 14336, None, "fp32_gemm"),
     (torch.bfloat16, 8, 4104, None, "simt"),
     (torch.float16, 256, 4100, None, "simt"),
     # chip_smoke forces a tensor-core variant by moving STREAM_MAX_M: a
-    # call on the tensor cores follows, one on the scalar kernel stays
+    # call on the tensor cores follows, an fp32 one or one on the scalar
+    # kernel stays
     (torch.bfloat16, 8, 4096, "wgmma_gemm", "wgmma_gemm"),
     (torch.float16, 256, 4096, "wgmma_stream", "wgmma_stream"),
-    (torch.float32, 8, 4096, "wgmma_gemm", "simt"),
-    (torch.float32, 256, 4096, "wgmma_stream", "simt"),
+    (torch.float32, 8, 4096, "wgmma_gemm", "fp32_stream"),
+    (torch.float32, 256, 4096, "wgmma_stream", "fp32_gemm"),
     (torch.bfloat16, 8, 4104, "wgmma_gemm", "simt"),
     (torch.float16, 256, 4100, "wgmma_stream", "simt")])
 def test_matmul_variant(dtype, m, k, forced, want):

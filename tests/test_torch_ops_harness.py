@@ -14,6 +14,7 @@ import functools
 import inspect
 import importlib
 import re
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -22,6 +23,7 @@ import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.ops.schema import _op_modules, build_registry
+import op_test
 from test_op_suite import CASES, EXEMPT, RANDOM_OPS
 
 import paddle_tpu_torch as pt
@@ -200,7 +202,8 @@ def assert_grads(got, want, gtol, msg):
 #: outputs that are unique only up to signs or pivots: held by what
 #: they reconstruct and their invariants (as the reference's own suite
 #: holds them), not element by element
-def _svd_check(x, got, want):
+def _svd_check(inputs, got, want):
+    x = inputs["x"]
     u, s, vh = got
     np.testing.assert_allclose(s, want[1], rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose((u * s) @ vh, x, rtol=1e-4, atol=1e-5)
@@ -208,7 +211,8 @@ def _svd_check(x, got, want):
     np.testing.assert_allclose(np.abs(u), np.abs(want[0]), atol=1e-4)
 
 
-def _qr_check(x, got, want):
+def _qr_check(inputs, got, want):
+    x = inputs["x"]
     q, r = got
     np.testing.assert_allclose(q @ r, x, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(q.T @ q, np.eye(q.shape[1]), atol=1e-5)
@@ -216,26 +220,64 @@ def _qr_check(x, got, want):
     np.testing.assert_allclose(np.abs(r), np.abs(want[1]), atol=1e-4)
 
 
-def _eigh_check(x, got, want):
+def _eigh_check(inputs, got, want):
+    x = inputs["x"]
     w, v = got
     np.testing.assert_allclose(w, want[0], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose((v * w) @ v.T, x, rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(np.abs(v), np.abs(want[1]), atol=1e-4)
 
 
-INVARIANTS = {"svd": _svd_check, "qr": _qr_check, "eigh": _eigh_check}
+def _lstsq_check(inputs, got, want):
+    """ROADMAP C27: two fp32 least-squares solvers (jnp's SVD, LAPACK's
+    gelsy) differ by more than the case's 1e-5 on ~0.1 % of inputs, so
+    the solution is held by the normal equations it satisfies, in fp64:
+    ``max|A^T (A x - b)| <= LSTSQ_TOL eps32 ||A||_2 (||A||_2 max|x| +
+    max|b|)``, the backward-stable solver's residual; the reference's own
+    solution must meet the same bound."""
+    a, b = inputs["x"].astype(np.float64), inputs["y"].astype(np.float64)
+    na = np.linalg.norm(a, 2)
+    for name, sol in (("port", got[0]), ("reference", want[0])):
+        s = sol.astype(np.float64)
+        res = np.abs(a.T @ (a @ s - b)).max()
+        bound = LSTSQ_TOL * np.finfo(np.float32).eps * na * (
+            na * np.abs(s).max() + np.abs(b).max())
+        assert res <= bound, (f"lstsq {name}: normal-equations residual "
+                              f"{res:.3g} > {bound:.3g}")
+
+
+#: the lstsq rule's factor (C27): over 20,000 draws of the case's shapes
+#: the worst ratio was 3.99 for the reference's solution, 2.00 for the
+#: port's
+LSTSQ_TOL = 8.0
+
+INVARIANTS = {"svd": _svd_check, "qr": _qr_check, "eigh": _eigh_check,
+              "lstsq": _lstsq_check}
+
+
+def draw_inputs(case):
+    """``case.make()`` with the reference suite's shared ``_RNG`` seeded
+    from the case's name (a CRC, the same in every process), its state put
+    back after: a case's inputs do not depend on which tests ran before
+    it in the worker (ROADMAP C27)."""
+    state = op_test._RNG.get_state()
+    op_test._RNG.seed(zlib.crc32(case.name.encode()))
+    try:
+        return case.make()
+    finally:
+        op_test._RNG.set_state(state)
 
 
 def run_case(case):
     """One reference OpCase through both packages."""
-    inputs = case.make()
+    inputs = draw_inputs(case)
     want, want_g, ws = run_reference(case, inputs, case.grad)
     got, got_g = run_port(case, inputs, ws)
     msg = f"{case.name}: port vs reference"
     if case.name in INVARIANTS:
         assert_same([g.dtype.type(0) for g in got],
                     [w.dtype.type(0) for w in want], 0, 0, msg)
-        INVARIANTS[case.name](inputs["x"], got, want)
+        INVARIANTS[case.name](inputs, got, want)
     else:
         assert_same(got, want, case.rtol, case.atol, msg)
     if case.grad:
@@ -417,6 +459,29 @@ def test_coverage_gate():
     assert set(PORT_EXEMPT) <= set(EXEMPT) | set(INPLACE_TESTS), sorted(
         set(PORT_EXEMPT) - set(EXEMPT))
     assert not problems, "\n".join(problems)
+
+
+def test_case_inputs_do_not_depend_on_history():
+    """C27: every OpCase draws the same inputs whatever the worker drew
+    before, and leaves the shared ``_RNG`` as it found it."""
+    first = {c.name: draw_inputs(c) for c in CASES}
+    op_test._RNG.randn(7)
+    state = op_test._RNG.get_state()
+    def same(a, b):
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and np.array_equal(
+            a, b, equal_nan=a.dtype.kind in "fc")
+
+    for case in reversed(CASES):
+        again = draw_inputs(case)
+        assert again.keys() == first[case.name].keys(), case.name
+        for key, v in again.items():
+            assert same(v, first[case.name][key]), f"{case.name}.{key}"
+    after = op_test._RNG.get_state()
+    assert after[0] == state[0] and after[2:] == state[2:]
+    np.testing.assert_array_equal(after[1], state[1])
 
 
 def test_every_case_lands_in_one_module_file():

@@ -18,6 +18,7 @@ from paddle_tpu.quantization import quantize_linears as jax_quantize_linears
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.ops import quant_matmul as tqm
 from paddle_tpu_torch.quantization import int8_linear, quantize_linears
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -34,6 +34,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.amp import debugging
 from paddle_tpu_torch.nn import functional as F
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28)
 
 jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 

@@ -28,6 +28,7 @@ from paddle_tpu_torch.nn import clip_grad as tclip
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer import lr as tlr
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -18,6 +18,7 @@ from paddle_tpu.optimizer import AdamW as JAdamW
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.framework import io as tio
 from paddle_tpu_torch.nn import clip_grad as tclip
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28)
 
 
 @pytest.fixture(autouse=True, scope="module")
