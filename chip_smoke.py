@@ -215,6 +215,32 @@ Phases, each fatal on error (non-zero exit, no result line):
       first difference, the logits gap between the verify position and
       the same position decoded alone: ROADMAP C23, reported, not held);
    i. right after (g), the same fully int8;
+   k. right after (h), serving under ``amp.auto_cast(level="O2",
+      dtype="bfloat16")``, the reference's recipe for 16-bit serving
+      (``amp_serving``): the q-block, per-token and legacy engines on the
+      load of (a) and the static engine on (b)'s, counted, with every
+      attention launch a ``<bf16, float>`` one (kernels 6, 8 and 4: the
+      cached attention op casts q alone, the pools stay fp32, C29;
+      ``*_mixed`` counts) and the legacy and static prefills on the
+      tensor-core B1 (SDPA casts q, k and v to bf16); pools fp32 and
+      logits bf16 (``check_c25``); the q-block engine under O1 bf16 (q
+      stays fp32: the fp32 variants); eager instrumented q-block and
+      legacy passes capture layer 0's inputs (bf16 q over fp32 pages) and
+      count ``amp.promote``'s weight copies (``PromoteCounter``: none
+      under O2); the q-block engine's replayed ticks, plain and traced
+      (tokens/s, decode and mixed tick ms, busy ms, idle share, device ms
+      by kernel); the graph keys (``amp_graph_keys``: one engine's
+      one-token bucket captured outside and inside O2, fp32 logits
+      outside and bf16 inside); then each new variant, the rule's and
+      the other forced, in bf16 and fp16, bit-equal to its fp32 variant
+      on the upcast q, within one ulp plus 1e-5 of the max of the plain
+      version (``hold_mixed``), C21 over the fp32 pages
+      (``check_c21(mixed=True)``), and timed on the captured mixed and
+      pure-decode ticks and decode step. After (i), the fully-int8
+      engines under O2 (``amp_serving_int8``): the int8 Linear is the
+      reference's op ``"int8_linear"``, so all 225 B10 calls a forward
+      take bf16 x on the tensor-core variants by M and none the fp32
+      ones;
    j. right after (d), ``paddle.amp`` on the training step at the same
       widths and batch, each step's launch counts zeroed before and held
       after, and a step the scaler skips held to leave the watched
@@ -317,14 +343,16 @@ Phases, each fatal on error (non-zero exit, no result line):
 
 Prints a ``{"graph_breakdown": ...}`` line (phases 3f and 3g, per engine
 and mode), a ``{"spec": ...}`` line (3h, 3i, 4(d), 4(e)), an
-``{"amp": ...}`` line (3j), an ``{"ops": ...}`` line (phase 7), a
+``{"amp": ...}`` line (3j), an ``{"amp_serving": ...}`` line (3k), an
+``{"ops": ...}`` line (phase 7), a
 ``{"kernels": [...]}`` line with all ten TPU kernels (kernel 6 and B7
 also as their runtime variants, with launches by variant and path) and the
 fused optimizer step's two (K-A and K-B, no Pallas counterpart,
 ``"pallas": false``; B1, B2 and B3
 each as its two variants, B10 as its three, with the dtypes each
 serves; kernel 8, B9, B4 and B5 as the cluster kernels the main paths
-run, the block kernels under ``block_variant``), the card's
+run, the block kernels under ``block_variant``; kernels 6, 8 and 4 also
+as their ``<16-bit, float>`` variants, ``*_mixed``), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -391,14 +419,15 @@ def check(name, err, tol, what="max_abs_err"):
         raise AssertionError(f"{name}: {err} > {tol}")
 
 
-def ulp_err(torch, out, ref32):
+def ulp_err(torch, out, ref32, tol=FP32_TOL):
     """A bf16 or fp16 kernel output against its fp32 plain version on the
     same (rounded) inputs, rounded to the dtype: the kernel accumulates in
     fp32 like the plain version, so before its one rounding it lies within
-    FP32_TOL of it, and both roundings add at most one ulp of the
-    reference (fp16's no less than its subnormal spacing). The allowance
-    per element is therefore ``ulp(ref) + FP32_TOL``. Returns (max abs
-    error, max error / allowance); the rule holds at <= 1."""
+    ``tol`` (FP32_TOL, or 1e-5 of the plain version's max) of it, and both
+    roundings add at most one ulp of the reference (fp16's no less than
+    its subnormal spacing). The allowance per element is therefore
+    ``ulp(ref) + tol``. Returns (max abs error, max error / allowance);
+    the rule holds at <= 1."""
     name = str(out.dtype).split(".")[-1]
     ref = ref32.to(out.dtype).float()
     ulp = torch.ldexp(torch.ones_like(ref),
@@ -406,7 +435,7 @@ def ulp_err(torch, out, ref32):
     if name == "float16":
         ulp = ulp.clamp_min(FP16_TINY)
     diff = (out.float() - ref).abs()
-    return float(diff.max()), float((diff / (ulp + FP32_TOL)).max())
+    return float(diff.max()), float((diff / (ulp + tol)).max())
 
 
 def span_rows(q_starts, q_lens):
@@ -1677,22 +1706,24 @@ C21_DTYPES = ("float32", "bfloat16", "float16")
 
 
 def check_c21(torch, rpa, q, pages, plans, rows, label, verbose=True,
-              token_variant="cluster", prep=None):
+              token_variant="cluster", prep=None, mixed=False):
     """ROADMAP C21: kernel 6 returns the same bits as kernel 8 (its
     ``token_variant``, forced: ``"cluster"``, or ``"block"`` at the shapes
     the cluster kernel does not take) on every real token's row, and B7 as
     B9, for fp32, bf16 and fp16 queries. ``pages`` is (k, v) of native
     pages in q's dtype family (cast with q) or (k_codes, v_codes,
     k_scales, v_scales) of int8 pages; ``prep`` (e.g. ``misalign``) is
-    applied to each page array after the cast. Compares the bit patterns
-    of the span rows; returns the number of cases held."""
+    applied to each page array after the cast; with ``mixed`` native
+    pages stay fp32 under every q (a 16-bit model's pools under O2, C29:
+    the ``<16-bit, float>`` variants). Compares the bit patterns of the
+    span rows; returns the number of cases held."""
     quant = len(pages) == 4
     kern = ((rpa.qblock_attention_q8, rpa.token_attention_q8) if quant
             else (rpa.qblock_attention, rpa.token_attention))
     scale = q.shape[-1] ** -0.5
     for name in C21_DTYPES:
         dt = getattr(torch, name)
-        pg = pages if quant else tuple(x.to(dt) for x in pages)
+        pg = pages if quant or mixed else tuple(x.to(dt) for x in pages)
         if prep is not None:
             pg = tuple(prep(torch, x) for x in pg)
         qd = q.to(dt)
@@ -1703,12 +1734,14 @@ def check_c21(torch, rpa, q, pages, plans, rows, label, verbose=True,
         differ = int((a.view(bits) != b.view(bits)).sum())
         if differ:
             raise AssertionError(
-                f"C21 {label} {name}{' int8' if quant else ''}: {differ} "
+                f"C21 {label} {name}{' int8' if quant else ''}"
+                f"{' over fp32 pages' if mixed else ''}: {differ} "
                 f"elements differ, max {float((a.float() - b.float()).abs().max())}")
     torch.cuda.synchronize()
     if verbose:
         log(f"  C21 {label}: q-block == per-token ({token_variant}) bit for "
-            f"bit on {len(rows)} span rows in {', '.join(C21_DTYPES)}")
+            f"bit on {len(rows)} span rows in {', '.join(C21_DTYPES)}"
+            + (" q over fp32 pages" if mixed else ""))
     return len(C21_DTYPES)
 
 
@@ -2059,6 +2092,11 @@ def kernel_counters(rpa, fa, pa, qm, ost):
             "paged": pa.paged_attention,
             "paged_cluster": Count(pa.paged_attention, "cluster_launches"),
             "paged_block": Count(pa.paged_attention, "block_launches"),
+            # 16-bit q over fp32 pages: the <T, float> instantiations of
+            # kernels 4, 6 and 8 (a 16-bit model under AMP's O2, C29)
+            "paged_mixed": Count(pa.paged_attention, "mixed_launches"),
+            "qblock_mixed": Count(rpa.qblock_attention, "mixed_launches"),
+            "token_mixed": Count(rpa.token_attention, "mixed_launches"),
             "flash_bwd_dq": fa.flash_bwd_dq,
             "flash_bwd_dq_wgmma": Count(fa.flash_bwd_dq, "wgmma_launches"),
             "flash_bwd_dkv": fa.flash_bwd_dkv,
@@ -2250,18 +2288,20 @@ def pool_dtypes(cache):
     return sorted({str(a.dtype) for a in arrays})
 
 
-def check_c25(label, pools, logits, quant=False):
+def check_c25(label, pools, logits, quant=False, logits_dtype="float32"):
     """ROADMAP C25: a bf16 model's caches hold their pages in k's dtype,
     fp32 after the rope (int8 codes with fp32 scales under int8 KV), and
-    its cached forwards return fp32 logits, as the reference's do."""
+    its cached forwards return fp32 logits, as the reference's do. Under
+    ``amp.auto_cast`` the pools stay fp32 and the logits take the
+    lm_head's cast dtype (``logits_dtype``: bf16 under O1 and O2, C29)."""
     want = (["torch.float32", "torch.int8"] if quant
             else ["torch.float32"])
-    if sorted(pools) != want or sorted(logits) != ["torch.float32"]:
+    if sorted(pools) != want or sorted(logits) != [f"torch.{logits_dtype}"]:
         raise AssertionError(f"{label}: pools {sorted(pools)} (expected "
                              f"{want}), logits {sorted(logits)} (expected "
-                             f"fp32): C25")
+                             f"{logits_dtype}): C25")
     log(f"  {label}: pools {'int8 codes + fp32 scales' if quant else 'fp32'}"
-        f", logits fp32 (C25)")
+        f", logits {logits_dtype} (C25)")
 
 
 def check_outputs(prompts, outs, vocab, label):
@@ -3399,6 +3439,519 @@ def spec_full_width(torch, pt, kern, model, prompts, warm, int8, n_layers,
 
 
 # ---------------------------------------------------------------------------
+# phase 3k: serving under amp.auto_cast (ROADMAP C29)
+# ---------------------------------------------------------------------------
+
+#: the state 3k serves under: the reference's recipe for 16-bit serving, a
+#: bf16 model inside ``amp.auto_cast(level="O2", dtype="bfloat16")``
+AMP_O2 = dict(level="O2", dtype="bfloat16")
+#: the one engine 3k runs under O1: the cached attention ops are on
+#: neither list, so q stays fp32 there (the fp32 variants)
+AMP_O1 = dict(level="O1", dtype="bfloat16")
+#: the kernels with a ``<16-bit, float>`` variant (kernels 6, 8 and 4), by
+#: counter name: the variant the main path takes, the forced other one,
+#: the TPU kernel's line and the C template's name
+MIXED_KERNELS = {
+    "qblock": ("unit", "runtime", f"{REF}:215",
+               "qblock_unit_kernel<T, float, 16>",
+               "qblock_runtime_kernel<T, float>"),
+    "token": ("cluster", "block", f"{REF}:389",
+              "token_split_kernel<T, float, 16>", "token_kernel<T, float>"),
+    "paged": ("cluster", "block",
+              "paddle_tpu/ops/pallas/paged_attention.py:55",
+              "paged_decode_split_kernel<T, float>",
+              "paged_decode_kernel<T, float>")}
+#: the 16-bit q dtypes of the new variants
+MIXED_DTYPES = ("bfloat16", "float16")
+
+
+class PromoteCounter:
+    """While entered, counts the calls of ``amp.promote`` (the op sites'
+    jnp-style promotion) and the weight copies they make: parameters of
+    ``model`` returned in another dtype, a fresh fp32 copy of a bf16
+    weight each call (C25's cost when a bf16 model serves without
+    AMP)."""
+
+    def __init__(self, amp, model):
+        self.amp, self.params = amp, {id(p) for p in model.parameters()}
+        self.calls = self.copies = 0
+
+    def promote(self, *tensors):
+        out = self.orig(*tensors)
+        self.calls += 1
+        self.copies += sum(id(a) in self.params and b is not a
+                           for a, b in zip(tensors, out))
+        return out
+
+    def __enter__(self):
+        self.orig = self.amp.promote
+        self.amp.promote = self.promote
+        return self
+
+    def __exit__(self, *exc):
+        self.amp.promote = self.orig
+        self.params = set()
+
+
+def amp_want(none, name, st):
+    """The launches a native engine's run under O2 must count: the rule's
+    variant of its attention kernel, every launch a ``<bf16, float>`` one
+    (``*_mixed``); the legacy engine's flash-sized chunks on the
+    tensor-core B1 (SDPA casts q, k and v to bf16 under O2)."""
+    if name == "legacy":
+        big = sum(n for size, n in st["chunk_buckets"].items() if size >= 128)
+        n = N_LAYERS * st["decode_steps"]
+        if not big or not n:
+            raise AssertionError("O2 legacy: no flash-sized chunks or no "
+                                 "decode steps")
+        return dict(none, paged=n, paged_cluster=n, paged_mixed=n,
+                    flash=N_LAYERS * big, flash_wgmma=N_LAYERS * big)
+    n = N_LAYERS * st["steps"]
+    variant = MIXED_KERNELS[name][0]
+    return dict(none, **{name: n, f"{name}_{variant}": n,
+                         f"{name}_mixed": n})
+
+
+def serving_rate(st, prompts):
+    """Generated tokens/s of a counted run of ``prompts``."""
+    return NEW_TOKENS * len(prompts) / st["wall"]
+
+
+def amp_graph_keys(torch, pt, amp, model, prompt):
+    """One graph engine serves ``prompt`` outside and then inside O2 (four
+    new tokens each): its one-token decode bucket is captured twice, one
+    program a state (``amp.state_key``), the graph outside returning fp32
+    logits (a bf16 model without AMP, C25) and the one inside bf16."""
+    eng = pt.ContinuousServingEngine(model, max_batch_size=ENGINE_SLOTS,
+                                     max_len=2048, page_size=PAGE,
+                                     token_budget=256,
+                                     prefill_chunk_tokens=256)
+    keys = {}
+    with eng:
+        for state in ("outside", "inside"):
+            with (amp.auto_cast(**AMP_O2) if state == "inside"
+                  else contextlib.nullcontext()):
+                keys[state] = amp.state_key()
+                eng.generate(prompt, max_new_tokens=4, timeout=600)
+    progs = {state: eng._programs.get((("ragged", 1), key))
+             for state, key in keys.items()}
+    if any(p is None or p.graph is None for p in progs.values()):
+        raise AssertionError(f"graph keys: the decode bucket's programs by "
+                             f"state {progs}")
+    dtypes = {state: str(p.logits.dtype) for state, p in progs.items()}
+    if dtypes != {"outside": "torch.float32", "inside": "torch.bfloat16"}:
+        raise AssertionError(f"graph keys: logits by state {dtypes}")
+    by_shape = Counter(shape for shape, _ in eng._programs)
+    out = {"captures": eng.graph_captures, "replays": eng.graph_replays,
+           "decode_bucket_programs": by_shape[("ragged", 1)],
+           "logits_dtypes": dtypes}
+    log(f"  graph keys: the one-token bucket captured under both states "
+        f"({out['decode_bucket_programs']} programs), logits {dtypes}; "
+        f"{out['captures']} captures, {out['replays']} replays in all")
+    return out
+
+
+def hold_mixed(torch, label, fn, q, rows, plain, variants):
+    """The ``<16-bit, float>`` variants of one kernel on captured inputs
+    (``fn(q, variant=)``, pages fp32): for bf16 and fp16 q and each
+    variant (the rule's, then the other forced), the output bit-equal to
+    the fp32 variant on the upcast q rounded to q's dtype; the fp32
+    variant within 1e-5 of the plain version's largest magnitude; the
+    16-bit output within one ulp plus 1e-5 of the max of the plain
+    version (``ulp_err``).
+    Returns the largest errors."""
+    errs = {}
+    for name in MIXED_DTYPES:
+        dt = getattr(torch, name)
+        qd = q.to(dt)
+        ref32 = plain(qd.float())[rows]
+        for variant in variants:
+            out = fn(qd, variant)
+            up = fn(qd.float(), variant)
+            if out.dtype != dt:
+                raise AssertionError(f"{label} {variant} {name}: "
+                                     f"{out.dtype} out")
+            same = torch.equal(out[rows].view(torch.int16),
+                               up[rows].to(dt).view(torch.int16))
+            if not same:
+                raise AssertionError(f"{label} {variant} {name}: not the "
+                                     f"fp32 variant's bits on the upcast q")
+            e32 = float((up[rows] - ref32).abs().max())
+            check(f"{label} {variant} fp32 variant vs plain", e32,
+                  FP32_TOL * float(ref32.abs().max()))
+            e, ratio = ulp_err(torch, out[rows], ref32,
+                               FP32_TOL * float(ref32.abs().max()))
+            check(f"{label} {variant} <{name}, float> vs {name}(fp32 plain)",
+                  ratio, 1.0, "max error / (1 ulp + 1e-5 max)")
+            errs[f"{variant}_{name}"] = e
+    torch.cuda.synchronize()
+    log(f"  {label}: the <bf16, float> and <fp16, float> variants "
+        f"({', '.join(variants)}) bit-equal to the fp32 variant on the "
+        f"upcast q")
+    return errs
+
+
+def mixed_ragged(torch, rpa, cap, label):
+    """Kernels 6 and 8 on a captured O2 tick (bf16 q, fp32 pages): each
+    ``<16-bit, float>`` variant held (``hold_mixed``; kernel 6 on the
+    engines' fixed grid), C21 over the fp32 pages in fp32, bf16 and fp16,
+    then the rule's variants timed beside the fp32 variant on the upcast
+    q, the plain version and the bound (fp32 pages, fp32 arithmetic).
+    Returns ``{impl: (errors, timing row)}``."""
+    q, kp, vp, tbl, desc = (cap[k] for k in ("q", "kp", "vp", "tbl",
+                                             "desc"))
+    if q.dtype != torch.bfloat16 or kp.dtype != torch.float32:
+        raise AssertionError(f"{label}: captured q {q.dtype}, pages "
+                             f"{kp.dtype} (expected bf16 over fp32, C29)")
+    scale = HEAD_DIM ** -0.5
+    rows = torch.as_tensor(span_rows(desc[1], desc[2]), device=q.device)
+    plans = {impl: rpa.make_plan(q.shape[0], *desc, tbl, PAGE, impl=impl,
+                                 device=q.device, max_slots=ENGINE_SLOTS)
+             for impl in rpa.IMPLS}
+    kern = {"qblock": rpa.qblock_attention, "token": rpa.token_attention}
+    plain = {"qblock": rpa.qblock_attention_plain,
+             "token": rpa.token_attention_plain}
+    check_c21(torch, rpa, q, (kp, vp), plans, rows, f"{label} (O2)",
+              mixed=True)
+    bound = bound_ms(q, kp, tbl, desc, peak=FP32_FLOPS)
+    out = {}
+    for impl in rpa.IMPLS:
+        rule, other = MIXED_KERNELS[impl][:2]
+        errs = hold_mixed(
+            torch, f"{label} {impl}",
+            lambda qd, v, impl=impl: kern[impl](qd, kp, vp, plans[impl],
+                                                scale, variant=v),
+            q, rows, lambda q32, impl=impl: plain[impl](
+                q32, kp, vp, plans[impl], scale), (rule, other))
+        q32 = q.float()
+        row = {"shape": f"{label}: q_lens {np.asarray(desc[2]).tolist()}, "
+                        f"ctx {np.asarray(desc[3]).tolist()}, bf16 q over "
+                        f"fp32 pages",
+               "ms": time_ms(torch, lambda: kern[impl](q, kp, vp,
+                                                       plans[impl], scale)),
+               "fp32_variant_ms": time_ms(torch, lambda: kern[impl](
+                   q32, kp, vp, plans[impl], scale)),
+               "plain_ms": time_ms(torch, lambda: plain[impl](
+                   q, kp, vp, plans[impl], scale), iters=10),
+               **bound, "max_abs_err": errs[f"{rule}_bfloat16"],
+               "max_abs_err_fp16": errs[f"{rule}_float16"],
+               "other_variant_max_abs_err": errs[f"{other}_bfloat16"]}
+        log(f"  {impl} <bf16, float> ({rule}) at the {label}: "
+            f"{row['ms']:.4f} ms, the fp32 variant on the upcast q "
+            f"{row['fp32_variant_ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
+            f"{row['bytes']} bytes, {row['flops']} FLOPs at fp32 peak), "
+            f"library: none")
+        out[impl] = row
+    return out
+
+
+def mixed_paged(torch, pa, cap, label):
+    """Kernel 4 on a captured O2 decode step (bf16 q, fp32 pages): the
+    ``<16-bit, float>`` cluster and block variants held
+    (``hold_mixed``), the cluster one timed beside the fp32 variant on
+    the upcast q, the plain version and the bound."""
+    q, kp, vp, tables, ctx = (cap[k] for k in ("q", "kp", "vp", "tables",
+                                               "ctx"))
+    if q.dtype != torch.bfloat16 or kp.dtype != torch.float32:
+        raise AssertionError(f"{label}: captured q {q.dtype}, pages "
+                             f"{kp.dtype} (expected bf16 over fp32, C29)")
+    scale = HEAD_DIM ** -0.5
+    rows = torch.arange(q.shape[0], device=q.device)
+    errs = hold_mixed(
+        torch, f"{label} paged",
+        lambda qd, v: pa.paged_attention(qd, kp, vp, tables, ctx,
+                                         variant=v),
+        q, rows, lambda q32: pa.paged_decode_plain(q32, kp, vp, tables, ctx,
+                                                   scale),
+        ("cluster", "block"))
+    q32 = q.float()
+    row = {"shape": f"{label}, bf16 q over fp32 pages, ctx "
+                    f"{ctx.cpu().numpy().tolist()}",
+           "ms": time_ms(torch, lambda: pa.paged_attention(
+               q, kp, vp, tables, ctx)),
+           "fp32_variant_ms": time_ms(torch, lambda: pa.paged_attention(
+               q32, kp, vp, tables, ctx)),
+           "plain_ms": time_ms(torch, lambda: pa.paged_decode_plain(
+               q, kp, vp, tables, ctx, scale), iters=10),
+           **paged_bound(q, kp, tables, ctx, peak=FP32_FLOPS),
+           "max_abs_err": errs["cluster_bfloat16"],
+           "max_abs_err_fp16": errs["cluster_float16"],
+           "other_variant_max_abs_err": errs["block_bfloat16"]}
+    log(f"  paged <bf16, float> (cluster) at the {label}: {row['ms']:.4f} "
+        f"ms, the fp32 variant on the upcast q {row['fp32_variant_ms']:.4f} "
+        f"ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}: {row['bytes']} bytes, {row['flops']} FLOPs), "
+        f"library: none")
+    return row
+
+
+def amp_serving(torch, pt, amp, gen, rpa, pa, kern, none, model, prompts,
+                warm, static_prompts):
+    """Phase 3k on the bf16 model (before 3e quantises it): under O2 bf16,
+    the q-block, per-token and legacy engines and the static engine, each
+    counted (``amp_want``: every attention launch a ``<bf16, float>``
+    one), pools fp32 and logits bf16 (C25 under AMP, C29); the q-block
+    engine under O1 bf16 (the fp32 variants); an eager instrumented
+    q-block pass (layer 0's inputs of its mixed and pure-decode ticks,
+    and ``PromoteCounter``: no weight copy) and legacy pass (a decode
+    step's inputs); the q-block engine's replayed ticks, untraced and
+    traced (``tick_summary``); the graph keys (``amp_graph_keys``); and
+    the new variants held and timed on the captured inputs."""
+    vocab = model.config.vocab_size
+    out = {"runs": {}}
+    with amp.auto_cast(**AMP_O2):
+        for name, kw in GRAPH_PATHS.items():
+            outs, st = serve(torch, pt, kern, model, prompts, warm, **kw)
+            check_outputs(prompts, outs, vocab, f"O2 {name}")
+            check_c25(f"O2 {name} engine", st["pool_dtypes"],
+                      st["logits_dtypes"], logits_dtype="bfloat16")
+            check_launches(f"O2 {name} engine", st["launches"],
+                           amp_want(none, name, st))
+            out["runs"][name] = (outs, st)
+            log(f"  O2 {name}: {st['steps']} ticks, "
+                f"{serving_rate(st, prompts):.1f} generated tokens/s, wall "
+                f"{st['wall']:.3f} s")
+        serve_static(torch, pt, kern, model, static_prompts)        # warm
+        static_outs, static = serve_static(torch, pt, kern, model,
+                                           static_prompts)
+        check_outputs(static_prompts, static_outs, vocab, "O2 static")
+        n = N_LAYERS * (NEW_TOKENS - 1)
+        check_launches("O2 static engine", static["launches"],
+                       dict(none, flash=N_LAYERS, flash_wgmma=N_LAYERS,
+                            paged=n, paged_cluster=n, paged_mixed=n))
+        out["static"] = static
+        rate = NEW_TOKENS * len(static_prompts) / static["wall"]
+        log(f"  O2 static: {rate:.1f} generated tokens/s "
+            f"({static['wall']:.3f} s for the batch)")
+    with amp.auto_cast(**AMP_O1):
+        outs, st = serve(torch, pt, kern, model, prompts, warm)
+        check_outputs(prompts, outs, vocab, "O1 qblock")
+        check_c25("O1 qblock engine", st["pool_dtypes"], st["logits_dtypes"],
+                  logits_dtype="bfloat16")
+        n = N_LAYERS * st["steps"]
+        check_launches("O1 qblock engine", st["launches"],
+                       dict(none, qblock=n, qblock_unit=n))
+        out["runs"]["O1 qblock"] = (outs, st)
+        log(f"  O1 qblock: {serving_rate(st, prompts):.1f} generated tokens/s")
+    probe = TickProbe(torch, gen, model, N_LAYERS)
+    copies = PromoteCounter(amp, model)
+    legacy_cap = decode_capture(gen, N_LAYERS)
+    with amp.auto_cast(**AMP_O2):
+        serve(torch, pt, kern, model, prompts, warm, probes=[probe, copies])
+        serve(torch, pt, kern, model, prompts, warm, enable_ragged=False,
+              probes=[legacy_cap])
+        out["graphs"] = replayed_ticks(torch, pt, kern, model, prompts,
+                                       warm, "O2 q-block",
+                                       {"impl": "qblock"})
+        static_fwd = ForwardTimer(torch, model)
+        serve_static(torch, pt, kern, model, static_prompts,
+                     probes=[static_fwd])
+    out["static_forward_ms"] = static_fwd.times
+    log(f"  O2 static, instrumented forwards (seq, ms): "
+        + ", ".join(f"({n}, {ms:.2f})" for n, ms in static_fwd.times))
+    if not copies.calls or copies.copies:
+        raise AssertionError(f"O2: amp.promote made {copies.copies} weight "
+                             f"copies in {copies.calls} calls")
+    log(f"  O2 eager q-block pass: {copies.calls} promotions, "
+        f"{copies.copies} weight copies")
+    out["promote"] = {"calls": copies.calls, "copies": copies.copies}
+    out["graph_keys"] = amp_graph_keys(torch, pt, amp, model, warm)
+    out["rows"] = mixed_ragged(torch, rpa, probe.best, "captured O2 mixed "
+                               "tick")
+    decode = mixed_ragged(torch, rpa, probe.decode, "captured O2 "
+                          "pure-decode tick")
+    for impl, row in decode.items():
+        out["rows"][impl]["other_shapes"] = [row]
+    out["rows"]["paged"] = mixed_paged(torch, pa, legacy_cap.best,
+                                       "captured O2 legacy decode step")
+    return out
+
+
+def amp_serving_int8(torch, pt, amp, qm, kern, none, model, prompts, warm):
+    """Phase 3k on the fully-int8 model (after 3g and 3i): the q-block,
+    per-token and legacy int8 engines under O2 bf16. The int8 Linear is
+    the reference's op ``"int8_linear"``, so B10 takes bf16 x on all 225
+    calls a forward: the tensor-core variants by M, none on the fp32
+    ones; the attention kernels B7, B9, B5 take bf16 q over int8 pages;
+    pools int8 with fp32 scales, logits bf16."""
+    vocab = model.config.vocab_size
+    out = {"runs": {}}
+    with amp.auto_cast(**AMP_O2):
+        for name, kw in INT8_PATHS.items():
+            kw = dict(kw)
+            kw["impl"] = kw.pop("ragged_impl", "qblock")
+            outs, st = serve(torch, pt, kern, model, prompts, warm, **kw,
+                             kv_dtype="int8", weight_dtype="int8")
+            check_outputs(prompts, outs, vocab, f"O2 int8 {name}")
+            check_c25(f"O2 int8 {name} engine", st["pool_dtypes"],
+                      st["logits_dtypes"], quant=True,
+                      logits_dtype="bfloat16")
+            derived = {m: N_LINEARS * n for m, n in
+                       sorted(st["forwards_by_m"].items())}
+            if st["b10_by_m"] != derived:
+                raise AssertionError(f"O2 int8 {name}: B10 by M "
+                                     f"{st['b10_by_m']}, 225 x the forwards "
+                                     f"by M {derived}")
+            stream = N_LINEARS * sum(
+                n for m, n in st["forwards_by_m"].items()
+                if qm.matmul_variant(torch.bfloat16, m, 1, 4096)
+                == "wgmma_stream")
+            calls = N_LINEARS * st["forwards"]
+            want = dict(none, int8_matmul=calls, int8_matmul_stream=stream,
+                        int8_matmul_gemm=calls - stream)
+            if name == "legacy":
+                big = sum(n for size, n in st["chunk_buckets"].items()
+                          if size >= 128)
+                n = N_LAYERS * st["decode_steps"]
+                want.update(paged_q8=n, paged_q8_cluster=n,
+                            flash=N_LAYERS * big, flash_wgmma=N_LAYERS * big)
+            else:
+                n = N_LAYERS * st["steps"]
+                variant = MIXED_KERNELS[name][0]
+                want.update({f"{name}_q8": n, f"{name}_q8_{variant}": n})
+            check_launches(f"O2 int8 {name} engine", st["launches"], want)
+            out["runs"][name] = {"steps": st["steps"],
+                                 "forwards": st["forwards"],
+                                 "wall": st["wall"],
+                                 "launches": st["launches"],
+                                 "tokens_s": serving_rate(st, prompts),
+                                 "b10": {"tensor_cores": calls,
+                                         "stream": stream,
+                                         "gemm": calls - stream, "fp32": 0}}
+            log(f"  O2 int8 {name}: {st['steps']} ticks, "
+                f"{serving_rate(st, prompts):.1f} generated tokens/s; B10 "
+                f"{calls} calls, all on tensor cores ({stream} stream, "
+                f"{calls - stream} GEMM), 0 fp32")
+        out["graphs_qblock"] = replayed_ticks(
+            torch, pt, kern, model, prompts, warm, "O2 int8 q-block",
+            dict(impl="qblock", kv_dtype="int8", weight_dtype="int8"))
+    return out
+
+
+def replayed_ticks(torch, pt, kern, model, prompts, warm, label, path_kw):
+    """Two graph runs of the load of (a) in order (``graph_run``), plain
+    and traced: every tick a replay, the trace's kernels as counted, and
+    the per-tick summary (``tick_summary``): tick ms, busy ms and idle
+    share, by decode and mixed ticks, with the decode tick's device ms by
+    kernel. Under the caller's AMP state."""
+    clean = graph_run(torch, pt, kern, model, prompts, warm, True,
+                      path_kw)[1]
+    traced = graph_run(torch, pt, kern, model, prompts, warm, True,
+                       path_kw, profile=True)[1]
+    for st in (clean, traced):
+        if st["captures"] or st["replays"] != st["ragged_steps"]:
+            raise AssertionError(f"{label} graphs: {st['captures']} "
+                                 f"captures, {st['replays']} replays, "
+                                 f"{st['ragged_steps']} ticks")
+    check_traced_launches(f"{label}, graphs, traced", traced)
+    sm = tick_summary(clean, traced)
+    log(f"  {label}, graphs: {sm['ticks']} ticks, tick "
+        f"{sm['wall_ms']:.3f} ms, busy {sm['busy_ms']:.3f} ms, idle share "
+        f"{sm['idle_share']:.4f}; " + "; ".join(
+            f"{kind} ticks {k['ticks']}: tick {k['wall_ms']:.3f} ms "
+            f"(median {k['wall_ms_median']:.3f}), window "
+            f"{k['window_ms']:.3f} ms, busy "
+            + ("n/a" if k["busy_ms"] is None else f"{k['busy_ms']:.3f}")
+            + " ms, idle share "
+            + ("n/a" if k["idle_share"] is None
+               else f"{k['idle_share']:.4f}")
+            for kind in ("decode", "mixed")
+            if (k := sm.get(f"{kind}_ticks")) is not None))
+    if sm["decode_ms_by_kernel"]:
+        log(f"    device ms a replayed {label} decode tick by kernel (the "
+            f"ten largest): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in sm["decode_ms_by_kernel"].items()))
+    return sm
+
+
+def amp_paths(srv):
+    """3k's counted runs by path, for the kernels line's per-path counts
+    (B1's tensor-core prefills, B5, B10): the ``<bf16, float>`` launches
+    of kernel 4 are taken out of its cluster count (they have their own
+    row)."""
+    out = {}
+    for name, c in (("amp_O2_legacy", srv["runs"]["legacy"][1]["launches"]),
+                    ("amp_O2_static", srv["static"]["launches"]),
+                    ("amp_O2_int8_legacy",
+                     srv["int8"]["runs"]["legacy"]["launches"])):
+        c = dict(c)
+        for key in ("paged", "paged_cluster"):
+            c[key] -= c["paged_mixed"]
+        out[name] = c
+    return out
+
+
+def mixed_rows(srv):
+    """The kernels line's entries of the ``<16-bit, float>`` variants of
+    kernels 6, 8 and 4 (``amp_serving``'s timing rows): the rule's variant
+    the O2 engines ran, with its launches on 3k's counted runs, the other
+    variant (forced, held bit-equal too) under ``other_variant``."""
+    runs = srv["runs"]
+    launches = {
+        "qblock": {"3k O2 q-block engine":
+                   runs["qblock"][1]["launches"]["qblock_mixed"]},
+        "token": {"3k O2 per-token engine":
+                  runs["token"][1]["launches"]["token_mixed"]},
+        "paged": {"3k O2 legacy engine":
+                  runs["legacy"][1]["launches"]["paged_mixed"],
+                  "3k O2 static engine":
+                  srv["static"]["launches"]["paged_mixed"]}}
+    names = {"qblock": ("ragged_qblock_mixed", QBLOCK_SOURCE,
+                        RAGGED_LIBRARY),
+             "token": ("ragged_token_mixed", SOURCE, RAGGED_LIBRARY),
+             "paged": ("paged_decode_mixed", CSRC + "paged_attention.cu",
+                       "none: no single PyTorch call reads a block-table "
+                       "cache")}
+    rows = []
+    for key, row in srv["rows"].items():
+        rule, other, ref_at, kernel, other_kernel = MIXED_KERNELS[key]
+        name, source, library = names[key]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": ref_at, "variant": rule, "kernel": kernel,
+                     "dtypes": "T = bf16 and fp16: q and out in T over "
+                               "fp32 pages",
+                     "launches": sum(launches[key].values()),
+                     "launches_by_path": launches[key], **row,
+                     "library_ms": None, "library": library,
+                     "bit_equal_to_fp32_variant": True,
+                     "other_variant": {
+                         "variant": other, "kernel": other_kernel,
+                         "launches": 0,
+                         "max_abs_err": row["other_variant_max_abs_err"]}})
+    return rows
+
+
+def amp_serving_line(srv, runs, static, legacy, prompts, static_prompts):
+    """Phase 3k's numbers beside the same loads without AMP (3a-3c):
+    generated tokens/s per engine, the replayed O2 q-block ticks, the
+    graph keys, the weight copies, and the int8 engines' B10 calls by
+    variant."""
+    new = NEW_TOKENS * len(prompts)
+    return {
+        "tokens_s": {
+            "O2 bf16": {name: new / st["wall"]
+                        for name, (_, st) in srv["runs"].items()
+                        if name != "O1 qblock"},
+            "O2 bf16 static": NEW_TOKENS * len(static_prompts)
+            / srv["static"]["wall"],
+            "O1 bf16 qblock": new / srv["runs"]["O1 qblock"][1]["wall"],
+            "without AMP": {"qblock": new / runs["qblock"][1]["wall"],
+                            "token": new / runs["token"][1]["wall"],
+                            "legacy": new / legacy["wall"],
+                            "static": NEW_TOKENS * len(static_prompts)
+                            / static["wall"]},
+            "O2 int8": {k: v["tokens_s"]
+                        for k, v in srv["int8"]["runs"].items()}},
+        "graphs_O2_qblock": srv["graphs"],
+        "graphs_O2_int8_qblock": srv["int8"]["graphs_qblock"],
+        "static_O2_forward_ms": srv["static_forward_ms"],
+        "graph_keys": srv["graph_keys"],
+        "weight_copies_O2": srv["promote"],
+        "int8_b10": {k: v["b10"] for k, v in srv["int8"]["runs"].items()}}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 
@@ -3479,12 +4032,13 @@ def page_row_bytes(kp, quant):
     return kp.shape[-1] * kp.element_size() + (4 if quant else 0)
 
 
-def bound_ms(q, kp, tbl, desc, quant=False):
+def bound_ms(q, kp, tbl, desc, quant=False, peak=None):
     """Least time for this tick's ragged attention on an H100: the bytes
     it must move (q and out once, every K/V page the spans' contexts
     cover once with its scales when int8, the descriptors) against its
     flops (QK^T and PV for every visible key of every span token), at
-    the shapes of ``q`` and the pages ``kp``."""
+    the shapes of ``q`` and the pages ``kp``; FLOPs at ``peak`` (None:
+    ``peak_of(q)``)."""
     slots, starts, lens, ctxs = (np.asarray(a) for a in desc)
     el = q.element_size()
     heads, d = q.shape[1], q.shape[2]
@@ -3495,7 +4049,7 @@ def bound_ms(q, kp, tbl, desc, quant=False):
     nbytes = (2 * q.numel() * el
               + 2 * distinct_pages(tbl, slots, ctxs, page) * kv * page
               * page_row_bytes(kp, quant) + tbl.nbytes + 4 * 4 * len(slots))
-    return _bound(nbytes, flops, peak_of(q))
+    return _bound(nbytes, flops, peak or peak_of(q))
 
 
 def flash_bound(b, sq, sk, q_offset, el, flops_per_d=4, q_side=2,
@@ -3522,18 +4076,18 @@ BWD_BOUNDS = {"dq": dict(flops_per_d=6, q_side=3, kv_side=2, row_floats=2),
               "dkv": dict(flops_per_d=8, q_side=2, kv_side=4, row_floats=2)}
 
 
-def paged_bound(q, kp, tables, ctx, quant=False):
+def paged_bound(q, kp, tables, ctx, quant=False, peak=None):
     """Least time for a paged decode step on an H100: bytes of q and out,
     of every distinct K/V page the contexts cover (read once, with its
     scales when int8) and of the tables, against 4 d flops per (query
-    head, visible key)."""
+    head, visible key) at ``peak`` (None: ``peak_of(q)``)."""
     tbl, c = tables.cpu().numpy(), ctx.cpu().numpy()
     el = q.element_size()
     nbytes = (2 * q.numel() * el
               + 2 * distinct_pages(tbl, range(len(c)), c) * N_KV * PAGE
               * page_row_bytes(kp, quant) + tbl.nbytes + c.nbytes)
     flops = 4 * HEAD_DIM * N_HEADS * int(c.sum())
-    return _bound(nbytes, flops, peak_of(q))
+    return _bound(nbytes, flops, peak or peak_of(q))
 
 
 def time_flash(torch, fa, cap, label):
@@ -5392,6 +5946,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp
     from paddle_tpu_torch.models import generation as gen
     from paddle_tpu_torch.nn import functional as nn_functional
     from paddle_tpu_torch.ops import _build
@@ -5595,6 +6150,13 @@ def main():
                                     False, N_LAYERS, draft, off_bf16)}
     gc.collect()
     torch.cuda.empty_cache()
+    phase(" 3k: serving under amp.auto_cast(level='O2', dtype='bfloat16'): "
+          "the q-block, per-token, legacy and static engines, the q-block "
+          "engine under O1, the replayed ticks and the graph keys")
+    amp_srv = amp_serving(torch, pt, amp, gen, rpa, pa, kern, none, model,
+                          prompts, warm, static_prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     phase(" 3e: ContinuousServingEngine(kv_dtype='int8', weight_dtype='int8'),"
         " the load of (a) on all three schedulers")
@@ -5714,6 +6276,10 @@ def main():
         f"spec_k={SPEC_K}, the n-gram drafter and the draft model of 3h")
     spec["int8"] = spec_full_width(torch, pt, kern, model, prompts, warm,
                                    True, N_LAYERS, draft, off_int8)
+    phase(" 3k (int8): the fully-int8 engines under amp.auto_cast(level="
+          "'O2', dtype='bfloat16')")
+    amp_srv["int8"] = amp_serving_int8(torch, pt, amp, qm, kern, none, model,
+                                       prompts, warm)
     del model, draft
     gc.collect()              # engines and their threads may hold it in cycles
     torch.cuda.empty_cache()
@@ -5960,7 +6526,8 @@ def main():
                "train_amp_checks_fused": amp_runs["checks"]["runs"]["fused"]
                ["launches"],
                "train_amp_checks_eager": amp_runs["checks"]["runs"]["eager"]
-               ["launches"]}
+               ["launches"],
+               **amp_paths(amp_srv)}
     # the paths whose flash calls take the scalar fp32 kernels: the
     # serving paths (C25) and 3j's O1 and bf16 model without AMP
     for name in ("static", "legacy", "int8_legacy", "train_amp_O1_fp16",
@@ -6081,7 +6648,9 @@ def main():
                 "3i spec on, draft model": spec["int8"]["draft model"]
                 ["launches"],
                 "4b page 8 int8": page_launches[8, "int8"],
-                "4b page 64 int8": page_launches[64, "int8"]}
+                "4b page 64 int8": page_launches[64, "int8"],
+                "3k O2 int8 q-block engine": amp_srv["int8"]["runs"]["qblock"]
+                ["launches"]}
     rows.append({"name": "ragged_qblock_q8", "route": "cuda",
                  "source": QBLOCK_SOURCE, "replaces": f"{REF}:258",
                  "variant": "unit", "kernel": "qblock_unit_kernel",
@@ -6117,6 +6686,7 @@ def main():
     log_paged(r)
     rows.append(paged_row("paged_decode_q8", 97, paged_q8_errs, [r],
                           "paged_q8", by_path))
+    rows += mixed_rows(amp_srv)
     mm_rows = {key: time_int8_matmul(torch, qm, mc, "layer 0" if key[1]
                                      != cfg.vocab_size else "lm_head")
                for key, mc in sorted(mm_cap.best.items())}
@@ -6176,6 +6746,11 @@ def main():
                "library", "shape", "bytes", "flops")
     b10 = {"route": "cuda", "source": CSRC + "quant_matmul.cu",
            "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:65"}
+    # the tensor-core variants' paths: 3e's engines (layer 0's q, k, v)
+    # and 3k's under O2 (every call)
+    b10_paths = {**{k: st["launches"] for k, (_, st) in int8_runs.items()},
+                 **{f"3k O2 int8 {k}": v["launches"]
+                    for k, v in amp_srv["int8"]["runs"].items()}}
     # the tensor-core variants on layer 0's q_proj inputs (bf16: the only
     # Linears that see bf16 x since C25 are layer 0's q, k and v)
     for variant, key, first_key, dtypes in (
@@ -6188,11 +6763,9 @@ def main():
                      "kernel": "int8_matmul_wgmma_kernel (+ "
                                "int8_matmul_reduce_kernel where K is split)",
                      "dtypes": dtypes,
-                     "launches": sum(st["launches"][key]
-                                     for _, st in int8_runs.values()),
-                     "launches_by_path": {k: st["launches"][key]
-                                          for k, (_, st) in
-                                          int8_runs.items()},
+                     "launches": sum(c[key] for c in b10_paths.values()),
+                     "launches_by_path": {k: c[key]
+                                          for k, c in b10_paths.items()},
                      "calls_by_m": {k: dict(sorted(h.items()))
                                     for k, h in mm_hist.items()},
                      "max_abs_err": mm_errs["bf16"],
@@ -6348,6 +6921,9 @@ def main():
         fused_vs_eager_master_rel=ck["master_rel"],
         masters_bit_equal=ck["masters_equal"])
     log(json.dumps({"amp": amp_line}))
+    log(json.dumps({"amp_serving": amp_serving_line(amp_srv, runs, static,
+                                                    legacy, prompts,
+                                                    static_prompts)}))
     phase("phase 7: the ops layer on the card: creation and random ops, "
           "and a sample of the five op modules against the CPU")
     log(json.dumps({"ops": ops_phase(torch, pt)}))

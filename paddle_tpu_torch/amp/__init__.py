@@ -67,6 +67,17 @@ def _snapshot():
             _state.black)
 
 
+def state_key():
+    """The AMP state as a hashable key: ``(False,)`` when it is off (every
+    disabled state casts nothing), else ``(True, level, dtype, white,
+    black)`` with the lists as frozensets. A program captured under one
+    key computes what the ops cast under that state only."""
+    if not _state.enabled:
+        return (False,)
+    return (True, _state.level, _state.dtype, frozenset(_state.white),
+            frozenset(_state.black))
+
+
 def _restore(snap):
     (_state.enabled, _state.level, _state.dtype, _state.white,
      _state.black) = snap
@@ -338,7 +349,8 @@ def is_float16_supported(device=None):
 
 from . import debugging  # noqa: E402,F401  (paddle.amp.debugging)
 
-__all__ = ["WHITE_LIST", "BLACK_LIST", "amp_state", "amp_cast_inputs",
+__all__ = ["WHITE_LIST", "BLACK_LIST", "amp_state", "state_key",
+           "amp_cast_inputs",
            "result_dtype", "promote", "auto_cast", "amp_guard", "decorate",
            "GradScaler", "check_finite_and_unscale",
            "is_bfloat16_supported", "is_float16_supported", "debugging"]

@@ -592,13 +592,15 @@ cudaError_t launch_split(const void* q, const Pages<PT>& pg, void* out,
 }  // namespace
 
 // Plain C interface, bound with ctypes. dtype (of q and out): 0 float32,
-// 1 bfloat16, 2 float16. Every pointer is a device pointer of a
+// 1 bfloat16, 2 float16; the native-page functions also take 3 (bfloat16
+// q and out over float32 pages) and 4 (float16 over float32), the pools
+// of a 16-bit model under AMP's O2. Every pointer is a device pointer of a
 // contiguous tensor; the Python wrapper checks shapes, types and devices
 // and picks the variant. Returns the cudaError_t of the launch (0 on
 // success).
 extern "C" {
 
-// "block": kp/vp [KVH, NP, P, D] of q's type.
+// "block": kp/vp [KVH, NP, P, D] of q's type (float32 for codes 3, 4).
 int ptt_paged_decode(int dtype, const void* q, const void* kp, const void* vp,
                      void* out, const int* tables, const int* ctx_lens, int B,
                      int H, int KVH, int D, int NP, int P, int pages_per_seq,
@@ -609,6 +611,8 @@ int ptt_paged_decode(int dtype, const void* q, const void* kp, const void* vp,
     case 0: return (int)launch_block<float>(q, native_pages<float>(kp, vp), out, tables, ctx_lens, B, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
     case 1: return (int)launch_block<__nv_bfloat16>(q, native_pages<__nv_bfloat16>(kp, vp), out, tables, ctx_lens, B, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
     case 2: return (int)launch_block<__half>(q, native_pages<__half>(kp, vp), out, tables, ctx_lens, B, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
+    case 3: return (int)launch_block<__nv_bfloat16>(q, native_pages<float>(kp, vp), out, tables, ctx_lens, B, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
+    case 4: return (int)launch_block<__half>(q, native_pages<float>(kp, vp), out, tables, ctx_lens, B, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -644,6 +648,8 @@ int ptt_paged_decode_split(int dtype, const void* q, const void* kp,
     case 0: return (int)launch_split<float>(q, native_pages<float>(kp, vp), out, tables, ctx_lens, B, H, KVH, D, NP, P, pages_per_seq, sm_scale, splits, stages, s);
     case 1: return (int)launch_split<__nv_bfloat16>(q, native_pages<__nv_bfloat16>(kp, vp), out, tables, ctx_lens, B, H, KVH, D, NP, P, pages_per_seq, sm_scale, splits, stages, s);
     case 2: return (int)launch_split<__half>(q, native_pages<__half>(kp, vp), out, tables, ctx_lens, B, H, KVH, D, NP, P, pages_per_seq, sm_scale, splits, stages, s);
+    case 3: return (int)launch_split<__nv_bfloat16>(q, native_pages<float>(kp, vp), out, tables, ctx_lens, B, H, KVH, D, NP, P, pages_per_seq, sm_scale, splits, stages, s);
+    case 4: return (int)launch_split<__half>(q, native_pages<float>(kp, vp), out, tables, ctx_lens, B, H, KVH, D, NP, P, pages_per_seq, sm_scale, splits, stages, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

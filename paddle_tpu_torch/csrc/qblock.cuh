@@ -816,7 +816,9 @@ cudaError_t launch_qblock_rt(const void* q, const Pages<PT>& pg, void* out,
 // ptt_ragged_qblock_p<P> (native pages) and ptt_ragged_qblock_p<P>_q8
 // (int8 pages with fp32 row scales), the operands of the runtime kernel's
 // entry points plus the block table's width pps. dtype (of q and out): 0
-// float32, 1 bfloat16, 2 float16. Every pointer is a device pointer of a
+// float32, 1 bfloat16, 2 float16; the native-page functions also take 3
+// (bfloat16 q and out over float32 pages) and 4 (float16 over float32).
+// Every pointer is a device pointer of a
 // contiguous tensor. Returns the cudaError_t of the launch (0 on success;
 // cudaErrorInvalidValue for D % 16 != 0 or pools and scales that are not
 // 16-byte aligned).
@@ -840,6 +842,12 @@ cudaError_t launch_qblock_rt(const void* q, const Pages<PT>& pg, void* out,
           s);                                                                 \
       case 2: return (int)launch_qblock_unit<__half, __half, P>(              \
           q, native_pages<__half>(kp, vp), out, row_slot, row_ctx, job_page,  \
+          units, n_units, H, KVH, D, NP, qb, U, J, pps, sm_scale, s);         \
+      case 3: return (int)launch_qblock_unit<__nv_bfloat16, float, P>(        \
+          q, native_pages<float>(kp, vp), out, row_slot, row_ctx, job_page,   \
+          units, n_units, H, KVH, D, NP, qb, U, J, pps, sm_scale, s);         \
+      case 4: return (int)launch_qblock_unit<__half, float, P>(               \
+          q, native_pages<float>(kp, vp), out, row_slot, row_ctx, job_page,   \
           units, n_units, H, KVH, D, NP, qb, U, J, pps, sm_scale, s);         \
       default: return (int)cudaErrorInvalidValue;                             \
     }                                                                         \

@@ -20,6 +20,8 @@ int ptt_ragged_qblock_rt(int dtype, const void* q, const void* kp,
     case 0: return (int)launch_qblock_rt<float>(q, native_pages<float>(kp, vp), out, row_slot, row_ctx, job_page, units, n_units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
     case 1: return (int)launch_qblock_rt<__nv_bfloat16>(q, native_pages<__nv_bfloat16>(kp, vp), out, row_slot, row_ctx, job_page, units, n_units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
     case 2: return (int)launch_qblock_rt<__half>(q, native_pages<__half>(kp, vp), out, row_slot, row_ctx, job_page, units, n_units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
+    case 3: return (int)launch_qblock_rt<__nv_bfloat16>(q, native_pages<float>(kp, vp), out, row_slot, row_ctx, job_page, units, n_units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
+    case 4: return (int)launch_qblock_rt<__half>(q, native_pages<float>(kp, vp), out, row_slot, row_ctx, job_page, units, n_units, H, KVH, D, NP, P, qb, U, J, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -781,7 +781,9 @@ cudaError_t launch_token_split(const void* q, const Pages<PT>& pg, void* out,
 }  // namespace
 
 // Plain C interface, bound with ctypes. dtype (of q and out): 0 float32,
-// 1 bfloat16, 2 float16. Every pointer is a device pointer of a
+// 1 bfloat16, 2 float16; the native-page functions also take 3 (bfloat16
+// q and out over float32 pages) and 4 (float16 over float32). Every
+// pointer is a device pointer of a
 // contiguous tensor; the Python wrapper checks shapes, types and devices.
 // The _q8 functions take int8 pages kp/vp [KVH, NP, P, D] and their fp32
 // row scales ks/vs [KVH, NP, P]. (The q-block kernels' functions are in
@@ -809,6 +811,8 @@ int ptt_ragged_token(int dtype, const void* q, const void* kp, const void* vp,
     case 0: return (int)launch_token<float>(q, native_pages<float>(kp, vp), out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
     case 1: return (int)launch_token<__nv_bfloat16>(q, native_pages<__nv_bfloat16>(kp, vp), out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
     case 2: return (int)launch_token<__half>(q, native_pages<__half>(kp, vp), out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
+    case 3: return (int)launch_token<__nv_bfloat16>(q, native_pages<float>(kp, vp), out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
+    case 4: return (int)launch_token<__half>(q, native_pages<float>(kp, vp), out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -846,6 +850,8 @@ int ptt_ragged_token_split(int dtype, const void* q, const void* kp,
     case 0: return (int)launch_token_split<float>(q, native_pages<float>(kp, vp), out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, splits, round_pages, s);
     case 1: return (int)launch_token_split<__nv_bfloat16>(q, native_pages<__nv_bfloat16>(kp, vp), out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, splits, round_pages, s);
     case 2: return (int)launch_token_split<__half>(q, native_pages<__half>(kp, vp), out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, splits, round_pages, s);
+    case 3: return (int)launch_token_split<__nv_bfloat16>(q, native_pages<float>(kp, vp), out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, splits, round_pages, s);
+    case 4: return (int)launch_token_split<__half>(q, native_pages<float>(kp, vp), out, tok_slot, tok_ctx, tables, T_tok, H, KVH, D, NP, P, pages_per_seq, sm_scale, splits, round_pages, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -29,6 +29,12 @@
   graph, captured at its first use (or by
   :meth:`~ContinuousServingEngine.warmup_programs`) and replayed after.
 
+Both engines follow the AMP state (:func:`~paddle_tpu_torch.amp.auto_cast`)
+current at each tick, as the reference's do: the state is one per
+process, so a caller's ``with amp.auto_cast(level="O2",
+dtype="bfloat16"):`` around its requests holds for the serve thread too,
+and each tick program (and CUDA graph) belongs to one state.
+
 Both engines run the model on a serve thread of their own, which enters
 ``torch.inference_mode()`` itself. ``abort()`` fails every queued and
 in-flight request at the next tick boundary instead of draining them.
@@ -47,6 +53,7 @@ from collections import Counter, deque
 import numpy as np
 import torch
 
+from .. import amp
 from .._device import resolve_device
 from ..models.generation import (KV_DTYPES, SlotPagedKVCache, StagedBuffer,
                                  _row_generator, _sample_logits)
@@ -518,7 +525,8 @@ class ContinuousServingEngine(_Engine):
         self.spec_draft_ticks = 0      # ticks that ran the drafter
         self._cache = None
         self._adopt = None             # a warmed cache the next serve takes
-        self._programs = {}            # tick shape -> _TickProgram
+        # (tick shape, amp.state_key()) -> _TickProgram
+        self._programs = {}
         self._graph_pool = None
         self._capture_stream = None
         self.ragged_steps = 0          # ragged packed forwards run
@@ -628,7 +636,9 @@ class ContinuousServingEngine(_Engine):
         own cache (writing only its scratch page), so on CUDA their graphs
         are captured here for the live cache; the chunks run on a
         one-slot scratch cache. Call it before :meth:`start` (the next
-        serve adopts the warmed cache) or through :meth:`run_on_loop`.
+        serve adopts the warmed cache) or through :meth:`run_on_loop`,
+        under the AMP state the ticks will run in: the programs warmed
+        are that state's.
         Leaves the cache as it found it. Returns ``{family: seconds}``."""
         names = None if families is None else set(families)
 
@@ -703,10 +713,15 @@ class ContinuousServingEngine(_Engine):
         ``("decode",)``) over the armed ``cache``: the ids and positions
         staged into the shape's buffers, then the eager forward, or on a
         CUDA engine with graphs its graph (captured at the shape's first
-        use). Returns the logits."""
-        prog = self._programs.get(key)
+        use). A program belongs to the shape and to the AMP state of the
+        tick (:func:`amp.state_key`, read now, as the reference's ops read
+        it at every call): a tick under another state has its own buffers
+        and graph and never replays one captured under another. Returns
+        the logits."""
+        prog_key = (key, amp.state_key())
+        prog = self._programs.get(prog_key)
         if prog is None:
-            prog = self._programs[key] = _TickProgram(
+            prog = self._programs[prog_key] = _TickProgram(
                 ids.shape, ids.shape if key[0] == "decode" else (ids.shape[1],),
                 self.device)
         prog.ids.fill(ids)

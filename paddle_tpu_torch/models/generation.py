@@ -34,6 +34,7 @@ from collections import OrderedDict, deque
 import numpy as np
 import torch
 
+from .. import amp
 from ..nn.functional import scaled_dot_product_attention
 from ..ops.paged_attention import paged_attention
 from ..ops.ragged_paged_attention import (DEFAULT_QBLOCK, RaggedPlan,
@@ -216,7 +217,10 @@ class PagedKVCache(KVCache):
     def attend(self, layer, q, k, v):
         """The pools take k's dtype, as the reference's (``generation.py:
         303``): fp32 in a bf16 model, whose rope makes k fp32 (ROADMAP
-        C25); v is cast to it where it is written."""
+        C25), under AMP too; v is cast to it where it is written. A decode
+        step is the reference's op ``"paged_attention"`` (``:354``), whose
+        one tensor argument is q: AMP casts q alone, to 16 bits under O2
+        (ROADMAP C29), and the output takes q's dtype."""
         b, s, kv_heads, d = k.shape
         if self._batch is not None and self._batch != b:
             raise ValueError(f"PagedKVCache was allocated for batch "
@@ -244,6 +248,9 @@ class PagedKVCache(KVCache):
                 k = _page_gather(k_pages, tb)[:, :start + s]
                 v = _page_gather(v_pages, tb)[:, :start + s]
             return scaled_dot_product_attention(q, k, v, is_causal=True)
+        # the reference's op: only q is its tensor argument, so AMP casts
+        # q alone (16-bit under O2, over the fp32 pages)
+        (q,) = amp.amp_cast_inputs("paged_attention", [q])
         return paged_attention(q[:, 0], k_pages, v_pages, tables, ctx)[:, None]
 
 
@@ -694,7 +701,11 @@ class SlotPagedKVCache:
         d]``, ``k``/``v [b, s, kv_heads, d]`` -> ``[b, s, heads, d]``. The
         pools take k's dtype, as the reference's (``generation.py:1183``):
         fp32 in a bf16 model, whose rope makes q and k fp32 (ROADMAP C25),
-        so the serving kernels get fp32 q and pages there."""
+        so the serving kernels get fp32 q and pages there. Under AMP the
+        decode step and the ragged tick are the reference's ops
+        ``"paged_attention"`` and ``"ragged_paged_attention"`` (``:1435``,
+        ``:1400``), which cast q alone: 16-bit q over the fp32 pages under
+        O2 (ROADMAP C29)."""
         mode, arg = self._mode
         b, s, kv_heads, d = k.shape
         if mode != "prefill" and k.device != self.device:
@@ -775,6 +786,7 @@ class SlotPagedKVCache:
         self._scatter(layer, k_pages, v_pages, k.permute(2, 0, 1, 3),
                       v.permute(2, 0, 1, 3), page_ids, slot_ids)
         ks, vs = self._layer_scales(layer)
+        (q,) = amp.amp_cast_inputs("paged_attention", [q])
         return paged_attention(q[:, 0], k_pages, v_pages, tables, ctx,
                                k_scales=ks, v_scales=vs)[:, None]
 
@@ -791,6 +803,7 @@ class SlotPagedKVCache:
         self._scatter(layer, k_pages, v_pages, k[0].transpose(0, 1),
                       v[0].transpose(0, 1), page_ids, slot_ids)
         ks, vs = self._layer_scales(layer)
+        (q,) = amp.amp_cast_inputs("ragged_paged_attention", [q])
         out = ragged_paged_attention(q[0], k_pages, v_pages, tables, *desc,
                                      impl=self.ragged_impl, plan=plan,
                                      k_scales=ks, v_scales=vs)

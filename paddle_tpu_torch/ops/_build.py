@@ -188,6 +188,25 @@ def dtype_code(dtype):
     return _DTYPE_CODE[dtype]
 
 
+#: the attention kernels' codes for 16-bit q and out over fp32 pages (the
+#: pools of a 16-bit model under AMP's O2, whose cached op casts q alone)
+_MIXED_CODE = {torch.bfloat16: 3, torch.float16: 4}
+
+
+def attention_dtype_code(q_dtype, page_dtype):
+    """The attention kernels' ``dtype`` argument for q (and out) of
+    ``q_dtype`` over pages of ``page_dtype``: :func:`dtype_code` where
+    they agree or the pages are int8 (their codes take any q), 3 / 4 for
+    bf16 / fp16 q over fp32 pages; raises for any other pair."""
+    code = dtype_code(q_dtype)
+    if page_dtype in (q_dtype, torch.int8):
+        return code
+    if page_dtype == torch.float32 and q_dtype in _MIXED_CODE:
+        return _MIXED_CODE[q_dtype]
+    raise TypeError(f"no attention kernel takes {q_dtype} q over "
+                    f"{page_dtype} pages")
+
+
 def _bump(target, key, n):
     """Add ``n`` to counter ``key`` of ``target``: an attribute of a
     wrapper function, or an item of a dict (counts by shape)."""

@@ -8,9 +8,12 @@ and ``context_lens[b]`` counts the tokens sequence ``b`` sees, this one
 included. Positions at or past it score ``-inf``, the reference's mask
 for this kernel.
 
-Pages are native (the query's dtype, kernel B4) or int8 with one fp32
-scale per ``(kv head, page, slot)`` row (kernel B5), each row
-dequantised in fp32 as ``int8 * scale`` before both dots.
+Pages are native (kernel B4: the query's dtype, or fp32 under a bf16
+or fp16 query, as a 16-bit model's pools are under AMP's O2) or int8
+with one fp32 scale per ``(kv head, page, slot)`` row (kernel B5), each
+row dequantised in fp32 as ``int8 * scale`` before both dots. The
+output takes the query's dtype; a 16-bit query is read exactly into
+fp32, so over fp32 pages the result is the fp32 query's, rounded once.
 
 A CUDA tensor goes to a kernel of ``csrc/paged_attention.cu`` or
 raises; a CPU tensor runs :func:`paged_decode_plain`, the reference's
@@ -258,7 +261,10 @@ def decode_variant(q, k_pages, v_pages, pages_per_seq, n_sm, k_scales=None,
 def _check_cuda_inputs(q, k_pages, v_pages, tables, ctx, k_scales,
                        v_scales):
     quant = k_scales is not None
-    page_dtype = torch.int8 if quant else q.dtype
+    # native pages of q's dtype, or fp32 under a 16-bit q (AMP's O2 casts
+    # q alone); int8 pages under any q
+    page_dtype = torch.int8 if quant else k_pages.dtype
+    _build.attention_dtype_code(q.dtype, page_dtype)
     operands = [("q", q, q.dtype), ("k_pages", k_pages, page_dtype),
                 ("v_pages", v_pages, page_dtype)]
     if quant:
@@ -289,6 +295,16 @@ def _check_cuda_inputs(q, k_pages, v_pages, tables, ctx, k_scales,
                          f"{tuple(ctx.shape)}")
 
 
+def launch_counters(fn, variant, q, k_pages, quant):
+    """The counters a launch of wrapper ``fn``'s ``variant`` adds to:
+    every launch, the variant's, and for a 16-bit q over fp32 pages (the
+    ``<T, float>`` instantiations) ``mixed_launches``."""
+    out = ((fn, "launches"), (fn, f"{variant}_launches"))
+    if k_pages.dtype != q.dtype and not quant:
+        out += ((fn, "mixed_launches"),)
+    return out
+
+
 def _paged_cuda(fn, q, k_pages, v_pages, block_tables, context_lens,
                 sm_scale, k_scales, v_scales, variant):
     """Check, pick the variant (or take the forced one), launch, count:
@@ -310,7 +326,8 @@ def _paged_cuda(fn, q, k_pages, v_pages, block_tables, context_lens,
     name = "ptt_paged_decode" + ("_split" if variant == "cluster" else "") \
         + ("_q8" if quant else "")
     out = torch.empty_like(q)
-    args = ([ctypes.c_int(_build.dtype_code(q.dtype))]
+    args = ([ctypes.c_int(_build.attention_dtype_code(q.dtype,
+                                                      k_pages.dtype))]
             + [ctypes.c_void_p(t.data_ptr())
                for t in (q, *pools, out, tables, ctx)]
             + [ctypes.c_int(x) for x in (B, H, KVH, D, NP, P,
@@ -319,7 +336,7 @@ def _paged_cuda(fn, q, k_pages, v_pages, block_tables, context_lens,
             + ([ctypes.c_int(splits), ctypes.c_int(stages)]
                if variant == "cluster" else []))
     _build.launch(name, q.device, args,
-                  ((fn, "launches"), (fn, f"{variant}_launches")))
+                  launch_counters(fn, variant, q, k_pages, quant))
     return out
 
 
@@ -366,8 +383,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
 
     Native pages run B4, whose CUDA launches are counted in
     ``paged_attention.launches`` and, by variant, in
-    ``.cluster_launches`` and ``.block_launches``; int8 pages run B5
-    (:func:`paged_attention_q8`)."""
+    ``.cluster_launches`` and ``.block_launches``; those of a 16-bit q
+    over fp32 pages (the ``<T, float>`` instantiations) also in
+    ``.mixed_launches``. int8 pages run B5 (:func:`paged_attention_q8`)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if variant not in (None, *VARIANTS):
@@ -390,6 +408,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
 paged_attention.launches = 0
 paged_attention.cluster_launches = 0
 paged_attention.block_launches = 0
+paged_attention.mixed_launches = 0
 
 
 def paged_attention_reference(q, k_pages, v_pages, block_tables,

@@ -16,9 +16,12 @@ describes each sequence by ``(slot, q_start, q_len, context_len)``:
 Tokens outside every span are bucket padding; their output is garbage
 and the caller discards it.
 
-Pages are native (the query's dtype) or int8 with one fp32 scale per
-``(kv head, page, slot)`` row (``k_scales``/``v_scales``), each row
-dequantised in fp32 as ``int8 * scale`` before both dots.
+Pages are native (the query's dtype, or fp32 under a bf16 or fp16
+query, as a 16-bit model's pools are under AMP's O2) or int8 with one
+fp32 scale per ``(kv head, page, slot)`` row (``k_scales``/
+``v_scales``), each row dequantised in fp32 as ``int8 * scale`` before
+both dots. The output takes the query's dtype; over fp32 pages a 16-bit
+query gives the fp32 query's result, rounded once.
 
 Two grids compute the same function, each a kernel written for Hopper
 (``csrc/qblock.cuh`` for the q-block grid, ``csrc/ragged_paged_attention
@@ -66,7 +69,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .paged_attention import SMEM_LIMIT, _sm_count
+from .paged_attention import SMEM_LIMIT, _sm_count, launch_counters
 
 #: causal mask inside a row's own pages (``paged_attention.py:52``)
 NEG_INF = float("-inf")
@@ -632,9 +635,11 @@ def _check_cuda_inputs(q, k_pages, v_pages, plan, impl, k_scales=None,
                        v_scales=None):
     if plan.impl != impl:
         raise ValueError(f"plan was built for {plan.impl!r}, not {impl!r}")
-    _build.dtype_code(q.dtype)
     quant = k_scales is not None
-    page_dtype = torch.int8 if quant else q.dtype
+    # native pages of q's dtype, or fp32 under a 16-bit q (AMP's O2 casts
+    # q alone); int8 pages under any q
+    page_dtype = torch.int8 if quant else k_pages.dtype
+    _build.attention_dtype_code(q.dtype, page_dtype)
     operands = [("q", q, q.dtype), ("k_pages", k_pages, page_dtype),
                 ("v_pages", v_pages, page_dtype)]
     if quant:
@@ -690,7 +695,8 @@ def _launch(fn_name, q, pages, plan, sm_scale, counters, extra=()):
     else:
         arrays = [d[n] for n in ("tok_slot", "tok_ctx", "tables")]
         sizes = (T, H, KVH, D, NP, P, d["tables"].shape[1])
-    args = [ctypes.c_int(_build.dtype_code(q.dtype))] + [
+    args = [ctypes.c_int(_build.attention_dtype_code(q.dtype,
+                                                     pages[0].dtype))] + [
         ctypes.c_void_p(t.data_ptr()) for t in (q, *pages, out, *arrays)
     ] + [ctypes.c_int(x) for x in sizes] + [ctypes.c_float(sm_scale)] + [
         ctypes.c_int(x) for x in extra]
@@ -715,7 +721,7 @@ def _qblock_cuda(fn, q, k_pages, v_pages, plan, sm_scale, k_scales,
                                   f"_p{k_pages.shape[2]}") \
         + ("_q8" if quant else "")
     return _launch(name, q, pages, plan, sm_scale,
-                   ((fn, "launches"), (fn, f"{variant}_launches")))
+                   launch_counters(fn, variant, q, k_pages, quant))
 
 
 def qblock_attention(q, k_pages, v_pages, plan, sm_scale, k_scales=None,
@@ -727,7 +733,8 @@ def qblock_attention(q, k_pages, v_pages, plan, sm_scale, k_scales=None,
     kernel (a forced ``"unit"`` raises where it does not apply), CUDA
     tensors only. Kernel 6 counts its CUDA launches in
     ``qblock_attention.launches`` and, by variant, in ``.unit_launches``
-    and ``.runtime_launches``."""
+    and ``.runtime_launches``; those of a 16-bit q over fp32 pages also
+    in ``.mixed_launches``."""
     if k_scales is not None:
         return qblock_attention_q8(q, k_pages, v_pages, k_scales, v_scales,
                                    plan, sm_scale, variant)
@@ -745,6 +752,7 @@ def qblock_attention(q, k_pages, v_pages, plan, sm_scale, k_scales=None,
 qblock_attention.launches = 0
 qblock_attention.unit_launches = 0
 qblock_attention.runtime_launches = 0
+qblock_attention.mixed_launches = 0
 
 
 def qblock_attention_q8(q, k_pages, v_pages, k_scales, v_scales, plan,
@@ -789,7 +797,7 @@ def _token_cuda(fn, q, k_pages, v_pages, plan, sm_scale, k_scales,
     name = "ptt_ragged_token" + ("_split" if variant == "cluster" else "") \
         + ("_q8" if quant else "")
     return _launch(name, q, pages, plan, sm_scale,
-                   ((fn, "launches"), (fn, f"{variant}_launches")),
+                   launch_counters(fn, variant, q, k_pages, quant),
                    (splits, token_round_pages(splits))
                    if variant == "cluster" else ())
 
@@ -803,7 +811,8 @@ def token_attention(q, k_pages, v_pages, plan, sm_scale, k_scales=None,
     kernel (a forced ``"cluster"`` raises where it does not apply), CUDA
     tensors only. Kernel 8 counts its CUDA launches in
     ``token_attention.launches`` and, by variant, in
-    ``.cluster_launches`` and ``.block_launches``."""
+    ``.cluster_launches`` and ``.block_launches``; those of a 16-bit q
+    over fp32 pages also in ``.mixed_launches``."""
     if k_scales is not None:
         return token_attention_q8(q, k_pages, v_pages, k_scales, v_scales,
                                   plan, sm_scale, variant)
@@ -821,6 +830,7 @@ def token_attention(q, k_pages, v_pages, plan, sm_scale, k_scales=None,
 token_attention.launches = 0
 token_attention.cluster_launches = 0
 token_attention.block_launches = 0
+token_attention.mixed_launches = 0
 
 
 def token_attention_q8(q, k_pages, v_pages, k_scales, v_scales, plan,

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import amp
 from ..nn.common import Linear
 from ..ops.quant_matmul import int8_matmul, quantize_weight
 
@@ -26,11 +27,19 @@ def int8_linear(x, w_int8, w_scale, bias=None):
     """Weight-only int8 linear: flatten ``x``'s leading dims, run
     :func:`int8_matmul` (codes ``[out, in]``, scales ``[out]``), restore
     the shape, add ``bias``. Inference only: it runs under
-    ``torch.no_grad()``, as the reference keeps it off the tape."""
+    ``torch.no_grad()``, as the reference keeps it off the tape. It is
+    the reference's op ``"int8_linear"``: AMP casts its float arguments,
+    so under O2 x, the scales and the bias go to the AMP dtype and the
+    kernel reads the rounded scales back in fp32, as the reference's
+    (``quant_matmul.py:126``)."""
+    x, w_int8, w_scale, *bias = amp.amp_cast_inputs(
+        "int8_linear", [x, w_int8, w_scale] + ([bias] if bias is not None
+                                               else []))
     with torch.no_grad():
-        out = int8_matmul(x.reshape(-1, x.shape[-1]), w_int8, w_scale)
+        out = int8_matmul(x.reshape(-1, x.shape[-1]), w_int8,
+                          w_scale.float())
         out = out.reshape(*x.shape[:-1], out.shape[-1])
-        return out + bias if bias is not None else out
+        return out + bias[0] if bias else out
 
 
 class _Int8Linear(Linear):
