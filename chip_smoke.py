@@ -339,12 +339,27 @@ Phases, each fatal on error (non-zero exit, no result line):
    of the five modules, seeded numpy inputs) on CUDA tensors against the
    same calls on CPU tensors: dtypes and shapes equal, floats within
    1e-5 of the CPU result's largest magnitude (TF32 off), the rest
-   exact.
+   exact;
+8. the nn surface and PaddleClas ResNet-50 (``nn_phase``): (a) every
+   case of the CPU tests' functional table (``tests/torch_nn_cases.py``,
+   all 111 registry functional ops and 7 aliases) on CUDA tensors
+   against CPU tensors, forward and gradients (1e-5 and 1e-4 of the
+   CPU's largest magnitude, TF32 off; dtypes, shapes and integers
+   exact); (b) ResNet-50 with 10 classes: one fp32 training step at
+   batch 8 stage by stage against the CPU and an fp64 copy (outputs,
+   loss, gradients, BN statistics), then bench.py's configuration, batch
+   256 of 3 x 32 x 32 images, 20 steps of PaddleClas's recipe
+   (``decorate`` O2 bf16 with fp32 BatchNorms, ``auto_cast``, Momentum
+   0.9 with L2Decay 1e-4 on fp32 masters) on one seeded batch: the loss
+   finite and falling, the O2 dtype trace equal to the CPU's, no port
+   kernel launched; it prints images/s, the forward, backward and
+   optimizer ms, the peak memory and the device ms by kernel of one
+   step beside the card's name and power limit.
 
 Prints a ``{"graph_breakdown": ...}`` line (phases 3f and 3g, per engine
 and mode), a ``{"spec": ...}`` line (3h, 3i, 4(d), 4(e)), an
 ``{"amp": ...}`` line (3j), an ``{"amp_serving": ...}`` line (3k), an
-``{"ops": ...}`` line (phase 7), a
+``{"ops": ...}`` line (phase 7), an ``{"nn": ...}`` line (phase 8), a
 ``{"kernels": [...]}`` line with all ten TPU kernels (kernel 6 and B7
 also as their runtime variants, with launches by variant and path) and the
 fused optimizer step's two (K-A and K-B, no Pallas counterpart,
@@ -5856,6 +5871,370 @@ def ops_phase(torch, pt):
                     {str(v.device) for v in made.values()}))
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the nn surface, and PaddleClas ResNet-50 on CIFAR-10
+# ---------------------------------------------------------------------------
+
+#: 8(a): the functional case table's float tolerances, card against CPU
+#: (TF32 off), relative to the CPU result's largest magnitude (at least 1)
+NN_FWD_TOL, NN_GRAD_TOL = 1e-5, 1e-4
+#: 8(b): bench.py's configuration, ``resnet50(num_classes=10)`` at batch
+#: 256 on 3 x 32 x 32 images, 20 steps of PaddleClas's recipe
+RESNET_BATCH, RESNET_STEPS, RESNET_CHECK_BATCH = 256, 20, 8
+#: the fp32 check's floor: the card's distance from an fp64 run of the
+#: same step may be ``RESNET_FACTOR`` times the CPU fp32's, or this
+#: (relative to the fp64 tensor's largest magnitude); see
+#: ``resnet_fp32_check``
+RESNET_FACTOR, RESNET_FLOOR = 8.0, 1e-4
+
+
+def _nn_cases():
+    """The functional case table of the CPU tests
+    (``tests/torch_nn_cases.py``, numpy only)."""
+    import os
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_nn_cases
+    return torch_nn_cases
+
+
+def _rel_err(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if not want.size:
+        return 0.0
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1.0))
+
+
+def _run_case(torch, case, arrays, device):
+    """A functional case on ``device``: (outputs, float-input grads), all
+    as numpy, the grads of ``sum(out * cot)`` with the case's seeded
+    cotangents when the case checks gradients."""
+    from paddle_tpu_torch.nn import functional as F
+    cases = _nn_cases()
+    diff = {k for k, a in arrays.items() if case.grad
+            and np.issubdtype(a.dtype, np.floating) and k not in case.nograd}
+    t = {k: torch.from_numpy(a.copy()).to(device).requires_grad_(k in diff)
+         for k, a in arrays.items()}
+    outs = cases.flat_outputs(case.fn(F, t))
+    got = [o.detach().cpu().numpy() for o in outs]
+    grads = {}
+    if diff:
+        rng = np.random.RandomState(7)
+        loss = sum((o * torch.from_numpy(np.asarray(
+            rng.randn(*o.shape), np.float32)).to(device)).sum()
+                   for o in outs if o.is_floating_point())
+        loss.backward()
+        grads = {k: (np.zeros(a.shape, np.float32) if t[k].grad is None
+                     else t[k].grad.cpu().numpy())
+                 for k, a in arrays.items() if k in diff}
+    return got, grads
+
+
+def functional_phase(torch, pt):
+    """8(a): every case of the CPU tests' functional table on CUDA
+    tensors against the same case on CPU tensors: dtypes and shapes
+    equal, floats within ``NN_FWD_TOL`` (gradients ``NN_GRAD_TOL``) of the
+    CPU result's largest magnitude, the rest exact. Returns the worst
+    error per op."""
+    cases = _nn_cases()
+    worst, t0 = {}, time.perf_counter()
+    for case in cases.CASES:
+        arrays = cases.case_arrays(case)
+        got, got_g = _run_case(torch, case, arrays, "cuda")
+        pt.set_device("cpu")
+        try:
+            want, want_g = _run_case(torch, case, arrays, "cpu")
+        finally:
+            pt.set_device("gpu:0")
+        name = cases.case_id(case)
+        if [(g.dtype, g.shape) for g in got] != [(w.dtype, w.shape)
+                                                 for w in want]:
+            raise AssertionError(f"nn {name}: card "
+                                 f"{[(g.dtype, g.shape) for g in got]}, cpu "
+                                 f"{[(w.dtype, w.shape) for w in want]}")
+        err = 0.0
+        for g, w in zip(got, want):
+            if np.issubdtype(w.dtype, np.floating):
+                err = max(err, _rel_err(g, w))
+            elif not np.array_equal(g, w):
+                raise AssertionError(f"nn {name}: the card's integer or "
+                                     f"bool result differs from the CPU's")
+        check(f"nn {name} card vs cpu", err, NN_FWD_TOL, "max err / max")
+        gerr = max([_rel_err(got_g[k], want_g[k]) for k in want_g] or [0.0])
+        check(f"nn {name} grads card vs cpu", gerr, NN_GRAD_TOL,
+              "max err / max")
+        worst[case.op] = max(worst.get(case.op, 0.0), err, gerr)
+    seconds = time.perf_counter() - t0
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  {len(cases.CASES)} cases over {len(worst)} functional ops on "
+        f"the card equal to the CPU's (TF32 off) in {seconds:.2f} s; worst "
+        f"float error per op (forward and gradients, of the largest "
+        f"magnitude): " + ", ".join(f"{k} {v:.3e}" for k, v in top))
+    log(json.dumps({"nn_functional_worst": worst}))
+    return dict(cases=len(cases.CASES), ops=len(worst), seconds=seconds,
+                worst=max(worst.values()), worst_op=top[0][0])
+
+
+def _resnet_batch(torch, n, seed, device):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(n, 3, 32, 32).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, n).astype(np.int64))
+    return x.to(device), y.to(device)
+
+
+def _resnet_stages(torch, m):
+    """ResNet's stem, four layers and head as ``(name, fn, modules)``."""
+    def stem(h):
+        return m.maxpool(m.relu(m.bn1(m.conv1(h))))
+
+    def head(h):
+        return m.fc(torch.flatten(m.avgpool(h), 1))
+    return [("stem", stem, [m.conv1, m.bn1]), ("layer1", m.layer1, [m.layer1]),
+            ("layer2", m.layer2, [m.layer2]), ("layer3", m.layer3, [m.layer3]),
+            ("layer4", m.layer4, [m.layer4]), ("head", head, [m.fc])]
+
+
+def _resnet_staged_step(torch, pt, model, x, y, ins=None, cots=None):
+    """A train-mode step stage by stage: each stage on ``ins[k]`` (its own
+    previous output when None) as a leaf, backward from the loss (last
+    stage) or from ``cots[k]`` (the next stage's input gradient when
+    None). Returns the inputs, the cotangents and, per stage, the output,
+    the input's gradient and the parameters' gradients and BN buffers
+    (float64, on the CPU)."""
+    dev = next(iter(model.parameters())).device
+    dt = next(iter(model.parameters())).dtype
+    stages = _resnet_stages(torch, model)
+    leaves, outs = [], []
+    h = x.to(dev, dt)
+    for k, (_, fn, _) in enumerate(stages):
+        src = ins[k] if ins is not None else h
+        leaf = src.detach().to(dev, dt).requires_grad_(True)
+        leaves.append(leaf)
+        outs.append(fn(leaf))
+        h = outs[-1].detach()
+    used, loss = [None] * len(stages), None
+    for k in reversed(range(len(stages))):
+        if k == len(stages) - 1:
+            loss = pt.nn.CrossEntropyLoss()(outs[k], y.to(dev))
+            loss.backward()
+        else:
+            c = cots[k] if cots is not None else leaves[k + 1].grad
+            used[k] = c.detach().cpu()
+            (outs[k] * c.to(dev, dt)).sum().backward()
+    res = []
+    for k, (name, _, mods) in enumerate(stages):
+        tensors = {"out": outs[k], "in_grad": leaves[k].grad}
+        if k == len(stages) - 1:
+            tensors["out loss"] = loss
+        for mod in mods:
+            for n, p in mod.named_parameters():
+                tensors[f"grad {n}"] = p.grad
+            for n, b in mod.named_buffers():
+                tensors[f"buffer {n}"] = b
+        res.append((name, {n: t.detach().double().cpu()
+                           for n, t in tensors.items()}))
+    return [leaf.detach().cpu() for leaf in leaves], used, res
+
+
+def resnet_fp32_check(torch, pt):
+    """8(b) correctness: ResNet-50 (10 classes) seeded on the CPU and
+    copied to the card and to an fp64 copy on the CPU; one train-mode
+    step on the same 8 images in fp32 (TF32 off), stage by stage (the
+    stem, the four layers, the head), every stage fed the CPU fp32 run's
+    input and, backward, its cotangent. Per stage, the card's output (the
+    head's: the logits and the loss), input gradient, parameter gradients and updated BN statistics: each
+    group at most ``RESNET_FACTOR`` times as far from the fp64 copy's as
+    the CPU fp32's own, or ``RESNET_FLOOR``. At this init the backward
+    amplifies roundoff: the CPU's fp32 gradients differ from fp64 ones by
+    2 % end to end and by up to 6.8e-4 inside ``layer1`` (measured on
+    the CPU), so a fixed tolerance end to end would say nothing."""
+    import copy
+    pt.set_device("cpu")
+    try:
+        pt.seed(3)
+        cpu = pt.vision.models.resnet50(num_classes=10)
+        card = copy.deepcopy(cpu).to("cuda")
+        f64 = copy.deepcopy(cpu).double()
+        x, y = _resnet_batch(torch, RESNET_CHECK_BATCH, 5, "cpu")
+        ins, cots, want = _resnet_staged_step(torch, pt, cpu, x, y)
+        _, _, exact = _resnet_staged_step(torch, pt, f64, x, y, ins, cots)
+    finally:
+        pt.set_device("gpu:0")
+    _, _, got = _resnet_staged_step(torch, pt, card, x, y, ins, cots)
+
+    def dist(a, b):
+        return max(float((a[n] - b[n]).abs().max()
+                         / b[n].abs().max().clamp_min(1e-30)) for n in a)
+
+    errs = {}
+    for (name, g), (_, w), (_, e) in zip(got, want, exact):
+        for group in ("out", "in_grad", "grad", "buffer"):
+            keys = [n for n in g if n.split(" ")[0] == group]
+            if not keys:
+                continue
+            card_d = dist({n: g[n] for n in keys}, {n: e[n] for n in keys})
+            cpu_d = dist({n: w[n] for n in keys}, {n: e[n] for n in keys})
+            tol = max(RESNET_FACTOR * cpu_d, RESNET_FLOOR)
+            check(f"resnet50 fp32 {name} {group}: card vs fp64 (cpu fp32 "
+                  f"{cpu_d:.3e})", card_d, tol, "max err / max")
+            errs[f"{name} {group}"] = dict(card=card_d, cpu=cpu_d)
+    worst = max(errs, key=lambda k: errs[k]["card"])
+    log(f"  ResNet-50 fp32 step at batch {RESNET_CHECK_BATCH} (TF32 off), "
+        f"stage by stage against an fp64 copy: worst card distance "
+        f"{errs[worst]['card']:.3e} ({worst}; the CPU fp32's "
+        f"{errs[worst]['cpu']:.3e})")
+    return errs
+
+
+def _resnet_trace(torch, pt, model, x, y):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.amp import debugging
+    with debugging.collect_operator_stats() as stats:
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            pt.nn.CrossEntropyLoss()(model(x), y)
+    return stats.records
+
+
+def _resnet_model(pt, seed):
+    """ResNet-50 and its optimizer, decorated for O2 bf16. The rate is
+    0.01: at 0.1 the first steps on one fixed batch overshoot (on the
+    CPU at batch 16, fp32: a loss of 3.35, then 28.9)."""
+    from paddle_tpu_torch import amp
+    pt.seed(seed)
+    model = pt.vision.models.resnet50(num_classes=10)
+    opt = pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                                parameters=model.parameters(),
+                                weight_decay=pt.optimizer.L2Decay(1e-4))
+    return amp.decorate(model, opt, level="O2", dtype="bfloat16")
+
+
+def resnet_train(torch, pt, kern, smi):
+    """8(b) training: PaddleClas's recipe on ResNet-50 at batch 256,
+    ``RESNET_STEPS`` steps on one fixed seeded batch: ``decorate(O2,
+    bf16)`` (the BatchNorms stay fp32), the forward and the loss under
+    ``auto_cast``, ``Momentum(0.9, L2Decay(1e-4))`` on fp32 masters. The
+    loss must stay finite and fall; the dtype trace of the step's forward
+    and loss must equal the CPU's (ResNet-50 at batch 2); the kernel
+    counts, zeroed before the steps, stay 0 (the path runs none of the
+    port's kernels). Prints images/s, the median forward, backward and
+    optimizer ms (each to a device sync), the steps' peak memory (above
+    what is allocated when they begin) and the device ms by kernel of
+    one profiled step."""
+    from paddle_tpu_torch import amp
+    model, opt = _resnet_model(pt, 1)
+    model.train()
+    x, y = _resnet_batch(torch, RESNET_BATCH, 9, "cuda")
+    loss_fn = pt.nn.CrossEntropyLoss()
+    card_trace = _resnet_trace(torch, pt, model, x[:2], y[:2])
+    pt.set_device("cpu")
+    try:
+        cpu_model, _ = _resnet_model(pt, 1)
+        xc, yc = _resnet_batch(torch, 2, 9, "cpu")
+        cpu_trace = _resnet_trace(torch, pt, cpu_model, xc, yc)
+    finally:
+        pt.set_device("gpu:0")
+    if card_trace != cpu_trace:
+        raise AssertionError("resnet50 O2 dtype trace: card and CPU differ")
+    log(f"  ResNet-50 O2 bf16 dtype trace: {len(card_trace)} ops, card equal "
+        f"to CPU op by op")
+
+    def step():
+        t0 = time.perf_counter()
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = loss_fn(model(x), y)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return float(loss), ((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                             (t3 - t2) * 1e3)
+
+    zero_counts(kern)
+    torch.cuda.synchronize()
+    # earlier phases leave tensors alive: the steps' own peak is counted
+    # above what is allocated when they start (ResNet-50 and the batch
+    # included)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(RESNET_STEPS):
+        loss, ms = step()
+        losses.append(loss)
+        times.append(ms)
+    launches = read_counts(kern)
+    peak = torch.cuda.max_memory_allocated() - base
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"resnet50 losses not finite: {losses}")
+    if not min(losses[-5:]) < losses[0]:
+        raise AssertionError(f"resnet50 loss did not fall: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"resnet50 launched a port kernel: {launches}")
+    timed = np.array(times[2:])
+    fwd, bwd, optm = (float(np.median(timed[:, i])) for i in range(3))
+    step_ms = float(np.median(timed.sum(1)))
+    by_kernel = _resnet_profile(torch, step)
+    line = dict(batch=RESNET_BATCH, steps=RESNET_STEPS, losses=losses,
+                images_per_s=RESNET_BATCH / step_ms * 1e3, step_ms=step_ms,
+                forward_ms=fwd, backward_ms=bwd, optimizer_ms=optm,
+                peak_gib=peak / 2**30, base_gib=base / 2**30,
+                trace_ops=len(card_trace),
+                port_kernel_launches=sum(launches.values()), card=smi,
+                device_ms_by_kernel=by_kernel)
+    log(f"  ResNet-50 O2 bf16 at batch {RESNET_BATCH} ({smi}): losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {line['images_per_s']:.1f} "
+        f"images/s; median step {step_ms:.2f} ms (forward {fwd:.2f}, "
+        f"backward {bwd:.2f}, optimizer {optm:.2f}, each to a device "
+        f"sync); peak memory {line['peak_gib']:.2f} GiB above the "
+        f"{line['base_gib']:.2f} GiB allocated when the steps began")
+    return line
+
+
+def _resnet_profile(torch, step):
+    """Device ms by kernel of one step (a CUDA-only trace): the top 15,
+    the total and the idle share of that step's wall time, or ``"not
+    measured"`` when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, ms = step()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us:
+            rows.append((ev.key, us / 1e3, ev.count))
+    if not rows:
+        return "not measured"
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    wall = sum(ms)
+    log(f"  ResNet-50 one O2 step, device ms by kernel (total "
+        f"{total:.2f} ms over {sum(r[2] for r in rows)} launches in a "
+        f"{wall:.2f} ms step: idle share {1 - total / wall:.3f}):")
+    for name, t, n in rows[:15]:
+        log(f"    {t:9.3f} ms  {n:5d}x  {name[:110]}")
+    return {"total_ms": total, "step_ms": wall,
+            "idle_share": 1 - total / wall,
+            "top": [dict(kernel=k[:160], ms=t, count=n)
+                    for k, t, n in rows[:15]]}
+
+
+def nn_phase(torch, pt, kern, smi):
+    """Phase 8: 8(a) the functional surface, 8(b) ResNet-50."""
+    t0 = time.perf_counter()
+    functional = functional_phase(torch, pt)
+    fp32 = resnet_fp32_check(torch, pt)
+    train = resnet_train(torch, pt, kern, smi)
+    return dict(functional=functional, resnet_fp32=fp32, resnet=train,
+                seconds=time.perf_counter() - t0)
+
+
 def paged_logits_rel_err(torch, gen, model, full, n_prompt):
     """Logits of a prefill then decode steps over a ``PagedKVCache``
     against the cache-free forward of the same tokens."""
@@ -5948,7 +6327,9 @@ def main():
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.models import generation as gen
-    from paddle_tpu_torch.nn import functional as nn_functional
+    # SDPA (``nn/functional/common.py``) looks up ``flash_attention`` in
+    # its own module: the flash captures wrap it there
+    from paddle_tpu_torch.nn.functional import common as nn_functional
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused
@@ -6927,10 +7308,13 @@ def main():
     phase("phase 7: the ops layer on the card: creation and random ops, "
           "and a sample of the five op modules against the CPU")
     log(json.dumps({"ops": ops_phase(torch, pt)}))
-    log(json.dumps({"kernels": rows}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
+    phase("phase 8: the nn surface (the functional case table against the "
+          "CPU) and PaddleClas ResNet-50 on CIFAR-10-sized images")
+    log(json.dumps({"nn": nn_phase(torch, pt, kern, smi.stdout.strip())}))
+    log(json.dumps({"kernels": rows}))
     log(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,15 @@ at first use. Entry points default to
 ``device="cuda"``; pass ``device="cpu"`` to run the plain PyTorch
 versions instead.
 
+It trains PaddleClas's ResNet on images the same way:
+``vision.models.resnet50(num_classes=10)``, ``nn.CrossEntropyLoss``,
+``optimizer.Momentum``, under ``amp.decorate(level="O2")`` (the norm
+layers stay fp32) and ``auto_cast``. ``nn`` is Paddle's layer surface:
+``Layer`` (a ``torch.nn.Module`` with Paddle's names and ``state_dict``
+order), the convolution, pooling, norm, activation, loss and common
+layers, ``nn.functional``, ``nn.initializer`` and ``nn.utils``; the op
+registry is ``ops.schema``.
+
 The op surface is Paddle's: ``import paddle_tpu_torch as paddle``, then
 ``paddle.to_tensor``, the creation, math, manipulation and logic ops at
 the top level and in ``paddle.tensor``, and ``paddle.linalg``. Tensors
@@ -43,8 +52,9 @@ device, reseeded by ``paddle.seed``.
 """
 import sys as _sys
 
-from . import amp, nn, optimizer, quantization
+from . import amp, nn, optimizer, quantization, vision
 from .framework.core import get_device, set_device, to_tensor
+from .framework.param_attr import ParamAttr
 from .framework.dtype import (bfloat16, bool_, complex64, complex128,
                               float16, float32, float64, get_default_dtype,
                               int8, int16, int32, int64, set_default_dtype,
@@ -66,7 +76,8 @@ from .models.llama import (LlamaConfig, LlamaForCausalLM,
 __all__ = ["LlamaForCausalLM", "LlamaConfig", "LlamaPretrainingCriterion",
            "llama_tiny", "llama3_8b", "ContinuousServingEngine",
            "ServingEngine", "load_jax_state", "jax_layout", "load", "save",
-           "amp", "nn", "optimizer", "quantization", "set_device",
+           "amp", "nn", "optimizer", "quantization", "vision", "ParamAttr",
+           "set_device",
            "get_device", "to_tensor", "bfloat16", "bool_", "complex64",
            "complex128", "float16", "float32", "float64", "int8", "int16",
            "int32", "int64", "uint8", "get_default_dtype",

@@ -5,9 +5,9 @@ and ``GradScaler`` (dynamic loss scaling).
 
 The reference casts at one point, ``tape.apply``, which hands every op's
 tensor arguments to :func:`amp_cast_inputs` under the op's name. The
-port has no tape: each op site of the Llama path (``nn/common.py``,
-``nn/norm.py``, ``nn/functional.py``, ``ops/fused.py``,
-``models/llama.py``) calls :func:`amp_cast_inputs` with the reference's
+port has no tape: each op site (``nn/functional/``, ``nn/layers/``,
+``ops/fused.py``, ``models/llama.py``, ``vision/models/resnet.py``)
+calls :func:`amp_cast_inputs` with the reference's
 op name at the same boundary, then :func:`promote`, which mixes float
 dtypes as jnp does, where the reference's op mixes them.
 
@@ -182,21 +182,23 @@ def decorate(models, optimizers=None, level="O1", dtype="float16",
              excluded_layers=None):
     """O2: cast every float32 parameter of ``models`` to ``dtype`` in
     place (the tensors the optimizers hold stay theirs), except those of
-    layers that are instances of a class in ``excluded_layers``, and set
-    each optimizer's ``_multi_precision``, so it makes fp32 master
-    weights from the cast parameters at its first step (the fp32 bits
-    are gone, as in the reference). The reference also always excludes
-    ``_BatchNormBase``, ``LayerNorm`` and ``GroupNorm``; the port has no
-    such class yet. O1 changes nothing. Returns ``models``, or
-    ``(models, optimizers)`` when optimizers are given."""
+    the norm layers (``_BatchNormBase``, ``LayerNorm``, ``GroupNorm``,
+    always, as the reference) and of layers that are instances of a
+    class in ``excluded_layers``, and set each optimizer's
+    ``_multi_precision``, so it makes fp32 master weights from the cast
+    parameters at its first step (the fp32 bits are gone, as in the
+    reference). Buffers keep their dtype. O1 changes nothing. Returns
+    ``models``, or ``(models, optimizers)`` when optimizers are given."""
+    from ..nn.layers.norm import GroupNorm, LayerNorm, _BatchNormBase
     model_list = (list(models) if isinstance(models, (list, tuple))
                   else [models])
     if level == "O2":
         dt = _dtype(dtype)
-        excluded = tuple(excluded_layers or ())
+        excluded = (_BatchNormBase, LayerNorm, GroupNorm) + tuple(
+            excluded_layers or ())
         for m in model_list:
             for layer in m.modules():
-                if excluded and isinstance(layer, excluded):
+                if isinstance(layer, excluded):
                     continue
                 for p in layer._parameters.values():
                     if p is not None and p.dtype == torch.float32:

@@ -1,4 +1,9 @@
-"""Weight carry-over between the port and the JAX reference model."""
+"""Weight carry-over between the port and the JAX reference: any model of
+``Layer``s (or ``torch.nn`` modules) whose ``state_dict`` names are the
+reference's. Only a ``Linear`` weight changes layout (``[in, out]`` there,
+``[out, in]`` here, ROADMAP C3); convolution, norm and embedding weights
+and the buffers (BatchNorm's ``_mean`` and ``_variance``) carry as they
+are."""
 from __future__ import annotations
 
 import numpy as np
@@ -7,14 +12,15 @@ from torch import nn
 
 
 def _linear_weights(model):
-    return {f"{name}.weight" for name, m in model.named_modules()
-            if isinstance(m, nn.Linear)}
+    return {f"{name}.weight" if name else "weight"
+            for name, m in model.named_modules() if isinstance(m, nn.Linear)}
 
 
 def load_jax_state(model, arrays):
-    """Fill ``model`` from the JAX model's ``state_dict()`` given as
-    ``{name: numpy array}``. Names are the same in both packages; a
-    Linear weight is ``[in, out]`` there and ``[out, in]`` here, so it is
+    """Fill ``model`` from the JAX model's ``state_dict()`` (parameters and
+    persistable buffers) given as ``{name: numpy array}``, each cast to
+    its target's dtype. Names are the same in both packages; a Linear
+    weight is ``[in, out]`` there and ``[out, in]`` here, so it is
     transposed. Missing, extra or mis-shaped keys raise ``KeyError`` /
     ``ValueError`` (a model with ``tie_word_embeddings`` has no
     ``lm_head.weight``, nor has the reference's then). Returns

@@ -3,8 +3,8 @@ pre-norm, RoPE, grouped-query attention, SwiGLU MLP, and the causal-LM
 loss for training (``LlamaPretrainingCriterion``), with optional
 per-layer activation recompute.
 
-Linear layers are ``torch.nn.Linear`` (``nn.common.Linear``) with
-``[out, in]`` weights; the parameter names are the reference's, so
+Linear layers are ``torch.nn.Linear`` (``nn.layers.common.Linear``)
+with ``[out, in]`` weights; the parameter names are the reference's, so
 ``state_dict()`` keys match and
 :func:`paddle_tpu_torch.convert.load_jax_state` only transposes.
 
@@ -29,9 +29,9 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import amp
 from .._device import resolve_device
-from ..nn.common import Embedding, Linear
 from ..nn.functional import scaled_dot_product_attention
-from ..nn.norm import RMSNorm
+from ..nn.layers.common import Embedding, Linear
+from ..nn.layers.norm import RMSNorm
 from ..ops import fused
 from .generation import GenerationMixin, SlotPagedKVCache
 

@@ -471,7 +471,9 @@ def unique(x, return_index=False, return_inverse=False, return_counts=False,
     request the index of each one's first occurrence, the inverse and the
     counts, in ``jnp.unique``'s order."""
     x = as_tensor(x)
-    vals, inverse, counts = torch.unique(x, sorted=True, return_inverse=True,
+    # no gradient, as in the reference (torch's has none to give)
+    vals, inverse, counts = torch.unique(x.detach(), sorted=True,
+                                         return_inverse=True,
                                          return_counts=True, dim=axis)
     out = [vals]
     if return_index:
@@ -497,7 +499,7 @@ def unique_consecutive(x, return_inverse=False, return_counts=False,
     if axis is not None:
         raise NotImplementedError("unique_consecutive over an axis")
     vals, inverse, counts = torch.unique_consecutive(
-        x.reshape(-1), return_inverse=True, return_counts=True)
+        x.detach().reshape(-1), return_inverse=True, return_counts=True)
     out = [vals]
     if return_inverse:
         out.append(inverse)

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from .. import amp
-from ..nn.common import Linear
+from ..nn.layers.common import Linear
 from ..ops.quant_matmul import int8_matmul, quantize_weight
 
 __all__ = ["int8_linear", "quantize_linears"]

@@ -1,0 +1,192 @@
+"""The ResNet family (port of ``paddle_tpu/vision/models/resnet.py``):
+``BasicBlock``, ``BottleneckBlock``, ``ResNet`` and ``resnet18`` through
+``wide_resnet101_2``, built from the port's ``nn`` layers. Parameters
+land on the current device (``paddle.get_device()``; call
+``paddle.set_device("cpu")`` first where there is no CUDA), drawn from
+the port's generator (``paddle.seed``). ``pretrained=True`` reads
+weights already in the local cache (``_utils.load_pretrained``)."""
+from __future__ import annotations
+
+import torch
+
+from ... import amp, nn
+
+
+def _add(a, b):
+    """The residual ``a + b``, the reference's op ``"add"``."""
+    return torch.add(*amp.promote(*amp.amp_cast_inputs("add", [a, b])))
+
+
+def _flatten(x, start_axis):
+    """``x.flatten(start_axis)``, the reference's op ``"flatten"``."""
+    (x,) = amp.amp_cast_inputs("flatten", [x])
+    return torch.flatten(x, start_axis)
+
+
+class BasicBlock(nn.Layer):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None):
+        super().__init__()
+        norm_layer = norm_layer or nn.BatchNorm2D
+        self.conv1 = nn.Conv2D(inplanes, planes, 3, stride=stride, padding=1,
+                               bias_attr=False)
+        self.bn1 = norm_layer(planes)
+        self.relu = nn.ReLU()
+        self.conv2 = nn.Conv2D(planes, planes, 3, padding=1, bias_attr=False)
+        self.bn2 = norm_layer(planes)
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(_add(out, identity))
+
+
+class BottleneckBlock(nn.Layer):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None):
+        super().__init__()
+        norm_layer = norm_layer or nn.BatchNorm2D
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = nn.Conv2D(inplanes, width, 1, bias_attr=False)
+        self.bn1 = norm_layer(width)
+        self.conv2 = nn.Conv2D(width, width, 3, stride=stride,
+                               padding=dilation, groups=groups,
+                               dilation=dilation, bias_attr=False)
+        self.bn2 = norm_layer(width)
+        self.conv3 = nn.Conv2D(width, planes * self.expansion, 1,
+                               bias_attr=False)
+        self.bn3 = norm_layer(planes * self.expansion)
+        self.relu = nn.ReLU()
+        self.downsample = downsample
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(_add(out, identity))
+
+
+class ResNet(nn.Layer):
+    """A 7x7 stride-2 stem, a 3x3 stride-2 max pool, four stages of
+    ``block`` (depth 18, 34, 50, 101 or 152), then the pool and the
+    classifier (``num_classes > 0``)."""
+
+    def __init__(self, block, depth=50, width=64, num_classes=1000,
+                 with_pool=True, groups=1):
+        super().__init__()
+        layer_cfg = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
+                     101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
+        layers = layer_cfg[depth]
+        self.groups = groups
+        self.base_width = width
+        self.num_classes = num_classes
+        self.with_pool = with_pool
+        self.inplanes = 64
+        self.dilation = 1
+        self.conv1 = nn.Conv2D(3, self.inplanes, 7, stride=2, padding=3,
+                               bias_attr=False)
+        self.bn1 = nn.BatchNorm2D(self.inplanes)
+        self.relu = nn.ReLU()
+        self.maxpool = nn.MaxPool2D(3, stride=2, padding=1)
+        self.layer1 = self._make_layer(block, 64, layers[0])
+        self.layer2 = self._make_layer(block, 128, layers[1], stride=2)
+        self.layer3 = self._make_layer(block, 256, layers[2], stride=2)
+        self.layer4 = self._make_layer(block, 512, layers[3], stride=2)
+        if with_pool:
+            self.avgpool = nn.AdaptiveAvgPool2D((1, 1))
+        if num_classes > 0:
+            self.fc = nn.Linear(512 * block.expansion, num_classes)
+
+    def _make_layer(self, block, planes, blocks, stride=1):
+        downsample = None
+        if stride != 1 or self.inplanes != planes * block.expansion:
+            downsample = nn.Sequential(
+                nn.Conv2D(self.inplanes, planes * block.expansion, 1,
+                          stride=stride, bias_attr=False),
+                nn.BatchNorm2D(planes * block.expansion))
+        layers = [block(self.inplanes, planes, stride, downsample,
+                        self.groups, self.base_width)]
+        self.inplanes = planes * block.expansion
+        for _ in range(1, blocks):
+            layers.append(block(self.inplanes, planes, groups=self.groups,
+                                base_width=self.base_width))
+        return nn.Sequential(*layers)
+
+    def forward(self, x):
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        if self.with_pool:
+            x = self.avgpool(x)
+        if self.num_classes > 0:
+            x = self.fc(_flatten(x, 1))
+        return x
+
+
+def _resnet(block, depth, pretrained=False, arch=None, **kwargs):
+    model = ResNet(block, depth, **kwargs)
+    if pretrained:
+        from ._utils import load_pretrained
+        load_pretrained(model, arch or f"resnet{depth}")
+    return model
+
+
+def resnet18(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 18, pretrained, **kwargs)
+
+
+def resnet34(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 34, pretrained, **kwargs)
+
+
+def resnet50(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, **kwargs)
+
+
+def resnet101(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
+
+
+def resnet152(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, **kwargs)
+
+
+def wide_resnet50_2(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, arch="wide_resnet50_2",
+                   width=128, **kwargs)
+
+
+def resnext50_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, arch="resnext50_32x4d",
+                   groups=32, width=4, **kwargs)
+
+
+def resnext101_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, arch="resnext101_32x4d",
+                   groups=32, width=4, **kwargs)
+
+
+def resnext101_64x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, arch="resnext101_64x4d",
+                   groups=64, width=4, **kwargs)
+
+
+def resnext152_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, arch="resnext152_32x4d",
+                   groups=32, width=4, **kwargs)
+
+
+def wide_resnet101_2(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, arch="wide_resnet101_2",
+                   width=128, **kwargs)

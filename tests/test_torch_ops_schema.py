@@ -1,0 +1,183 @@
+"""The port's op registry (``paddle_tpu_torch/ops/schema.py``) against the
+reference's (``paddle_tpu.ops.schema.build_registry``): for every module
+the port has, the same op names under the same module keys, the same
+aliases, and each op's parameter names and defaults, apart from the
+listed differences; the committed ``ops.yaml`` and ``backward.yaml``
+are what the code generates; and ``backward.yaml``'s differentiability
+claim holds for every op the test suites run: an op is differentiable
+exactly when a float output of it on inputs that require grad
+requires grad (has a ``grad_fn``, or is such an input itself)."""
+import functools
+import inspect
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.nn import functional as JF
+from paddle_tpu.ops.schema import build_registry as reference_registry
+from torch_nn_cases import CASES as FUNCTIONAL_CASES
+from torch_nn_cases import case_arrays, case_id, flat_outputs
+from test_torch_ops_harness import (_port_on_cpu, cases_of,  # noqa: F401
+                                    draw_inputs, port_fn, to_port)
+
+import paddle_tpu_torch.nn.functional as TF
+from paddle_tpu_torch.ops import schema
+
+YAML_DIR = Path(schema.__file__).parent
+
+#: ops whose module key differs: the reference's first module for them
+#: is ``sparse``, which the port does not have yet; both are
+#: ``functional`` ops there too
+MOVED = {"relu": ("sparse", "functional"),
+         "softmax": ("sparse", "functional")}
+
+#: ops whose signature differs from the reference's registry record
+SIGNATURES = {
+    # an explicit torch.Generator for the dropout draw (ROADMAP C2)
+    "scaled_dot_product_attention": "generator",
+    # the port's fused rope takes q and k with their tables
+    "fused_rotary_position_embedding": "q and k only",
+    "fused_swiglu": "gate required",
+    # a torch device where the reference takes a jnp dtype
+    "rope_freqs": "device",
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _registries():
+    return reference_registry(), schema.build_registry()
+
+
+@pytest.mark.parametrize("module", sorted(schema._op_modules()))
+def test_module_names_equal_the_references(module):
+    ref, port = _registries()
+    want = {n for n, s in ref.items() if s.module == module}
+    got = {n for n, s in port.items() if s.module == module}
+    moved = {n for n, (_, m) in MOVED.items() if m == module}
+    assert got - moved == want
+    for n in moved:
+        assert ref[n].module == MOVED[n][0]
+        assert module in ref[n].aliases
+
+
+def test_missing_modules_are_the_unported_ones():
+    ref, port = _registries()
+    ported = set(schema._op_modules())
+    assert {s.module for s in ref.values()} - ported == set(
+        schema.MISSING_MODULES)
+    assert schema.summary(port)["missing_modules"] == list(
+        schema.MISSING_MODULES)
+
+
+def test_functional_has_every_reference_op_and_alias():
+    ref, port = _registries()
+    for name, s in ref.items():
+        if s.module == "functional" or "functional" in s.aliases:
+            where = port[name].module, port[name].aliases
+            assert "functional" in (where[0],) + where[1], name
+    assert sum(s.module == "functional" for s in ref.values()) == 111
+    assert sum("functional" in s.aliases for s in ref.values()) == 7
+
+
+def _params(sig_owner):
+    return [(p.name, repr(p.default) if p.default is not p.empty else None)
+            for p in inspect.signature(sig_owner).parameters.values()]
+
+
+def _ref_callable(name, spec):
+    if name in MOVED:
+        return getattr(JF, name)
+    return None
+
+
+def test_signatures_equal_the_references():
+    """Parameter names, order and defaults, by ``inspect.signature``;
+    ``relu`` and ``softmax`` against the reference's functional ones."""
+    ref, port = _registries()
+    mods = schema._op_modules()
+    differ = []
+    for name, spec in sorted(port.items()):
+        if name not in ref:
+            continue
+        got = _params(getattr(mods[spec.module], name))
+        own = _ref_callable(name, spec)
+        want = (_params(own) if own is not None else
+                [(p.name, repr(p.default) if p.default is not p.empty
+                  else None) for p in inspect.signature(
+                      _ref_function(ref[name])).parameters.values()])
+        if got != want:
+            differ.append(name)
+    assert sorted(differ) == sorted(SIGNATURES)
+
+
+def _ref_function(spec):
+    from paddle_tpu.ops.schema import _op_modules
+    return getattr(_op_modules()[spec.module], spec.name)
+
+
+@pytest.mark.parametrize("fname", sorted(schema.YAML_FILES))
+def test_committed_yaml_is_fresh(fname):
+    """``python -m paddle_tpu_torch.ops.schema`` writes what is
+    committed."""
+    want = schema.YAML_FILES[fname](schema.build_registry())
+    assert (YAML_DIR / fname).read_text() == want
+
+
+def test_backward_yaml_names_the_kernel_and_custom_rules():
+    text = (YAML_DIR / "backward.yaml").read_text()
+    assert "kernel_backward: B2, B3" in text
+    assert "_FlashAttention" in text and "_ChunkedAttention" in text
+    assert "jax" not in text
+
+
+def _has_grad(out):
+    floats = [o for o in flat_outputs(out) if isinstance(o, torch.Tensor)
+              and o.is_floating_point()]
+    return any(o.requires_grad for o in floats)
+
+
+def _check_claim(name, spec, out):
+    assert _has_grad(out) == schema.differentiable(spec), (
+        f"{name}: grad_fn {_has_grad(out)}, claimed "
+        f"{schema.differentiable(spec)}")
+
+
+@pytest.mark.parametrize("case", FUNCTIONAL_CASES, ids=case_id)
+def test_functional_differentiability_claim(case):
+    spec = schema.build_registry()[case.op] if case.op in _registries()[1] \
+        else None
+    if spec is None:
+        pytest.fail(f"{case.op} is not in the registry")
+    arrays = case_arrays(case)
+    if not any(np.issubdtype(a.dtype, np.floating) for k, a in arrays.items()
+               if k not in case.nograd):
+        if not schema.differentiable(spec):
+            return
+    tensors = {k: torch.from_numpy(a.copy()).requires_grad_(
+        np.issubdtype(a.dtype, np.floating) and k not in case.nograd)
+        for k, a in arrays.items()}
+    _check_claim(case.op, spec, case.fn(TF, tensors))
+
+
+MODULES = ("math", "manipulation", "linalg", "logic", "creation")
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_ops_differentiability_claim(module):
+    """Every reference OpCase of the module with a float tensor input."""
+    port = _registries()[1]
+    checked = 0
+    for case in cases_of(module):
+        inputs = draw_inputs(case)
+        if not any(isinstance(v, np.ndarray) and np.issubdtype(
+                v.dtype, np.floating) for v in inputs.values()):
+            continue
+        if case.name == "cast":
+            continue         # differentiable to a float dtype only
+        tensors = {k: to_port(v, True) for k, v in inputs.items()}
+        _check_claim(case.name, port[case.name],
+                     port_fn(case)(**tensors, **case.kwargs))
+        checked += 1
+    assert checked >= 5
