@@ -49,11 +49,28 @@ are ``torch.Tensor``; new ones land on ``paddle.get_device()``, ``"gpu:0"``
 (CUDA) by default, so call ``paddle.set_device("cpu")`` first on a
 machine without CUDA. Random ops draw from one ``torch.Generator`` a
 device, reseeded by ``paddle.seed``.
+
+The training-loop surface is Paddle's too. ``paddle.Tensor`` is
+``torch.Tensor``, given at import the Paddle members it lacks
+(``framework/tensor_patch.py``: ``stop_gradient``, ``astype``,
+``set_value``, ``place`` and the op methods; nothing torch has is
+overridden). ``autograd`` holds ``grad``, ``backward``, the grad modes
+and ``PyLayer``; ``io`` the datasets, samplers and ``DataLoader`` (worker
+processes, batches prefetched to the card on a side stream); ``metric``
+and ``callbacks`` what ``Model.fit`` (``hapi.py``: ``paddle.Model``,
+``summary``, ``flops``) reports to; ``jit.to_static`` compiles a layer or
+function with ``torch.compile``, flash attention's kernels staying
+custom ops inside it.
 """
 import sys as _sys
 
+import torch as _torch
+
 from . import amp, nn, optimizer, quantization, vision
-from .framework.core import get_device, set_device, to_tensor
+from .framework import tensor_patch as _tensor_patch
+from .framework.core import (CPUPlace, CUDAPlace, Place, device_count,
+                             get_device, is_compiled_with_cuda,
+                             is_compiled_with_xpu, set_device, to_tensor)
 from .framework.param_attr import ParamAttr
 from .framework.dtype import (bfloat16, bool_, complex64, complex128,
                               float16, float32, float64, get_default_dtype,
@@ -72,6 +89,14 @@ from .framework.io import load, save
 from .inference.serving import ContinuousServingEngine, ServingEngine
 from .models.llama import (LlamaConfig, LlamaForCausalLM,
                            LlamaPretrainingCriterion, llama3_8b, llama_tiny)
+from . import autograd, callbacks, io, jit, metric
+from .autograd import (PyLayer, enable_grad, grad, is_grad_enabled, no_grad,
+                       set_grad_enabled)
+from .hapi import Model, flops, summary
+from .jit.api import disable_static, enable_static, in_dynamic_mode
+
+Tensor = _torch.Tensor
+_tensor_patch.install()
 
 __all__ = ["LlamaForCausalLM", "LlamaConfig", "LlamaPretrainingCriterion",
            "llama_tiny", "llama3_8b", "ContinuousServingEngine",
@@ -84,6 +109,11 @@ __all__ = ["LlamaForCausalLM", "LlamaConfig", "LlamaPretrainingCriterion",
            "set_default_dtype", "seed", "get_rng_state", "set_rng_state",
            "get_cuda_rng_state", "set_cuda_rng_state", "tensor",
            "bitwise_invert", "inverse", "norm", "dist", "matrix_power",
-           "cov", "corrcoef"] + tensor.__all__
+           "cov", "corrcoef", "Tensor", "Place", "CPUPlace", "CUDAPlace",
+           "device_count", "is_compiled_with_cuda", "is_compiled_with_xpu",
+           "autograd", "callbacks", "io", "jit", "metric", "PyLayer",
+           "enable_grad", "grad", "is_grad_enabled", "no_grad",
+           "set_grad_enabled", "Model", "flops", "summary", "disable_static",
+           "enable_static", "in_dynamic_mode"] + tensor.__all__
 
 _sys.modules[__name__ + ".tensor"] = tensor     # import paddle_tpu_torch.tensor

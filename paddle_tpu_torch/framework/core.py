@@ -17,6 +17,62 @@ from . import dtype as dtypes
 _device = "gpu:0"
 
 
+class Place:
+    """A device place: ``kind`` ``"cpu"`` or ``"gpu"`` (CUDA) and its
+    index."""
+
+    def __init__(self, kind, index=0):
+        self.kind = kind
+        self.index = index
+
+    def __repr__(self):
+        return f"Place({self.kind}:{self.index})"
+
+    def __eq__(self, other):
+        return isinstance(other, Place) and (self.kind, self.index) == (
+            other.kind, other.index)
+
+    def __hash__(self):
+        return hash((self.kind, self.index))
+
+    def torch_device(self):
+        return torch.device("cpu" if self.kind == "cpu"
+                            else f"cuda:{self.index}")
+
+
+class CPUPlace(Place):
+    def __init__(self):
+        super().__init__("cpu")
+
+
+class CUDAPlace(Place):
+    """The accelerator's place (the reference's ``TPUPlace``)."""
+
+    def __init__(self, index=0):
+        super().__init__("gpu", index)
+
+
+def place_of(device):
+    """The ``Place`` of a ``torch.device``."""
+    return CPUPlace() if device.type == "cpu" else CUDAPlace(
+        device.index or 0)
+
+
+def is_compiled_with_cuda():
+    """True where torch was built with CUDA (the card may still be
+    absent; ``device_count`` says how many there are)."""
+    return torch.version.cuda is not None
+
+
+def is_compiled_with_xpu():
+    return False
+
+
+def device_count():
+    """The number of CUDA devices."""
+    return torch.cuda.device_count()
+
+
 def _parse(device):
     kind, _, idx = str(device).lower().partition(":")
     if kind in ("gpu", "cuda"):
@@ -28,10 +84,12 @@ def _parse(device):
 
 
 def set_device(device):
-    """``"cpu"``, ``"gpu"`` or ``"gpu:N"`` (``"cuda"`` spellings too)
-    becomes the device creation ops place their tensors on; returns it as a
-    ``torch.device``."""
+    """``"cpu"``, ``"gpu"`` or ``"gpu:N"`` (``"cuda"`` spellings too, or a
+    ``Place``) becomes the device creation ops place their tensors on;
+    returns it as a ``torch.device``."""
     global _device
+    if isinstance(device, Place):
+        device = f"{device.kind}:{device.index}"
     _device = _parse(device)
     return torch.device(_torch_name(_device))
 
@@ -58,6 +116,8 @@ def device_of(place=None):
         return current_device()
     if isinstance(place, torch.device):
         return resolve_device(place)
+    if isinstance(place, Place):
+        return resolve_device(place.torch_device())
     return resolve_device(_torch_name(_parse(place)))
 
 

@@ -23,10 +23,15 @@ reference kept as they are:
   recomputed from lse, ``p = exp(s - lse)`` on valid keys and 0 on
   masked ones, so a row with no valid key gets zero dq and adds nothing
   to dk or dv, whatever its forward returned. Autograd of the forward
-  would not give that, so the gradient is always this backward
-  (``_FlashAttention``), on either device.
+  would not give that, so the gradient is always this backward (B1's
+  registered backward), on either device.
 
-A CUDA tensor goes to the kernels or raises: B1 forward
+B1, B2 and B3 are ``torch.library`` custom ops
+(``paddle_tpu_torch::flash_fwd``, ``::flash_bwd_dq``, ``::flash_bwd_dkv``;
+:func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`), B2 and
+B3 registered as B1's backward, so a ``torch.compile`` region
+(``jit.to_static``) calls the same kernels as the eager path and never
+traces into them. A CUDA tensor goes to the kernels or raises: B1 forward
 (``csrc/flash_attention.cu``), B2 dQ and B3 dK/dV
 (``csrc/flash_attention_bwd.cu``), each in two variants chosen by
 :func:`fwd_variant` and :func:`bwd_variant`: the tensor-core kernels for
@@ -49,9 +54,10 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
+from torch import Tensor
 
 from . import _build
 
@@ -411,27 +417,89 @@ def _bwd_ints(dims, q_offset, kv_offset, causal, sm_scale):
             + [ctypes.c_float(sm_scale)])
 
 
-def flash_bwd_dq(q, k, v, dout, lse, delta, causal=True, sm_scale=None,
-                 q_offset=0, kv_offset=0, kernel_layout=True):
-    """dQ of flash attention (kernel B2 on a CUDA tensor, the variant of
-    :func:`bwd_variant`, counted in ``flash_bwd_dq.launches`` and the
-    tensor-core ones also in ``flash_bwd_dq.wgmma_launches``;
-    :func:`flash_bwd_dq_plain` on a CPU one).
-    q, k, v and dout in kernel layout ``[b, h, s, d]`` or, with
-    ``kernel_layout=False``, ``[b, s, h, d]`` (strided views allowed);
-    lse and delta fp32 ``[b, hq, sq]``. Returns dq in q's layout and
-    dtype."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        if not kernel_layout:
-            q, k, v, dout = (t.transpose(1, 2) for t in (q, k, v, dout))
-        dq = flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, sm_scale,
-                                q_offset, kv_offset)
-        return dq if kernel_layout else dq.transpose(1, 2)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention for device {q.device}")
+def _to_kernel(kernel_layout, *ts):
+    return ts if kernel_layout else tuple(t.transpose(1, 2) for t in ts)
+
+
+def _from_kernel(kernel_layout, *ts):
+    """Outputs of the plain versions (kernel layout) in the caller's
+    layout, contiguous as the CUDA kernels write them."""
+    return tuple((t if kernel_layout else t.transpose(1, 2)).contiguous()
+                 for t in ts)
+
+
+def _scale(q, sm_scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
+
+
+# -- B1, B2 and B3 as torch.library custom ops ---------------------------------
+#
+# Each op's CUDA implementation launches the hand-written kernel (and raises
+# where it cannot); its CPU implementation is the plain version. A compiled
+# region (``torch.compile``, ``jit.to_static``) keeps them opaque: the fake
+# implementations give the shapes, and B2 + B3 are B1's registered backward,
+# so eager and compiled paths launch the same kernels and count the same
+# launches, at run time. The schemas come from the signatures, defaults
+# included; ``sm_scale=None`` is ``1 / sqrt(head_dim)``. The dispatcher may
+# drop trailing arguments equal to their defaults, so every implementation
+# repeats them.
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def flash_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+              sm_scale: Optional[float] = None, q_offset: int = 0,
+              kv_offset: int = 0, kernel_layout: bool = True
+              ) -> Tuple[Tensor, Tensor]:
+    """B1: ``(out, lse)``, out in q's layout and dtype, lse fp32 ``[b, hq,
+    sq]``. q, k and v in kernel layout ``[b, h, s, d]`` or, with
+    ``kernel_layout=False``, ``[b, s, h, d]`` (strided views allowed).
+    The CPU implementation is :func:`flash_attention_plain`."""
+    out, lse = flash_attention_plain(*_to_kernel(kernel_layout, q, k, v),
+                                     causal, _scale(q, sm_scale), q_offset,
+                                     kv_offset)
+    return _from_kernel(kernel_layout, out)[0], lse.contiguous()
+
+
+@flash_fwd.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, causal=True, sm_scale=None, q_offset=0,
+                    kv_offset=0, kernel_layout=True):
+    return _flash_cuda(q, k, v, causal, _scale(q, sm_scale), q_offset,
+                       kv_offset, 2 if kernel_layout else 1)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal=True, sm_scale=None, q_offset=0,
+                    kv_offset=0, kernel_layout=True):
     seq_dim = 2 if kernel_layout else 1
+    b, sq, hq = q.shape[0], q.shape[seq_dim], q.shape[3 - seq_dim]
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    return out, q.new_empty((b, hq, sq), dtype=torch.float32)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd_dq", mutates_args=(),
+                         device_types="cpu")
+def flash_bwd_dq(q: Tensor, k: Tensor, v: Tensor, dout: Tensor, lse: Tensor,
+                 delta: Tensor, causal: bool = True,
+                 sm_scale: Optional[float] = None, q_offset: int = 0,
+                 kv_offset: int = 0, kernel_layout: bool = True) -> Tensor:
+    """B2: dq in q's layout and dtype (the variant of :func:`bwd_variant`,
+    counted in ``flash_bwd_dq.launches`` and the tensor-core ones also in
+    ``flash_bwd_dq.wgmma_launches``). q, k, v and dout as :func:`flash_fwd`
+    takes them; lse and delta fp32 ``[b, hq, sq]``. The CPU
+    implementation is :func:`flash_bwd_dq_plain`."""
+    q, k, v, dout = _to_kernel(kernel_layout, q, k, v, dout)
+    return _from_kernel(kernel_layout, flash_bwd_dq_plain(
+        q, k, v, dout, lse, delta, causal, _scale(q, sm_scale), q_offset,
+        kv_offset))[0]
+
+
+@flash_bwd_dq.register_kernel("cuda")
+def _flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal=True,
+                       sm_scale=None, q_offset=0, kv_offset=0,
+                       kernel_layout=True):
+    seq_dim = 2 if kernel_layout else 1
+    sm_scale = _scale(q, sm_scale)
     q, k, v, dout, lse, delta, dims, wgmma = _bwd_operands(
         q, k, v, dout, lse, delta, seq_dim)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -445,31 +513,38 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal=True, sm_scale=None,
     return dq
 
 
+@flash_bwd_dq.register_fake
+def _flash_bwd_dq_fake(q, k, v, dout, lse, delta, *args, **kwargs):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
 flash_bwd_dq.launches = 0
 flash_bwd_dq.wgmma_launches = 0
 
 
-def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True, sm_scale=None,
-                  q_offset=0, kv_offset=0, kernel_layout=True):
-    """dK and dV of flash attention, summed over each kv head's query
-    group (kernel B3 on a CUDA tensor, the variant of :func:`bwd_variant`,
-    counted in ``flash_bwd_dkv.launches`` and the tensor-core ones also in
-    ``flash_bwd_dkv.wgmma_launches``; :func:`flash_bwd_dkv_plain` on a CPU
-    one).
-    Arguments as :func:`flash_bwd_dq`. Returns ``(dk, dv)`` in k's
-    layout and dtype."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        if not kernel_layout:
-            q, k, v, dout = (t.transpose(1, 2) for t in (q, k, v, dout))
-        dk, dv = flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal,
-                                     sm_scale, q_offset, kv_offset)
-        return (dk, dv) if kernel_layout else (dk.transpose(1, 2),
-                                               dv.transpose(1, 2))
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention for device {q.device}")
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd_dkv", mutates_args=(),
+                         device_types="cpu")
+def flash_bwd_dkv(q: Tensor, k: Tensor, v: Tensor, dout: Tensor,
+                  lse: Tensor, delta: Tensor, causal: bool = True,
+                  sm_scale: Optional[float] = None, q_offset: int = 0,
+                  kv_offset: int = 0, kernel_layout: bool = True
+                  ) -> Tuple[Tensor, Tensor]:
+    """B3: ``(dk, dv)`` in k's layout and dtype, summed over each kv
+    head's query group (counted in ``flash_bwd_dkv.launches`` and
+    ``.wgmma_launches``). Arguments as :func:`flash_bwd_dq`. The CPU
+    implementation is :func:`flash_bwd_dkv_plain`."""
+    q, k, v, dout = _to_kernel(kernel_layout, q, k, v, dout)
+    return _from_kernel(kernel_layout, *flash_bwd_dkv_plain(
+        q, k, v, dout, lse, delta, causal, _scale(q, sm_scale), q_offset,
+        kv_offset))
+
+
+@flash_bwd_dkv.register_kernel("cuda")
+def _flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal=True,
+                        sm_scale=None, q_offset=0, kv_offset=0,
+                        kernel_layout=True):
     seq_dim = 2 if kernel_layout else 1
+    sm_scale = _scale(q, sm_scale)
     q, k, v, dout, lse, delta, dims, wgmma = _bwd_operands(
         q, k, v, dout, lse, delta, seq_dim)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
@@ -482,6 +557,12 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True, sm_scale=None,
     _build.launch("ptt_flash_bwd_dkv_wgmma" if wgmma else "ptt_flash_bwd_dkv",
                   q.device, args, _counters(flash_bwd_dkv, wgmma))
     return dk, dv
+
+
+@flash_bwd_dkv.register_fake
+def _flash_bwd_dkv_fake(q, k, v, dout, lse, delta, *args, **kwargs):
+    return (torch.empty_like(k, memory_format=torch.contiguous_format),
+            torch.empty_like(v, memory_format=torch.contiguous_format))
 
 
 flash_bwd_dkv.launches = 0
@@ -500,51 +581,27 @@ def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=True,
     return (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
 
 
-def _forward(q, k, v, causal, sm_scale, q_offset, kv_offset, kernel_layout):
-    if q.device.type == "cuda":
-        return _flash_cuda(q, k, v, causal, sm_scale, q_offset, kv_offset,
-                           2 if kernel_layout else 1)
-    if q.device.type != "cpu":
-        raise ValueError(f"no flash attention for device {q.device}")
-    if not kernel_layout:
-        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    out, lse = flash_attention_plain(q, k, v, causal, sm_scale, q_offset,
-                                     kv_offset)
-    return (out if kernel_layout else out.transpose(1, 2)), lse
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, causal, sm_scale, q_offset, kv_offset, kernel_layout = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.args = (causal, sm_scale, q_offset, kv_offset, kernel_layout)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """B1 forward, B2 + B3 backward (the reference's ``_flash`` and
-    ``_flash_with_lse`` custom VJPs, ``:425-460``). Saves q, k, v, out
-    and lse; both outputs are differentiable."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, q_offset, kv_offset,
-                kernel_layout):
-        out, lse = _forward(q, k, v, causal, sm_scale, q_offset, kv_offset,
-                            kernel_layout)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, sm_scale, q_offset, kv_offset, kernel_layout)
-        ctx.set_materialize_grads(False)
-        return out, lse
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, dout, g_lse):
-        q, k, v, out, lse = ctx.saved_tensors
-        if dout is None:
-            dout = torch.zeros_like(out)
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, g_lse,
-                                         *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+def _flash_fwd_backward(ctx, dout, g_lse):
+    """B1's backward (the reference's ``_flash`` and ``_flash_with_lse``
+    custom VJPs, ``:425-460``): B2 and B3 on the saved q, k, v, out and
+    lse; both outputs are differentiable."""
+    q, k, v, out, lse = ctx.saved_tensors
+    if dout is None:
+        dout = torch.zeros_like(out)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, g_lse,
+                                     *ctx.args)
+    return dq, dk, dv, None, None, None, None, None
 
 
-def _attention(q, k, v, causal, sm_scale, q_offset, kv_offset, kernel_layout):
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    return _FlashAttention.apply(q, k, v, causal, float(sm_scale),
-                                 int(q_offset), int(kv_offset),
-                                 kernel_layout)
+flash_fwd.register_autograd(_flash_fwd_backward,
+                            setup_context=_flash_fwd_setup)
 
 
 def flash_attention(q, k, v, causal=True, sm_scale=None, q_offset=0,
@@ -556,8 +613,8 @@ def flash_attention(q, k, v, causal=True, sm_scale=None, q_offset=0,
     also in ``flash_attention.wgmma_launches``), ``flash_bwd_dq.launches``
     (B2) and ``flash_bwd_dkv.launches`` (B3), each with its own
     ``wgmma_launches``."""
-    return _attention(q, k, v, causal, sm_scale, q_offset, kv_offset,
-                      kernel_layout)[0]
+    return flash_fwd(q, k, v, causal, sm_scale, q_offset, kv_offset,
+                     kernel_layout)[0]
 
 
 flash_attention.launches = 0
@@ -569,4 +626,4 @@ def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None,
     """Kernel-layout ``[b, h, s, d]`` flash attention returning ``(out,
     lse)``, lse fp32 ``[b, h, sq]`` (``NEG_INF`` for a row whose visited
     keys all carry no weight). Differentiable through both outputs."""
-    return _attention(q, k, v, causal, sm_scale, q_offset, kv_offset, True)
+    return flash_fwd(q, k, v, causal, sm_scale, q_offset, kv_offset, True)

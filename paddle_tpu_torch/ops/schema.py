@@ -143,8 +143,9 @@ KERNEL_BACKWARD = {
 
 
 def _custom_backwards():
-    """``(file, class)`` of every ``torch.autograd.Function`` in the
-    package: the hand-written backward rules."""
+    """``(file, name, kind)`` of every hand-written backward rule in the
+    package: each ``torch.autograd.Function`` class and each custom op
+    given a backward by ``register_autograd``."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = []
     for dirpath, _dirs, files in os.walk(root):
@@ -158,7 +159,12 @@ def _custom_backwards():
             for name in re.findall(
                     r"^class (\w+)\(torch\.autograd\.Function\)", text,
                     re.MULTILINE):
-                out.append((rel.replace(os.sep, "/"), name))
+                out.append((rel.replace(os.sep, "/"), name,
+                            "autograd.Function"))
+            for name in re.findall(r"^(\w+)\.register_autograd\(", text,
+                                   re.MULTILINE):
+                out.append((rel.replace(os.sep, "/"), name,
+                            "torch.library.register_autograd"))
     return sorted(out)
 
 
@@ -177,7 +183,8 @@ def backward_yaml(registry=None):
     gradient comes from autograd through the op's PyTorch forward
     (``grad_source: autograd``); ``kernel_backward`` names the CUDA
     kernels that compute it on the card. Then the hand-written backward
-    rules (``torch.autograd.Function`` classes) of the package."""
+    rules of the package (``torch.autograd.Function`` classes and custom
+    ops with a registered backward)."""
     registry = registry or build_registry()
     lines = [_HEADER,
              "# Grad provenance per differentiable op: autograd through the",
@@ -194,12 +201,13 @@ def backward_yaml(registry=None):
         if name in KERNEL_BACKWARD:
             lines.append(f"  kernel_backward: {KERNEL_BACKWARD[name]}")
         lines.append("")
-    lines.append("# --- hand-written backward rules (torch.autograd.Function)")
+    lines.append("# --- hand-written backward rules (torch.autograd.Function,")
+    lines.append("# torch.library.register_autograd)")
     lines.append("")
-    for rel, name in _custom_backwards():
+    for rel, name, kind in _custom_backwards():
         lines.append(f"- backward_op: {name}")
         lines.append(f"  source: {rel}")
-        lines.append("  grad_source: autograd.Function")
+        lines.append(f"  grad_source: {kind}")
         lines.append("")
     return "\n".join(lines)
 

@@ -35,8 +35,9 @@ at least ``fused.MIN_PARAMS`` parameters, the fused engine
 (``optimizer/fused.py``) updates the parameters it can in one kernel
 launch a group and returns the rest to the eager loop below.
 
-Not ported: ``optimizer/extras.py`` (Rprop, ASGD, NAdam, RAdam, LBFGS),
-the optimizer's telemetry and determinism-ledger hooks, and kernels for
+``optimizer/extras.py`` adds Rprop, ASGD, NAdam, RAdam and LBFGS.
+
+Not ported: the optimizer's telemetry and determinism-ledger hooks, and kernels for
 the fused groups of any optimizer but Adam and AdamW (their parameters
 take the eager loop).
 """
@@ -512,6 +513,8 @@ class Lamb(Optimizer):
         return p - lr * trust * r, {**slots, "moment1": m, "moment2": v}
 
 
+from .extras import ASGD, LBFGS, NAdam, RAdam, Rprop  # noqa: E402
+
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
            "Adagrad", "RMSProp", "Adadelta", "Lamb", "L1Decay", "L2Decay",
-           "lr"]
+           "Rprop", "ASGD", "NAdam", "RAdam", "LBFGS", "lr"]

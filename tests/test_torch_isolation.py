@@ -109,3 +109,68 @@ def test_entry_points_refuse_cpu_without_being_asked():
         pt.ContinuousServingEngine(model, enable_ragged=False)
     with pytest.raises(RuntimeError):
         pt.ServingEngine(model)
+
+
+_LOOP_SURFACE = (
+    "import numpy as np, torch\n"
+    "import paddle_tpu_torch as paddle\n"
+    "paddle.set_device('cpu')\n"
+    "x = paddle.to_tensor(np.ones(3, np.float32), stop_gradient=False)\n"
+    "(g,) = paddle.grad((x * x).sum(), x)\n"
+    "class Twice(paddle.autograd.PyLayer):\n"
+    "    @staticmethod\n"
+    "    def forward(ctx, t):\n"
+    "        return t * 2\n"
+    "    @staticmethod\n"
+    "    def backward(ctx, d):\n"
+    "        return d * 2\n"
+    "Twice.apply(x).sum().backward()\n"
+    "data = [(np.ones(4, np.float32), np.int64(1))] * 6\n"
+    "net = paddle.nn.Linear(4, 2)\n"
+    "model = paddle.Model(net)\n"
+    "model.prepare(paddle.optimizer.RAdam(parameters=net.parameters()),\n"
+    "              paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())\n"
+    "model.fit(paddle.io.DataLoader(data, batch_size=2, num_workers=1),\n"
+    "          epochs=1, verbose=0, callbacks=[paddle.callbacks.Callback()])\n"
+    "f = paddle.jit.to_static(lambda t: t * 3 + 1, backend='eager')\n"
+    "assert float(f(torch.ones(2)).sum()) == 8.0\n"
+    "bad = sorted(k for k in sys.modules if k == 'jax' or "
+    "k.startswith(('jax.', 'jaxlib')) or k == 'paddle_tpu' or "
+    "k.startswith('paddle_tpu.'))\n"
+    "assert not bad, bad\n"
+    "print('ok')\n")
+
+
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.autograd", "paddle_tpu_torch.io",
+    "paddle_tpu_torch.metric", "paddle_tpu_torch.callbacks",
+    "paddle_tpu_torch.hapi", "paddle_tpu_torch.jit",
+    "paddle_tpu_torch.framework.tensor_patch",
+    "paddle_tpu_torch.optimizer.extras"])
+def test_training_loop_modules_pull_in_no_jax(module):
+    """Each module of the training-loop surface alone, then a
+    ``paddle.grad``, a ``PyLayer``, a ``Model.fit`` over a ``DataLoader``
+    with a worker, and a ``to_static`` function on the CPU."""
+    code = ("import sys, importlib\n"
+            f"importlib.import_module({module!r})\n" + _LOOP_SURFACE)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_loader_refuses_cpu_without_being_asked():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid")
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    dev = core.get_device()
+    pt.set_device("gpu")
+    try:
+        loader = pt.io.DataLoader([(1.0,)] * 4, batch_size=2)
+        with pytest.raises(RuntimeError):
+            iter(loader)
+        with pytest.raises(RuntimeError):
+            pt.Model(pt.nn.Linear(2, 2))
+    finally:
+        pt.set_device(dev)

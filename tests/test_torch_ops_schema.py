@@ -128,7 +128,7 @@ def test_committed_yaml_is_fresh(fname):
 def test_backward_yaml_names_the_kernel_and_custom_rules():
     text = (YAML_DIR / "backward.yaml").read_text()
     assert "kernel_backward: B2, B3" in text
-    assert "_FlashAttention" in text and "_ChunkedAttention" in text
+    assert "backward_op: flash_fwd\n" in text and "_ChunkedAttention" in text
     assert "jax" not in text
 
 
