@@ -6903,6 +6903,668 @@ def tick_breakdown(torch, rpa, gen, probes, scale, n_layers):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 10: long context, tiered KV and the handoff, quantization
+# ---------------------------------------------------------------------------
+
+#: the long-context path's stripe, prompt and seed (the prompt and its new
+#: tokens stay inside Llama-3-8B's 8192 rope positions: a CUDA index past
+#: the table raises, where JAX clamps)
+SEP_STRIPE, LONG_PROMPT, LONG_SEED = 512, 8000, 17
+#: 10(a): B1 at the sep path's shapes, ``(label, sq, sk, q_offset,
+#: kv_offset)`` (b = 1, head_dim 128): a decode token against a stripe and
+#: against the tail window (whose keys past the query are masked), a
+#: chunk against a stripe and against itself
+SEP_FLASH_CASES = (("decode against a stripe", 1, 512, 7999, 3584),
+                   ("decode against the tail window", 1, 512, 8007, 7680),
+                   ("chunk against a stripe", 512, 512, 7680, 7168),
+                   ("chunk against itself", 512, 512, 7680, 7680))
+#: 10(b)/(c): the sep engine's page pool (4096 tokens), and the plain
+#: ragged engine's (the whole prompt)
+SEP_PAGES, PLAIN_PAGES = 257, 1025
+#: 10(d): the tier engine's pool and host tier
+TIER_PAGES, TIER_MB = 129, 512
+#: 10(e): PTQ's calibration batches (the first 3a prompts)
+CALIBRATION_BATCHES = 4
+
+
+def sep_flash_bound(sq, sk, q_offset, kv_offset, el):
+    """``flash_bound`` with the keys at ``kv_offset``: query ``q_offset +
+    i`` sees ``min(sk, q_offset + i - kv_offset + 1)`` of them; fp32 (the
+    sep partials run B1's fp32 variant) at the fp32 peak."""
+    visible = np.clip(q_offset - kv_offset + np.arange(sq) + 1, 0, sk).sum()
+    flops = 4 * HEAD_DIM * N_HEADS * int(visible)
+    nbytes = el * (2 * sq * N_HEADS + 2 * sk * N_KV) * HEAD_DIM \
+        + 4 * N_HEADS * sq
+    return _bound(nbytes, flops, FP32_FLOPS)
+
+
+def sep_flash(torch, fa, ra):
+    """10(a): B1 at each sep shape in fp32 against its plain version (out
+    within FP32_TOL, lse within FP32_TOL relative), and the 16-bit q route
+    of ``ring_partial`` (a bf16 q over fp32 keys: B1's fp32 variant on the
+    upcast q, the partial rounded to bf16) bit-equal to the fp32 kernel on
+    the upcast q, rounded; each timed beside its bound, its plain version
+    and SDPA with the same mask. Returns the timing rows and the worst
+    errors."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows, errs = [], {"fp32": 0.0, "lse": 0.0}
+    for label, sq, sk, qo, ko in SEP_FLASH_CASES:
+        q = torch.randn(1, N_HEADS, sq, HEAD_DIM, device="cuda",
+                        generator=gen)
+        k, v = (torch.randn(1, N_KV, sk, HEAD_DIM, device="cuda",
+                            generator=gen) for _ in "kv")
+        scale = HEAD_DIM ** -0.5
+
+        def call():
+            return fa.flash_attention_with_lse(q, k, v, True, scale, qo, ko)
+        n_tc = fa.flash_attention.wgmma_launches
+        out, lse = call()
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, True, scale, qo, ko)
+        if fa.flash_attention.wgmma_launches != n_tc:
+            raise AssertionError(f"sep {label}: fp32 ran the tensor cores")
+        e, el = float((out - ref).abs().max()), rel_lse_err(lse, ref_lse)
+        check(f"sep {label} fp32 out", e, FP32_TOL)
+        check(f"sep {label} fp32 lse", el, FP32_TOL, "max rel err")
+        errs = {"fp32": max(errs["fp32"], e), "lse": max(errs["lse"], el)}
+        qb = q.bfloat16()
+        o16, l16 = ra.ring_partial(qb, k, v, qo, ko, scale)
+        o32, l32 = fa.flash_attention_with_lse(qb.float(), k, v, True, scale,
+                                               qo, ko)
+        if not (o16.dtype == torch.bfloat16
+                and torch.equal(o16, o32.bfloat16())
+                and torch.equal(l16, l32)):
+            raise AssertionError(f"sep {label}: the bf16 q route is not the "
+                                 f"fp32 kernel on the upcast q, rounded")
+        mask = (torch.arange(sq, device="cuda")[:, None] + qo
+                >= torch.arange(sk, device="cuda")[None, :] + ko)
+        row = {"shape": f"sep {label}: b=1 sq={sq} sk={sk} q_offset={qo} "
+                        f"kv_offset={ko} causal GQA 32/8 d=128 float32",
+               "ms": time_ms(torch, call),
+               "host_us": host_us(torch, call),
+               "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+                   q, k, v, True, scale, qo, ko), iters=10),
+               **sep_flash_bound(sq, sk, qo, ko, 4),
+               "library": "sdpa(attn_mask=bool [sq, sk] at the offsets, "
+                          "enable_gqa=True)"}
+
+        def lib():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        row["library_vs_kernel_max_abs_diff"] = float(
+            (lib() - out).abs().max())
+        row["library_ms"] = time_ms(torch, lib)
+        log(f"  {row['shape']}: {row['ms']:.4f} ms (host {row['host_us']:.1f}"
+            f" us a call), plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']}), library "
+            f"{row['library_ms']:.4f} ms (max abs diff "
+            f"{row['library_vs_kernel_max_abs_diff']:.3e}); bf16 q route "
+            f"bit-equal")
+        rows.append(row)
+    torch.cuda.synchronize()
+    return rows, errs
+
+
+class SepProbe:
+    """On one engine: every sep chunk and decode step bracketed by CUDA
+    events (device time, read after the run, no sync in it), B1's launches
+    in each (the ``flash`` counter's deltas: the sep path's alone, as the
+    ragged ticks launch none), the stripes stored before each chunk, and
+    the most device pages a sep slot's table maps."""
+
+    def __init__(self, torch, eng, kern):
+        self.torch, self.eng, self.kern = torch, eng, kern
+        self.chunks, self.decodes, self.max_pages = [], [], 0
+        self.launches = {"prefill": 0, "decode": 0}
+        self.patches = Patches()
+
+    def _wrap(self, name, kind, log_to):
+        fn = getattr(self.eng, name)
+        torch = self.torch
+
+        def timed(cache, free, active, slot, *rest):
+            stripes = cache.sep_view(slot)["stripes"]
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            n0 = self.kern["flash"].launches
+            a.record()
+            out = fn(cache, free, active, slot, *rest)
+            b.record()
+            self.launches[kind] += self.kern["flash"].launches - n0
+            log_to.append((stripes, a, b))
+            self.max_pages = max(self.max_pages, int(
+                (cache._tables[slot] != 0).sum()))
+            return out
+        self.patches.swap(self.eng, name, timed)
+
+    def __enter__(self):
+        self._wrap("_sep_prefill_chunk", "prefill", self.chunks)
+        self._wrap("_sep_decode_step", "decode", self.decodes)
+        return self
+
+    def __exit__(self, *exc):
+        self.patches.restore()
+
+    def times(self, records):
+        return [(s, a.elapsed_time(b)) for s, a, b in records]
+
+
+def long_prompt():
+    return np.random.RandomState(LONG_SEED).randint(
+        0, 128256, LONG_PROMPT).astype(np.int64)
+
+
+def sep_engine(pt, model, **kw):
+    return pt.ContinuousServingEngine(
+        model, max_batch_size=ENGINE_SLOTS, page_size=PAGE, max_len=8192,
+        num_pages=SEP_PAGES, token_budget=256, prefill_chunk_tokens=256,
+        sep_prefill=True, sep_stripe_tokens=SEP_STRIPE, **kw)
+
+
+def plain_long(torch, pt, model, prompt):
+    """The long prompt alone through the plain ragged path, whose pool
+    holds it: outputs and the logits row of every token."""
+    eng = pt.ContinuousServingEngine(
+        model, max_batch_size=ENGINE_SLOTS, page_size=PAGE, max_len=8192,
+        num_pages=PLAIN_PAGES, token_budget=256, prefill_chunk_tokens=256)
+    with LogitsProbe(pt) as probe, eng:
+        out = run_in_order(eng, [prompt])
+    return out, probe.rows
+
+
+def sep_launches_expected(n_layers, prompt_len, new_tokens):
+    """B1's launches on the sep path: chunk ``c`` (``c`` stripes stored)
+    runs ``c + 1`` partials a layer; every decode step one a stripe and
+    one for the tail window, a layer."""
+    chunks = -(-prompt_len // SEP_STRIPE)
+    stripes = prompt_len // SEP_STRIPE
+    return {"prefill": n_layers * chunks * (chunks + 1) // 2,
+            "decode": n_layers * (stripes + 1) * (new_tokens - 1)}
+
+
+def long_context(torch, pt, amp, kern, model, prompts):
+    """10(b): the 8000-token prompt and the first seven 3a prompts on the
+    sep engine under ``auto_cast`` O2: only the long prompt takes the sep
+    path, 15 stripes stored and 16 chunks (the trailing 320 tokens in
+    tail pages, ``LONG_PROMPT`` and ``SEP_STRIPE`` deciding), the sep slot never maps more than its tail's pages, B1's
+    sep launches exactly as counted; its stream against the plain ragged
+    path's (``first_difference``: bf16 GEMMs at other M may flip a
+    near-tie, C23), chunk and decode times, tokens/s and the peak."""
+    long = long_prompt()
+    load = [long] + list(prompts[:7])
+    eng = sep_engine(pt, model)
+    torch.cuda.reset_peak_memory_stats()
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        with eng:
+            eng.generate(prompts[1], max_new_tokens=2, timeout=600)
+            zero_counts(kern)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with LogitsProbe(pt) as probe, SepProbe(torch, eng, kern) as sep:
+                outs = run_in_order(eng, load)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = read_counts(kern)
+        peak = torch.cuda.max_memory_allocated()
+        plain, plain_rows = plain_long(torch, pt, model, long)
+    check_outputs(load, outs, 128256, "10(b) sep load")
+    cache = eng._cache
+    want = sep_launches_expected(N_LAYERS, LONG_PROMPT, NEW_TOKENS)
+    tail_pages = -(-(LONG_PROMPT % SEP_STRIPE + NEW_TOKENS) // PAGE)
+    facts = {"sep_requests": eng.sep_requests,
+             "stripes": eng.sep_stripes_stored, "chunks": eng.sep_chunks,
+             "last_chunk": [e for e in eng.events if e[0] == "sep_chunk"][-1],
+             "max_sep_slot_pages": sep.max_pages,
+             "b1_launches": dict(sep.launches),
+             "b1_tensor_core_launches": counts["flash_wgmma"]}
+    log(f"  10(b) sep facts: {facts}")
+    stripes = LONG_PROMPT // SEP_STRIPE
+    if (eng.sep_requests != 1 or eng.sep_stripes_stored != stripes
+            or eng.sep_chunks != -(-LONG_PROMPT // SEP_STRIPE)
+            or facts["last_chunk"][2] != LONG_PROMPT % SEP_STRIPE
+            or sep.max_pages > tail_pages or sep.launches != want
+            or counts["flash"] != sum(want.values())
+            or counts["flash_wgmma"]):
+        raise AssertionError(f"10(b): {facts}, B1 launches expected {want}, "
+                             f"{tail_pages} tail pages at most")
+    chunks = sep.times(sep.chunks)
+    decodes = sep.times(sep.decodes)
+    diff = first_difference([long], outs[:1], plain, probe.rows, plain_rows)
+    res = {"first_difference": diff, "wall_s": wall,
+           "generated_tokens_per_s": NEW_TOKENS * len(load) / wall,
+           "chunk_ms_by_stripes": chunks,
+           "decode_stripes": stripes,
+           "decode_ms": float(np.median([ms for s, ms in decodes
+                                         if s == stripes])),
+           "peak_gib": peak / 2 ** 30, "facts": facts,
+           "pool_pages": SEP_PAGES - 1}
+    log(f"  10(b) long prompt vs the plain ragged path (pool of "
+        f"{PLAIN_PAGES - 1} pages): "
+        + ("identical" if diff is None else f"first difference {diff}"))
+    log(f"  10(b) chunk ms by stripes stored: "
+        + ", ".join(f"{s}: {ms:.2f}" for s, ms in chunks)
+        + f"; decode step at {stripes} stripes {res['decode_ms']:.2f}"
+        f" ms (median of {len(decodes)}); load {wall:.3f} s, "
+        f"{res['generated_tokens_per_s']:.1f} generated tokens/s; peak "
+        f"{res['peak_gib']:.2f} GiB")
+    return res
+
+
+def long_context_fp32(torch, pt, kern):
+    """10(c): the same comparison as a hard check in fp32 (2 layers, full
+    width, TF32 off): the sep stream equals the plain ragged path's, and
+    the first token's logits lie within 1e-4 of the largest logit
+    magnitude. A greedy difference is accepted only at a near-tie (the
+    plain run's top-two gap within that bound), reported with its gap
+    (C29's rule)."""
+    cfg = pt.llama3_8b()
+    cfg.num_hidden_layers = 2
+    model = pt.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    long = long_prompt()
+    eng = sep_engine(pt, model)
+    zero_counts(kern)
+    with LogitsProbe(pt) as probe, eng:
+        outs = run_in_order(eng, [long])
+    counts = read_counts(kern)
+    plain, plain_rows = plain_long(torch, pt, model, long)
+    key = (long.tobytes(), 0)
+    got, want = probe.rows[key], plain_rows[key]
+    rel = float((got - want).abs().max() / want.abs().max())
+    check("10(c) sep vs plain first-token logits (fp32, 2 layers, "
+          "relative to the largest)", rel, 1e-4)
+    exp = sep_launches_expected(2, LONG_PROMPT, NEW_TOKENS)
+    if counts["flash"] != sum(exp.values()) or counts["flash_wgmma"]:
+        raise AssertionError(f"10(c): B1 launches {counts['flash']}, "
+                             f"expected {exp}")
+    diff = first_difference([long], outs, plain, probe.rows, plain_rows)
+    if diff is not None:
+        bound = 1e-4 * diff["logits_scale"]
+        log(f"  10(c) greedy difference {diff} (near-tie bound {bound:.3e})")
+        if diff["margin_off"] > bound:
+            raise AssertionError(f"10(c): the sep stream leaves the plain "
+                                 f"path's at {diff}, not a near-tie")
+    else:
+        log("  10(c) sep stream identical to the plain ragged path's "
+            f"({NEW_TOKENS} tokens)")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"first_difference": diff, "first_logits_rel": rel,
+            "b1_launches": counts["flash"]}
+
+
+class TierProbe:
+    """On a tier engine's next cache (patched on the class around one
+    run): every demotion and promotion timed to a device sync, each
+    promoted page held bit for bit to the entry it was demoted as, and no
+    page allocated inside a CUDA graph capture."""
+
+    def __init__(self, torch, gen):
+        self.torch, self.cls = torch, gen.SlotPagedKVCache
+        self.demoted, self.demote_ms, self.promote_ms = {}, [], []
+        self.checked = 0
+        self.patches = Patches()
+
+    def __enter__(self):
+        torch, demote, promote = self.torch, self.cls._demote, \
+            self.cls._promote
+        alloc = self.cls._alloc_page
+
+        def check_alloc(cache):
+            if torch.cuda.is_current_stream_capturing():
+                raise AssertionError("a page allocated inside a capture")
+            return alloc(cache)
+
+        def timed_demote(cache, digest, page):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = demote(cache, digest, page)
+            torch.cuda.synchronize()
+            if ok:
+                self.demote_ms.append((time.perf_counter() - t0) * 1e3)
+                self.demoted[bytes(digest)] = cache.host_pool._entries[
+                    bytes(digest)]
+            return ok
+
+        def timed_promote(cache, digest):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            page = promote(cache, digest)
+            torch.cuda.synchronize()
+            if page is not None and cache._pools:
+                self.promote_ms.append((time.perf_counter() - t0) * 1e3)
+                got, want = cache._page_entry(page), \
+                    self.demoted[bytes(digest)]
+                for group in ("layers", "scales"):
+                    for a, b in zip(got[group] or [], want[group] or []):
+                        for x, y in zip(a, b):
+                            if not np.array_equal(x, y):
+                                raise AssertionError(
+                                    "a promoted page differs from its "
+                                    "demoted entry")
+                self.checked += 1
+            return page
+        self.patches.swap(self.cls, "_demote", timed_demote)
+        self.patches.swap(self.cls, "_promote", timed_promote)
+        self.patches.swap(self.cls, "_alloc_page", check_alloc)
+        return self
+
+    def __exit__(self, *exc):
+        self.patches.restore()
+
+
+def tier_engine(pt, model, int8, **kw):
+    dtypes = dict(kv_dtype="int8", weight_dtype="int8") if int8 else {}
+    return pt.ContinuousServingEngine(
+        model, max_batch_size=ENGINE_SLOTS, page_size=PAGE, max_len=2048,
+        token_budget=256, prefill_chunk_tokens=256, **dtypes, **kw)
+
+
+def evicting_prompts():
+    """Four unrelated 480-token prompts: together they need nearly the
+    whole tier pool, so the LRU evicts the older prefix pages."""
+    rng = np.random.RandomState(23)
+    return [rng.randint(0, 128256, 480).astype(np.int64) for _ in range(4)]
+
+
+def tier_and_handoff(torch, pt, gen, amp, model, prompts, int8):
+    """10(d) on one pool type (fp32 pages, or fully int8): the four
+    prefix-sharing 3a prompts, the four unrelated ones and four more that
+    evict the shared pages from the device, then the sharing prompts
+    again, on the tier engine (``TIER_PAGES`` pages, ``TIER_MB`` MiB of
+    host tier) and on a twin whose pool holds everything; the third
+    pass's streams and every logits row bit-equal to the twin's, each
+    promoted page bit-equal to its demoted entry. Then the handoff: the
+    longest sharing prompt's chain exported from the twin and imported
+    into a fresh engine before its first forward and into a running one;
+    both serve the prompt with prefix hits equal to the imported pages
+    and the twin's stream for it (served alone after its own prefix)."""
+    label = "int8" if int8 else "fp32"
+    sharing, unrelated = list(prompts[4:8]), list(prompts[0:4])
+    passes = (sharing, unrelated, evicting_prompts(), sharing)
+    longest = max(sharing, key=len)
+    runs = {}
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        for name, kw in (("tier", dict(num_pages=TIER_PAGES,
+                                       host_pool_mb=TIER_MB)),
+                         ("twin", {})):
+            eng = tier_engine(pt, model, int8, **kw)
+            with TierProbe(torch, gen) as tp, eng:
+                for p in passes[:-1]:
+                    run_in_order(eng, p)
+                shared = block_chain(gen, sharing)
+                evicted = sum(d not in eng._cache._index for d in shared)
+                with LogitsProbe(pt) as probe:
+                    outs = run_in_order(eng, passes[-1])
+                if name == "twin":
+                    # the handoff's source: the longest sharing prompt
+                    # alone after its own prefix, then its chain exported
+                    source = handoff_source(torch, gen, eng, longest)
+            runs[name] = dict(eng=eng, outs=outs, rows=probe.rows, probe=tp,
+                              evicted=evicted, shared=len(shared))
+        tier, twin = runs["tier"], runs["twin"]
+        for a, b in zip(tier["outs"], twin["outs"]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"10(d) {label}: the third pass leaves "
+                                     f"the twin's streams")
+        for key, row in twin["rows"].items():
+            if not torch.equal(tier["rows"][key], row):
+                raise AssertionError(f"10(d) {label}: a logits row differs "
+                                     f"from the twin's")
+        tp, cache = tier["probe"], tier["eng"]._cache
+        if (tier["evicted"] != tier["shared"]
+                or cache.host_promotions < tier["shared"] or tp.checked == 0
+                or tp.checked != cache.host_promotions):
+            raise AssertionError(f"10(d) {label}: {tier['evicted']} of "
+                                 f"{tier['shared']} shared blocks evicted, "
+                                 f"{cache.host_promotions} promotions, "
+                                 f"{tp.checked} checked")
+        out = {"shared_blocks": tier["shared"],
+               "evicted_before_pass_3": tier["evicted"],
+               "host_demotions": cache.host_demotions,
+               "host_promotions": cache.host_promotions,
+               "host_pool_evictions": cache.host_pool.evictions,
+               "promotions_checked_bit_equal": tp.checked,
+               "demote_ms_median": float(np.median(tp.demote_ms)),
+               "promote_ms_median": float(np.median(tp.promote_ms)),
+               "third_pass_bit_equal_to_twin": True}
+        log(f"  10(d) {label} tier: {out}")
+        out["handoff"] = handoff(torch, pt, model, source, longest,
+                                 unrelated[1], int8)
+    return out
+
+
+def block_chain(gen, prompts):
+    """The digests of every full block the prompts register."""
+    chain = []
+    for p in prompts:
+        for d in gen.block_hash_chain(p, PAGE):
+            if d not in chain:
+                chain.append(d)
+    return chain
+
+
+def handoff_source(torch, gen, eng, prompt):
+    """On a running engine: ``prompt`` served alone (after its own
+    prefix), then the chain of its matchable blocks exported on the serve
+    loop. Returns its stream, the blob, the export's ms and the blob's
+    bytes."""
+    want = run_in_order(eng, [prompt])[0]
+    chain = gen.block_hash_chain(prompt, PAGE)[:(len(prompt) - 1) // PAGE]
+
+    def export(e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = e._cache.export_pages(chain)
+        return blob, (time.perf_counter() - t0) * 1e3
+    blob, ms = eng.run_on_loop(export, 600)
+    if blob is None or blob["digests"] != chain:
+        raise AssertionError("10(d): the handoff's chain was not exported "
+                             "whole")
+    nbytes = sum(a.nbytes for pair in blob["layers"] + (blob["scales"] or [])
+                 for a in pair)
+    return {"want": want, "blob": blob, "export_ms": ms, "bytes": nbytes}
+
+
+def handoff(torch, pt, model, source, prompt, warm_prompt, int8):
+    """10(d)'s handoff (see ``tier_and_handoff``): the source's blob into a
+    fresh engine before its first forward (the backlog) and into a running
+    one (written in place, on the serve loop)."""
+    label = "int8" if int8 else "fp32"
+    blob, n_pages = source["blob"], len(source["blob"]["digests"])
+    res = {"pages": n_pages, "blob_bytes": source["bytes"],
+           "export_ms": source["export_ms"]}
+    for path in ("backlog", "direct"):
+        eng = tier_engine(pt, model, int8)
+        if path == "backlog":
+            eng._adopt = eng._new_cache()
+            t0 = time.perf_counter()
+            n = eng._adopt.import_pages(blob)
+            res["import_ms_backlog"] = (time.perf_counter() - t0) * 1e3
+        with eng:
+            if path == "direct":
+                run_in_order(eng, [warm_prompt])
+
+                def land(e):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    n = e._cache.import_pages(blob)
+                    torch.cuda.synchronize()
+                    return n, (time.perf_counter() - t0) * 1e3
+                n, res["import_ms_direct"] = eng.run_on_loop(land, 600)
+            hits0 = eng.prefix_hits
+            got = run_in_order(eng, [prompt])[0]
+            hits = eng.prefix_hits - hits0
+        if n != n_pages or hits != n_pages \
+                or not np.array_equal(got, source["want"]):
+            raise AssertionError(f"10(d) {label} handoff ({path}): {n} "
+                                 f"imported, {hits} prefix hits, streams "
+                                 f"equal {np.array_equal(got, source['want'])}")
+    log(f"  10(d) {label} handoff: {res}; both paths serve the source's "
+        f"stream with {n_pages} prefix hits")
+    return res
+
+
+def ptq_llama(torch, pt, amp, kern, prompts, warm, ref):
+    """10(e)1: PTQ + calibrate (the first 3a prompts) + convert on a fresh
+    32-layer Llama of the seed of ``ref``'s, served under O2: streams and
+    every logits row bit-equal to the ``weight_dtype="int8"`` engine's
+    (``ref``: its codes and B10 calls are the same), B10 225 times a
+    forward."""
+    from paddle_tpu_torch import quantization as tq
+    model = pt.LlamaForCausalLM(pt.llama3_8b(), device="cuda", seed=0).to(
+        torch.bfloat16)
+    torch.cuda.empty_cache()
+    tq.PTQ(tq.QuantConfig(activation=tq.AbsmaxObserver(),
+                          weight=tq.AbsmaxObserver())).quantize(model)
+    wrapped = sum(isinstance(m, tq.QuantedLinear) for m in model.modules())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = tq.calibrate(model, [p[None] for p in
+                                   prompts[:CALIBRATION_BATCHES]])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    tq.convert(model)
+    torch.cuda.empty_cache()
+    got = ptq_serve(torch, pt, amp, kern, model, prompts, warm, {})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for a, b in zip(got["outs"], ref["outs"]):
+        if not np.array_equal(a, b):
+            raise AssertionError("10(e): the PTQ-converted streams leave the "
+                                 "int8 engine's")
+    for key, row in ref["rows"].items():
+        if not torch.equal(got["rows"][key], row):
+            raise AssertionError("10(e): a PTQ logits row differs from the "
+                                 "int8 engine's")
+    if wrapped != N_LINEARS or batches != CALIBRATION_BATCHES:
+        raise AssertionError(f"10(e): {wrapped} Linears wrapped, {batches} "
+                             f"batches")
+    res = {"wrapped_linears": wrapped, "calibration_s": calib_s,
+           "calibration_batches": batches, "b10_launches": got["b10"],
+           "forwards": got["forwards"], "bit_equal_to_int8_engine": True}
+    log(f"  10(e) PTQ Llama-3-8B: {res}")
+    return res
+
+
+def ptq_serve(torch, pt, amp, kern, model, prompts, warm, kw):
+    """The 3a load in order under O2 on the q-block engine, its logits
+    rows kept and B10's launches checked: 225 a forward."""
+    eng = tier_engine(pt, model, False, **kw)
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        with eng:
+            run_in_order(eng, [warm])
+            zero_counts(kern)
+            steps0 = eng.ragged_steps
+            with LogitsProbe(pt) as probe:
+                outs = run_in_order(eng, prompts)
+            forwards = eng.ragged_steps - steps0
+    b10 = kern["int8_matmul"].launches
+    if b10 != N_LINEARS * forwards:
+        raise AssertionError(f"10(e): B10 {b10} launches over {forwards} "
+                             f"forwards")
+    return {"outs": outs, "rows": probe.rows, "b10": b10,
+            "forwards": forwards}
+
+
+def qat_resnet(torch, pt, kern):
+    """10(e)2: a QAT-wrapped ResNet-50 (10 classes) on the CPU, one train
+    forward through its fake quanters, then converted and in eval: its
+    copy on the card (the head through B10, every conv on its dequantised
+    filter) against an fp64 copy, within phase 8's rule (``RESNET_FACTOR``
+    times the CPU fp32's distance, or ``RESNET_FLOOR``)."""
+    import copy
+    from paddle_tpu_torch import quantization as tq
+    pt.set_device("cpu")
+    try:
+        pt.seed(3)
+        cpu = pt.vision.models.resnet50(num_classes=10)
+        q = tq.FakeQuanterWithAbsMaxObserver
+        tq.QAT(tq.QuantConfig(activation=q(), weight=q())).quantize(cpu)
+        x, _ = _resnet_batch(torch, RESNET_CHECK_BATCH, 5, "cpu")
+        cpu.train()
+        cpu(x)
+        tq.convert(cpu)
+        cpu.eval()
+        card = copy.deepcopy(cpu).to("cuda")
+        f64 = copy.deepcopy(cpu).double()
+        with torch.no_grad():
+            want, exact = cpu(x), f64(x.double())
+    finally:
+        pt.set_device("gpu:0")
+    zero_counts(kern)
+    with torch.no_grad():
+        got = card(x.cuda()).double().cpu()
+    b10 = kern["int8_matmul"].launches
+
+    def dist(a):
+        return float((a.double() - exact).abs().max() / exact.abs().max())
+    card_d, cpu_d = dist(got), dist(want)
+    check(f"10(e) QAT-converted ResNet-50 eval logits: card vs fp64 (cpu "
+          f"fp32 {cpu_d:.3e})", card_d, max(RESNET_FACTOR * cpu_d,
+                                           RESNET_FLOOR), "max err / max")
+    if b10 != 1:
+        raise AssertionError(f"10(e): B10 launched {b10} times, expected 1")
+    return {"card_vs_fp64": card_d, "cpu_vs_fp64": cpu_d, "b10_launches": b10}
+
+
+def phase10(torch, pt, amp, fa, ra, gen, kern, prompts, warm):
+    """Phase 10: B1 at the sep shapes, long context at full width (O2) and
+    in fp32, the tier and the handoff at full width, PTQ on Llama-3-8B and
+    QAT on ResNet-50. Returns the results, with the sep rows for B1's
+    kernel row."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(" 10(a): B1 at the sep path's shapes")
+    sep_rows, sep_errs = sep_flash(torch, fa, ra)
+    phase(" 10(b): long context, Llama-3-8B (32 layers, bf16, O2): an "
+          f"{LONG_PROMPT}-token prompt beside seven 3a prompts, sep prefill "
+          f"in {SEP_STRIPE}-token stripes over a {SEP_PAGES - 1}-page pool")
+    model = pt.LlamaForCausalLM(pt.llama3_8b(), device="cuda", seed=0).to(
+        torch.bfloat16)
+    torch.cuda.empty_cache()
+    lc = long_context(torch, pt, amp, kern, model, prompts)
+    phase(" 10(d): the host tier and the handoff at full width (O2), fp32 "
+          "pages, then fully int8")
+    tier = {"fp32": tier_and_handoff(torch, pt, gen, amp, model, prompts,
+                                     False)}
+    tier["int8"] = tier_and_handoff(torch, pt, gen, amp, model, prompts, True)
+    phase(" 10(e): quantization: PTQ + calibrate + convert on Llama-3-8B "
+          "against the int8 engine (O2), QAT on ResNet-50")
+    ref = ptq_serve(torch, pt, amp, kern, model, prompts, warm,
+                    dict(weight_dtype="int8"))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant = {"ptq_llama": ptq_llama(torch, pt, amp, kern, prompts, warm, ref),
+             "qat_resnet": qat_resnet(torch, pt, kern)}
+    phase(" 10(c): long context in fp32 (2 layers, full width): the sep "
+          "stream against the plain ragged path")
+    lc["fp32"] = long_context_fp32(torch, pt, kern)
+    log(json.dumps({"long_context": dict(lc, tier=tier, b1_sep=sep_rows,
+                                         b1_sep_errors=sep_errs)}))
+    log(json.dumps({"quant": quant}))
+    return {"sep_rows": sep_rows, "sep_errs": sep_errs, "long": lc,
+            "tier": tier, "quant": quant}
+
+
+def add_sep_launches(rows, p10):
+    """Phase 10's B1 launches (the sep path: O2 at 32 layers, fp32 at 2)
+    into the scalar B1 row, its sep shapes beside its other shapes."""
+    lc = p10["long"]
+    add = {"10b sep prefill": lc["facts"]["b1_launches"]["prefill"],
+           "10b sep decode": lc["facts"]["b1_launches"]["decode"],
+           "10c fp32 sep": lc["fp32"]["b1_launches"]}
+    for row in rows:
+        if row["name"] == "flash_fwd_simt":
+            row["launches_by_path"].update(add)
+            row["launches"] += sum(add.values())
+            row["other_shapes"] = row["other_shapes"] + p10["sep_rows"]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     p10["sep_errs"]["fp32"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6924,6 +7586,7 @@ def main():
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import quant_matmul as qm
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.ops import ring_attention as ra
 
     dev = torch.device("cuda")
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
@@ -7905,6 +8568,10 @@ def main():
     loop = loop_phase(torch, pt, kern, none, smi.stdout.strip())
     add_compiled_launches(rows, loop)
     log(json.dumps({"loop": loop}))
+    phase("phase 10: long context (sep prefill in stripes over B1), the "
+          "host KV tier and the handoff, quantization (PTQ, QAT)")
+    p10 = phase10(torch, pt, amp, fa, ra, gen, kern, prompts, warm)
+    add_sep_launches(rows, p10)
     log(json.dumps({"kernels": rows}))
     log(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {

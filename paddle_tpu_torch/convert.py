@@ -1,9 +1,14 @@
 """Weight carry-over between the port and the JAX reference: any model of
 ``Layer``s (or ``torch.nn`` modules) whose ``state_dict`` names are the
 reference's. Only a ``Linear`` weight changes layout (``[in, out]`` there,
-``[out, in]`` here, ROADMAP C3); convolution, norm and embedding weights
-and the buffers (BatchNorm's ``_mean`` and ``_variance``) carry as they
-are."""
+``[out, in]`` here, ROADMAP C3), and so do the int8 codes ``_w_int8`` of a
+converted ``quantization.QuantedLinear``; convolution, norm and embedding
+weights and the buffers (BatchNorm's ``_mean`` and ``_variance``, a
+converted layer's ``_w_scale`` and a converted ``QuantedConv2D``'s codes)
+carry as they are. A ``QAT``- or ``PTQ``-wrapped model's parameters are
+``<layer>.inner.weight`` in both packages. The reference keeps a converted
+layer's codes and scales as attributes outside its ``state_dict``: give
+them under ``<layer>._w_int8`` and ``<layer>._w_scale``."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,8 +17,18 @@ from torch import nn
 
 
 def _linear_weights(model):
-    return {f"{name}.weight" if name else "weight"
-            for name, m in model.named_modules() if isinstance(m, nn.Linear)}
+    """The names stored ``[out, in]`` here and ``[in, out]`` there: every
+    Linear weight, and the int8 codes of a converted ``QuantedLinear``
+    (its ``inner`` is the Linear)."""
+    out = set()
+    for name, m in model.named_modules():
+        prefix = f"{name}." if name else ""
+        if isinstance(m, nn.Linear):
+            out.add(prefix + "weight")
+        elif (isinstance(getattr(m, "inner", None), nn.Linear)
+              and "_w_int8" in m._buffers):
+            out.add(prefix + "_w_int8")
+    return out
 
 
 def load_jax_state(model, arrays):

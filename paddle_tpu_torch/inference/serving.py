@@ -28,6 +28,9 @@
   decode step); on CUDA each ragged bucket and the decode step is a CUDA
   graph, captured at its first use (or by
   :meth:`~ContinuousServingEngine.warmup_programs`) and replayed after.
+  ``host_pool_mb`` puts a host-RAM tier under the prefix index, and
+  ``sep_prefill=True`` serves prompts larger than the page pool by
+  striped long-context prefill over the ring schedule.
 
 Both engines follow the AMP state (:func:`~paddle_tpu_torch.amp.auto_cast`)
 current at each tick, as the reference's do: the state is one per
@@ -55,8 +58,9 @@ import torch
 
 from .. import amp
 from .._device import resolve_device
-from ..models.generation import (KV_DTYPES, SlotPagedKVCache, StagedBuffer,
-                                 _row_generator, _sample_logits)
+from ..models.generation import (KV_DTYPES, HostKVPool, SlotPagedKVCache,
+                                 StagedBuffer, _row_generator,
+                                 _sample_logits)
 from ..ops import _build
 from ..quantization import quantize_linears
 from .speculative import DEFAULT_SPEC_K, _pow2_bucket, make_drafter
@@ -67,6 +71,10 @@ DEFAULT_PREFILL_CHUNK_TOKENS = 256
 #: default per-tick token budget: every live decode slot contributes 1
 #: token, prefill spans fill the rest
 DEFAULT_SERVING_TOKEN_BUDGET = 256
+
+#: default stripe of the long-context (sep) prefill: every chunk of a long
+#: prompt pads to this many tokens, one chunk shape
+DEFAULT_SEP_STRIPE_TOKENS = 512
 
 
 def _chunk_bucket(n_valid, cap):
@@ -140,6 +148,7 @@ class _Row:
         self.generated: list = []
         self.done = False
         self.state = "queued"                # queued -> prefill -> decode
+        self.sep = False                     # a long-context (sep) row
 
 
 def _engine_device(model, device):
@@ -461,7 +470,27 @@ class ContinuousServingEngine(_Engine):
     one padded forward a draft step. Greedy streams are spec off's, and a
     seeded row draws each token from the generator of its final index.
     Verify ticks pad to the same token buckets, so they replay the same
-    graphs; draft forwards run eagerly."""
+    graphs; draft forwards run eagerly.
+
+    ``host_pool_mb`` (0: off) gives the caches a host tier
+    (:class:`~paddle_tpu_torch.models.generation.HostKVPool`) of that
+    many MiB: prefix pages the device LRU evicts are demoted there and
+    promoted back, bit for bit, when an admission needs them, on either
+    scheduler. The engine owns the pool, so a cache rebuilt after an
+    error keeps the tier.
+
+    ``sep_prefill=True`` (the ragged scheduler, native KV pages) serves
+    prompts of ``sep_threshold_tokens`` or more (0: half the page pool,
+    at least a stripe) by striped long-context prefill: chunks of
+    ``sep_stripe_tokens`` (``DEFAULT_SEP_STRIPE_TOKENS``) whose K/V
+    become stripes outside the page pool, attended with the ring
+    schedule over B1, so a prompt larger than the pool serves; only its
+    decode tail takes pages. Sep rows run one chunk or one decode token a
+    tick, eagerly and outside the ragged pack, and are never drafted.
+    ``sep_requests`` counts them; ``host_demotions``,
+    ``host_promotions``, ``host_promote_rejects``, ``sep_stripes_stored``,
+    ``sep_chunks`` and ``sep_decode_steps`` read the live cache's
+    counters."""
 
     def __init__(self, model, max_batch_size=8, page_size=16, max_len=2048,
                  pad_token_id=0, prefill_chunk_tokens=None,
@@ -470,7 +499,8 @@ class ContinuousServingEngine(_Engine):
                  ragged_impl="qblock", kv_dtype=None, weight_dtype=None,
                  cuda_graphs=True, device=None, spec_decode=False,
                  spec_k=None, drafter=None, draft_model=None,
-                 draft_batch=True):
+                 draft_batch=True, host_pool_mb=0, sep_prefill=False,
+                 sep_stripe_tokens=None, sep_threshold_tokens=0):
         super().__init__()
         self.device = _engine_device(model, device)
         self.model = model
@@ -523,6 +553,33 @@ class ContinuousServingEngine(_Engine):
         self.spec_rounds = 0           # verify spans with >= 1 draft
         self.spec_draft_forwards = 0   # draft-model forwards
         self.spec_draft_ticks = 0      # ticks that ran the drafter
+        # the host tier: one pool, owned by the engine, under every cache
+        # it builds (a rebuilt cache keeps the warm tier); 0 MB is off
+        self.host_pool_mb = float(host_pool_mb)
+        if self.host_pool_mb < 0:
+            raise ValueError(f"host_pool_mb must be >= 0, got "
+                             f"{self.host_pool_mb}")
+        self._host_pool = HostKVPool(self.host_pool_mb)
+        # long-context prefill: prompts at or past the threshold are
+        # chunked into stripes attended by the ring schedule, so the page
+        # pool holds only their decode tail
+        self.sep_prefill_enabled = bool(sep_prefill)
+        self.sep_stripe = int(DEFAULT_SEP_STRIPE_TOKENS
+                              if sep_stripe_tokens is None
+                              else sep_stripe_tokens)
+        self.sep_threshold = int(sep_threshold_tokens)
+        self.sep_requests = 0
+        if self.sep_prefill_enabled:
+            if not self.enable_ragged:
+                raise ValueError("sep prefill needs the ragged scheduler "
+                                 "(enable_ragged=True)")
+            if self.sep_stripe <= 0 or self.sep_stripe % self.page_size:
+                raise ValueError(
+                    f"sep_stripe_tokens {self.sep_stripe} must be a "
+                    f"positive multiple of page_size {self.page_size}")
+            if str(kv_dtype).lower() == "int8":
+                raise ValueError("sep prefill requires native KV pages "
+                                 "(kv_dtype='int8' is unsupported)")
         self._cache = None
         self._adopt = None             # a warmed cache the next serve takes
         # (tick shape, amp.state_key()) -> _TickProgram
@@ -551,6 +608,19 @@ class ContinuousServingEngine(_Engine):
     def prefix_hits(self):
         """Prompt blocks served from the prefix index by the live cache."""
         return 0 if self._cache is None else self._cache.prefix_hits
+
+    def _cache_count(name):
+        return property(lambda self: 0 if self._cache is None
+                        else getattr(self._cache, name),
+                        doc=f"The live cache's ``{name}``.")
+
+    host_demotions = _cache_count("host_demotions")
+    host_promotions = _cache_count("host_promotions")
+    host_promote_rejects = _cache_count("host_promote_rejects")
+    sep_stripes_stored = _cache_count("sep_stripes_stored")
+    sep_chunks = _cache_count("sep_chunks")
+    sep_decode_steps = _cache_count("sep_decode_steps")
+    del _cache_count
 
     def generate(self, input_ids, max_new_tokens=32, max_length=None,
                  timeout=None, **kwargs):
@@ -631,7 +701,11 @@ class ContinuousServingEngine(_Engine):
         bucket), or with ``enable_ragged=False`` ``"serving.prefill_chunk"``
         (each chunk bucket) and ``"serving.decode"``; with batched drafting
         ``"spec.draft_batch"`` (each of :meth:`declared_draft_buckets`, one
-        draft forward of padding, uncounted). The ragged buckets
+        draft forward of padding, uncounted); with ``sep_prefill``
+        ``"serving.sep_prefill"`` and ``"serving.sep_decode"`` (one
+        span of every stripe count and a decode step, on a scratch cache);
+        with the host tier ``"kv.host_promote"`` (a demotion and a
+        promotion on a scratch cache and pool). The ragged buckets
         and the decode step run as ticks of padding alone on the engine's
         own cache (writing only its scratch page), so on CUDA their graphs
         are captured here for the live cache; the chunks run on a
@@ -699,10 +773,81 @@ class ContinuousServingEngine(_Engine):
                                 np.zeros((r, w), np.int64))
                     self._sync()
                     out["spec.draft_batch"] = time.perf_counter() - t0
+                if self.sep_prefill_enabled and (
+                        want("serving.sep_prefill")
+                        or want("serving.sep_decode")):
+                    out.update(self._warm_sep(want))
+                if self._host_pool.enabled and want("kv.host_promote"):
+                    out["kv.host_promote"] = self._warm_host_promote()
         finally:
             if was_training:
                 self.model.train()
         return out
+
+    def _warm_sep(self, want):
+        """``warmup_programs``' sep families on a scratch cache: one long
+        span chunk by chunk through every stripe count, then one decode
+        step over the stripes and the tail."""
+        out = {}
+        t0 = time.perf_counter()
+        cache = SlotPagedKVCache(
+            self.max_batch, page_size=self.page_size, max_len=self.max_len,
+            num_pages=self.num_pages, enable_prefix_cache=False,
+            kv_dtype=self.kv_dtype, device=self.device,
+            allow_page_overcommit=True)
+        stripe = self.sep_stripe
+        n = min(self.max_len - 2, (self.max_len // stripe) * stripe
+                + max(stripe // 2, 1))
+        cache.assign_sep(0, n, stripe)
+        start = 0
+        while start < n:
+            nv = min(stripe, n - start)
+            cache.begin_sep_prefill(0, nv)
+            self.model.forward(
+                np.full((1, stripe), self.pad_token_id), cache=cache,
+                position_ids=np.minimum(np.arange(start, start + stripe),
+                                        start + nv - 1))
+            cache.end_step()
+            start += nv
+        self._sync()
+        if want("serving.sep_prefill"):
+            out["serving.sep_prefill"] = time.perf_counter() - t0
+        if want("serving.sep_decode"):
+            t0 = time.perf_counter()
+            cache.begin_sep_decode(0)
+            self.model.forward(np.full((1, 1), self.pad_token_id),
+                               cache=cache,
+                               position_ids=cache.lens[:1, None].copy())
+            cache.end_step()
+            self._sync()
+            out["serving.sep_decode"] = time.perf_counter() - t0
+        cache.free(0)
+        return out
+
+    def _warm_host_promote(self):
+        """``warmup_programs``' ``"kv.host_promote"``: a demotion and a
+        promotion on a scratch cache over a scratch pool (the engine's
+        tier stays as it is)."""
+        t0 = time.perf_counter()
+        cache = SlotPagedKVCache(
+            1, page_size=self.page_size, max_len=self.max_len,
+            kv_dtype=self.kv_dtype, device=self.device,
+            host_pool=HostKVPool(max(self.host_pool_mb, 64)))
+        n = 2 * self.page_size
+        prompt = np.zeros(n, np.int64)
+        cache.assign(0, prompt)
+        cache.begin_prefill(0, n)
+        self.model.forward(prompt[None], cache=cache,
+                           position_ids=np.arange(n))
+        cache.end_step()
+        cache.commit_prefix(0)
+        cache.free(0)
+        while cache._evict_lru():
+            pass
+        cache.assign(0, prompt)               # a host hit: promotion
+        cache.free(0)
+        self._sync()
+        return time.perf_counter() - t0
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -772,16 +917,33 @@ class ContinuousServingEngine(_Engine):
                                  num_pages=self.num_pages,
                                  enable_prefix_cache=self.enable_prefix_cache,
                                  ragged_impl=self.ragged_impl,
-                                 kv_dtype=self.kv_dtype, device=self.device)
+                                 kv_dtype=self.kv_dtype, device=self.device,
+                                 host_pool=self._host_pool,
+                                 allow_page_overcommit=(
+                                     self.sep_prefill_enabled))
         self._programs = {}
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.cuda_graphs else None)
         self._cache = cache           # test and smoke-run introspection
         return cache
 
-    def _admit(self, cache, free, active, pending, prefill_q):
+    def _sep_engaged(self, cache, prompt_tokens):
+        """Whether a prompt takes the long-context path: at or past
+        ``sep_threshold_tokens``, or, with the default 0, past half the
+        page pool (and never shorter than a stripe)."""
+        if not self.sep_prefill_enabled:
+            return False
+        thr = self.sep_threshold
+        if thr <= 0:
+            cap = (cache.num_pages - 1) * self.page_size
+            thr = max(cap // 2, self.sep_stripe)
+        return int(prompt_tokens) >= thr
+
+    def _admit(self, cache, free, active, pending, prefill_q, sep_q=None):
         """Map waiting rows onto free slots and match their prompts
-        against the prefix index. No model work happens here."""
+        against the prefix index (promoting blocks the host tier holds),
+        or arm a long prompt's slot for striped prefill (``sep_q``, the
+        ragged scheduler's). No model work happens here."""
         while free and pending:
             row = pending.popleft()
             if row.req.cancelled:
@@ -791,6 +953,16 @@ class ContinuousServingEngine(_Engine):
             if row.prompt.shape[0] < 1:
                 raise ValueError("cannot serve an empty prompt")
             slot = free.popleft()
+            if sep_q is not None and self._sep_engaged(
+                    cache, row.prompt.shape[0]):
+                cache.assign_sep(slot, row.prompt.shape[0], self.sep_stripe)
+                row.sep = True
+                row.state = "prefill"
+                active[slot] = row
+                sep_q.append(slot)
+                self.prefills += 1
+                self.sep_requests += 1
+                continue
             cache.assign(slot, row.prompt)
             row.state = "prefill"
             active[slot] = row
@@ -857,6 +1029,7 @@ class ContinuousServingEngine(_Engine):
             active: list = [None] * self.max_batch
             pending: deque = deque()
             prefill_q: deque = deque()    # slots mid-prefill, FIFO
+            sep_q: deque = deque()        # slots mid long-context prefill
 
             def enqueue(item):
                 """False = stop token; otherwise split into rows."""
@@ -875,6 +1048,8 @@ class ContinuousServingEngine(_Engine):
                 cache.free(i)
                 if i in prefill_q:
                     prefill_q.remove(i)
+                if i in sep_q:
+                    sep_q.remove(i)
                 free.append(i)
 
             while True:
@@ -927,8 +1102,9 @@ class ContinuousServingEngine(_Engine):
                         drop_slot(i)
                 try:
                     if self._running:
-                        self._admit(cache, free, active, pending, prefill_q)
-                    tick(cache, free, active, prefill_q)
+                        self._admit(cache, free, active, pending, prefill_q,
+                                    sep_q if self.enable_ragged else None)
+                    tick(cache, free, active, prefill_q, sep_q)
                 except Exception as e:      # noqa: BLE001 — fail in-flight
                     reqs = {r.req for r in pending}
                     reqs |= {r.req for r in active if r is not None}
@@ -937,6 +1113,7 @@ class ContinuousServingEngine(_Engine):
                         req.done.set()
                     pending.clear()
                     prefill_q.clear()
+                    sep_q.clear()
                     active = [None] * self.max_batch
                     free = deque(range(self.max_batch))
                     cache = self._new_cache()
@@ -992,13 +1169,15 @@ class ContinuousServingEngine(_Engine):
             self.spec_draft_forwards += drafter.forwards - f0
         return drafts
 
-    def _tick(self, cache, free, active, prefill_q):
+    def _tick(self, cache, free, active, prefill_q, sep_q):
         """Pack and run one ragged tick: decode tokens first (each with
         the drafter's proposal behind it, a verify span, when speculative
         decoding is on), then as many prefill tokens as the budget
-        admits."""
+        admits. Sep rows stay out of the pack and out of drafting: their
+        chunk and decode steps run first (:meth:`_sep_tick`)."""
         decode_slots = [i for i, r in enumerate(active)
-                        if r is not None and r.state == "decode"]
+                        if r is not None and r.state == "decode"
+                        and not r.sep]
         drafts = self._drafts(cache, active, decode_slots)
         spans = []        # (slot, q_start, start, n, kind)
         off = 0
@@ -1019,6 +1198,7 @@ class ContinuousServingEngine(_Engine):
             spans.append((slot, off, start, n, "prefill"))
             off += n
             remaining -= n
+        self._sep_tick(cache, free, active, sep_q)
         if not spans:
             return
         total = off
@@ -1094,8 +1274,66 @@ class ContinuousServingEngine(_Engine):
                 if active[slot] is None:
                     break
 
+    # -- long-context (sep) rows ---------------------------------------------
+    def _sep_tick(self, cache, free, active, sep_q):
+        """One sep step a tick: a stripe chunk of the longest-waiting sep
+        slot, then one decode token for every sep row already decoding.
+        Their forwards are stripe- or tail-shaped and never join the
+        ragged pack, so interleaving them at tick granularity keeps the
+        paged traffic flowing beside a long prefill."""
+        if sep_q:
+            slot = sep_q[0]
+            if self._sep_prefill_chunk(cache, free, active, slot):
+                sep_q.popleft()
+        for i, r in enumerate(active):
+            if r is not None and r.sep and r.state == "decode":
+                self._sep_decode_step(cache, free, active, i)
+
+    def _sep_prefill_chunk(self, cache, free, active, slot):
+        """One stripe-sized chunk of a sep slot, padded with
+        ``pad_token_id`` (pad positions repeat the last real one); on the
+        prompt's last chunk the row gets its first token and turns to sep
+        decode. Returns True once the prompt is consumed."""
+        row = active[slot]
+        stripe = self.sep_stripe
+        start = int(cache.lens[slot])
+        n_valid = min(stripe, row.prompt.shape[0] - start)
+        chunk = np.full(stripe, self.pad_token_id, np.int64)
+        chunk[:n_valid] = row.prompt[start:start + n_valid]
+        pos = np.minimum(np.arange(start, start + stripe),
+                         start + n_valid - 1)
+        cache.begin_sep_prefill(slot, n_valid)
+        logits = self.model.forward(chunk[None], cache=cache,
+                                    position_ids=pos)[0]
+        cache.end_step()
+        self.prefill_chunks += 1
+        self.padded_tokens_total += stripe
+        self.useful_tokens_total += n_valid
+        done = start + n_valid >= row.prompt.shape[0]
+        self.events.append(("sep_chunk", slot, n_valid, done))
+        if not done:
+            return False
+        row.state = "decode"
+        self._push_token(cache, free, active, slot,
+                         self._token(row, logits, n_valid - 1))
+        return True
+
+    def _sep_decode_step(self, cache, free, active, slot):
+        """One decode token of a sep row: every stripe and the tail window
+        merged by the ring schedule."""
+        row = active[slot]
+        cur = np.asarray([[row.generated[-1] if row.generated
+                           else row.prompt[-1]]], np.int64)
+        pos = np.asarray([[int(cache.lens[slot])]], np.int64)
+        cache.begin_sep_decode(slot)
+        logits = self.model.forward(cur, cache=cache, position_ids=pos)[0]
+        cache.end_step()
+        self.decode_steps += 1
+        self._push_token(cache, free, active, slot,
+                         self._token(row, logits, 0))
+
     # -- legacy two-program scheduler ---------------------------------------
-    def _legacy_tick(self, cache, free, active, prefill_q):
+    def _legacy_tick(self, cache, free, active, prefill_q, sep_q=None):
         """One prefill chunk for the longest-waiting mid-prefill slot,
         then one fixed-shape decode step for every decoding slot."""
         if prefill_q:

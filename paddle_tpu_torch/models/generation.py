@@ -10,6 +10,8 @@
 * :class:`PagedKVCache`: one uniform batch over fixed pages; the prompt
   prefills densely through SDPA, every decode step runs the paged decode
   kernel.
+* :class:`HostKVPool`: a host-RAM tier under a slot cache's prefix index,
+  bounded in bytes with its own LRU.
 * :class:`SlotPagedKVCache`: continuous batching. Every slot has its own
   context length and lifecycle over one shared, refcounted page pool: a
   slot is **assigned** a prompt on admission (leading full blocks that hit
@@ -22,7 +24,10 @@
   there. Writing into a shared page (refcount > 1 or registered in the
   prefix index) copies it first. With ``kv_dtype="int8"`` the pages hold
   int8 codes and every ``(kv head, page, slot)`` row an fp32 scale beside
-  them.
+  them. Evicted prefix pages may drop to a :class:`HostKVPool` and come
+  back; ``export_pages`` / ``import_pages`` hand a prefix chain to another
+  cache; a long prompt can be prefilled in stripes kept outside the pool
+  (``assign_sep``), attended by the ring schedule.
 * :class:`GenerationMixin`: ``generate`` (greedy, seeded sampling, beam
   search) for a causal LM whose forward takes ``cache=``.
 """
@@ -40,6 +45,7 @@ from ..ops.paged_attention import paged_attention
 from ..ops.ragged_paged_attention import (DEFAULT_QBLOCK, RaggedPlan,
                                           plan_arrays,
                                           ragged_paged_attention)
+from ..ops.ring_attention import blockwise_causal_attention
 
 #: kv_dtype values SlotPagedKVCache takes; "auto" means "native"
 KV_DTYPES = ("auto", "int8", "native")
@@ -93,6 +99,125 @@ def block_hash_chain(tokens, page_size, parent=b""):
         parent = h.digest()
         out.append(parent)
     return out
+
+
+def _dtype_name(t):
+    """A tensor's or array's dtype as the reference names it (numpy's
+    name: ``"float32"``, ``"int8"``, ``"bfloat16"``)."""
+    return str(t.dtype).replace("torch.", "")
+
+
+def _to_host(tensors):
+    """Copies of same-shaped device tensors on the host, in one transfer:
+    numpy arrays, or CPU tensors for a dtype numpy lacks (bf16)."""
+    if not tensors:
+        return []
+    host = torch.stack(tensors).cpu()
+    if host.dtype != torch.bfloat16:
+        host = host.numpy()
+    return list(host)
+
+
+def _to_device(a, like):
+    """Host array or tensor ``a`` on ``like``'s device."""
+    return torch.as_tensor(a).to(like.device)
+
+
+def _stack(parts, axis):
+    """``np.stack`` of host arrays, or ``torch.stack`` of CPU tensors."""
+    if isinstance(parts[0], torch.Tensor):
+        return torch.stack(parts, axis)
+    return np.stack(parts, axis)
+
+
+class HostKVPool:
+    """Host-RAM second tier under the prefix index (reference
+    ``generation.py:83-177``). A prefix page that the device LRU evicts is
+    demoted here as one single-page entry in the
+    :meth:`SlotPagedKVCache.export_pages` layout (``{"page_size",
+    "kv_dtype", "native_dtype", "layers": [(k, v) per layer], "scales":
+    [(k, v) per layer] or None}``, each ``[kv, page_size, d]`` on the
+    host; int8 pools demote their codes and fp32 row scales as they are),
+    and an admission that misses the device index promotes it back, so
+    the roundtrip is bit-exact.
+
+    ``max_mb`` bounds the bytes held (0: the tier is off, eviction is the
+    legacy one). Past the bound the least recently touched entries drop
+    out (a second-level LRU). The pool does not depend on a cache: the
+    serving engine owns one across cache rebuilds and hands it to every
+    cache it builds. Counters: ``demotions`` (accepted puts),
+    ``promotions`` (takes that moved a page back), ``hits`` and
+    ``misses`` (lookups), ``evictions`` (second-level drops)."""
+
+    def __init__(self, max_mb=0):
+        self.max_bytes = int(float(max_mb) * 2 ** 20)
+        self._entries = OrderedDict()     # digest -> entry (LRU order)
+        self.used_bytes = 0
+        self.demotions = 0
+        self.promotions = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    @property
+    def enabled(self):
+        return self.max_bytes > 0
+
+    def __len__(self):
+        return len(self._entries)
+
+    def __contains__(self, digest):
+        return bytes(digest) in self._entries
+
+    @staticmethod
+    def entry_nbytes(entry):
+        total = sum(k.nbytes + v.nbytes for k, v in entry["layers"])
+        if entry.get("scales"):
+            total += sum(ks.nbytes + vs.nbytes
+                         for ks, vs in entry["scales"])
+        return total
+
+    def put(self, digest, entry):
+        """Admit a demoted page under ``digest``, then drop LRU entries
+        until the byte bound holds (an entry larger than the whole pool is
+        admitted and dropped at once). Returns True when the entry is
+        resident after the call."""
+        if not self.enabled:
+            return False
+        digest = bytes(digest)
+        old = self._entries.pop(digest, None)
+        if old is not None:
+            self.used_bytes -= self.entry_nbytes(old)
+        self._entries[digest] = entry
+        self.used_bytes += self.entry_nbytes(entry)
+        self.demotions += 1
+        while self.used_bytes > self.max_bytes and self._entries:
+            _, dropped = self._entries.popitem(last=False)
+            self.used_bytes -= self.entry_nbytes(dropped)
+            self.evictions += 1
+        return digest in self._entries
+
+    def get(self, digest):
+        """Look an entry up (an LRU touch; it stays resident)."""
+        entry = self._entries.get(bytes(digest))
+        if entry is None:
+            self.misses += 1
+            return None
+        self._entries.move_to_end(bytes(digest))
+        self.hits += 1
+        return entry
+
+    def take(self, digest):
+        """Remove and return the entry (promotion: the device index holds
+        the page again, and a later eviction demotes it again)."""
+        entry = self._entries.pop(bytes(digest), None)
+        if entry is not None:
+            self.used_bytes -= self.entry_nbytes(entry)
+        return entry
+
+    def clear(self):
+        self._entries.clear()
+        self.used_bytes = 0
 
 
 def _page_gather(pages, table, scales=None, dtype=None):
@@ -316,11 +441,41 @@ class SlotPagedKVCache:
     model's activations. A step ends with :meth:`end_step`, the one place
     its lengths advance: the model's forward leaves a slot cache's
     lengths alone, so a replayed graph, which runs no Python, needs
-    nothing of it."""
+    nothing of it.
+
+    Tiered KV: ``host_pool`` (a :class:`HostKVPool`; ``None`` builds one
+    that is off) catches the prefix pages the device LRU evicts
+    (``host_demotions``), and :meth:`assign` promotes a block that misses
+    the device index but is held there back onto a device page
+    (``host_promotions``; entries of another geometry or dtype are
+    dropped, ``host_promote_rejects``). :meth:`export_pages` and
+    :meth:`import_pages` hand a prefix chain from one cache to another
+    (prefill-to-decode disaggregation); pages imported before the first
+    forward wait in a backlog that each layer's pool applies as it is
+    made. Every write of a promoted, imported or copied page goes into
+    the existing pools in place, so graphs captured over them stay
+    valid, and it happens in ``assign``, ``begin_*`` or the import, never
+    inside a captured forward.
+
+    Long context: :meth:`assign_sep` arms a slot for striped prefill
+    (``allow_page_overcommit=True`` lets the pool be smaller than one
+    sequence). The prompt is prefilled in fixed chunks of
+    ``stripe_tokens`` (:meth:`begin_sep_prefill`); a full chunk's K/V
+    becomes a stripe kept outside the page pool, and only the trailing
+    partial chunk and the decode tail (:meth:`begin_sep_decode`) take
+    device pages. Attention runs the ring schedule block by block
+    (:func:`~paddle_tpu_torch.ops.ring_attention.blockwise_causal_attention`
+    over B1): every stripe, then the chunk itself or the tail window.
+    The reference keeps stripes as host arrays and uploads each one at
+    every forward (``generation.py:1269``, ``:1292``); here they stay
+    device tensors beside the pool (about 262 KB a token at Llama-3-8B's
+    widths in fp32), which is placement only: the page pool still holds
+    the tail alone. :meth:`export_stripes` copies them to numpy."""
 
     def __init__(self, max_batch, page_size=16, max_len=2048,
                  num_pages=None, enable_prefix_cache=True,
-                 ragged_impl="qblock", kv_dtype=None, device=None):
+                 ragged_impl="qblock", kv_dtype=None, device=None,
+                 host_pool=None, allow_page_overcommit=False):
         self.max_batch = int(max_batch)
         self.page_size = int(page_size)
         self.max_len = int(max_len)
@@ -336,7 +491,12 @@ class SlotPagedKVCache:
         # +1: page 0 is the never-allocated scratch page
         self.num_pages = (int(num_pages) if num_pages is not None
                           else self.max_batch * self.pages_per_seq + 1)
-        if self.num_pages < self.pages_per_seq + 1:
+        if allow_page_overcommit:
+            # long-context serving: stripes hold the bulk of a long
+            # prompt, only the decode tail needs device pages
+            if self.num_pages < 2:
+                raise ValueError("num_pages must be >= 2")
+        elif self.num_pages < self.pages_per_seq + 1:
             raise ValueError("num_pages must cover one full sequence")
         self._free = deque(range(1, self.num_pages))
         self._ref = np.zeros(self.num_pages, np.int32)
@@ -359,11 +519,30 @@ class SlotPagedKVCache:
         self._steps = {}                  # tick shape -> staged buffers
         self.prefix_hits = 0              # full blocks served from the index
         self.prefix_misses = 0            # full blocks that had to prefill
+        self.cached_tokens_total = 0
         self.cow_copies = 0
-        self.prefix_evictions_device = 0
+        # pages imported before the first forward: (page, K/V per layer,
+        # scales per layer), landed as each layer's pool is made (pool
+        # order = forward order = export order)
+        self._import_backlog = []
+        self.pages_imported = 0
+        self.pages_exported = 0
         # speculative decoding's rejections (rollback())
         self.rollbacks = 0
         self.tokens_rolled_back = 0
+        # the host tier under the prefix index
+        self.host_pool = host_pool if host_pool is not None else HostKVPool()
+        self.prefix_evictions_device = 0  # device-index LRU evictions
+        self.host_demotions = 0           # evictions the tier caught
+        self.host_promotions = 0          # host hits moved back to device
+        self.host_promote_rejects = 0     # geometry or dtype mismatches
+        # striped long-context prefill, per slot
+        self._sep = [None] * self.max_batch
+        self._sep_pending = None          # the chunk's K/V per layer
+        self._sep_layer_i = 0             # forward-order layer cursor
+        self.sep_stripes_stored = 0
+        self.sep_chunks = 0
+        self.sep_decode_steps = 0
 
     # -- page allocator ------------------------------------------------------
     def _alloc_page(self):
@@ -379,10 +558,12 @@ class SlotPagedKVCache:
 
     def _evict_lru(self):
         """Reclaim the least-recently-used prefix-index entry whose page
-        no live slot maps (refcount 1 == the index's own ref)."""
+        no live slot maps (refcount 1 == the index's own ref). With the
+        host tier on, the page is demoted there first."""
         for digest in list(self._index):
             page = self._index[digest]
             if self._ref[page] == 1:
+                self._demote(digest, page)
                 del self._index[digest]
                 del self._page_digest[page]
                 self._ref[page] = 0
@@ -390,6 +571,95 @@ class SlotPagedKVCache:
                 self.prefix_evictions_device += 1
                 return True
         return False
+
+    def _page_entry(self, page):
+        """One page as a host entry in the :meth:`export_pages` layout:
+        ``[kv, page_size, d]`` K and V per layer (pool order), and the int8
+        row scales ``[kv, page_size]``; one device-to-host copy each."""
+        flat = _to_host([t[:, page] for pair in self._pools.values()
+                         for t in pair])
+        layers = list(zip(flat[0::2], flat[1::2]))
+        scales = None
+        if self.kv_quant:
+            flat = _to_host([t[:, page] for pair in self._scales.values()
+                             for t in pair])
+            scales = list(zip(flat[0::2], flat[1::2]))
+        return {"page_size": self.page_size, "kv_dtype": self.kv_dtype,
+                "native_dtype": _dtype_name(layers[0][0]),
+                "layers": layers, "scales": scales}
+
+    @torch.inference_mode()
+    def _land(self, page, per_layer, per_scales, first_layer=0):
+        """Write one page's host K/V (and int8 row scales), one pair a
+        layer from ``first_layer`` on in pool order, into the pools in
+        place (under inference mode, as pools an engine's serve thread
+        made are inference tensors)."""
+        for key, (kb, vb) in zip(list(self._pools)[first_layer:], per_layer):
+            kp, vp = self._pools[key]
+            kp[:, page] = _to_device(kb, kp)
+            vp[:, page] = _to_device(vb, vp)
+        if self.kv_quant and per_scales is not None:
+            for key, (ksb, vsb) in zip(list(self._scales)[first_layer:],
+                                       per_scales):
+                ks, vs = self._scales[key]
+                ks[:, page] = _to_device(ksb, ks)
+                vs[:, page] = _to_device(vsb, vs)
+
+    def _pool_dtype_name(self):
+        return _dtype_name(next(iter(self._pools.values()))[0])
+
+    def _demote(self, digest, page):
+        """The eviction hook: copy the page into the host tier (nothing
+        when the tier is off, or before the first forward made the
+        pools)."""
+        hp = self.host_pool
+        if not hp.enabled or not self._pools:
+            return False
+        if hp.put(bytes(digest), self._page_entry(int(page))):
+            self.host_demotions += 1
+            return True
+        return False
+
+    def _promote(self, digest):
+        """The admission hook: move a host entry back onto a device page
+        and register it in the prefix index (the index's own ref). Returns
+        the page, or None on a miss, on a mismatch (the entry is dropped)
+        or when the device pool is exhausted (the entry goes back to the
+        host so that a later admission can retry)."""
+        hp = self.host_pool
+        if not hp.enabled:
+            return None
+        entry = hp.get(bytes(digest))
+        if entry is None:
+            return None
+        ok = (int(entry["page_size"]) == self.page_size
+              and entry["kv_dtype"] == self.kv_dtype)
+        if ok and self._pools:
+            ok = (entry["native_dtype"] == self._pool_dtype_name()
+                  and len(entry["layers"]) == len(self._pools))
+        if not ok:
+            # an entry of another configuration cannot land bit-exactly
+            hp.take(bytes(digest))
+            self.host_promote_rejects += 1
+            return None
+        entry = hp.take(bytes(digest))
+        try:
+            # may evict (and demote) colder digests; this entry is off
+            # the host LRU already, so it cannot be one of them
+            page = self._alloc_page()
+        except RuntimeError:
+            hp.put(bytes(digest), entry)
+            return None
+        if self._pools:
+            self._land(page, entry["layers"], entry["scales"])
+        else:
+            self._import_backlog.append((page, entry["layers"],
+                                         entry["scales"]))
+        self._index[bytes(digest)] = page     # MRU end, ref 1 = the index's
+        self._page_digest[page] = bytes(digest)
+        self.host_promotions += 1
+        hp.promotions += 1
+        return page
 
     def _decref(self, page):
         page = int(page)
@@ -491,9 +761,13 @@ class SlotPagedKVCache:
         matched = 0
         for i in range(matchable):
             page = self._index.get(chain[i])
+            if page is not None:
+                self._index.move_to_end(chain[i])  # LRU touch
+            else:
+                # a device miss may sit in the host tier: promote it
+                page = self._promote(chain[i])
             if page is None:
                 break
-            self._index.move_to_end(chain[i])      # LRU touch
             self._ref[page] += 1
             self._tables[slot, i] = page
             matched += 1
@@ -504,6 +778,7 @@ class SlotPagedKVCache:
                   if self.enable_prefix_cache else 0)
         self.prefix_hits += matched
         self.prefix_misses += missed
+        self.cached_tokens_total += cached
         return cached, matched, missed
 
     def commit_prefix(self, slot):
@@ -573,12 +848,16 @@ class SlotPagedKVCache:
 
     def end_step(self):
         """End the step its forward ran: advance the lengths by it (a
-        prefill chunk by its real tokens)."""
+        prefill chunk by its real tokens; a full sep chunk also becomes
+        the slot's next stripe)."""
         self.advance(self._prefill_valid
-                     if self._mode[0] == "prefill" else 0)
+                     if self._mode[0] in ("prefill", "sep_prefill") else 0)
 
     def free(self, slot):
         slot = int(slot)
+        # a sep slot maps no page below its tail: those entries stay 0,
+        # which _decref skips
+        self._sep[slot] = None
         for i in range(int(self._n_blocks[slot])):
             self._decref(self._tables[slot, i])
         self._tables[slot, :] = 0
@@ -586,26 +865,331 @@ class SlotPagedKVCache:
         self.lens[slot] = 0
         self._chain[slot] = None
 
+    # -- prefill-to-decode handoff -------------------------------------------
+    def export_pages(self, digests):
+        """The handoff payload of the prefix-index pages behind the
+        leading run of ``digests`` (a :func:`block_hash_chain`): None when
+        the first digest is not held, else ``{"page_size", "digests"
+        (those exported), "layers": [(k, v) per layer, each [kv, blocks,
+        page_size, d] on the host], "kv_dtype", "native_dtype", "scales"
+        (int8 pools: their fp32 row scales, the codes going as they are),
+        "host_pages"}``. A digest the device index misses is read from
+        the host tier, without promotion (``host_pages`` counts those).
+        Layer order is pool order, which is forward order. The
+        reference's ``ledger_digest`` field, set while its determinism
+        ledger is on, is not written: the port has no ledger yet."""
+        srcs, out_digests, host_pages = [], [], 0
+        hp = self.host_pool
+        for d in digests:
+            page = self._index.get(d)
+            if page is not None:
+                if not self._pools:
+                    break                  # no device K/V made yet
+                self._index.move_to_end(d)             # LRU touch
+                srcs.append((len(self._pools), int(page)))
+            else:
+                he = hp.get(bytes(d)) if hp.enabled else None
+                if (he is None or int(he["page_size"]) != self.page_size
+                        or he["kv_dtype"] != self.kv_dtype
+                        or (srcs and len(he["layers"]) != srcs[0][0])):
+                    break
+                srcs.append((len(he["layers"]), he))
+                host_pages += 1
+            out_digests.append(bytes(d))
+        if not srcs:
+            return None
+        n_layers = srcs[0][0]
+        if any(n != n_layers for n, _ in srcs):
+            return None
+        dev_pages = [src for _, src in srcs if isinstance(src, int)]
+
+        def gather(pools, key):
+            """Per layer, K and V with the blocks on axis 1: the device
+            pages in one transfer, host entries from their ``key``."""
+            flat = iter(_to_host([t[:, dev_pages] for pair in pools
+                                  for t in pair]) if dev_pages else [])
+            dev = list(zip(flat, flat))        # per layer: [kv, n, P, d]
+            out = []
+            for li in range(n_layers):
+                parts, j = [], 0
+                for _, src in srcs:
+                    if isinstance(src, int):
+                        parts.append((dev[li][0][:, j], dev[li][1][:, j]))
+                        j += 1
+                    else:
+                        parts.append(src[key][li])
+                out.append(tuple(_stack([p[i] for p in parts], 1)
+                                 for i in (0, 1)))
+            return out
+
+        layers = gather(list(self._pools.values()), "layers")
+        scales = (gather(list(self._scales.values()), "scales")
+                  if self.kv_quant else None)
+        self.pages_exported += len(srcs)
+        return {"page_size": self.page_size, "digests": out_digests,
+                "layers": layers, "kv_dtype": self.kv_dtype,
+                "native_dtype": _dtype_name(layers[0][0]), "scales": scales,
+                "host_pages": host_pages}
+
+    def import_pages(self, blob):
+        """The receiving side of the handoff: allocate a page for each
+        exported block not already held, write its K/V into the pools in
+        place (or into the backlog before the first forward), and register
+        the digests in the prefix index with the index's own ref, as
+        :meth:`commit_prefix` does, so the next :meth:`assign` of a prompt
+        on that chain maps onto them. Raises on another page size, KV
+        dtype, pool dtype or layer count. Returns the pages imported."""
+        if not blob or not self.enable_prefix_cache:
+            return 0
+        if int(blob["page_size"]) != self.page_size:
+            raise ValueError(
+                f"page_size mismatch: exporter {blob['page_size']} vs "
+                f"importer {self.page_size}")
+        blob_kv = blob.get("kv_dtype", "native")
+        if blob_kv != self.kv_dtype:
+            # an int8 blob in a native pool (or the reverse) would be
+            # requantised without a word: refuse
+            raise ValueError(f"kv_dtype mismatch: exporter {blob_kv} vs "
+                             f"importer {self.kv_dtype}")
+        if self._pools:
+            pool_dtype = self._pool_dtype_name()
+            blob_native = blob.get("native_dtype", pool_dtype)
+            if blob_native != pool_dtype:
+                raise ValueError(
+                    f"pool dtype mismatch: exporter {blob_native} vs "
+                    f"importer {pool_dtype}")
+            if len(blob["layers"]) != len(self._pools):
+                raise ValueError(
+                    f"layer count mismatch: exporter {len(blob['layers'])} "
+                    f"vs importer {len(self._pools)}")
+        blob_scales = blob.get("scales")
+        imported = 0
+        for j, digest in enumerate(blob["digests"]):
+            if digest in self._index:
+                continue
+            page = self._alloc_page()        # ref 1: the index's own
+            per_layer = [(k[:, j], v[:, j]) for k, v in blob["layers"]]
+            per_scales = ([(ks[:, j], vs[:, j]) for ks, vs in blob_scales]
+                          if blob_scales is not None else None)
+            if self._pools:
+                self._land(page, per_layer, per_scales)
+            else:
+                self._import_backlog.append((page, per_layer, per_scales))
+            self._index[digest] = page
+            self._page_digest[page] = digest
+            imported += 1
+        self.pages_imported += imported
+        return imported
+
+    # -- striped long-context prefill ----------------------------------------
+    def assign_sep(self, slot, prompt_tokens, stripe_tokens):
+        """Arm ``slot`` for striped long-context serving: the prompt is
+        prefilled in chunks of ``stripe_tokens`` whose K/V become stripes
+        (in ring order: stripe ``i`` is what replica ``i % sep_ways``
+        would hold, :meth:`export_stripes`), not device pages, so a
+        prompt far larger than the page pool serves. Only the trailing
+        partial chunk and the decode tail take device pages. No prefix
+        index: a stripe is not page-granular. Returns the number of
+        chunks."""
+        slot = int(slot)
+        self.free(slot)
+        n = int(prompt_tokens)
+        stripe = int(stripe_tokens)
+        if stripe <= 0 or stripe % self.page_size:
+            raise ValueError(f"stripe_tokens {stripe} must be a positive "
+                             f"multiple of page_size {self.page_size}")
+        if self.kv_quant:
+            raise ValueError("sep prefill requires native KV pages "
+                             "(kv_dtype='int8' is unsupported)")
+        if n > self.max_len:
+            raise ValueError(f"prompt {n} > max_len {self.max_len}")
+        self._sep[slot] = {"stripe": stripe, "base": 0, "len": n,
+                           "stripes": []}
+        return -(-n // stripe)
+
+    def begin_sep_prefill(self, slot, n_valid=None):
+        """Arm the next forward as one sep chunk of ``slot``, padded to the
+        stripe length (``n_valid`` real tokens in the trailing partial
+        chunk)."""
+        slot = int(slot)
+        if self._sep[slot] is None:
+            raise RuntimeError(f"slot {slot} is not sep-assigned")
+        self._mode = ("sep_prefill", slot)
+        self._idx = None
+        self._prefill_valid = None if n_valid is None else int(n_valid)
+        self._sep_pending = []
+        self._sep_layer_i = 0
+        self.sep_chunks += 1
+
+    def begin_sep_decode(self, slot):
+        """Arm the next forward as one ``[1, 1]`` decode step of a sep
+        slot: its K/V goes to a device tail page, and attention reads the
+        stripes and the tail. Pages are allocated here, outside the
+        forward."""
+        slot = int(slot)
+        sep = self._sep[slot]
+        if sep is None:
+            raise RuntimeError(f"slot {slot} is not sep-assigned")
+        self._mode = ("sep_decode", slot)
+        self._idx = None
+        self._sep_layer_i = 0
+        blk0 = sep["base"] // self.page_size
+        if int(self._n_blocks[slot]) < blk0:
+            # the stripes cover the blocks below the tail: allocate from
+            # the tail's first block on
+            self._n_blocks[slot] = blk0
+        self._ensure_blocks(slot, int(self.lens[slot]) + 1)
+        self._make_writable(slot, int(self.lens[slot]) // self.page_size)
+        self.sep_decode_steps += 1
+
+    def export_stripes(self, slot, sep_ways=1):
+        """The striped handoff payload of a live sep slot, on the host
+        (numpy): each stripe's K/V per layer (``[kv, stripe, d]``) tagged
+        with its home on a ring of ``sep_ways`` replicas (``i %
+        sep_ways``), and the decode tail ``[base, pos)`` as raw ``[kv,
+        n_tail, d]`` rows per layer so that the importer resumes mid-span.
+        None for a slot that is not sep-assigned."""
+        slot = int(slot)
+        sep = self._sep[slot]
+        if sep is None:
+            return None
+        ways = max(int(sep_ways), 1)
+        stripes = []
+        for j, st in enumerate(sep["stripes"]):
+            flat = iter(_to_host([t for pair in st for t in pair]))
+            stripes.append({"home": j % ways, "layers": list(zip(flat,
+                                                                 flat))})
+        native = _dtype_name(stripes[0]["layers"][0][0]) if stripes else None
+        base, pos = int(sep["base"]), int(self.lens[slot])
+        tail = None
+        if pos > base and self._pools:
+            blk0 = base // self.page_size
+            n_pages = -(-(pos - base) // self.page_size)
+            tb = torch.as_tensor(
+                self._tables[slot, blk0:blk0 + n_pages].astype(np.int64))
+            flat = iter(_to_host([
+                t[:, tb.to(t.device)].reshape(t.shape[0], -1,
+                                              t.shape[-1])[:, :pos - base]
+                for pair in self._pools.values() for t in pair]))
+            tail = list(zip(flat, flat))
+        return {"page_size": self.page_size, "stripe": sep["stripe"],
+                "base": base, "len": int(sep["len"]), "pos": pos,
+                "native_dtype": native, "sep_ways": ways,
+                "stripes": stripes, "tail": tail}
+
+    def import_stripes(self, slot, blob):
+        """The receiving side of a striped handoff: arm ``slot`` with the
+        exported stripes (on this cache's device) and resume at the
+        exporter's position, prefilling on from ``pos`` or decoding if the
+        span is complete; the tail rows land in fresh tail pages. Returns
+        the number of stripes imported."""
+        slot = int(slot)
+        if not blob:
+            return 0
+        if int(blob["page_size"]) != self.page_size:
+            raise ValueError(
+                f"page_size mismatch: exporter {blob['page_size']} vs "
+                f"importer {self.page_size}")
+        stripe = int(blob["stripe"])
+        if self.kv_quant:
+            raise ValueError("sep stripes require a native KV pool")
+        if self._pools and blob.get("native_dtype"):
+            pool_dtype = self._pool_dtype_name()
+            if blob["native_dtype"] != pool_dtype:
+                raise ValueError(
+                    f"pool dtype mismatch: exporter "
+                    f"{blob['native_dtype']} vs importer {pool_dtype}")
+        base, pos = int(blob["base"]), int(blob["pos"])
+        tail = blob.get("tail")
+        if pos > base and tail is None:
+            raise ValueError("striped blob resumes mid-span but carries "
+                             "no tail rows")
+        if tail is not None and not self._pools:
+            # tail rows land in the per-layer pools; stripes alone
+            # (pos == base) import anywhere
+            raise ValueError("import_stripes needs materialized pools "
+                             "to land a mid-span tail")
+        if tail is not None and len(tail) != len(self._pools):
+            raise ValueError(f"layer count mismatch: exporter "
+                             f"{len(tail)} vs importer {len(self._pools)}")
+        self.free(slot)
+        self._sep[slot] = {
+            "stripe": stripe, "base": base, "len": int(blob["len"]),
+            "stripes": [[(torch.as_tensor(k).to(self.device),
+                          torch.as_tensor(v).to(self.device))
+                         for k, v in st["layers"]]
+                        for st in blob["stripes"]]}
+        self.lens[slot] = pos
+        if tail is not None:
+            self._land_tail(slot, base, pos, tail)
+        self.sep_stripes_stored += len(blob["stripes"])
+        return len(blob["stripes"])
+
+    @torch.inference_mode()
+    def _land_tail(self, slot, base, pos, tail):
+        """Tail rows ``[base, pos)`` of every layer into fresh pages of
+        ``slot``, whole pages zero past the tail, in place."""
+        blk0 = base // self.page_size
+        self._n_blocks[slot] = blk0
+        self._ensure_blocks(slot, pos)
+        n_pages = -(-(pos - base) // self.page_size)
+        tb = torch.as_tensor(
+            self._tables[slot, blk0:blk0 + n_pages].astype(np.int64))
+        for (kb, vb), (kp, vp) in zip(tail, self._pools.values()):
+            for rows, pool in ((kb, kp), (vb, vp)):
+                # whole pages, zero past the tail, written in place
+                padded = pool.new_zeros((pool.shape[0],
+                                         n_pages * self.page_size,
+                                         pool.shape[-1]))
+                padded[:, :pos - base] = _to_device(rows, pool)
+                pool[:, tb.to(pool.device)] = padded.reshape(
+                    pool.shape[0], n_pages, self.page_size, -1)
+
+    def sep_view(self, slot):
+        """A sep slot's shape-relevant state: the stripe count, the
+        power-of-two tail-page window the next decode step reads, its
+        base and the admitted span. None for another slot."""
+        sep = self._sep[int(slot)]
+        if sep is None:
+            return None
+        n_tail = int(self.lens[slot]) + 1 - sep["base"]
+        n_tp = -(-max(n_tail, 1) // self.page_size)
+        return {"stripes": len(sep["stripes"]),
+                "tail_pages": 1 << max(n_tp - 1, 0).bit_length(),
+                "base": int(sep["base"]), "len": int(sep["len"])}
+
     @property
     def pos(self):
         # a prefill chunk starts at its slot's length; the engines pass
         # explicit per-token positions for the other modes
-        if self._mode and self._mode[0] == "prefill":
+        if self._mode and self._mode[0] in ("prefill", "sep_prefill"):
             return int(self.lens[self._mode[1]])
         return 0
 
     def advance(self, s):
-        """Advance the lengths by the armed step: a prefill chunk of ``s``
-        tokens by ``s`` (at most its ``n_valid``), every decode row or
-        ragged span by its own tokens."""
+        """Advance the lengths by the armed step: a prefill chunk (or sep
+        chunk) of ``s`` tokens by ``s`` (at most its ``n_valid``), every
+        decode row or ragged span by its own tokens; a full sep chunk's
+        K/V becomes the slot's next stripe and its base moves on."""
         mode, arg = self._mode
         if mode == "prefill":
             n = self._prefill_valid
             self.lens[arg] += int(s) if n is None else min(int(s), n)
+        elif mode == "sep_prefill":
+            sep = self._sep[arg]
+            n = self._prefill_valid
+            n = int(s) if n is None else min(int(s), n)
+            if self._sep_pending:
+                # a full chunk becomes the next stripe of the ring
+                sep["stripes"].append(list(self._sep_pending))
+                sep["base"] += sep["stripe"]
+                self.sep_stripes_stored += 1
+            self._sep_pending = None
+            self.lens[arg] += n
         elif mode == "ragged":
             for slot, _, n_new in arg:
                 self.lens[slot] += n_new
-        else:                                  # decode: the active mask
+        else:                  # the decode mask, or a sep decode's slot
             self.lens[arg] += 1
 
     def _stage(self, s):
@@ -673,6 +1257,14 @@ class SlotPagedKVCache:
                 # slots dequantise to finite values that masks hide
                 self._scales[key] = tuple(
                     torch.ones(shape[:-1], device=device) for _ in "kv")
+            # land the pages imported (or promoted) before the first
+            # forward, this layer's part; pages evicted since are dead
+            li = len(self._pools) - 1
+            for page, per_layer, per_scales in self._import_backlog:
+                if li < len(per_layer) and page in self._page_digest:
+                    self._land(page, per_layer[li:li + 1],
+                               per_scales[li:li + 1] if per_scales
+                               else None, first_layer=li)
         return self._pools[key]
 
     def _layer_scales(self, layer):
@@ -715,6 +1307,9 @@ class SlotPagedKVCache:
         k_pages, v_pages = self._pool(layer, kv_heads, d, k.dtype, k.device)
         if mode == "prefill":
             return self._attend_prefill(layer, arg, q, k, v, k_pages, v_pages)
+        if mode in ("sep_prefill", "sep_decode"):
+            return self._attend_sep(layer, mode, arg, q, k, v, k_pages,
+                                    v_pages)
         if mode == "decode":
             return self._attend_decode(layer, arg, q, k, v, k_pages, v_pages)
         return self._attend_ragged(layer, arg, q, k, v, k_pages, v_pages)
@@ -773,6 +1368,90 @@ class SlotPagedKVCache:
                 vf = torch.nn.functional.pad(vf, (0, 0, 0, 0, 0, pad))
             k, v = kf[None, :start + s], vf[None, :start + s]
         return scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def _attend_sep(self, layer, mode, slot, q, k, v, k_pages, v_pages):
+        """Long-context attention of one sep slot (reference
+        ``:1257-1353``): the ring schedule block by block, every stripe of
+        this layer first (stripe ``j`` at ``j * stripe``), then, for a
+        chunk, the chunk itself at its start (its pad keys sit past every
+        real query), or, for a decode token, the power-of-two window of
+        tail pages from the base (entries past the allocated tail are the
+        scratch page, whose positions lie past the query). A full chunk's
+        K/V, v cast to the pool's dtype as the pages hold it, waits for
+        :meth:`advance` to become a stripe; a trailing partial chunk and
+        each decode token are scattered into tail pages. The op is the
+        reference's ``"sep_ring_attention"``, whose one tensor argument
+        is q: under ``auto_cast`` O2 q alone goes to 16 bits, and every
+        B1 partial runs in fp32 on the upcast q
+        (:func:`~paddle_tpu_torch.ops.ring_attention.ring_partial`)."""
+        b, s, kv_heads, d = k.shape
+        if b != 1:
+            raise ValueError("sep serving admits one request at a time")
+        sep = self._sep[slot]
+        stripe = sep["stripe"]
+        li = self._sep_layer_i            # forward-order stripe index
+        self._sep_layer_i += 1
+        blocks = [(st[li][0][None], st[li][1][None], j * stripe)
+                  for j, st in enumerate(sep["stripes"])]
+        kt, vt = k[0].transpose(0, 1), v[0].transpose(0, 1)   # [kv, s, d]
+        if mode == "sep_prefill":
+            if s != stripe:
+                raise ValueError(f"sep chunk must be padded to the stripe "
+                                 f"length: got {s}, expected {stripe}")
+            start = int(self.lens[slot])            # == sep["base"]
+            n_valid = s if self._prefill_valid is None \
+                else min(self._prefill_valid, s)
+            if start + n_valid > self.max_len:
+                raise ValueError(f"slot overflow: {start}+{n_valid} > "
+                                 f"{self.max_len}")
+            blocks.append((k.transpose(1, 2), v.transpose(1, 2), start))
+            if n_valid == s:
+                self._sep_pending.append(
+                    (kt.contiguous(), vt.to(k_pages.dtype).contiguous()))
+            else:
+                if self._idx is None:     # shared by every layer
+                    blk0 = start // self.page_size
+                    if int(self._n_blocks[slot]) < blk0:
+                        self._n_blocks[slot] = blk0
+                    self._ensure_blocks(slot, start + n_valid)
+                    pos = np.arange(start, start + s)
+                    valid = pos < start + n_valid
+                    blk_ids = np.minimum(pos // self.page_size,
+                                         self.pages_per_seq - 1)
+                    self._idx = tuple(torch.from_numpy(a.astype(
+                        np.int64)).to(k.device) for a in (
+                            np.where(valid, self._tables[slot, blk_ids], 0),
+                            np.where(valid, pos % self.page_size, 0)))
+                self._scatter(layer, k_pages, v_pages, kt, vt, *self._idx)
+            self._prefill_valid = n_valid       # what end_step adds
+            q_offset = start
+        else:
+            if s != 1:
+                raise ValueError(f"a sep decode step is [1, 1], got "
+                                 f"[{b}, {s}]")
+            pos_tok = int(self.lens[slot])
+            base = sep["base"]
+            if self._idx is None:
+                blk0 = base // self.page_size
+                n_tp = -(-(pos_tok + 1 - base) // self.page_size)
+                # a power-of-two window keeps the shapes few
+                npp = 1 << max(n_tp - 1, 0).bit_length()
+                tbl = self._tables[slot, blk0:blk0 + npp]
+                tbl = np.pad(tbl, (0, npp - tbl.shape[0]))
+                self._idx = tuple(torch.as_tensor(np.asarray(a, np.int64))
+                                  .to(k.device) for a in (
+                    [self._tables[slot, pos_tok // self.page_size]],
+                    [pos_tok % self.page_size], tbl))
+            page_ids, slot_ids, window = self._idx
+            self._scatter(layer, k_pages, v_pages, kt, vt, page_ids,
+                          slot_ids)
+            blocks.append((k_pages[:, window].reshape(kv_heads, -1, d)[None],
+                           v_pages[:, window].reshape(kv_heads, -1, d)[None],
+                           base))
+            q_offset = pos_tok
+        (q,) = amp.amp_cast_inputs("sep_ring_attention", [q])
+        out = blockwise_causal_attention(q.transpose(1, 2), q_offset, blocks)
+        return out.transpose(1, 2)
 
     def _attend_decode(self, layer, mask, q, k, v, k_pages, v_pages):
         """One token for every slot (fixed shape), each at its own
