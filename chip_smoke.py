@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --phases 7,11    # the build and those phases
 
-Phases, each fatal on error (non-zero exit, no result line):
+Phases, each fatal on error (non-zero exit, no result line). With no
+arguments all run; ``--phases`` picks some of 2-6 (one unit: they share
+one model and its captures), 7, 8, 9, 10 and 11 after the build, and such
+a run ends on a ``{"partial": ...}`` line instead of the result line:
 
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and print every kernel's registers
@@ -375,13 +379,38 @@ Phases, each fatal on error (non-zero exit, no result line):
    ``evaluate``'s accuracy against the one from ``predict``'s logits; it
    prints compile seconds, step ms (compiled against eager), images/s,
    idle shares of traced steps, peak memory and the loader's wait per
-   step.
+   step;
+11. the language-model zoo (``zoo_phase``): (a) GPT-3-1.3B at full
+   depth: in fp32 ``generate`` on the paged cache against the q-block and
+   per-token engines in order (those two equal, C21; generate's streams
+   equal or leaving at a near-tie); under O2 bf16 (a bf16 GPT serves on
+   bf16 pages: no rope) both engines with CUDA graphs on eight prompts of
+   128-600 tokens, the replayed ticks, and ``generate`` on the paged and
+   the dense caches, every launch counted by variant (B1 ``bfloat16 d128
+   g1 causal``, kernels 4, 6 and 8 ``<bf16, bf16>``); layer 0's captured
+   inputs of B1, B4 and kernels 6 and 8 held against their plain versions
+   and timed; O2 AdamW steps at 2 x 2048 (B1-B3 at group 1, K-A; the step
+   time the median of ZOO_COUNTED_STEPS), layer 0's captured q, k, v and
+   dO of a step holding B1, B2 and B3 against their plain versions; 2
+   layers in fp32 against the port on the CPU (logits, gradients, the
+   first update of every element); (b) Mixtral-8x7B widths at 2
+   layers: fp32 logits on 64 tokens against the CPU, layer 0's routing on the captured states (flips only
+   at gaps the router logits' difference spans), ``generate`` on the
+   paged cache and the q-block engine with graphs under O2, one O2 step
+   at 1 layer; (c) BERT-base: six AdamW steps at 32 x 128 with a padding
+   mask compiled (``jit.to_static``) and eager, the losses within the
+   reference test's rtol 2e-4 / atol 2e-5, an eval at 8 x 512 without a
+   mask (B1 non-causal at d 64, fp32 and O1 bf16) held and timed; (d) T5
+   (t5-small widths) fp32 logits and greedy ``generate`` against the
+   CPU. Prints a ``{"zoo": ...}`` line.
 
 Prints a ``{"graph_breakdown": ...}`` line (phases 3f and 3g, per engine
 and mode), a ``{"spec": ...}`` line (3h, 3i, 4(d), 4(e)), an
 ``{"amp": ...}`` line (3j), an ``{"amp_serving": ...}`` line (3k), an
 ``{"ops": ...}`` line (phase 7), an ``{"nn": ...}`` line (phase 8), a
 ``{"loop": ...}`` line (phase 9; B1-B3's rows below count its launches), a
+``{"zoo": ...}`` line (phase 11; its launches and timed shapes go into
+the rows of B1-B4, kernels 6 and 8 and K-A/K-B), a
 ``{"kernels": [...]}`` line with all ten TPU kernels (kernel 6 and B7
 also as their runtime variants, with launches by variant and path) and the
 fused optimizer step's two (K-A and K-B, no Pallas counterpart,
@@ -400,6 +429,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from collections import Counter
 
 import numpy as np
@@ -2167,7 +2197,12 @@ def kernel_counters(rpa, fa, pa, qm, ost):
 def zero_counts(kern):
     for fn in kern.values():
         fn.launches = 0
-    kern["int8_matmul"].launches_by_m.clear()
+        # the wrappers' counts by shape or dtype (a ``Count`` has none)
+        for name in ("launches_by_m", "launches_by_shape",
+                     "launches_by_dtype"):
+            by = getattr(fn, name, None)
+            if isinstance(by, dict):
+                by.clear()
 
 
 def b10_by_m(kern):
@@ -7565,47 +7600,923 @@ def add_sep_launches(rows, p10):
                                      p10["sep_errs"]["fp32"])
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    import paddle_tpu_torch as pt
-    from paddle_tpu_torch import amp
-    from paddle_tpu_torch.models import generation as gen
-    # SDPA (``nn/functional/common.py``) looks up ``flash_attention`` in
-    # its own module: the flash captures wrap it there
-    from paddle_tpu_torch.nn.functional import common as nn_functional
-    from paddle_tpu_torch.ops import _build
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import fused
-    from paddle_tpu_torch.ops import optimizer_step as ost
-    from paddle_tpu_torch import quantization as quant_mod
-    from paddle_tpu_torch.ops import paged_attention as pa
-    from paddle_tpu_torch.ops import quant_matmul as qm
-    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
-    from paddle_tpu_torch.ops import ring_attention as ra
+# ---------------------------------------------------------------------------
+# phase 11: the language-model zoo (GPT-3-1.3B, Mixtral-8x7B widths,
+# BERT-base, T5)
+# ---------------------------------------------------------------------------
 
+#: the zoo's training steps (batch, sequence): GPT-3-1.3B at full depth,
+#: Mixtral-8x7B widths at MIXTRAL_TRAIN_LAYERS
+ZOO_TRAIN = {"gpt": (2, 2048), "mixtral": (1, 2048)}
+#: counted O2 steps after the two warm ones; the step's times are their
+#: median (one step's host clock meets allocator and host stalls)
+ZOO_COUNTED_STEPS = 5
+#: Mixtral-8x7B is 46.7 B parameters (93 GB in bf16), beyond one card: it
+#: serves at 2 layers (3.16 B parameters) and trains at 1 (1.71 B, ~27 GB
+#: under O2 AdamW)
+MIXTRAL_SERVE_LAYERS, MIXTRAL_TRAIN_LAYERS = 2, 1
+#: GPT's fp32 checks against the port on the CPU: 2 layers of full width
+ZOO_CPU_LAYERS = 2
+#: the BERT-base fine-tune (BASELINE.json configs[1]): batch, sequence,
+#: AdamW steps; the eval forward without a mask at ZOO_BERT_EVAL_SEQ
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 128, 6
+ZOO_BERT_EVAL = (8, 512)
+#: the card's fp32 logits against the CPU's, relative to the largest
+#: (phase 4's bound)
+ZOO_LOGITS_TOL = 1e-4
+#: a greedy stream of the card that leaves another path's is put down to
+#: a near-tie only where the top-two gap there is within this share of
+#: the largest logit (fp32 sums in another order over 24 layers)
+ZOO_TIE_SHARE = 1e-4
+#: the reference test's tolerance on the fine-tune's losses
+#: (``tests/test_bert_to_static.py:54``)
+BERT_RTOL, BERT_ATOL = 2e-4, 2e-5
+
+
+def zoo_prompts(vocab):
+    """The zoo's serving load: eight prompts of 128-600 tokens, four of
+    them after a shared 64-token prefix, and a warm request on the prefix;
+    and the generate batch, four of them cut to 256 tokens."""
+    rng = np.random.RandomState(31)
+    prefix = rng.randint(0, vocab, 64)
+    prompts = [rng.randint(0, vocab, n) for n in (600, 128, 257, 181)]
+    prompts += [np.concatenate([prefix, rng.randint(0, vocab, n)])
+                for n in (100, 64, 240, 300)]
+    warm = np.concatenate([prefix, rng.randint(0, vocab, 20)])
+    prompts = [p.astype(np.int64) for p in prompts]
+    batch = np.stack([p[:256] for p in prompts if p.shape[0] >= 256])
+    return prompts, warm.astype(np.int64), batch
+
+
+def by_variant(fa, pa, rpa):
+    """B1-B3's launches by shape (dtype, head_dim, group, mask) and kernels
+    4, 6 and 8's by dtypes since the counts were zeroed."""
+    return {"flash": dict(fa.flash_attention.launches_by_shape),
+            "flash_bwd_dq": dict(fa.flash_bwd_dq.launches_by_shape),
+            "flash_bwd_dkv": dict(fa.flash_bwd_dkv.launches_by_shape),
+            "paged": dict(pa.paged_attention.launches_by_dtype),
+            "qblock": dict(rpa.qblock_attention.launches_by_dtype),
+            "token": dict(rpa.token_attention.launches_by_dtype)}
+
+
+def check_variants(label, got, want):
+    """``want`` maps wrappers to their by-variant counts; every other
+    wrapper's dict is empty."""
+    full = {k: want.get(k, {}) for k in got}
+    log(f"  {label}: launches by variant {got}")
+    if got != full:
+        raise AssertionError(f"{label}: launches by variant {got}, "
+                             f"expected {full}")
+
+
+def cpu_twin(model, build):
+    """``build("meta")`` allocated on the CPU with ``model``'s state: the
+    port on the CPU with the card's weights (a seeded draw differs
+    between a CPU and a CUDA generator)."""
+    twin = build("meta")
+    twin.to_empty(device="cpu")
+    twin.load_state_dict({k: v.detach().cpu()
+                          for k, v in model.state_dict().items()})
+    return twin
+
+
+def rel_to_max(torch, got, want):
+    """max |got - want| over max |want|, on the CPU in fp32."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def stream_gap(torch, logits_fn, prompt, out, other):
+    """Where two greedy streams of one prompt first differ: the position
+    and ``logits_fn``'s top-two gap there over its largest logit (None
+    when they agree)."""
+    n = prompt.shape[0]
+    diff = np.nonzero(out[n:] != other[n:])[0]
+    if not diff.size:
+        return None
+    pos = int(diff[0])
+    top = torch.topk(logits_fn(out[:n + pos]).float(), 2).values
+    scale = float(logits_fn(out[:n + pos]).float().abs().max())
+    return {"position": pos, "gap": float(top[0] - top[1]),
+            "share": float(top[0] - top[1]) / scale}
+
+
+def hold_streams(torch, label, logits_fn, prompts, outs, others):
+    """Stream by stream, ``outs`` against ``others``: equal, or leaving at
+    a near-tie (ZOO_TIE_SHARE of the largest logit). Returns the count of
+    equal streams and the departures."""
+    same, left = 0, []
+    for p, a, b in zip(prompts, outs, others):
+        a, b = np.asarray(a).reshape(-1), np.asarray(b).reshape(-1)
+        g = stream_gap(torch, logits_fn, p, a, b)
+        if g is None:
+            same += 1
+            continue
+        left.append(g)
+        if g["share"] > ZOO_TIE_SHARE:
+            raise AssertionError(f"{label}: a stream leaves at {g}, no "
+                                 f"near-tie")
+    log(f"  {label}: {same} of {len(prompts)} streams equal"
+        + (f"; the others leave at near-ties {left}" if left else ""))
+    return {"equal": same, "of": len(prompts), "near_ties": left}
+
+
+def zoo_flash_bound(q, k, causal, q_offset=0):
+    """B1's bound on ``[b, s, h, d]`` inputs: q, k, v read and out written
+    once in their dtype, fp32 lse, against 4 d flops a visible (query,
+    key) pair a query head at the dtype's peak."""
+    b, sq, hq, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    visible = (int(np.clip(q_offset + np.arange(sq) + 1, 0, sk).sum())
+               if causal else sq * sk)
+    el = q.element_size()
+    nbytes = el * d * (2 * b * sq * hq + 2 * b * sk * hk) + 4 * b * hq * sq
+    return _bound(nbytes, 4 * d * hq * b * visible, peak_of(q))
+
+
+def zoo_time_flash(torch, fa, cap, label):
+    """B1 on captured ``[b, s, h, d]`` inputs: the kernel, its plain
+    version, PyTorch's SDPA on the same data and the bound."""
+    q, k, v, causal = cap["q"], cap["k"], cap["v"], cap["causal"]
+    qo = cap.get("q_offset", 0)
+    b, sq, hq, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    row = {"shape": f"{label}: b={b} sq={sq} sk={sk} "
+                    f"{'causal' if causal else 'non-causal'} {hq}/{hk} "
+                    f"heads d={d} {str(q.dtype).removeprefix('torch.')}",
+           "key": fa.shape_key(q.dtype, d, hq, hk, causal)}
+    row["ms"] = time_ms(torch, lambda: fa.flash_attention(
+        q, k, v, causal, None, qo))
+    row["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(
+        qt, kt, vt, causal, None, qo), iters=5)
+    row.update(zoo_flash_bound(q, k, causal, qo))
+    kw = {"is_causal": True} if causal else {}
+    if causal and sq != sk:
+        raise AssertionError(f"{label}: a causal capture with sq != sk")
+    row["library"] = f"sdpa({'is_causal=True, ' if causal else ''}" \
+                     f"enable_gqa=True)"
+    row["library_ms"] = time_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **kw))
+    log(f"  B1 at {row['shape']}: {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}), SDPA {row['library_ms']:.4f} ms")
+    return row
+
+
+def zoo_time_paged(torch, pa, cap, label):
+    """B4 on a captured decode step: the kernel, its plain version and the
+    bound (q and out once, every distinct page the contexts cover once,
+    the tables; 4 d flops a visible key a query head)."""
+    q, kp, vp, tbl, ctx = (cap[k] for k in ("q", "kp", "vp", "tables",
+                                            "ctx"))
+    c, t = ctx.cpu().numpy(), tbl.cpu().numpy()
+    heads, d = q.shape[1], q.shape[2]
+    page = kp.shape[2]
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * distinct_pages(t, range(len(c)), c, page) * kp.shape[0]
+              * page * page_row_bytes(kp, False) + t.nbytes + c.nbytes)
+    row = {"shape": f"{label}: b={q.shape[0]}, ctx {c.tolist()}, "
+                    f"{heads}/{kp.shape[0]} heads d={d}, "
+                    f"{pa.dtype_key(q, kp)}",
+           **_bound(nbytes, 4 * d * heads * int(c.sum()), peak_of(q))}
+    row["ms"] = time_ms(torch, lambda: pa.paged_attention(q, kp, vp, tbl,
+                                                          ctx))
+    row["plain_ms"] = time_ms(torch, lambda: pa.paged_decode_plain(
+        q, kp, vp, tbl, ctx, d ** -0.5), iters=10)
+    row["library_ms"], row["library"] = None, "none: no single PyTorch " \
+        "call reads a block-table cache"
+    log(f"  B4 at {row['shape']}: {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def zoo_time_ragged(torch, rpa, cap, label):
+    """Kernels 6 (the engine's fixed grid) and 8 on a captured tick, their
+    plain versions and the tick's bound."""
+    q, kp, vp, tbl, desc = (cap[k] for k in ("q", "kp", "vp", "tbl", "desc"))
+    scale = q.shape[-1] ** -0.5
+    bound = bound_ms(q, kp, tbl, desc)
+    shape = (f"{label}: q_lens {np.asarray(desc[2]).tolist()}, ctx "
+             f"{np.asarray(desc[3]).tolist()}, {q.shape[1]}/{kp.shape[0]} "
+             f"heads d={q.shape[2]}, "
+             f"{str(q.dtype)[6:]}/{str(kp.dtype)[6:]}")
+    plans = {"qblock": rpa.make_plan(q.shape[0], *desc, tbl, PAGE,
+                                     impl="qblock", device="cuda",
+                                     max_slots=ENGINE_SLOTS),
+             "token": rpa.make_plan(q.shape[0], *desc, tbl, PAGE,
+                                    impl="token", device="cuda")}
+    kern = {"qblock": rpa.qblock_attention, "token": rpa.token_attention}
+    plain = {"qblock": rpa.qblock_attention_plain,
+             "token": rpa.token_attention_plain}
+    out = {}
+    for impl in kern:
+        row = {"shape": shape, **bound, "library_ms": None,
+               "library": RAGGED_LIBRARY}
+        row["ms"] = time_ms(torch, lambda: kern[impl](q, kp, vp, plans[impl],
+                                                      scale))
+        row["plain_ms"] = time_ms(torch, lambda: plain[impl](
+            q, kp, vp, plans[impl], scale), iters=5)
+        log(f"  {impl} at the {shape}: {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']})")
+        out[impl] = row
+    return out
+
+
+def serve_bf16(torch, pt, kern, fa, pa, rpa, model, prompts, warm, impl,
+               n_layers, pages):
+    """One counted graph run of the load under the caller's O2 block
+    (``serve``): the outputs checked, the pools' and the logits' dtypes,
+    and every attention launch kernel ``impl``'s at ``pages`` (the pool
+    dtype key, ``"bfloat16/bfloat16"`` for a bf16 GPT)."""
+    outs, st = serve(torch, pt, kern, model, prompts, warm, impl=impl)
+    check_outputs(prompts, outs, model.config.vocab_size, f"O2 {impl}")
+    variants = by_variant(fa, pa, rpa)
+    check_variants(f"O2 {impl} engine", variants,
+                   {impl: {pages: n_layers * st["steps"]}})
+    if st["launches"][impl] != n_layers * st["steps"] or any(
+            n for k, n in st["launches"].items()
+            if not k.startswith(impl) and n):
+        raise AssertionError(f"O2 {impl}: launches {st['launches']}")
+    if st["logits_dtypes"] != ["torch.bfloat16"]:
+        raise AssertionError(f"O2 {impl}: logits {st['logits_dtypes']}")
+    st["by_variant"] = variants
+    log(f"  O2 {impl}: {st['steps']} ticks, {st['hits']} prefix hits, "
+        f"{serving_rate(st, prompts):.1f} generated tokens/s, pools "
+        f"{st['pool_dtypes']}, wall {st['wall']:.3f} s")
+    return outs, st
+
+
+def zoo_generate(torch, amp, kern, fa, pa, rpa, model, batch, paged,
+                 probes=()):
+    """``generate`` on ``batch`` under O2 with the counts zeroed: the dense
+    cache (B1 for the prefill, SDPA's einsum for the one-token steps) or
+    the paged one (B1, then B4 a step a layer). Returns the ids and the
+    counts."""
+    zero_counts(kern)
+    ids = torch.as_tensor(batch, device="cuda")
+    with contextlib.ExitStack() as stack:
+        for p in probes:
+            stack.enter_context(p)
+        stack.enter_context(amp.auto_cast(**AMP_O2))
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=NEW_TOKENS,
+                             use_paged_cache=paged)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out.cpu().numpy(), {"launches": read_counts(kern),
+                               "by_variant": by_variant(fa, pa, rpa),
+                               "wall": wall}
+
+
+def zoo_step(torch, model, opt, ids, labels, cast):
+    """One eager O2 step (``train_step``), no scheduler."""
+    sched = types.SimpleNamespace(step=lambda: None)
+    return train_step(torch, model, opt, sched, ids, labels, cast)
+
+
+def zoo_trainer(torch, pt, amp, model, batch, seq, vocab, seed=21):
+    """AdamW (decay off for the norms, the fused step) and O2 bf16 on
+    ``model`` in train mode, with a repeated batch of ``batch`` x ``seq``
+    tokens."""
+    from paddle_tpu_torch.optimizer import AdamW
+    model.train()
+    opt = AdamW(learning_rate=1e-5, parameters=model.named_parameters(),
+                weight_decay=0.1,
+                apply_decay_param_fun=lambda n: "norm" not in n)
+    # the fused step (K-A) whatever the parameter count: Mixtral's one
+    # layer has fewer than the engine's MIN_PARAMS
+    opt.fuse_step = True
+    amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    tokens = np.random.RandomState(seed).randint(0, vocab, (batch, seq + 1))
+    ids = torch.as_tensor(tokens[:, :-1], device="cuda")
+    labels = torch.as_tensor(tokens[:, 1:], device="cuda")
+    return opt, ids, labels, (lambda: amp.auto_cast(**AMP_O2))
+
+
+def zoo_train(torch, pt, amp, kern, fa, pa, rpa, model, label, n_layers, key,
+              vocab, batch, seq, cap=None, trace=False):
+    """O2 steps on one batch: two warm (the first makes the masters and
+    moments, the second still meets the allocator growing around them,
+    its forward several times the steady one), then ZOO_COUNTED_STEPS
+    counted and timed: B1-B3 once a layer a step each at shape ``key``
+    (``shape_key``), K-A at least once; the times are the counted steps'
+    median, printed with their spread. With ``cap`` one more step runs
+    under it, with ``trace`` one more under ``traced_step`` (device ms by
+    phase and kernel)."""
+    opt, ids, labels, cast = zoo_trainer(torch, pt, amp, model, batch, seq,
+                                         vocab)
+    warm = [zoo_step(torch, model, opt, ids, labels, cast)
+            for _ in range(2)]
+    zero_counts(kern)
+    counted = [zoo_step(torch, model, opt, ids, labels, cast)
+               for _ in range(ZOO_COUNTED_STEPS)]
+    counts, variants = read_counts(kern), by_variant(fa, pa, rpa)
+    check_variants(f"{label} steps", variants,
+                   {w: {key: n_layers * ZOO_COUNTED_STEPS}
+                    for w in ("flash", "flash_bwd_dq", "flash_bwd_dkv")})
+    if not counts["adam_step"] or not counts["flash_wgmma"]:
+        raise AssertionError(f"{label}: launches {counts}")
+    losses = [float(r[0]) for r in warm + counted]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses}")
+    ms = {k: float(np.median([r[1][k] for r in counted]))
+          for k in counted[0][1]}
+    steps = [r[1]["step"] for r in counted]
+    spread = (max(steps) - min(steps)) / ms["step"]
+    peak = max(max(r[2].values()) for r in counted) / 2**30
+    log(f"  {label}: losses " + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; the warm steps {warm[0][1]['step']:.2f} and "
+        f"{warm[1][1]['step']:.2f} ms; the counted steps "
+        + ", ".join(f"{x:.2f}" for x in steps) + " ms, median "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+        + f" (spread {spread:.3f} of the median), "
+        f"{batch * seq / ms['step'] * 1e3:.1f} tokens/s, peak "
+        f"{peak:.2f} GiB; K-A launches {counts['adam_step']}, K-B "
+        f"{counts['sum_squares']}")
+    if cap is not None:
+        with cap:
+            zoo_step(torch, model, opt, ids, labels, cast)
+    traced = None
+    if trace:
+        traced = traced_step(torch, model, opt,
+                             types.SimpleNamespace(step=lambda: None), ids,
+                             labels, cast)
+    del opt
+    return {"losses": losses, "ms": ms, "counted_step_ms": steps,
+            "spread": spread, "warm_ms": [warm[0][1], warm[1][1]],
+            "peak_gib": peak, "launches": counts, "by_variant": variants,
+            "traced": traced}
+
+
+def gpt_cpu_check(torch, pt, fa, kern, batch):
+    """GPT-3-1.3B's widths at ZOO_CPU_LAYERS layers, fp32 (TF32 off): the
+    card's logits and first AdamW update against the port on the CPU with
+    the same weights. The logits and the gradients are held to
+    ZOO_LOGITS_TOL of their largest. The first update is ``lr g / (|g| +
+    eps)`` (weight decay off), so the card's gradient ``g + d`` may move
+    it by up to ``lr |d| eps / (max(|g| - |d|, 0) + eps)^2`` (the
+    function's slope over the interval between the two gradients): every
+    element is held to that, plus one ulp of the parameter (each side
+    rounds its new value once) and ZOO_LOGITS_TOL of ``lr``; where both
+    gradients are 0 the update must be exactly 0 on both sides."""
+    from paddle_tpu_torch.models import gpt as gpt_mod
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = gpt_mod.gpt3_1p3b(hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+    cfg.num_hidden_layers = ZOO_CPU_LAYERS
+    dev = gpt_mod.GPTForCausalLM(cfg, device="cuda", seed=0)
+    cpu = cpu_twin(dev, lambda d: gpt_mod.GPTForCausalLM(cfg, device=d))
+    ids = batch[:1]
+    lr, out = 1e-4, {}
+    zero_counts(kern)
+    for m in (dev, cpu):
+        m.train()
+        x = torch.as_tensor(ids, device=m.device)
+        loss, logits = m(x, labels=x)
+        loss.backward()
+        m._logits = logits.detach()
+        m._before = {n: p.detach().clone() for n, p in m.named_parameters()}
+        m._grads = {n: p.grad.detach().clone()
+                    for n, p in m.named_parameters()}
+        opt = AdamW(learning_rate=lr, parameters=m.parameters(),
+                    weight_decay=0.0)
+        eps = opt._epsilon
+        opt.step()
+    if not kern["flash"].launches or kern["flash_wgmma"].launches:
+        raise AssertionError("the fp32 check did not take the scalar B1")
+    out["logits_rel"] = rel_to_max(torch, dev._logits, cpu._logits)
+    check("GPT fp32 logits, card vs CPU (relative, 2 layers)",
+          out["logits_rel"], ZOO_LOGITS_TOL)
+    grad_rel, worst, zeros, nonzero_zero_grad = 0.0, None, 0, 0
+    for n, g in cpu._grads.items():
+        gd = dev._grads[n].cpu()
+        grad_rel = max(grad_rel, rel_to_max(torch, gd, g))
+        du = (dict(dev.named_parameters())[n].detach().cpu()
+              - dev._before[n].cpu())
+        cu = dict(cpu.named_parameters())[n].detach() - cpu._before[n]
+        p0, d = cpu._before[n], (gd - g).abs()
+        both_zero = (g == 0) & (gd == 0)
+        zeros += int(both_zero.sum())
+        nonzero_zero_grad += int(((du != 0) | (cu != 0))[both_zero].sum())
+        slope = eps / ((g.abs() - d).clamp_min(0) + eps) ** 2
+        allow = (torch.ldexp(torch.ones_like(p0), torch.frexp(p0).exponent
+                             - 24) + ZOO_LOGITS_TOL * lr + lr * d * slope)
+        ratio = (du - cu).abs() / allow
+        i = int(ratio.argmax())
+        r = float(ratio.view(-1)[i])
+        if worst is None or r > worst["ratio"]:
+            worst = {"ratio": r, "tensor": n,
+                     "g_over_max": float(g.view(-1)[i].abs()
+                                         / g.abs().max().clamp_min(1e-30)),
+                     "g": float(g.view(-1)[i]), "d": float(d.view(-1)[i]),
+                     "update_diff": float((du - cu).abs().view(-1)[i])}
+    out.update(grad_rel=grad_rel, update_worst=worst, zero_grad=zeros,
+               zero_grad_moved=nonzero_zero_grad)
+    check("GPT fp32 gradients, card vs CPU (relative)", grad_rel,
+          ZOO_LOGITS_TOL)
+    check("GPT fp32 first AdamW update, card vs CPU (error / (ulp(p) + "
+          "1e-4 lr + lr |d| eps / (|g| - |d| + eps)^2))", worst["ratio"],
+          1.0, "max ratio")
+    log(f"  the update's worst element: {worst}")
+    check(f"GPT fp32 first AdamW update where both gradients are 0 "
+          f"({zeros} elements): elements moved", nonzero_zero_grad, 0,
+          "count")
+    del dev, cpu
+    return out
+
+
+def zoo_gpt(torch, pt, amp, fa, pa, rpa, gen, nn_functional, kern):
+    """11(a): GPT-3-1.3B at full depth. fp32: generate against the q-block
+    and per-token engines (C21: those two equal). O2 bf16 (a bf16 GPT
+    serves on bf16 pages, no rope): both engines with CUDA graphs, the
+    replayed ticks, generate on the paged and the dense caches; layer
+    0's captured inputs held and timed (B1 group 1 d 128, B4, kernels 6
+    and 8 ``<bf16, bf16>``); one O2 AdamW step at 2 x 2048; 2 layers in
+    fp32 against the CPU."""
+    from paddle_tpu_torch.models import gpt as gpt_mod
+    cfg = gpt_mod.gpt3_1p3b(hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+    n_layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = gpt_mod.GPTForCausalLM(cfg, device="cuda", seed=0)
+    model.eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  GPT-3-1.3B built in {time.perf_counter() - t0:.1f} s, "
+        f"{n_params / 1e9:.3f} B parameters")
+    prompts, warm, batch = zoo_prompts(cfg.vocab_size)
+    res = {"params": n_params, "launches": {}, "by_variant": {}}
+
+    def logits_fn(ids):
+        with torch.inference_mode():
+            return model(torch.as_tensor(ids[None], device="cuda"))[0, -1]
+
+    # fp32: one generate batch and both engines on its rows, in order
+    zero_counts(kern)
+    want = model.generate(torch.as_tensor(batch, device="cuda"),
+                          max_new_tokens=NEW_TOKENS,
+                          use_paged_cache=True).cpu().numpy()
+    check_variants("fp32 generate (paged)", by_variant(fa, pa, rpa), {
+        "flash": {"float32 d128 g1 causal": n_layers},
+        "paged": {"float32/float32": n_layers * (NEW_TOKENS - 1)}})
+    res["launches"]["11a fp32 generate paged"] = read_counts(kern)
+    fp32_runs = {}
+    for impl in rpa.IMPLS:
+        outs, st, _ = graph_run(torch, pt, kern, model, list(batch), warm,
+                                True, dict(impl=impl))
+        fp32_runs[impl] = [np.asarray(o).reshape(-1) for o in outs]
+        if st["launches"][impl] != n_layers * st["ragged_steps"]:
+            raise AssertionError(f"fp32 {impl}: launches {st['launches']}")
+        res["launches"][f"11a fp32 {impl} engine"] = st["launches"]
+    for a, b in zip(fp32_runs["qblock"], fp32_runs["token"]):
+        if not np.array_equal(a, b):
+            raise AssertionError("fp32 GPT: q-block and per-token engines "
+                                 "disagree (C21)")
+    res["fp32_streams"] = hold_streams(
+        torch, "fp32 GPT generate (paged) vs the engines", logits_fn,
+        list(batch), list(want), fp32_runs["qblock"])
+    # O2 bf16: parameters bf16 but the norms, the pools take k's bf16
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    torch.cuda.empty_cache()
+    runs = {}
+    with amp.auto_cast(**AMP_O2):
+        for impl in rpa.IMPLS:
+            runs[impl] = serve_bf16(torch, pt, kern, fa, pa, rpa, model,
+                                    prompts, warm, impl, n_layers,
+                                    "bfloat16/bfloat16")
+            if runs[impl][1]["pool_dtypes"] != ["torch.bfloat16"]:
+                raise AssertionError(f"O2 GPT {impl}: pools "
+                                     f"{runs[impl][1]['pool_dtypes']}")
+            res["launches"][f"11a O2 {impl} engine"] = \
+                runs[impl][1]["launches"]
+        res["serving"] = {impl: {
+            "tokens_per_s": serving_rate(st, prompts), "ticks": st["steps"],
+            "wall_s": st["wall"], "prefix_hits": st["hits"]}
+            for impl, (_, st) in runs.items()}
+        res["replayed"] = replayed_ticks(torch, pt, kern, model, prompts,
+                                         warm, "GPT O2 q-block",
+                                         dict(impl="qblock"))
+        probe = TickProbe(torch, gen, model, n_layers)
+        serve(torch, pt, kern, model, prompts, warm, impl="qblock",
+              probes=[probe])
+    dec_cap = decode_capture(gen, n_layers)
+    flash_cap = flash_capture(nn_functional, n_layers)
+    gens = {}
+    for paged, probes in ((True, (dec_cap, flash_cap)), (False, ())):
+        name = "paged" if paged else "dense"
+        ids, st = zoo_generate(torch, amp, kern, fa, pa, rpa, model, batch,
+                               paged, probes)
+        want_v = {"flash": {"bfloat16 d128 g1 causal": n_layers}}
+        if paged:
+            want_v["paged"] = {"bfloat16/bfloat16":
+                               n_layers * (NEW_TOKENS - 1)}
+        check_variants(f"O2 generate ({name})", st["by_variant"], want_v)
+        gens[name] = ids
+        res["launches"][f"11a O2 generate {name}"] = st["launches"]
+        res["by_variant"][f"11a O2 generate {name}"] = st["by_variant"]
+        log(f"  O2 generate ({name}): 4 x 256 + {NEW_TOKENS} tokens in "
+            f"{st['wall']:.3f} s")
+    del logits_fn
+    res["o2_generate_paged_vs_dense_equal"] = int(sum(
+        np.array_equal(a, b) for a, b in zip(gens["paged"], gens["dense"])))
+    # layer 0's captured inputs against the plain versions, then timed
+    fc = flash_cap.best
+    res["b1_errs"] = compare_flash_case(
+        torch, fa, *(fc[k].transpose(1, 2) for k in ("q", "k", "v")), True,
+        0, 0, "GPT O2 prefill, layer 0")
+    dc = dec_cap.best
+    res["b4_errs"] = compare_paged(torch, pa, dc["q"], dc["kp"], dc["vp"],
+                                   dc["tables"], dc["ctx"],
+                                   "GPT O2 paged decode step, layer 0")
+    res["ragged_errs"] = {}
+    for name, cap in (("mixed", probe.best), ("decode", probe.decode)):
+        errs, _ = compare_kernels(torch, rpa, cap["q"], cap["kp"],
+                                  cap["vp"], cap["tbl"], cap["desc"],
+                                  f"GPT O2 {name} tick, layer 0")
+        res["ragged_errs"][name] = errs
+    res["timed"] = {
+        "flash_prefill": zoo_time_flash(torch, fa, fc,
+                                        "GPT-3-1.3B O2 generate prefill"),
+        "paged": zoo_time_paged(torch, pa, dc, "GPT-3-1.3B O2 decode step"),
+        **{f"ragged_{name}": zoo_time_ragged(torch, rpa, cap,
+                                             f"GPT-3-1.3B O2 {name} tick")
+           for name, cap in (("mixed", probe.best),
+                             ("decode", probe.decode))}}
+    del probe, dec_cap, flash_cap, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # O2 AdamW steps at 2 x 2048, dropouts 0: B1-B3 at group 1; one more
+    # keeps layer 0's q, k, v and dO (its backward comes last)
+    model = gpt_mod.GPTForCausalLM(cfg, device="cuda", seed=0)
+    train_cap = BackwardCapture(fa)
+    batch_t, seq_t = ZOO_TRAIN["gpt"]
+    res["train"] = zoo_train(torch, pt, amp, kern, fa, pa, rpa, model,
+                             "GPT-3-1.3B O2 step", n_layers,
+                             "bfloat16 d128 g1 causal", cfg.vocab_size,
+                             batch_t, seq_t, cap=train_cap, trace=True)
+    res["launches"]["11a O2 training steps"] = res["train"]["launches"]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tc = dict(train_cap.best, causal=True)
+    if tc["q_offset"] or tc["q"].dtype != torch.bfloat16:
+        raise AssertionError(f"GPT step capture: q_offset {tc['q_offset']},"
+                             f" {tc['q'].dtype}")
+    # B1, B2 and B3 at the step's shape (group 1, d 128) against their
+    # plain versions: bf16 on the captured bits, fp32 and fp16 on them too
+    qkv = [tc[x].transpose(1, 2) for x in ("q", "k", "v")]
+    label = "GPT-3-1.3B O2 training step, layer 0"
+    res["train_b1_errs"] = compare_flash_case(torch, fa, *qkv, True, 0, 0,
+                                              label)
+    res["train_bwd_errs"] = compare_flash_bwd_case(
+        torch, fa, *qkv, tc["dout"].transpose(1, 2), None, True, 0, 0,
+        label)
+    res["timed"]["flash_train"] = zoo_time_flash(
+        torch, fa, tc, "GPT-3-1.3B O2 training step")
+    del train_cap, tc, qkv
+    torch.cuda.empty_cache()
+    res["cpu"] = gpt_cpu_check(torch, pt, fa, kern, batch)
+    res["launches"]["11a fp32 2-layer check"] = read_counts(kern)
+    return res
+
+
+def zoo_mixtral(torch, pt, amp, fa, pa, rpa, gen, kern):
+    """11(b): Mixtral-8x7B widths at MIXTRAL_SERVE_LAYERS layers: fp32
+    logits on a 64-token prompt and layer 0's routing plan against the
+    CPU; under O2 ``generate`` on the paged cache and the q-block engine
+    with CUDA graphs (the MoE inside the captured ticks); one O2 step at
+    MIXTRAL_TRAIN_LAYERS layer."""
+    from paddle_tpu_torch.incubate.distributed.models import moe
+    from paddle_tpu_torch.models import mixtral as mix_mod
+    cfg = mix_mod.mixtral_8x7b(num_hidden_layers=MIXTRAL_SERVE_LAYERS)
+    n_layers = cfg.num_hidden_layers
+    res = {"launches": {}, "by_variant": {}}
+    t0 = time.perf_counter()
+    model = mix_mod.MixtralForCausalLM(cfg, device="cuda", seed=0)
+    model.eval()
+    res["params"] = sum(p.numel() for p in model.parameters())
+    log(f"  Mixtral-8x7B widths, {n_layers} layers, built in "
+        f"{time.perf_counter() - t0:.1f} s, {res['params'] / 1e9:.3f} B "
+        f"parameters")
+    prompt = np.random.RandomState(41).randint(0, cfg.vocab_size, (1, 64))
+    seen = {}
+
+    def capture(module, args):
+        seen.setdefault(args[0].device.type, args[0].detach().clone())
+
+    block = model.mixtral.layers[0].block_sparse_moe
+    hook = block.register_forward_pre_hook(capture)
+    with torch.inference_mode():
+        logits = model(torch.as_tensor(prompt, device="cuda"))
+    hook.remove()
+    t0 = time.perf_counter()
+
+    cpu = cpu_twin(model, lambda d: mix_mod.MixtralForCausalLM(cfg,
+                                                               device=d))
+    cpu.mixtral.init_rope("cpu")
+    cpu.eval()
+    cblock = cpu.mixtral.layers[0].block_sparse_moe
+    hook = cblock.register_forward_pre_hook(capture)
+    with torch.inference_mode():
+        clog = cpu(torch.as_tensor(prompt))
+    hook.remove()
+    res["cpu_seconds"] = time.perf_counter() - t0
+    res["logits_rel"] = rel_to_max(torch, logits, clog)
+    check("Mixtral fp32 logits, card vs CPU (relative, 64 tokens)",
+          res["logits_rel"], ZOO_LOGITS_TOL)
+    # layer 0's plan on the card's captured hidden states, on both sides
+    h = seen["cuda"].reshape(-1, cfg.hidden_size)
+    s, e, k = h.shape[0], block.num_experts, block.top_k
+    c = moe.moe_capacity(s, e, k, block.capacity_factor)
+    with torch.inference_mode():
+        lg_dev = h @ block.gate.weight.T
+        lg_cpu = h.cpu() @ cblock.gate.weight.T
+    p_dev, d_dev, _ = moe.plan_dispatch(lg_dev, c, k)
+    p_cpu, d_cpu, _ = moe.plan_dispatch(lg_cpu, c, k)
+    # a token's experts, as sets: a flipped choice moves the queue places
+    # of the tokens after it, so the dispatch tensors are compared only
+    # where no choice flipped
+    choice_dev = torch.sort(moe.top_k_indices(p_dev, k).cpu(), -1).values
+    choice_cpu = torch.sort(moe.top_k_indices(p_cpu, k), -1).values
+    flips = np.nonzero((choice_dev != choice_cpu).any(-1).numpy())[0]
+    if not flips.size and not torch.equal(d_dev.cpu(), d_cpu):
+        raise AssertionError("Mixtral routing: the same choices, another "
+                             "dispatch")
+    srt = torch.sort(lg_cpu, -1, descending=True).values
+    delta = (lg_dev.cpu() - lg_cpu).abs().amax(-1)
+    held = []
+    for r in flips.tolist():
+        gap = float(srt[r, k - 1] - srt[r, k])
+        held.append({"token": r, "logit_gap": gap,
+                     "logit_diff": float(delta[r])})
+        if gap > 2 * float(delta[r]):
+            raise AssertionError(f"Mixtral routing: token {r} flips at a "
+                                 f"gap {gap} beyond the logits' difference "
+                                 f"{float(delta[r])}")
+    res["routing"] = {"tokens": s, "capacity": c, "flips": held,
+                      "router_logits_max_diff": float(delta.max())}
+    log(f"  Mixtral layer 0 routing on the captured states: {s} tokens, "
+        f"capacity {c}, {len(held)} flipped rows {held} (router logits "
+        f"within {float(delta.max()):.3e} of the CPU's)")
+    del cpu
+    gc.collect()
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    torch.cuda.empty_cache()
+    prompts, warm, batch = zoo_prompts(cfg.vocab_size)
+    ids, st = zoo_generate(torch, amp, kern, fa, pa, rpa, model, batch,
+                           True)
+    check_variants("Mixtral O2 generate (paged)", st["by_variant"], {
+        "flash": {"bfloat16 d128 g4 causal": n_layers},
+        "paged": {"bfloat16/float32": n_layers * (NEW_TOKENS - 1)}})
+    res["launches"]["11b O2 generate paged"] = st["launches"]
+    res["generate_wall"] = st["wall"]
+    with amp.auto_cast(**AMP_O2):
+        outs, st = serve(torch, pt, kern, model, prompts, warm)
+        check_outputs(prompts, outs, cfg.vocab_size, "Mixtral O2 q-block")
+        check_variants("Mixtral O2 q-block engine", by_variant(fa, pa, rpa),
+                       {"qblock": {"bfloat16/float32":
+                                   n_layers * st["steps"]}})
+        if st["replays"] != st["steps"]:
+            raise AssertionError(f"Mixtral: {st['replays']} replays of "
+                                 f"{st['steps']} ticks")
+    res["launches"]["11b O2 q-block engine"] = st["launches"]
+    res["serving"] = {"tokens_per_s": serving_rate(st, prompts),
+                      "ticks": st["steps"], "replays": st["replays"],
+                      "wall_s": st["wall"]}
+    log(f"  Mixtral O2 q-block engine: {st['steps']} ticks, all replayed, "
+        f"{serving_rate(st, prompts):.1f} generated tokens/s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_t = mix_mod.mixtral_8x7b(num_hidden_layers=MIXTRAL_TRAIN_LAYERS)
+    model = mix_mod.MixtralForCausalLM(cfg_t, device="cuda", seed=0)
+    batch_t, seq_t = ZOO_TRAIN["mixtral"]
+    res["train"] = zoo_train(torch, pt, amp, kern, fa, pa, rpa, model,
+                             "Mixtral O2 step", MIXTRAL_TRAIN_LAYERS,
+                             "bfloat16 d128 g4 causal", cfg_t.vocab_size,
+                             batch_t, seq_t)
+    res["launches"]["11b O2 training steps"] = res["train"]["launches"]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoo_bert(torch, pt, amp, fa, pa, rpa, nn_functional, kern):
+    """11(c): BERT-base. BERT_STEPS AdamW fine-tune steps at BERT_BATCH x
+    BERT_SEQ with a padding mask (the einsum route), compiled
+    (``jit.to_static``) and eager from the same weights, the losses within
+    the reference test's tolerance; an eval forward at ZOO_BERT_EVAL
+    without a mask: B1 non-causal at d 64, fp32 and under O1 bf16, held
+    against its plain version and timed."""
+    from paddle_tpu_torch.models import bert as bert_mod
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = bert_mod.bert_base()
+    model = bert_mod.BertForSequenceClassification(cfg, device="cuda",
+                                                   seed=0)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(51)
+    ids = torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                      (BERT_BATCH, BERT_SEQ)), device="cuda")
+    labels = torch.as_tensor(rng.randint(0, 2, (BERT_BATCH,)), device="cuda")
+    lens = rng.randint(BERT_SEQ // 4, BERT_SEQ + 1, BERT_BATCH)
+    mask = torch.as_tensor((np.arange(BERT_SEQ)[None] < lens[:, None])
+                           .astype(np.int64), device="cuda")
+    res = {}
+    for mode in ("eager", "compiled"):
+        model.load_state_dict(state)
+        model.eval()             # dropout off: the two runs comparable
+        fwd = model
+        if mode == "compiled":
+            fwd = pt.jit.to_static(model)
+        opt = AdamW(learning_rate=5e-5, parameters=model.parameters())
+        losses, ms = [], []
+        for _ in range(BERT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = fwd(ids, attention_mask=mask, labels=labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res[mode] = {"losses": losses, "step_ms": ms}
+        log(f"  BERT-base fine-tune, {mode}: losses {losses}, step ms "
+            f"{[round(x, 2) for x in ms]}")
+        if mode == "compiled":
+            model.forward = model._dygraph_forward
+        del opt
+    err = np.abs(np.array(res["compiled"]["losses"])
+                 - np.array(res["eager"]["losses"]))
+    ratio = float(np.max(err / (BERT_ATOL + BERT_RTOL
+                                * np.abs(res["eager"]["losses"]))))
+    check("BERT-base compiled vs eager losses (err / (atol + rtol |eager|))",
+          ratio, 1.0, "max ratio")
+    res["loss_ratio"] = ratio
+    b, s = ZOO_BERT_EVAL
+    ev = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s)),
+                         device="cuda")
+    res["eval"] = {}
+    for name, ctx, key in (
+            ("fp32", contextlib.nullcontext(), "float32 d64 g1 full"),
+            ("O1 bf16", amp.auto_cast(level="O1", dtype="bfloat16"),
+             "bfloat16 d64 g1 full")):
+        cap = flash_capture(nn_functional, cfg.num_hidden_layers)
+        zero_counts(kern)
+        with cap, ctx, torch.inference_mode():
+            logits = model(ev)
+        if not torch.isfinite(logits).all() or logits.shape != (b, 2):
+            raise AssertionError(f"BERT eval {name}: logits {logits.shape}")
+        launches = read_counts(kern)
+        check_variants(f"BERT-base eval ({name}, seq {s}, no mask)",
+                       by_variant(fa, pa, rpa),
+                       {"flash": {key: cfg.num_hidden_layers}})
+        fc = cap.best
+        errs = compare_flash_case(
+            torch, fa, *(fc[k].transpose(1, 2) for k in ("q", "k", "v")),
+            False, 0, 0, f"BERT-base eval {name}, layer 0")
+        res["eval"][name] = {"launches": launches, "errs": errs,
+                             "timed": zoo_time_flash(
+                                 torch, fa, fc, f"BERT-base eval {name}")}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoo_t5(torch, pt):
+    """11(d): T5 at its default config (t5-small widths), fp32: the
+    forward's logits and greedy ``generate`` on the card against the port
+    on the CPU with the same weights."""
+    from paddle_tpu_torch.models import t5 as t5_mod
+    cfg = t5_mod.T5Config()
+    model = t5_mod.T5ForConditionalGeneration(cfg, device="cuda", seed=0)
+    cpu = cpu_twin(model, lambda d: t5_mod.T5ForConditionalGeneration(
+        cfg, device=d))
+    model.eval()
+    cpu.eval()
+    rng = np.random.RandomState(61)
+    src = rng.randint(2, cfg.vocab_size, (2, 64))
+    labels = rng.randint(2, cfg.vocab_size, (2, 32))
+    with torch.inference_mode():
+        _, dev_logits = model(src, labels=labels)
+        _, cpu_logits = cpu(src, labels=labels)
+    res = {"logits_rel": rel_to_max(torch, dev_logits, cpu_logits)}
+    check("T5 fp32 logits, card vs CPU (relative)", res["logits_rel"],
+          ZOO_LOGITS_TOL)
+    got = model.generate(src, max_new_tokens=NEW_TOKENS).cpu().numpy()
+    want = cpu.generate(src, max_new_tokens=NEW_TOKENS).numpy()
+
+    def logits_fn_for(row):
+        def fn(dec):
+            with torch.inference_mode():
+                return cpu(src[row:row + 1], decoder_input_ids=dec[None])[
+                    0, -1]
+        return fn
+    res["streams"] = [hold_streams(
+        torch, f"T5 greedy generate row {r}, card vs CPU", logits_fn_for(r),
+        [got[r, :1]], [got[r]], [want[r]]) for r in range(got.shape[0])]
+    return res
+
+
+def add_zoo_launches(rows, zoo):
+    """Phase 11's launches into the kernel rows by path, and its timed
+    shapes under ``zoo_shapes``."""
+    by_row = {"flash_fwd_wgmma": lambda c: c["flash_wgmma"],
+              "flash_fwd_simt": lambda c: c["flash"] - c["flash_wgmma"],
+              "flash_bwd_dq_wgmma": lambda c: c["flash_bwd_dq_wgmma"],
+              "flash_bwd_dq_simt": lambda c: c["flash_bwd_dq"]
+              - c["flash_bwd_dq_wgmma"],
+              "flash_bwd_dkv_wgmma": lambda c: c["flash_bwd_dkv_wgmma"],
+              "flash_bwd_dkv_simt": lambda c: c["flash_bwd_dkv"]
+              - c["flash_bwd_dkv_wgmma"],
+              "paged_decode": lambda c: c["paged_cluster"]
+              - c["paged_mixed"],
+              "paged_decode_mixed": lambda c: c["paged_mixed"],
+              "ragged_token": lambda c: c["token_cluster"]
+              - c["token_mixed"],
+              "ragged_qblock_mixed": lambda c: c["qblock_mixed"],
+              "adam_step_multi_tensor": lambda c: c["adam_step"],
+              "sum_squares_multi_tensor": lambda c: c["sum_squares"]}
+    paths = {**{k: v for k, v in zoo["gpt"]["launches"].items()},
+             **zoo["mixtral"]["launches"],
+             **{f"11c BERT eval {k}": v["launches"]
+                for k, v in zoo["bert"]["eval"].items()}}
+    g = zoo["gpt"]["timed"]
+    shapes = {"flash_fwd_wgmma": [g["flash_prefill"], g["flash_train"],
+                                  zoo["bert"]["eval"]["O1 bf16"]["timed"]],
+              "flash_fwd_simt": [zoo["bert"]["eval"]["fp32"]["timed"]],
+              "paged_decode": [g["paged"]],
+              "ragged_qblock": [g["ragged_mixed"]["qblock"],
+                                g["ragged_decode"]["qblock"]],
+              "ragged_token": [g["ragged_mixed"]["token"],
+                               g["ragged_decode"]["token"]]}
+    # the errors of GPT's layer-0 captures (prefill and training step)
+    # against the plain versions, in the rows' dtypes
+    b1, tb1, tb = (zoo["gpt"][k] for k in ("b1_errs", "train_b1_errs",
+                                          "train_bwd_errs"))
+    zoo_errs = {"flash_fwd_wgmma": max(b1["bf16"], tb1["bf16"]),
+                "flash_fwd_simt": max(b1["fp32"], tb1["fp32"]),
+                "flash_bwd_dq_wgmma": tb["dq_bf16"],
+                "flash_bwd_dq_simt": tb["dq_fp32_abs"],
+                "flash_bwd_dkv_wgmma": max(tb["dk_bf16"], tb["dv_bf16"]),
+                "flash_bwd_dkv_simt": max(tb["dk_fp32_abs"],
+                                          tb["dv_fp32_abs"])}
+    for row in rows:
+        name = row["name"]
+        if name == "ragged_qblock":
+            add = {k: {v: c[f"qblock_{v}"] - (c["qblock_mixed"]
+                                              if v == "unit" else 0)
+                       for v in ("unit", "runtime")}
+                   for k, c in paths.items()}
+            add = {k: v for k, v in add.items() if any(v.values())}
+            row["launches"] += sum(sum(v.values()) for v in add.values())
+        elif name in by_row:
+            add = {k: by_row[name](c) for k, c in paths.items()
+                   if by_row[name](c)}
+            row["launches"] += sum(add.values())
+        else:
+            continue
+        row.setdefault("launches_by_path", {}).update(add)
+        if name in shapes:
+            row["zoo_shapes"] = shapes[name]
+        if name in zoo_errs:
+            row["max_abs_err"] = max(row["max_abs_err"], zoo_errs[name])
+
+
+def zoo_phase(torch, pt, amp, fa, pa, rpa, gen, nn_functional, kern):
+    """Phase 11: the language-model zoo on the card."""
+    t0 = time.perf_counter()
+    zoo = {}
+    phase(" 11(a): GPT-3-1.3B (24 layers, hidden 2048, 16 heads of 128): "
+          "fp32 and O2 serving, an O2 step at 2 x 2048, 2 layers against "
+          "the CPU")
+    zoo["gpt"] = zoo_gpt(torch, pt, amp, fa, pa, rpa, gen, nn_functional,
+                         kern)
+    phase(f" 11(b): Mixtral-8x7B widths ({MIXTRAL_SERVE_LAYERS} layers to "
+          f"serve, {MIXTRAL_TRAIN_LAYERS} to train)")
+    zoo["mixtral"] = zoo_mixtral(torch, pt, amp, fa, pa, rpa, gen, kern)
+    phase(" 11(c): BERT-base: the to_static fine-tune and an eval at "
+          f"{ZOO_BERT_EVAL[1]} tokens without a mask")
+    zoo["bert"] = zoo_bert(torch, pt, amp, fa, pa, rpa, nn_functional, kern)
+    phase(" 11(d): T5 (t5-small widths), fp32, against the CPU")
+    zoo["t5"] = zoo_t5(torch, pt)
+    zoo["seconds"] = time.perf_counter() - t0
+    log(f"  phase 11 took {zoo['seconds']:.1f} s")
+    return zoo
+
+
+def llama_phases(torch, pt, amp, gen, nn_functional, fa, fused, ost,
+                 quant_mod, pa, qm, rpa, kern, none):
+    """Phases 2 to 6: the kernels at Llama-3-8B's shapes, the serving and
+    training paths on one Llama-3-8B, the paths against each other, the
+    timing of every kernel on the inputs those runs captured, and the
+    kernel rows. Returns the rows."""
     dev = torch.device("cuda")
-    log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
-        f", cuda {torch.version.cuda}")
-    kern = kernel_counters(rpa, fa, pa, qm, ost)
-    none = {name: 0 for name in kern}
-
-    phase("phase 1: build")
-    _, build_s = _build.build()
-    _build.load_kernels()
-    log(f"  build_seconds {build_s:.2f} ({len(_build.SOURCES)} sources)")
-    ptxas_summary(_build)
-    qblock_notes(_build, rpa)
-    token_notes(_build, rpa)
-    paged_notes(_build, pa)
-    b1_notes(_build)
-    bwd_notes(_build)
-    b10_notes(_build)
-
     phase("phase 2: kernel parity at Llama-3-8B attention shapes")
     q, kp, vp, tbl, desc = parity_layout(torch, rpa, dev)
     compare_kernels(torch, rpa, q, kp, vp, tbl, desc, "synthetic")
@@ -8554,26 +9465,125 @@ def main():
     log(json.dumps({"amp_serving": amp_serving_line(amp_srv, runs, static,
                                                     legacy, prompts,
                                                     static_prompts)}))
-    phase("phase 7: the ops layer on the card: creation and random ops, "
-          "and a sample of the five op modules against the CPU")
-    log(json.dumps({"ops": ops_phase(torch, pt)}))
+    return rows
+
+
+#: the phases after the build that a run may select, in the order they
+#: run; 2 to 6 share one Llama-3-8B, its runs and its captures, so they
+#: run as one unit
+PHASES = ("2-6", "7", "8", "9", "10", "11")
+
+
+def selected_phases(argv):
+    """The phases to run after the build: all of them with no arguments;
+    with ``--phases 7,11`` only those (PHASES' names; 2 to 6 each name
+    the unit "2-6"), for a development run, which ends on a
+    ``{"partial": ...}`` line instead of the result line."""
+    import argparse
+    parser = argparse.ArgumentParser(
+        description="Smoke run of the port on one GPU (see the module's "
+                    "docstring).")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run after the "
+                             f"build, of {', '.join(PHASES)} (default: "
+                             f"all)")
+    names = parser.parse_args(argv).phases.split(",")
+    unit = {str(n): "2-6" for n in range(2, 7)}
+    chosen = {unit.get(n.strip(), n.strip()) for n in names}
+    if chosen - set(PHASES):
+        parser.error(f"unknown phases {sorted(chosen - set(PHASES))}")
+    return [n for n in PHASES if n in chosen]
+
+
+def main(argv=None):
+    run = selected_phases(sys.argv[1:] if argv is None else argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import generation as gen
+    # SDPA (``nn/functional/common.py``) looks up ``flash_attention`` in
+    # its own module: the flash captures wrap it there
+    from paddle_tpu_torch.nn.functional import common as nn_functional
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.ops import optimizer_step as ost
+    from paddle_tpu_torch import quantization as quant_mod
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    from paddle_tpu_torch.ops import ring_attention as ra
+
+    log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
+        f", cuda {torch.version.cuda}")
+    kern = kernel_counters(rpa, fa, pa, qm, ost)
+    none = {name: 0 for name in kern}
+
+    phase("phase 1: build")
+    _, build_s = _build.build()
+    _build.load_kernels()
+    log(f"  build_seconds {build_s:.2f} ({len(_build.SOURCES)} sources)")
+    ptxas_summary(_build)
+    qblock_notes(_build, rpa)
+    token_notes(_build, rpa)
+    paged_notes(_build, pa)
+    b1_notes(_build)
+    bwd_notes(_build)
+    b10_notes(_build)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    phase("phase 8: the nn surface (the functional case table against the "
-          "CPU) and PaddleClas ResNet-50 on CIFAR-10-sized images")
-    log(json.dumps({"nn": nn_phase(torch, pt, kern, smi.stdout.strip())}))
-    phase("phase 9: the training-loop surface: a compiled Llama-3-8B-width "
-          "step on paddle.io batches, and ResNet-50 through paddle.Model.fit")
-    loop = loop_phase(torch, pt, kern, none, smi.stdout.strip())
-    add_compiled_launches(rows, loop)
-    log(json.dumps({"loop": loop}))
-    phase("phase 10: long context (sep prefill in stripes over B1), the "
-          "host KV tier and the handoff, quantization (PTQ, QAT)")
-    p10 = phase10(torch, pt, amp, fa, ra, gen, kern, prompts, warm)
-    add_sep_launches(rows, p10)
-    log(json.dumps({"kernels": rows}))
+    rows = None
+    if "2-6" in run:
+        rows = llama_phases(torch, pt, amp, gen, nn_functional, fa, fused,
+                            ost, quant_mod, pa, qm, rpa, kern, none)
+    if "7" in run:
+        phase("phase 7: the ops layer on the card: creation and random "
+              "ops, and a sample of the five op modules against the CPU")
+        log(json.dumps({"ops": ops_phase(torch, pt)}))
+    if "8" in run:
+        phase("phase 8: the nn surface (the functional case table against "
+              "the CPU) and PaddleClas ResNet-50 on CIFAR-10-sized images")
+        log(json.dumps({"nn": nn_phase(torch, pt, kern,
+                                       smi.stdout.strip())}))
+    if "9" in run:
+        phase("phase 9: the training-loop surface: a compiled "
+              "Llama-3-8B-width step on paddle.io batches, and ResNet-50 "
+              "through paddle.Model.fit")
+        loop = loop_phase(torch, pt, kern, none, smi.stdout.strip())
+        if rows is not None:
+            add_compiled_launches(rows, loop)
+        log(json.dumps({"loop": loop}))
+    if "10" in run:
+        phase("phase 10: long context (sep prefill in stripes over B1), "
+              "the host KV tier and the handoff, quantization (PTQ, QAT)")
+        prompts, warm = make_prompts()
+        p10 = phase10(torch, pt, amp, fa, ra, gen, kern, prompts, warm)
+        if rows is not None:
+            add_sep_launches(rows, p10)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "11" in run:
+        phase("phase 11: the language-model zoo: GPT-3-1.3B, Mixtral-8x7B "
+              "widths, BERT-base and T5 on the ported kernels")
+        zoo = zoo_phase(torch, pt, amp, fa, pa, rpa, gen, nn_functional,
+                        kern)
+        if rows is not None:
+            add_zoo_launches(rows, zoo)
+        log(json.dumps({"zoo": zoo}, default=str))
+    if rows is not None:
+        log(json.dumps({"kernels": rows}))
     log(smi.stdout.strip())
+    if run != list(PHASES):
+        # a development run: no result line
+        print(json.dumps({"partial": {"phases": run, "passed": True}}),
+              flush=True)
+        return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -33,6 +33,14 @@ at first use. Entry points default to
 ``device="cuda"``; pass ``device="cpu"`` to run the plain PyTorch
 versions instead.
 
+The language-model zoo of ``models`` serves and trains the same way:
+``GPTForCausalLM`` (GPT-3 widths, a tied head, bf16 KV pages), BERT and
+ERNIE (``BertForSequenceClassification``, ``BertForPretraining``),
+``T5ForConditionalGeneration`` (greedy ``generate``) and
+``MixtralForCausalLM`` (Llama's attention with the GShard mixture of
+experts of ``incubate.distributed.models.moe``); ``nn`` holds the
+transformer layers (``MultiHeadAttention``, ``Transformer``).
+
 It trains PaddleClas's ResNet on images the same way:
 ``vision.models.resnet50(num_classes=10)``, ``nn.CrossEntropyLoss``,
 ``optimizer.Momentum``, under ``amp.decorate(level="O2")`` (the norm
@@ -89,7 +97,7 @@ from .framework.io import load, save
 from .inference.serving import ContinuousServingEngine, ServingEngine
 from .models.llama import (LlamaConfig, LlamaForCausalLM,
                            LlamaPretrainingCriterion, llama3_8b, llama_tiny)
-from . import autograd, callbacks, io, jit, metric
+from . import autograd, callbacks, incubate, io, jit, metric, models
 from .autograd import (PyLayer, enable_grad, grad, is_grad_enabled, no_grad,
                        set_grad_enabled)
 from .hapi import Model, flops, summary
@@ -111,7 +119,8 @@ __all__ = ["LlamaForCausalLM", "LlamaConfig", "LlamaPretrainingCriterion",
            "bitwise_invert", "inverse", "norm", "dist", "matrix_power",
            "cov", "corrcoef", "Tensor", "Place", "CPUPlace", "CUDAPlace",
            "device_count", "is_compiled_with_cuda", "is_compiled_with_xpu",
-           "autograd", "callbacks", "io", "jit", "metric", "PyLayer",
+           "autograd", "callbacks", "incubate", "io", "jit", "metric",
+           "models", "PyLayer",
            "enable_grad", "grad", "is_grad_enabled", "no_grad",
            "set_grad_enabled", "Model", "flops", "summary", "disable_static",
            "enable_static", "in_dynamic_mode"] + tensor.__all__

@@ -155,7 +155,7 @@ def _engine_device(model, device):
     """Resolve an engine's device (``None`` means ``"cuda"``) and check
     that the model's parameters live there."""
     dev = resolve_device(device)
-    model_dev = next(model.parameters()).device
+    model_dev = next(iter(model.parameters())).device
     if model_dev.type != dev.type:
         raise ValueError(f"model on {model_dev}, engine on {dev}")
     return dev

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import amp
+from ..framework import random as prandom
 from ..nn.functional import scaled_dot_product_attention
 from ..ops.paged_attention import paged_attention
 from ..ops.ragged_paged_attention import (DEFAULT_QBLOCK, RaggedPlan,
@@ -232,6 +233,20 @@ def _page_gather(pages, table, scales=None, dtype=None):
     return g.reshape(*g.shape[:-4], -1, *g.shape[-2:])
 
 
+def dropout_generator(dropout_p, training, device):
+    """The port's generator of ``device`` where attention dropout is
+    active, else None."""
+    return prandom.generator(device) if dropout_p and training else None
+
+
+def _no_dropout(cache, training, dropout_p):
+    """A paged cache serves: attention dropout while training raises, as
+    in the reference's ``PagedKVCache.attend`` (``generation.py:294``)."""
+    if dropout_p and training:
+        raise ValueError(f"{cache} is a serving cache: attention dropout "
+                         f"is not supported")
+
+
 class KVCache:
     """Per-attention-layer concat cache. ``update`` returns the full K/V so
     far (including the new tokens); ``pos`` is the filled length, advanced
@@ -266,14 +281,18 @@ class KVCache:
         self.pos = 0
         self._store.clear()
 
-    def attend(self, layer, q, k, v):
+    def attend(self, layer, q, k, v, training=False, dropout_p=0.0):
         """Update the store with this step's K/V and attend over all of it:
         ``q [b, s, heads, d]`` -> ``[b, s, heads, d]``. q, k and v keep
         their dtypes, as the reference's store does: in a bf16 model the
         rope makes q and k fp32 (ROADMAP C24) and v stays bf16, and SDPA
-        computes the mix in fp32."""
+        computes the mix in fp32. ``training`` and ``dropout_p`` go to
+        SDPA, as in the reference (``generation.py:214``); the dropout
+        draws from the port's generator of the device."""
         k, v = self.update(layer, k, v)
-        return scaled_dot_product_attention(q, k, v, is_causal=True)
+        return scaled_dot_product_attention(
+            q, k, v, dropout_p=dropout_p, is_causal=True, training=training,
+            generator=dropout_generator(dropout_p, training, q.device))
 
 
 class PagedKVCache(KVCache):
@@ -339,13 +358,16 @@ class PagedKVCache(KVCache):
             self._idx_key = key
         return self._idx
 
-    def attend(self, layer, q, k, v):
+    def attend(self, layer, q, k, v, training=False, dropout_p=0.0):
         """The pools take k's dtype, as the reference's (``generation.py:
         303``): fp32 in a bf16 model, whose rope makes k fp32 (ROADMAP
         C25), under AMP too; v is cast to it where it is written. A decode
         step is the reference's op ``"paged_attention"`` (``:354``), whose
         one tensor argument is q: AMP casts q alone, to 16 bits under O2
-        (ROADMAP C29), and the output takes q's dtype."""
+        (ROADMAP C29), and the output takes q's dtype. A serving cache
+        takes no attention dropout: ``dropout_p`` while ``training``
+        raises ``ValueError``, as the reference's does (``:290-296``)."""
+        _no_dropout(type(self).__name__, training, dropout_p)
         b, s, kv_heads, d = k.shape
         if self._batch is not None and self._batch != b:
             raise ValueError(f"PagedKVCache was allocated for batch "
@@ -375,8 +397,11 @@ class PagedKVCache(KVCache):
             return scaled_dot_product_attention(q, k, v, is_causal=True)
         # the reference's op: only q is its tensor argument, so AMP casts
         # q alone (16-bit under O2, over the fp32 pages)
+        # the kernel takes a dense q; GPT's is a slice of its fused
+        # projection
         (q,) = amp.amp_cast_inputs("paged_attention", [q])
-        return paged_attention(q[:, 0], k_pages, v_pages, tables, ctx)[:, None]
+        return paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
+                               tables, ctx)[:, None]
 
 
 class StagedBuffer:
@@ -1288,7 +1313,7 @@ class SlotPagedKVCache:
         v_pages[:, page_ids, slot_ids] = vt.to(v_pages.dtype)
 
     # -- attention ----------------------------------------------------------
-    def attend(self, layer, q, k, v):
+    def attend(self, layer, q, k, v, training=False, dropout_p=0.0):
         """Attention for one layer in the armed mode. ``q [b, s, heads,
         d]``, ``k``/``v [b, s, kv_heads, d]`` -> ``[b, s, heads, d]``. The
         pools take k's dtype, as the reference's (``generation.py:1183``):
@@ -1297,7 +1322,9 @@ class SlotPagedKVCache:
         decode step and the ragged tick are the reference's ops
         ``"paged_attention"`` and ``"ragged_paged_attention"`` (``:1435``,
         ``:1400``), which cast q alone: 16-bit q over the fp32 pages under
-        O2 (ROADMAP C29)."""
+        O2 (ROADMAP C29). As in :class:`PagedKVCache`, ``dropout_p``
+        while ``training`` raises ``ValueError``."""
+        _no_dropout(type(self).__name__, training, dropout_p)
         mode, arg = self._mode
         b, s, kv_heads, d = k.shape
         if mode != "prefill" and k.device != self.device:
@@ -1466,8 +1493,9 @@ class SlotPagedKVCache:
                       v.permute(2, 0, 1, 3), page_ids, slot_ids)
         ks, vs = self._layer_scales(layer)
         (q,) = amp.amp_cast_inputs("paged_attention", [q])
-        return paged_attention(q[:, 0], k_pages, v_pages, tables, ctx,
-                               k_scales=ks, v_scales=vs)[:, None]
+        return paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
+                               tables, ctx, k_scales=ks,
+                               v_scales=vs)[:, None]
 
     def _attend_ragged(self, layer, spans, q, k, v, k_pages, v_pages):
         """Scatter this tick's K/V, then read every span's whole context
@@ -1483,7 +1511,8 @@ class SlotPagedKVCache:
                       v[0].transpose(0, 1), page_ids, slot_ids)
         ks, vs = self._layer_scales(layer)
         (q,) = amp.amp_cast_inputs("ragged_paged_attention", [q])
-        out = ragged_paged_attention(q[0], k_pages, v_pages, tables, *desc,
+        out = ragged_paged_attention(q[0].contiguous(), k_pages, v_pages,
+                                     tables, *desc,
                                      impl=self.ragged_impl, plan=plan,
                                      k_scales=ks, v_scales=vs)
         return out[None]
@@ -1554,7 +1583,7 @@ class GenerationMixin:
         row has. ``num_beams > 1`` runs beam search (greedy only).
         ``seed`` makes sampled decode reproducible: step ``i`` draws from
         a generator that depends on ``(seed, i)`` alone."""
-        dev = next(self.parameters()).device
+        dev = next(iter(self.parameters())).device
         ids = (input_ids.to(dev, torch.int64)
                if isinstance(input_ids, torch.Tensor)
                else torch.as_tensor(np.asarray(input_ids), dtype=torch.int64,

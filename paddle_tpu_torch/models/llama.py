@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import amp
 from .._device import resolve_device
+from ..amp import sites
 from ..nn.functional import scaled_dot_product_attention
 from ..nn.layers.common import Embedding, Linear
 from ..nn.layers.norm import RMSNorm
@@ -93,17 +94,6 @@ def _linear(i, o):
     return Linear(i, o, bias=False)
 
 
-def _reshape(x, *shape):
-    """The reference's op ``"reshape"`` (O2 may cast its input)."""
-    (x,) = amp.amp_cast_inputs("reshape", [x])
-    return x.reshape(*shape)
-
-
-def _add(a, b):
-    """The residual ``a + b``, the reference's op ``"add"``."""
-    return torch.add(*amp.promote(*amp.amp_cast_inputs("add", [a, b])))
-
-
 class LlamaMLP(nn.Module):
     def __init__(self, config):
         super().__init__()
@@ -132,11 +122,12 @@ class LlamaAttention(nn.Module):
     def forward(self, hidden, cos, sin, attn_mask=None, position_ids=None,
                 cache=None):
         b, s, _ = hidden.shape
-        q = _reshape(self.q_proj(hidden), b, s, self.num_heads, self.head_dim)
-        k = _reshape(self.k_proj(hidden), b, s, self.num_kv_heads,
-                     self.head_dim)
-        v = _reshape(self.v_proj(hidden), b, s, self.num_kv_heads,
-                     self.head_dim)
+        q = sites.reshape(self.q_proj(hidden), b, s, self.num_heads,
+                          self.head_dim)
+        k = sites.reshape(self.k_proj(hidden), b, s, self.num_kv_heads,
+                          self.head_dim)
+        v = sites.reshape(self.v_proj(hidden), b, s, self.num_kv_heads,
+                          self.head_dim)
         q, k = fused.fused_rotary_position_embedding(
             q, k, sin=sin, cos=cos, position_ids=position_ids)
         if cache is not None:
@@ -146,7 +137,8 @@ class LlamaAttention(nn.Module):
             out = scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None,
                 training=self.training)
-        return self.o_proj(_reshape(out, b, s, self.num_heads * self.head_dim))
+        return self.o_proj(sites.reshape(out, b, s,
+                                         self.num_heads * self.head_dim))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -161,10 +153,11 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, hidden, cos, sin, attn_mask=None, position_ids=None,
                 cache=None):
-        hidden = _add(hidden, self.self_attn(self.input_layernorm(hidden),
-                                             cos, sin, attn_mask,
-                                             position_ids, cache))
-        return _add(hidden, self.mlp(self.post_attention_layernorm(hidden)))
+        hidden = sites.add(hidden, self.self_attn(
+            self.input_layernorm(hidden), cos, sin, attn_mask, position_ids,
+            cache))
+        return sites.add(hidden,
+                         self.mlp(self.post_attention_layernorm(hidden)))
 
 
 def _amp_contexts():
@@ -195,8 +188,9 @@ class LlamaModel(nn.Module):
 
     def _apply(self, fn, recurse=True):
         # the RoPE tables stay fp32 when the model is cast (``.to(dtype)``,
-        # ``.bfloat16()``), as the reference's plain arrays do
-        super()._apply(fn, recurse)
+        # ``.bfloat16()``), as the reference's plain arrays do (Mixtral's
+        # model shares this method: no ``super()``)
+        nn.Module._apply(self, fn, recurse)
         cos = getattr(self, "rope_cos", None)
         if cos is not None and cos.dtype != torch.float32:
             self.init_rope(cos.device)

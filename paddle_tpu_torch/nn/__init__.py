@@ -1,8 +1,8 @@
 """``paddle.nn`` (port of ``paddle_tpu/nn/__init__.py``): ``Layer`` and its
 containers, the layers of ``layers/{activation,common,conv,loss,norm,
-pooling}.py``, ``functional``, ``initializer``, ``utils`` and gradient
-clipping. The reference's recurrent, transformer and remaining layers
-(``layers/{rnn,transformer,extras}.py``) are not ported yet."""
+pooling,transformer}.py``, ``functional``, ``initializer``, ``utils`` and
+gradient clipping. The reference's recurrent and remaining layers
+(``layers/{rnn,extras}.py``) are not ported yet."""
 from . import functional, initializer, norm, utils  # noqa: F401
 from .clip_grad import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                         clip_grad_norm_, clip_grad_value_)
@@ -36,6 +36,10 @@ from .layers.norm import (BatchNorm, BatchNorm1D, BatchNorm2D,  # noqa: F401
 from .layers.pooling import (AdaptiveAvgPool1D,  # noqa: F401
                              AdaptiveAvgPool2D, AdaptiveMaxPool2D, AvgPool1D,
                              AvgPool2D, MaxPool1D, MaxPool2D)
+from .layers.transformer import (MultiHeadAttention,  # noqa: F401
+                                 Transformer, TransformerDecoder,
+                                 TransformerDecoderLayer, TransformerEncoder,
+                                 TransformerEncoderLayer)
 
 __all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
            "clip_grad_norm_", "clip_grad_value_"]

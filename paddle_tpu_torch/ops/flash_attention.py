@@ -380,14 +380,24 @@ def _flash_cuda(q, k, v, causal, sm_scale, q_offset, kv_offset, seq_dim):
             sq, sk, d, int(q_offset), int(kv_offset), int(bool(causal)), bq,
             bk, float(sm_scale))
     _build.launch("ptt_flash_fwd_wgmma" if wgmma else "ptt_flash_fwd",
-                  q.device, args, _counters(flash_attention, wgmma))
+                  q.device, args, _counters(flash_attention, wgmma, shape_key(
+                      q.dtype, d, hq, hk, causal)))
     return out, lse
 
 
-def _counters(fn, wgmma):
-    """The launch counters of wrapper ``fn`` that a launch adds one to."""
-    return ((fn, "launches"),) + (((fn, "wgmma_launches"),) if wgmma
-                                  else ())
+def shape_key(dtype, d, hq, hk, causal):
+    """The key of a wrapper's ``launches_by_shape``: dtype, head_dim, the
+    GQA group and the mask, as ``"bfloat16 d128 g1 causal"``."""
+    return (f"{str(dtype).replace('torch.', '')} d{d} g{hq // hk} "
+            f"{'causal' if causal else 'full'}")
+
+
+def _counters(fn, wgmma, key):
+    """The launch counters of wrapper ``fn`` that a launch adds one to:
+    every launch, the tensor-core ones, and its ``launches_by_shape``
+    entry ``key`` (:func:`shape_key`)."""
+    return ((fn, "launches"), (fn.launches_by_shape, key)) + (
+        ((fn, "wgmma_launches"),) if wgmma else ())
 
 
 def _bwd_operands(q, k, v, dout, lse, delta, seq_dim):
@@ -409,6 +419,13 @@ def _bwd_operands(q, k, v, dout, lse, delta, seq_dim):
                      else _unit_last(q, k, v, dout))
     return (q, k, v, dout, lse.contiguous(), delta.contiguous(),
             (b, hq, hk, sq, sk, d), wgmma)
+
+
+def _dims_key(q, dims, causal):
+    """:func:`shape_key` of a backward launch over ``dims`` (b, hq, hk,
+    sq, sk, d)."""
+    _, hq, hk, _, _, d = dims
+    return shape_key(q.dtype, d, hq, hk, causal)
 
 
 def _bwd_ints(dims, q_offset, kv_offset, causal, sm_scale):
@@ -509,7 +526,8 @@ def _flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal=True,
             + _strides((q, k, v, dout, dq), seq_dim)
             + _bwd_ints(dims, q_offset, kv_offset, causal, sm_scale))
     _build.launch("ptt_flash_bwd_dq_wgmma" if wgmma else "ptt_flash_bwd_dq",
-                  q.device, args, _counters(flash_bwd_dq, wgmma))
+                  q.device, args, _counters(flash_bwd_dq, wgmma,
+                                            _dims_key(q, dims, causal)))
     return dq
 
 
@@ -520,6 +538,7 @@ def _flash_bwd_dq_fake(q, k, v, dout, lse, delta, *args, **kwargs):
 
 flash_bwd_dq.launches = 0
 flash_bwd_dq.wgmma_launches = 0
+flash_bwd_dq.launches_by_shape = {}
 
 
 @torch.library.custom_op("paddle_tpu_torch::flash_bwd_dkv", mutates_args=(),
@@ -555,7 +574,8 @@ def _flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal=True,
             + _strides((q, k, v, dout, dk, dv), seq_dim)
             + _bwd_ints(dims, q_offset, kv_offset, causal, sm_scale))
     _build.launch("ptt_flash_bwd_dkv_wgmma" if wgmma else "ptt_flash_bwd_dkv",
-                  q.device, args, _counters(flash_bwd_dkv, wgmma))
+                  q.device, args, _counters(flash_bwd_dkv, wgmma,
+                                            _dims_key(q, dims, causal)))
     return dk, dv
 
 
@@ -567,6 +587,7 @@ def _flash_bwd_dkv_fake(q, k, v, dout, lse, delta, *args, **kwargs):
 
 flash_bwd_dkv.launches = 0
 flash_bwd_dkv.wgmma_launches = 0
+flash_bwd_dkv.launches_by_shape = {}
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=True,
@@ -612,13 +633,14 @@ def flash_attention(q, k, v, causal=True, sm_scale=None, q_offset=0,
     ``flash_attention.launches`` (B1, both variants; the tensor-core ones
     also in ``flash_attention.wgmma_launches``), ``flash_bwd_dq.launches``
     (B2) and ``flash_bwd_dkv.launches`` (B3), each with its own
-    ``wgmma_launches``."""
+    ``wgmma_launches`` and ``launches_by_shape`` (:func:`shape_key`)."""
     return flash_fwd(q, k, v, causal, sm_scale, q_offset, kv_offset,
                      kernel_layout)[0]
 
 
 flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
+flash_attention.launches_by_shape = {}
 
 
 def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None,

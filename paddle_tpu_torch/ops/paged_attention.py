@@ -295,11 +295,19 @@ def _check_cuda_inputs(q, k_pages, v_pages, tables, ctx, k_scales,
                          f"{tuple(ctx.shape)}")
 
 
+def dtype_key(q, k_pages):
+    """The key of a wrapper's ``launches_by_dtype``: ``"<q>/<pages>"``, as
+    ``"bfloat16/bfloat16"`` (the instantiation ``<T, PT>``)."""
+    return "/".join(str(t.dtype).replace("torch.", "") for t in (q, k_pages))
+
+
 def launch_counters(fn, variant, q, k_pages, quant):
     """The counters a launch of wrapper ``fn``'s ``variant`` adds to:
-    every launch, the variant's, and for a 16-bit q over fp32 pages (the
+    every launch, the variant's, its dtypes' in ``launches_by_dtype``
+    (:func:`dtype_key`), and for a 16-bit q over fp32 pages (the
     ``<T, float>`` instantiations) ``mixed_launches``."""
-    out = ((fn, "launches"), (fn, f"{variant}_launches"))
+    out = ((fn, "launches"), (fn, f"{variant}_launches"),
+           (fn.launches_by_dtype, dtype_key(q, k_pages)))
     if k_pages.dtype != q.dtype and not quant:
         out += ((fn, "mixed_launches"),)
     return out
@@ -361,6 +369,7 @@ def paged_attention_q8(q, k_pages, v_pages, k_scales, v_scales,
 paged_attention_q8.launches = 0
 paged_attention_q8.cluster_launches = 0
 paged_attention_q8.block_launches = 0
+paged_attention_q8.launches_by_dtype = {}
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
@@ -383,8 +392,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
 
     Native pages run B4, whose CUDA launches are counted in
     ``paged_attention.launches`` and, by variant, in
-    ``.cluster_launches`` and ``.block_launches``; those of a 16-bit q
-    over fp32 pages (the ``<T, float>`` instantiations) also in
+    ``.cluster_launches`` and ``.block_launches``, by dtypes in
+    ``.launches_by_dtype``; those of a 16-bit q over fp32 pages (the ``<T, float>`` instantiations) also in
     ``.mixed_launches``. int8 pages run B5 (:func:`paged_attention_q8`)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -409,6 +418,7 @@ paged_attention.launches = 0
 paged_attention.cluster_launches = 0
 paged_attention.block_launches = 0
 paged_attention.mixed_launches = 0
+paged_attention.launches_by_dtype = {}
 
 
 def paged_attention_reference(q, k_pages, v_pages, block_tables,

@@ -753,6 +753,7 @@ qblock_attention.launches = 0
 qblock_attention.unit_launches = 0
 qblock_attention.runtime_launches = 0
 qblock_attention.mixed_launches = 0
+qblock_attention.launches_by_dtype = {}
 
 
 def qblock_attention_q8(q, k_pages, v_pages, k_scales, v_scales, plan,
@@ -776,6 +777,7 @@ def qblock_attention_q8(q, k_pages, v_pages, k_scales, v_scales, plan,
 qblock_attention_q8.launches = 0
 qblock_attention_q8.unit_launches = 0
 qblock_attention_q8.runtime_launches = 0
+qblock_attention_q8.launches_by_dtype = {}
 
 
 def _token_cuda(fn, q, k_pages, v_pages, plan, sm_scale, k_scales,
@@ -831,6 +833,7 @@ token_attention.launches = 0
 token_attention.cluster_launches = 0
 token_attention.block_launches = 0
 token_attention.mixed_launches = 0
+token_attention.launches_by_dtype = {}
 
 
 def token_attention_q8(q, k_pages, v_pages, k_scales, v_scales, plan,
@@ -854,6 +857,7 @@ def token_attention_q8(q, k_pages, v_pages, k_scales, v_scales, plan,
 token_attention_q8.launches = 0
 token_attention_q8.cluster_launches = 0
 token_attention_q8.block_launches = 0
+token_attention_q8.launches_by_dtype = {}
 
 
 def ragged_paged_attention(q, k_pages, v_pages, block_tables, seq_slots,

@@ -10,11 +10,7 @@ from __future__ import annotations
 import torch
 
 from ... import amp, nn
-
-
-def _add(a, b):
-    """The residual ``a + b``, the reference's op ``"add"``."""
-    return torch.add(*amp.promote(*amp.amp_cast_inputs("add", [a, b])))
+from ...amp import sites
 
 
 def _flatten(x, start_axis):
@@ -45,7 +41,7 @@ class BasicBlock(nn.Layer):
         out = self.bn2(self.conv2(out))
         if self.downsample is not None:
             identity = self.downsample(x)
-        return self.relu(_add(out, identity))
+        return self.relu(sites.add(out, identity))
 
 
 class BottleneckBlock(nn.Layer):
@@ -75,7 +71,7 @@ class BottleneckBlock(nn.Layer):
         out = self.bn3(self.conv3(out))
         if self.downsample is not None:
             identity = self.downsample(x)
-        return self.relu(_add(out, identity))
+        return self.relu(sites.add(out, identity))
 
 
 class ResNet(nn.Layer):

@@ -174,3 +174,60 @@ def test_loader_refuses_cpu_without_being_asked():
             pt.Model(pt.nn.Linear(2, 2))
     finally:
         pt.set_device(dev)
+
+
+_ZOO = {
+    "gpt": "from paddle_tpu_torch.models import gpt as m\n"
+           "net = m.GPTForCausalLM(m.gpt_tiny(), device='cpu')\n"
+           "net.generate([[1, 2, 3]], max_new_tokens=2,\n"
+           "             use_paged_cache=True)\n",
+    "bert": "from paddle_tpu_torch.models import bert as m\n"
+            "net = m.ErnieForSequenceClassification(m.bert_tiny(), "
+            "device='cpu')\n"
+            "net([[1, 2, 3]], attention_mask=[[1, 1, 0]], labels=[1])\n",
+    "t5": "from paddle_tpu_torch.models import t5 as m\n"
+          "net = m.T5ForConditionalGeneration(m.t5_tiny(), device='cpu')\n"
+          "net.generate([[5, 6, 7]], max_new_tokens=2)\n",
+    "mixtral": "from paddle_tpu_torch.models import mixtral as m\n"
+               "net = m.MixtralForCausalLM(m.mixtral_tiny(), device='cpu')\n"
+               "net([[1, 2, 3]], labels=[[2, 3, 4]])[0].backward()\n",
+    "transformer": "import paddle_tpu_torch as p\n"
+                   "p.set_device('cpu')\n"
+                   "import torch\n"
+                   "net = p.nn.Transformer(16, 2, 1, 1, 32)\n"
+                   "net(torch.ones(1, 3, 16), torch.ones(1, 2, 16))\n",
+    "moe": "import paddle_tpu_torch as p\n"
+           "p.set_device('cpu')\n"
+           "import torch\n"
+           "from paddle_tpu_torch.incubate.distributed.models import moe\n"
+           "moe.MoELayer(8, num_experts=4, d_hidden=16)(torch.ones(2, 8))\n",
+}
+
+
+@pytest.mark.parametrize("family", sorted(_ZOO))
+def test_zoo_pulls_in_no_jax(family):
+    """Each model family of the zoo, the transformer layers and the MoE
+    layer alone: built on the CPU and run (generate, a loss, a backward)
+    with neither JAX nor the reference imported."""
+    code = ("import sys\n" + _ZOO[family]
+            + "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith(('jax.', 'jaxlib')) or k == 'paddle_tpu' or "
+            "k.startswith('paddle_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_zoo_refuses_cpu_without_being_asked():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid")
+    from paddle_tpu_torch import models
+    for cls, cfg in ((models.GPTForCausalLM, models.gpt_tiny()),
+                     (models.BertModel, models.bert_tiny()),
+                     (models.T5ForConditionalGeneration, models.t5_tiny()),
+                     (models.MixtralForCausalLM, models.mixtral_tiny())):
+        with pytest.raises(RuntimeError):
+            cls(cfg)

@@ -350,10 +350,12 @@ def test_wrappers_pass_the_mixed_code_and_count_the_launch(dtype,
     trpa._token_cuda(trpa.token_attention, q, kp, vp, _plan(c, "token"),
                      SCALE, None, None, None)
     assert [code for _, code, _ in launched] == [want_code] * 3
+    # each launch also counts under its dtypes in ``launches_by_dtype``
+    mixed = f"{dtype}/float32"
     assert [keys for *_, keys in launched] == [
-        ["launches", "cluster_launches", "mixed_launches"],
-        ["launches", "unit_launches", "mixed_launches"],
-        ["launches", "cluster_launches", "mixed_launches"]]
+        ["launches", "cluster_launches", mixed, "mixed_launches"],
+        ["launches", "unit_launches", mixed, "mixed_launches"],
+        ["launches", "cluster_launches", mixed, "mixed_launches"]]
     launched.clear()
     same = _paged_operands(dt, dt)[:5]
     tpa._paged_cuda(tpa.paged_attention, *same, SCALE, None, None, None)
@@ -361,4 +363,6 @@ def test_wrappers_pass_the_mixed_code_and_count_the_launch(dtype,
     tpa._paged_cuda(tpa.paged_attention_q8, *q8[:5], SCALE, *q8[5:],
                     None)
     assert [(code, keys) for _, code, keys in launched] == [
-        (_build.dtype_code(dt), ["launches", "cluster_launches"])] * 2
+        (_build.dtype_code(dt), ["launches", "cluster_launches",
+                                 f"{dtype}/{pages}"])
+        for pages in (dtype, "int8")]
