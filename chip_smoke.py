@@ -6,8 +6,9 @@
 
 Phases, each fatal on error (non-zero exit, no result line). With no
 arguments all run; ``--phases`` picks some of 2-6 (one unit: they share
-one model and its captures), 7, 8, 9, 10 and 11 after the build, and such
-a run ends on a ``{"partial": ...}`` line instead of the result line:
+one model and its captures), 7, 8, 9, 10, 11 and 12 after the build, and
+such a run ends on a ``{"partial": ...}`` line instead of the result
+line:
 
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and print every kernel's registers
@@ -398,11 +399,32 @@ a run ends on a ``{"partial": ...}`` line instead of the result line:
    at gaps the router logits' difference spans), ``generate`` on the
    paged cache and the q-block engine with graphs under O2, one O2 step
    at 1 layer; (c) BERT-base: six AdamW steps at 32 x 128 with a padding
-   mask compiled (``jit.to_static``) and eager, the losses within the
+   mask at 2 layers of full width (the depth cut to keep the run inside
+   its time), compiled (``jit.to_static``) and eager, the losses within the
    reference test's rtol 2e-4 / atol 2e-5, an eval at 8 x 512 without a
    mask (B1 non-causal at d 64, fp32 and O1 bf16) held and timed; (d) T5
    (t5-small widths) fp32 logits and greedy ``generate`` against the
-   CPU. Prints a ``{"zoo": ...}`` line.
+   CPU. Prints a ``{"zoo": ...}`` line;
+12. the vision zoo, PP-YOLOE and the RNNs (``vision_phase``): (a)
+   ViT-B/16 at full width, O2 AdamW steps at batch 64 on ``DataLoader``
+   batches (B1-B3 non-causal at ``bfloat16 d64 g1 full``, 197 tokens, the
+   last key tile ragged; the median of five steps, its split, peak
+   memory, a traced step's idle share), the O2 eval's images/s at batch
+   128, layer 0's captured q, k, v and dO holding B1, B2 and B3 to C15 /
+   C17 in bf16 and fp16 and timed against SDPA, and 2 layers in fp32
+   against the CPU; (b) PP-YOLOE (80 classes, width 32, neck 96) at 640
+   x 640: fp32 AdamW steps at batch 8 on batches from four ``DataLoader``
+   workers running the example's augmentation (the loop's waits,
+   images/s, idle share), ``predict`` on two images with NMS's kept set
+   equal to the CPU's on the same arrays, one fp32 step against the CPU
+   by phase 8's rule; (c) LeNet, VGG-16, AlexNet, SqueezeNet 1.1,
+   MobileNet V1 / V2 / V3-Large, ShuffleNetV2, DenseNet-121, GoogLeNet
+   (auxiliary heads on) and InceptionV3 (299 x 299): one fp32 training
+   step at batch 2 against the CPU by phase 8's rule, on PyTorch's own
+   CUDA convolutions and on cuDNN's, O2 eval images/s at batch 64; (d) a 2-layer bidirectional LSTM, a GRU and a SimpleRNN
+   (512 wide, batch 64, 128 steps, ragged lengths) against the CPU within
+   1e-5 of each tensor's largest, forward and backward ms; (e) the vision
+   ops against the CPU. Prints a ``{"vision": ...}`` line.
 
 Prints a ``{"graph_breakdown": ...}`` line (phases 3f and 3g, per engine
 and mode), a ``{"spec": ...}`` line (3h, 3i, 4(d), 4(e)), an
@@ -410,7 +432,9 @@ and mode), a ``{"spec": ...}`` line (3h, 3i, 4(d), 4(e)), an
 ``{"ops": ...}`` line (phase 7), an ``{"nn": ...}`` line (phase 8), a
 ``{"loop": ...}`` line (phase 9; B1-B3's rows below count its launches), a
 ``{"zoo": ...}`` line (phase 11; its launches and timed shapes go into
-the rows of B1-B4, kernels 6 and 8 and K-A/K-B), a
+the rows of B1-B4, kernels 6 and 8 and K-A/K-B), a ``{"vision": ...}``
+line (phase 12; B1-B3's and K-A's rows count its launches, B1-B3's
+carry ViT's timed shape under ``vit_shapes``), a
 ``{"kernels": [...]}`` line with all ten TPU kernels (kernel 6 and B7
 also as their runtime variants, with launches by variant and path) and the
 fused optimizer step's two (K-A and K-B, no Pallas counterpart,
@@ -422,8 +446,10 @@ as their ``<16-bit, float>`` variants, ``*_mixed``), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import copy
 import ctypes
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -4665,18 +4691,22 @@ def time_flash_train(torch, fa, cap):
 class BackwardCapture:
     """Keeps the inputs of the last flash backward of a run (layer 0's,
     as backward walks the layers in reverse): q, k, v and dO cloned with
-    their strides, and the call's offsets."""
+    their strides, and the call's offsets; every call must have the
+    model's mask (``causal``)."""
 
-    def __init__(self, fa):
+    def __init__(self, fa, causal=True):
         self.fa, self.orig, self.best = fa, fa.flash_attention_bwd, None
+        self.causal = causal
 
     def call(self, q, k, v, out, lse, dout, g_lse=None, causal=True,
              sm_scale=None, q_offset=0, kv_offset=0, kernel_layout=True):
-        if kernel_layout or not causal or kv_offset:
-            raise AssertionError("the model's SDPA calls flash attention "
-                                 "causal, in the public layout, kv_offset 0")
+        if kernel_layout or causal != self.causal or kv_offset:
+            raise AssertionError(f"the model's SDPA calls flash attention "
+                                 f"causal={self.causal}, in the public "
+                                 f"layout, kv_offset 0")
         self.best = dict(q=q.clone(), k=k.clone(), v=v.clone(),
-                         dout=dout.clone(), q_offset=q_offset)
+                         dout=dout.clone(), q_offset=q_offset,
+                         causal=causal)
         return self.orig(q, k, v, out, lse, dout, g_lse, causal, sm_scale,
                          q_offset, kv_offset, kernel_layout)
 
@@ -6106,7 +6136,6 @@ def resnet_fp32_check(torch, pt):
     amplifies roundoff: the CPU's fp32 gradients differ from fp64 ones by
     2 % end to end and by up to 6.8e-4 inside ``layer1`` (measured on
     the CPU), so a fixed tolerance end to end would say nothing."""
-    import copy
     pt.set_device("cpu")
     try:
         pt.seed(3)
@@ -7509,7 +7538,6 @@ def qat_resnet(torch, pt, kern):
     copy on the card (the head through B10, every conv on its dequantised
     filter) against an fp64 copy, within phase 8's rule (``RESNET_FACTOR``
     times the CPU fp32's distance, or ``RESNET_FLOOR``)."""
-    import copy
     from paddle_tpu_torch import quantization as tq
     pt.set_device("cpu")
     try:
@@ -7608,9 +7636,9 @@ def add_sep_launches(rows, p10):
 #: the zoo's training steps (batch, sequence): GPT-3-1.3B at full depth,
 #: Mixtral-8x7B widths at MIXTRAL_TRAIN_LAYERS
 ZOO_TRAIN = {"gpt": (2, 2048), "mixtral": (1, 2048)}
-#: counted O2 steps after the two warm ones; the step's times are their
-#: median (one step's host clock meets allocator and host stalls)
-ZOO_COUNTED_STEPS = 5
+#: counted steps after ZOO_WARM_STEPS warm ones; the step's times are
+#: their median (one step's host clock meets allocator and host stalls)
+ZOO_COUNTED_STEPS, ZOO_WARM_STEPS = 5, 2
 #: Mixtral-8x7B is 46.7 B parameters (93 GB in bf16), beyond one card: it
 #: serves at 2 layers (3.16 B parameters) and trains at 1 (1.71 B, ~27 GB
 #: under O2 AdamW)
@@ -7618,8 +7646,10 @@ MIXTRAL_SERVE_LAYERS, MIXTRAL_TRAIN_LAYERS = 2, 1
 #: GPT's fp32 checks against the port on the CPU: 2 layers of full width
 ZOO_CPU_LAYERS = 2
 #: the BERT-base fine-tune (BASELINE.json configs[1]): batch, sequence,
-#: AdamW steps; the eval forward without a mask at ZOO_BERT_EVAL_SEQ
-BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 128, 6
+#: AdamW steps, and its depth, cut from 12 layers to keep the whole run
+#: inside its time (the compiled model's first step took 95 s at 12);
+#: the eval forward without a mask at ZOO_BERT_EVAL, at full depth
+BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_TRAIN_LAYERS = 32, 128, 6, 2
 ZOO_BERT_EVAL = (8, 512)
 #: the card's fp32 logits against the CPU's, relative to the largest
 #: (phase 4's bound)
@@ -7721,17 +7751,20 @@ def hold_streams(torch, label, logits_fn, prompts, outs, others):
     return {"equal": same, "of": len(prompts), "near_ties": left}
 
 
-def zoo_flash_bound(q, k, causal, q_offset=0):
-    """B1's bound on ``[b, s, h, d]`` inputs: q, k, v read and out written
-    once in their dtype, fp32 lse, against 4 d flops a visible (query,
-    key) pair a query head at the dtype's peak."""
+def zoo_flash_bound(q, k, causal, q_offset=0, flops_per_d=4, q_side=2,
+                    kv_side=2, row_floats=1):
+    """``flash_bound`` on ``[b, s, h, d]`` inputs of any width: B1's by
+    default (q, k, v read and out written once in their dtype, fp32 lse,
+    4 d flops a visible (query, key) pair a query head at the dtype's
+    peak); B2's and B3's with ``BWD_BOUNDS``."""
     b, sq, hq, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     visible = (int(np.clip(q_offset + np.arange(sq) + 1, 0, sk).sum())
                if causal else sq * sk)
     el = q.element_size()
-    nbytes = el * d * (2 * b * sq * hq + 2 * b * sk * hk) + 4 * b * hq * sq
-    return _bound(nbytes, 4 * d * hq * b * visible, peak_of(q))
+    nbytes = (el * d * (q_side * b * sq * hq + kv_side * b * sk * hk)
+              + 4 * row_floats * b * hq * sq)
+    return _bound(nbytes, flops_per_d * d * hq * b * visible, peak_of(q))
 
 
 def zoo_time_flash(torch, fa, cap, label):
@@ -7873,7 +7906,8 @@ def zoo_generate(torch, amp, kern, fa, pa, rpa, model, batch, paged,
 
 
 def zoo_step(torch, model, opt, ids, labels, cast):
-    """One eager O2 step (``train_step``), no scheduler."""
+    """One eager step (``train_step``) of ``model(ids, labels=labels)``,
+    which gives ``(loss, _)``, under ``cast()``; no scheduler."""
     sched = types.SimpleNamespace(step=lambda: None)
     return train_step(torch, model, opt, sched, ids, labels, cast)
 
@@ -7897,59 +7931,71 @@ def zoo_trainer(torch, pt, amp, model, batch, seq, vocab, seed=21):
     return opt, ids, labels, (lambda: amp.auto_cast(**AMP_O2))
 
 
-def zoo_train(torch, pt, amp, kern, fa, pa, rpa, model, label, n_layers, key,
-              vocab, batch, seq, cap=None, trace=False):
-    """O2 steps on one batch: two warm (the first makes the masters and
-    moments, the second still meets the allocator growing around them,
-    its forward several times the steady one), then ZOO_COUNTED_STEPS
-    counted and timed: B1-B3 once a layer a step each at shape ``key``
-    (``shape_key``), K-A at least once; the times are the counted steps'
-    median, printed with their spread. With ``cap`` one more step runs
-    under it, with ``trace`` one more under ``traced_step`` (device ms by
-    phase and kernel)."""
-    opt, ids, labels, cast = zoo_trainer(torch, pt, amp, model, batch, seq,
-                                         vocab)
-    warm = [zoo_step(torch, model, opt, ids, labels, cast)
-            for _ in range(2)]
+def median_steps(torch, kern, step, batches, label):
+    """ZOO_WARM_STEPS warm steps (the first makes the masters and moments,
+    the second still meets the allocator growing around them), then
+    ZOO_COUNTED_STEPS counted with the port's counts zeroed between, each
+    ``step(*batch)`` (``train_step``'s result) on the next of
+    ``batches``: the losses, the counted steps' median phase ms, their
+    spread and peak memory, the counts and the warm steps' ms; and the
+    iterator for the batches after them."""
+    it = iter(batches)
+    warm = [step(*next(it)) for _ in range(ZOO_WARM_STEPS)]
     zero_counts(kern)
-    counted = [zoo_step(torch, model, opt, ids, labels, cast)
-               for _ in range(ZOO_COUNTED_STEPS)]
-    counts, variants = read_counts(kern), by_variant(fa, pa, rpa)
-    check_variants(f"{label} steps", variants,
-                   {w: {key: n_layers * ZOO_COUNTED_STEPS}
-                    for w in ("flash", "flash_bwd_dq", "flash_bwd_dkv")})
-    if not counts["adam_step"] or not counts["flash_wgmma"]:
-        raise AssertionError(f"{label}: launches {counts}")
-    losses = [float(r[0]) for r in warm + counted]
+    counted = [step(*next(it)) for _ in range(ZOO_COUNTED_STEPS)]
+    counts = read_counts(kern)
+    losses = [r[0] for r in warm + counted]
     if not np.isfinite(losses).all():
         raise AssertionError(f"{label}: losses {losses}")
     ms = {k: float(np.median([r[1][k] for r in counted]))
           for k in counted[0][1]}
     steps = [r[1]["step"] for r in counted]
-    spread = (max(steps) - min(steps)) / ms["step"]
-    peak = max(max(r[2].values()) for r in counted) / 2**30
-    log(f"  {label}: losses " + ", ".join(f"{x:.6f}" for x in losses)
-        + f"; the warm steps {warm[0][1]['step']:.2f} and "
-        f"{warm[1][1]['step']:.2f} ms; the counted steps "
+    return dict(losses=losses, ms=ms, counted_step_ms=steps,
+                spread=(max(steps) - min(steps)) / ms["step"],
+                warm_ms=[r[1] for r in warm],
+                peak_gib=max(max(r[2].values()) for r in counted) / 2**30,
+                launches=counts), it
+
+
+def zoo_train(torch, pt, amp, kern, fa, pa, rpa, model, label, n_layers, key,
+              vocab, batch, seq, cap=None, trace=False):
+    """O2 steps on one batch (``median_steps``): B1-B3 once a layer a
+    counted step each at shape ``key`` (``shape_key``), K-A at least
+    once; the times are the counted steps' median, printed with their
+    spread. With ``cap`` one more step runs under it, with ``trace`` one
+    more under ``traced_step`` (device ms by phase and kernel)."""
+    opt, ids, labels, cast = zoo_trainer(torch, pt, amp, model, batch, seq,
+                                         vocab)
+    res, _ = median_steps(
+        torch, kern, lambda i, y: zoo_step(torch, model, opt, i, y, cast),
+        itertools.repeat((ids, labels)), label)
+    counts, variants = res["launches"], by_variant(fa, pa, rpa)
+    check_variants(f"{label} steps", variants,
+                   {w: {key: n_layers * ZOO_COUNTED_STEPS}
+                    for w in ("flash", "flash_bwd_dq", "flash_bwd_dkv")})
+    if not counts["adam_step"] or not counts["flash_wgmma"]:
+        raise AssertionError(f"{label}: launches {counts}")
+    ms, steps = res["ms"], res["counted_step_ms"]
+    log(f"  {label}: losses " + ", ".join(f"{x:.6f}" for x in res["losses"])
+        + "; the warm steps " + " and ".join(
+            f"{w['step']:.2f}" for w in res["warm_ms"])
+        + " ms; the counted steps "
         + ", ".join(f"{x:.2f}" for x in steps) + " ms, median "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
-        + f" (spread {spread:.3f} of the median), "
+        + f" (spread {res['spread']:.3f} of the median), "
         f"{batch * seq / ms['step'] * 1e3:.1f} tokens/s, peak "
-        f"{peak:.2f} GiB; K-A launches {counts['adam_step']}, K-B "
-        f"{counts['sum_squares']}")
+        f"{res['peak_gib']:.2f} GiB; K-A launches {counts['adam_step']}, "
+        f"K-B {counts['sum_squares']}")
     if cap is not None:
         with cap:
             zoo_step(torch, model, opt, ids, labels, cast)
-    traced = None
+    res["by_variant"], res["traced"] = variants, None
     if trace:
-        traced = traced_step(torch, model, opt,
-                             types.SimpleNamespace(step=lambda: None), ids,
-                             labels, cast)
+        res["traced"] = traced_step(torch, model, opt,
+                                    types.SimpleNamespace(step=lambda: None),
+                                    ids, labels, cast)
     del opt
-    return {"losses": losses, "ms": ms, "counted_step_ms": steps,
-            "spread": spread, "warm_ms": [warm[0][1], warm[1][1]],
-            "peak_gib": peak, "launches": counts, "by_variant": variants,
-            "traced": traced}
+    return res
 
 
 def gpt_cpu_check(torch, pt, fa, kern, batch):
@@ -8307,16 +8353,18 @@ def zoo_mixtral(torch, pt, amp, fa, pa, rpa, gen, kern):
 
 def zoo_bert(torch, pt, amp, fa, pa, rpa, nn_functional, kern):
     """11(c): BERT-base. BERT_STEPS AdamW fine-tune steps at BERT_BATCH x
-    BERT_SEQ with a padding mask (the einsum route), compiled
-    (``jit.to_static``) and eager from the same weights, the losses within
-    the reference test's tolerance; an eval forward at ZOO_BERT_EVAL
-    without a mask: B1 non-causal at d 64, fp32 and under O1 bf16, held
-    against its plain version and timed."""
+    BERT_SEQ with a padding mask (the einsum route), BERT_TRAIN_LAYERS
+    layers of full width, compiled (``jit.to_static``) and eager from the
+    same weights, the losses within the reference test's tolerance; an
+    eval forward of all 12 layers at ZOO_BERT_EVAL without a mask: B1
+    non-causal at d 64, fp32 and under O1 bf16, held against its plain
+    version and timed."""
     from paddle_tpu_torch.models import bert as bert_mod
     from paddle_tpu_torch.optimizer import AdamW
     cfg = bert_mod.bert_base()
-    model = bert_mod.BertForSequenceClassification(cfg, device="cuda",
-                                                   seed=0)
+    model = bert_mod.BertForSequenceClassification(
+        bert_mod.bert_base(num_hidden_layers=BERT_TRAIN_LAYERS),
+        device="cuda", seed=0)
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     rng = np.random.RandomState(51)
     ids = torch.as_tensor(rng.randint(0, cfg.vocab_size,
@@ -8357,6 +8405,9 @@ def zoo_bert(torch, pt, amp, fa, pa, rpa, nn_functional, kern):
     check("BERT-base compiled vs eager losses (err / (atol + rtol |eager|))",
           ratio, 1.0, "max ratio")
     res["loss_ratio"] = ratio
+    model = bert_mod.BertForSequenceClassification(cfg, device="cuda",
+                                                   seed=0)
+    model.eval()
     b, s = ZOO_BERT_EVAL
     ev = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s)),
                          device="cuda")
@@ -8423,25 +8474,28 @@ def zoo_t5(torch, pt):
     return res
 
 
+#: a kernel row's launches from a path's counts (``read_counts``)
+LAUNCH_ROWS = {"flash_fwd_wgmma": lambda c: c["flash_wgmma"],
+               "flash_fwd_simt": lambda c: c["flash"] - c["flash_wgmma"],
+               "flash_bwd_dq_wgmma": lambda c: c["flash_bwd_dq_wgmma"],
+               "flash_bwd_dq_simt": lambda c: c["flash_bwd_dq"]
+               - c["flash_bwd_dq_wgmma"],
+               "flash_bwd_dkv_wgmma": lambda c: c["flash_bwd_dkv_wgmma"],
+               "flash_bwd_dkv_simt": lambda c: c["flash_bwd_dkv"]
+               - c["flash_bwd_dkv_wgmma"],
+               "paged_decode": lambda c: c["paged_cluster"]
+               - c["paged_mixed"],
+               "paged_decode_mixed": lambda c: c["paged_mixed"],
+               "ragged_token": lambda c: c["token_cluster"]
+               - c["token_mixed"],
+               "ragged_qblock_mixed": lambda c: c["qblock_mixed"],
+               "adam_step_multi_tensor": lambda c: c["adam_step"],
+               "sum_squares_multi_tensor": lambda c: c["sum_squares"]}
+
+
 def add_zoo_launches(rows, zoo):
     """Phase 11's launches into the kernel rows by path, and its timed
     shapes under ``zoo_shapes``."""
-    by_row = {"flash_fwd_wgmma": lambda c: c["flash_wgmma"],
-              "flash_fwd_simt": lambda c: c["flash"] - c["flash_wgmma"],
-              "flash_bwd_dq_wgmma": lambda c: c["flash_bwd_dq_wgmma"],
-              "flash_bwd_dq_simt": lambda c: c["flash_bwd_dq"]
-              - c["flash_bwd_dq_wgmma"],
-              "flash_bwd_dkv_wgmma": lambda c: c["flash_bwd_dkv_wgmma"],
-              "flash_bwd_dkv_simt": lambda c: c["flash_bwd_dkv"]
-              - c["flash_bwd_dkv_wgmma"],
-              "paged_decode": lambda c: c["paged_cluster"]
-              - c["paged_mixed"],
-              "paged_decode_mixed": lambda c: c["paged_mixed"],
-              "ragged_token": lambda c: c["token_cluster"]
-              - c["token_mixed"],
-              "ragged_qblock_mixed": lambda c: c["qblock_mixed"],
-              "adam_step_multi_tensor": lambda c: c["adam_step"],
-              "sum_squares_multi_tensor": lambda c: c["sum_squares"]}
     paths = {**{k: v for k, v in zoo["gpt"]["launches"].items()},
              **zoo["mixtral"]["launches"],
              **{f"11c BERT eval {k}": v["launches"]
@@ -8475,9 +8529,9 @@ def add_zoo_launches(rows, zoo):
                    for k, c in paths.items()}
             add = {k: v for k, v in add.items() if any(v.values())}
             row["launches"] += sum(sum(v.values()) for v in add.values())
-        elif name in by_row:
-            add = {k: by_row[name](c) for k, c in paths.items()
-                   if by_row[name](c)}
+        elif name in LAUNCH_ROWS:
+            add = {k: LAUNCH_ROWS[name](c) for k, c in paths.items()
+                   if LAUNCH_ROWS[name](c)}
             row["launches"] += sum(add.values())
         else:
             continue
@@ -8500,14 +8554,780 @@ def zoo_phase(torch, pt, amp, fa, pa, rpa, gen, nn_functional, kern):
     phase(f" 11(b): Mixtral-8x7B widths ({MIXTRAL_SERVE_LAYERS} layers to "
           f"serve, {MIXTRAL_TRAIN_LAYERS} to train)")
     zoo["mixtral"] = zoo_mixtral(torch, pt, amp, fa, pa, rpa, gen, kern)
-    phase(" 11(c): BERT-base: the to_static fine-tune and an eval at "
-          f"{ZOO_BERT_EVAL[1]} tokens without a mask")
+    phase(f" 11(c): BERT-base: the to_static fine-tune at "
+          f"{BERT_TRAIN_LAYERS} layers and an eval at {ZOO_BERT_EVAL[1]} "
+          "tokens without a mask")
     zoo["bert"] = zoo_bert(torch, pt, amp, fa, pa, rpa, nn_functional, kern)
     phase(" 11(d): T5 (t5-small widths), fp32, against the CPU")
     zoo["t5"] = zoo_t5(torch, pt)
     zoo["seconds"] = time.perf_counter() - t0
     log(f"  phase 11 took {zoo['seconds']:.1f} s")
     return zoo
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the vision zoo, PP-YOLOE and the RNNs
+# ---------------------------------------------------------------------------
+
+#: 12(a): ViT-B/16's O2 AdamW steps (``median_steps``) at VIT_BATCH,
+#: its O2 eval at VIT_EVAL_BATCH, and the fp32 check against the CPU at
+#: VIT_CPU_LAYERS layers of full width
+VIT_BATCH, VIT_EVAL_BATCH, VIT_CPU_LAYERS, VIT_CPU_BATCH = 64, 128, 2, 2
+#: B1-B3's launches at ViT-B/16's shape: 197 tokens, 12 heads of 64
+VIT_KEY = "bfloat16 d64 g1 full"
+#: 12(b): PP-YOLOE (BASELINE.json configs[2]) at 640 x 640 fed by
+#: DataLoader workers with the example's augmentation; the fp32 check
+#: against the CPU at PPYOLOE_CHECK_BATCH
+PPYOLOE_SIZE, PPYOLOE_BATCH, PPYOLOE_WORKERS = 640, 8, 4
+PPYOLOE_CHECK_BATCH, PPYOLOE_PREDICT_IMAGES = 2, 2
+#: 12(c): (constructor, input size, input channels) of the conv zoo; the
+#: fp32 check at batch ZOO_CHECK_BATCH, O2 eval at ZOO_EVAL_BATCH
+CONV_ZOO = (("LeNet", 28, 1), ("vgg16", 224, 3), ("alexnet", 224, 3),
+            ("squeezenet1_1", 224, 3), ("mobilenet_v1", 224, 3),
+            ("mobilenet_v2", 224, 3), ("mobilenet_v3_large", 224, 3),
+            ("shufflenet_v2_x1_0", 224, 3), ("densenet121", 224, 3),
+            ("googlenet", 224, 3), ("inception_v3", 299, 3))
+ZOO_CHECK_BATCH, ZOO_EVAL_BATCH, ZOO_EVAL_ITERS = 2, 64, 5
+#: 12(d): the RNNs: batch, steps, input and hidden width; card against
+#: CPU within RNN_TOL of each tensor's largest magnitude
+RNN_BATCH, RNN_STEPS, RNN_WIDTH, RNN_TOL = 64, 128, 512, 1e-5
+#: 12(e): the vision ops, card against CPU (TF32 off)
+VISION_OPS_TOL = 1e-5
+#: phase 8's rule in 12(b) and 12(c) measures a tensor smaller than this
+#: share of its group's largest against that share (ROADMAP C42)
+GROUP_FLOOR = 1e-3
+#: 12(c)'s run on cuDNN's default fp32 algorithms is held by phase 8's
+#: rule with this floor for the gradients: about twice AlexNet's
+#: ``features.8`` bias gradient, 5.35e-3 from fp64 in every run, the
+#: worst of the zoo; RESNET_FACTOR covers the rest (GoogLeNet's 3.07 x
+#: the CPU's is the largest ratio) (ROADMAP C45)
+CUDNN_GRAD_FLOOR = 1e-2
+
+
+class DetectionData:
+    """``examples/train_ppyoloe_pipeline.py``'s ``SyntheticDetection``
+    (numpy only): item ``i`` from ``default_rng(i)``, a flipped, scaled
+    and jittered random image and dense per-level targets (class hits at
+    2 %, ltrb distances, positives at 10 %)."""
+
+    def __init__(self, size=64, img=64, classes=4):
+        self.size, self.img, self.classes = size, img, classes
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, i):
+        rng = np.random.default_rng(i)
+        img = rng.integers(0, 256, (3, self.img, self.img)).astype(
+            np.float32)
+        if rng.random() < 0.5:
+            img = img[:, :, ::-1]
+        img = (img / 127.5) - 1.0
+        img = img + rng.normal(0, 0.01, img.shape).astype(np.float32)
+        tcls, treg, mask = [], [], []
+        for stride in (8, 16, 32):
+            g = self.img // stride
+            tcls.append(rng.random((self.classes, g, g)).astype(np.float32)
+                        < 0.02)
+            treg.append(rng.random((4, g, g)).astype(np.float32) * 4)
+            mask.append((rng.random((4, g, g)) < 0.1).astype(np.float32))
+        return (img.astype(np.float32),
+                [t.astype(np.float32) for t in tcls], treg, mask)
+
+
+def detection_collate(batch):
+    """The example's ``collate``: images stacked, each level's targets
+    stacked."""
+    return (np.stack([b[0] for b in batch]),
+            *([np.stack([b[k][lv] for b in batch]) for lv in range(3)]
+              for k in (1, 2, 3)))
+
+
+class ImageNetData:
+    """``n`` 3 x ``size`` x ``size`` images and labels of ``classes``:
+    item ``i`` is image ``i % pool`` of a pool of standard-normal images
+    drawn once from ``default_rng(seed)`` (a worker copies, it does not
+    draw) and a label from ``default_rng(seed + i)``."""
+
+    def __init__(self, n, size, classes, seed=0, pool=16):
+        self.n, self.classes, self.seed = n, classes, seed
+        self.pool = np.random.default_rng(seed).standard_normal(
+            (min(pool, n), 3, size, size), dtype=np.float32)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.default_rng(self.seed + i)
+        return (self.pool[i % len(self.pool)].copy(),
+                np.int64(rng.integers(0, self.classes)))
+
+
+def time_flash_bwd_full(torch, fa, cap, label):
+    """B2 and B3 on a captured non-causal training backward (``[b, s, h,
+    d]``), their plain versions and PyTorch's SDPA backward (dq, dk and
+    dv in one call) on the same data, with the bounds. Returns a row a
+    kernel."""
+    q, k, v, dout = (cap[x] for x in ("q", "k", "v", "dout"))
+    b, sq, hq, d = q.shape
+    qt, kt, vt, dt = (x.transpose(1, 2).contiguous()
+                      for x in (q, k, v, dout))
+    shape = (f"{label}: b={b} sq={sq} sk={k.shape[1]} non-causal "
+             f"{hq}/{k.shape[2]} heads d={d} "
+             f"{str(q.dtype).removeprefix('torch.')}")
+    with torch.no_grad():
+        out, lse = fa.flash_attention_with_lse(qt, kt, vt, False)
+        delta = fa.bwd_delta(out, dt)
+        args = (lse, delta, False, None, 0, 0)
+        rows = {}
+        for key, kern_fn, plain_fn in (
+                ("dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain),
+                ("dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain)):
+            rows[key] = dict(
+                shape=shape,
+                ms=time_ms(torch, lambda: kern_fn(q, k, v, dout, *args,
+                                                  kernel_layout=False)),
+                plain_ms=time_ms(torch, lambda: plain_fn(
+                    *(x.float() for x in (qt, kt, vt, dt)), *args),
+                    iters=5),
+                **zoo_flash_bound(q, k, False, **BWD_BOUNDS[key]))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ql, kl, vl = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    lib_out = sdpa(ql, kl, vl)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), dt, retain_graph=True))
+    for key, row in rows.items():
+        row.update(library_ms=lib_ms, library="sdpa backward (non-causal):"
+                   " dq, dk and dv in one call, the B2 + B3 pair")
+        log(f"  B{2 if key == 'dq' else 3} at {shape}: {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} "
+            f"ms ({row['bound_by']}), SDPA backward {lib_ms:.4f} ms")
+    del lib_out, ql, kl, vl
+    return rows
+
+
+def vit_cpu_check(torch, pt):
+    """12(a) against the CPU: ViT-B/16's widths at VIT_CPU_LAYERS layers,
+    fp32 (TF32 off), one batch of VIT_CPU_BATCH: the card's logits and
+    every gradient of a cross-entropy loss against the port on the CPU
+    with the same weights, each within ZOO_LOGITS_TOL of its largest
+    (B1-B3's fp32 kernels against their plain versions on the CPU)."""
+    vit = pt.vision.models.vit_base_patch16_224
+    pt.set_device("cpu")
+    try:
+        pt.seed(5)
+        cpu = vit(depth=VIT_CPU_LAYERS)
+        card = copy.deepcopy(cpu).to("cuda")
+    finally:
+        pt.set_device("gpu:0")
+    data = ImageNetData(VIT_CPU_BATCH, 224, 1000, seed=900)
+    x = torch.from_numpy(np.stack([data[i][0] for i in range(len(data))]))
+    y = torch.as_tensor([int(data[i][1]) for i in range(len(data))])
+    loss_fn = pt.nn.CrossEntropyLoss()
+    out = {}
+    for name, m, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+        logits = m(x.to(dev))
+        loss_fn(logits, y.to(dev)).backward()
+        out[name] = (logits, {n: p.grad for n, p in m.named_parameters()})
+    res = {"logits": rel_to_max(torch, out["card"][0], out["cpu"][0])}
+    res["grads"] = max(rel_to_max(torch, g, out["cpu"][1][n])
+                       for n, g in out["card"][1].items())
+    check("ViT-B/16 fp32 logits, card vs CPU (relative)", res["logits"],
+          ZOO_LOGITS_TOL)
+    check("ViT-B/16 fp32 gradients, card vs CPU (relative, worst)",
+          res["grads"], ZOO_LOGITS_TOL)
+    return res
+
+
+def vit_phase(torch, pt, amp, fa, pa, rpa, kern, smi):
+    """12(a): ViT-B/16 at full width (12 layers, 768, 12 heads of 64,
+    197 tokens). O2 bf16 AdamW steps at VIT_BATCH on DataLoader batches:
+    B1-B3 once a layer a step at VIT_KEY; the median step split, peak
+    memory and one traced step's idle share. The O2 eval's images/s at
+    VIT_EVAL_BATCH (B1 only). Layer 0's captured q, k, v and dO held to
+    the plain versions by C15 and C17 in bf16 and fp16 and timed against
+    SDPA; and the fp32 check against the CPU."""
+    from paddle_tpu_torch.optimizer import AdamW
+    pt.seed(0)
+    model = pt.vision.models.vit_base_patch16_224()
+    n_layers = len(model.blocks)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.05)
+    amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    model.train()
+    loss_fn = pt.nn.CrossEntropyLoss()
+    n = VIT_BATCH * (ZOO_WARM_STEPS + ZOO_COUNTED_STEPS + 2)
+    loader = pt.io.DataLoader(ImageNetData(n, 224, 1000, seed=100),
+                              batch_size=VIT_BATCH, num_workers=4,
+                              drop_last=True)
+
+    def head(x, labels):
+        return loss_fn(model(x), labels), None
+
+    def step(x, y):
+        return zoo_step(torch, head, opt, x, y,
+                        lambda: amp.auto_cast(**AMP_O2))
+
+    res, it = median_steps(torch, kern, step, loader, "ViT-B/16 O2 step")
+    variants = by_variant(fa, pa, rpa)
+    check_variants("ViT-B/16 O2 steps", variants,
+                   {w: {VIT_KEY: n_layers * ZOO_COUNTED_STEPS}
+                    for w in ("flash", "flash_bwd_dq", "flash_bwd_dkv")})
+    res["by_variant"] = variants
+    res["images_per_s"] = VIT_BATCH / res["ms"]["step"] * 1e3
+    cap = BackwardCapture(fa, causal=False)
+    with cap:
+        step(*next(it))
+    traced_batch = next(it)
+    res["traced"] = traced_window(torch, lambda: step(*traced_batch))
+    res["traced"].pop("names")
+    res["loader"] = dict(loader.stats)
+    log(f"  ViT-B/16 O2 AdamW at batch {VIT_BATCH} ({smi}): losses "
+        + ", ".join(f"{x:.4f}" for x in res["losses"])
+        + f"; median step {res['ms']['step']:.2f} ms (forward "
+        f"{res['ms']['forward']:.2f}, backward {res['ms']['backward']:.2f},"
+        f" optimizer {res['ms']['optimizer']:.2f}; spread "
+        f"{res['spread']:.3f}), {res['images_per_s']:.1f} images/s, peak "
+        f"{res['peak_gib']:.2f} GiB; one "
+        f"traced step {res['traced']['window_ms']:.2f} ms, device busy "
+        f"{res['traced']['busy_ms']:.2f}, idle share "
+        f"{res['traced']['idle_share']:.3f}; loader waits "
+        f"{res['loader']['wait_s']:.3f} s over {res['loader']['batches']} "
+        f"batches")
+    # O2 eval at VIT_EVAL_BATCH: B1 alone
+    model.eval()
+    x = torch.randn((VIT_EVAL_BATCH, 3, 224, 224), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    times = []
+    zero_counts(kern)
+    with torch.inference_mode(), amp.auto_cast(**AMP_O2):
+        for i in range(ZOO_WARM_STEPS + ZOO_COUNTED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = model(x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    ev_variants = by_variant(fa, pa, rpa)
+    check_variants("ViT-B/16 O2 eval", ev_variants, {"flash": {
+        VIT_KEY: n_layers * (ZOO_WARM_STEPS + ZOO_COUNTED_STEPS)}})
+    if not torch.isfinite(logits).all() or logits.shape != (
+            VIT_EVAL_BATCH, 1000):
+        raise AssertionError(f"ViT eval logits {logits.shape}")
+    ms = float(np.median(times[ZOO_WARM_STEPS:]))
+    res["eval"] = dict(batch=VIT_EVAL_BATCH, ms=ms, launches=read_counts(
+        kern), images_per_s=VIT_EVAL_BATCH / ms * 1e3)
+    log(f"  ViT-B/16 O2 eval at batch {VIT_EVAL_BATCH}: {ms:.2f} ms, "
+        f"{res['eval']['images_per_s']:.1f} images/s")
+    del model, opt, loader, it, x, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    # layer 0's captured step inputs against the plain versions, timed
+    tc = cap.best
+    if tc["q"].dtype != torch.bfloat16 or tuple(tc["q"].shape) != (
+            VIT_BATCH, 197, 12, 64):
+        raise AssertionError(f"ViT capture: {tc['q'].dtype} "
+                             f"{tuple(tc['q'].shape)}")
+    qkv = [tc[x].transpose(1, 2) for x in ("q", "k", "v")]
+    label = "ViT-B/16 O2 training step, layer 0"
+    res["b1_errs"] = compare_flash_case(torch, fa, *qkv, False, 0, 0, label)
+    res["bwd_errs"] = compare_flash_bwd_case(
+        torch, fa, *qkv, tc["dout"].transpose(1, 2), None, False, 0, 0,
+        label)
+    res["timed"] = {"fwd": zoo_time_flash(torch, fa, tc,
+                                          "ViT-B/16 O2 training step"),
+                    **time_flash_bwd_full(torch, fa, tc,
+                                          "ViT-B/16 O2 training step")}
+    del cap, tc, qkv
+    torch.cuda.empty_cache()
+    res["cpu"] = vit_cpu_check(torch, pt)
+    return res
+
+
+def staged_against_f64(torch, pt, build, x, run, label, also_cudnn=False):
+    """Phase 8's rule on one model: ``build()`` on the CPU (seeded), a copy
+    on the card and an fp64 copy on the CPU; ``run(model, x)`` gives named
+    tensors per group (``"out"``, ``"grad"``, ``"buffer"``). Each group
+    of the card's run is at most RESNET_FACTOR times as far from the fp64
+    run's as the CPU fp32 run's is, or RESNET_FLOOR; each tensor's
+    distance is relative to its largest magnitude, or to GROUP_FLOOR of
+    its group's largest where that is more. With ``also_cudnn`` the first
+    card run uses PyTorch's own CUDA convolutions (cuDNN off), and a
+    second card run with cuDNN's default fp32 algorithms is held by the
+    same rule with the gradients' floor CUDNN_GRAD_FLOOR (ROADMAP C45).
+    Returns the distances (with the worst tensor) and the last card
+    copy."""
+    pt.set_device("cpu")
+    try:
+        cpu = build()
+        cards = [copy.deepcopy(cpu).to("cuda") for _ in range(1 + also_cudnn)]
+        f64 = copy.deepcopy(cpu).double()
+        want = run(cpu, x)
+        exact = run(f64, x.double())
+    finally:
+        pt.set_device("gpu:0")
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = not also_cudnn
+    try:
+        got = run(cards[0], x.to("cuda"))
+    finally:
+        torch.backends.cudnn.enabled = enabled
+
+    def dist(a, b, keys):
+        # each tensor against its own largest magnitude, floored at
+        # GROUP_FLOOR of the group's largest: a gradient that cancels or
+        # a BatchNorm mean that is zero by construction (a BatchNorm fed
+        # by a bias-free 1 x 1 conv of a BatchNorm, C42) carries roundoff
+        # alone
+        big = max(float(b[n].double().abs().max()) for n in keys)
+        return max((float((a[n].double().cpu() - b[n].double().cpu())
+                          .abs().max()) / max(float(b[n].double().abs()
+                                                    .max()),
+                                              GROUP_FLOOR * big, 1e-30), n)
+                   for n in keys)
+
+    lib = run(cards[1], x.to("cuda")) if also_cudnn else None
+    errs = {}
+    for group in ("out", "grad", "buffer"):
+        keys = [n for n in got if n.split(" ")[0] == group]
+        if not keys:
+            continue
+        (card_d, worst), (cpu_d, _) = dist(got, exact, keys), dist(
+            want, exact, keys)
+        tol = max(RESNET_FACTOR * cpu_d, RESNET_FLOOR)
+        check(f"{label} fp32 {group}: card vs fp64 (cpu fp32 {cpu_d:.3e}; "
+              f"worst {worst})", card_d, tol, "max err / max")
+        errs[group] = dict(card=card_d, cpu=cpu_d, worst=worst)
+        if lib is not None:
+            lib_d, lib_worst = dist(lib, exact, keys)
+            check(f"{label} fp32 {group}, cuDNN: card vs fp64 (cpu fp32 "
+                  f"{cpu_d:.3e}; worst {lib_worst})", lib_d,
+                  max(tol, CUDNN_GRAD_FLOOR if group == "grad" else 0.0),
+                  "max err / max")
+            errs[group]["cudnn"], errs[group]["cudnn_worst"] = (lib_d,
+                                                                lib_worst)
+    return errs, cards[-1]
+
+
+def no_dropout(model):
+    """Dropout off (``p = 0``) on every layer: the card's and the CPU's
+    draws differ."""
+    for m in model.sublayers():
+        if hasattr(m, "p") and type(m).__name__.startswith("Dropout"):
+            m.p = 0.0
+    return model
+
+
+def train_run_cot(torch, seed=7):
+    """A training-mode run for ``staged_against_f64``: the outputs, the
+    gradients of ``sum(out * cot)`` (cotangents seeded on the CPU) and
+    the buffers, named by group."""
+    def run(model, x):
+        model.train()
+        outs = model(x)
+        outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+        gen = torch.Generator().manual_seed(seed)
+        loss = sum((o * torch.randn(o.shape, generator=gen).to(o)).sum()
+                   for o in outs)
+        loss.backward()
+        named = {f"out {i}": o.detach() for i, o in enumerate(outs)}
+        named.update({f"grad {n}": p.grad for n, p in
+                      model.named_parameters()})
+        named.update({f"buffer {n}": b for n, b in model.named_buffers()})
+        return named
+    return run
+
+
+def ppyoloe_phase(torch, pt, kern, smi):
+    """12(b): PP-YOLOE as the reference defines it (80 classes, width 32,
+    depth 1, neck 96) at 640 x 640: fp32 AdamW steps at PPYOLOE_BATCH on
+    batches from PPYOLOE_WORKERS DataLoader workers running the example's
+    augmentation; the loop's wait for each batch, images/s and one traced
+    step's idle share. ``predict`` on PPYOLOE_PREDICT_IMAGES images: the
+    points that clear the threshold, the boxes kept, NMS's ms, and the
+    kept set against the CPU's ``nms`` on the same arrays. One fp32 step
+    at PPYOLOE_CHECK_BATCH against the CPU by phase 8's rule."""
+    from paddle_tpu_torch.models import ppyoloe as ppyoloe_mod
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.vision import ops as vops
+    pt.seed(0)
+    model = ppyoloe_mod.PPYOLOE()
+    loss_fn = ppyoloe_mod.DetectionLoss()
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+    n = PPYOLOE_BATCH * (ZOO_WARM_STEPS + ZOO_COUNTED_STEPS + 1)
+    loader = pt.io.DataLoader(DetectionData(n, PPYOLOE_SIZE, 80),
+                              batch_size=PPYOLOE_BATCH,
+                              num_workers=PPYOLOE_WORKERS, drop_last=True,
+                              collate_fn=detection_collate)
+
+    def head(imgs, labels):
+        model.train()
+        return loss_fn(*model(imgs), *labels), None
+
+    def step(imgs, targets):
+        return zoo_step(torch, head, opt, imgs, targets,
+                        contextlib.nullcontext)
+
+    res, it = median_steps(torch, kern, step,
+                            ((b[0], b[1:]) for b in loader), "PP-YOLOE step")
+    # the fused AdamW step (K-A) is the only port kernel on this path
+    if not res["launches"]["adam_step"] or any(
+            n for k, n in res["launches"].items() if k != "adam_step"):
+        raise AssertionError(f"PP-YOLOE launches: {res['launches']}")
+    res["loader"] = dict(loader.stats)
+    res["images_per_s"] = PPYOLOE_BATCH / res["ms"]["step"] * 1e3
+    batch = next(it)
+    res["traced"] = traced_window(torch, lambda: step(*batch))
+    res["traced"].pop("names")
+    waits = res["loader"]
+    log(f"  PP-YOLOE fp32 AdamW at batch {PPYOLOE_BATCH}, "
+        f"{PPYOLOE_SIZE} x {PPYOLOE_SIZE}, {PPYOLOE_WORKERS} loader "
+        f"workers ({smi}): losses "
+        + ", ".join(f"{x:.4f}" for x in res["losses"])
+        + f"; median step {res['ms']['step']:.2f} ms (forward "
+        f"{res['ms']['forward']:.2f}, backward {res['ms']['backward']:.2f},"
+        f" optimizer {res['ms']['optimizer']:.2f}), "
+        f"{res['images_per_s']:.1f} images/s; the loop waited "
+        f"{waits['wait_s']:.3f} s for {waits['batches']} batches (max "
+        f"{waits['max_wait_s']:.3f} s); peak {res['peak_gib']:.2f} GiB; "
+        f"one traced step {res['traced']['window_ms']:.2f} ms, idle share "
+        f"{res['traced']['idle_share']:.3f}")
+    # predict: NMS's matrix on the card, its scan on the host, timed and
+    # held against the CPU's nms on the same arrays
+    calls, orig = [], vops.nms
+
+    def timed_nms(boxes, iou_threshold=0.3, scores=None, category_idxs=None,
+                  categories=None, top_k=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keep = orig(boxes, iou_threshold, scores, category_idxs, top_k=top_k)
+        torch.cuda.synchronize()
+        calls.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          boxes=boxes, scores=scores, cats=category_idxs,
+                          thr=iou_threshold))
+        return keep
+    vops.nms = timed_nms
+    try:
+        dets = model.predict(batch[0][:PPYOLOE_PREDICT_IMAGES])
+    finally:
+        vops.nms = orig
+    res["predict"] = []
+    for i, (c, d) in enumerate(zip(calls, dets)):
+        cpu_keep = orig(c["boxes"].cpu(), c["thr"], c["scores"].cpu(),
+                        c["cats"].cpu()).numpy()
+        card_all = orig(c["boxes"], c["thr"], c["scores"],
+                        c["cats"]).cpu().numpy()
+        row = dict(cleared=int(c["boxes"].shape[0]),
+                   kept=int(len(card_all)), returned=len(d["boxes"]),
+                   nms_ms=c["ms"], equal=bool(np.array_equal(card_all,
+                                                             cpu_keep)))
+        if not row["equal"]:
+            # the IoUs where the two sets part, and their distance from
+            # the threshold
+            diff = np.setxor1d(card_all, cpu_keep)
+            iou = vops.box_iou(c["boxes"][diff].cpu(),
+                               c["boxes"].cpu()).numpy()
+            row["differ"] = diff.tolist()[:10]
+            row["iou_gap"] = float(np.abs(iou - c["thr"]).min())
+            raise AssertionError(f"PP-YOLOE predict image {i}: the card's "
+                                 f"NMS set differs from the CPU's {row}")
+        res["predict"].append(row)
+        log(f"  PP-YOLOE predict image {i}: {row['cleared']} points clear "
+            f"the 0.4 score, NMS keeps {row['kept']} (returns "
+            f"{row['returned']}), {row['nms_ms']:.2f} ms; the kept set "
+            f"equals the CPU's nms on the same arrays")
+    del model, opt, loader, it, batch, calls, dets
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one fp32 step against the CPU by phase 8's rule
+    data = DetectionData(PPYOLOE_CHECK_BATCH, PPYOLOE_SIZE, 80)
+    imgs, tcls, treg, mask = detection_collate([data[i] for i in range(
+        PPYOLOE_CHECK_BATCH)])
+
+    def run(m, x):
+        m.train()
+        to = (lambda a: torch.from_numpy(a).to(x))
+        cls, reg = m(x)
+        loss = loss_fn(cls, reg, [to(t) for t in tcls], [to(t) for t in treg],
+                       [to(t) for t in mask])
+        loss.backward()
+        named = {f"out {i}": o.detach() for i, o in enumerate(cls + reg)}
+        named["out loss"] = loss.detach().reshape(1)
+        named.update({f"grad {n}": p.grad for n, p in m.named_parameters()})
+        named.update({f"buffer {n}": b for n, b in m.named_buffers()})
+        return named
+
+    def build():
+        pt.seed(4)
+        return ppyoloe_mod.PPYOLOE()
+    res["fp32"], _ = staged_against_f64(torch, pt, build,
+                                        torch.from_numpy(imgs), run,
+                                        "PP-YOLOE 640")
+    return res
+
+
+def conv_zoo_phase(torch, pt, amp, kern, smi):
+    """12(c): each model of CONV_ZOO: one fp32 training-mode forward and
+    backward at ZOO_CHECK_BATCH (dropout off, GoogLeNet's auxiliary heads
+    on) held against the CPU by phase 8's rule on PyTorch's own CUDA
+    convolutions and on cuDNN's (C45), then O2 bf16 eval
+    images/s at ZOO_EVAL_BATCH (cuDNN). None launches a port kernel."""
+    models = pt.vision.models
+    res = {}
+    for name, size, ch in CONV_ZOO:
+        x = torch.from_numpy(np.random.default_rng(size).standard_normal(
+            (ZOO_CHECK_BATCH, ch, size, size)).astype(np.float32))
+
+        def build(name=name):
+            pt.seed(6)
+            return no_dropout(getattr(models, name)(num_classes=1000))
+        zero_counts(kern)
+        errs, card = staged_against_f64(torch, pt, build, x,
+                                        train_run_cot(torch), name,
+                                        also_cudnn=True)
+        amp.decorate(card, level="O2", dtype="bfloat16")
+        card.eval()
+        xe = torch.randn((ZOO_EVAL_BATCH, ch, size, size), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(2))
+        times = []
+        with torch.inference_mode(), amp.auto_cast(**AMP_O2):
+            for _ in range(ZOO_WARM_STEPS + ZOO_EVAL_ITERS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = card(xe)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        if logits.shape != (ZOO_EVAL_BATCH, 1000) or not torch.isfinite(
+                logits).all():
+            raise AssertionError(f"{name} O2 eval: logits {logits.shape}")
+        launches = read_counts(kern)
+        if any(launches.values()):
+            raise AssertionError(f"{name} launched a port kernel: "
+                                 f"{launches}")
+        ms = float(np.median(times[ZOO_WARM_STEPS:]))
+        res[name] = dict(fp32=errs, eval_ms=ms,
+                         eval_images_per_s=ZOO_EVAL_BATCH / ms * 1e3)
+        log(f"  {name} at {size} x {size}: fp32 step vs fp64, card "
+            + ", ".join(f"{g} {e['card']:.2e} (cpu {e['cpu']:.2e}, cuDNN "
+                        f"{e['cudnn']:.2e} at {e['cudnn_worst']})"
+                        for g, e in errs.items())
+            + f"; O2 eval at batch {ZOO_EVAL_BATCH} {ms:.2f} ms, "
+            f"{res[name]['eval_images_per_s']:.1f} images/s ({smi})")
+        del card, xe, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def rnn_phase(torch, pt):
+    """12(d): a 2-layer bidirectional LSTM, a GRU and a SimpleRNN (input
+    and hidden RNN_WIDTH, batch RNN_BATCH, RNN_STEPS steps, ragged
+    ``sequence_length``): outputs, final states and every gradient of
+    ``sum(out * cot)`` on the card against the CPU with the same weights,
+    within RNN_TOL of each tensor's largest magnitude; the card's forward
+    and backward ms."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal(
+        (RNN_BATCH, RNN_STEPS, RNN_WIDTH)).astype(np.float32))
+    lens = torch.from_numpy(rng.integers(RNN_STEPS // 4, RNN_STEPS + 1,
+                                         RNN_BATCH).astype(np.int64))
+    cot = torch.from_numpy(rng.standard_normal(
+        (RNN_BATCH, RNN_STEPS, 2 * RNN_WIDTH)).astype(np.float32))
+    res = {}
+    for name, kw in (("LSTM", dict(num_layers=2, direction="bidirect")),
+                     ("GRU", {}), ("SimpleRNN", {})):
+        pt.set_device("cpu")
+        try:
+            pt.seed(8)
+            cpu = getattr(pt.nn, name)(RNN_WIDTH, RNN_WIDTH, **kw)
+            card = copy.deepcopy(cpu).to("cuda")
+        finally:
+            pt.set_device("gpu:0")
+        got = {}
+        for tag, m, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+            xin = x.detach().to(dev).requires_grad_(True)
+            out, state = m(xin, sequence_length=lens.to(dev))
+            c = cot[..., :out.shape[-1]].to(dev)
+            (out * c).sum().backward()
+            states = state if isinstance(state, tuple) else (state,)
+            got[tag] = {"out": out.detach(), **{f"state {i}": s.detach()
+                                                 for i, s in
+                                                 enumerate(states)},
+                        "grad x": xin.grad,
+                        **{f"grad {n}": p.grad for n, p in
+                           m.named_parameters()}}
+        worst = max(rel_to_max(torch, got["card"][k], got["cpu"][k])
+                    for k in got["cpu"])
+        check(f"{name} card vs CPU (each tensor's largest)", worst, RNN_TOL)
+        xin = x.to("cuda").requires_grad_(True)
+        cc = cot[..., :got["card"]["out"].shape[-1]].to("cuda")
+        fwd_ms, bwd_ms = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = card(xin, sequence_length=lens.to("cuda"))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (out * cc).sum().backward()
+            torch.cuda.synchronize()
+            fwd_ms.append((t1 - t0) * 1e3)
+            bwd_ms.append((time.perf_counter() - t1) * 1e3)
+        res[name] = dict(worst=worst, forward_ms=float(np.median(fwd_ms)),
+                         backward_ms=float(np.median(bwd_ms)))
+        log(f"  {name} {kw} at batch {RNN_BATCH} x {RNN_STEPS} steps x "
+            f"{RNN_WIDTH}: card vs CPU {worst:.2e} of each tensor's "
+            f"largest; forward {res[name]['forward_ms']:.2f} ms, backward "
+            f"{res[name]['backward_ms']:.2f} ms")
+    return res
+
+
+def vision_ops_phase(torch, pt):
+    """12(e): the vision ops on the card against the CPU on the same
+    seeded inputs: ``nms`` on 8,400 overlapping boxes (with 80 categories
+    and without; the kept indices equal), ``roi_align``, ``roi_pool``, ``ps_roi_pool``,
+    ``deform_conv2d`` (with the gradients of x, the offsets, the mask and
+    the weight), ``yolo_box``, ``matrix_nms``, ``prior_box`` and
+    ``distribute_fpn_proposals`` within VISION_OPS_TOL of each result's
+    largest magnitude, integer results equal; ``box_coder`` raises on
+    both, as the reference's does."""
+    from paddle_tpu_torch.vision import ops as vops
+    rng = np.random.default_rng(13)
+    feat = rng.standard_normal((2, 256, 50, 68)).astype(np.float32)
+    xy = rng.uniform(0, 700, (128, 2))
+    wh = rng.uniform(8, 300, (128, 2))
+    rois = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    nums = np.asarray([60, 68], np.int64)
+    yolo = rng.standard_normal((2, 3 * 85, 20, 20)).astype(np.float32)
+    img = np.asarray([[640, 640], [608, 640]], np.int64)
+    dx = rng.standard_normal((2, 64, 32, 32)).astype(np.float32)
+    off = (rng.standard_normal((2, 18, 32, 32)) * 2).astype(np.float32)
+    msk = rng.uniform(0, 1, (2, 9, 32, 32)).astype(np.float32)
+    wt = rng.standard_normal((64, 64, 3, 3)).astype(np.float32) * 0.05
+    nms_boxes = np.concatenate([xy / 800, (xy + wh) / 800], 1).astype(
+        np.float32)
+    # 8,400 overlapping boxes (a 640 x 640 image's anchor points), 80
+    # categories: nms's kept set, card against CPU
+    pxy = rng.uniform(0, 600, (8400, 2))
+    pwh = rng.uniform(10, 200, (8400, 2))
+    det = np.concatenate([pxy, pxy + pwh], 1).astype(np.float32)
+    det_scores = rng.uniform(0, 1, 8400).astype(np.float32)
+    det_cats = rng.integers(0, 80, 8400).astype(np.int64)
+    nms_scores = rng.uniform(0, 1, (80, 128)).astype(np.float32)
+
+    def deform(x, o, m, w):
+        for t in (x, o, m, w):
+            t.requires_grad_(True)
+        out = vops.deform_conv2d(x, o, w, None, 1, 1, 1, 1, 1, m)
+        out.square().sum().backward()
+        return [out, x.grad, o.grad, m.grad, w.grad]
+
+    cases = {
+        "nms": (lambda b, s, c: [vops.nms(b, 0.5, s, c),
+                                 vops.nms(b, 0.5, s)],
+                (det, det_scores, det_cats)),
+        "roi_align": (lambda f, r, n: vops.roi_align(f, r, n, 7, 1 / 16),
+                      (feat, rois, nums)),
+        "roi_pool": (lambda f, r, n: vops.roi_pool(f, r, n, 7, 1 / 16),
+                     (feat[:, :64], rois[:32], np.asarray([16, 16]))),
+        "ps_roi_pool": (lambda f, r, n: vops.ps_roi_pool(
+            f[:, :196], r, n, 7, 1 / 16), (feat, rois[:32],
+                                            np.asarray([16, 16]))),
+        "deform_conv2d": (deform, (dx, off, msk, wt)),
+        "yolo_box": (lambda p, i: vops.yolo_box(
+            p, i, [10, 13, 16, 30, 33, 23], 80, 0.01, 32), (yolo, img)),
+        "matrix_nms": (lambda b, s: vops.matrix_nms(b, s, 0.5, 0.1, 64, 100),
+                       (nms_boxes, nms_scores)),
+        "prior_box": (lambda f, i: vops.prior_box(
+            f, i, [32.0, 64.0], [64.0, 128.0], [2.0], flip=True, clip=True),
+            (feat, np.zeros((2, 3, 800, 1088), np.float32))),
+        "distribute_fpn_proposals": (lambda r, n: [
+            *vops.distribute_fpn_proposals(r, 2, 5, 4, 224, rois_num=n)[0],
+            vops.distribute_fpn_proposals(r, 2, 5, 4, 224, rois_num=n)[1]],
+            (rois, np.asarray([60, 68], np.int32)))}
+    res = {}
+    for name, (fn, arrays) in cases.items():
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            got = fn(*(torch.from_numpy(a.copy()).to(dev) for a in arrays))
+            got = got if isinstance(got, (list, tuple)) else [got]
+            outs[dev] = [g.detach().cpu() for g in got]
+        worst = 0.0
+        for a, b in zip(outs["cuda"], outs["cpu"]):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"{name}: card {a.shape} {a.dtype}, "
+                                     f"cpu {b.shape} {b.dtype}")
+            if a.is_floating_point():
+                if b.numel():
+                    worst = max(worst, rel_to_max(torch, a, b))
+            elif not torch.equal(a, b):
+                raise AssertionError(f"{name}: integer results differ")
+        check(f"vision op {name} card vs CPU", worst, VISION_OPS_TOL,
+              "max err / max")
+        res[name] = worst
+    for dev in ("cpu", "cuda"):
+        try:
+            vops.box_coder(torch.zeros(1, 4, device=dev), None,
+                           torch.zeros(1, 4, device=dev))
+        except NotImplementedError:
+            continue
+        raise AssertionError("box_coder did not raise")
+    res["box_coder"] = "raises NotImplementedError on both, as the reference"
+    log(f"  vision ops card vs CPU (max err / max): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in res.items()
+                    if isinstance(v, float)))
+    return res
+
+
+def add_vision_launches(rows, vis):
+    """Phase 12's launches (B1-B3 in ViT's counted steps and eval, K-A in
+    those steps and PP-YOLOE's) into the kernel rows, ViT's timed shapes
+    under ``vit_shapes`` and its layer-0 errors against the plain
+    versions."""
+    paths = {"12a ViT-B/16 O2 training steps": vis["vit"]["launches"],
+             "12a ViT-B/16 O2 eval": vis["vit"]["eval"]["launches"],
+             "12b PP-YOLOE fp32 steps": vis["ppyoloe"]["launches"]}
+    v = vis["vit"]
+    shapes = {"flash_fwd_wgmma": v["timed"]["fwd"],
+              "flash_bwd_dq_wgmma": v["timed"]["dq"],
+              "flash_bwd_dkv_wgmma": v["timed"]["dkv"]}
+    errs = {"flash_fwd_wgmma": v["b1_errs"]["bf16"],
+            "flash_bwd_dq_wgmma": v["bwd_errs"]["dq_bf16"],
+            "flash_bwd_dkv_wgmma": max(v["bwd_errs"]["dk_bf16"],
+                                       v["bwd_errs"]["dv_bf16"])}
+    for row in rows:
+        name = row["name"]
+        if name not in LAUNCH_ROWS:
+            continue
+        add = {k: LAUNCH_ROWS[name](c) for k, c in paths.items()
+               if LAUNCH_ROWS[name](c)}
+        row["launches"] += sum(add.values())
+        row.setdefault("launches_by_path", {}).update(add)
+        if name in shapes:
+            row["vit_shapes"] = [shapes[name]]
+        if name in errs:
+            row["max_abs_err"] = max(row["max_abs_err"], errs[name])
+
+
+def vision_phase(torch, pt, amp, fa, pa, rpa, kern, smi):
+    """Phase 12: ViT-B/16, PP-YOLOE, the conv zoo, the RNNs and the vision
+    ops on the card."""
+    t0 = time.perf_counter()
+    vis = {}
+    phase(" 12(a): ViT-B/16 (12 layers, 768 wide, 12 heads of 64, 197 "
+          f"tokens): O2 steps at batch {VIT_BATCH}, O2 eval, B1-B3 on layer "
+          f"0, {VIT_CPU_LAYERS} layers against the CPU")
+    vis["vit"] = vit_phase(torch, pt, amp, fa, pa, rpa, kern, smi)
+    phase(f" 12(b): PP-YOLOE at {PPYOLOE_SIZE} x {PPYOLOE_SIZE}, batch "
+          f"{PPYOLOE_BATCH}, {PPYOLOE_WORKERS} DataLoader workers")
+    vis["ppyoloe"] = ppyoloe_phase(torch, pt, kern, smi)
+    phase(" 12(c): the conv zoo: fp32 against the CPU, O2 eval")
+    vis["zoo"] = conv_zoo_phase(torch, pt, amp, kern, smi)
+    phase(" 12(d): LSTM, GRU and SimpleRNN against the CPU")
+    vis["rnn"] = rnn_phase(torch, pt)
+    phase(" 12(e): the vision ops against the CPU")
+    vis["ops"] = vision_ops_phase(torch, pt)
+    vis["seconds"] = time.perf_counter() - t0
+    log(f"  phase 12 took {vis['seconds']:.1f} s")
+    return vis
 
 
 def llama_phases(torch, pt, amp, gen, nn_functional, fa, fused, ost,
@@ -9471,7 +10291,7 @@ def llama_phases(torch, pt, amp, gen, nn_functional, fa, fused, ost,
 #: the phases after the build that a run may select, in the order they
 #: run; 2 to 6 share one Llama-3-8B, its runs and its captures, so they
 #: run as one unit
-PHASES = ("2-6", "7", "8", "9", "10", "11")
+PHASES = ("2-6", "7", "8", "9", "10", "11", "12")
 
 
 def selected_phases(argv):
@@ -9576,6 +10396,17 @@ def main(argv=None):
         if rows is not None:
             add_zoo_launches(rows, zoo)
         log(json.dumps({"zoo": zoo}, default=str))
+    if "12" in run:
+        phase("phase 12: the vision zoo, PP-YOLOE and the RNNs: ViT-B/16 "
+              "on B1-B3, PP-YOLOE at 640 through DataLoader workers, the "
+              "conv zoo, LSTM/GRU/SimpleRNN and the vision ops")
+        vis = vision_phase(torch, pt, amp, fa, pa, rpa, kern,
+                           smi.stdout.strip())
+        if rows is not None:
+            add_vision_launches(rows, vis)
+        log(json.dumps({"vision": vis}, default=str))
+        gc.collect()
+        torch.cuda.empty_cache()
     if rows is not None:
         log(json.dumps({"kernels": rows}))
     log(smi.stdout.strip())

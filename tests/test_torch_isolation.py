@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -201,6 +202,36 @@ _ZOO = {
            "import torch\n"
            "from paddle_tpu_torch.incubate.distributed.models import moe\n"
            "moe.MoELayer(8, num_experts=4, d_hidden=16)(torch.ones(2, 8))\n",
+    "vision_ops": "import paddle_tpu_torch as p\n"
+                  "p.set_device('cpu')\n"
+                  "import torch\n"
+                  "from paddle_tpu_torch.vision import ops\n"
+                  "b = torch.tensor([[0., 0, 4, 4], [1, 1, 5, 5]])\n"
+                  "ops.nms(b, 0.1, scores=torch.tensor([1., 2]))\n"
+                  "ops.roi_align(torch.ones(1, 2, 8, 8), b,\n"
+                  "              torch.tensor([2]), 2)\n",
+    "ppyoloe": "import paddle_tpu_torch as p\n"
+               "p.set_device('cpu')\n"
+               "import torch\n"
+               "from paddle_tpu_torch.models import ppyoloe as m\n"
+               "net = m.ppyoloe_lite(num_classes=4)\n"
+               "net.predict(torch.ones(1, 3, 64, 64), score_thresh=0.3)\n",
+    "vision_zoo": "import paddle_tpu_torch as p\n"
+                  "p.set_device('cpu')\n"
+                  "import torch\n"
+                  "from paddle_tpu_torch.vision.models import (lenet, vit,\n"
+                  "    vgg, mobilenet, extras, inception)\n"
+                  "lenet.LeNet()(torch.ones(1, 1, 28, 28))\n"
+                  "vit.VisionTransformer(img_size=32, patch_size=8,\n"
+                  "    embed_dim=64, depth=1, num_heads=1)(\n"
+                  "    torch.ones(1, 3, 32, 32)).sum().backward()\n",
+    "rnn_extras": "import paddle_tpu_torch as p\n"
+                  "p.set_device('cpu')\n"
+                  "import torch\n"
+                  "from paddle_tpu_torch.nn.layers import rnn, extras\n"
+                  "rnn.LSTM(4, 8, 2, direction='bidirect')(\n"
+                  "    torch.ones(2, 3, 4))[0].sum().backward()\n"
+                  "extras.MaxPool3D(2)(torch.ones(1, 1, 4, 4, 4))\n",
 }
 
 
@@ -231,3 +262,81 @@ def test_zoo_refuses_cpu_without_being_asked():
                      (models.MixtralForCausalLM, models.mixtral_tiny())):
         with pytest.raises(RuntimeError):
             cls(cfg)
+
+
+def test_vision_and_rnn_refuse_cpu_without_being_asked():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid")
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    dev = core.get_device()
+    pt.set_device("gpu")
+    try:
+        for build in (lambda: pt.models.ppyoloe_lite(),
+                      lambda: pt.vision.models.vit_base_patch16_224(),
+                      lambda: pt.nn.LSTM(16, 32)):
+            with pytest.raises(RuntimeError):
+                build()
+    finally:
+        pt.set_device(dev)
+
+
+_RNG = np.random.default_rng(22)
+_BOXES = np.array([[0., 0, 4, 4], [1, 1, 5, 5]], np.float32)
+_ARRAY_CALLS = {
+    "box_area": lambda ops: ops.box_area(_BOXES),
+    "box_iou": lambda ops: ops.box_iou(_BOXES, _BOXES),
+    "nms": lambda ops: ops.nms(_BOXES, 0.1, scores=np.array([1., 2.])),
+    "distance2bbox": lambda ops: ops.distance2bbox(_BOXES[:, :2], _BOXES),
+    "roi_align": lambda ops: ops.roi_align(
+        np.ones((1, 2, 8, 8), np.float32), _BOXES, np.array([2]), 2),
+    "roi_pool": lambda ops: ops.roi_pool(
+        np.ones((1, 2, 8, 8), np.float32), _BOXES, np.array([2]), 2),
+    "ps_roi_pool": lambda ops: ops.ps_roi_pool(
+        np.ones((1, 8, 8, 8), np.float32), _BOXES, np.array([2]), 2),
+    "yolo_box": lambda ops: ops.yolo_box(
+        _RNG.standard_normal((1, 14, 2, 2)).astype(np.float32),
+        np.array([[64, 64]]), [10, 13, 16, 30], 2),
+    "deform_conv2d": lambda ops: ops.deform_conv2d(
+        np.ones((1, 2, 4, 4), np.float32),
+        np.zeros((1, 18, 2, 2), np.float32),
+        np.ones((3, 2, 3, 3), np.float32)),
+    "matrix_nms": lambda ops: ops.matrix_nms(
+        _BOXES, np.array([[0.9, 0.8]], np.float32), 0.1, 0.1, 2, 2),
+    "prior_box": lambda ops: ops.prior_box(
+        np.ones((1, 2, 4, 4), np.float32), np.ones((1, 3, 32, 32)), [8.]),
+    "distribute_fpn_proposals": lambda ops: ops.distribute_fpn_proposals(
+        _BOXES * 40, 2, 5, 4, 224),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ARRAY_CALLS))
+def test_vision_ops_put_arrays_on_the_current_device(name):
+    """A numpy input lands on the current device, as ``to_tensor`` puts
+    it: the CPU when asked, else the card, which is refused without
+    CUDA rather than run on the CPU."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.vision import ops
+    dev = core.get_device()
+    try:
+        pt.set_device("cpu")
+        out = _ARRAY_CALLS[name](ops)
+        first = out[0] if isinstance(out, (tuple, list)) else out
+        first = first[0] if isinstance(first, list) else first
+        assert first.device.type == "cpu"
+        if not torch.cuda.is_available():
+            pt.set_device("gpu")
+            with pytest.raises(RuntimeError):
+                _ARRAY_CALLS[name](ops)
+    finally:
+        pt.set_device(dev)
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A second ``def`` of a name in ``chip_smoke.py`` would silently
+    replace the first for every phase that calls it."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = [n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    assert sorted(n for n in set(names) if names.count(n) > 1) == []
