@@ -6,7 +6,7 @@
 
 Phases, each fatal on error (non-zero exit, no result line). With no
 arguments all run; ``--phases`` picks some of 2-6 (one unit: they share
-one model and its captures), 7, 8, 9, 10, 11 and 12 after the build, and
+one model and its captures), 7, 8, 9, 10, 11, 12 and 13 after the build, and
 such a run ends on a ``{"partial": ...}`` line instead of the result
 line:
 
@@ -424,7 +424,30 @@ line:
    CUDA convolutions and on cuDNN's, O2 eval images/s at batch 64; (d) a 2-layer bidirectional LSTM, a GRU and a SimpleRNN
    (512 wide, batch 64, 128 steps, ragged lengths) against the CPU within
    1e-5 of each tensor's largest, forward and backward ms; (e) the vision
-   ops against the CPU. Prints a ``{"vision": ...}`` line.
+   ops against the CPU. Prints a ``{"vision": ...}`` line;
+13. Hugging Face checkpoints, the spectral features, the data pipeline
+   and Viterbi decoding (``pretrained_phase``): (a) checkpoints this
+   script writes with its own safetensors writer under ``TMPDIR``:
+   Llama-3-8B widths at 2 layers in bf16, two shards and an index,
+   through ``LlamaForCausalLM.from_pretrained(dtype="bfloat16")``
+   against the same model set directly from the tensors: parameters,
+   O2 logits, O2 ``generate`` on the paged cache (B1 ``bfloat16 d128
+   g4 causal``, kernel 4 ``<bf16, float>``) and the O2 q-block engine
+   with CUDA graphs (kernel 6 ``<bf16, float>``), each bit for bit, the
+   load's GB/s and the first token after it; layer 0's captures of the
+   loaded model holding B1, B4 and kernel 6 to their plain versions,
+   timed; GPT-2's layout at GPT-3-1.3B widths (2 layers; fp32 logits and
+   an O2 paged ``generate``), BERT-base (its 8 x 512 eval, B1 fp32 d 64)
+   and T5-v1.1-small (logits, greedy ``generate``) the same way; (b)
+   ``Spectrogram``, ``MelSpectrogram``, ``LogMelSpectrogram`` and
+   ``MFCC`` on 16 clips of 10 s at 16 kHz, ``stft`` -> ``istft`` and
+   the 22 ``fft`` functions on [64, 4096], each against the CPU within
+   1e-5 of its largest and timed; (c) a CIFAR-10 tarball through
+   ``Cifar10`` and PaddleClas's train transforms in four ``DataLoader``
+   workers into O2 ResNet-18 steps at 256 (images/s, the loop's wait;
+   the first batch equal to a CPU loader's under the same seed); (d)
+   ``viterbi_decode`` at [64, 128, 50] against the CPU (paths equal).
+   Prints a ``{"pretrained": ...}`` line.
 
 Prints a ``{"graph_breakdown": ...}`` line (phases 3f and 3g, per engine
 and mode), a ``{"spec": ...}`` line (3h, 3i, 4(d), 4(e)), an
@@ -434,7 +457,10 @@ and mode), a ``{"spec": ...}`` line (3h, 3i, 4(d), 4(e)), an
 ``{"zoo": ...}`` line (phase 11; its launches and timed shapes go into
 the rows of B1-B4, kernels 6 and 8 and K-A/K-B), a ``{"vision": ...}``
 line (phase 12; B1-B3's and K-A's rows count its launches, B1-B3's
-carry ViT's timed shape under ``vit_shapes``), a
+carry ViT's timed shape under ``vit_shapes``), a ``{"pretrained":
+...}`` line (phase 13; B1's, B4's and kernel 6's rows count its
+launches and carry the loaded Llama's timed shapes under
+``pretrained_shapes``), a
 ``{"kernels": [...]}`` line with all ten TPU kernels (kernel 6 and B7
 also as their runtime variants, with launches by variant and path) and the
 fused optimizer step's two (K-A and K-B, no Pallas counterpart,
@@ -451,6 +477,7 @@ import ctypes
 import gc
 import itertools
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -8520,6 +8547,13 @@ def add_zoo_launches(rows, zoo):
                 "flash_bwd_dkv_wgmma": max(tb["dk_bf16"], tb["dv_bf16"]),
                 "flash_bwd_dkv_simt": max(tb["dk_fp32_abs"],
                                           tb["dv_fp32_abs"])}
+    add_path_launches(rows, paths, shapes, zoo_errs, "zoo_shapes")
+
+
+def add_path_launches(rows, paths, shapes, errs, shapes_key):
+    """A phase's launches (``paths``: a path's counts by kernel name)
+    into the kernel rows by path; its timed shapes (by row name) under
+    ``shapes_key`` and its errors into each row's ``max_abs_err``."""
     for row in rows:
         name = row["name"]
         if name == "ragged_qblock":
@@ -8537,9 +8571,9 @@ def add_zoo_launches(rows, zoo):
             continue
         row.setdefault("launches_by_path", {}).update(add)
         if name in shapes:
-            row["zoo_shapes"] = shapes[name]
-        if name in zoo_errs:
-            row["max_abs_err"] = max(row["max_abs_err"], zoo_errs[name])
+            row[shapes_key] = shapes[name]
+        if name in errs:
+            row["max_abs_err"] = max(row["max_abs_err"], errs[name])
 
 
 def zoo_phase(torch, pt, amp, fa, pa, rpa, gen, nn_functional, kern):
@@ -9328,6 +9362,821 @@ def vision_phase(torch, pt, amp, fa, pa, rpa, kern, smi):
     vis["seconds"] = time.perf_counter() - t0
     log(f"  phase 12 took {vis['seconds']:.1f} s")
     return vis
+
+
+# ---------------------------------------------------------------------------
+# phase 13: Hugging Face checkpoints, the spectral features, the data
+# pipeline and Viterbi decoding
+# ---------------------------------------------------------------------------
+
+#: 13(a): the HF checkpoints' depths. Llama-3-8B widths at 2 layers, bf16,
+#: two shards with an index (~2.97 GB; the full 32 layers would be ~16 GB
+#: to write and read inside the phase's time); GPT-2's layout at
+#: GPT-3-1.3B widths at 2 layers; BERT-base and T5-v1.1-small whole
+HF_LLAMA_LAYERS, HF_GPT_LAYERS = 2, 2
+#: 13(a): BERT-base's eval batch without a mask (B1 non-causal at d 64)
+HF_BERT_EVAL = (8, 512)
+#: 13(b): a batch of clips of 10 s at 16 kHz, and the fft functions' input
+AUDIO_CLIPS, AUDIO_SAMPLES, AUDIO_SR = 16, 160000, 16000
+FFT_SHAPE = (64, 4096)
+#: every spectral result against the CPU, of its largest magnitude
+SIGNAL_TOL = 1e-5
+#: 13(c): CIFAR-10 in the cache layout (five train batches of
+#: CIFAR_PER_FILE images), PaddleClas's train transforms in
+#: CIFAR_WORKERS workers, O2 steps of ResNet-18 at CIFAR_BATCH
+CIFAR_PER_FILE, CIFAR_BATCH, CIFAR_WORKERS = 512, 256, 4
+CIFAR_MEAN, CIFAR_STD = [125.31, 122.95, 113.87], [62.99, 62.09, 66.70]
+#: 13(d): Viterbi potentials [batch, steps, tags], BOS/EOS transitions
+VITERBI_SHAPE = (64, 128, 50)
+#: phase 13's device (a rehearsal on the CPU sets "cpu")
+DEV = "cuda"
+
+_ST_CODES = {"torch.float32": "F32", "torch.bfloat16": "BF16",
+             "torch.float16": "F16", "torch.int64": "I64"}
+
+
+def write_safetensors(torch, tensors, path):
+    """This script's own safetensors writer (the format, independent of
+    the port's reader): the header's length as 8 little-endian bytes, the
+    JSON header padded with spaces to 8 bytes, then each tensor's bytes in
+    order, each copied to the host alone. Returns the bytes written."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_CODES[str(t.dtype)],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    header["__metadata__"] = {"format": "pt"}
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(
+                torch.uint8).numpy().tobytes())
+    return 8 + len(blob) + offset
+
+
+def write_hf_dir(torch, path, config, tensors, shards=1):
+    """An HF checkpoint directory: ``config.json`` and ``tensors`` in
+    ``shards`` safetensors files (consecutive runs of names) with
+    ``model.safetensors.index.json`` when more than one. Returns the bytes
+    written."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    names = list(tensors)
+    per = -(-len(names) // shards)
+    index, total = {}, 0
+    for s in range(shards):
+        part = names[s * per:(s + 1) * per]
+        fname = (f"model-{s + 1:05d}-of-{shards:05d}.safetensors"
+                 if shards > 1 else "model.safetensors")
+        total += write_safetensors(torch, {k: tensors[k] for k in part},
+                                   os.path.join(path, fname))
+        index.update({k: fname for k in part})
+    if shards > 1:
+        with open(os.path.join(path, "model.safetensors.index.json"),
+                  "w") as f:
+            json.dump({"metadata": {"total_size": total},
+                       "weight_map": index}, f)
+    return total
+
+
+class Draw:
+    """Seeded draws on ``dev``: ``w(*shape)`` N(0, std), ``norm(n)``
+    1 + N(0, 0.1) (weights unlike each other, so a transposed or swapped
+    tensor shows), in ``dtype``."""
+
+    def __init__(self, torch, dev, seed, dtype):
+        self.torch, self.dev, self.dtype = torch, dev, dtype
+        self.gen = torch.Generator(dev).manual_seed(seed)
+
+    def w(self, *shape, std=0.02):
+        return (self.torch.randn(shape, generator=self.gen, device=self.dev)
+                * std).to(self.dtype)
+
+    def norm(self, n):
+        return (1.0 + 0.1 * self.torch.randn(
+            n, generator=self.gen, device=self.dev)).to(self.dtype)
+
+    def bias(self, n):
+        return self.w(n, std=0.01)
+
+
+def hf_llama(torch, cfg, dev, seed):
+    """HF Llama tensors at ``cfg``'s widths in bf16, and the port's name
+    of each (``model.`` -> ``llama.``; HF's ``[out, in]`` Linears are the
+    port's layout)."""
+    d = Draw(torch, dev, seed, torch.bfloat16)
+    h, m = cfg.hidden_size, cfg.intermediate_size
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    t = {"model.embed_tokens.weight": d.w(cfg.vocab_size, h)}
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}."
+        t.update({p + "self_attn.q_proj.weight": d.w(h, h),
+                  p + "self_attn.k_proj.weight": d.w(kv, h),
+                  p + "self_attn.v_proj.weight": d.w(kv, h),
+                  p + "self_attn.o_proj.weight": d.w(h, h),
+                  p + "mlp.gate_proj.weight": d.w(m, h),
+                  p + "mlp.up_proj.weight": d.w(m, h),
+                  p + "mlp.down_proj.weight": d.w(h, m),
+                  p + "input_layernorm.weight": d.norm(h),
+                  p + "post_attention_layernorm.weight": d.norm(h)})
+    t["model.norm.weight"] = d.norm(h)
+    t["lm_head.weight"] = d.w(cfg.vocab_size, h)
+    names = {k: ("llama." + k[len("model."):] if k.startswith("model.")
+                 else k) for k in t}
+    config = dict(architectures=["LlamaForCausalLM"], model_type="llama",
+                  vocab_size=cfg.vocab_size, hidden_size=h,
+                  intermediate_size=m,
+                  num_hidden_layers=cfg.num_hidden_layers,
+                  num_attention_heads=cfg.num_attention_heads,
+                  num_key_value_heads=cfg.num_key_value_heads,
+                  max_position_embeddings=cfg.max_position_embeddings,
+                  rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta,
+                  tie_word_embeddings=False, torch_dtype="bfloat16")
+    return t, {names[k]: (k, False) for k in t}, config
+
+
+def hf_gpt2(torch, cfg, dev, seed):
+    """HF GPT-2 tensors at ``cfg``'s widths (fp32; ``Conv1D`` weights
+    ``[in, out]``) and the port's name of each with whether it is
+    transposed into the port's ``[out, in]`` Linear."""
+    d = Draw(torch, dev, seed, torch.float32)
+    h, ff = cfg.hidden_size, cfg.intermediate_size
+    t = {"transformer.wte.weight": d.w(cfg.vocab_size, h),
+         "transformer.wpe.weight": d.w(cfg.max_position_embeddings, h)}
+    port = {"transformer.wte.weight":
+            ("gpt.embeddings.word_embeddings.weight", False),
+            "transformer.wpe.weight":
+            ("gpt.embeddings.position_embeddings.weight", False)}
+    for i in range(cfg.num_hidden_layers):
+        p, q = f"transformer.h.{i}.", f"gpt.decoder.{i}."
+        for hf, ours, shape in (
+                ("attn.c_attn", "self_attn.qkv_proj", (h, 3 * h)),
+                ("attn.c_proj", "self_attn.out_proj", (h, h)),
+                ("mlp.c_fc", "linear1", (h, ff)),
+                ("mlp.c_proj", "linear2", (ff, h))):
+            t[p + hf + ".weight"] = d.w(*shape)
+            t[p + hf + ".bias"] = d.bias(shape[1])
+            port[p + hf + ".weight"] = (q + ours + ".weight", True)
+            port[p + hf + ".bias"] = (q + ours + ".bias", False)
+        for hf, ours in (("ln_1", "norm1"), ("ln_2", "norm2")):
+            t[p + hf + ".weight"] = d.norm(h)
+            t[p + hf + ".bias"] = d.bias(h)
+            port[p + hf + ".weight"] = (q + ours + ".weight", False)
+            port[p + hf + ".bias"] = (q + ours + ".bias", False)
+    t["transformer.ln_f.weight"] = d.norm(h)
+    t["transformer.ln_f.bias"] = d.bias(h)
+    port["transformer.ln_f.weight"] = ("gpt.final_norm.weight", False)
+    port["transformer.ln_f.bias"] = ("gpt.final_norm.bias", False)
+    config = dict(model_type="gpt2", n_embd=h, n_layer=cfg.num_hidden_layers,
+                  n_head=cfg.num_attention_heads, vocab_size=cfg.vocab_size)
+    return t, {v[0]: (k, v[1]) for k, v in port.items()}, config
+
+
+def hf_bert(torch, cfg, dev, seed):
+    """HF BERT tensors (fp32, with the pooler and ``position_ids``) and
+    the port's name of each."""
+    d = Draw(torch, dev, seed, torch.float32)
+    h, ff = cfg.hidden_size, cfg.intermediate_size
+    t, port = {}, {}
+
+    def add(hf, ours, value):
+        t[hf], port[ours] = value, (hf, False)
+    for table, n in (("word_embeddings", cfg.vocab_size),
+                     ("position_embeddings", cfg.max_position_embeddings),
+                     ("token_type_embeddings", cfg.type_vocab_size)):
+        add(f"bert.embeddings.{table}.weight", f"embeddings.{table}.weight",
+            d.w(n, h))
+    add("bert.embeddings.LayerNorm.weight", "embeddings.layer_norm.weight",
+        d.norm(h))
+    add("bert.embeddings.LayerNorm.bias", "embeddings.layer_norm.bias",
+        d.bias(h))
+    t["bert.embeddings.position_ids"] = torch.arange(
+        cfg.max_position_embeddings, device=dev)[None]
+    for i in range(cfg.num_hidden_layers):
+        p, q = f"bert.encoder.layer.{i}.", f"encoder.layers.{i}."
+        for hf, ours, shape in (
+                ("attention.self.query", "self_attn.q_proj", (h, h)),
+                ("attention.self.key", "self_attn.k_proj", (h, h)),
+                ("attention.self.value", "self_attn.v_proj", (h, h)),
+                ("attention.output.dense", "self_attn.out_proj", (h, h)),
+                ("intermediate.dense", "linear1", (ff, h)),
+                ("output.dense", "linear2", (h, ff))):
+            add(p + hf + ".weight", q + ours + ".weight", d.w(*shape))
+            add(p + hf + ".bias", q + ours + ".bias", d.bias(shape[0]))
+        for hf, ours in (("attention.output.LayerNorm", "norm1"),
+                         ("output.LayerNorm", "norm2")):
+            add(p + hf + ".weight", q + ours + ".weight", d.norm(h))
+            add(p + hf + ".bias", q + ours + ".bias", d.bias(h))
+    add("bert.pooler.dense.weight", "pooler.dense.weight", d.w(h, h))
+    add("bert.pooler.dense.bias", "pooler.dense.bias", d.bias(h))
+    config = dict(model_type="bert", vocab_size=cfg.vocab_size,
+                  hidden_size=h, num_hidden_layers=cfg.num_hidden_layers,
+                  num_attention_heads=cfg.num_attention_heads,
+                  intermediate_size=ff,
+                  max_position_embeddings=cfg.max_position_embeddings,
+                  type_vocab_size=cfg.type_vocab_size,
+                  hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    return t, port, config
+
+
+def hf_t5(torch, cfg, dev, seed):
+    """HF T5 v1.1 tensors (fp32, gated-GeLU, untied head; the stacks'
+    ``embed_tokens`` copies of ``shared``) and the port's name of each."""
+    d = Draw(torch, dev, seed, torch.float32)
+    dm, inner, ff = cfg.d_model, cfg.num_heads * cfg.d_kv, cfg.d_ff
+    t, port = {}, {}
+
+    def add(hf, ours, value):
+        t[hf] = value
+        if ours is not None:
+            port[ours] = (hf, False)
+    add("shared.weight", "shared.weight", d.w(cfg.vocab_size, dm, std=1.0))
+    add("encoder.embed_tokens.weight", None, t["shared.weight"])
+    add("decoder.embed_tokens.weight", None, t["shared.weight"])
+    for stack, n in (("encoder", cfg.num_layers),
+                     ("decoder", cfg.num_decoder_layers)):
+        for i in range(n):
+            p, q = f"{stack}.block.{i}.layer.", f"{stack}.blocks.{i}."
+            subs = [("0.SelfAttention", "self_attn", "0", "norm1")]
+            if stack == "decoder":
+                subs.append(("1.EncDecAttention", "cross_attn", "1",
+                             "norm_cross"))
+            for hf, ours, k, norm in subs:
+                for x in "qkv":
+                    add(f"{p}{hf}.{x}.weight", f"{q}{ours}.{x}.weight",
+                        d.w(inner, dm, std=dm ** -0.5))
+                add(f"{p}{hf}.o.weight", f"{q}{ours}.o.weight",
+                    d.w(dm, inner, std=inner ** -0.5))
+                add(f"{p}{k}.layer_norm.weight", f"{q}{norm}.weight",
+                    d.norm(dm))
+            if i == 0:
+                add(f"{p}0.SelfAttention.relative_attention_bias.weight",
+                    f"{q}self_attn.relative_attention_bias.weight",
+                    d.w(cfg.relative_attention_num_buckets, cfg.num_heads,
+                        std=0.5))
+            k = "2" if stack == "decoder" else "1"
+            for hf, ours, shape in (("wi_0", "wi", (ff, dm)),
+                                    ("wi_1", "wi_1", (ff, dm)),
+                                    ("wo", "wo", (dm, ff))):
+                add(f"{p}{k}.DenseReluDense.{hf}.weight",
+                    f"{q}ff.{ours}.weight", d.w(*shape, std=shape[1] ** -0.5))
+            add(f"{p}{k}.layer_norm.weight", f"{q}norm2.weight", d.norm(dm))
+        add(f"{stack}.final_layer_norm.weight", f"{stack}.final_norm.weight",
+            d.norm(dm))
+    add("lm_head.weight", "lm_head.weight", d.w(cfg.vocab_size, dm,
+                                                std=dm ** -0.5))
+    config = dict(model_type="t5", vocab_size=cfg.vocab_size, d_model=dm,
+                  d_kv=cfg.d_kv, d_ff=ff, num_layers=cfg.num_layers,
+                  num_decoder_layers=cfg.num_decoder_layers,
+                  num_heads=cfg.num_heads, feed_forward_proj="gated-gelu",
+                  tie_word_embeddings=False, dropout_rate=0.0)
+    return t, port, config
+
+
+def fill_direct(torch, model, tensors, port):
+    """Set ``model``'s every parameter straight from the checkpoint's
+    tensors by the script's own name table (``port``: the port's name ->
+    (HF name, transposed)); every parameter must be named."""
+    own = model.state_dict()
+    if sorted(own) != sorted(port):
+        raise AssertionError(f"direct fill: names differ "
+                             f"{sorted(set(own) ^ set(port))[:8]}")
+    with torch.no_grad():
+        for name, dst in own.items():
+            hf, flip = port[name]
+            src = tensors[hf]
+            dst.copy_(src.T if flip else src)
+    return model
+
+
+def same_params(torch, a, b, label):
+    """The loaded model's parameters are the directly set model's, bit
+    for bit."""
+    sa, sb = a.state_dict(), b.state_dict()
+    bad = [k for k in sa if sa[k].dtype != sb[k].dtype
+           or not torch.equal(sa[k], sb[k])]
+    if sorted(sa) != sorted(sb) or bad:
+        raise AssertionError(f"{label}: parameters differ: {bad[:8]}")
+    log(f"  {label}: all {len(sa)} tensors equal to the direct fill")
+
+
+def same_bits(torch, label, got, want):
+    if isinstance(got, np.ndarray) or isinstance(want, np.ndarray):
+        ok = np.array_equal(np.asarray(got), np.asarray(want))
+    else:
+        ok = got.dtype == want.dtype and torch.equal(got, want)
+    if not ok:
+        raise AssertionError(f"{label}: the loaded model's result differs "
+                             f"from the directly filled model's")
+    log(f"  {label}: equal bit for bit")
+
+
+def hf_load(torch, load, nbytes, smi, label):
+    """``load()`` timed to a device sync; logs the rate."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = load()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    log(f"  {label}: {nbytes / 1e9:.3f} GB loaded in {s:.3f} s, "
+        f"{nbytes / 1e9 / s:.3f} GB/s (the files just written: a warm "
+        f"read; {smi})")
+    return model, {"bytes": nbytes, "seconds": s, "gb_per_s":
+                   nbytes / 1e9 / s}
+
+
+def hf_llama_phase(torch, pt, amp, fa, pa, rpa, gen, nn_functional, kern,
+                   tmp, smi):
+    """13(a) Llama: the bf16 two-shard checkpoint through
+    ``LlamaForCausalLM.from_pretrained(dtype="bfloat16")`` against the
+    model set directly from the same tensors: parameters, O2 logits,
+    O2 ``generate`` on the paged cache (B1 ``bfloat16 d128 g4 causal``,
+    kernel 4 ``<bf16, float>``) and the O2 q-block engine with CUDA
+    graphs (kernel 6 ``<bf16, float>``), each bit for bit; layer 0's
+    captured inputs of the loaded model hold B1, B4 and kernel 6 to their
+    plain versions and are timed."""
+    cfg = pt.llama3_8b()
+    cfg.num_hidden_layers = n_layers = HF_LLAMA_LAYERS
+    res = {"launches": {}, "by_variant": {}}
+    tensors, port, config = hf_llama(torch, cfg, DEV, seed=131)
+    path = os.path.join(tmp, "llama")
+    t0 = time.perf_counter()
+    nbytes = write_hf_dir(torch, path, config, tensors, shards=2)
+    log(f"  Llama-3-8B widths, {n_layers} layers: {nbytes / 1e9:.3f} GB "
+        f"written in two shards in {time.perf_counter() - t0:.1f} s")
+    loaded, res["load"] = hf_load(
+        torch, lambda: pt.LlamaForCausalLM.from_pretrained(
+            path, dtype="bfloat16", device=DEV), nbytes, smi,
+        "from_pretrained (2 shards, bf16)")
+    prompts, warm, batch = zoo_prompts(cfg.vocab_size)
+    loaded.eval()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        first = loaded.generate(torch.as_tensor(batch[:1], device=DEV),
+                                max_new_tokens=1)
+    torch.cuda.synchronize()
+    res["first_token_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"  first token after the load (fp32, a 256-token prompt, dense "
+        f"cache): {res['first_token_ms']:.2f} ms ({smi})")
+    if first.shape != (1, 257):
+        raise AssertionError(f"first token: shape {tuple(first.shape)}")
+    direct = fill_direct(torch, pt.LlamaForCausalLM(cfg, device=DEV,
+                                                    seed=5),
+                         tensors, port)
+    direct.eval()
+    del tensors
+    same_params(torch, loaded, direct, "Llama from_pretrained")
+    for m in (loaded, direct):
+        amp.decorate(m, level="O2", dtype="bfloat16")
+    ids = torch.as_tensor(batch, device=DEV)
+    with torch.inference_mode(), amp.auto_cast(**AMP_O2):
+        logits = [m(ids) for m in (loaded, direct)]
+    same_bits(torch, "Llama O2 logits (4 x 256)", *logits)
+    del logits
+    dec_cap = decode_capture(gen, n_layers)
+    flash_cap = flash_capture(nn_functional, n_layers)
+    gens = []
+    for m, probes in ((loaded, (dec_cap, flash_cap)), (direct, ())):
+        out, st = zoo_generate(torch, amp, kern, fa, pa, rpa, m, batch,
+                               True, probes)
+        check_variants("Llama O2 generate (paged)", st["by_variant"], {
+            "flash": {"bfloat16 d128 g4 causal": n_layers},
+            "paged": {"bfloat16/float32": n_layers * (NEW_TOKENS - 1)}})
+        gens.append(out)
+        res["launches"].setdefault("13a Llama O2 generate paged", st[
+            "launches"])
+    same_bits(torch, "Llama O2 generate stream (paged)", *gens)
+    runs = []
+    with amp.auto_cast(**AMP_O2):
+        for m in (loaded, direct):
+            outs, st = serve_bf16(torch, pt, kern, fa, pa, rpa, m, prompts,
+                                  warm, "qblock", n_layers,
+                                  "bfloat16/float32")
+            if st["pool_dtypes"] != ["torch.float32"]:
+                raise AssertionError(f"Llama O2 engine: pools "
+                                     f"{st['pool_dtypes']}")
+            runs.append(outs)
+            res["launches"].setdefault("13a Llama O2 qblock engine",
+                                       st["launches"])
+            res.setdefault("engine_tokens_per_s", serving_rate(st, prompts))
+        probe = TickProbe(torch, gen, loaded, n_layers)
+        serve(torch, pt, kern, loaded, prompts, warm, impl="qblock",
+              probes=[probe])
+    for i, (a, b) in enumerate(zip(*runs)):
+        same_bits(torch, f"Llama O2 q-block engine stream {i}", a, b)
+    del direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    fc = flash_cap.best
+    res["b1_errs"] = compare_flash_case(
+        torch, fa, *(fc[k].transpose(1, 2) for k in ("q", "k", "v")), True,
+        0, 0, "loaded Llama O2 prefill, layer 0")
+    dc = dec_cap.best
+    res["b4_errs"] = compare_paged(torch, pa, dc["q"], dc["kp"], dc["vp"],
+                                   dc["tables"], dc["ctx"],
+                                   "loaded Llama O2 paged decode, layer 0")
+    res["ragged_errs"] = {}
+    for name, cap in (("mixed", probe.best), ("decode", probe.decode)):
+        res["ragged_errs"][name], _ = compare_kernels(
+            torch, rpa, cap["q"], cap["kp"], cap["vp"], cap["tbl"],
+            cap["desc"], f"loaded Llama O2 {name} tick, layer 0")
+    res["timed"] = {
+        "flash_prefill": zoo_time_flash(torch, fa, fc,
+                                        "loaded Llama O2 generate prefill"),
+        "paged": zoo_time_paged(torch, pa, dc,
+                                "loaded Llama O2 decode step"),
+        **{f"ragged_{name}": zoo_time_ragged(
+            torch, rpa, cap, f"loaded Llama O2 {name} tick")
+           for name, cap in (("mixed", probe.best),
+                             ("decode", probe.decode))}}
+    del probe, dec_cap, flash_cap, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def hf_zoo_phase(torch, pt, amp, fa, pa, rpa, kern, tmp, smi):
+    """13(a) GPT-2's layout at GPT-3-1.3B widths (2 layers), BERT-base and
+    T5-v1.1-small: each checkpoint through its loader against the model
+    set directly from the same tensors: parameters, fp32 outputs and a
+    greedy stream (GPT under O2 on bf16 pages: B1 and kernel 4
+    ``<bf16, bf16>``; BERT's eval at 8 x 512: B1 fp32 d 64), bit for bit."""
+    from paddle_tpu_torch.models import bert as bert_mod
+    from paddle_tpu_torch.models import gpt as gpt_mod
+    from paddle_tpu_torch.models import pretrained
+    from paddle_tpu_torch.models import t5 as t5_mod
+    res = {"launches": {}}
+    rng = np.random.RandomState(137)
+    # GPT-2 layout at GPT-3-1.3B widths
+    cfg = gpt_mod.gpt3_1p3b(hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+    cfg.num_hidden_layers = HF_GPT_LAYERS
+    tensors, port, config = hf_gpt2(torch, cfg, DEV, seed=132)
+    path = os.path.join(tmp, "gpt2")
+    nbytes = write_hf_dir(torch, path, config, tensors)
+    loaded, res["gpt_load"] = hf_load(
+        torch, lambda: pretrained.load_gpt_from_hf(
+            gpt_mod.GPTForCausalLM(cfg, device=DEV), path), nbytes, smi,
+        "load_gpt_from_hf (GPT-2 layout, GPT-3-1.3B widths, fp32)")
+    direct = fill_direct(torch, gpt_mod.GPTForCausalLM(cfg, device=DEV,
+                                                       seed=5),
+                         tensors, port)
+    del tensors
+    same_params(torch, loaded, direct, "GPT-2 layout")
+    batch = rng.randint(0, cfg.vocab_size, (4, 256))
+    ids = torch.as_tensor(batch, device=DEV)
+    for m in (loaded, direct):
+        m.eval()
+    with torch.inference_mode():
+        same_bits(torch, "GPT fp32 logits (4 x 256)", loaded(ids),
+                  direct(ids))
+    gens = []
+    for m in (loaded, direct):
+        amp.decorate(m, level="O2", dtype="bfloat16")
+        out, st = zoo_generate(torch, amp, kern, fa, pa, rpa, m, batch, True)
+        check_variants("GPT O2 generate (paged)", st["by_variant"], {
+            "flash": {"bfloat16 d128 g1 causal": cfg.num_hidden_layers},
+            "paged": {"bfloat16/bfloat16": cfg.num_hidden_layers
+                      * (NEW_TOKENS - 1)}})
+        gens.append(out)
+        res["launches"].setdefault("13a GPT O2 generate paged",
+                                   st["launches"])
+    same_bits(torch, "GPT O2 generate stream (paged)", *gens)
+    del loaded, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    # BERT-base, all 12 layers
+    cfg = bert_mod.bert_base(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    tensors, port, config = hf_bert(torch, cfg, DEV, seed=133)
+    path = os.path.join(tmp, "bert")
+    nbytes = write_hf_dir(torch, path, config, tensors)
+    bcfg = pretrained.bert_config_from_hf(path)
+    loaded, res["bert_load"] = hf_load(
+        torch, lambda: pretrained.load_bert_from_hf(
+            bert_mod.BertModel(bcfg, device=DEV), path), nbytes, smi,
+        "load_bert_from_hf (BERT-base, fp32)")
+    direct = fill_direct(torch, bert_mod.BertModel(cfg, device=DEV,
+                                                   seed=5), tensors, port)
+    del tensors
+    same_params(torch, loaded, direct, "BERT-base")
+    ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, HF_BERT_EVAL),
+                          device=DEV)
+    outs = []
+    for m in (loaded, direct):
+        m.eval()
+        zero_counts(kern)
+        with torch.inference_mode():
+            outs.append(m(ids))
+        check_variants("BERT-base fp32 eval (8 x 512)",
+                       by_variant(fa, pa, rpa),
+                       {"flash": {"float32 d64 g1 full":
+                                  cfg.num_hidden_layers}})
+        res["launches"].setdefault("13a BERT-base fp32 eval",
+                                   read_counts(kern))
+    same_bits(torch, "BERT-base sequence output", outs[0][0], outs[1][0])
+    same_bits(torch, "BERT-base pooled output", outs[0][1], outs[1][1])
+    del loaded, direct, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # T5-v1.1-small: gated GeLU, untied head
+    cfg = t5_mod.T5Config(vocab_size=32128, d_model=512, d_kv=64, d_ff=1024,
+                          num_layers=8, num_decoder_layers=8, num_heads=6,
+                          feed_forward_proj="gated-gelu",
+                          tie_word_embeddings=False, dropout_rate=0.0)
+    tensors, port, config = hf_t5(torch, cfg, DEV, seed=134)
+    path = os.path.join(tmp, "t5")
+    nbytes = write_hf_dir(torch, path, config, tensors)
+    loaded, res["t5_load"] = hf_load(
+        torch, lambda: t5_mod.T5ForConditionalGeneration.from_pretrained(
+            path, device=DEV), nbytes, smi,
+        "T5ForConditionalGeneration.from_pretrained (v1.1 small, fp32)")
+    direct = fill_direct(torch, t5_mod.T5ForConditionalGeneration(
+        cfg, device=DEV, seed=5), tensors, port)
+    del tensors
+    same_params(torch, loaded, direct, "T5-v1.1-small")
+    src = torch.as_tensor(rng.randint(2, cfg.vocab_size, (4, 64)),
+                          device=DEV)
+    dec = torch.as_tensor(rng.randint(2, cfg.vocab_size, (4, 16)),
+                          device=DEV)
+    for m in (loaded, direct):
+        m.eval()
+    with torch.inference_mode():
+        same_bits(torch, "T5 fp32 logits", loaded(src, decoder_input_ids=dec),
+                  direct(src, decoder_input_ids=dec))
+    same_bits(torch, "T5 greedy generate stream",
+              loaded.generate(src, max_new_tokens=NEW_TOKENS),
+              direct.generate(src, max_new_tokens=NEW_TOKENS))
+    del loaded, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def signal_phase(torch, pt, smi):
+    """13(b): the audio features on AUDIO_CLIPS clips of 10 s at 16 kHz,
+    an ``stft`` -> ``istft`` round trip and the 22 ``fft`` functions on
+    FFT_SHAPE real and complex inputs, each against the CPU within
+    SIGNAL_TOL of its largest magnitude (fp32, TF32 off) and timed."""
+    from paddle_tpu_torch import audio, fft, signal
+    gen = torch.Generator(DEV).manual_seed(141)
+    clips = 0.1 * torch.randn(AUDIO_CLIPS, AUDIO_SAMPLES, device=DEV,
+                              generator=gen)
+    clips_cpu = clips.cpu()
+    res = {}
+
+    def held(name, fn, args, args_cpu, iters=10):
+        got, want = fn(*args), fn(*args_cpu)
+        err = rel_to_max(torch, torch.view_as_real(got) if got.is_complex()
+                         else got, torch.view_as_real(want)
+                         if want.is_complex() else want)
+        check(f"{name} card vs CPU (of the largest)", err, SIGNAL_TOL)
+        ms = time_ms(torch, lambda: fn(*args), iters=iters, warmup=2)
+        res[name] = {"max_rel_err": err, "ms": ms,
+                     "shape": list(got.shape)}
+        log(f"  {name}: {ms:.4f} ms on the card ({smi})")
+        return got
+
+    feats = {"Spectrogram": audio.Spectrogram(n_fft=512, hop_length=160),
+             "MelSpectrogram": audio.MelSpectrogram(
+                 sr=AUDIO_SR, n_fft=512, hop_length=160, n_mels=80),
+             "LogMelSpectrogram": audio.LogMelSpectrogram(
+                 sr=AUDIO_SR, n_fft=512, hop_length=160, n_mels=80),
+             "MFCC": audio.MFCC(sr=AUDIO_SR, n_mfcc=40, n_mels=80,
+                                n_fft=512, hop_length=160)}
+    for name, f in feats.items():
+        held(f"{name} [{AUDIO_CLIPS}, {AUDIO_SAMPLES}]", f, (clips,),
+             (clips_cpu,))
+    win = torch.from_numpy(np.hanning(512).astype(np.float32))
+    wins = (win.to(DEV), win)
+    sp = held("stft n_fft 512 hop 160", lambda x, w: signal.stft(
+        x, 512, 160, window=w), (clips, wins[0]), (clips_cpu, wins[1]))
+    back = held("istft n_fft 512 hop 160", lambda s, w: signal.istft(
+        s, 512, 160, window=w, length=AUDIO_SAMPLES),
+        (sp, wins[0]), (sp.cpu(), wins[1]))
+    res["round_trip_rel_err"] = rel_to_max(torch, back, clips)
+    check("stft -> istft round trip (of the largest sample)",
+          res["round_trip_rel_err"], SIGNAL_TOL)
+    del sp, back
+    real = torch.randn(FFT_SHAPE, device=DEV, generator=gen)
+    cplx = torch.complex(torch.randn(FFT_SHAPE, device=DEV,
+                                     generator=gen),
+                         torch.randn(FFT_SHAPE, device=DEV,
+                                     generator=gen))
+    takes_complex = {"fft", "ifft", "irfft", "hfft", "fft2", "ifft2",
+                     "irfft2", "hfft2", "fftn", "ifftn", "irfftn", "hfftn"}
+    for name in fft.__all__:
+        if name in ("fftfreq", "rfftfreq"):
+            n = FFT_SHAPE[1]
+            got = getattr(fft, name)(n, 0.5)
+            prev = pt.get_device()
+            pt.set_device("cpu")
+            try:
+                want = getattr(fft, name)(n, 0.5)
+            finally:
+                pt.set_device(prev)
+            if got.device.type != torch.device(DEV).type:
+                raise AssertionError(f"{name}: on {got.device}")
+            check(f"fft.{name} card vs CPU (of the largest)",
+                  rel_to_max(torch, got, want), SIGNAL_TOL)
+            continue
+        x = cplx if name in takes_complex else real
+        held(f"fft.{name} {list(FFT_SHAPE)}"
+             f" {'complex' if x.is_complex() else 'real'}",
+             getattr(fft, name), (x,), (x.cpu(),))
+    return res
+
+
+class CifarTrain:
+    """13(c)'s loop: ResNet-18 (10 classes) under O2 with Momentum on
+    ``DataLoader`` batches; keeps the first batch and each step's host
+    time to a device sync."""
+
+    def __init__(self, torch, pt, amp):
+        self.torch = torch
+        pt.seed(151)
+        self.model = pt.vision.models.resnet18(num_classes=10)
+        opt = pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                                    parameters=self.model.parameters(),
+                                    weight_decay=pt.optimizer.L2Decay(5e-4))
+        self.model, self.opt = amp.decorate(self.model, opt, level="O2",
+                                            dtype="bfloat16")
+        self.amp, self.loss_fn = amp, pt.nn.CrossEntropyLoss()
+        self.model.train()
+
+    def run(self, loader):
+        torch = self.torch
+        first, losses, step_s = None, [], []
+        for x, y in loader:
+            if first is None:
+                first = (x.cpu(), y.cpu())
+            t0 = time.perf_counter()
+            with self.amp.auto_cast(**AMP_O2):
+                loss = self.loss_fn(self.model(x), y)
+            loss.backward()
+            self.opt.step()
+            self.opt.clear_grad()
+            losses.append(float(loss.detach()))
+            step_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return first, losses, step_s
+
+
+def cifar_phase(torch, pt, amp, tmp, smi):
+    """13(c): a CIFAR-10 tarball in the cache layout (the pickled-batch
+    format, pixels from a seed), read by ``vision.datasets.Cifar10`` with
+    PaddleClas's CIFAR train transforms (``RandomCrop(32, padding=4)``,
+    ``RandomHorizontalFlip``, ``Normalize``, ``Transpose``) in
+    CIFAR_WORKERS ``DataLoader`` workers, into O2 steps of ResNet-18 at
+    CIFAR_BATCH: images/s and the loop's wait per batch; the first batch
+    the workers sent equal to a CPU loader's under the same seed."""
+    import io as _io
+    import pickle
+    import tarfile
+    from paddle_tpu_torch.vision import datasets, transforms as T
+    rng = np.random.default_rng(152)
+    path = os.path.join(tmp, "cifar", "cifar-10-python.tar.gz")
+    os.makedirs(os.path.dirname(path))
+    with tarfile.open(path, "w:gz", compresslevel=1) as tf:
+        for name in [f"data_batch_{i}" for i in range(1, 6)] + [
+                "test_batch"]:
+            blob = pickle.dumps({
+                b"batch_label": name.encode(),
+                b"labels": rng.integers(0, 10, CIFAR_PER_FILE).tolist(),
+                b"data": rng.integers(0, 256, (CIFAR_PER_FILE, 3072),
+                                      dtype=np.uint8),
+                b"filenames": [b"%d.png" % i
+                               for i in range(CIFAR_PER_FILE)]})
+            info = tarfile.TarInfo(f"cifar-10-batches-py/{name}")
+            info.size = len(blob)
+            tf.addfile(info, _io.BytesIO(blob))
+    ds = datasets.Cifar10(data_file=path, mode="train", transform=T.Compose([
+        T.RandomCrop(32, padding=4), T.RandomHorizontalFlip(),
+        T.Normalize(CIFAR_MEAN, CIFAR_STD, data_format="HWC"),
+        T.Transpose()]))
+
+    def loader(places=None):
+        return pt.io.DataLoader(ds, places=places, batch_size=CIFAR_BATCH,
+                                shuffle=True, drop_last=True,
+                                num_workers=CIFAR_WORKERS)
+    trainer = CifarTrain(torch, pt, amp)
+    np.random.seed(153)
+    warm = loader()
+    trainer.run(warm)                   # cuDNN's and the loader's first use
+    np.random.seed(154)
+    timed = loader()
+    t0 = time.perf_counter()
+    first, losses, step_s = trainer.run(timed)
+    wall = time.perf_counter() - t0
+    np.random.seed(154)
+    cpu = loader(places="cpu")
+    cpu_first = next(iter(cpu))
+    for _ in cpu:
+        pass
+    for a, b, what in ((first[0], cpu_first[0], "images"),
+                       (first[1], cpu_first[1], "labels")):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"CIFAR-10: the workers' first batch's "
+                                 f"{what} differ from the CPU loader's")
+    log("  CIFAR-10: the first batch off the card's loader equals the CPU "
+        "loader's under the same seed (images and labels)")
+    steps = len(losses)
+    if steps != 5 * CIFAR_PER_FILE // CIFAR_BATCH or \
+            not all(np.isfinite(losses)):
+        raise AssertionError(f"CIFAR-10 steps: {steps}, losses {losses}")
+    res = {"steps": steps, "losses": losses, "wall_s": wall,
+           "images_per_s": steps * CIFAR_BATCH / wall,
+           "step_ms": [s * 1e3 for s in step_s],
+           "loader": dict(timed.stats)}
+    res["wait_ms_per_batch"] = (res["loader"]["wait_s"]
+                                / max(res["loader"]["batches"], 1) * 1e3)
+    log(f"  ResNet-18 O2 at batch {CIFAR_BATCH} on CIFAR-10 through "
+        f"{CIFAR_WORKERS} workers ({smi}): {steps} steps, losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; {res['images_per_s']:.1f} images/s, the loop's wait "
+        f"{res['wait_ms_per_batch']:.2f} ms a batch (max "
+        f"{res['loader']['max_wait_s'] * 1e3:.2f} ms), median step "
+        f"{float(np.median(res['step_ms'])):.2f} ms of host time")
+    return res
+
+
+def viterbi_phase(torch, smi):
+    """13(d): ``viterbi_decode`` at VITERBI_SHAPE with BOS/EOS and lengths
+    16-128 on the card: paths equal to the CPU's, scores within 1e-5 of
+    their largest magnitude; timed."""
+    from paddle_tpu_torch import text
+    b, t, n = VITERBI_SHAPE
+    gen = torch.Generator(DEV).manual_seed(161)
+    emis = torch.randn(VITERBI_SHAPE, device=DEV, generator=gen)
+    trans = torch.randn(n + 2, n + 2, device=DEV, generator=gen)
+    lens = torch.as_tensor(np.random.RandomState(162).randint(16, t + 1, b),
+                           device=DEV)
+    score, path = text.viterbi_decode(emis, trans, lens)
+    cscore, cpath = text.viterbi_decode(emis.cpu(), trans.cpu(), lens.cpu())
+    if path.dtype != torch.int64 or not torch.equal(path.cpu(), cpath):
+        raise AssertionError("viterbi_decode: the card's paths differ from "
+                             "the CPU's")
+    err = rel_to_max(torch, score, cscore)
+    check("viterbi_decode scores card vs CPU (of the largest)", err, 1e-5)
+    ms = time_ms(torch, lambda: text.viterbi_decode(emis, trans, lens),
+                 iters=10, warmup=2)
+    log(f"  viterbi_decode {list(VITERBI_SHAPE)} with BOS/EOS: paths equal "
+        f"the CPU's; {ms:.3f} ms ({smi})")
+    return {"max_rel_err": err, "ms": ms}
+
+
+def pretrained_phase(torch, pt, amp, fa, pa, rpa, gen, nn_functional, kern,
+                     smi):
+    """Phase 13: HF checkpoints loaded and served, the spectral features,
+    the data pipeline and Viterbi decoding on the card."""
+    import tempfile
+    t0 = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="hf_ckpt_") as tmp:
+        phase(f" 13(a): HF checkpoints: Llama-3-8B widths at "
+              f"{HF_LLAMA_LAYERS} layers (bf16, two shards) through "
+              f"from_pretrained, served under O2; GPT-2's layout at "
+              f"GPT-3-1.3B widths ({HF_GPT_LAYERS} layers), BERT-base, "
+              f"T5-v1.1-small")
+        res["llama"] = hf_llama_phase(torch, pt, amp, fa, pa, rpa, gen,
+                                      nn_functional, kern, tmp, smi)
+        res["zoo"] = hf_zoo_phase(torch, pt, amp, fa, pa, rpa, kern, tmp,
+                                  smi)
+        phase(f" 13(b): audio features on {AUDIO_CLIPS} clips of 10 s at "
+              f"16 kHz, stft/istft, the 22 fft functions on "
+              f"{list(FFT_SHAPE)}")
+        res["signal"] = signal_phase(torch, pt, smi)
+        phase(f" 13(c): CIFAR-10 through Cifar10 + transforms in "
+              f"{CIFAR_WORKERS} workers into ResNet-18 O2 steps")
+        res["cifar"] = cifar_phase(torch, pt, amp, tmp, smi)
+    phase(f" 13(d): viterbi_decode at {list(VITERBI_SHAPE)}")
+    res["viterbi"] = viterbi_phase(torch, smi)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 13 took {res['seconds']:.1f} s")
+    return res
+
+
+def add_pretrained_launches(rows, p13):
+    """Phase 13's launches into the kernel rows by path, the loaded
+    Llama's timed shapes under ``pretrained_shapes`` and its layer-0
+    errors."""
+    ll = p13["llama"]
+    paths = {**ll["launches"], **p13["zoo"]["launches"]}
+    t = ll["timed"]
+    shapes = {"flash_fwd_wgmma": [t["flash_prefill"]],
+              "paged_decode_mixed": [t["paged"]],
+              "ragged_qblock_mixed": [t["ragged_mixed"]["qblock"],
+                                      t["ragged_decode"]["qblock"]]}
+    errs = {"flash_fwd_wgmma": ll["b1_errs"]["bf16"],
+            "flash_fwd_simt": ll["b1_errs"]["fp32"]}
+    add_path_launches(rows, paths, shapes, errs, "pretrained_shapes")
 
 
 def llama_phases(torch, pt, amp, gen, nn_functional, fa, fused, ost,
@@ -10291,7 +11140,7 @@ def llama_phases(torch, pt, amp, gen, nn_functional, fa, fused, ost,
 #: the phases after the build that a run may select, in the order they
 #: run; 2 to 6 share one Llama-3-8B, its runs and its captures, so they
 #: run as one unit
-PHASES = ("2-6", "7", "8", "9", "10", "11", "12")
+PHASES = ("2-6", "7", "8", "9", "10", "11", "12", "13")
 
 
 def selected_phases(argv):
@@ -10405,6 +11254,17 @@ def main(argv=None):
         if rows is not None:
             add_vision_launches(rows, vis)
         log(json.dumps({"vision": vis}, default=str))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "13" in run:
+        phase("phase 13: Hugging Face checkpoints loaded and served, the "
+              "audio features and fft, CIFAR-10 through the data pipeline, "
+              "Viterbi decoding")
+        p13 = pretrained_phase(torch, pt, amp, fa, pa, rpa, gen,
+                               nn_functional, kern, smi.stdout.strip())
+        if rows is not None:
+            add_pretrained_launches(rows, p13)
+        log(json.dumps({"pretrained": p13}, default=str))
         gc.collect()
         torch.cuda.empty_cache()
     if rows is not None:

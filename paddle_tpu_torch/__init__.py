@@ -69,6 +69,13 @@ and ``callbacks`` what ``Model.fit`` (``hapi.py``: ``paddle.Model``,
 ``summary``, ``flops``) reports to; ``jit.to_static`` compiles a layer or
 function with ``torch.compile``, flash attention's kernels staying
 custom ops inside it.
+
+Local Hugging Face checkpoints (Llama, GPT-2, BERT, T5) load through
+``models.pretrained`` (``LlamaForCausalLM.from_pretrained``).
+``vision.transforms`` and ``vision.datasets`` are Paddle's host-side
+data pipeline; ``fft``, ``signal`` and ``audio`` the spectral ops and
+features on ``torch.fft``; ``text`` Viterbi decoding and the text
+datasets.
 """
 import sys as _sys
 
@@ -98,6 +105,7 @@ from .inference.serving import ContinuousServingEngine, ServingEngine
 from .models.llama import (LlamaConfig, LlamaForCausalLM,
                            LlamaPretrainingCriterion, llama3_8b, llama_tiny)
 from . import autograd, callbacks, incubate, io, jit, metric, models
+from . import audio, fft, signal, text
 from .autograd import (PyLayer, enable_grad, grad, is_grad_enabled, no_grad,
                        set_grad_enabled)
 from .hapi import Model, flops, summary
@@ -120,7 +128,7 @@ __all__ = ["LlamaForCausalLM", "LlamaConfig", "LlamaPretrainingCriterion",
            "cov", "corrcoef", "Tensor", "Place", "CPUPlace", "CUDAPlace",
            "device_count", "is_compiled_with_cuda", "is_compiled_with_xpu",
            "autograd", "callbacks", "incubate", "io", "jit", "metric",
-           "models", "PyLayer",
+           "models", "audio", "fft", "signal", "text", "PyLayer",
            "enable_grad", "grad", "is_grad_enabled", "no_grad",
            "set_grad_enabled", "Model", "flops", "summary", "disable_static",
            "enable_static", "in_dynamic_mode"] + tensor.__all__

@@ -21,6 +21,11 @@ from .mixtral import (MixtralConfig, MixtralForCausalLM,  # noqa: F401
                       mixtral_tiny)
 from .ppyoloe import (PPYOLOE, CSPBackbone, DetectionLoss,  # noqa: F401
                       ETHead, FPNNeck, ppyoloe_lite)
+from .pretrained import (bert_config_from_hf,  # noqa: F401
+                         llama_config_from_hf, load_bert_from_hf,
+                         load_gpt_from_hf, load_hf_config,
+                         load_llama_from_hf, load_t5_from_hf,
+                         t5_config_from_hf)
 from .t5 import T5Config, T5ForConditionalGeneration, t5_tiny  # noqa: F401
 
 __all__ = [
@@ -34,5 +39,7 @@ __all__ = [
     "BertForPretraining", "ErnieConfig", "ErnieModel",
     "ErnieForSequenceClassification", "bert_base", "bert_tiny",
     "PPYOLOE", "DetectionLoss", "ppyoloe_lite", "CSPBackbone", "FPNNeck",
-    "ETHead",
+    "ETHead", "load_hf_config", "llama_config_from_hf",
+    "bert_config_from_hf", "t5_config_from_hf", "load_llama_from_hf",
+    "load_gpt_from_hf", "load_bert_from_hf", "load_t5_from_hf",
 ]

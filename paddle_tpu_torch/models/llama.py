@@ -263,6 +263,20 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
 
     supports_cache = True
 
+    @classmethod
+    def from_pretrained(cls, model_dir, dtype="float32", device=None,
+                        **overrides):
+        """Build from a local HF Llama checkpoint directory
+        (``config.json`` plus safetensors or ``pytorch_model*.bin``;
+        :mod:`~paddle_tpu_torch.models.pretrained`) on ``device``, every
+        weight rounded to ``dtype`` in float32 parameters, as the
+        reference's are. ``overrides`` replace config fields."""
+        from .pretrained import llama_config_from_hf, load_llama_from_hf
+        dev = resolve_device(device)
+        cfg = llama_config_from_hf(model_dir, dtype=dtype, **overrides)
+        return load_llama_from_hf(cls(cfg, device=dev), model_dir,
+                                  dtype=dtype)
+
     def __init__(self, config, device=None, seed=0):
         super().__init__()
         dev = resolve_device(device)

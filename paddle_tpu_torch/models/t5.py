@@ -15,8 +15,8 @@ them (a torch ``log`` could move a bucket at a boundary).
 ``T5ForConditionalGeneration(config, device=None, seed=0)``:
 ``device=None`` means ``"cuda"`` and raises where CUDA is absent; the
 parameters are drawn from a ``torch.Generator`` seeded with ``seed``,
-each by the reference's initializer. Loading a local HF checkpoint
-(``from_pretrained``) waits for the port of ``models/pretrained.py``.
+each by the reference's initializer. ``from_pretrained`` loads a local
+HF checkpoint (:mod:`~paddle_tpu_torch.models.pretrained`).
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import amp
+from .._device import resolve_device
 from ..amp import sites
 from ..nn import functional as F
 from ..nn.initializer import Normal
@@ -256,6 +257,17 @@ class T5ForConditionalGeneration(Layer):
     labels shifted right when not given; -100 ignored). With
     ``tie_word_embeddings=False`` the head is its own unscaled
     ``lm_head``."""
+
+    @classmethod
+    def from_pretrained(cls, model_dir, dtype="float32", device=None,
+                        **overrides):
+        """Build from a local HF T5 checkpoint directory on ``device``
+        (:mod:`~paddle_tpu_torch.models.pretrained`), every weight
+        rounded to ``dtype``; ``overrides`` replace config fields."""
+        from .pretrained import load_t5_from_hf, t5_config_from_hf
+        dev = resolve_device(device)
+        cfg = t5_config_from_hf(model_dir, **overrides)
+        return load_t5_from_hf(cls(cfg, device=dev), model_dir, dtype=dtype)
 
     def __init__(self, config, device=None, seed=0):
         super().__init__()

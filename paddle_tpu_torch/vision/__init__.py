@@ -1,8 +1,7 @@
 """``paddle.vision`` (port of ``paddle_tpu/vision/``): ``models``,
-``ops``, ``set_image_backend`` / ``get_image_backend`` and
-``image_load``. The reference's datasets and transforms are not ported
-yet."""
-from . import models, ops  # noqa: F401
+``ops``, ``transforms``, ``datasets``, ``set_image_backend`` /
+``get_image_backend`` and ``image_load``."""
+from . import datasets, models, ops, transforms  # noqa: F401
 
 
 def set_image_backend(backend):

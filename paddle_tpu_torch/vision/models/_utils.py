@@ -16,6 +16,32 @@ model_urls = {
         "https://paddle-hapi.bj.bcebos.com/models/resnet101.pdparams",
     "resnet152":
         "https://paddle-hapi.bj.bcebos.com/models/resnet152.pdparams",
+    "vgg16": "https://paddle-hapi.bj.bcebos.com/models/vgg16.pdparams",
+    "vgg19": "https://paddle-hapi.bj.bcebos.com/models/vgg19.pdparams",
+    "mobilenetv1_1.0":
+        "https://paddle-hapi.bj.bcebos.com/models/mobilenetv1_1.0.pdparams",
+    "mobilenetv2_1.0":
+        "https://paddle-hapi.bj.bcebos.com/models/mobilenet_v2_x1.0.pdparams",
+    "lenet": "https://paddle-hapi.bj.bcebos.com/models/lenet.pdparams",
+    "alexnet": "https://paddle-hapi.bj.bcebos.com/models/alexnet.pdparams",
+    "squeezenet1_0":
+        "https://paddle-hapi.bj.bcebos.com/models/squeezenet1_0.pdparams",
+    "squeezenet1_1":
+        "https://paddle-hapi.bj.bcebos.com/models/squeezenet1_1.pdparams",
+    "mobilenet_v3_small_1.0":
+        "https://paddle-hapi.bj.bcebos.com/models/"
+        "mobilenet_v3_small_x1.0.pdparams",
+    "mobilenet_v3_large_1.0":
+        "https://paddle-hapi.bj.bcebos.com/models/"
+        "mobilenet_v3_large_x1.0.pdparams",
+    "shufflenet_v2_x1_0":
+        "https://paddle-hapi.bj.bcebos.com/models/shufflenet_v2_x1_0.pdparams",
+    "densenet121":
+        "https://paddle-hapi.bj.bcebos.com/models/densenet121.pdparams",
+    "googlenet":
+        "https://paddle-hapi.bj.bcebos.com/models/googlenet.pdparams",
+    "inception_v3":
+        "https://paddle-hapi.bj.bcebos.com/models/inception_v3.pdparams",
 }
 
 WEIGHTS_HOME = os.path.join("~", ".cache", "paddle_tpu", "weights")

@@ -340,3 +340,104 @@ def test_chip_smoke_defines_each_top_level_name_once():
     names = [n.name for n in tree.body
              if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
     assert sorted(n for n in set(names) if names.count(n) > 1) == []
+
+
+_DATA_LIBS = {
+    "pretrained": "import json, os, tempfile, torch\n"
+                  "from paddle_tpu_torch.models import pretrained, llama\n"
+                  "d = tempfile.mkdtemp()\n"
+                  "m = llama.LlamaForCausalLM(llama.llama_tiny(), "
+                  "device='cpu')\n"
+                  "torch.save({('model.' + k[6:] if k.startswith('llama.')"
+                  " else k): v for k, v in m.state_dict().items()},\n"
+                  "           os.path.join(d, 'pytorch_model.bin'))\n"
+                  "json.dump(dict(vocab_size=128, hidden_size=64,\n"
+                  "    intermediate_size=176, num_hidden_layers=2,\n"
+                  "    num_attention_heads=4, num_key_value_heads=2),\n"
+                  "    open(os.path.join(d, 'config.json'), 'w'))\n"
+                  "n = llama.LlamaForCausalLM.from_pretrained(d, "
+                  "device='cpu')\n"
+                  "assert torch.equal(n([[1, 2]]), m([[1, 2]]))\n",
+    "fft_signal": "import torch\n"
+                  "from paddle_tpu_torch import fft, signal\n"
+                  "x = torch.randn(2, 256)\n"
+                  "fft.hfftn(fft.rfft2(x))\n"
+                  "signal.istft(signal.stft(x, 64), 64)\n",
+    "audio": "import torch\n"
+             "from paddle_tpu_torch import audio\n"
+             "audio.MFCC(sr=16000)(torch.randn(1, 4000))\n",
+    "text": "import torch\n"
+            "from paddle_tpu_torch import text\n"
+            "text.viterbi_decode(torch.randn(2, 5, 3), torch.randn(5, 5))\n"
+            "text.UCIHousing(synthetic=4)[0]\n",
+    "vision_data": "import numpy as np\n"
+                   "from paddle_tpu_torch.vision import datasets, "
+                   "transforms as T\n"
+                   "ds = datasets.FakeData(size=2, transform=T.Compose([\n"
+                   "    T.RandomResizedCrop(16), T.ToTensor()]))\n"
+                   "ds[0]\n",
+}
+
+
+@pytest.mark.parametrize("lib", sorted(_DATA_LIBS))
+def test_data_libraries_pull_in_no_jax(lib):
+    """``models.pretrained``, ``fft``, ``signal``, ``audio``, ``text``,
+    ``vision.datasets`` and ``vision.transforms`` alone, each run on the
+    CPU with neither JAX nor the reference imported."""
+    code = ("import sys\n" + _DATA_LIBS[lib]
+            + "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith(('jax.', 'jaxlib')) or k == 'paddle_tpu' or "
+            "k.startswith('paddle_tpu.') or k == 'safetensors' or "
+            "k.startswith('safetensors.'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_from_pretrained_refuses_cpu_without_being_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid")
+    import paddle_tpu_torch as pt
+    with pytest.raises(RuntimeError):
+        pt.LlamaForCausalLM.from_pretrained(str(tmp_path))
+    with pytest.raises(RuntimeError):
+        pt.models.T5ForConditionalGeneration.from_pretrained(str(tmp_path))
+
+
+def test_transforms_and_datasets_leave_cuda_uninitialised(tmp_path):
+    """The data pipeline runs in ``DataLoader`` workers, which must not
+    touch CUDA: every transform and a dataset through a worker, then
+    ``torch.cuda.is_initialized()`` is still False."""
+    code = (
+        "import numpy as np, torch\n"
+        "import paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch import audio, text\n"
+        "from paddle_tpu_torch.vision import datasets, transforms as T\n"
+        "pt.set_device('cpu')\n"
+        "img = (np.random.rand(20, 18, 3) * 255).astype(np.uint8)\n"
+        "for t in [T.RandomCrop(12, padding=2), T.CenterCrop(8),\n"
+        "          T.RandomHorizontalFlip(1.0), T.RandomVerticalFlip(1.0),\n"
+        "          T.RandomResizedCrop(10), T.Resize(7), T.Transpose(),\n"
+        "          T.BrightnessTransform(0.2), T.ContrastTransform(0.2),\n"
+        "          T.SaturationTransform(0.2), T.HueTransform(0.1),\n"
+        "          T.ColorJitter(0.1, 0.1, 0.1, 0.1), T.Grayscale(),\n"
+        "          T.Pad(2), T.RandomRotation(10), T.RandomErasing(1.0),\n"
+        "          T.GaussianBlur(3), T.RandomAffine(5),\n"
+        "          T.RandomPerspective(1.0), T.ToTensor(),\n"
+        "          T.Compose([T.ToTensor(), T.Normalize(0.5, 0.5)])]:\n"
+        "    t(img)\n"
+        "ds = datasets.FakeData(size=8, transform=T.Compose([\n"
+        "    T.RandomCrop(32, padding=4), T.ToTensor()]))\n"
+        "for x, y in pt.io.DataLoader(ds, batch_size=4, num_workers=2):\n"
+        "    assert x.shape == (4, 3, 32, 32)\n"
+        "text.UCIHousing(synthetic=3)[0]\n"
+        "audio.Spectrogram(n_fft=64)(torch.randn(1, 400))\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

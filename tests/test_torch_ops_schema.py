@@ -181,3 +181,35 @@ def test_ops_differentiability_claim(module):
                      port_fn(case)(**tensors, **case.kwargs))
         checked += 1
     assert checked >= 5
+
+
+def _fft_signal_call(name, spec):
+    """A call of an ``fft`` / ``signal`` op on inputs that require grad
+    (a complex leaf for ``istft``; none for the frequency tables)."""
+    from paddle_tpu_torch import fft, signal
+    x = torch.randn(4, 8, dtype=torch.float64, requires_grad=True)
+    if name in ("fftfreq", "rfftfreq"):
+        return fft.__dict__[name](8)
+    if spec.module == "fft":
+        return fft.__dict__[name](x)
+    if name == "istft":
+        c = torch.randn(2, 3, 5, dtype=torch.complex128, requires_grad=True)
+        return signal.istft(c, 4)
+    args = {"frame": (4, 2), "overlap_add": (2,), "stft": (4,)}[name]
+    return signal.__dict__[name](x, *args)
+
+
+@pytest.mark.parametrize("module,count", [("fft", 22), ("signal", 4)])
+def test_fft_and_signal_ops_and_differentiability_claim(module, count):
+    """Both registries hold the module's ops, and each op's claim holds on
+    a call whose inputs require grad (complex outputs count as float
+    ones)."""
+    ref, port = _registries()
+    assert sum(s.module == module for s in ref.values()) == count
+    names = sorted(n for n, s in port.items() if s.module == module)
+    assert len(names) == count
+    for name in names:
+        outs = [o for o in flat_outputs(_fft_signal_call(name, port[name]))
+                if o.is_floating_point() or o.is_complex()]
+        assert outs and any(o.requires_grad for o in outs) == \
+            schema.differentiable(port[name]), name
