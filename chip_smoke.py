@@ -6,7 +6,8 @@
 
 Phases, each fatal on error (non-zero exit, no result line). With no
 arguments all run; ``--phases`` picks some of 2-6 (one unit: they share
-one model and its captures), 7, 8, 9, 10, 11, 12 and 13 after the build, and
+one model and its captures), 7, 8, 9, 10, 11, 12, 13 and 14 after the
+build, and
 such a run ends on a ``{"partial": ...}`` line instead of the result
 line:
 
@@ -371,7 +372,8 @@ line:
    every step, no attention kernel but the port's in a traced step; a
    two-layer fp32 copy (TF32 off) compiled against eager, the loss within
    1e-5 and every gradient within 1e-4 of the largest; (b) PaddleClas's
-   ResNet-50 recipe through ``paddle.Model.fit`` (Momentum 0.1/0.9,
+   ResNet-50 recipe (the network cut to HAPI_BLOCKS bottleneck blocks a
+   stage) through ``paddle.Model.fit`` (Momentum 0.1/0.9,
    L2Decay 1e-4, top-1 and top-5 ``Accuracy``; fp32) over a seeded
    in-memory CIFAR-shaped set (``DataLoader``, batch 256, shuffled,
    ``drop_last``, four workers), HAPI_ITERS steps eager and with the
@@ -447,7 +449,29 @@ line:
    workers into O2 ResNet-18 steps at 256 (images/s, the loop's wait;
    the first batch equal to a CPU loader's under the same seed); (d)
    ``viterbi_decode`` at [64, 128, 50] against the CPU (paths equal).
-   Prints a ``{"pretrained": ...}`` line.
+   Prints a ``{"pretrained": ...}`` line;
+14. ``geometric``, ``sparse`` and ``distribution`` (``phase14``; no
+   kernel of the table runs here: these modules run PyTorch's and
+   cuSPARSE's / cuDNN's calls, as the reference runs XLA's): (a) OGB's
+   GCN (3 layers, hidden 256, dropout 0.5) on an ogbn-arxiv-sized graph
+   (169,343 nodes, 1,166,243 edges from a seed with skewed degrees, plus
+   self loops), aggregating by ``geometric.send_ue_recv`` and by
+   ``sparse.matmul`` on the CSR adjacency: both routes' logits and
+   first-step gradients against the CPU's fp32 and an fp64 run by phase
+   8's rule, Adam steps a route, and ``send_u_recv`` sum / mean / max,
+   ``send_ue_recv``, ``send_uv`` held and timed; (b) sparse attention
+   over BigBird-base's pattern (blocks of 64, 3 sliding, 2 global, 3
+   random, 12 heads of 64) timed at 4096 tokens beside SDPA with the same
+   boolean mask, held against the CPU at 1024; (c) SECOND's
+   ``SubmConv3D`` and stride-2 ``Conv3D`` (4 -> 16, kernel 3) on KITTI's
+   [41, 1600, 1408] grid with 16,000 voxels, weights carried from the
+   CPU, timed, and held against the CPU on [41, 200, 176] at the same
+   occupancy (patterns equal); (d) Categorical over 128,256 tokens at
+   batch 64, a 256-dim MultivariateNormal at batch 1024, the Gamma, Beta
+   and Dirichlet reparameterised gradients at 4096 x 64, a SAC
+   tanh-Normal head, every KL pair: deterministic functions against the
+   CPU, sample moments within 5 standard errors. Prints a
+   ``{"graph_sparse_distribution": ...}`` line.
 
 Prints a ``{"graph_breakdown": ...}`` line (phases 3f and 3g, per engine
 and mode), a ``{"spec": ...}`` line (3h, 3i, 4(d), 4(e)), an
@@ -460,7 +484,8 @@ line (phase 12; B1-B3's and K-A's rows count its launches, B1-B3's
 carry ViT's timed shape under ``vit_shapes``), a ``{"pretrained":
 ...}`` line (phase 13; B1's, B4's and kernel 6's rows count its
 launches and carry the loaded Llama's timed shapes under
-``pretrained_shapes``), a
+``pretrained_shapes``), a ``{"graph_sparse_distribution": ...}`` line
+(phase 14), a
 ``{"kernels": [...]}`` line with all ten TPU kernels (kernel 6 and B7
 also as their runtime variants, with launches by variant and path) and the
 fused optimizer step's two (K-A and K-B, no Pallas counterpart,
@@ -6002,6 +6027,41 @@ RESNET_BATCH, RESNET_STEPS, RESNET_CHECK_BATCH = 256, 20, 8
 RESNET_FACTOR, RESNET_FLOOR = 8.0, 1e-4
 
 
+def held_to_f64(label, card_d, cpu_d, worst=None):
+    """Phase 8's rule: the card's fp32 result at most RESNET_FACTOR times
+    as far from the fp64 result as the CPU's fp32 result is, or
+    RESNET_FLOOR (distances relative to the fp64 result's largest
+    magnitude): sums on the card run in another order (atomic adds,
+    cuSPARSE, cuBLAS, cuDNN), so bits are not compared. Returns the
+    bound."""
+    tol = max(RESNET_FACTOR * cpu_d, RESNET_FLOOR)
+    where = f"; worst {worst}" if worst is not None else ""
+    check(f"{label}: card vs fp64 (cpu fp32 {cpu_d:.3e}{where})", card_d,
+          tol, "max err / max")
+    return tol
+
+
+def rel64(torch, got, want):
+    """max |got - want| / max |want| in float64 on the CPU (0 for empty)."""
+    got = got.detach().double().cpu()
+    want = want.detach().double().cpu()
+    if not want.numel():
+        return 0.0
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def f64_held(torch, label, card, cpu32, f64):
+    """``held_to_f64`` on three tensors: the card's fp32 result, the CPU's
+    and the fp64 one. The fp64 result is the port's in float64, on the
+    CPU or, where the CPU would take tens of seconds, on the card (its
+    rounding is 2^-53, so its order of summation does not matter at
+    these bounds)."""
+    card_d, cpu_d = rel64(torch, card, f64), rel64(torch, cpu32, f64)
+    held_to_f64(label, card_d, cpu_d)
+    return {"card": card_d, "cpu": cpu_d}
+
+
 def _nn_cases():
     """The functional case table of the CPU tests
     (``tests/torch_nn_cases.py``, numpy only)."""
@@ -6188,9 +6248,7 @@ def resnet_fp32_check(torch, pt):
                 continue
             card_d = dist({n: g[n] for n in keys}, {n: e[n] for n in keys})
             cpu_d = dist({n: w[n] for n in keys}, {n: e[n] for n in keys})
-            tol = max(RESNET_FACTOR * cpu_d, RESNET_FLOOR)
-            check(f"resnet50 fp32 {name} {group}: card vs fp64 (cpu fp32 "
-                  f"{cpu_d:.3e})", card_d, tol, "max err / max")
+            held_to_f64(f"resnet50 fp32 {name} {group}", card_d, cpu_d)
             errs[f"{name} {group}"] = dict(card=card_d, cpu=cpu_d)
     worst = max(errs, key=lambda k: errs[k]["card"])
     log(f"  ResNet-50 fp32 step at batch {RESNET_CHECK_BATCH} (TF32 off), "
@@ -6363,6 +6421,12 @@ LOOP_FP32_LAYERS, LOOP_FP32_LOSS_RTOL, LOOP_FP32_GRAD_TOL = 2, 1e-5, 1e-4
 #: 9(b): ResNet-50 through ``Model.fit``: batch, steps, the in-memory
 #: CIFAR-shaped set (batches' worth), workers, the steps one profile spans
 HAPI_BATCH, HAPI_ITERS, HAPI_BATCHES, HAPI_WORKERS = 256, 20, 40, 4
+#: 9(b): the bottleneck blocks kept of each of ResNet-50's four stages (3,
+#: 4, 6 and 3): the first projects, the second has the identity shortcut.
+#: At all 16 the compiled fit's first step (inductor's compile, on the
+#: host) took 121.9-161.7 s and the whole script up to 1066.9 s of 1200
+#: (NVIDIA H100 80GB HBM3, 700.00 W)
+HAPI_BLOCKS = 2
 HAPI_TRACE = (12, 14)
 #: 9(b): the first fit step against a hand-written eager step of the
 #: same network, optimizer and batch: its loss (relative), eager fit and
@@ -6668,13 +6732,23 @@ def hapi_recorder(torch, pt):
     return Recorder()
 
 
-def hapi_model(pt, compiled):
-    """PaddleClas's recipe as ``paddle.Model``: ResNet-50 (10 classes,
-    seed 2; the network under ``jit.to_static`` when ``compiled``),
-    ``Momentum(0.1, 0.9, L2Decay(1e-4))``, cross entropy, top-1 and top-5
-    accuracy; fp32, as ``hapi`` applies no AMP."""
+def hapi_net(pt):
+    """ResNet-50 (10 classes, seed 2) cut to the first HAPI_BLOCKS
+    bottleneck blocks of each stage."""
     pt.seed(2)
     net = pt.vision.models.resnet50(num_classes=10)
+    for name in ("layer1", "layer2", "layer3", "layer4"):
+        setattr(net, name, pt.nn.Sequential(
+            *list(getattr(net, name))[:HAPI_BLOCKS]))
+    return net
+
+
+def hapi_model(pt, compiled):
+    """PaddleClas's recipe as ``paddle.Model``: ``hapi_net`` (the network
+    under ``jit.to_static`` when ``compiled``), ``Momentum(0.1, 0.9,
+    L2Decay(1e-4))``, cross entropy, top-1 and top-5 accuracy; fp32, as
+    ``hapi`` applies no AMP."""
+    net = hapi_net(pt)
     if compiled:
         pt.jit.to_static(net)
     model = pt.Model(net)
@@ -6752,8 +6826,7 @@ def hand_steps(torch, pt, ds, seed, steps=2):
     network's state before and after the first update."""
     np.random.seed(seed)
     idx = np.random.permutation(len(ds))
-    pt.seed(2)
-    net = pt.vision.models.resnet50(num_classes=10)
+    net = hapi_net(pt)
     net.train()
     opt = pt.optimizer.Momentum(
         learning_rate=0.1, momentum=0.9, parameters=net.parameters(),
@@ -7588,15 +7661,12 @@ def qat_resnet(torch, pt, kern):
         got = card(x.cuda()).double().cpu()
     b10 = kern["int8_matmul"].launches
 
-    def dist(a):
-        return float((a.double() - exact).abs().max() / exact.abs().max())
-    card_d, cpu_d = dist(got), dist(want)
-    check(f"10(e) QAT-converted ResNet-50 eval logits: card vs fp64 (cpu "
-          f"fp32 {cpu_d:.3e})", card_d, max(RESNET_FACTOR * cpu_d,
-                                           RESNET_FLOOR), "max err / max")
+    held = f64_held(torch, "10(e) QAT-converted ResNet-50 eval logits", got,
+                    want, exact)
     if b10 != 1:
         raise AssertionError(f"10(e): B10 launched {b10} times, expected 1")
-    return {"card_vs_fp64": card_d, "cpu_vs_fp64": cpu_d, "b10_launches": b10}
+    return {"card_vs_fp64": held["card"], "cpu_vs_fp64": held["cpu"],
+            "b10_launches": b10}
 
 
 def phase10(torch, pt, amp, fa, ra, gen, kern, prompts, warm):
@@ -8877,6 +8947,20 @@ def vit_phase(torch, pt, amp, fa, pa, rpa, kern, smi):
     return res
 
 
+def group_distance(a, b, keys):
+    """The largest distance of ``a[n]`` from ``b[n]`` over ``keys`` and
+    the tensor that has it: each tensor against its own largest
+    magnitude, floored at GROUP_FLOOR of the group's largest: a gradient
+    that cancels or a BatchNorm mean that is zero by construction (a
+    BatchNorm fed by a bias-free 1 x 1 conv of a BatchNorm, C42) carries
+    roundoff alone."""
+    big = max(float(b[n].double().abs().max()) for n in keys)
+    return max((float((a[n].double().cpu() - b[n].double().cpu())
+                      .abs().max()) / max(float(b[n].double().abs().max()),
+                                          GROUP_FLOOR * big, 1e-30), n)
+               for n in keys)
+
+
 def staged_against_f64(torch, pt, build, x, run, label, also_cudnn=False):
     """Phase 8's rule on one model: ``build()`` on the CPU (seeded), a copy
     on the card and an fp64 copy on the CPU; ``run(model, x)`` gives named
@@ -8906,33 +8990,18 @@ def staged_against_f64(torch, pt, build, x, run, label, also_cudnn=False):
     finally:
         torch.backends.cudnn.enabled = enabled
 
-    def dist(a, b, keys):
-        # each tensor against its own largest magnitude, floored at
-        # GROUP_FLOOR of the group's largest: a gradient that cancels or
-        # a BatchNorm mean that is zero by construction (a BatchNorm fed
-        # by a bias-free 1 x 1 conv of a BatchNorm, C42) carries roundoff
-        # alone
-        big = max(float(b[n].double().abs().max()) for n in keys)
-        return max((float((a[n].double().cpu() - b[n].double().cpu())
-                          .abs().max()) / max(float(b[n].double().abs()
-                                                    .max()),
-                                              GROUP_FLOOR * big, 1e-30), n)
-                   for n in keys)
-
     lib = run(cards[1], x.to("cuda")) if also_cudnn else None
     errs = {}
     for group in ("out", "grad", "buffer"):
         keys = [n for n in got if n.split(" ")[0] == group]
         if not keys:
             continue
-        (card_d, worst), (cpu_d, _) = dist(got, exact, keys), dist(
-            want, exact, keys)
-        tol = max(RESNET_FACTOR * cpu_d, RESNET_FLOOR)
-        check(f"{label} fp32 {group}: card vs fp64 (cpu fp32 {cpu_d:.3e}; "
-              f"worst {worst})", card_d, tol, "max err / max")
+        (card_d, worst), (cpu_d, _) = (group_distance(got, exact, keys),
+                                       group_distance(want, exact, keys))
+        tol = held_to_f64(f"{label} fp32 {group}", card_d, cpu_d, worst)
         errs[group] = dict(card=card_d, cpu=cpu_d, worst=worst)
         if lib is not None:
-            lib_d, lib_worst = dist(lib, exact, keys)
+            lib_d, lib_worst = group_distance(lib, exact, keys)
             check(f"{label} fp32 {group}, cuDNN: card vs fp64 (cpu fp32 "
                   f"{cpu_d:.3e}; worst {lib_worst})", lib_d,
                   max(tol, CUDNN_GRAD_FLOOR if group == "grad" else 0.0),
@@ -10179,6 +10248,673 @@ def add_pretrained_launches(rows, p13):
     add_path_launches(rows, paths, shapes, errs, "pretrained_shapes")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: geometric, sparse and distribution on the card
+
+#: 14(a): OGB ogbn-arxiv's published sizes (169,343 nodes, 1,166,243
+#: citation edges, 128 features, 40 classes) and OGB's GCN baseline (3
+#: layers, hidden 256, dropout 0.5); the edges are drawn from a seed with
+#: a skewed (power-law) degree distribution, self loops added
+ARXIV_NODES, ARXIV_EDGES, ARXIV_FEATS, ARXIV_CLASSES = (169343, 1166243,
+                                                        128, 40)
+GCN_HIDDEN, GCN_DROPOUT, GCN_STEPS = 256, 0.5, 3
+#: the power law of a node's weight when an edge end is drawn
+GRAPH_SKEW = 0.8
+#: 14(b): BigBird-base's pattern (ITC): blocks of 64, 3 sliding, 2
+#: global, 3 random blocks a row, 12 heads of 64; timed at 4096 tokens,
+#: held against the CPU at 1024
+BIGBIRD_BLOCK, BIGBIRD_GLOBAL, BIGBIRD_RANDOM = 64, 2, 3
+BIGBIRD_HEADS, BIGBIRD_HEAD_DIM = 12, 64
+BIGBIRD_TOKENS, BIGBIRD_CHECK_TOKENS = 4096, 1024
+#: 14(c): SECOND's first sparse block on KITTI's voxel grid (z, y, x):
+#: 4 input features to 16 channels, kernel 3, 16,000 non-empty voxels
+#: (SECOND's training max_voxels); held against the CPU on a grid of the
+#: same depth with the same occupancy
+SECOND_GRID, SECOND_CHECK_GRID = (41, 1600, 1408), (41, 200, 176)
+SECOND_VOXELS, SECOND_IN, SECOND_OUT = 16000, 4, 16
+#: 14(d): Llama-3's vocabulary at batch 64; a 256-dim MultivariateNormal
+#: at batch 1024; the gamma-based samplers at 4096 x 64; a SAC policy
+#: head over 6 actions at batch 256; the KL pairs at batch 4096
+CAT_VOCAB, CAT_BATCH = 128256, 64
+MVN_DIM, MVN_BATCH = 256, 1024
+GAMMA_SHAPE = (4096, 64)
+SAC_BATCH, SAC_ACTIONS = 256, 6
+KL_BATCH = 4096
+#: sample moments: a mean within MOMENT_SIGMAS standard errors
+MOMENT_SIGMAS = 5.0
+
+
+def arxiv_graph(np_rng):
+    """src, dst (int64 numpy) of ARXIV_EDGES edges whose ends are drawn
+    with weights rank^-GRAPH_SKEW over a shuffled node order, then the
+    self loops."""
+    w = np.arange(1, ARXIV_NODES + 1, dtype=np.float64) ** -GRAPH_SKEW
+    w /= w.sum()
+    order = np_rng.permutation(ARXIV_NODES)
+    src = order[np_rng.choice(ARXIV_NODES, ARXIV_EDGES, p=w)]
+    dst = order[np_rng.choice(ARXIV_NODES, ARXIV_EDGES, p=w)]
+    loops = np.arange(ARXIV_NODES)
+    return (np.concatenate([src, loops]).astype(np.int64),
+            np.concatenate([dst, loops]).astype(np.int64))
+
+
+class GcnGraph:
+    """The graph on one device with GCN's symmetric normalisation
+    ``deg^-1/2[src] deg^-1/2[dst]`` (in-degrees, self loops counted),
+    aggregated by ``route``: ``"geometric"`` (``send_ue_recv`` mul / sum)
+    or ``"sparse"`` (``sparse.matmul`` on the CSR adjacency)."""
+
+    def __init__(self, torch, src, dst, n, device, dtype):
+        from paddle_tpu_torch import geometric, sparse
+        self.geometric, self.sparse = geometric, sparse
+        self.n = n
+        self.src = torch.as_tensor(src, device=device)
+        self.dst = torch.as_tensor(dst, device=device)
+        deg = torch.zeros(n, dtype=dtype, device=device).index_add_(
+            0, self.dst, torch.ones(len(dst), dtype=dtype, device=device))
+        dinv = deg.clamp_min(1).rsqrt()
+        self.norm = dinv[self.src] * dinv[self.dst]
+        self.adj = sparse.sparse_coo_tensor(
+            torch.stack([self.dst, self.src]), self.norm,
+            [n, n]).to_sparse_csr()
+        self.route = "geometric"
+
+    def aggregate(self, h):
+        if self.route == "geometric":
+            return self.geometric.send_ue_recv(
+                h, self.norm[:, None], self.src, self.dst, "mul", "sum",
+                out_size=self.n)
+        return self.sparse.matmul(self.adj, h)
+
+
+def gcn_model(pt):
+    """OGB's GCN baseline on the port's layers: (Linear -> aggregate ->
+    BatchNorm -> ReLU -> dropout) x 2, then Linear -> aggregate."""
+    nn = pt.nn
+
+    class GCN(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            dims = [ARXIV_FEATS, GCN_HIDDEN, GCN_HIDDEN, ARXIV_CLASSES]
+            self.lins = nn.LayerList([nn.Linear(a, b) for a, b in
+                                      zip(dims[:-1], dims[1:])])
+            self.bns = nn.LayerList([nn.BatchNorm1D(GCN_HIDDEN)
+                                     for _ in range(2)])
+            self.dropout = GCN_DROPOUT
+
+        def forward(self, x, graph):
+            for i, lin in enumerate(self.lins):
+                x = graph.aggregate(lin(x))
+                if i < len(self.bns):
+                    x = nn.functional.relu(self.bns[i](x))
+                    x = nn.functional.dropout(x, self.dropout,
+                                              training=self.training)
+            return x
+    return GCN()
+
+
+def gcn_grads(torch, pt, model, x, labels, train, graph):
+    """Eval logits and one training step's loss and gradients (dropout
+    off, BatchNorm on batch statistics)."""
+    model.eval()
+    with torch.no_grad():
+        logits = model(x, graph)
+    model.train()
+    model.dropout = 0.0
+    for p in model.parameters():
+        p.grad = None
+    loss = pt.nn.functional.cross_entropy(model(x, graph)[train],
+                                          labels[train])
+    loss.backward()
+    model.dropout = GCN_DROPOUT
+    out = {"logits": logits, "loss": loss.detach()}
+    out.update({f"grad {n}": p.grad.detach().clone()
+                for n, p in model.named_parameters()})
+    return out
+
+
+def gcn_phase(torch, pt, smi):
+    """14(a): OGB's GCN on an ogbn-arxiv-sized graph, aggregating by
+    ``geometric.send_ue_recv`` and by ``sparse.matmul`` on the CSR
+    adjacency: both routes' logits and first-step gradients (dropout off)
+    against the port on the CPU in fp32 (the CSR route, the faster there)
+    and an fp64 run on the card, by phase 8's rule, GCN_STEPS full-batch
+    Adam steps a route (dropout 0.5, the same masks: the same seed), and
+    ``send_u_recv`` sum / mean / max, ``send_ue_recv`` and ``send_uv``
+    (GAT-style edge scores) at hidden width against the CPU the same way,
+    each aggregation timed beside the other route's."""
+    from paddle_tpu_torch import geometric
+    rng = np.random.default_rng(1401)
+    src, dst = arxiv_graph(rng)
+    x_np = rng.standard_normal((ARXIV_NODES, ARXIV_FEATS)).astype(
+        np.float32)
+    labels_np = rng.integers(0, ARXIV_CLASSES, ARXIV_NODES)
+    train_np = rng.random(ARXIV_NODES) < 0.54
+    n_edges = len(src)
+    res = {"nodes": ARXIV_NODES, "edges_with_loops": n_edges,
+           "max_in_degree": int(np.bincount(dst).max()),
+           "mean_in_degree": float(n_edges / ARXIV_NODES)}
+    log(f"  graph: {ARXIV_NODES} nodes, {n_edges} edges with self loops, "
+        f"in-degree max {res['max_in_degree']}, mean "
+        f"{res['mean_in_degree']:.2f}")
+    prev = pt.get_device()
+    pt.set_device("cpu")
+    try:
+        pt.seed(14)
+        cpu_model = gcn_model(pt)
+        f64_model = copy.deepcopy(cpu_model).double().to(DEV)
+        card_model = copy.deepcopy(cpu_model).to(DEV)
+    finally:
+        pt.set_device(prev)
+
+    def tensors(device, dtype):
+        return (torch.as_tensor(x_np, device=device).to(dtype),
+                torch.as_tensor(labels_np, device=device),
+                torch.as_tensor(train_np, device=device))
+
+    cpu_graph = GcnGraph(torch, src, dst, ARXIV_NODES, "cpu",
+                         torch.float32)
+    f64_graph = GcnGraph(torch, src, dst, ARXIV_NODES, DEV,
+                         torch.float64)
+    graph = GcnGraph(torch, src, dst, ARXIV_NODES, DEV, torch.float32)
+    t0 = time.perf_counter()
+    exact = gcn_grads(torch, pt, f64_model, *tensors(DEV, torch.float64),
+                      f64_graph)
+    del f64_model
+    t1 = time.perf_counter()
+    # the CPU's fp32 run takes the CSR route (3-4x faster there than the
+    # atomic one; their distances from fp64 are alike)
+    cpu_graph.route = "sparse"
+    want = gcn_grads(torch, pt, cpu_model, *tensors("cpu", torch.float32),
+                     cpu_graph)
+    log(f"  GCN references: fp64 on the card {t1 - t0:.1f} s, fp32 on the "
+        f"CPU {time.perf_counter() - t1:.1f} s")
+    x, labels, train = tensors(DEV, torch.float32)
+    routes = {}
+    start = copy.deepcopy(card_model.state_dict())
+    for route in ("geometric", "sparse"):
+        graph.route = route
+        card_model.set_state_dict(start)
+        got = gcn_grads(torch, pt, card_model, x, labels, train, graph)
+        errs = {}
+        for group in ("logits", "loss", "grad"):
+            # phase 8's rule a group (staged_against_f64): the gradients
+            # through BatchNorm's backward cancel (C42)
+            keys = [k for k in got if k.split(" ")[0] == group]
+            (card_d, worst), (cpu_d, _) = (group_distance(got, exact, keys),
+                                           group_distance(want, exact, keys))
+            held_to_f64(f"GCN {route} {group}", card_d, cpu_d, worst)
+            errs[group] = dict(card=card_d, cpu=cpu_d, worst=worst)
+        routes[route] = {"max_err_over_max": errs}
+    # the training steps, a route at a time from the same weights and seed
+    for route in ("geometric", "sparse"):
+        graph.route = route
+        card_model.set_state_dict(start)
+        opt = pt.optimizer.Adam(learning_rate=0.01,
+                                parameters=card_model.parameters())
+        card_model.train()
+        pt.seed(1402)
+        losses, ms = [], []
+        for _ in range(GCN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = pt.nn.functional.cross_entropy(
+                card_model(x, graph)[train], labels[train])
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"GCN {route}: losses {losses}")
+        routes[route].update(losses=losses, step_ms=ms)
+        log(f"  GCN {route}: Adam steps {[f'{v:.2f}' for v in ms]} ms, "
+            f"losses {[f'{v:.5f}' for v in losses]} ({smi})")
+    res["routes"] = routes
+    # the aggregations alone at hidden width, card against the CPU (the
+    # fp64 run on the card)
+    h_np = rng.standard_normal((ARXIV_NODES, GCN_HIDDEN)).astype(np.float32)
+    h, h_cpu = torch.as_tensor(h_np, device=DEV), torch.from_numpy(h_np)
+    att_np = rng.standard_normal((ARXIV_NODES, 8)).astype(np.float32)
+    att, att_cpu = torch.as_tensor(att_np, device=DEV), torch.from_numpy(
+        att_np)
+    e_ids = n_edges * 16                 # src and dst, int64
+    feat = ARXIV_NODES * GCN_HIDDEN * 4
+    #: name -> (fn(graph, features), features, CPU features, bytes: the
+    #: features read once, the output written once, the edge lists)
+    ops = {
+        "send_ue_recv mul sum (GCN)": (
+            lambda g, a: geometric.send_ue_recv(
+                a, g.norm[:, None], g.src, g.dst, "mul", "sum",
+                out_size=g.n), h, h_cpu, 2 * feat + e_ids + n_edges * 4),
+        "sparse.matmul CSR (GCN)": (
+            lambda g, a: g.sparse.matmul(g.adj, a), h, h_cpu,
+            2 * feat + n_edges * 8 + (ARXIV_NODES + 1) * 4),
+        "send_u_recv sum": (lambda g, a: geometric.send_u_recv(
+            a, g.src, g.dst, "sum", out_size=g.n), h, h_cpu,
+            2 * feat + e_ids),
+        "send_u_recv mean": (lambda g, a: geometric.send_u_recv(
+            a, g.src, g.dst, "mean", out_size=g.n), h, h_cpu,
+            2 * feat + e_ids),
+        "send_u_recv max": (lambda g, a: geometric.send_u_recv(
+            a, g.src, g.dst, "max", out_size=g.n), h, h_cpu,
+            2 * feat + e_ids),
+        "send_uv add (GAT edge scores, 8 heads)": (
+            lambda g, a: geometric.send_uv(a, a, g.src, g.dst, "add"),
+            att, att_cpu, 2 * att.numel() * 4 + n_edges * 8 * 4 + e_ids),
+    }
+    timed = {}
+    for name, (fn, a, a_cpu, nbytes) in ops.items():
+        got = fn(graph, a)
+        held = f64_held(torch, name, got, fn(cpu_graph, a_cpu),
+                        fn(f64_graph, a.double()))
+        ms = time_ms(torch, lambda: fn(graph, a), iters=10, warmup=2)
+        timed[name] = dict(ms=ms, bytes=nbytes,
+                           bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, **held)
+        log(f"  {name}: {ms:.4f} ms ({smi}); its bytes over 3.35 TB/s "
+            f"{timed[name]['bound_ms']:.4f} ms")
+        del got
+    res["aggregations"] = timed
+    log(f"  GCN aggregation: send_ue_recv "
+        f"{timed['send_ue_recv mul sum (GCN)']['ms']:.4f} ms beside "
+        f"sparse.matmul {timed['sparse.matmul CSR (GCN)']['ms']:.4f} ms")
+    return res
+
+
+def bigbird_mask(torch, gen, seq, device):
+    """BigBird-ITC's block pattern, ``[heads, seq, seq]`` bool: each query
+    block sees its own and both neighbouring blocks (3 sliding),
+    BIGBIRD_RANDOM random blocks (per head), and the first
+    BIGBIRD_GLOBAL blocks, which see every block."""
+    nb = seq // BIGBIRD_BLOCK
+    blocks = torch.zeros(BIGBIRD_HEADS, nb, nb, dtype=torch.bool,
+                         device=device)
+    i = torch.arange(nb, device=device)
+    for off in (-1, 0, 1):
+        j = (i + off).clamp(0, nb - 1)
+        blocks[:, i, j] = True
+    rand = torch.randint(0, nb, (BIGBIRD_HEADS, nb, BIGBIRD_RANDOM),
+                         generator=gen, device=device)
+    blocks.scatter_(2, rand, True)
+    blocks[:, :BIGBIRD_GLOBAL, :] = True
+    blocks[:, :, :BIGBIRD_GLOBAL] = True
+    return blocks.repeat_interleave(BIGBIRD_BLOCK, 1).repeat_interleave(
+        BIGBIRD_BLOCK, 2)
+
+
+def bigbird_phase(torch, pt, smi):
+    """14(b): ``sparse.nn.functional.attention`` over BigBird-base's
+    pattern (a COO mask of the pattern's entries), at BIGBIRD_TOKENS
+    timed beside SDPA with the same boolean mask (the library's call for
+    the same function, held equal), and at BIGBIRD_CHECK_TOKENS against
+    the CPU in fp32 and fp64."""
+    from paddle_tpu_torch import sparse
+    res = {}
+    for seq in (BIGBIRD_CHECK_TOKENS, BIGBIRD_TOKENS):
+        gen = torch.Generator(DEV).manual_seed(1403 + seq)
+        shape = (1, BIGBIRD_HEADS, seq, BIGBIRD_HEAD_DIM)
+        q, k, v = (torch.randn(shape, device=DEV, generator=gen)
+                   for _ in range(3))
+        dense = bigbird_mask(torch, gen, seq, DEV)
+        idx = dense.nonzero().T
+        mask = sparse.sparse_coo_tensor(
+            idx, torch.ones(idx.shape[1], device=DEV),
+            [BIGBIRD_HEADS, seq, seq])
+        out = sparse.nn.functional.attention(q, k, v, mask)
+        lib = torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=dense[None])
+        row = {"nnz": int(idx.shape[1]),
+               "density": idx.shape[1] / (BIGBIRD_HEADS * seq * seq),
+               "sdpa_vs_sparse": rel64(torch, lib, out)}
+        check(f"BigBird {seq}: SDPA with the boolean mask vs sparse "
+              f"attention", row["sdpa_vs_sparse"], FP32_TOL, "max err / max")
+        if seq == BIGBIRD_CHECK_TOKENS:
+            cpu = [t.cpu() for t in (q, k, v)]
+            cmask = sparse.sparse_coo_tensor(
+                idx.cpu(), torch.ones(idx.shape[1]),
+                [BIGBIRD_HEADS, seq, seq])
+            w32 = sparse.nn.functional.attention(*cpu, cmask)
+            w64 = sparse.nn.functional.attention(
+                *(t.double() for t in cpu), cmask)
+            row.update(f64_held(torch, f"BigBird {seq} card vs CPU", out,
+                                w32, w64))
+        else:
+            row["ms"] = time_ms(torch, lambda: sparse.nn.functional.attention(
+                q, k, v, mask), iters=10, warmup=2)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            row["library_ms"] = time_ms(torch, lambda: sdpa(
+                q, k, v, attn_mask=dense[None]), iters=10, warmup=2)
+            log(f"  BigBird attention at {seq} tokens: {row['ms']:.4f} ms "
+                f"(SDPA with the mask {row['library_ms']:.4f} ms; {smi})")
+        res[str(seq)] = row
+        del q, k, v, dense, idx, mask, out, lib
+    return res
+
+
+def voxel_input(torch, rng, grid, n_vox):
+    """A SparseCooTensor ``[1, *grid, SECOND_IN]`` on the CPU of ``n_vox``
+    distinct voxels, uniform over the grid, with SECOND_IN features each
+    (every feature an entry)."""
+    from paddle_tpu_torch import sparse
+    total = int(np.prod(grid))
+    flat = np.unique(rng.integers(0, total, int(n_vox * 1.2)))
+    flat = np.sort(rng.choice(flat, n_vox, replace=False))
+    vox = np.stack(np.unravel_index(flat, grid))
+    feats = rng.standard_normal((len(flat), SECOND_IN)).astype(np.float32)
+    idx = np.concatenate([
+        np.zeros((1, len(flat) * SECOND_IN), np.int64),
+        np.repeat(vox, SECOND_IN, 1),
+        np.tile(np.arange(SECOND_IN), len(flat))[None]], 0)
+    return sparse.sparse_coo_tensor(idx, torch.from_numpy(feats.reshape(-1)),
+                                    [1, *grid, SECOND_IN])
+
+
+def second_phase(torch, pt, smi):
+    """14(c): SECOND's first sparse block: ``SubmConv3D`` and a stride-2
+    ``Conv3D`` (4 -> 16, kernel 3, padding 1), weights drawn on the CPU
+    and carried to the card by ``jax_layout`` / ``load_jax_state``; timed
+    on KITTI's grid with SECOND_VOXELS voxels, held against the CPU in
+    fp32 and an fp64 run on the card on SECOND_CHECK_GRID at the same
+    occupancy (the output patterns equal, values by phase 8's rule)."""
+    from paddle_tpu_torch import sparse
+    rng = np.random.default_rng(1404)
+    res = {}
+    occupancy = SECOND_VOXELS / np.prod(SECOND_GRID)
+    for name, cls, kw in (("SubmConv3D", sparse.nn.SubmConv3D,
+                           dict(padding=1)),
+                          ("Conv3D", sparse.nn.Conv3D,
+                           dict(stride=2, padding=1))):
+        prev = pt.get_device()
+        pt.set_device("cpu")
+        try:
+            pt.seed(1405)
+            cpu_conv = cls(SECOND_IN, SECOND_OUT, 3, **kw)
+            layout = pt.jax_layout(cpu_conv)
+            f64_conv = copy.deepcopy(cpu_conv).double().to(DEV)
+        finally:
+            pt.set_device(prev)
+        conv = pt.load_jax_state(cls(SECOND_IN, SECOND_OUT, 3, **kw), layout)
+        n_small = int(round(occupancy * np.prod(SECOND_CHECK_GRID)))
+        small = voxel_input(torch, rng, SECOND_CHECK_GRID, n_small)
+        on_card = sparse.sparse_coo_tensor(small.indices().to(DEV),
+                                           small.values().to(DEV),
+                                           small.shape)
+        got = conv(on_card)
+        want = cpu_conv(small)
+        exact = f64_conv(sparse.sparse_coo_tensor(
+            on_card.indices(), on_card.values().double(), small.shape))
+        if not (torch.equal(got.indices().cpu(), want.indices())
+                and torch.equal(want.indices(), exact.indices().cpu())):
+            raise AssertionError(f"{name}: output patterns differ")
+        row = {"check_grid": list(SECOND_CHECK_GRID), "check_voxels":
+               n_small, "check_nnz": want.nnz}
+        row.update(f64_held(torch, f"{name} {list(SECOND_CHECK_GRID)} card "
+                            "vs CPU", got.values(), want.values(),
+                            exact.values()))
+        big = voxel_input(torch, rng, SECOND_GRID, SECOND_VOXELS)
+        big = sparse.sparse_coo_tensor(big.indices().to(DEV),
+                                       big.values().to(DEV), big.shape)
+        torch.cuda.reset_peak_memory_stats()
+        out = conv(big)
+        row.update(grid=list(SECOND_GRID), voxels=SECOND_VOXELS,
+                   out_nnz=out.nnz, out_shape=out.shape,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        row["ms"] = time_ms(torch, lambda: conv(big), iters=5, warmup=1)
+        log(f"  {name} on {list(SECOND_GRID)}, {SECOND_VOXELS} voxels: "
+            f"{row['ms']:.3f} ms, out nnz {out.nnz}, peak "
+            f"{row['peak_gib']:.2f} GiB ({smi})")
+        res[name] = row
+        del big, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def _dist_pair(torch, build, args):
+    """``build(*args)`` on the card, on the CPU and in fp64 on the CPU."""
+    return (build(*[a.to(DEV) for a in args]),
+            build(*[a.cpu() for a in args]),
+            build(*[a.cpu().double() for a in args]))
+
+
+def gamma_run(torch, families, build, params, loss, replay=None):
+    """``build(*params).rsample()`` and the gradients of ``loss`` of it in
+    ``params``, with every draw of the port's ``_standard_gamma``
+    recorded; given ``replay`` (those draws, moved), each draw is
+    replaced by the next of them, carrying the implicit gradient
+    ``torch._standard_gamma_grad`` at the replaying device and dtype as
+    its own. Returns the sample, the gradients and the draws."""
+    draws, draw = [], families._standard_gamma
+
+    def gamma(c, gen):
+        if replay is None:
+            g = draw(c, gen)
+        else:
+            g = replay[len(draws)]
+            # the value g, d g / d c = _standard_gamma_grad(c, g)
+            g = g + torch._standard_gamma_grad(c.detach(), g) * (
+                c - c.detach())
+        draws.append(g.detach())
+        return g
+
+    families._standard_gamma = gamma
+    try:
+        s = build(*params).rsample()
+        loss(s).backward()
+    finally:
+        families._standard_gamma = draw
+    return s.detach(), [p.grad for p in params], draws
+
+
+def kl_pairs(torch, D, gen):
+    """Every registered pair at KL_BATCH, parameters drawn on the card."""
+    b = (KL_BATCH,)
+
+    def u(lo, hi, shape=b):
+        return lo + (hi - lo) * torch.rand(shape, device=DEV, generator=gen)
+
+    def spd(d):
+        a = torch.randn(d, d, device=DEV, generator=gen)
+        return a @ a.T + d * torch.eye(d, device=DEV)
+
+    return {
+        "Normal": (D.Normal, [u(-1, 1), u(.5, 2)], [u(-1, 1), u(.5, 2)]),
+        "Uniform": (D.Uniform, [u(0, .5), u(1, 1.5)], [u(-1, 0), u(2, 3)]),
+        "Bernoulli": (D.Bernoulli, [u(.1, .9)], [u(.1, .9)]),
+        "Categorical": (D.Categorical, [u(-2, 2, (KL_BATCH, 10))],
+                        [u(-2, 2, (KL_BATCH, 10))]),
+        "Beta": (D.Beta, [u(.5, 4), u(.5, 4)], [u(.5, 4), u(.5, 4)]),
+        "Gamma": (D.Gamma, [u(.5, 4), u(.5, 3)], [u(.5, 4), u(.5, 3)]),
+        "Dirichlet": (D.Dirichlet, [u(.5, 4, (KL_BATCH, 8))],
+                      [u(.5, 4, (KL_BATCH, 8))]),
+        "Exponential": (D.Exponential, [u(.2, 3)], [u(.2, 3)]),
+        "Laplace": (D.Laplace, [u(-1, 1), u(.5, 2)], [u(-1, 1), u(.5, 2)]),
+        "Geometric": (D.Geometric, [u(.1, .9)], [u(.1, .9)]),
+        "MultivariateNormal": (
+            D.MultivariateNormal, [u(-1, 1, (KL_BATCH, 16)), spd(16)],
+            [u(-1, 1, (KL_BATCH, 16)), spd(16)]),
+        "LogNormal": (D.LogNormal, [u(-1, 1), u(.5, 2)], [u(-1, 1),
+                                                          u(.5, 2)]),
+        "Poisson": (D.Poisson, [u(.5, 6)], [u(.5, 6)]),
+    }
+
+
+def moment_check(label, z, mean, var=None):
+    """Draws ``z`` (numpy, float64) against their mean (and variance): the
+    sample mean within MOMENT_SIGMAS standard errors (sqrt(var / n), the
+    sample's own variance where ``var`` is None), the sample variance
+    within MOMENT_SIGMAS of its standard error (sqrt((m4 - var^2) / n),
+    from the sample's fourth central moment)."""
+    z = np.asarray(z, np.float64).reshape(-1)
+    n = z.size
+    v = z.var() if var is None else var
+    check(f"{label}: sample mean - {mean:.4g}", abs(z.mean() - mean)
+          / np.sqrt(v / n), MOMENT_SIGMAS, "standard errors")
+    if var is not None:
+        m4 = float(((z - z.mean()) ** 4).mean())
+        check(f"{label}: sample variance - {var:.4g}", abs(z.var() - var)
+              / np.sqrt(max(m4 - z.var() ** 2, 1e-30) / n), MOMENT_SIGMAS,
+              "standard errors")
+
+
+def distribution_phase(torch, pt, smi):
+    """14(d): ``distribution`` on the card: Categorical over Llama-3's
+    vocabulary, a 256-dim MultivariateNormal, the gamma-based samplers'
+    gradients, a SAC policy head, every KL pair; every deterministic
+    function against the CPU in fp32 and fp64 by phase 8's rule, sample
+    moments within MOMENT_SIGMAS standard errors, and each timed."""
+    import paddle_tpu_torch.distribution as D
+    gen = torch.Generator(DEV).manual_seed(1406)
+    pt.seed(1407)
+    res = {}
+
+    # Categorical over the vocabulary: log_prob, entropy, sample
+    logits = 3 * torch.randn(CAT_BATCH, CAT_VOCAB, device=DEV, generator=gen)
+    cats = _dist_pair(torch, D.Categorical, [logits])
+    tokens = torch.randint(0, CAT_VOCAB, (CAT_BATCH,), device=DEV,
+                           generator=gen)
+    res["Categorical log_prob"] = f64_held(
+        torch, "Categorical log_prob",
+        *[d.log_prob(tokens.to(d.logits.device)) for d in cats])
+    res["Categorical entropy"] = f64_held(
+        torch, "Categorical entropy", *[d.entropy() for d in cats])
+    cat = cats[0]
+    draws = cat.sample((256,))
+    if not (draws.min() >= 0 and draws.max() < CAT_VOCAB):
+        raise AssertionError("Categorical draws outside the vocabulary")
+    # -log p of the draws has the entropy as its mean
+    nll = -cat.log_prob(draws).double() - cat.entropy().double()[None]
+    moment_check("Categorical -log p(draw) - entropy",
+                 nll.cpu().numpy(), 0.0)
+    res["categorical_ms"] = {
+        "sample": time_ms(torch, lambda: cat.sample(), iters=10, warmup=2),
+        "log_prob": time_ms(torch, lambda: cat.log_prob(tokens), iters=10,
+                            warmup=2),
+        "entropy": time_ms(torch, lambda: cat.entropy(), iters=10, warmup=2)}
+    log(f"  Categorical [{CAT_BATCH}, {CAT_VOCAB}]: "
+        f"{res['categorical_ms']} ms ({smi})")
+    del cats, cat, draws, nll, logits
+
+    # MultivariateNormal at dim 256, batch 1024
+    a = torch.randn(MVN_DIM, MVN_DIM, device=DEV, generator=gen)
+    cov = a @ a.T / MVN_DIM + torch.eye(MVN_DIM, device=DEV)
+    loc = torch.randn(MVN_BATCH, MVN_DIM, device=DEV, generator=gen)
+    mvns = _dist_pair(torch, lambda l, c: D.MultivariateNormal(
+        l, covariance_matrix=c), [loc, cov])
+    val = torch.randn(MVN_BATCH, MVN_DIM, device=DEV, generator=gen)
+    res["MVN log_prob"] = f64_held(torch, "MVN log_prob", *[
+        d.log_prob(val.to(d.loc.device, d.loc.dtype)) for d in mvns])
+    res["MVN entropy"] = f64_held(torch, "MVN entropy",
+                                  *[d.entropy() for d in mvns])
+    qs = _dist_pair(torch, lambda l, c: D.MultivariateNormal(
+        l, covariance_matrix=c), [loc.flip(0), cov + torch.eye(
+            MVN_DIM, device=DEV)])
+    res["MVN KL"] = f64_held(torch, "MVN KL", *[
+        D.kl_divergence(p, q) for p, q in zip(mvns, qs)])
+    mvn = mvns[0]
+    x = mvn.rsample((16,))
+    z = torch.linalg.solve_triangular(
+        mvn.scale_tril, (x - loc)[..., None], upper=False)[..., 0]
+    moment_check("MVN rsample, whitened", z.double().cpu().numpy(), 0.0, 1.0)
+    res["mvn_ms"] = {
+        "log_prob": time_ms(torch, lambda: mvn.log_prob(val), iters=10,
+                            warmup=2),
+        "rsample": time_ms(torch, lambda: mvn.rsample(), iters=10, warmup=2),
+        "entropy": time_ms(torch, lambda: mvn.entropy(), iters=10, warmup=2),
+        "kl": time_ms(torch, lambda: D.kl_divergence(mvn, qs[0]), iters=10,
+                      warmup=2)}
+    log(f"  MultivariateNormal dim {MVN_DIM} batch {MVN_BATCH}: "
+        f"{res['mvn_ms']} ms ({smi})")
+    del mvns, qs, mvn, x, z
+
+    # the gamma-based samplers' reparameterised gradients: the card's
+    # draws replayed through the port's map and backward on the CPU in
+    # fp32 and fp64 (the gradients held by phase 8's rule), and the draws
+    # standardised by the family's mean and variance (a Dirichlet's first
+    # coordinate, independent across the batch)
+    import paddle_tpu_torch.distribution.families as families
+    grads = {}
+    for name, build, n_par, loss in (
+            ("Gamma", lambda c, r: D.Gamma(c, r), 2, lambda s: s.sum()),
+            ("Beta", lambda a, b: D.Beta(a, b), 2, lambda s: s.sum()),
+            ("Dirichlet", lambda c: D.Dirichlet(c), 1,
+             lambda s: s[..., 0].sum())):
+        params = [(0.3 + 4 * torch.rand(GAMMA_SHAPE, device=DEV,
+                                        generator=gen)).requires_grad_()
+                  for _ in range(n_par)]
+        s, card_g, draws = gamma_run(torch, families, build, params, loss)
+        cpu_g, f64_g = [gamma_run(
+            torch, families, build,
+            [p.detach().to("cpu", dt).requires_grad_() for p in params],
+            loss, [g.to("cpu", dt) for g in draws])[1]
+            for dt in (torch.float32, torch.float64)]
+        grads[name] = {f"gradient {i}": f64_held(
+            torch, f"{name} rsample gradient in parameter {i}", *g)
+            for i, g in enumerate(zip(card_g, cpu_g, f64_g))}
+        d = build(*[p.detach() for p in params])
+        z = (s - d.mean) / d.variance.sqrt()
+        moment_check(f"{name} rsample, standardised",
+                     (z[..., 0] if name == "Dirichlet" else z)
+                     .double().cpu().numpy(), 0.0, 1.0)
+        ms = time_ms(torch, lambda: build(*params).rsample(), iters=10,
+                     warmup=2)
+        grads[name]["rsample_ms"] = ms
+        log(f"  {name} rsample at {list(GAMMA_SHAPE)} (its gradient "
+            f"held against the CPU's at the card's draws): {ms:.4f} ms "
+            f"({smi})")
+    res["reparameterised"] = grads
+
+    # a SAC policy head: Normal over the actions squashed by tanh
+    mu = 0.5 * torch.randn(SAC_BATCH, SAC_ACTIONS, device=DEV, generator=gen)
+    sig = 0.2 + torch.rand(SAC_BATCH, SAC_ACTIONS, device=DEV, generator=gen)
+    heads = _dist_pair(torch, lambda m, s: D.TransformedDistribution(
+        D.Normal(m, s), [D.TanhTransform()]), [mu, sig])
+    act = torch.tanh(torch.randn(SAC_BATCH, SAC_ACTIONS, device=DEV,
+                                 generator=gen))
+    res["SAC tanh-Normal log_prob"] = f64_held(
+        torch, "SAC tanh-Normal log_prob", *[d.log_prob(act.to(
+            d.base.loc.device, d.base.loc.dtype)).sum(-1) for d in heads])
+    policy = heads[0]
+    acts = policy.rsample((64,))
+    if not (acts.abs() < 1).all():
+        raise AssertionError("tanh-squashed actions outside (-1, 1)")
+    res["sac_ms"] = time_ms(torch, lambda: policy.log_prob(
+        policy.rsample()).sum(-1), iters=10, warmup=2)
+    log(f"  SAC head [{SAC_BATCH}, {SAC_ACTIONS}] rsample + log_prob: "
+        f"{res['sac_ms']:.4f} ms ({smi})")
+
+    # every registered KL pair
+    kls = {}
+    for name, (cls, p_args, q_args) in kl_pairs(torch, D, gen).items():
+        ps = _dist_pair(torch, cls, p_args)
+        qs = _dist_pair(torch, cls, q_args)
+        kls[name] = f64_held(torch, f"KL {name}", *[
+            D.kl_divergence(p, q) for p, q in zip(ps, qs)])
+        kls[name]["ms"] = time_ms(torch, lambda: D.kl_divergence(
+            ps[0], qs[0]), iters=10, warmup=2)
+    res["kl"] = kls
+    log(f"  KL pairs at batch {KL_BATCH}: "
+        + ", ".join(f"{k} {v['ms']:.4f} ms" for k, v in kls.items())
+        + f" ({smi})")
+    return res
+
+
+def phase14(torch, pt, smi):
+    """14(a)-(d); prints a ``{"graph_sparse_distribution": ...}`` line."""
+    out = {}
+    for key, fn in (("gcn", gcn_phase), ("bigbird", bigbird_phase),
+                    ("second", second_phase),
+                    ("distribution", distribution_phase)):
+        t0 = time.perf_counter()
+        out[key] = fn(torch, pt, smi)
+        out[key]["seconds"] = time.perf_counter() - t0
+        log(f"  14 {key}: {out[key]['seconds']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def llama_phases(torch, pt, amp, gen, nn_functional, fa, fused, ost,
                  quant_mod, pa, qm, rpa, kern, none):
     """Phases 2 to 6: the kernels at Llama-3-8B's shapes, the serving and
@@ -11140,7 +11876,7 @@ def llama_phases(torch, pt, amp, gen, nn_functional, fa, fused, ost,
 #: the phases after the build that a run may select, in the order they
 #: run; 2 to 6 share one Llama-3-8B, its runs and its captures, so they
 #: run as one unit
-PHASES = ("2-6", "7", "8", "9", "10", "11", "12", "13")
+PHASES = ("2-6", "7", "8", "9", "10", "11", "12", "13", "14")
 
 
 def selected_phases(argv):
@@ -11223,7 +11959,7 @@ def main(argv=None):
     if "9" in run:
         phase("phase 9: the training-loop surface: a compiled "
               "Llama-3-8B-width step on paddle.io batches, and ResNet-50 "
-              "through paddle.Model.fit")
+              f"({HAPI_BLOCKS} blocks a stage) through paddle.Model.fit")
         loop = loop_phase(torch, pt, kern, none, smi.stdout.strip())
         if rows is not None:
             add_compiled_launches(rows, loop)
@@ -11267,6 +12003,12 @@ def main(argv=None):
         log(json.dumps({"pretrained": p13}, default=str))
         gc.collect()
         torch.cuda.empty_cache()
+    if "14" in run:
+        phase("phase 14: geometric, sparse and distribution: GCN on an "
+              "ogbn-arxiv-sized graph, BigBird-pattern sparse attention, "
+              "SECOND's sparse convolutions, the distributions")
+        log(json.dumps({"graph_sparse_distribution": phase14(
+            torch, pt, smi.stdout.strip())}, default=str))
     if rows is not None:
         log(json.dumps({"kernels": rows}))
     log(smi.stdout.strip())

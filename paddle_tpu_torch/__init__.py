@@ -75,7 +75,12 @@ Local Hugging Face checkpoints (Llama, GPT-2, BERT, T5) load through
 ``vision.transforms`` and ``vision.datasets`` are Paddle's host-side
 data pipeline; ``fft``, ``signal`` and ``audio`` the spectral ops and
 features on ``torch.fft``; ``text`` Viterbi decoding and the text
-datasets.
+datasets. ``geometric`` holds the segment pools and message passing of
+graph learning (gathers and one scatter on the card), ``sparse`` the COO
+and CSR tensors with their ops (``torch.sparse``, cuSPARSE SpMM),
+sparse attention and the sparse 3-D convolutions, and ``distribution``
+Paddle's distributions, transforms and KL registry, drawing from the
+port's generators.
 """
 import sys as _sys
 
@@ -106,6 +111,7 @@ from .models.llama import (LlamaConfig, LlamaForCausalLM,
                            LlamaPretrainingCriterion, llama3_8b, llama_tiny)
 from . import autograd, callbacks, incubate, io, jit, metric, models
 from . import audio, fft, signal, text
+from . import distribution, geometric, sparse
 from .autograd import (PyLayer, enable_grad, grad, is_grad_enabled, no_grad,
                        set_grad_enabled)
 from .hapi import Model, flops, summary
@@ -128,7 +134,8 @@ __all__ = ["LlamaForCausalLM", "LlamaConfig", "LlamaPretrainingCriterion",
            "cov", "corrcoef", "Tensor", "Place", "CPUPlace", "CUDAPlace",
            "device_count", "is_compiled_with_cuda", "is_compiled_with_xpu",
            "autograd", "callbacks", "incubate", "io", "jit", "metric",
-           "models", "audio", "fft", "signal", "text", "PyLayer",
+           "models", "audio", "fft", "signal", "text", "distribution",
+           "geometric", "sparse", "PyLayer",
            "enable_grad", "grad", "is_grad_enabled", "no_grad",
            "set_grad_enabled", "Model", "flops", "summary", "disable_static",
            "enable_static", "in_dynamic_mode"] + tensor.__all__

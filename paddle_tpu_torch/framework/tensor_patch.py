@@ -125,6 +125,9 @@ DIFFERS = {
     "fill_diagonal_": "Paddle's takes an offset",
     "apply_": "torch's runs on CPU tensors only",
     "uniform_": "Paddle's takes a seed",
+    "geometric_": "torch's counts trials (support 1, 2, ...; mean 1/p); "
+                  "Paddle's draws distribution.Geometric, which counts "
+                  "failures (support 0, 1, ...; mean (1-p)/p)",
 }
 
 #: names this module set on ``torch.Tensor``, and names it left to torch

@@ -8,8 +8,8 @@ hold the committed ones to what the code gives. The records carry the
 reference's fields: module, signature, first doc line, Tensor-method
 availability and in-place variant (both read off ``torch.Tensor``, so
 they may differ from the reference's own ``Tensor``), and the other
-modules a name also appears in. The reference's ``sparse`` and
-``geometric`` modules are not ported yet (:data:`MISSING_MODULES`).
+modules a name also appears in. Every op module of the reference is
+ported (:data:`MISSING_MODULES` is empty).
 """
 from __future__ import annotations
 
@@ -20,8 +20,8 @@ from dataclasses import dataclass, field
 
 import torch
 
-#: the reference's op modules the port does not have yet
-MISSING_MODULES = ("sparse", "geometric")
+#: the reference's op modules the port does not have yet: none
+MISSING_MODULES = ()
 
 #: public callables of the op modules that are not ops: the attention
 #: route chooser and the blocked attention the SDPA uses
@@ -43,11 +43,12 @@ def _op_modules():
     """The registry's modules, in the reference's order (the first module
     that defines a name owns it)."""
     from . import creation, fused, linalg, logic, manipulation, math
-    from .. import fft, signal
+    from .. import fft, geometric, signal, sparse
     from ..nn import functional
     return {"math": math, "creation": creation, "manipulation": manipulation,
             "logic": logic, "linalg": linalg, "fused": fused, "fft": fft,
-            "signal": signal, "functional": functional}
+            "signal": signal, "sparse": sparse, "geometric": geometric,
+            "functional": functional}
 
 
 def build_registry():
@@ -133,7 +134,7 @@ NONDIFF = {"argmax", "argmin", "nanargmax", "nanargmin", "argsort",
            "isreal", "signbit", "isclose", "allclose", "equal_all",
            "one_hot", "numel", "tolist", "sequence_mask", "randperm",
            "multinomial", "class_center_sample", "gather_tree", "fftfreq",
-           "rfftfreq"}
+           "rfftfreq", "is_sparse", "is_same_shape"}
 #: ops whose gradient a hand-written CUDA backward kernel computes on
 #: the card (their plain versions on the CPU)
 KERNEL_BACKWARD = {

@@ -19,13 +19,14 @@ from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.nn.functional import sdpa_route
 from torch_zoo_common import (arrays_of, close, close_grads,  # noqa: F401
                               jt, npy, one_torch_thread)
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28, C48)
 
 B, S = 2, 12
 NO_DROPOUT = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _setup(one_torch_thread):  # noqa: F811
+def _setup(one_torch_thread, _no_reference_mesh):  # noqa: F811
     yield
 
 

@@ -31,6 +31,7 @@ from paddle_tpu.models import generation as jgen
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.models import generation as tgen
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28, C48)
 
 
 def _load(name):
@@ -54,7 +55,7 @@ SCHEDULERS = {"qblock": dict(ragged_impl="qblock"),
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
+def _one_torch_thread(_no_reference_mesh):  # noqa: F811
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -21,10 +21,11 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import paged_attention as tpa
 
 from test_torch_serving import _drive_in_order
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28, C48)
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
+def _one_torch_thread(_no_reference_mesh):  # noqa: F811
     """Tiny shapes gain nothing from intra-op threads; one keeps this
     file from crowding the suite's other workers off the CPU."""
     n = torch.get_num_threads()

@@ -441,3 +441,90 @@ def test_transforms_and_datasets_leave_cuda_uninitialised(tmp_path):
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _binds_mesh_fixture(tree):
+    """Whether the file defines ``_no_reference_mesh`` or imports it at
+    its top level: the fixture is autouse, so bound in a module it runs
+    before every test there (and fixtures that request it by name run
+    after it)."""
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and \
+                node.name == "_no_reference_mesh":
+            return True
+        if isinstance(node, ast.ImportFrom) and any(
+                a.name == "_no_reference_mesh" for a in node.names):
+            return True
+    return False
+
+
+def test_reference_model_files_clear_the_reference_mesh():
+    """Every port test file that imports the reference's models runs them
+    without the global mesh a JAX test earlier in its worker may leave
+    installed (ROADMAP C28, C48): the file binds the autouse fixture
+    ``_no_reference_mesh`` of ``tests/test_torch_llama.py``."""
+    trees = {f.name: ast.parse(f.read_text())
+             for f in sorted((ROOT / "tests").glob("test_torch_*.py"))}
+    users = [n for n, t in trees.items() if _imports_reference_models(t)]
+    assert len(users) >= 26
+    assert [n for n in users if not _binds_mesh_fixture(trees[n])] == []
+
+
+def _imports_reference_models(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module and (
+                node.module.startswith("paddle_tpu.models")
+                or (node.module == "paddle_tpu"
+                    and any(a.name == "models" for a in node.names))):
+            return True
+        if isinstance(node, ast.Import) and any(
+                a.name.startswith("paddle_tpu.models") for a in node.names):
+            return True
+    return False
+
+
+_SLICE_7B = {
+    "paddle_tpu_torch.geometric":
+        "from paddle_tpu_torch import geometric as G\n"
+        "x = torch.randn(4, 3, requires_grad=True)\n"
+        "G.send_u_recv(x, [0, 1, 2], [1, 1, 3], 'max').sum().backward()\n"
+        "G.segment_mean(x, torch.tensor([0, 0, 2, 2]))\n",
+    "paddle_tpu_torch.sparse":
+        "from paddle_tpu_torch import sparse as S\n"
+        "a = S.sparse_coo_tensor([[0, 1], [1, 0]], [1.0, 2.0], [2, 2])\n"
+        "S.matmul(a.to_sparse_csr(), torch.ones(2, 3))\n"
+        "S.softmax(S.add(a, a))\n"
+        "S.nn.SubmConv3D(1, 2, 3, padding=1)(S.sparse_coo_tensor(\n"
+        "    [[0], [1], [1], [1], [0]], [1.0], [1, 3, 3, 3, 1]))\n",
+    "paddle_tpu_torch.distribution":
+        "from paddle_tpu_torch import distribution as D\n"
+        "n = D.Normal(torch.zeros(3), torch.ones(3))\n"
+        "D.kl_divergence(n, D.Normal(1.0, 2.0))\n"
+        "D.TransformedDistribution(n, [D.TanhTransform()]).rsample((2,))\n"
+        "D.Gamma(2.0, 1.0).rsample((4,))\n",
+    "paddle_tpu_torch.incubate":
+        "from paddle_tpu_torch import incubate as I\n"
+        "I.softmax_mask_fuse_upper_triangle(torch.randn(1, 2, 4, 4))\n"
+        "I.graph_send_recv(torch.randn(3, 2), [0, 1], [1, 2])\n",
+}
+
+
+@pytest.mark.parametrize("module", sorted(_SLICE_7B))
+def test_slice_7b_modules_pull_in_no_jax_and_leave_cuda_alone(module):
+    """``geometric``, ``sparse``, ``distribution`` and ``incubate``'s
+    functions alone: importing one initialises no CUDA, and a few of its
+    calls on the CPU pull in neither JAX nor the reference."""
+    code = ("import sys, importlib, torch\n"
+            f"importlib.import_module({module!r})\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "import paddle_tpu_torch as pt\n"
+            "pt.set_device('cpu')\n" + _SLICE_7B[module]
+            + "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith(('jax.', 'jaxlib')) or k == 'paddle_tpu' or "
+            "k.startswith('paddle_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

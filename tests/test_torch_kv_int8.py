@@ -24,6 +24,7 @@ from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.ops import ragged_paged_attention as trpa
 
 from test_torch_serving import _drive_in_order
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28, C48)
 
 # the package exports a function of the module's name
 jrpa = importlib.import_module("paddle_tpu.ops.pallas.ragged_paged_attention")
@@ -34,7 +35,7 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
+def _one_torch_thread(_no_reference_mesh):  # noqa: F811
     """Tiny shapes gain nothing from intra-op threads; one keeps this
     file from crowding the suite's other workers off the CPU."""
     n = torch.get_num_threads()

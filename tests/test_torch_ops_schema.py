@@ -1,8 +1,9 @@
 """The port's op registry (``paddle_tpu_torch/ops/schema.py``) against the
-reference's (``paddle_tpu.ops.schema.build_registry``): for every module
-the port has, the same op names under the same module keys, the same
-aliases, and each op's parameter names and defaults, apart from the
-listed differences; the committed ``ops.yaml`` and ``backward.yaml``
+reference's (``paddle_tpu.ops.schema.build_registry``): every module of
+the reference's registry, ``sparse`` and ``geometric`` included, with
+the same op names under the same module keys, the same aliases, and
+each op's parameter names and defaults, apart from the listed
+differences; the committed ``ops.yaml`` and ``backward.yaml``
 are what the code generates; and ``backward.yaml``'s differentiability
 claim holds for every op the test suites run: an op is differentiable
 exactly when a float output of it on inputs that require grad
@@ -27,12 +28,6 @@ from paddle_tpu_torch.ops import schema
 
 YAML_DIR = Path(schema.__file__).parent
 
-#: ops whose module key differs: the reference's first module for them
-#: is ``sparse``, which the port does not have yet; both are
-#: ``functional`` ops there too
-MOVED = {"relu": ("sparse", "functional"),
-         "softmax": ("sparse", "functional")}
-
 #: ops whose signature differs from the reference's registry record
 SIGNATURES = {
     # an explicit torch.Generator for the dropout draw (ROADMAP C2)
@@ -53,22 +48,20 @@ def _registries():
 @pytest.mark.parametrize("module", sorted(schema._op_modules()))
 def test_module_names_equal_the_references(module):
     ref, port = _registries()
-    want = {n for n, s in ref.items() if s.module == module}
-    got = {n for n, s in port.items() if s.module == module}
-    moved = {n for n, (_, m) in MOVED.items() if m == module}
-    assert got - moved == want
-    for n in moved:
-        assert ref[n].module == MOVED[n][0]
-        assert module in ref[n].aliases
+    want = {n: s.aliases for n, s in ref.items() if s.module == module}
+    got = {n: s.aliases for n, s in port.items() if s.module == module}
+    assert got == want
 
 
 def test_missing_modules_are_the_unported_ones():
     ref, port = _registries()
     ported = set(schema._op_modules())
     assert {s.module for s in ref.values()} - ported == set(
-        schema.MISSING_MODULES)
-    assert schema.summary(port)["missing_modules"] == list(
-        schema.MISSING_MODULES)
+        schema.MISSING_MODULES) == set()
+    assert list(schema._op_modules()) == [
+        "math", "creation", "manipulation", "logic", "linalg", "fused",
+        "fft", "signal", "sparse", "geometric", "functional"]
+    assert schema.summary(port)["missing_modules"] == []
 
 
 def test_functional_has_every_reference_op_and_alias():
@@ -86,15 +79,12 @@ def _params(sig_owner):
             for p in inspect.signature(sig_owner).parameters.values()]
 
 
-def _ref_callable(name, spec):
-    if name in MOVED:
-        return getattr(JF, name)
-    return None
-
-
 def test_signatures_equal_the_references():
-    """Parameter names, order and defaults, by ``inspect.signature``;
-    ``relu`` and ``softmax`` against the reference's functional ones."""
+    """Parameter names, order and defaults, by ``inspect.signature``:
+    each op under its module key, and each op the reference's
+    ``nn.functional`` owns or aliases (``relu`` and ``softmax`` among
+    them, registered under ``sparse``) against the reference's
+    functional one."""
     ref, port = _registries()
     mods = schema._op_modules()
     differ = []
@@ -102,14 +92,17 @@ def test_signatures_equal_the_references():
         if name not in ref:
             continue
         got = _params(getattr(mods[spec.module], name))
-        own = _ref_callable(name, spec)
-        want = (_params(own) if own is not None else
-                [(p.name, repr(p.default) if p.default is not p.empty
-                  else None) for p in inspect.signature(
-                      _ref_function(ref[name])).parameters.values()])
+        want = _params(_ref_function(ref[name]))
         if got != want:
             differ.append(name)
     assert sorted(differ) == sorted(SIGNATURES)
+    functional = sorted(n for n, s in ref.items()
+                        if s.module == "functional"
+                        or "functional" in s.aliases)
+    assert {"relu", "softmax"} <= set(functional)
+    differ = [n for n in functional
+              if _params(getattr(TF, n)) != _params(getattr(JF, n))]
+    assert differ == sorted(set(SIGNATURES) & set(functional))
 
 
 def _ref_function(spec):
@@ -213,3 +206,52 @@ def test_fft_and_signal_ops_and_differentiability_claim(module, count):
                 if o.is_floating_point() or o.is_complex()]
         assert outs and any(o.requires_grad for o in outs) == \
             schema.differentiable(port[name]), name
+
+
+def _sparse_geometric_call(name):
+    """A call of a ``sparse`` / ``geometric`` op on float inputs that
+    require grad (the sparse ones through their values)."""
+    from paddle_tpu_torch import geometric, sparse
+    v = torch.tensor([1.0, -2.0, 3.0], requires_grad=True)
+    idx = [[0, 1, 1], [0, 0, 2]]
+    coo = sparse.sparse_coo_tensor(idx, v, [2, 3])
+    d = torch.randn(2, 3).requires_grad_()
+    x = torch.randn(4, 3).requires_grad_()
+    ids = torch.tensor([0, 0, 2, 1])
+    calls = {
+        "coalesce": lambda: sparse.coalesce(coo),
+        "is_same_shape": lambda: sparse.is_same_shape(coo, d),
+        "is_sparse": lambda: sparse.is_sparse(coo),
+        "mask_as": lambda: sparse.mask_as(d, coo),
+        "masked_matmul": lambda: sparse.masked_matmul(
+            d, torch.randn(3, 3).requires_grad_(), coo),
+        "relu": lambda: sparse.relu(coo),
+        "softmax": lambda: sparse.softmax(coo),
+        "sparse_coo_tensor": lambda: sparse.sparse_coo_tensor(idx, v, [2, 3]),
+        "sparse_csr_tensor": lambda: sparse.sparse_csr_tensor(
+            [0, 1, 3], [0, 0, 2], v, [2, 3]),
+        "send_u_recv": lambda: geometric.send_u_recv(x, ids, ids),
+        "send_ue_recv": lambda: geometric.send_ue_recv(x, x, ids, ids),
+        "send_uv": lambda: geometric.send_uv(x, x, ids, ids),
+    }
+    for r in ("sum", "mean", "max", "min"):
+        calls[f"segment_{r}"] = (lambda r=r: getattr(
+            geometric, f"segment_{r}")(x, ids))
+    out = calls[name]()
+    return out.values() if sparse.is_sparse(out) else out
+
+
+@pytest.mark.parametrize("module,count", [("sparse", 9), ("geometric", 7)])
+def test_sparse_and_geometric_differentiability_claim(module, count):
+    """The ops ``sparse`` and ``geometric`` own in both registries, and each
+    op's claim on a call whose float inputs require grad (a sparse
+    result by its values; ``is_sparse`` and ``is_same_shape`` give
+    bools)."""
+    ref, port = _registries()
+    names = sorted(n for n, s in port.items() if s.module == module)
+    assert len(names) == count == sum(s.module == module
+                                      for s in ref.values())
+    for name in names:
+        out = _sparse_geometric_call(name)
+        _check_claim(name, port[name], out if isinstance(
+            out, torch.Tensor) else [])

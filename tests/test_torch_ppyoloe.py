@@ -40,8 +40,17 @@ from torch_vision_common import (TOL, err, model_pair, npy,  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
 from train_ppyoloe_pipeline import SyntheticDetection, collate  # noqa: E402
+from test_torch_llama import _no_reference_mesh  # noqa: E402,F401 (C48)
 
 pytestmark = pytest.mark.usefixtures("port_on_cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_on_one_device(_no_reference_mesh):  # noqa: F811
+    """The reference's models run without a leaked global mesh
+    (C28, C48)."""
+    yield
+
 
 E2E_TOL = 2e-3
 

@@ -23,10 +23,11 @@ from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.models import pretrained as tpre
 from torch_hf_common import LLAMA, ids_of, llama_tensors, w, write_dir
 from torch_zoo_common import close, jt, npy, one_torch_thread  # noqa: F401
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28, C48)
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _setup(one_torch_thread):  # noqa: F811
+def _setup(one_torch_thread, _no_reference_mesh):  # noqa: F811
     yield
 
 

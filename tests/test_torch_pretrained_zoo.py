@@ -24,10 +24,11 @@ from torch_hf_common import (bert_tensors, gpt_tensors, ids_of, t5_tensors,
                              write_dir)
 from torch_zoo_common import (close, close_to_scale, jt, npy,  # noqa: F401
                               one_torch_thread)
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28, C48)
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _setup(one_torch_thread):  # noqa: F811
+def _setup(one_torch_thread, _no_reference_mesh):  # noqa: F811
     yield
 
 

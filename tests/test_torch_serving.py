@@ -18,10 +18,11 @@ from paddle_tpu.models import generation as jgen
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.inference import serving as tserving
 from paddle_tpu_torch.models import generation as tgen
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28, C48)
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
+def _one_torch_thread(_no_reference_mesh):  # noqa: F811
     """Tiny shapes gain nothing from intra-op threads; one keeps this
     file from crowding the suite's other workers off the CPU."""
     n = torch.get_num_threads()

@@ -28,6 +28,7 @@ from paddle_tpu.profiler import compile_observatory as jco
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.inference import serving as tserving
 from paddle_tpu_torch.ops import ragged_paged_attention as trpa
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28, C48)
 
 
 def _load(name):
@@ -54,7 +55,7 @@ SAMPLED = dict(do_sample=True, temperature=1.3, seed=7)
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
+def _one_torch_thread(_no_reference_mesh):  # noqa: F811
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

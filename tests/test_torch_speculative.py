@@ -32,6 +32,7 @@ from paddle_tpu_torch.inference import (DraftModelDrafter, NGramDrafter,
                                         make_drafter)
 from paddle_tpu_torch.inference import speculative as tspec
 from paddle_tpu_torch.models.generation import SlotPagedKVCache
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28, C48)
 
 
 def _load(name):
@@ -56,7 +57,7 @@ SPEC_COUNTERS = ("spec_drafted_tokens", "spec_accepted_tokens",
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
+def _one_torch_thread(_no_reference_mesh):  # noqa: F811
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

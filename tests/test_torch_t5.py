@@ -17,10 +17,11 @@ from paddle_tpu_torch.models import t5 as tt5
 from torch_zoo_common import (arrays_of, assert_stream, close,  # noqa: F401
                               close_grads, close_to_scale, jt, npy,
                               one_torch_thread)
+from test_torch_llama import _no_reference_mesh  # noqa: F401  (C28, C48)
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _setup(one_torch_thread):  # noqa: F811
+def _setup(one_torch_thread, _no_reference_mesh):  # noqa: F811
     yield
 
 

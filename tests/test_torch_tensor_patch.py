@@ -219,3 +219,55 @@ def test_places_and_device_queries():
         assert pt.get_device() == "cpu"
     finally:
         pt.set_device(dev)
+
+
+@pytest.mark.parametrize("p", [0.3, 0.5])
+def test_geometric_fill_differs_and_is_listed(p):
+    """``geometric_`` keeps torch's meaning (C34): it counts trials, from
+    1; the reference's fill draws its ``Geometric``, which counts failures,
+    from 0. Both supports and both means over 20000 draws (within 4.5
+    standard errors), and the port's ``distribution.Geometric`` counts
+    as the reference's fill does."""
+    assert "geometric_" in tp.DIFFERS and "geometric_" in tp.KEPT
+    n = 20000
+    se = 4.5 * np.sqrt((1 - p) / p ** 2 / n)
+    torch.manual_seed(0)
+    got = torch.empty(n).geometric_(p).numpy()
+    paddle.seed(0)
+    want = np.asarray(paddle.zeros([n]).geometric_(p).numpy())
+    assert got.min() == 1.0 and want.min() == 0.0
+    assert abs(got.mean() - 1 / p) < se and abs(want.mean() - (1 - p) / p) < se
+    dev = pt.get_device()
+    pt.set_device("cpu")
+    try:
+        pt.seed(0)
+        port = pt.distribution.Geometric(p).sample((n,)).numpy()
+    finally:
+        pt.set_device(dev)
+    assert port.min() == 0.0 and abs(port.mean() - (1 - p) / p) < se
+
+
+def test_cauchy_and_log_normal_fills_mean_the_same():
+    """``cauchy_`` and ``log_normal_`` keep torch's meaning, which is the
+    reference's (C34): the same defaults (Cauchy(0, 1); the log of the
+    draw Normal(1, 2)) and the same laws. Over 20000 draws the Cauchy
+    quartiles sit within 0.05 of -1, 0, 1 in both, and the logs of the
+    log-normal draws have mean 1 and standard deviation 2 (within 0.05)
+    in both."""
+    n = 20000
+    assert "cauchy_" not in tp.DIFFERS and "log_normal_" not in tp.DIFFERS
+    torch.manual_seed(1)
+    paddle.seed(1)
+    for fill in ("cauchy_", "log_normal_"):
+        got = getattr(torch.empty(n), fill)().numpy().astype(np.float64)
+        want = np.asarray(getattr(paddle.zeros([n]), fill)().numpy(),
+                          np.float64)
+        for draws in (got, want):
+            if fill == "cauchy_":
+                q = np.percentile(draws, [25, 50, 75])
+                np.testing.assert_allclose(q, [-1, 0, 1], atol=0.05)
+            else:
+                assert (draws > 0).all()
+                logs = np.log(draws)
+                assert abs(logs.mean() - 1.0) < 0.05
+                assert abs(logs.std() - 2.0) < 0.05
