@@ -6,8 +6,8 @@
 
 Phases, each fatal on error (non-zero exit, no result line). With no
 arguments all run; ``--phases`` picks some of 2-6 (one unit: they share
-one model and its captures), 7, 8, 9, 10, 11, 12, 13 and 14 after the
-build, and
+one model and its captures), 7, 8, 9, 10, 11, 12, 13, 14 and 15 after
+the build, and
 such a run ends on a ``{"partial": ...}`` line instead of the result
 line:
 
@@ -362,7 +362,7 @@ line:
    optimizer ms, the peak memory and the device ms by kernel of one
    step beside the card's name and power limit;
 9. the training-loop surface (``loop_phase``): (a) the Llama recipe of
-   phase 3d (4 layers at Llama-3-8B widths, 2 x 2048 tokens, O2 bf16,
+   phase 3d (LOOP_LAYERS layers at Llama-3-8B widths, 2 x 2048 tokens, O2 bf16,
    fused AdamW with the global-norm clip) on batches of a seeded token
    set through ``paddle.io.DataLoader`` (``DistributedBatchSampler``, one
    replica, shuffled, two workers), its forward under
@@ -471,7 +471,24 @@ line:
    and Dirichlet reparameterised gradients at 4096 x 64, a SAC
    tanh-Normal head, every KL pair: deterministic functions against the
    CPU, sample moments within 5 standard errors. Prints a
-   ``{"graph_sparse_distribution": ...}`` line.
+   ``{"graph_sparse_distribution": ...}`` line;
+15. distributed training on ``torch.distributed`` (``distributed_phase``;
+   the ranks are processes that ``distributed.spawn`` starts, their
+   sockets on the loopback device): (a) in a child, NCCL at world size 1:
+   every collective a one-rank group allows on CUDA tensors against its
+   expected result, then one O2 Llama step's gradients (Llama-3-8B widths
+   at DIST_LAYERS layers, 2 x 2048) through ``GradientBucketer.sync_grads``
+   unchanged bit for bit; (b) dp 2 over gloo, two ranks sharing the card
+   (NCCL takes one rank a device), through ``fleet.init``,
+   ``distributed_model`` and ``distributed_optimizer``, rank r on row r:
+   the fp32 averaged gradients (TF32 off) against one process's whole
+   batch (phase 9(a)'s rule, each tensor's largest), then DIST_STEPS O2
+   steps of the training recipe with overlap on, off and an int8 wire:
+   the ranks' mean loss within LOOP_O2_RTOL of the single-process steps,
+   the ranks' parameters bit-identical after every step, overlap off
+   bit-identical to on, the int8 wire within the reference's limits, B1-B3
+   and K-A/K-B counted on both ranks; a failing or hung rank fails the
+   phase. Prints a ``{"distributed": ...}`` line.
 
 Prints a ``{"graph_breakdown": ...}`` line (phases 3f and 3g, per engine
 and mode), a ``{"spec": ...}`` line (3h, 3i, 4(d), 4(e)), an
@@ -485,7 +502,8 @@ carry ViT's timed shape under ``vit_shapes``), a ``{"pretrained":
 ...}`` line (phase 13; B1's, B4's and kernel 6's rows count its
 launches and carry the loaded Llama's timed shapes under
 ``pretrained_shapes``), a ``{"graph_sparse_distribution": ...}`` line
-(phase 14), a
+(phase 14), a ``{"distributed": ...}`` line (phase 15; B1-B3's and
+K-A/K-B's rows count its launches on both ranks), a
 ``{"kernels": [...]}`` line with all ten TPU kernels (kernel 6 and B7
 also as their runtime variants, with launches by variant and path) and the
 fused optimizer step's two (K-A and K-B, no Pallas counterpart,
@@ -2294,7 +2312,12 @@ def read_counts(kern):
 
 
 def run_concurrently(eng, prompts, **kw):
-    """One client thread per prompt, all at once; returns the outputs."""
+    """One client thread per prompt, admitted together: the serve loop is
+    held at a tick boundary (``run_on_loop``) while the clients queue
+    their requests in the prompts' order, then released. Every run of a
+    load so schedules the same ticks; when clients raced the loop, a late
+    request now and then added a tick and changed the bits of the streams
+    that runs are held to. Returns the outputs."""
     results = [None] * len(prompts)
     errors = []
 
@@ -2305,13 +2328,33 @@ def run_concurrently(eng, prompts, **kw):
         except Exception as e:      # noqa: BLE001 — reported below
             errors.append(e)
 
-    threads = [threading.Thread(target=run, args=(i, p))
-               for i, p in enumerate(prompts)]
-    for t in threads:
-        t.start()
+    held, release = threading.Event(), threading.Event()
+
+    def hold(_eng):
+        held.set()
+        release.wait(120)
+
+    holder = threading.Thread(target=eng.run_on_loop, args=(hold, 180))
+    holder.start()
+    threads = []
+    try:
+        if not held.wait(120):
+            raise RuntimeError("the serve loop was not held for admission")
+        base = eng._q.qsize()
+        for i, p in enumerate(prompts):
+            t = threading.Thread(target=run, args=(i, p))
+            t.start()
+            threads.append(t)
+            deadline = time.monotonic() + 60
+            while (eng._q.qsize() < base + i + 1 and not errors
+                   and time.monotonic() < deadline):
+                time.sleep(0.0005)
+    finally:
+        release.set()
+        holder.join(180)
     for t in threads:
         t.join(900)
-    if errors or any(t.is_alive() for t in threads):
+    if errors or any(t.is_alive() for t in threads + [holder]):
         raise RuntimeError(f"serving failed: {errors!r}")
     return results
 
@@ -6413,6 +6456,11 @@ def nn_phase(torch, pt, kern, smi):
 
 #: 9(a): steps after the compile step, compiled and eager
 LOOP_STEPS = 10
+#: 9(a): Llama-3-8B widths at this many layers, compiled and eager (at
+#: the training phase's 4 the compiled step's first call took 52.4-84.5
+#: s, and the whole script up to 1134.9 s of 1200 with phase 15, on an
+#: NVIDIA H100 80GB HBM3 at 700 W)
+LOOP_LAYERS = 2
 #: 9(a): the O2 loss curves, compiled against eager, relative, every step
 LOOP_O2_RTOL = 1e-2
 #: 9(a): the fp32 copy (TF32 off): layers, the loss (relative) and every
@@ -6497,19 +6545,36 @@ def foreign_attention(names):
     return sorted(out)
 
 
+#: the kernels a trace runs before its window: the first records after
+#: the profiler starts can be lost (a traced two-layer step once showed
+#: no forward flash kernel), so they go to these, ended by a spin kernel
+TRACE_WARMUP_KERNELS = 64
+
+
 def traced_window(torch, fn):
     """``fn()`` under a CUDA-only trace: the window between two events
     around it (ms), the device's busy ms in it, the idle share and the
-    kernel names."""
+    kernel names. TRACE_WARMUP_KERNELS small kernels and a spin kernel
+    run first inside the trace; what ends by the spin kernel's end is
+    dropped."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        warm = torch.zeros(1, device="cuda")
+        for _ in range(TRACE_WARMUP_KERNELS):
+            warm.add_(1)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         ev[0].record()
         fn()
         ev[1].record()
         torch.cuda.synchronize()
-    return window_of(ev, device_intervals(torch, prof))
+    intervals = device_intervals(torch, prof)
+    spins = [b for _, b, name in intervals if "spin_kernel" in name]
+    if spins:
+        intervals = [i for i in intervals if i[0] >= spins[-1]]
+    return window_of(ev, intervals)
 
 
 def window_of(events, intervals):
@@ -6536,7 +6601,8 @@ def loop_run(torch, pt, kern, ds, compiled):
     Returns losses, per-step ms, the loader's waits, launch counts, peak
     memory and the trace."""
     from paddle_tpu_torch.jit import api as jit_api
-    cfg, model, opt, sched, _, _, cast = trainer(torch, pt, None)
+    cfg, model, opt, sched, _, _, cast = trainer(torch, pt, None,
+                                                 layers=LOOP_LAYERS)
     if compiled:
         jit_api.reset_metrics()
         pt.jit.to_static(model)
@@ -10915,6 +10981,462 @@ def phase14(torch, pt, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: distributed training on torch.distributed: NCCL at world size
+# 1, and dp 2 over gloo with two ranks on the one card
+# ---------------------------------------------------------------------------
+
+#: 15: Llama-3-8B widths at this many layers on each rank (two O2 ranks at
+#: the training phase's 4 layers would need ~2 x 45 GiB of the card)
+DIST_LAYERS = 2
+#: 15(b): the AdamW steps of each run
+DIST_STEPS = 2
+#: 15: a world's deadline, and its process group's timeout (s)
+DIST_TIMEOUT_S = 420
+#: 15(b): the int8 wire against the fp path, the reference's own limits
+#: (``tests/test_comm.py:303-320``): an O2 step's wire bytes as a share
+#: of the fp32 check's step (the reference's fp path is fp32), and the
+#: last loss against the dense O2 run's (relative)
+INT8_WIRE_SHARE, INT8_LOSS_RTOL = 0.30, 0.02
+#: 15: the ranks' sockets on the loopback device: the machine has no
+#: network, and gloo and NCCL would otherwise look for an interface by
+#: the host's name
+DIST_ENV = {"GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo"}
+
+
+def rank_modules():
+    """A rank's torch (TF32 off, as the parent's), the port, its
+    ``distributed`` and the kernel counters (with their zero)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import optimizer_step as ost
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    kern = kernel_counters(rpa, fa, pa, qm, ost)
+    return torch, pt, dist, kern, {name: 0 for name in kern}
+
+
+def equal_bits(torch, a, b):
+    """Two tensors of one dtype equal bit for bit."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    t = ints[a.element_size()]
+    return torch.equal(a.view(t), b.view(t))
+
+
+def param_checksum(torch, params, chunk=1 << 26):
+    """Two int64 sums a parameter over its raw bits (plain, and weighted
+    by position), computed on the card a chunk at a time."""
+    ints = {2: torch.int16, 4: torch.int32}
+    out = []
+    for p in params:
+        bits = p.detach().reshape(-1).view(ints[p.element_size()])
+        s1 = s2 = 0
+        for off in range(0, bits.numel(), chunk):
+            c = bits[off:off + chunk].to(torch.int64)
+            s1 += int(c.sum())
+            s2 += int((c * torch.arange(off + 1, off + 1 + c.numel(),
+                                        device=c.device)).sum())
+        out.append((s1, s2))
+    return out
+
+
+def dist_expect(none, layers, steps, wgmma=True, optimizer=True):
+    """The launches of ``steps`` training steps of ``layers`` layers on one
+    rank: B1-B3 once a layer a step (the tensor-core variants in bf16), K-A
+    once a group and K-B twice a step."""
+    n = layers * steps
+    want = dict(none, flash=n, flash_bwd_dq=n, flash_bwd_dkv=n)
+    if wgmma:
+        want.update(flash_wgmma=n, flash_bwd_dq_wgmma=n,
+                    flash_bwd_dkv_wgmma=n)
+    if optimizer:
+        want.update(adam_step=TRAIN_GROUPS * steps, sum_squares=2 * steps)
+    return want
+
+
+def nccl_one_rank():
+    """15(a), in a spawned child: ``init_parallel_env`` on the default
+    backend (NCCL) at world size 1; every collective a one-rank group
+    allows on CUDA tensors with its expected result (point to point
+    raises, as the reference's does without a peer); then one O2 Llama
+    step's grads (DIST_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ) through
+    ``GradientBucketer.sync_grads(op=AVG)``, which must leave them
+    unchanged bit for bit."""
+    torch, pt, dist, kern, none = rank_modules()
+    if (dist.get_backend(), dist.get_world_size()) != ("nccl", 1):
+        raise AssertionError(f"15(a): backend {dist.get_backend()}, world "
+                             f"{dist.get_world_size()}")
+    dev = "cuda"
+    x = torch.arange(1, 7, dtype=torch.float32, device=dev).reshape(2, 3)
+    cases = {}
+
+    def case(name, got, want):
+        """``got`` equal to ``want``: lists of tensors bit for bit, else
+        ==."""
+        if want and torch.is_tensor(want[0]):
+            ok = len(got) == len(want) and all(
+                equal_bits(torch, g, w) for g, w in zip(got, want))
+        else:
+            ok = got == want
+        if not ok:
+            raise AssertionError(f"15(a) {name}: {got}, expected {want}")
+        cases[name] = True
+
+    R = dist.ReduceOp
+    for op in (R.SUM, R.AVG, R.MAX, R.MIN, R.PROD):
+        t = x.clone()
+        dist.all_reduce(t, op=op)
+        case(f"all_reduce {op}", [t], [x])
+    t = x.clone()
+    task = dist.all_reduce(t, sync_op=False)
+    task.wait()
+    case("all_reduce async", [t], [x])
+    got = []
+    dist.all_gather(got, x)
+    case("all_gather", got, [x])
+    objs = []
+    dist.all_gather_object(objs, {"rank": 0})
+    case("all_gather_object", objs, [{"rank": 0}])
+    o = torch.zeros_like(x)
+    dist.reduce_scatter(o, [x])
+    case("reduce_scatter", [o], [x])
+    outs = []
+    dist.alltoall(outs, [x])
+    case("alltoall", outs, [x])
+    o = torch.zeros_like(x)
+    dist.alltoall_single(o, x)
+    case("alltoall_single", [o], [x])
+    t = x.clone()
+    dist.broadcast(t, src=0)
+    case("broadcast", [t], [x])
+    lst = [{"a": 1}, "b"]
+    dist.broadcast_object_list(lst, src=0)
+    case("broadcast_object_list", lst, [{"a": 1}, "b"])
+    t = x.clone()
+    dist.reduce(t, dst=0, op=R.AVG)
+    case("reduce", [t], [x])
+    o = torch.zeros_like(x)
+    dist.scatter(o, [x], src=0)
+    case("scatter", [o], [x])
+    got = []
+    dist.gather(x, got, dst=0)
+    case("gather", got, [x])
+    out = []
+    dist.scatter_object_list(out, [{"k": 1}], src=0)
+    case("scatter_object_list", out, [{"k": 1}])
+    dist.barrier()
+    cases["barrier"] = True
+    try:
+        dist.send(x, dst=0)
+    except RuntimeError:
+        cases["send raises without a peer"] = True
+    else:
+        raise AssertionError("15(a): send at world size 1 did not raise")
+    stats = dist.get_comm_stats().as_dict()
+    if stats["host_staged"]:
+        raise AssertionError(f"15(a): NCCL staged {stats['host_staged']} "
+                             f"calls through the host")
+
+    cfg, model, opt, sched, ids, labels, cast = trainer(
+        torch, pt, None, layers=DIST_LAYERS)
+    zero_counts(kern)
+    with cast():
+        loss, _ = model(ids, labels=labels)
+    loss.backward()
+    launches = read_counts(kern)
+    check_launches("15(a) O2 forward and backward", launches, dist_expect(
+        none, DIST_LAYERS, 1, optimizer=False))
+    params = [p for p in model.parameters() if p.requires_grad]
+    before = [p.grad.clone() for p in params]
+    bucketer = dist.GradientBucketer(params)
+    dist.reset_comm_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bucketer.sync_grads(op=R.AVG)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    same = all(equal_bits(torch, b, p.grad) for b, p in zip(before, params))
+    return dict(cases=sorted(cases), loss=float(loss.detach()),
+                buckets=bucketer.num_buckets, exchange_ms=ms,
+                grads_bit_identical=same, stats=dist.get_comm_stats()
+                .as_dict(), grad_bytes=sum(g.numel() * g.element_size()
+                                           for g in before),
+                launches=launches,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def dist_fp32_check(torch, pt, dist, kern, none):
+    """15(b) fp32 (TF32 off): each rank's backward on its row through
+    ``fleet.distributed_model``, the grads averaged in backward (its comm
+    stats: the fp32 wire of one step); rank 0
+    then runs the whole batch in one backward (``no_sync``) and holds
+    every averaged gradient within LOOP_FP32_GRAD_TOL of that tensor's
+    largest value there."""
+    from paddle_tpu_torch.distributed import fleet
+    r = dist.get_rank()
+    cfg = pt.llama3_8b()
+    cfg.num_hidden_layers = DIST_LAYERS
+    model = pt.LlamaForCausalLM(cfg, device="cuda", seed=0)
+    model.train()
+    tokens = np.random.RandomState(41).randint(0, cfg.vocab_size,
+                                               (TRAIN_BATCH, TRAIN_SEQ + 1))
+    ids = torch.as_tensor(tokens[:, :-1], device="cuda")
+    labels = torch.as_tensor(tokens[:, 1:], device="cuda")
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": TRAIN_BATCH}
+    fleet.init(is_collective=True, strategy=strategy)
+    dp = fleet.distributed_model(model)
+    zero_counts(kern)
+    dist.reset_comm_stats()
+    loss, _ = dp(ids[r:r + 1], labels=labels[r:r + 1])
+    loss.backward()
+    launches = read_counts(kern)
+    check_launches(f"15(b) fp32 rank {r}", launches, dist_expect(
+        none, DIST_LAYERS, 1, wgmma=False, optimizer=False))
+    out = dict(loss=float(loss.detach()), launches=launches,
+               stats=dist.get_comm_stats().as_dict())
+    if r == 0:
+        avg = {n: p.grad.clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        with dp.no_sync():
+            full, _ = dp(ids, labels=labels)
+            full.backward()
+        worst = max((float((avg[n] - p.grad).abs().max())
+                     / max(float(p.grad.abs().max()), 1e-30), n)
+                    for n, p in model.named_parameters())
+        out.update(full_loss=float(full.detach()), grad_rel=worst[0],
+                   worst=worst[1])
+        del avg
+    dist.barrier()
+    dp.shutdown()
+    del model, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_o2_run(torch, pt, dist, kern, none, overlap, quant):
+    """One 15(b) run on this rank: DIST_STEPS steps of the training
+    phase's recipe (``trainer``: O2 bf16, fused AdamW, global-norm clip,
+    decay off for the norms) through ``fleet.distributed_model`` and
+    ``fleet.distributed_optimizer`` on this rank's row, with
+    ``comm_overlap`` and ``comm_quantization`` as given. After each step
+    the ranks' parameter checksums are all-gathered. Returns the losses,
+    the steps' ms by phase, the flush's ms (the post-backward callback:
+    the whole exchange with overlap off, the wait on the buckets still in
+    flight with it on), the buckets launched during backward, the comm
+    stats, the launches and the peak memory."""
+    from paddle_tpu_torch.distributed import fleet
+    r = dist.get_rank()
+    cfg, model, opt, sched, ids, labels, cast = trainer(
+        torch, pt, None, layers=DIST_LAYERS)
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": TRAIN_BATCH}
+    strategy.comm_overlap = overlap
+    strategy.comm_quantization = quant
+    fleet.init(is_collective=True, strategy=strategy)
+    dp = fleet.distributed_model(model)
+    hpo = fleet.distributed_optimizer(opt)
+    flush = []
+    post = dp._post_backward
+
+    def timed_flush():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post()
+        torch.cuda.synchronize()
+        flush.append((time.perf_counter() - t0) * 1e3)
+    dp._post_backward = timed_flush
+    dist.reset_comm_stats()
+    zero_counts(kern)
+    torch.cuda.reset_peak_memory_stats()
+    losses, steps, in_backward, equal = [], [], [], []
+    for _ in range(DIST_STEPS):
+        before = dist.get_comm_stats().overlap_buckets["in_backward"]
+        loss, ms, _ = train_step(torch, dp, hpo, sched, ids[r:r + 1],
+                                 labels[r:r + 1], cast)
+        losses.append(loss)
+        steps.append(ms)
+        in_backward.append(dist.get_comm_stats().overlap_buckets[
+            "in_backward"] - before)
+        sums = []
+        dist.all_gather_object(sums, param_checksum(torch,
+                                                    model.parameters()))
+        equal.append(all(s == sums[0] for s in sums))
+    launches = read_counts(kern)
+    check_launches(f"15(b) O2 overlap {overlap} wire {quant} rank {r}",
+                   launches, dist_expect(none, DIST_LAYERS, DIST_STEPS))
+    out = dict(losses=losses, steps=steps, flush_ms=flush,
+               in_backward=in_backward, ranks_equal=equal,
+               checksum=sums[0], stats=dist.get_comm_stats().as_dict(),
+               launches=launches, buckets=exchange_buckets(dp),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               median={k: float(np.median([s[k] for s in steps[1:]]))
+                       for k in steps[0]})
+    dp.shutdown()
+    del model, opt, hpo, dp, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def exchange_buckets(dp):
+    """The buckets of a ``DataParallel``'s exchange: its overlap
+    scheduler's, else its barrier bucketer's."""
+    sched = dp._overlap_scheduler
+    return (sched.bucketer if sched else dp._comm_bucketer).num_buckets
+
+
+def gloo_two_ranks():
+    """15(b), on each of two spawned ranks sharing the card over gloo: the
+    fp32 gradient check, then the O2 runs with overlap on, off and an
+    int8 wire."""
+    torch, pt, dist, kern, none = rank_modules()
+    out = dict(fp32=dist_fp32_check(torch, pt, dist, kern, none))
+    for key, overlap, quant in (("on", True, None), ("off", False, None),
+                                ("int8", True, "int8")):
+        out[key] = dist_o2_run(torch, pt, dist, kern, none, overlap, quant)
+    return out
+
+
+def single_process_o2(torch, pt):
+    """15(b)'s reference: the same DIST_STEPS steps in one process on both
+    rows. Returns the losses."""
+    cfg, model, opt, sched, ids, labels, cast = trainer(
+        torch, pt, None, layers=DIST_LAYERS)
+    losses = [train_step(torch, model, opt, sched, ids, labels, cast)[0]
+              for _ in range(DIST_STEPS)]
+    del model, opt, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def distributed_phase(torch, pt, smi):
+    """Phase 15: (a) NCCL at world size 1, (b) dp 2 over gloo."""
+    from paddle_tpu_torch.distributed import spawn
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"  the card before the ranks: {free / 2**30:.2f} GiB free of "
+        f"{total / 2**30:.2f}; this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log(f"  the ranks' sockets on the loopback device: {DIST_ENV}")
+
+    phase("  15(a): NCCL at world size 1, in a spawned child; 15(b)'s "
+          "single-process reference here meanwhile")
+    world = spawn(nccl_one_rank, nprocs=1, timeout_s=DIST_TIMEOUT_S,
+                  env=DIST_ENV, join=False)
+    try:
+        ref = single_process_o2(torch, pt)
+    finally:
+        world.join()
+    a = world.results[0]
+    log(f"  single-process O2 reference ({DIST_LAYERS} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}): losses {ref}")
+    if not a["grads_bit_identical"]:
+        raise AssertionError("15(a): the one-rank NCCL exchange changed the "
+                             "gradients")
+    log(f"  15(a): {len(a['cases'])} collective cases on CUDA tensors "
+        f"pass; the O2 step's grads ({a['grad_bytes'] / 2**30:.2f} GiB "
+        f"bf16) through {a['buckets']} buckets, an NCCL all-reduce each: "
+        f"unchanged bit for bit, {a['exchange_ms']:.2f} ms; "
+        f"peak {a['peak_gib']:.2f} GiB ({smi})")
+
+    phase("  15(b): dp 2 over gloo, two ranks sharing the one card")
+    b = spawn(gloo_two_ranks, nprocs=TRAIN_BATCH, backend="gloo",
+              timeout_s=DIST_TIMEOUT_S, env=DIST_ENV).results
+    fp32 = b[0]["fp32"]
+    check(f"15(b) fp32: the averaged gradients against one process's whole "
+          f"batch (each tensor's largest; worst {fp32['worst']})",
+          fp32["grad_rel"], LOOP_FP32_GRAD_TOL)
+    mean = (b[0]["fp32"]["loss"] + b[1]["fp32"]["loss"]) / 2
+    check("15(b) fp32: the ranks' mean loss against the whole batch's "
+          "(relative)", abs(mean - fp32["full_loss"]) / fp32["full_loss"],
+          LOOP_FP32_LOSS_RTOL)
+    runs = {k: [b[r][k] for r in range(TRAIN_BATCH)]
+            for k in ("on", "off", "int8")}
+    for key, rr in runs.items():
+        if not all(all(x["ranks_equal"]) for x in rr):
+            raise AssertionError(f"15(b) {key}: the ranks' parameters "
+                                 f"differ after a step")
+        if not all(np.isfinite(x["losses"]).all() for x in rr):
+            raise AssertionError(f"15(b) {key}: losses not finite")
+    for key in ("on", "off"):
+        mean = np.mean([x["losses"] for x in runs[key]], axis=0)
+        gaps = [abs(m - w) / abs(w) for m, w in zip(mean, ref)]
+        check(f"15(b) O2 overlap {key}: the ranks' mean loss against the "
+              f"single-process steps (relative, worst at step "
+              f"{int(np.argmax(gaps))})", max(gaps), LOOP_O2_RTOL)
+    on, off, q = (runs[k][0] for k in ("on", "off", "int8"))
+    if on["losses"] != off["losses"] or on["checksum"] != off["checksum"]:
+        raise AssertionError("15(b): overlap off is not bit-identical to "
+                             "overlap on")
+    log("  15(b): overlap off bit-identical to overlap on (losses and "
+        "every parameter's checksum)")
+    if not all(n > 0 for n in on["in_backward"]):
+        raise AssertionError(f"15(b): no bucket launched during backward "
+                             f"with overlap on: {on['in_backward']}")
+    # the reference's limit is against the fp32 path's wire (its test's
+    # grads are fp32): the fp32 check's exchange, one step's; the O2
+    # grads are bf16, so the dense O2 wire already carries half of that
+    fp32_wire = fp32["stats"]["wire_bytes"]
+    if fp32_wire != fp32["stats"]["logical_bytes"] or not fp32_wire:
+        raise AssertionError(f"15(b) fp32: the dense exchange's stats "
+                             f"{fp32['stats']}")
+    share = q["stats"]["wire_bytes"] / on["stats"]["wire_bytes"]
+    check("15(b) int8 wire: one O2 step's bytes against the fp32 path's "
+          f"(against the bf16 wire: {share:.4f})",
+          q["stats"]["wire_bytes"] / DIST_STEPS / fp32_wire,
+          INT8_WIRE_SHARE, "share")
+    check("15(b) int8 wire: the last loss against the fp path's (relative)",
+          abs(q["losses"][-1] - on["losses"][-1]) / abs(on["losses"][-1]),
+          INT8_LOSS_RTOL)
+    for key, rr in runs.items():
+        for r, x in enumerate(rr):
+            med, st = x["median"], x["stats"]
+            log(f"  15(b) {key} rank {r}: losses {x['losses']}; median step "
+                f"{med['step']:.2f} ms (forward {med['forward']:.2f}, "
+                f"backward {med['backward']:.2f}, optimizer "
+                f"{med['optimizer']:.2f}); the flush {x['flush_ms']} ms; "
+                f"buckets launched in backward {x['in_backward']} of "
+                f"{x['buckets']}; {st['calls']} calls, "
+                f"{st['wire_bytes'] / 2**30:.3f} GiB on the wire of "
+                f"{st['logical_bytes'] / 2**30:.3f}, host-staged "
+                f"{st['host_staged']}; peak {x['peak_gib']:.2f} GiB "
+                f"(two ranks sharing one {smi} over gloo)")
+    seconds = time.perf_counter() - t0
+    log(f"  phase 15: {seconds:.1f} s")
+    launches = {f"15b O2 {k} rank {r}": x["launches"]
+                for k, rr in runs.items() for r, x in enumerate(rr)}
+    launches.update({f"15b fp32 rank {r}": x["fp32"].pop("launches")
+                     for r, x in enumerate(b)})
+    launches["15a NCCL O2"] = a.pop("launches")
+    strip = ("launches", "checksum")
+    return dict(nccl=a, fp32=[x["fp32"] for x in b], reference_losses=ref,
+                runs={k: [{kk: vv for kk, vv in x.items()
+                           if kk not in strip} for x in rr]
+                      for k, rr in runs.items()},
+                int8_wire_share_of_bf16=share,
+                int8_wire_share_of_fp32=q["stats"]["wire_bytes"]
+                / DIST_STEPS / fp32_wire, launches=launches,
+                seconds=seconds)
+
+
+def add_dist_launches(rows, p15):
+    """Phase 15's launches (the NCCL child's step, both ranks' fp32 check
+    and every O2 run) into the rows of B1-B3 and K-A/K-B by path."""
+    add_path_launches(rows, p15["launches"], {}, {}, "dist_shapes")
+
+
 def llama_phases(torch, pt, amp, gen, nn_functional, fa, fused, ost,
                  quant_mod, pa, qm, rpa, kern, none):
     """Phases 2 to 6: the kernels at Llama-3-8B's shapes, the serving and
@@ -11876,7 +12398,7 @@ def llama_phases(torch, pt, amp, gen, nn_functional, fa, fused, ost,
 #: the phases after the build that a run may select, in the order they
 #: run; 2 to 6 share one Llama-3-8B, its runs and its captures, so they
 #: run as one unit
-PHASES = ("2-6", "7", "8", "9", "10", "11", "12", "13", "14")
+PHASES = ("2-6", "7", "8", "9", "10", "11", "12", "13", "14", "15")
 
 
 def selected_phases(argv):
@@ -12009,6 +12531,14 @@ def main(argv=None):
               "SECOND's sparse convolutions, the distributions")
         log(json.dumps({"graph_sparse_distribution": phase14(
             torch, pt, smi.stdout.strip())}, default=str))
+    if "15" in run:
+        phase("phase 15: distributed training on torch.distributed: NCCL at "
+              "world size 1, and the Llama O2 step at dp 2 over gloo, two "
+              "ranks sharing the card")
+        p15 = distributed_phase(torch, pt, smi.stdout.strip())
+        if rows is not None:
+            add_dist_launches(rows, p15)
+        log(json.dumps({"distributed": p15}, default=str))
     if rows is not None:
         log(json.dumps({"kernels": rows}))
     log(smi.stdout.strip())

@@ -81,6 +81,12 @@ and CSR tensors with their ops (``torch.sparse``, cuSPARSE SpMM),
 sparse attention and the sparse 3-D convolutions, and ``distribution``
 Paddle's distributions, transforms and KL registry, drawing from the
 port's generators.
+
+``distributed`` runs data-parallel training on ``torch.distributed``, one
+process a rank (NCCL on the card, gloo on the CPU): ``spawn`` or a
+launcher, ``fleet.init`` with the ``[dp, pp, sharding, sep, mp]`` mesh,
+``fleet.distributed_model`` / ``distributed_optimizer``, Paddle's
+collectives and the bucketed, optionally int8 gradient exchange.
 """
 import sys as _sys
 
@@ -112,6 +118,7 @@ from .models.llama import (LlamaConfig, LlamaForCausalLM,
 from . import autograd, callbacks, incubate, io, jit, metric, models
 from . import audio, fft, signal, text
 from . import distribution, geometric, sparse
+from . import distributed
 from .autograd import (PyLayer, enable_grad, grad, is_grad_enabled, no_grad,
                        set_grad_enabled)
 from .hapi import Model, flops, summary
@@ -135,7 +142,7 @@ __all__ = ["LlamaForCausalLM", "LlamaConfig", "LlamaPretrainingCriterion",
            "device_count", "is_compiled_with_cuda", "is_compiled_with_xpu",
            "autograd", "callbacks", "incubate", "io", "jit", "metric",
            "models", "audio", "fft", "signal", "text", "distribution",
-           "geometric", "sparse", "PyLayer",
+           "geometric", "sparse", "distributed", "PyLayer",
            "enable_grad", "grad", "is_grad_enabled", "no_grad",
            "set_grad_enabled", "Model", "flops", "summary", "disable_static",
            "enable_static", "in_dynamic_mode"] + tensor.__all__

@@ -20,14 +20,20 @@ reference's facade does (it delegates to ``incubate.autograd``'s dense
 the reference's does.
 
 ``PyLayer`` is ``torch.autograd.Function`` with Paddle's names
-(``pylayer.py``). The reference's ``apply``, ``defop`` and ``GradNode``
-build its own op tape over ``jax.vjp``; torch's autograd is their
-counterpart, so they have no port.
+(``pylayer.py``). ``callbacks.py`` holds the tape's grad-ready and
+post-backward callbacks, which the data-parallel reducer keys on. The
+reference's ``apply``, ``defop`` and ``GradNode`` build its own op tape
+over ``jax.vjp``; torch's autograd is their counterpart, so they have no
+port.
 """
 from __future__ import annotations
 
 import torch
 
+from .callbacks import (register_grad_ready_callback,
+                        register_post_backward_callback,
+                        unregister_grad_ready_callback,
+                        unregister_post_backward_callback)
 from .pylayer import PyLayer, PyLayerContext
 
 no_grad = torch.no_grad
@@ -145,4 +151,7 @@ def hessian(ys, xs, batch_axis=None):
 
 __all__ = ["no_grad", "enable_grad", "set_grad_enabled", "is_grad_enabled",
            "grad", "backward", "jacobian", "hessian", "PyLayer",
-           "PyLayerContext"]
+           "PyLayerContext", "register_grad_ready_callback",
+           "unregister_grad_ready_callback",
+           "register_post_backward_callback",
+           "unregister_post_backward_callback"]

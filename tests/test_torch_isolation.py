@@ -11,7 +11,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_workers.py"]
 
 
 def test_import_and_cpu_model_pull_in_no_jax():
@@ -459,26 +459,31 @@ def _binds_mesh_fixture(tree):
 
 
 def test_reference_model_files_clear_the_reference_mesh():
-    """Every port test file that imports the reference's models runs them
-    without the global mesh a JAX test earlier in its worker may leave
-    installed (ROADMAP C28, C48): the file binds the autouse fixture
-    ``_no_reference_mesh`` of ``tests/test_torch_llama.py``."""
+    """Every port test file that imports the reference's models or its
+    distributed package runs them without the global mesh a JAX test
+    earlier in its worker may leave installed (ROADMAP C28, C48): the
+    file binds the autouse fixture ``_no_reference_mesh`` of
+    ``tests/test_torch_llama.py``."""
     trees = {f.name: ast.parse(f.read_text())
              for f in sorted((ROOT / "tests").glob("test_torch_*.py"))}
     users = [n for n, t in trees.items() if _imports_reference_models(t)]
-    assert len(users) >= 26
+    assert len(users) >= 30
     assert [n for n in users if not _binds_mesh_fixture(trees[n])] == []
 
 
 def _imports_reference_models(tree):
+    """Whether the file imports the reference's ``models`` or
+    ``distributed`` (whose ``fleet.init`` installs a global mesh)."""
+    mods = ("paddle_tpu.models", "paddle_tpu.distributed")
     for node in ast.walk(tree):
         if isinstance(node, ast.ImportFrom) and node.module and (
-                node.module.startswith("paddle_tpu.models")
+                node.module.startswith(mods)
                 or (node.module == "paddle_tpu"
-                    and any(a.name == "models" for a in node.names))):
+                    and any(a.name in ("models", "distributed")
+                            for a in node.names))):
             return True
         if isinstance(node, ast.Import) and any(
-                a.name.startswith("paddle_tpu.models") for a in node.names):
+                a.name.startswith(mods) for a in node.names):
             return True
     return False
 
@@ -528,3 +533,44 @@ def test_slice_7b_modules_pull_in_no_jax_and_leave_cuda_alone(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+_SLICE_8A = {
+    "paddle_tpu_torch.distributed":
+        "import paddle_tpu_torch.distributed as dist\n"
+        "t = torch.ones(3)\n"
+        "dist.all_reduce(t)\n"
+        "dist.fleet.DistributedStrategy().to_dict()\n"
+        "dist.comm.quantize_blockwise(torch.randn(300), 64)\n",
+    "paddle_tpu_torch.distributed.fleet":
+        "from paddle_tpu_torch.distributed import fleet\n"
+        "fleet.CommunicateTopology(dims=[2, 1, 1, 1, 2]).get_comm_list("
+        "'model')\n",
+    "paddle_tpu_torch.autograd.callbacks":
+        "from paddle_tpu_torch.autograd import callbacks\n"
+        "w = torch.nn.Parameter(torch.ones(2))\n"
+        "callbacks.register_grad_ready_callback(print, [w])\n"
+        "(w * 2).sum().backward()\n",
+    "torch_dist_workers":
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_dist_workers\n",
+}
+
+
+@pytest.mark.parametrize("module", sorted(_SLICE_8A))
+def test_slice_8a_modules_pull_in_no_jax_and_leave_cuda_alone(module):
+    """``distributed``, its ``fleet``, the autograd callbacks and the
+    distributed tests' rank functions alone: no CUDA initialised, and
+    neither JAX nor the reference imported (a spawned rank imports the
+    module of its function)."""
+    code = ("import sys, torch\n" + _SLICE_8A[module]
+            + "assert not torch.cuda.is_initialized()\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith(('jax.', 'jaxlib')) or k == 'paddle_tpu' or "
+            "k.startswith('paddle_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
